@@ -1,0 +1,144 @@
+"""GQA attention: prefill + decode paths (port of ``repro.models.attention``).
+
+* **prefill** runs the flash kernel through
+  :func:`repro_torch.kernels.ops.flash_attention_bshd` (the plain version on
+  the CPU).  The JAX package runs ``chunked_attention`` there; both compute
+  the same causal online-softmax attention, except that the JAX path casts
+  the probabilities to the compute dtype before the PV product.
+* **decode** attends one query token over every cache slot with plain
+  :func:`full_attention` and ``kv_valid = pos + 1`` masking, as the
+  reference does (it is not a kernel there either).
+
+Shapes: x (B, S, d); q (B, S, H, D); k/v (B, S, KV, D); H = KV * G.
+Sliding-window caches, logit softcaps, MLA and cross-attention are not
+ported yet and raise ``NotImplementedError`` at model level.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_rope
+from repro_torch.models.params import spec
+
+NEG_INF = -2.0 ** 30   # large-but-finite; keeps softmax NaN-free on empty rows
+
+
+def attn_specs(cfg: ModelConfig, num_kv_heads: Optional[int] = None):
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    kv = num_kv_heads or cfg.num_kv_heads
+    return {
+        "wq": spec((d, h, hd), ("embed", "heads", None)),
+        "wk": spec((d, kv, hd), ("embed", "kv_heads", None)),
+        "wv": spec((d, kv, hd), ("embed", "kv_heads", None)),
+        "wo": spec((h, hd, d), ("heads", None, "embed")),
+    }
+
+
+def _mask_bias(q_pos, k_pos, *, causal: bool, window: int,
+               kv_valid: Optional[int] = None) -> torch.Tensor:
+    """Additive bias (0 / NEG_INF), fp32, of shape (Sq, Sk) from positions."""
+    qp = q_pos[:, None]
+    kp = k_pos[None, :]
+    ok = torch.ones((qp.shape[0], kp.shape[1]), dtype=torch.bool,
+                    device=qp.device)
+    if causal:
+        ok &= kp <= qp
+    if window:
+        ok &= kp > qp - window
+    if kv_valid is not None:
+        ok &= kp < kv_valid
+    ok &= kp >= 0
+    zero = torch.zeros((), dtype=torch.float32, device=qp.device)
+    return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
+
+
+def _group(q, num_kv):
+    """(B, Sq, H, D) -> (B, KV, G, Sq, D)."""
+    b, s, h, dd = q.shape
+    return q.reshape(b, s, num_kv, h // num_kv, dd).permute(0, 2, 3, 1, 4)
+
+
+def _ungroup(o):
+    """(B, KV, G, Sq, D) -> (B, Sq, H, D)."""
+    b, kv, g, s, dd = o.shape
+    return o.permute(0, 3, 1, 2, 4).reshape(b, s, kv * g, dd)
+
+
+def full_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                   kv_valid=None):
+    """Plain masked attention; scores and softmax in fp32, probabilities
+    cast to q's dtype for the PV product.  q_offset: absolute position of
+    q[0] (decode: pos).  kv_valid: number of valid cache slots."""
+    b, sq, h, dd = q.shape
+    kvh = k.shape[2]
+    qg = _group(q, kvh).float()                           # (B,KV,G,Sq,D)
+    kk = k.transpose(1, 2).float()                        # (B,KV,Sk,D)
+    vv = v.transpose(1, 2)
+    # bf16 products are exact in fp32, so upcasting first gives the
+    # reference's fp32-accumulated scores
+    scores = torch.einsum("bkgqd,bksd->bkgqs", qg, kk) * (1.0 / math.sqrt(dd))
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    scores = scores + _mask_bias(q_pos, k_pos, causal=causal, window=window,
+                                 kv_valid=kv_valid)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bksd->bkgqd", probs, vv)
+    return _ungroup(out)
+
+
+def _cache_write(cache_arr, new, slot: int):
+    """Decode cache write at ``slot``, in place (the reference's "dus"
+    branch; a PyTorch cache is a mutable buffer, so no copy is made)."""
+    cache_arr[:, slot:slot + new.shape[1]] = new.to(cache_arr.dtype)
+    return cache_arr
+
+
+def gqa_attention(p, x, cfg: ModelConfig, *, rope=None, mode="prefill",
+                  cache=None, pos=None):
+    """Full GQA attention block.
+
+    mode: "prefill" | "decode".
+    rope: (cos, sin) tables matching x's sequence positions, or None.
+    cache: {"k", "v"} (B, max_len, KV, D) buffers, written in place.
+    pos: number of tokens already in the cache (decode).
+    Returns (out, cache).
+    """
+    if cfg.sliding_window:
+        raise NotImplementedError("sliding-window attention is not ported")
+    if cfg.attn_logit_softcap:
+        raise NotImplementedError("attention logit softcap is not ported")
+    dt = x.dtype
+    b, s, d = x.shape
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].to(dt).reshape(d, h * hd)).view(b, s, h, hd)
+    k = (x @ p["wk"].to(dt).reshape(d, kvh * hd)).view(b, s, kvh, hd)
+    v = (x @ p["wv"].to(dt).reshape(d, kvh * hd)).view(b, s, kvh, hd)
+    if rope is not None:
+        cos, sin = rope
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+    if mode == "prefill":
+        out = ops.flash_attention_bshd(q, k, v, causal=True)
+        if cache is not None:
+            # prefill attends to the unrounded k/v; the cache keeps its dtype
+            cache["k"][:, :s] = k.to(cache["k"].dtype)
+            cache["v"][:, :s] = v.to(cache["v"].dtype)
+    elif mode == "decode":
+        if cache is None or pos is None:
+            raise ValueError("decode needs a cache and pos")
+        ck = _cache_write(cache["k"], k, pos)
+        cv = _cache_write(cache["v"], v, pos)
+        out = full_attention(q, ck.to(dt), cv.to(dt), causal=False,
+                             kv_valid=pos + 1, q_offset=pos)
+    else:
+        raise ValueError(f"mode {mode!r} is not ported (prefill | decode)")
+
+    y = out.reshape(b, s, h * hd) @ p["wo"].to(dt).reshape(h * hd, d)
+    return y, cache

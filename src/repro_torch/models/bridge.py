@@ -1,0 +1,70 @@
+"""Weights carried across from the JAX package.
+
+:func:`params_from_numpy` takes the JAX parameters as numpy arrays, either
+the nested dict or the "/"-joined flat keys of the JAX checkpoint format, and
+returns the port's nested dict of tensors.  The layouts match 1:1 (no
+transposes).  :func:`load_npz_checkpoint` reads that checkpoint format
+(``step_<n>/params.npz`` + ``manifest.json``) with numpy alone, so a
+JAX-trained checkpoint serves in the port.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.params import compute_dtype_for, flatten, unflatten
+from repro_torch.models.transformer import model_specs
+
+
+def params_from_numpy(tree_or_flat: dict, cfg: ModelConfig, device=None,
+                      compute_dtype: Optional[torch.dtype] = None) -> dict:
+    """numpy params (nested or flat "/"-keyed) -> the port's params.
+
+    Every leaf of the model's spec tree must be present with its spec's
+    shape.  ``compute_dtype`` casts matrices and the embedding once (the
+    same numbers as the reference's cast at each use); norm scales stay
+    fp32, as ``apply_norm`` reads them in fp32."""
+    device = resolve_device(device)
+    flat = flatten(tree_or_flat) if any(
+        isinstance(v, dict) for v in tree_or_flat.values()) else tree_or_flat
+    specs = flatten(model_specs(cfg))
+    missing = sorted(set(specs) - set(flat))
+    extra = sorted(set(flat) - set(specs))
+    if missing or extra:
+        raise KeyError(f"params do not match {cfg.name}: missing {missing}, "
+                       f"unexpected {extra}")
+    out = {}
+    for path, s in specs.items():
+        arr = np.asarray(flat[path])
+        if tuple(arr.shape) != s.shape:
+            raise ValueError(f"{path}: shape {arr.shape}, expected {s.shape}")
+        t = torch.from_numpy(np.array(arr)).to(device)   # writable copy
+        out[path] = t.to(compute_dtype_for(path, t.dtype, compute_dtype))
+    return unflatten(out)
+
+
+def load_npz_checkpoint(ckpt_dir: str, step: Optional[int] = None) -> dict:
+    """Flat "/"-keyed numpy params of a JAX checkpoint (latest step by
+    default)."""
+    if step is None:
+        steps = sorted(
+            int(d[len("step_"):]) for d in os.listdir(ckpt_dir)
+            if d.startswith("step_") and os.path.exists(
+                os.path.join(ckpt_dir, d, "manifest.json")))
+        if not steps:
+            raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
+        step = steps[-1]
+    path = os.path.join(ckpt_dir, f"step_{step:010d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    if "params" not in manifest.get("groups", []):
+        raise KeyError(f"checkpoint {path} holds no params group")
+    with np.load(os.path.join(path, "params.npz")) as z:
+        return {k: z[k] for k in z.files}

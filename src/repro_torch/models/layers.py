@@ -1,0 +1,138 @@
+"""Shared layers: norms, RoPE, MLPs, embeddings (port of
+``repro.models.layers``).
+
+Plain functions on tensors; parameters are nested dicts keyed like the JAX
+tree.  The compute dtype follows the activations; parameters are cast at use
+sites as in the reference (a no-op when the bridge already cast them once).
+Every RMSNorm goes through the fused kernel wrapper
+(:func:`repro_torch.kernels.ops.fused_rmsnorm`); layernorm stays plain.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.params import spec
+
+# --------------------------------------------------------------------------
+# Norms
+# --------------------------------------------------------------------------
+
+
+def norm_specs(cfg: ModelConfig, d: Optional[int] = None):
+    d = d or cfg.d_model
+    if cfg.norm_type == "layernorm":
+        return {"scale": spec((d,), ("norm",), init="ones"),
+                "bias": spec((d,), ("norm",), init="zeros")}
+    return {"scale": spec((d,), ("norm",), init="ones")}
+
+
+def apply_norm(p, x, cfg: ModelConfig, eps: Optional[float] = None):
+    eps = eps or cfg.norm_eps
+    if cfg.norm_type != "layernorm":
+        return ops.fused_rmsnorm(x, p["scale"], eps=eps)
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies, shape (head_dim // 2,), fp32."""
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def rope_table(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions: (..., S) int -> cos, sin: (..., S, head_dim // 2) fp32."""
+    freqs = rope_freqs(head_dim, theta, device=positions.device)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """Rotate pairs (x1, x2) -> (x1 cos - x2 sin, x1 sin + x2 cos).
+
+    x: (..., S, H, D); cos/sin: (..., S, half), broadcast over heads.
+    Split-halves convention (llama).  The tables are cast to x's dtype
+    before the multiply, as the reference does.
+    """
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[..., None, :].to(x.dtype)
+    s = sin[..., None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# MLPs
+# --------------------------------------------------------------------------
+
+
+def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None):
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.mlp_type == "swiglu":
+        return {
+            "w_gate": spec((d, ff), ("embed", "mlp")),
+            "w_up": spec((d, ff), ("embed", "mlp")),
+            "w_down": spec((ff, d), ("mlp", "embed")),
+        }
+    return {
+        "w_up": spec((d, ff), ("embed", "mlp")),
+        "w_down": spec((ff, d), ("mlp", "embed")),
+    }
+
+
+def apply_mlp(p, x, cfg: ModelConfig):
+    dt = x.dtype
+    if cfg.mlp_type == "swiglu":
+        h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+    elif cfg.mlp_type == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(x @ p["w_up"].to(dt), approximate="tanh")
+    elif cfg.mlp_type == "relu2":
+        h = torch.relu(x @ p["w_up"].to(dt)).square()
+    else:
+        raise ValueError(cfg.mlp_type)
+    return h @ p["w_down"].to(dt)
+
+
+# --------------------------------------------------------------------------
+# Embedding / LM head
+# --------------------------------------------------------------------------
+
+
+def embedding_specs(cfg: ModelConfig):
+    v, d = cfg.vocab_padded, cfg.d_model
+    out = {"embedding": spec((v, d), ("vocab", "embed"), scale=0.02)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = spec((d, v), ("embed", "vocab"))
+    return out
+
+
+def embed_tokens(p, tokens, cfg: ModelConfig):
+    # gather then cast: the same values as the reference's cast-then-gather
+    return p["embedding"][tokens].to(getattr(torch, cfg.dtype))
+
+
+def lm_logits(p, h, cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        w = p["embedding"].to(h.dtype).T
+    else:
+        w = p["lm_head"].to(h.dtype)
+    return h @ w

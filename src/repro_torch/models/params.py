@@ -1,0 +1,137 @@
+"""Parameter specification system (port of ``repro.models.params``).
+
+Models declare their parameters as nested dicts of :class:`ParamSpec`
+(shape, dtype, logical axis names, initializer).  The layouts are the JAX
+package's einsum layouts with the stacked leading layer axis, so weights
+carry across frameworks 1:1 (see :mod:`repro_torch.models.bridge`).
+
+Initialization draws normal * ``1/sqrt(fan_in)`` like the reference, from a
+``torch.Generator`` on the target device.  Each leaf is seeded from
+``seed`` and a CRC of its "/"-joined path, so an init is reproducible across
+processes and independent of leaf order.  Its random bits differ from
+JAX's: tests carry JAX parameters across instead of comparing two inits.
+"""
+
+from __future__ import annotations
+
+import math
+import zlib
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+
+from repro_torch import resolve_device
+
+# Leaves named like this are norm parameters; ``apply_norm`` reads them in
+# fp32, so a one-time compute-dtype cast leaves them alone.
+FP32_LEAVES = ("scale", "bias")
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    """Specification of one parameter tensor."""
+
+    shape: tuple
+    axes: tuple                     # logical axis name (or None) per dim
+    dtype: Any = torch.float32
+    init: str = "normal"            # normal | zeros | ones | constant
+    scale: Optional[float] = None   # stddev override for "normal"
+    value: float = 0.0              # for "constant"
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(
+                f"shape {self.shape} and axes {self.axes} rank mismatch")
+
+
+def spec(shape, axes, dtype=torch.float32, init="normal", scale=None,
+         value=0.0) -> ParamSpec:
+    return ParamSpec(tuple(shape), tuple(axes), dtype, init, scale, value)
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every non-dict leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def flatten(tree, prefix: str = "") -> dict:
+    """Nested dict -> {"a/b/c": leaf} (the checkpoint's key convention)."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(flatten(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+def unflatten(flat: dict) -> dict:
+    """{"a/b/c": leaf} -> nested dict."""
+    out: dict = {}
+    for key, v in flat.items():
+        node = out
+        *parents, last = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = v
+    return out
+
+
+def stack_specs(tree, n: int, axis_name: str = "layers"):
+    """Prepend a stacked-layer dimension to every spec in a tree."""
+    return tree_map(
+        lambda s: ParamSpec((n,) + s.shape, (axis_name,) + s.axes, s.dtype,
+                            s.init, s.scale, s.value), tree)
+
+
+def _fan_in(shape) -> int:
+    if len(shape) == 0:
+        return 1
+    if len(shape) == 1:
+        return shape[0]
+    # all dims but the last are fan-in ((in, out...) weight layout)
+    return int(math.prod(shape[:-1]))
+
+
+def compute_dtype_for(path: str, dtype: torch.dtype,
+                      compute_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """Storage dtype of a leaf after the optional one-time compute cast:
+    matrices and the embedding take ``compute_dtype``, norm leaves stay."""
+    if compute_dtype is None or path.rsplit("/", 1)[-1] in FP32_LEAVES:
+        return dtype
+    return compute_dtype
+
+
+def _init_leaf(s: ParamSpec, path: str, seed: int,
+               device: torch.device) -> torch.Tensor:
+    if s.init == "zeros":
+        return torch.zeros(s.shape, dtype=s.dtype, device=device)
+    if s.init == "ones":
+        return torch.ones(s.shape, dtype=s.dtype, device=device)
+    if s.init == "constant":
+        return torch.full(s.shape, s.value, dtype=s.dtype, device=device)
+    std = s.scale if s.scale is not None else 1.0 / math.sqrt(
+        max(_fan_in(s.shape), 1))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(zlib.crc32(f"{seed}:{path}".encode()))
+    x = torch.randn(s.shape, generator=gen, dtype=torch.float32,
+                    device=device)
+    return x.mul_(std).to(s.dtype)
+
+
+def init_params(specs, seed: int = 0, device=None,
+                compute_dtype: Optional[torch.dtype] = None):
+    """Initialize concrete parameters on ``device``, one leaf at a time.
+
+    ``compute_dtype`` casts each matrix once as it is made (norm leaves stay
+    fp32), so a bf16 model never holds its fp32 copy whole."""
+    device = resolve_device(device)
+    out = {}
+    for path, s in flatten(specs).items():
+        t = _init_leaf(s, path, seed, device)
+        out[path] = t.to(compute_dtype_for(path, t.dtype, compute_dtype))
+    return unflatten(out)

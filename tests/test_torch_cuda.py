@@ -1,0 +1,158 @@
+"""The port's hand-written CUDA kernels on the card (marker ``cuda``).
+
+Every test here needs a CUDA device and skips without one.  The file
+imports neither JAX nor the JAX package, so it runs on a machine that has
+only PyTorch: ``PYTHONPATH=src python -m pytest -m cuda --noconftest
+tests/test_torch_cuda.py``.  Each kernel is held against its plain PyTorch
+version on the same inputs, at the reference's tolerances (fp32 attention
+2e-5, fp32 rmsnorm 1e-5, bf16 2e-2, bf16 model logits 5e-2).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import rmsnorm as rms  # noqa: E402
+from repro_torch.models.params import flatten, unflatten  # noqa: E402
+from repro_torch.models.transformer import (  # noqa: E402
+    forward, init_cache, init_model_params)
+from repro_torch.serve.engine import ServingEngine  # noqa: E402
+
+TOL = {"attn": {"float32": 2e-5, "bfloat16": 2e-2},
+       "rms": {"float32": 1e-5, "bfloat16": 2e-2}}
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(0)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window", [
+    (2, 8, 2, 128, 64, True, 0), (1, 8, 4, 37, 128, True, 0),
+    (2, 4, 4, 200, 64, False, 0), (1, 8, 2, 300, 128, True, 100)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain(cuda, rng, b, h, kv, s, d, causal,
+                                    window, dtype):
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda, dt) for shape in
+        ((b, h, s, d), (b, kv, s, d), (b, kv, s, d)))
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    _close(got, ref.attention_ref(q, k, v, causal=causal, window=window),
+           TOL["attn"][dtype])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_bshd_views_without_copies(cuda, rng):
+    q = torch.from_numpy(rng.standard_normal((2, 70, 8, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    k = torch.from_numpy(rng.standard_normal((2, 70, 2, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    got = ops.flash_attention_bshd(q, k, k)
+    assert got.is_contiguous() and got.shape == q.shape
+    want = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             k.transpose(1, 2)).transpose(1, 2)
+    _close(got, want, TOL["attn"]["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(8, 4096), (1000, 512), (5, 1032)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernel_matches_plain(cuda, rng, n, d, dtype):
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    x = x.to(cuda, dt)
+    scale = torch.from_numpy(
+        (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(cuda)
+    before = rms.launches
+    got = rms.rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    assert rms.launches == before + 1
+    _close(got, ref.rmsnorm_ref(x, scale), TOL["rms"][dtype])
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(1, 4, 16, 32, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q[:, :2], q[:, :2])
+    x = torch.zeros(4, 12, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        rms.rmsnorm(x, torch.ones(12, device=cuda))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        rms.rmsnorm(x.half()[:, :8].contiguous(), torch.ones(8, device=cuda))
+
+
+def _two_layer_lms_demo(dtype):
+    return dataclasses.replace(get_config("lms-demo"), num_layers=2,
+                               dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_model_on_card_matches_plain_on_cpu(cuda, rng, dtype, tol):
+    """lms-demo widths (d=512, head_dim 64), 2 layers: prefill + 3 decode
+    steps through the kernels on the card vs the plain versions on the
+    CPU, same weights."""
+    cfg = _two_layer_lms_demo(dtype)
+    p_cpu = init_model_params(cfg, seed=0, device="cpu")
+    p_gpu = unflatten({k: v.to(cuda) for k, v in flatten(p_cpu).items()})
+    toks = rng.integers(0, cfg.vocab_size, (2, 45))
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        outs = []
+        for dev, p in (("cpu", p_cpu), (cuda, p_gpu)):
+            cache = init_cache(cfg, 2, 64, device=dev)
+            t = torch.from_numpy(toks).to(dev)
+            logits, cache = forward(p, cfg, tokens=t, mode="prefill",
+                                    cache=cache)
+            seq = [logits[:, -1]]
+            nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            for step in range(3):
+                logits, cache = forward(p, cfg, tokens=nxt, mode="decode",
+                                        cache=cache, pos=45 + step)
+                seq.append(logits[:, -1])
+                nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            outs.append(seq)
+    for a, b in zip(*outs):
+        _close(b, a, tol)
+    assert ops.launch_counts() == {"flash_attention": 2,
+                                   "rmsnorm": 4 * (2 * 2 + 1)}
+
+
+@pytest.mark.cuda
+def test_engine_on_card_matches_engine_on_cpu(cuda, rng):
+    cfg = _two_layer_lms_demo("float32")
+    p_cpu = init_model_params(cfg, seed=1, device="cpu")
+    p_gpu = unflatten({k: v.to(cuda) for k, v in flatten(p_cpu).items()})
+    prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in (9, 30, 17)]
+    outs = []
+    for dev, p in (("cpu", p_cpu), (cuda, p_gpu)):
+        eng = ServingEngine(cfg, p, max_batch=2, max_len=64, device=dev)
+        for pr in prompts:
+            eng.submit(pr, max_new_tokens=5)
+        outs.append([r.output for r in eng.run_until_empty()])
+    assert outs[0] == outs[1]

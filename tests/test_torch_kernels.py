@@ -1,0 +1,228 @@
+"""PyTorch port kernels vs the JAX package: the plain versions, on the CPU.
+
+The same numpy inputs go through the JAX function (the Pallas kernel in
+interpret mode, or its jnp oracle) and the port's counterpart.  On a CPU
+tensor the port's wrappers compute their plain version; the kernels
+themselves are held against that plain version on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.  Tolerances are the
+reference's own (tests/test_kernels.py): fp32 attention 2e-5, fp32 rmsnorm
+1e-5, bf16 2e-2.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.rmsnorm import rmsnorm as jrmsnorm  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro.models.layers import apply_norm as japply_norm  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import rmsnorm as rms  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+
+TOL = {"attn": {"float32": 2e-5, "bfloat16": 2e-2},
+       "rms": {"float32": 1e-5, "bfloat16": 2e-2}}
+
+
+def _pair(arr, dtype):
+    """The same numpy array as a JAX array and a CPU torch tensor."""
+    return (jnp.asarray(arr, getattr(jnp, dtype)),
+            torch.from_numpy(np.array(arr)).to(getattr(torch, dtype)))
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+# -- flash attention: plain version vs the Pallas kernel and its oracle -------
+
+FLASH_SWEEP = [
+    # b, h, kv, s, d, causal, window, dtype   (GQA group = h // kv)
+    (1, 4, 4, 64, 16, True, 0, "float32"),       # group 1
+    (2, 4, 2, 64, 16, True, 0, "float32"),       # group 2
+    (1, 8, 2, 64, 64, True, 0, "float32"),       # group 4
+    (1, 4, 2, 64, 16, False, 0, "float32"),      # non-causal
+    (1, 4, 2, 64, 16, True, 24, "float32"),      # sliding window
+    (1, 4, 4, 64, 64, True, 0, "bfloat16"),
+    (1, 8, 2, 64, 16, True, 16, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window,dtype", FLASH_SWEEP)
+def test_flash_plain_matches_pallas_and_oracle(rng, b, h, kv, s, d, causal,
+                                               window, dtype):
+    qn = rng.standard_normal((b, h, s, d)).astype(np.float32)
+    kn = rng.standard_normal((b, kv, s, d)).astype(np.float32)
+    vn = rng.standard_normal((b, kv, s, d)).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (qn, kn, vn))
+    got = fa.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    pallas = jops._fa.flash_attention(jq, jk, jv, causal=causal,
+                                      window=window, bq=32, bk=32,
+                                      interpret=True)
+    oracle = jref.attention_ref(jq, jk, jv, causal=causal, window=window)
+    tol = TOL["attn"][dtype]
+    _close(got, pallas, tol)
+    _close(got, oracle, tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 16])
+def test_flash_bshd_adapter_matches_jax(rng, window, dtype):
+    qn = rng.standard_normal((2, 64, 4, 16)).astype(np.float32)
+    kn = rng.standard_normal((2, 64, 2, 16)).astype(np.float32)
+    vn = rng.standard_normal((2, 64, 2, 16)).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (qn, kn, vn))
+    got = ops.flash_attention_bshd(tq, tk, tv, causal=True, window=window)
+    want = jops.flash_attention_bshd(jq, jk, jv, causal=True, window=window,
+                                     bq=32, bk=32, interpret=True)
+    _close(got, want, TOL["attn"][dtype])
+
+
+@pytest.mark.parametrize("s,dtype", [(37, "float32"), (50, "float32"),
+                                     (37, "bfloat16"), (48, "bfloat16")])
+def test_flash_ragged_seq_matches_chunked_attention(rng, s, dtype):
+    """Any S works (the serving engine pads prompts to arbitrary lengths);
+    held against the JAX prefill path, whose gcd fallback takes any S.  In
+    bf16 that path rounds the probabilities before the PV product and the
+    port keeps them in fp32, a difference inside the bf16 tolerance."""
+    qn = rng.standard_normal((2, s, 4, 16)).astype(np.float32)
+    kn = rng.standard_normal((2, s, 2, 16)).astype(np.float32)
+    vn = rng.standard_normal((2, s, 2, 16)).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (qn, kn, vn))
+    want = jattn.chunked_attention(jq, jk, jv, causal=True, chunk_k=16)
+    _close(ops.flash_attention_bshd(tq, tk, tv, causal=True), want,
+           TOL["attn"][dtype])
+
+
+def test_full_attention_decode_masking_matches_jax(rng):
+    """One query over every cache slot, kv_valid = pos + 1 (decode)."""
+    qn = rng.standard_normal((2, 1, 4, 16)).astype(np.float32)
+    kn = rng.standard_normal((2, 24, 2, 16)).astype(np.float32)
+    vn = rng.standard_normal((2, 24, 2, 16)).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, "float32") for a in (qn, kn, vn))
+    for pos in (0, 9, 23):
+        want = jattn.full_attention(jq, jk, jv, causal=False,
+                                    kv_valid=pos + 1, q_offset=pos)
+        got = tattn.full_attention(tq, tk, tv, causal=False,
+                                   kv_valid=pos + 1, q_offset=pos)
+        _close(got, want, 2e-5)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
+    q = torch.zeros(1, 4, 8, 16)
+    k = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="softcap"):
+        fa.flash_attention(q, k, k, softcap=30.0)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention(q, torch.zeros(1, 3, 8, 16),
+                           torch.zeros(1, 3, 8, 16))
+    with pytest.raises(ValueError, match="do not match"):
+        fa.flash_attention(q, torch.zeros(1, 2, 9, 16),
+                           torch.zeros(1, 2, 9, 16))
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention(q, k.bfloat16(), k.bfloat16())
+
+
+@pytest.mark.parametrize("s,causal,window", [
+    (1, True, 0), (37, True, 0), (64, False, 0), (50, True, 7),
+    (50, False, 7), (8, True, 100)])
+def test_flash_cost_counts_attended_pairs(s, causal, window):
+    qp = np.arange(s)[:, None]
+    kp = np.arange(s)[None, :]
+    ok = np.ones((s, s), bool)
+    if causal:
+        ok &= kp <= qp
+    if window:
+        ok &= kp > qp - window
+    pairs = int(ok.sum())
+    assert fa.attended_pairs(s, causal=causal, window=window) == pairs
+    c = fa.cost_estimate((2, 4, s, 16), 2, 2, causal=causal, window=window)
+    assert c["flops"] == 4.0 * 2 * 4 * 16 * pairs
+    assert c["bytes"] == 2 * s * 16 * (2 * 4 + 2 * 2) * 2
+
+
+# -- rmsnorm: plain version vs the Pallas kernel and apply_norm --------------
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 8, 64), "float32"), ((5, 32), "float32"), ((3, 7, 128), "float32"),
+    ((2, 8, 64), "bfloat16"), ((5, 32), "bfloat16")])
+def test_rmsnorm_plain_matches_pallas_and_apply_norm(rng, shape, dtype):
+    from repro.configs import get_config
+    xn = rng.standard_normal(shape).astype(np.float32)
+    sn = (1.0 + 0.1 * rng.standard_normal(shape[-1])).astype(np.float32)
+    jx, tx = _pair(xn, dtype)
+    js, ts = _pair(sn, "float32")
+    got = rms.rmsnorm(tx, ts, eps=1e-5)
+    assert got.dtype == tx.dtype
+    tol = TOL["rms"][dtype]
+    _close(got, jrmsnorm(jx, js, eps=1e-5, interpret=True), tol)
+    _close(got, jref.rmsnorm_ref(jx, js, eps=1e-5), tol)
+    cfg = get_config("lms-demo", smoke=True)
+    _close(got, japply_norm({"scale": js}, jx, cfg), tol)
+
+
+def test_rmsnorm_wrapper_checks_scale():
+    x = torch.zeros(4, 16)
+    with pytest.raises(ValueError, match="float32"):
+        rms.rmsnorm(x, torch.ones(16, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="does not match"):
+        rms.rmsnorm(x, torch.ones(8))
+
+
+def test_rmsnorm_cost_estimate():
+    c = rms.cost_estimate((8, 1024, 4096), 2)
+    numel = 8 * 1024 * 4096
+    assert c == {"flops": 4.0 * numel, "bytes": float(2 * numel * 2 + 4 * 4096)}
+
+
+# -- launch counters and markers ----------------------------------------------
+
+
+class _Session:
+    def __init__(self):
+        self.regions = []
+
+    def region(self, name, counters=None):
+        self.regions.append((name, dict(counters or {})))
+        return _NullRegion()
+
+
+class _NullRegion:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_cpu_calls_launch_nothing_and_markers_carry_costs():
+    ops.reset_launch_counts()
+    session = _Session()
+    prev = ops.set_kernel_markers(session)
+    try:
+        q = torch.randn(1, 16, 4, 16)
+        k = torch.randn(1, 16, 2, 16)
+        ops.flash_attention_bshd(q, k, k)
+        ops.fused_rmsnorm(torch.randn(3, 16), torch.ones(16))
+    finally:
+        assert ops.set_kernel_markers(prev) is session
+    assert ops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0}
+    names = [n for n, _ in session.regions]
+    assert names == ["kernel:flash_attention", "kernel:rmsnorm"]
+    assert session.regions[0][1] == fa.cost_estimate(
+        (1, 4, 16, 16), 2, 4, causal=True)
+    assert session.regions[1][1] == rms.cost_estimate((3, 16), 4)
