@@ -9,34 +9,44 @@ JAX package.  Phases, each reported on its own lines:
               into ``build/repro_torch_kernels/`` and print the seconds;
               print the card's name and power limit.
 2. kernels -- every kernel against its plain PyTorch version on the card,
-              in bf16 and fp32, at the main path's shapes (granite-3-8b
-              prefill and decode, lms-demo) plus a window, a ragged S and a
-              non-causal case: max abs error against the tolerance, kernel
-              ms, plain ms, one library call's ms and the bound in ms.
-3. serve   -- granite-3-8b at full width and depth (40 layers, d=4096),
-              random weights from a seed, bf16: ServingEngine(max_batch=8,
-              max_len=2048) serves 8 requests of 256-1024 prompt tokens and
-              32 new tokens each.  Launch counts are zeroed just before and
-              read just after; they must be 40 flash launches per prefill
-              batch and 81 rmsnorm launches per forward.  The logits must
-              be finite and of the expected shape, and on a short input the
-              kernel path (prefill, then decode through the cache) must
-              agree with a plain full forward built from the plain kernel
-              versions.
-4. the kernels line (JSON), then the last line
-   ``{"ok": true, "device": {...}}``.
+              in bf16 and fp32, at the main paths' shapes (granite-3-8b
+              prefill and decode, lms-demo, zamba2-7b's flash at head dim
+              112 and its SSD scan) plus a window, a ragged S or L, a
+              non-causal and a strong-decay case: max abs error against the
+              tolerance, kernel ms, plain ms, one library call's ms (none
+              for the SSD scan) and the bound in ms.
+3. serve   -- two models at full width and depth, random weights from a
+              seed, bf16, each served by ServingEngine(max_batch=8,
+              max_len=2048) with 8 requests of 256-1024 prompt tokens and
+              32 new tokens each: granite-3-8b (40 layers, d=4096), then,
+              once granite's weights and cache are freed, zamba2-7b (81
+              Mamba2 layers, d=3584, 13 shared-attention applications).
+              Launch counts are zeroed just before each run and read just
+              after; they must be what the model's forwards launch (granite:
+              40 flash per prefill, 81 rmsnorm per forward; zamba2: 81
+              ssd_scan and 13 flash per prefill, 189 rmsnorm per forward).
+              The logits must be finite and of the expected shape, and on a
+              64-token input the kernel path (prefill, then 3 decode steps
+              through the caches) must agree with a plain full forward, the
+              same model code with every kernel wrapper swapped for its
+              plain version: granite in bf16, zamba2 in fp32 (see serve()).
+4. the kernels line (JSON: every kernel at the zamba2-7b path's shapes with
+   its launches there, and per path the rows it was timed at), then the
+   last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no last line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -50,8 +60,8 @@ from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
-from repro_torch.models import layers  # noqa: E402
-from repro_torch.models.params import flatten  # noqa: E402
+from repro_torch.kernels import ssd  # noqa: E402
+from repro_torch.models.params import flatten, unflatten  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     forward, init_cache, init_model_params)
 from repro_torch.serve.engine import ServingEngine  # noqa: E402
@@ -62,14 +72,18 @@ from repro_torch.serve.engine import ServingEngine  # noqa: E402
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {"flash_attention": {torch.bfloat16: 2e-2, torch.float32: 2e-5},
-       "rmsnorm": {torch.bfloat16: 2e-2, torch.float32: 1e-5}}
-MODEL_TOL = 5e-2          # bf16 model logits (tests/test_kernels.py)
+       "rmsnorm": {torch.bfloat16: 2e-2, torch.float32: 1e-5},
+       "ssd_scan": {torch.bfloat16: 2e-2, torch.float32: 2e-3}}
+MODEL_TOL = 5e-2          # model logits (bf16 in tests/test_kernels.py)
 SOURCES = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:35"),
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:21"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd.cu",
+                 "src/repro/kernels/ssd.py:26"),
 }
+MODELS = ("granite-3-8b", "zamba2-7b")   # served in this order
 SEED = 0
 N_REQUESTS, MAX_NEW = 8, 32
 MAX_BATCH, MAX_LEN = 8, 2048
@@ -219,12 +233,55 @@ def check_rmsnorm(gen, n, d, dtype, *, tag=""):
     return row
 
 
+def check_ssd(gen, b, l, h, g, dtype, *, decay=0.1, init=True, tag=""):
+    """Times the kernel as the served path calls it: model-layout (B, L, H,
+    P) x through ``ops.ssd_chunked_kernel``, with b/c strided slices of one
+    (B, L, 2*G*N) activation (G groups shared by the H heads, read through
+    strides) and an initial state.  Checks y and the final state."""
+    dev = torch.device("cuda")
+    p = n = 64
+    x = torch.randn((b, l, h, p), generator=gen, device=dev, dtype=dtype)
+    a = -decay * torch.randn((b, l, h), generator=gen, device=dev).abs()
+    bc = torch.randn((b, l, 2 * g * n), generator=gen, device=dev,
+                     dtype=dtype)
+    bm = bc[..., :g * n].view(b, l, g, n)
+    cm = bc[..., g * n:].view(b, l, g, n)
+    s0 = torch.randn((b, h, p, n), generator=gen, device=dev) if init \
+        else None
+    y, state = ops.ssd_chunked_kernel(x, a, bm, cm, s0)
+    args = (x.transpose(1, 2), a.transpose(1, 2), bm.transpose(1, 2),
+            cm.transpose(1, 2), s0)
+    want_y, want_state = ref.ssd_ref(*args)
+    err = max(compare("ssd_scan", y.transpose(1, 2), want_y, dtype),
+              compare("ssd_scan", state, want_state, dtype))
+    del want_y, want_state
+    ms = time_ms(lambda: ops.ssd_chunked_kernel(x, a, bm, cm, s0))
+    plain_ms = time_ms(lambda: ref.ssd_ref(*args), iters=3, warmup=1)
+    costs = ssd.cost_estimate(args[0].shape, g, n, x.element_size(),
+                              init_state=init)
+    # the bound is at the input dtype's peak (bf16: the tensor cores); the
+    # kernel itself computes in fp32 on the CUDA cores, whose bound is
+    # reported beside it
+    bound_ms, bound_by = bound(costs, dtype)
+    cc_ms, cc_by = bound(costs, torch.float32)
+    row = {"name": "ssd_scan", "shape": [b, l, h, g, p, n],
+           "dtype": str(dtype).replace("torch.", ""), "decay": decay,
+           "init_state": init, "max_abs_err": err,
+           "tol": TOL["ssd_scan"][dtype], "ms": ms, "plain_ms": plain_ms,
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_ms_cuda_cores": cc_ms, "bound_by_cuda_cores": cc_by,
+           "tflops": costs["flops"] / ms / 1e9}
+    log(f"kernel-check {tag}: {json.dumps(row)}")
+    return row
+
+
 def kernel_checks(plen: int) -> dict:
-    """All kernel checks; returns the rows at the main path's prefill
-    shapes (granite, S = the served batch's padded prompt length)."""
+    """All kernel checks; returns, per served model, the rows at that
+    path's own prefill shapes (S = the served batch's padded prompt
+    length): {model: {kernel: row}}, with zamba2's gated norm (d=7168)
+    under "rmsnorm_gated"."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bf16, f32 = torch.bfloat16, torch.float32
-    main = {}
     for dt in (bf16, f32):
         check_flash(gen, 8, 32, 8, 1024, 128, dt, tag="granite-prefill")
         check_flash(gen, 8, 8, 4, 1024, 64, dt, tag="lms-demo-prefill")
@@ -232,14 +289,32 @@ def kernel_checks(plen: int) -> dict:
         check_flash(gen, 8, 32, 8, 37, 128, dt, tag="ragged")
         check_flash(gen, 2, 8, 4, 200, 64, dt, causal=False,
                     tag="non-causal")
+        check_flash(gen, 2, 32, 32, 300, 112, dt, tag="zamba2-ragged")
         check_rmsnorm(gen, 8 * 1024, 4096, dt, tag="granite-prefill")
         check_rmsnorm(gen, 8, 4096, dt, tag="granite-decode")
         check_rmsnorm(gen, 8 * 1024, 512, dt, tag="lms-demo-prefill")
-    main["flash_attention"] = check_flash(gen, 8, 32, 8, plen, 128, bf16,
-                                          tag="main-path-prefill")
-    main["rmsnorm"] = check_rmsnorm(gen, 8 * plen, 4096, bf16,
-                                    tag="main-path-prefill")
-    return main
+        check_rmsnorm(gen, 8, 3584, dt, tag="zamba2-decode")
+        check_ssd(gen, 8, plen, 112, 1, dt, tag="zamba2-prefill")
+        check_ssd(gen, 2, 37, 16, 2, dt, init=False, tag="ragged")
+        check_ssd(gen, 2, 200, 8, 1, dt, decay=20.0, tag="strong-decay")
+    check_flash(gen, 8, 32, 32, plen, 112, f32, tag="zamba2-prefill")
+    return {
+        "granite-3-8b": {
+            "flash_attention": check_flash(gen, 8, 32, 8, plen, 128, bf16,
+                                           tag="main-path-prefill"),
+            "rmsnorm": check_rmsnorm(gen, 8 * plen, 4096, bf16,
+                                     tag="main-path-prefill")},
+        "zamba2-7b": {
+            "flash_attention": check_flash(gen, 8, 32, 32, plen, 112, bf16,
+                                           tag="zamba2-main-path-prefill"),
+            "rmsnorm": check_rmsnorm(gen, 8 * plen, 3584, bf16,
+                                     tag="zamba2-main-path-prefill"),
+            "rmsnorm_gated": check_rmsnorm(
+                gen, 8 * plen, 7168, bf16,
+                tag="zamba2-main-path-prefill-gated"),
+            "ssd_scan": check_ssd(gen, 8, plen, 112, 1, bf16, init=True,
+                                  tag="zamba2-main-path-prefill")},
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -289,39 +364,49 @@ class _Region:
         return False
 
 
-def plain_forward(params, cfg, tokens):
-    """Prefill logits through the plain kernel versions (the reference the
-    kernel path is held to on a short input)."""
-    b, s = tokens.shape
-    h, kvh, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
-    x = layers.embed_tokens(params["embed"], tokens, cfg)
-    cos, sin = layers.rope_table(torch.arange(s, device=tokens.device)[None],
-                                 hd, cfg.rope_theta)
-    lay = params["dense_layers"]
-    for i in range(cfg.num_layers):
-        a = {k: w[i] for k, w in lay["attn"].items()}
-        hh = ref.rmsnorm_ref(x, lay["ln1"]["scale"][i], eps=cfg.norm_eps)
-        q = (hh @ a["wq"].reshape(d, h * hd)).view(b, s, h, hd)
-        k = (hh @ a["wk"].reshape(d, kvh * hd)).view(b, s, kvh, hd)
-        v = (hh @ a["wv"].reshape(d, kvh * hd)).view(b, s, kvh, hd)
-        q, k = layers.apply_rope(q, cos, sin), layers.apply_rope(k, cos, sin)
-        o = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2)).transpose(1, 2)
-        x = x + o.reshape(b, s, h * hd) @ a["wo"].reshape(h * hd, d)
-        hh = ref.rmsnorm_ref(x, lay["ln2"]["scale"][i], eps=cfg.norm_eps)
-        x = x + layers.apply_mlp({k: w[i] for k, w in lay["mlp"].items()},
-                                 hh, cfg)
-    x = ref.rmsnorm_ref(x, params["final_norm"]["scale"], eps=cfg.norm_eps)
-    return layers.lm_logits(params["embed"], x, cfg)
+@contextmanager
+def plain_kernels():
+    """Within the block every kernel wrapper computes its plain version,
+    on the card too (and counts no launch): the same model code then gives
+    the plain forward the kernel path is held to."""
+    saved = (fa.flash_attention, rms.rmsnorm, ssd.ssd_scan)
+
+    def attention(q, k, v, *, causal=True, window=0, softcap=0.0):
+        return ref.attention_ref(q, k, v, causal=causal, window=window)
+    fa.flash_attention, rms.rmsnorm, ssd.ssd_scan = (
+        attention, ref.rmsnorm_ref, ref.ssd_ref)
+    try:
+        yield
+    finally:
+        fa.flash_attention, rms.rmsnorm, ssd.ssd_scan = saved
 
 
-def serve_granite(prompts) -> dict:
-    cfg = get_config("granite-3-8b")
+def expected_launches(cfg, n_batches: int, n_forwards: int) -> dict:
+    """Kernel launches of serving: each prefill batch runs flash once per
+    attention layer and the SSD scan once per Mamba2 layer; every forward
+    (prefill or decode step) runs rmsnorm once per norm."""
+    if cfg.family == "hybrid":
+        groups = cfg.num_layers // cfg.hybrid.attn_every
+        norms = 2 * cfg.num_layers + 2 * groups + 1
+        return {"flash_attention": groups * n_batches,
+                "rmsnorm": norms * n_forwards,
+                "ssd_scan": cfg.num_layers * n_batches}
+    return {"flash_attention": cfg.num_layers * n_batches,
+            "rmsnorm": (2 * cfg.num_layers + 1) * n_forwards,
+            "ssd_scan": 0}
+
+
+def serve(name: str) -> dict:
+    """Serve the smoke workload with ``name`` at full width and depth, check
+    its launches, logits and a short kernel-vs-plain run; the weights and
+    caches are freed on return."""
+    cfg = get_config(name)
+    prompts = smoke_prompts(cfg)
     t0 = time.monotonic()
     params = serving_params(cfg)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in flatten(params).values())
-    log(f"serve: granite-3-8b init {time.monotonic() - t0:.2f} s, "
+    log(f"serve: {name} init {time.monotonic() - t0:.2f} s, "
         f"{n_params} params, layers={cfg.num_layers} d={cfg.d_model}, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
 
@@ -358,16 +443,16 @@ def serve_granite(prompts) -> dict:
     if not all(bool(f) for f in finite):
         raise AssertionError("non-finite logits")
     n_batches = math.ceil(len(prompts) / eng.max_batch)
-    n_forwards = n_batches * MAX_NEW        # 1 prefill + 31 decode steps
-    want = {"flash_attention": cfg.num_layers * n_batches,
-            "rmsnorm": (2 * cfg.num_layers + 1) * n_forwards}
+    want = expected_launches(cfg, n_batches,
+                             n_batches * MAX_NEW)  # 1 prefill + 31 decode
     if counts != want:
-        raise AssertionError(f"launch counts {counts}, expected {want}")
+        raise AssertionError(f"{name}: launch counts {counts}, expected "
+                             f"{want}")
 
     pre = [f for n, f, _ in rec.metrics if n == "serve_prefill"]
     dec = [f for n, f, _ in rec.metrics if n == "serve_decode"]
     reqs = [f for n, f, _ in rec.metrics if n == "serve_request"]
-    out = {"wall_s": wall_s,
+    out = {"model": name, "wall_s": wall_s,
            "prefill_s": sum(f["prefill_time_s"] for f in pre),
            "prompt_len": max(f["prompt_len"] for f in pre),
            "ttft_s_max": max(f["ttft_s"] for f in reqs),
@@ -383,35 +468,54 @@ def serve_granite(prompts) -> dict:
            "regions": sorted(rec.regions)}
     log(f"serve: {json.dumps(out)}")
 
-    model_check(params, cfg, prompts[0][:64])
-    out["counts"] = counts
+    if cfg.family == "hybrid":
+        # In bf16 the hybrid's prefill rounds x * dt to bf16 before the scan
+        # where decode keeps it in fp32 (as the reference does), and each
+        # rounding difference grows through the 81 random-weight layers to a
+        # few percent of the largest logit, the size of MODEL_TOL, with the
+        # plain versions on both sides.  In fp32 (weights cast once, fp32
+        # KV cache) prefill and decode compute the same function, so the
+        # check there is sharp.
+        params32 = unflatten({k: v.float()
+                              for k, v in flatten(params).items()})
+        model_check(params32, dataclasses.replace(cfg, dtype="float32"),
+                    prompts[0][:64], cache_dtype=torch.float32)
+        del params32
+    else:
+        model_check(params, cfg, prompts[0][:64])
     return out
 
 
-def model_check(params, cfg, prompt, steps: int = 3) -> None:
+def model_check(params, cfg, prompt, steps: int = 3,
+                cache_dtype=torch.bfloat16) -> None:
     """A short input through the kernel path -- prefill, then decode steps
-    through the cache -- against a plain full forward over the same
+    through the caches -- against a plain full forward over the same
     sequence at each step, same weights.  Error relative to the largest
-    logit, limit MODEL_TOL."""
+    logit, limit MODEL_TOL; argmax equal at every step."""
     dev = params["final_norm"]["scale"].device
     seq = [int(t) for t in prompt]
-    cache = init_cache(cfg, 1, len(seq) + steps, device=dev)
+    cache = init_cache(cfg, 1, len(seq) + steps, dtype=cache_dtype,
+                       device=dev)
     with torch.inference_mode():
         toks = torch.tensor([seq], device=dev)
         got, cache = forward(params, cfg, tokens=toks, mode="prefill",
                              cache=cache)
         for step in range(steps + 1):
-            want = plain_forward(params, cfg,
-                                 torch.tensor([seq], device=dev))[:, -1]
-            g, w = got[:, -1].float(), want.float()
+            with plain_kernels():
+                want, _ = forward(params, cfg,
+                                  tokens=torch.tensor([seq], device=dev),
+                                  mode="prefill")
+            g, w = got[:, -1].float(), want[:, -1].float()
             err = float((g - w).abs().max())
             rel = err / float(w.abs().max())
-            log(f"serve: model check {cfg.name} "
+            same = int(g.argmax()) == int(w.argmax())
+            log(f"serve: model check {cfg.name} {cfg.dtype} "
                 f"{'prefill' if step == 0 else 'decode'} at position "
                 f"{len(seq) - 1}: max abs logit err {err:.4e}, relative "
                 f"{rel:.4e} (limit {MODEL_TOL}), argmax "
-                f"{'equal' if int(g.argmax()) == int(w.argmax()) else 'differs'}")
-            if not bool(torch.isfinite(g).all()) or rel > MODEL_TOL:
+                f"{'equal' if same else 'differs'}")
+            if not bool(torch.isfinite(g).all()) or rel > MODEL_TOL \
+                    or not same:
                 raise AssertionError("kernel-path logits disagree with the "
                                      "plain forward")
             if step == steps:
@@ -441,28 +545,41 @@ def main() -> int:
         f"{os.path.relpath(kbuild.BUILD_ROOT, ROOT)}")
     log(f"gpu: {gpu_line()}")
 
-    prompts = smoke_prompts(get_config("granite-3-8b"))
-    plen = max(len(p) for p in prompts)
+    plen = max(len(p) for p in smoke_prompts(get_config(MODELS[0])))
 
     # Phase 2: kernels against plain
     t0 = time.monotonic()
-    main_rows = kernel_checks(plen)
+    rows = kernel_checks(plen)
     log(f"kernels: all checks within tolerance "
         f"({time.monotonic() - t0:.2f} s)")
 
-    # Phase 3: serve
-    served = serve_granite(prompts)
+    # Phase 3: serve, one model after the other
+    served = {}
+    for name in MODELS:
+        t0 = time.monotonic()
+        served[name] = serve(name)
+        torch.cuda.empty_cache()
+        log(f"serve: {name} phase {time.monotonic() - t0:.2f} s")
 
-    # Phase 4: kernels line, then the result
+    # Phase 4: kernels line (this slice's path, zamba2-7b, and per path the
+    # rows each kernel was timed at), then the result
+    path = MODELS[-1]
     kernels = []
-    for name, r in main_rows.items():
-        src, replaces = SOURCES[name]
+    for name, (src, replaces) in SOURCES.items():
+        r = rows[path][name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": served["counts"][name],
+            "replaces": replaces,
+            "launches": served[path]["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "paths": {m: {"launches": served[m]["launches"][name],
+                          "rows": [{k: v for k, v in rr.items()
+                                    if k != "name"}
+                                   for key, rr in rows[m].items()
+                                   if rr["name"] == name]}
+                      for m in MODELS if served[m]["launches"][name]}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

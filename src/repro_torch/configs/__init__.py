@@ -1,7 +1,8 @@
-"""Architecture configs the port ships (lms-demo, granite-3-8b)."""
+"""Architecture configs the port ships (lms-demo, granite-3-8b, zamba2-7b)."""
 
 from repro_torch.configs.base import (
     ARCH_MODULES,
+    HybridConfig,
     MLAConfig,
     MoEConfig,
     ModelConfig,
@@ -15,6 +16,7 @@ from repro_torch.configs.base import (
 
 __all__ = [
     "ARCH_MODULES",
+    "HybridConfig",
     "MLAConfig",
     "MoEConfig",
     "ModelConfig",

@@ -216,6 +216,7 @@ _LOADED = False
 ARCH_MODULES = [
     "granite_3_8b",
     "lms_demo",
+    "zamba2_7b",
 ]
 
 

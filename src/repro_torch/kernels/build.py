@@ -49,6 +49,18 @@ SIGNATURES = {
         _L, _I, _F,                     # rows, d, eps
         _P,                             # stream
     ],
+    "repro_ssd_scan": [
+        _P, _P, _P, _P, _P,             # x, a, b, c, init state (or null)
+        _P, _P,                         # y, final state
+        _I,                             # dtype code
+        _I, _I, _I, _I,                 # B, H, G, L
+        _L, _L, _L,                     # x strides (b, h, l), elements
+        _L, _L, _L,                     # a strides
+        _L, _L, _L,                     # b strides (b, g, l)
+        _L, _L, _L,                     # c strides
+        _L, _L, _L,                     # y strides
+        _P,                             # stream
+    ],
 }
 
 _lib = None

@@ -25,13 +25,15 @@
 //   the S accumulator fragment is re-packed in registers as the A fragment
 //   of P (no shared-memory round trip); the 64-key K and V tiles are staged
 //   in shared memory as bf16 with a padded row (D + 8 elements) so the
-//   fragment loads are free of bank conflicts.  P is rounded to bf16 for
+//   fragment loads are free of bank conflicts (D = 64, 112 and 128).  P is rounded to bf16 for
 //   the PV product (the Pallas kernel keeps it fp32); the error stays far
 //   inside the bf16 tolerance of 2e-2.
 // * fp32: the tensor cores take no full-precision fp32, so a CUDA-core
 //   kernel keeps exact fp32 arithmetic (tolerance 2e-5): 128 threads, each
 //   owning a 4 x 8 block of the 64 x 64 score tile and 4 rows of the
-//   output, with Q and K transposed in shared memory for 16-byte loads.
+//   output (columns 32j + 4tx .. +3, the last group cut at D when D is not
+//   a multiple of 32, as for D = 112), with Q and K transposed in shared
+//   memory for 16-byte loads.
 // * Both keep the scores in the log2 domain (scale * log2(e), exp2f).
 // Not yet: cp.async/TMA double buffering and wgmma (later work).
 
@@ -311,7 +313,8 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
 
 template <int D>
 __global__ void __launch_bounds__(NTHREADS) flash_f32_kernel(Params p) {
-  constexpr int NJ = D / 32;   // output column groups of 4 per thread
+  static_assert(D % 4 == 0, "head dim must be a multiple of 4");
+  constexpr int NJ = (D + 31) / 32;   // output column groups of 4 per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qt = reinterpret_cast<float*>(smem_raw);   // [D][LDT]
   float* Kt = Qt + D * LDT;                         // [D][LDT]
@@ -415,14 +418,16 @@ __global__ void __launch_bounds__(NTHREADS) flash_f32_kernel(Params p) {
       const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const float4 vv = *reinterpret_cast<const float4*>(
-            Vs + key * (D + 4) + j * 32 + tx * 4);
-        const float vc[4] = {vv.x, vv.y, vv.z, vv.w};
+        if (j * 32 + tx * 4 < D) {   // false only in a cut last group
+          const float4 vv = *reinterpret_cast<const float4*>(
+              Vs + key * (D + 4) + j * 32 + tx * 4);
+          const float vc[4] = {vv.x, vv.y, vv.z, vv.w};
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+          for (int r = 0; r < 4; ++r)
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            acc[r][j * 4 + i] = fmaf(pr[r], vc[i], acc[r][j * 4 + i]);
+            for (int i = 0; i < 4; ++i)
+              acc[r][j * 4 + i] = fmaf(pr[r], vc[i], acc[r][j * 4 + i]);
+        }
       }
     }
   }
@@ -439,7 +444,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_f32_kernel(Params p) {
     if (row < p.S) {
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
-        *reinterpret_cast<float4*>(og + row * p.os.s + j * 32 + tx * 4) =
+        if (j * 32 + tx * 4 < D)
+          *reinterpret_cast<float4*>(og + row * p.os.s + j * 32 + tx * 4) =
             make_float4(acc[r][j * 4] * inv, acc[r][j * 4 + 1] * inv,
                         acc[r][j * 4 + 2] * inv, acc[r][j * 4 + 3] * inv);
     }
@@ -493,10 +499,14 @@ extern "C" int repro_flash_attention(
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 1 && D == 64)
     err = launch(flash_bf16_kernel<64>, grid, smem_bf16(64), st, p);
+  else if (dtype == 1 && D == 112)
+    err = launch(flash_bf16_kernel<112>, grid, smem_bf16(112), st, p);
   else if (dtype == 1 && D == 128)
     err = launch(flash_bf16_kernel<128>, grid, smem_bf16(128), st, p);
   else if (dtype == 0 && D == 64)
     err = launch(flash_f32_kernel<64>, grid, smem_f32(64), st, p);
+  else if (dtype == 0 && D == 112)
+    err = launch(flash_f32_kernel<112>, grid, smem_f32(112), st, p);
   else if (dtype == 0 && D == 128)
     err = launch(flash_f32_kernel<128>, grid, smem_f32(128), st, p);
   return int(err);

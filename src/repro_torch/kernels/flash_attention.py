@@ -18,7 +18,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import check, load_library
 
-HEAD_DIMS = (64, 128)                     # template instances in the .cu
+HEAD_DIMS = (64, 112, 128)                # template instances in the .cu
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0                              # kernel launches since reset

@@ -1,8 +1,9 @@
 """Model-layout adapters over the kernels (port of ``repro.kernels.ops``).
 
-Models keep activations as (B, S, H, D); the flash kernel indexes
-(B, H, S, D).  :func:`flash_attention_bshd` hands the kernel transposed views
-(it takes strides), so no copy is made on the card.
+Models keep activations as (B, S, H, D); the flash and SSD kernels index
+(B, H, S, D).  :func:`flash_attention_bshd` and :func:`ssd_chunked_kernel`
+hand the kernels transposed views (they take strides), so no copy is made
+on the card.
 
 Marker instrumentation: :func:`set_kernel_markers` installs any object with
 ``.region(name, counters=)`` (e.g. ``repro.core``'s ``MarkerSession``), and
@@ -21,6 +22,7 @@ import torch
 
 import repro_torch.kernels.flash_attention as _fa
 import repro_torch.kernels.rmsnorm as _rms
+import repro_torch.kernels.ssd as _ssd
 
 _markers = None
 
@@ -36,12 +38,14 @@ def set_kernel_markers(session):
 
 def launch_counts() -> dict:
     """Kernel launches per kernel since the last reset."""
-    return {"flash_attention": _fa.launches, "rmsnorm": _rms.launches}
+    return {"flash_attention": _fa.launches, "rmsnorm": _rms.launches,
+            "ssd_scan": _ssd.launches}
 
 
 def reset_launch_counts() -> None:
     _fa.launches = 0
     _rms.launches = 0
+    _ssd.launches = 0
 
 
 def _region(name: str, t: torch.Tensor, costs_fn):
@@ -78,3 +82,27 @@ def fused_rmsnorm(x, scale, *, eps: float = 1e-5):
         if m is not None:
             _sync(y)
     return y
+
+
+def ssd_chunked_kernel(x, dt_log_decay, b_mat, c_mat, init_state=None):
+    """Kernel-backed counterpart of ``models.ssm.ssd_chunked``.
+
+    x: (B, L, H, P), already multiplied by dt; dt_log_decay: (B, L, H) fp32;
+    b/c: (B, L, G, N) with G dividing H (G == H is the pre-broadcast
+    layout), head h reading group h // (H / G); init_state: (B, H, P, N)
+    or None.  The kernel reads the groups through strides, so no head copy
+    is made.  Returns (y (B, L, H, P), final state (B, H, P, N) fp32).
+    """
+    xt = x.transpose(1, 2)
+    at = dt_log_decay.transpose(1, 2)
+    bt, ct = b_mat.transpose(1, 2), c_mat.transpose(1, 2)
+    m, region = _region(
+        "ssd_scan", x,
+        lambda: _ssd.cost_estimate(xt.shape, bt.shape[1], bt.shape[-1],
+                                   x.element_size(),
+                                   init_state=init_state is not None))
+    with region:
+        y, state = _ssd.ssd_scan(xt, at, bt, ct, init_state)
+        if m is not None:
+            _sync(y)
+    return y.transpose(1, 2), state

@@ -38,3 +38,27 @@ def rmsnorm_ref(x, scale, *, eps: float = 1e-5):
     xf = x.float()
     ms = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def ssd_ref(x, a, b, c, init_state=None):
+    """Sequential SSD recurrence (the definitional form).
+
+    x: (B, H, L, P), already multiplied by dt; a: (B, H, L) log decays
+    (<= 0); b/c: (B, G, L, N), head h reading group h // (H / G);
+    init_state: (B, H, P, N) or None for zeros.  Per step
+    S_t = exp(a_t) S_{t-1} + x_t b_t^T and y_t = S_t c_t, all in fp32.
+    Returns (y (B, H, L, P) in x's dtype, final state (B, H, P, N) fp32).
+    """
+    bsz, h, l, p = x.shape
+    g, n = b.shape[1], b.shape[-1]
+    bf = b.float().repeat_interleave(h // g, dim=1)
+    cf = c.float().repeat_interleave(h // g, dim=1)
+    xf, af = x.float(), a.float()
+    s = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device) \
+        if init_state is None else init_state.float().clone()
+    ys = []
+    for t in range(l):
+        s = s * torch.exp(af[:, :, t])[..., None, None] + \
+            xf[:, :, t, :, None] * bf[:, :, t, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", s, cf[:, :, t]))
+    return torch.stack(ys, dim=2).to(x.dtype), s

@@ -44,6 +44,15 @@ def apply_norm(p, x, cfg: ModelConfig, eps: Optional[float] = None):
     return y.to(x.dtype)
 
 
+def rmsnorm_gated(scale, x, gate, eps: float = 1e-5):
+    """Mamba2-style gated RMSNorm: norm(x * silu(gate)) * scale.
+
+    The gate product is taken in x's dtype, as the reference does; the norm
+    is the fused RMSNorm with the fp32 ``scale``."""
+    x = x * F.silu(gate.float()).to(x.dtype)
+    return ops.fused_rmsnorm(x, scale, eps=eps)
+
+
 # --------------------------------------------------------------------------
 # RoPE
 # --------------------------------------------------------------------------

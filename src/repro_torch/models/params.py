@@ -23,9 +23,10 @@ import torch
 
 from repro_torch import resolve_device
 
-# Leaves named like this are norm parameters; ``apply_norm`` reads them in
-# fp32, so a one-time compute-dtype cast leaves them alone.
-FP32_LEAVES = ("scale", "bias")
+# Leaves the model reads in fp32, so a one-time compute-dtype cast leaves
+# them alone: norm parameters (``apply_norm``, ``rmsnorm_gated``) and the
+# Mamba2 decay parameters (``mamba2_block`` computes dt and A in fp32).
+FP32_LEAVES = ("scale", "bias", "norm_scale", "A_log", "dt_bias")
 
 
 @dataclass(frozen=True)
@@ -100,7 +101,8 @@ def _fan_in(shape) -> int:
 def compute_dtype_for(path: str, dtype: torch.dtype,
                       compute_dtype: Optional[torch.dtype]) -> torch.dtype:
     """Storage dtype of a leaf after the optional one-time compute cast:
-    matrices and the embedding take ``compute_dtype``, norm leaves stay."""
+    matrices and the embedding take ``compute_dtype``, ``FP32_LEAVES``
+    stay."""
     if compute_dtype is None or path.rsplit("/", 1)[-1] in FP32_LEAVES:
         return dtype
     return compute_dtype
@@ -127,8 +129,8 @@ def init_params(specs, seed: int = 0, device=None,
                 compute_dtype: Optional[torch.dtype] = None):
     """Initialize concrete parameters on ``device``, one leaf at a time.
 
-    ``compute_dtype`` casts each matrix once as it is made (norm leaves stay
-    fp32), so a bf16 model never holds its fp32 copy whole."""
+    ``compute_dtype`` casts each matrix once as it is made (``FP32_LEAVES``
+    stay fp32), so a bf16 model never holds its fp32 copy whole."""
     device = resolve_device(device)
     out = {}
     for path, s in flatten(specs).items():

@@ -1,8 +1,10 @@
-"""Model assembly, dense family (port of ``repro.models.transformer``).
+"""Model assembly, dense and hybrid families (port of
+``repro.models.transformer``).
 
-:func:`forward` runs a decoder-only dense LM in prefill or decode mode.  The
-reference scans stacked layer parameters with ``jax.lax.scan``; here a loop
-walks the leading layer axis.  Caches are stacked over layers like the
+:func:`forward` runs a decoder-only dense LM, or a zamba2-style hybrid
+(Mamba2 backbone with shared attention blocks), in prefill or decode mode.
+The reference scans stacked layer parameters with ``jax.lax.scan``; here a
+loop walks the leading layer axes.  Caches are stacked over layers like the
 reference's and are written in place.
 """
 
@@ -20,10 +22,16 @@ from repro_torch.models.layers import (
     mlp_specs, norm_specs, rope_table)
 from repro_torch.models.params import (
     flatten, init_params, spec, stack_specs, unflatten)
+from repro_torch.models.ssm import (
+    mamba2_block, mamba2_cache_specs, mamba2_specs)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe is not None:
+    ported = cfg.moe is None and (
+        cfg.family == "dense" or (cfg.family == "hybrid"
+                                  and cfg.hybrid is not None
+                                  and cfg.ssm is not None))
+    if not ported:
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
     if cfg.attention_type != "gqa":
         raise NotImplementedError(
@@ -37,23 +45,65 @@ def _attn_block_specs(cfg: ModelConfig):
             "ln2": norm_specs(cfg), "mlp": mlp_specs(cfg)}
 
 
+def _layer_plan(cfg: ModelConfig) -> dict:
+    """How many layers of each kind, as stacked groups."""
+    if cfg.family == "hybrid":
+        n_groups = cfg.num_layers // cfg.hybrid.attn_every
+        rem = cfg.num_layers - n_groups * cfg.hybrid.attn_every
+        return {"hybrid_groups": n_groups, "hybrid_rem": rem}
+    return {"dense": cfg.num_layers}
+
+
 def model_specs(cfg: ModelConfig):
-    """Full parameter-spec tree (stacked layers), dense family."""
+    """Full parameter-spec tree (stacked layers).
+
+    hybrid: ``groups`` stacks ``attn_every`` Mamba2 blocks per group
+    (axes groups x inner_layers), ``rem`` the Mamba2 blocks after the last
+    group, ``shared`` the ``num_shared_blocks`` attention blocks."""
     _check_supported(cfg)
-    return {"embed": embedding_specs(cfg),
-            "final_norm": norm_specs(cfg),
-            "dense_layers": stack_specs(_attn_block_specs(cfg),
-                                        cfg.num_layers)}
+    plan = _layer_plan(cfg)
+    out = {"embed": embedding_specs(cfg), "final_norm": norm_specs(cfg)}
+    if cfg.family == "hybrid":
+        mamba = {"ln": norm_specs(cfg), **mamba2_specs(cfg)}
+        if plan["hybrid_groups"]:
+            out["groups"] = stack_specs(
+                stack_specs(mamba, cfg.hybrid.attn_every, "inner_layers"),
+                plan["hybrid_groups"])
+        if plan["hybrid_rem"]:
+            out["rem"] = stack_specs(mamba, plan["hybrid_rem"])
+        out["shared"] = stack_specs(_attn_block_specs(cfg),
+                                    cfg.hybrid.num_shared_blocks)
+        return out
+    out["dense_layers"] = stack_specs(_attn_block_specs(cfg), plan["dense"])
+    return out
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16):
     """Spec tree of the decode caches (zero-init), stacked over layers.
-    The cache is bf16 whatever the compute dtype, as in the reference."""
+
+    The KV cache is ``dtype`` (bf16) whatever the compute dtype, and the
+    SSM state fp32, as in the reference.  The conv tail is kept in the
+    compute dtype: the reference's prefill returns it in that dtype and
+    decode carries it so (bf16 when serving in bf16); the port writes it in
+    place, so it allocates that dtype up front."""
     _check_supported(cfg)
+    plan = _layer_plan(cfg)
     kv = spec((batch, max_len, cfg.num_kv_heads, cfg.head_dim),
               ("batch", "cache_seq", "kv_heads", None), dtype, init="zeros")
-    return {"dense": stack_specs({"k": kv, "v": kv}, cfg.num_layers)}
+    attn = {"k": kv, "v": kv}
+    if cfg.family != "hybrid":
+        return {"dense": stack_specs(attn, plan["dense"])}
+    mamba = mamba2_cache_specs(cfg, batch, getattr(torch, cfg.dtype))
+    out = {}
+    if plan["hybrid_groups"]:
+        out["groups"] = stack_specs(
+            stack_specs(mamba, cfg.hybrid.attn_every, "inner_layers"),
+            plan["hybrid_groups"])
+        out["shared_attn"] = stack_specs(attn, plan["hybrid_groups"])
+    if plan["hybrid_rem"]:
+        out["rem"] = stack_specs(mamba, plan["hybrid_rem"])
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -74,9 +124,47 @@ def _attn_block(p, x, cfg, *, rope, mode, cache, pos):
     return x, cache
 
 
+def _mamba_block(p, x, cfg, *, mode, cache):
+    """Pre-norm Mamba2 block; returns (x, cache)."""
+    h = apply_norm(p["ln"], x, cfg)
+    y, cache = mamba2_block({k: v for k, v in p.items() if k != "ln"}, h,
+                            cfg, mode=mode, cache=cache)
+    return x + y, cache
+
+
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked tree (views, no copies)."""
     return unflatten({k: v[i] for k, v in flatten(tree).items()})
+
+
+def _depth(tree) -> int:
+    """Size of the leading (stacked) axis of a tree."""
+    return next(iter(flatten(tree).values())).shape[0]
+
+
+def _hybrid_forward(params, x, cfg, *, rope, mode, cache, pos):
+    """Mamba2 groups, each followed by a shared attention block (weights
+    ``group % num_shared_blocks``), then the ``rem`` Mamba2 blocks."""
+    nsb = cfg.hybrid.num_shared_blocks
+    if "groups" in params:
+        for gi in range(_depth(params["groups"])):
+            gp = _layer(params["groups"], gi)
+            gc = None if cache is None else _layer(cache["groups"], gi)
+            for li in range(_depth(gp)):
+                x, _ = _mamba_block(
+                    _layer(gp, li), x, cfg, mode=mode,
+                    cache=None if gc is None else _layer(gc, li))
+            x, _ = _attn_block(
+                _layer(params["shared"], gi % nsb), x, cfg, rope=rope,
+                mode=mode, pos=pos,
+                cache=None if cache is None else _layer(cache["shared_attn"],
+                                                        gi))
+    if "rem" in params:
+        for li in range(_depth(params["rem"])):
+            x, _ = _mamba_block(
+                _layer(params["rem"], li), x, cfg, mode=mode,
+                cache=None if cache is None else _layer(cache["rem"], li))
+    return x
 
 
 def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
@@ -101,12 +189,15 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
     rope = None if cfg.rope_type == "none" else rope_table(
         positions, cfg.head_dim, cfg.rope_theta)
 
-    layers = params["dense_layers"]
-    n = layers["ln1"]["scale"].shape[0]
-    for i in range(n):
-        lc = None if cache is None else _layer(cache["dense"], i)
-        x, _ = _attn_block(_layer(layers, i), x, cfg, rope=rope, mode=mode,
-                           cache=lc, pos=pos)
+    if cfg.family == "hybrid":
+        x = _hybrid_forward(params, x, cfg, rope=rope, mode=mode,
+                            cache=cache, pos=pos)
+    else:
+        layers = params["dense_layers"]
+        for i in range(_depth(layers)):
+            lc = None if cache is None else _layer(cache["dense"], i)
+            x, _ = _attn_block(_layer(layers, i), x, cfg, rope=rope,
+                               mode=mode, cache=lc, pos=pos)
 
     x = apply_norm(params["final_norm"], x, cfg)
     return lm_logits(params["embed"], x, cfg), cache
@@ -116,6 +207,6 @@ def init_model_params(cfg: ModelConfig, seed: int = 0, device=None,
                       compute_dtype: Any = None):
     """Initialize the model on ``device`` (default CUDA).  ``compute_dtype``
     (e.g. ``torch.bfloat16``) casts matrices and the embedding once as they
-    are made; norm scales stay fp32."""
+    are made; the leaves read in fp32 (``params.FP32_LEAVES``) stay fp32."""
     return init_params(model_specs(cfg), seed, device=resolve_device(device),
                        compute_dtype=compute_dtype)

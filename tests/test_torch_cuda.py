@@ -5,7 +5,9 @@ imports neither JAX nor the JAX package, so it runs on a machine that has
 only PyTorch: ``PYTHONPATH=src python -m pytest -m cuda --noconftest
 tests/test_torch_cuda.py``.  Each kernel is held against its plain PyTorch
 version on the same inputs, at the reference's tolerances (fp32 attention
-2e-5, fp32 rmsnorm 1e-5, bf16 2e-2, bf16 model logits 5e-2).
+2e-5, fp32 rmsnorm 1e-5, fp32 SSD 2e-3, bf16 2e-2, model logits fp32 1e-4
+and bf16 5e-2; the hybrid model's bf16 logits relative to the largest, as
+in ``chip_smoke.py``).
 """
 
 import dataclasses
@@ -19,13 +21,15 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
+from repro_torch.kernels import ssd  # noqa: E402
 from repro_torch.models.params import flatten, unflatten  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     forward, init_cache, init_model_params)
 from repro_torch.serve.engine import ServingEngine  # noqa: E402
 
 TOL = {"attn": {"float32": 2e-5, "bfloat16": 2e-2},
-       "rms": {"float32": 1e-5, "bfloat16": 2e-2}}
+       "rms": {"float32": 1e-5, "bfloat16": 2e-2},
+       "ssd": {"float32": 2e-3, "bfloat16": 2e-2}}
 
 
 @pytest.fixture
@@ -49,7 +53,8 @@ def _close(got, want, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,kv,s,d,causal,window", [
     (2, 8, 2, 128, 64, True, 0), (1, 8, 4, 37, 128, True, 0),
-    (2, 4, 4, 200, 64, False, 0), (1, 8, 2, 300, 128, True, 100)])
+    (2, 4, 4, 200, 64, False, 0), (1, 8, 2, 300, 128, True, 100),
+    (1, 4, 4, 150, 112, True, 0), (2, 8, 8, 64, 112, False, 0)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_matches_plain(cuda, rng, b, h, kv, s, d, causal,
                                     window, dtype):
@@ -140,7 +145,8 @@ def test_model_on_card_matches_plain_on_cpu(cuda, rng, dtype, tol):
     for a, b in zip(*outs):
         _close(b, a, tol)
     assert ops.launch_counts() == {"flash_attention": 2,
-                                   "rmsnorm": 4 * (2 * 2 + 1)}
+                                   "rmsnorm": 4 * (2 * 2 + 1),
+                                   "ssd_scan": 0}
 
 
 @pytest.mark.cuda
@@ -156,3 +162,131 @@ def test_engine_on_card_matches_engine_on_cpu(cuda, rng):
             eng.submit(pr, max_new_tokens=5)
         outs.append([r.output for r in eng.run_until_empty()])
     assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,g,decay,init", [
+    (2, 200, 8, 1, 0.1, True),      # b/c shared by every head, ragged L
+    (1, 37, 6, 3, 0.1, False),      # 3 groups, L shorter than a chunk
+    (2, 128, 4, 1, 20.0, True),     # strong decay
+    (2, 1, 4, 1, 0.5, True)])       # one step, as a decode would
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_matches_plain(cuda, rng, b, l, h, g, decay, init, dtype):
+    """Model-layout views as the served path passes them: x (B,L,H,P)
+    transposed, b/c strided slices of one activation; y and the final
+    state against the sequential recurrence."""
+    dt = getattr(torch, dtype)
+    p = n = 64
+
+    def arr(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda)
+    x = arr(b, l, h, p).to(dt)
+    a = -decay * arr(b, l, h).abs()
+    bc = arr(b, l, 2 * g * n).to(dt)
+    bm, cm = bc[..., :g * n].view(b, l, g, n), bc[..., g * n:].view(b, l, g, n)
+    s0 = arr(b, h, p, n) if init else None
+    before = ssd.launches
+    y, state = ops.ssd_chunked_kernel(x, a, bm, cm, s0)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    assert y.shape == x.shape and y.dtype == dt
+    want_y, want_state = ref.ssd_ref(x.transpose(1, 2), a.transpose(1, 2),
+                                     bm.transpose(1, 2), cm.transpose(1, 2),
+                                     s0)
+    _close(y, want_y.transpose(1, 2), TOL["ssd"][dtype])
+    _close(state, want_state, TOL["ssd"][dtype])
+    assert bool(torch.isfinite(y.float()).all())
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_reads_a_zero_head_stride(cuda, rng):
+    """b/c broadcast over heads as an expanded view (head stride 0) give
+    what the grouped layout gives."""
+    b, l, h, n = 1, 70, 4, 64
+    x, bm, cm = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(cuda) for s in ((b, l, h, 64), (b, l, 1, n),
+                                        (b, l, 1, n)))
+    a = -0.1 * torch.rand((b, l, h), device=cuda)
+    y1, s1 = ops.ssd_chunked_kernel(x, a, bm, cm)
+    y2, s2 = ops.ssd_chunked_kernel(x, a, bm.expand(b, l, h, n),
+                                    cm.expand(b, l, h, n))
+    torch.testing.assert_close(y1, y2)
+    torch.testing.assert_close(s1, s2)
+
+
+@pytest.mark.cuda
+def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(1, 2, 8, 16, device=cuda)
+    a = torch.zeros(1, 2, 8, device=cuda)
+    bm = torch.zeros(1, 1, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="built for"):
+        ssd.ssd_scan(x, a, bm, bm)
+    x = torch.zeros(1, 2, 8, 64, device=cuda, dtype=torch.bfloat16)
+    wide = torch.zeros(1, 1, 8, 65, device=cuda, dtype=torch.bfloat16)
+    bm = wide[..., 1:]                  # rows not 16-byte aligned
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_scan(x, a, bm, bm)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ssd.ssd_scan(x.half(), a, bm.half(), bm.half())
+
+
+def _small_hybrid(dtype, num_layers, attn_every):
+    """zamba2-7b's layout at small width with the kernels' head dims
+    (Mamba2 P = N = 64, 2 shared attention blocks of head dim 112)."""
+    from repro_torch.configs import HybridConfig
+    cfg = get_config("zamba2-7b")
+    return dataclasses.replace(
+        cfg, num_layers=num_layers, d_model=256, num_heads=2, num_kv_heads=2,
+        head_dim=112, d_ff=512, vocab_size=500, vocab_pad_to=128,
+        hybrid=HybridConfig(attn_every=attn_every, num_shared_blocks=2),
+        dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,num_layers,attn_every", [
+    ("float32", 1e-4, 5, 2),        # 2 groups of 2 and 1 trailing layer
+    ("bfloat16", 5e-2, 2, 1)])      # 2 groups of 1: bf16 noise grows with depth
+def test_hybrid_model_on_card_matches_plain_on_cpu(cuda, rng, dtype, tol,
+                                                   num_layers, attn_every):
+    """Prefill + 3 decode steps through the kernels on the card vs the
+    plain versions on the CPU, same weights (decays made non-trivial) and
+    decode tokens; fp32 elementwise, bf16 relative to the largest logit."""
+    cfg = _small_hybrid(dtype, num_layers, attn_every)
+    flat = flatten(init_model_params(cfg, seed=0, device="cpu"))
+    for k in flat:
+        if k.endswith(("A_log", "dt_bias")):
+            flat[k] = torch.from_numpy(
+                0.5 * rng.standard_normal(tuple(flat[k].shape))).float()
+    p_cpu = unflatten(flat)
+    p_gpu = unflatten({k: v.to(cuda) for k, v in flat.items()})
+    toks = rng.integers(0, cfg.vocab_size, (2, 45))
+    ops.reset_launch_counts()
+    fed = []                        # decode tokens, chosen on the CPU
+    with torch.inference_mode():
+        outs = []
+        for dev, p in (("cpu", p_cpu), (cuda, p_gpu)):
+            cache = init_cache(cfg, 2, 64, device=dev)
+            t = torch.from_numpy(toks).to(dev)
+            logits, cache = forward(p, cfg, tokens=t, mode="prefill",
+                                    cache=cache)
+            seq = [logits[:, -1].float().cpu()]
+            for step in range(3):
+                if dev == "cpu":
+                    fed.append(torch.argmax(seq[-1], dim=-1)[:, None])
+                logits, cache = forward(p, cfg, tokens=fed[step].to(dev),
+                                        mode="decode", cache=cache,
+                                        pos=45 + step)
+                seq.append(logits[:, -1].float().cpu())
+            outs.append(seq)
+    for want, got in zip(*outs):
+        if dtype == "float32":
+            _close(got, want, tol)
+        else:
+            err = float((got - want).abs().max())
+            assert err <= tol * float(want.abs().max()), err
+    groups = num_layers // attn_every
+    assert ops.launch_counts() == {
+        "flash_attention": groups,
+        "rmsnorm": 4 * (2 * num_layers + 2 * groups + 1),
+        "ssd_scan": num_layers}

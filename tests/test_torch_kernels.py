@@ -220,7 +220,8 @@ def test_cpu_calls_launch_nothing_and_markers_carry_costs():
         ops.fused_rmsnorm(torch.randn(3, 16), torch.ones(16))
     finally:
         assert ops.set_kernel_markers(prev) is session
-    assert ops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0,
+                                   "ssd_scan": 0}
     names = [n for n, _ in session.regions]
     assert names == ["kernel:flash_attention", "kernel:rmsnorm"]
     assert session.regions[0][1] == fa.cost_estimate(

@@ -127,16 +127,24 @@ def test_apply_norm_matches_jax(rng, norm_type):
 
 @pytest.mark.parametrize("name,smoke", [("lms-demo", True), ("lms-demo", False),
                                         ("granite-3-8b", True),
-                                        ("granite-3-8b", False)])
+                                        ("granite-3-8b", False),
+                                        ("zamba2-7b", True),
+                                        ("zamba2-7b", False)])
 def test_model_specs_match_jax_layouts(name, smoke):
+    """Parameter and decode-cache spec trees: same paths, same shapes."""
     from repro.models.params import ParamSpec
-    jspecs = jtf.model_specs(jget_config(name, smoke=smoke))
-    flat = jax.tree_util.tree_flatten_with_path(
-        jspecs, is_leaf=lambda x: isinstance(x, ParamSpec))[0]
-    want = {"/".join(str(p.key) for p in path): s.shape for path, s in flat}
+
+    def shapes(tree):
+        flat = jax.tree_util.tree_flatten_with_path(
+            tree, is_leaf=lambda x: isinstance(x, ParamSpec))[0]
+        return {"/".join(str(p.key) for p in path): s.shape
+                for path, s in flat}
+    jcfg, tcfg = jget_config(name, smoke=smoke), get_config(name, smoke=smoke)
+    got = {k: s.shape for k, s in flatten(ttf.model_specs(tcfg)).items()}
+    assert got == shapes(jtf.model_specs(jcfg))
     got = {k: s.shape for k, s in
-           flatten(ttf.model_specs(get_config(name, smoke=smoke))).items()}
-    assert got == want
+           flatten(ttf.cache_specs(tcfg, 8, 2048)).items()}
+    assert got == shapes(jtf.cache_specs(jcfg, 8, 2048))
 
 
 def test_init_is_seeded_and_scaled():
@@ -272,6 +280,10 @@ def test_unported_family_raises():
                               family="ssm")
     with pytest.raises(NotImplementedError):
         ttf.model_specs(cfg)
+    hybrid_without_ssm = dataclasses.replace(
+        get_config("zamba2-7b", smoke=True), ssm=None)
+    with pytest.raises(NotImplementedError):
+        ttf.model_specs(hybrid_without_ssm)
 
 
 def test_entry_points_need_cuda_by_default(monkeypatch):
