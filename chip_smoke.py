@@ -7,6 +7,8 @@ JAX package.  Phases, each reported on its own lines:
 
 1. build   -- compile the kernels from ``src/repro_torch/kernels/csrc``
               into ``build/repro_torch_kernels/`` and print the seconds;
+              one ``ptxas:`` line per kernel instance (registers, spill
+              bytes; a bf16 flash instance that spills fails the run);
               print the card's name and power limit.
 2. kernels -- every kernel against its plain PyTorch version on the card,
               in bf16 and fp32, at the main paths' shapes (granite-3-8b
@@ -14,7 +16,9 @@ JAX package.  Phases, each reported on its own lines:
               112 and its SSD scan) plus a window, a ragged S or L, a
               non-causal and a strong-decay case: max abs error against the
               tolerance, kernel ms, plain ms, one library call's ms (none
-              for the SSD scan) and the bound in ms.
+              for the SSD scan) and the bound in ms; flash rows also give
+              ms / library ms (``vs_library``) and bound / ms
+              (``frac_of_bound``).
 3. serve   -- two models at full width and depth, random weights from a
               seed, bf16, each served by ServingEngine(max_batch=8,
               max_len=2048) with 8 requests of 256-1024 prompt tokens and
@@ -43,6 +47,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -83,6 +88,9 @@ SOURCES = {
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd.cu",
                  "src/repro/kernels/ssd.py:26"),
 }
+# kernel entry points in csrc/, as ptxas names their instances
+KERNEL_NAMES = ("flash_wgmma_kernel", "flash_f32_kernel", "rmsnorm_kernel",
+                "ssd_kernel")
 MODELS = ("granite-3-8b", "zamba2-7b")   # served in this order
 SEED = 0
 N_REQUESTS, MAX_NEW = 8, 32
@@ -129,6 +137,50 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _instance(mangled: str) -> str:
+    """``flash_wgmma_kernel<128>``, ``ssd_kernel<bf16>``, ... from a
+    mangled entry-point name."""
+    for k in KERNEL_NAMES:
+        if k in mangled:
+            arg = mangled.split(k, 1)[1]
+            m = re.match(r"ILi(\d+)E", arg)
+            if m:
+                return f"{k}<{m.group(1)}>"
+            return f"{k}<{'bf16' if arg.startswith('I13__nv_bfloat16') else 'f32'}>"
+    return mangled
+
+
+def ptxas_report() -> list:
+    """Registers and spill bytes of every kernel instance, read from the
+    ``ptxas -v`` report the build kept; raises if a bf16 flash instance
+    spills or is missing."""
+    path = kbuild.BUILD_ROOT / kbuild.source_hash() / kbuild.PTXAS_LOG
+    rows, cur = [], None
+    for line in path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": _instance(m.group(1))}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"] = int(m.group(1))
+            cur["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    by_name = {r["kernel"]: r for r in rows}
+    for d in fa.HEAD_DIMS:
+        r = by_name.get(f"flash_wgmma_kernel<{d}>")
+        if r is None or r.get("spill_stores", 1) or r.get("spill_loads", 1):
+            raise AssertionError(f"flash_wgmma_kernel<{d}>: missing or "
+                                 f"spills in the ptxas report: {r}")
+    return rows
 
 
 def bound(costs: dict, dtype) -> tuple:
@@ -201,6 +253,7 @@ def check_flash(gen, b, h, kv, s, d, dtype, *, causal=True, window=0,
            "tol": TOL["flash_attention"][dtype], "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
+           "vs_library": ms / library_ms, "frac_of_bound": bound_ms / ms,
            "tflops": costs["flops"] / ms / 1e9}
     log(f"kernel-check {tag}: {json.dumps(row)}")
     return row
@@ -543,6 +596,8 @@ def main() -> int:
     kbuild.load_library()
     log(f"build: {time.monotonic() - t0:.2f} s into "
         f"{os.path.relpath(kbuild.BUILD_ROOT, ROOT)}")
+    for r in ptxas_report():
+        log(f"ptxas: {json.dumps(r)}")
     log(f"gpu: {gpu_line()}")
 
     plen = max(len(p) for p in smoke_prompts(get_config(MODELS[0])))
@@ -574,6 +629,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("vs_library", "frac_of_bound") if k in r},
             "paths": {m: {"launches": served[m]["launches"][name],
                           "rows": [{k: v for k, v in rr.items()
                                     if k != "name"}

@@ -35,7 +35,7 @@ from chip_smoke import MAX_BATCH, MAX_LEN, MAX_NEW, ROOT
 from repro_torch.configs import get_config
 from repro_torch.serve.engine import ServingEngine
 
-OUR_KERNELS = ("flash_bf16_kernel", "flash_f32_kernel", "rmsnorm_kernel")
+OUR_KERNELS = chip_smoke.KERNEL_NAMES     # the port's kernels, by name
 MATMUL_MARKS = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
 
 

@@ -24,6 +24,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", *ARCH_FLAGS]
 LIB_NAME = "librepro_torch_kernels.so"
+PTXAS_LOG = "ptxas.txt"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -91,7 +92,8 @@ def build(ptxas_verbose: bool = False) -> Path:
     """Compile (if not cached) and return the shared library's path.
 
     ``ptxas_verbose`` rebuilds and prints each kernel's registers, shared
-    memory and spills as ``ptxas`` reports them."""
+    memory and spills as ``ptxas`` reports them; the report is also kept
+    beside the library as ``ptxas.txt``."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     if lib.exists() and not ptxas_verbose:
@@ -109,13 +111,14 @@ def build(ptxas_verbose: bool = False) -> Path:
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
-    failed = []
+    failed, report = [], []
     for src, _, p in procs:
         out, _ = p.communicate()
         if p.returncode != 0:
             failed.append(f"{src.name}:\n{out}")
         elif ptxas_verbose:
             print(out, end="")
+            report.append(out)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     tmp = work / LIB_NAME
@@ -126,6 +129,8 @@ def build(ptxas_verbose: bool = False) -> Path:
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
     os.replace(tmp, lib)
+    if ptxas_verbose:
+        (out_dir / PTXAS_LOG).write_text("".join(report))
     shutil.rmtree(work, ignore_errors=True)
     return lib
 

@@ -7,43 +7,81 @@
 // k/v (B,KV,S,D), head h reads kv head h / (H/KV); scale 1/sqrt(D); fp32
 // running max m, sum l and accumulator acc; causal and sliding-window masks
 // as the Pallas kernel (k <= q, k > q - window); masked scores are
-// NEG_INF = -2^30; KV tiles that the masks leave empty are skipped; the
-// result is acc / max(l, 1e-30) cast to q's dtype.  Unlike the Pallas
-// kernel it masks the ragged edge (keys >= S, no store of rows >= S), so
-// any S works.  Tensors are addressed through (b, h, s) strides with the
-// head dim contiguous, so the model's (B,S,H,D) activations need no copy.
+// NEG_INF = -2^30 in the log2-scaled domain; KV tiles that the masks leave
+// empty are skipped; the result is acc / max(l, 1e-30) cast to q's dtype.
+// Unlike the Pallas kernel it masks the ragged edge (keys >= S, no store of
+// rows >= S), so any S works.  Tensors are addressed through (b, h, s)
+// strides with the head dim contiguous, so the model's (B,S,H,D) activations
+// need no copy.  Head dims 64, 112 and 128.
 //
-// What bounds it on the H100: at the prefill shapes (S ~ 1k, D = 128) the
-// two matrix products do ~S/2 multiply-adds per byte moved, far above the
-// card's ~295 flop/byte balance point: the kernel is bound by operations,
-// i.e. by how close it comes to the tensor cores' rate.
+// What bounds it on the H100: at the prefill shapes (S ~ 1k, D = 112-128)
+// the two matrix products do ~S/2 multiply-adds per byte moved, above the
+// card's ~295 flop/byte balance point, so the bound is the tensor cores'
+// rate (bf16 989 TFLOP/s).  Only `wgmma` reaches that rate, and only when
+// its operands arrive in shared memory ahead of it and the exp2 work of the
+// softmax (16 a clock per SM) runs beside the products, not between them.
+// In practice three more things limit it: the K/V tiles every q-tile
+// re-reads go through L2 (zamba2's 104 MB of K/V does not fit the 50 MB
+// L2), the latency of each copy, and the per-item prologue of a short
+// sequence (S = 910 is 8 q-tiles).
 //
-// What the design does about it:
-// * bf16: each of 4 warps owns 16 query rows of a 64-row tile and runs
-//   mma.sync m16n8k16 (bf16 in, fp32 accumulate) for S = Q K^T and for
-//   O += P V.  Q stays in registers as A fragments for the whole KV loop;
-//   the S accumulator fragment is re-packed in registers as the A fragment
-//   of P (no shared-memory round trip); the 64-key K and V tiles are staged
-//   in shared memory as bf16 with a padded row (D + 8 elements) so the
-//   fragment loads are free of bank conflicts (D = 64, 112 and 128).  P is rounded to bf16 for
-//   the PV product (the Pallas kernel keeps it fp32); the error stays far
-//   inside the bf16 tolerance of 2e-2.
-// * fp32: the tensor cores take no full-precision fp32, so a CUDA-core
-//   kernel keeps exact fp32 arithmetic (tolerance 2e-5): 128 threads, each
-//   owning a 4 x 8 block of the 64 x 64 score tile and 4 rows of the
-//   output (columns 32j + 4tx .. +3, the last group cut at D when D is not
-//   a multiple of 32, as for D = 112), with Q and K transposed in shared
-//   memory for 16-byte loads.
-// * Both keep the scores in the log2 domain (scale * log2(e), exp2f).
-// Not yet: cp.async/TMA double buffering and wgmma (later work).
+// What the design does about it (bf16, `flash_wgmma_kernel`):
+// * Warp specialisation.  A block of 3 warpgroups takes 128 query rows of
+//   one (batch, head) at a time.  Warpgroup 2 is the producer: one thread
+//   issues every copy, and the warpgroup gives its registers up
+//   (`setmaxnreg` 24).  Warpgroups 0 and 1 are consumers, 64 query rows
+//   each, with 240 registers (the 64 x D fp32 accumulator, the 64 x 128
+//   score tile and P).
+// * TMA into a ring.  The Q tile is loaded once per item; the K and V tiles
+//   (128 keys) of each live KV step go into a ring of 3 shared-memory
+//   stages (225 KB in all at D = 128), each completed on its own `mbarrier`
+//   (K and V apart, so Q K^T starts before V lands).  Consumers hand a
+//   stage back through an "empty" barrier and the Q tile through a "Q read"
+//   barrier.  The tensor maps are rank 4 over (D, S, heads, B) with the
+//   caller's byte strides, so contiguous (B,H,S,D) tensors and transposed
+//   (B,S,H,D) views are read alike; K/V are indexed by kv head, and rows
+//   past S come in as zeros.  The head dim is loaded as 64-column boxes
+//   with 128-byte swizzle; at D = 112 the second box runs past the tensor's
+//   112 columns and TMA fills columns 112-127 with zeros.
+// * `wgmma`.  S = Q K^T is m64n128k16 with both operands in shared memory
+//   (K is K-major, no transpose; D/16 k-steps, 7 at D = 112).  O += P V is
+//   m64nDk16 with P from registers: the fp32 score fragment of keys
+//   16j..16j+15, packed pairwise to bf16, is the A fragment of k-step j, so
+//   P never touches shared memory.  V (keys x D) is MN-major for this
+//   product and is read with the transpose bit.
+// * Softmax beside the products.  Each consumer issues S = Q K^T of tile j
+//   and O += P V of tile j - 1 back to back, then runs the softmax of tile j
+//   while P V is still in flight (the ordering of FlashAttention-3); O is
+//   rescaled just before its next P V is issued.
+// * Masks only where needed.  A KV tile is masked element by element only
+//   for a warpgroup whose rows it crosses on the diagonal, at the window's
+//   left edge, or at S; interior tiles go straight to the softmax, which
+//   keeps the raw scores and folds the scale into one FFMA per exp2.
+// * Persistent, in an L2-friendly order.  One block per SM walks the work
+//   items (q-tile, batch, head) round-robin.  The items come in groups of 8
+//   (batch, head) pairs, so a group's K/V stays in L2 while its q-tiles
+//   run, and inside a group the heaviest q-tiles (the last, which see the
+//   most keys under a causal mask) come first.  The producer runs ahead
+//   across items, so the next item's Q and K/V land while the consumers
+//   finish the current one.
+// * P is rounded to bf16 for the P V product (the Pallas kernel keeps it
+//   fp32); the error stays far inside the bf16 tolerance of 2e-2.
+// fp32 (`flash_f32_kernel`): the tensor cores take no full-precision fp32,
+// so a CUDA-core kernel keeps exact fp32 arithmetic (tolerance 2e-5): 128
+// threads, each owning a 4 x 8 block of the 64 x 64 score tile and 4 rows of
+// the output (columns 32j + 4tx .. +3, the last group cut at D when D is not
+// a multiple of 32, as for D = 112), with Q and K transposed in shared
+// memory for 16-byte loads.  Both kernels keep the scores in the log2
+// domain (scale * log2(e), exp2).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;
+constexpr int BQ = 64;          // fp32 kernel tile
 constexpr int BK = 64;
 constexpr int NTHREADS = 128;
 constexpr float NEG_INF = -1073741824.0f;   // -2^30, as the reference
@@ -59,9 +97,10 @@ struct Params {
   const void* v;
   void* o;
   Strides qs, ks, vs, os;
-  int H, KV, S;
+  int B, H, KV, S;
   int causal, window;
   float scale_log2;   // log2(e) / sqrt(D)
+  float neg_raw;      // NEG_INF / scale_log2: a masked raw score
 };
 
 __device__ __forceinline__ bool key_ok(int row, int col, const Params& p) {
@@ -80,16 +119,120 @@ __device__ __forceinline__ bool tile_live(int q0, int k0, const Params& p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync
+// bf16: TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+constexpr int BM = 128;               // query rows per block
+constexpr int BN = 128;               // keys per KV tile
+constexpr int NSTAGE = 3;             // K/V ring depth
+constexpr int NCONS = 2;              // consumer warpgroups (64 rows each)
+constexpr int WS_THREADS = (NCONS + 1) * 128;
+constexpr int SPAN = 64;              // bf16 columns in one 128-byte swizzle row
+constexpr int ORDER_GROUP = 8;        // (batch, head) pairs per item group
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;    // 128*24 + 256*240 <= 65536
+
+template <int D>
+struct Cfg {
+  static constexpr int DP = (D + SPAN - 1) / SPAN * SPAN;   // padded head dim
+  static constexpr int NCH = DP / SPAN;          // 64-column boxes per row
+  static constexpr int KSTEPS = D / 16;          // k-steps of Q K^T
+  static constexpr int TILE_Q = NCH * BM * 128;  // bytes
+  static constexpr int TILE_KV = NCH * BN * 128;
+  static constexpr int NBAR = 2 + 3 * NSTAGE;    // q, q read, k[], v[], empty[]
+  static constexpr int SMEM = 1024 + TILE_Q + 2 * NSTAGE * TILE_KV + 8 * NBAR;
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete.  A wait that outlasts
+// ~2^24 polls is a protocol fault: trap, so the launch fails instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 24)) asm volatile("trap;");
+  }
+}
+
+// One box of a rank-4 tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle.  `lbo`/`sbo` in bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) |
+         (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin the order of register reads and writes around asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -97,174 +240,401 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// D (64 x 128, fp32) (+)= A (64 x 16, smem) * B (128 x 16, smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// Copy rows [row0, row0 + 64) of a (S, D) bf16 slab into shared memory
-// (row stride LD), 16 bytes per thread and step; rows >= S become zeros.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(uint16_t* dst,
-                                               const uint16_t* src,
-                                               long long row_stride, int row0,
-                                               int S, int tid) {
-  constexpr int LD = D + 8;
-  constexpr int NCH = D / 8;
-  for (int c = tid; c < 64 * NCH; c += NTHREADS) {
-    const int r = c / NCH, ch = c % NCH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride +
-                                            ch * 8);
-    *reinterpret_cast<uint4*>(dst + r * LD + ch * 8) = val;
+// D (64 x 128, fp32) += A (64 x 16, registers) * B (16 x 128, smem,
+// MN-major: the transpose bit is set)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 112, fp32) += A (64 x 16, registers) * B (16 x 112, smem,
+// MN-major: the transpose bit is set)
+__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, smem,
+// MN-major: the transpose bit is set)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// The work items: (q-tile, batch, head).  They come in groups of
+// ORDER_GROUP (batch, head) pairs, so that the K/V a group reads stays in L2
+// while its q-tiles run; inside a group the heaviest q-tiles come first
+// (the last q-tile sees the most keys under a causal mask), and the heads of
+// one q-tile are adjacent, so heads sharing a kv head run together.
+struct Item {
+  int q0, b, h, kt_lo, kt_hi;   // live KV tiles: [kt_lo, kt_hi)
+};
+
+__device__ __forceinline__ Item work_item(int t, const Params& p) {
+  const int nbh = p.B * p.H;
+  const int nqt = (p.S + BM - 1) / BM;
+  const int grp = t / (ORDER_GROUP * nqt);
+  const int within = t - grp * ORDER_GROUP * nqt;
+  const int gsize = min(ORDER_GROUP, nbh - grp * ORDER_GROUP);
+  const int bh = grp * ORDER_GROUP + within % gsize;
+  Item w;
+  w.q0 = (nqt - 1 - within / gsize) * BM;
+  w.b = bh / p.H;
+  w.h = bh % p.H;
+  // the KV tiles the masks leave live form one range (the Pallas kernel's
+  // `live` test: k0 <= q0 + BM - 1 if causal, k0 + BN - 1 > q0 - window)
+  const int nkt = (p.S + BN - 1) / BN;
+  w.kt_hi = p.causal ? min(nkt, (w.q0 + BM - 1) / BN + 1) : nkt;
+  const int lo = w.q0 - p.window - BN + 2;   // least live k0
+  w.kt_lo = (p.window && lo > 0) ? (lo + BN - 1) / BN : 0;
+  return w;
+}
+
+// Scale-folded online softmax of one 64 x 128 score tile (raw scores in
+// `s`, turned into unnormalised probabilities), after the masks; returns
+// the factor the accumulator must be rescaled by, per fragment row.
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             float sc) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < 64; ++i)
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float msc[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+    mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+    alpha[j] = ex2((m[j] - mx[j]) * sc);
+    m[j] = mx[j];
+    msc[j] = mx[j] * sc;
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    s[i] = ex2(fmaf(s[i], sc, -msc[(i >> 1) & 1]));
+    rs[(i >> 1) & 1] += s[i];
+  }
+  l[0] = l[0] * alpha[0] + rs[0];
+  l[1] = l[1] * alpha[1] + rs[1];
+}
+
+// Masks of one tile for one warpgroup's rows: applied only where the tile
+// crosses the diagonal, the window's left edge or S.
+__device__ __forceinline__ void mask_tile(float (&s)[64], int k0, int row_lo,
+                                          int r, int c2, const Params& p) {
+  const bool edge = (k0 + BN > p.S) || (p.causal && k0 + BN - 1 > row_lo) ||
+                    (p.window && k0 <= row_lo + 63 - p.window);
+  if (!edge) return;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int row = row_lo + r + ((i >> 1) & 1) * 8;
+    const int col = k0 + (i >> 2) * 8 + c2 + (i & 1);
+    if (!key_ok(row, col, p)) s[i] = p.neg_raw;
   }
 }
 
+// P as bf16 A fragments: k-step j of P V takes the keys 16j .. 16j + 15.
+__device__ __forceinline__ void pack_p(const float (&s)[64],
+                                       uint32_t (&pa)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pa[j][e] = pack_bf16(s[8 * j + 2 * e], s[8 * j + 2 * e + 1]);
+}
+
+// S = Q K^T for one warpgroup: 64 rows x 128 keys, both operands K-major in
+// shared memory; issued, not waited for.
 template <int D>
-__global__ void __launch_bounds__(NTHREADS) flash_bf16_kernel(Params p) {
-  constexpr int LD = D + 8;
-  constexpr int KC = D / 16;   // k-steps of Q K^T
-  constexpr int ND = D / 8;    // n-tiles of the output
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* Qs = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* Ks = Qs + BQ * LD;
-  uint16_t* Vs = Ks + BK * LD;
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_wg,
+                                         uint32_t k_st) {
+#pragma unroll
+  for (int ks = 0; ks < Cfg<D>::KSTEPS; ++ks) {
+    const uint32_t off = (ks & 3) * 32;   // 16 columns = 32 bytes
+    wgmma_ss_n128(s, sw128_desc(q_wg + (ks >> 2) * BM * 128 + off, 16, 1024),
+                  sw128_desc(k_st + (ks >> 2) * BN * 128 + off, 16, 1024),
+                  ks > 0);
+  }
+}
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (p.H / p.KV);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+// O += P V, V (keys x D) MN-major in shared memory, read transposed;
+// issued, not waited for.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&pa)[8][4],
+                                         uint32_t v_st) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint64_t dv = sw128_desc(v_st + j * 16 * 128, BN * 128, 1024);
+    if constexpr (D == 128)
+      wgmma_rs_n128(o, pa[j], dv);
+    else if constexpr (D == 112)
+      wgmma_rs_n112(o, pa[j], dv);
+    else
+      wgmma_rs_n64(o, pa[j], dv);
+  }
+}
 
-  const uint16_t* qg = static_cast<const uint16_t*>(p.q) + b * p.qs.b +
-                       h * p.qs.h;
-  const uint16_t* kg = static_cast<const uint16_t*>(p.k) + b * p.ks.b +
-                       kvh * p.ks.h;
-  const uint16_t* vg = static_cast<const uint16_t*>(p.v) + b * p.vs.b +
-                       kvh * p.vs.h;
+// Persistent: gridDim.x blocks (at most one per SM) walk the work items
+// t = blockIdx.x + n * gridDim.x.  The producer runs ahead across items,
+// so the next item's Q and first K/V tiles land while the consumers finish
+// the current one.
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const Params p) {
+  using C = Cfg<D>;
+  extern __shared__ __align__(1024) unsigned char smem_ws[];
+  // 128-byte swizzled tiles want 1024-byte aligned bases
+  const uint32_t s_q = (smem_u32(smem_ws) + 1023u) & ~1023u;
+  const uint32_t s_k = s_q + C::TILE_Q;                // stage st: + st*TILE_KV
+  const uint32_t s_v = s_k + NSTAGE * C::TILE_KV;
+  const uint32_t bar_q = s_v + NSTAGE * C::TILE_KV;    // Q landed
+  const uint32_t bar_qe = bar_q + 8;                   // Q read by all
+  const uint32_t bar_k = bar_qe + 8;                   // [NSTAGE]
+  const uint32_t bar_v = bar_k + 8 * NSTAGE;           // [NSTAGE]
+  const uint32_t bar_e = bar_v + 8 * NSTAGE;           // [NSTAGE] K/V read
+  const int items = ((p.S + BM - 1) / BM) * p.B * p.H;
 
-  load_tile_bf16<D>(Qs, qg, p.qs.s, q0, p.S, tid);
+  const int wg = threadIdx.x / 128, tw = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_qe, 4 * NCONS);            // one arrival per consumer warp
+#pragma unroll
+    for (int st = 0; st < NSTAGE; ++st) {
+      mbar_init(bar_k + 8 * st, 1);
+      mbar_init(bar_v + 8 * st, 1);
+      mbar_init(bar_e + 8 * st, 4 * NCONS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  // A fragments of this warp's 16 query rows, kept for the whole KV loop.
-  const int r0 = warp * 16 + g;
-  uint32_t qa[KC][4];
+  if (wg == NCONS) {
+    // ---------------- producer: one thread issues every copy ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tw == 0) {
+      prefetch_map(&tm_q);
+      prefetch_map(&tm_k);
+      prefetch_map(&tm_v);
+      int it = 0;   // K/V tiles issued, over all items
+      for (int t = blockIdx.x, n = 0; t < items; t += gridDim.x, ++n) {
+        const Item w = work_item(t, p);
+        const int kvh = w.h / (p.H / p.KV);
+        mbar_wait(bar_qe, (n & 1) ^ 1);      // the first pass is free
+        mbar_expect_tx(bar_q, C::TILE_Q);
 #pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    qa[kc][0] = ld32(Qs + r0 * LD + kc * 16 + t * 2);
-    qa[kc][1] = ld32(Qs + (r0 + 8) * LD + kc * 16 + t * 2);
-    qa[kc][2] = ld32(Qs + r0 * LD + kc * 16 + 8 + t * 2);
-    qa[kc][3] = ld32(Qs + (r0 + 8) * LD + kc * 16 + 8 + t * 2);
-  }
-
-  float acc[ND][4];
+        for (int c = 0; c < C::NCH; ++c)
+          tma_load_4d(s_q + c * BM * 128, &tm_q, bar_q, c * SPAN, w.q0, w.h,
+                      w.b);
+        for (int kt = w.kt_lo; kt < w.kt_hi; ++kt, ++it) {
+          const int st = it % NSTAGE;
+          const uint32_t ph = (it / NSTAGE) & 1;
+          mbar_wait(bar_e + 8 * st, ph ^ 1);
+          mbar_expect_tx(bar_k + 8 * st, C::TILE_KV);
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-    acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF};
-  float l[2] = {0.f, 0.f};   // this thread's partial row sums
-  const int row_a = q0 + r0, row_b = row_a + 8;
-
-  const int nkt = (p.S + BK - 1) / BK;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * BK;
-    if (!tile_live(q0, k0, p)) continue;   // uniform across the block
-    __syncthreads();                       // previous tile fully read
-    load_tile_bf16<D>(Ks, kg, p.ks.s, k0, p.S, tid);
-    load_tile_bf16<D>(Vs, vg, p.vs.s, k0, p.S, tid);
-    __syncthreads();
-
-    // S = Q K^T: 16 rows x 64 keys per warp, as 8 n-tiles of 8 keys.
-    float s[8][4];
+          for (int c = 0; c < C::NCH; ++c)
+            tma_load_4d(s_k + st * C::TILE_KV + c * BN * 128, &tm_k,
+                        bar_k + 8 * st, c * SPAN, kt * BN, kvh, w.b);
+          mbar_expect_tx(bar_v + 8 * st, C::TILE_KV);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const uint16_t* kr = Ks + (nt * 8 + g) * LD + kc * 16 + t * 2;
-        mma_bf16(s[nt], qa[kc], ld32(kr), ld32(kr + 8));
+          for (int c = 0; c < C::NCH; ++c)
+            tma_load_4d(s_v + st * C::TILE_KV + c * BN * 128, &tm_v,
+                        bar_v + 8 * st, c * SPAN, kt * BN, kvh, w.b);
+        }
       }
     }
+  } else {
+    // ---------------- consumers: 64 query rows each ----------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int warp = tw / 32, lane = tw % 32;
+    const int r = warp * 16 + (lane >> 2);   // fragment rows r and r + 8
+    const int c2 = (lane & 3) * 2;           // fragment columns c2, c2 + 1
+    const float sc = p.scale_log2;
+    const uint32_t q_wg = s_q + wg * 64 * 128;   // this warpgroup's rows
+    int it = 0;                                  // K/V tiles consumed
+    for (int t = blockIdx.x, n = 0; t < items; t += gridDim.x, ++n) {
+      const Item w = work_item(t, p);
+      const int row_lo = w.q0 + 64 * wg;
+      mbar_wait(bar_q, n & 1);
+      if (row_lo >= p.S) {
+        // rows all past S: keep pace with the ring, compute nothing
+        for (int kt = w.kt_lo; kt < w.kt_hi; ++kt, ++it) {
+          const int st = it % NSTAGE;
+          const uint32_t ph = (it / NSTAGE) & 1;
+          mbar_wait(bar_k + 8 * st, ph);
+          mbar_wait(bar_v + 8 * st, ph);
+          if (lane == 0) mbar_arrive(bar_e + 8 * st);
+        }
+        if (lane == 0) mbar_arrive(bar_qe);
+        continue;
+      }
 
-    // Scale, mask, row max (rows g and g+8; a quad shares a row).
-    float mx[2] = {NEG_INF, NEG_INF};
+      float o[D / 2];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      float m[2] = {p.neg_raw, p.neg_raw};   // running max, raw scores
+      float l[2] = {0.f, 0.f};               // this thread's partial sums
+      float s[64], alpha[2];
+      uint32_t pa[8][4];                     // P of the previous tile
+
+      // first tile: S, softmax, P (the accumulator is still zero)
+      int st = it % NSTAGE;
+      uint32_t ph = (it / NSTAGE) & 1;
+      mbar_wait(bar_k + 8 * st, ph);
+      fence_regs(s);
+      wgmma_fence();
+      issue_qk<D>(s, q_wg, s_k + st * C::TILE_KV);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      mask_tile(s, w.kt_lo * BN, row_lo, r, c2, p);
+      softmax_tile(s, m, l, alpha, sc);
+      pack_p(s, pa);
+
+      // steady state: S of tile kt and O += P V of tile kt - 1 in flight
+      // together; the softmax of kt runs while P V of kt - 1 still does
+      for (int kt = w.kt_lo + 1; kt < w.kt_hi; ++kt) {
+        const int pst = st;
+        const uint32_t pph = ph;
+        ++it;
+        st = it % NSTAGE;
+        ph = (it / NSTAGE) & 1;
+        mbar_wait(bar_k + 8 * st, ph);
+        fence_regs(s);
+        wgmma_fence();
+        issue_qk<D>(s, q_wg, s_k + st * C::TILE_KV);
+        wgmma_commit();
+        fence_regs(s);
+        // O to the max of tile kt - 1, then O += P V of tile kt - 1
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = (e < 2) ? row_a : row_b;
-        const int col = k0 + nt * 8 + t * 2 + (e & 1);
-        const float x = key_ok(row, col, p) ? s[nt][e] * p.scale_log2 : NEG_INF;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+        mbar_wait(bar_v + 8 * pst, pph);
+        fence_regs(o);
+        wgmma_fence();
+        issue_pv<D>(o, pa, s_v + pst * C::TILE_KV);
+        wgmma_commit();
+        fence_regs(o);
+        wgmma_wait<1>();                     // S of kt is ready
+        fence_regs(s);
+        mask_tile(s, kt * BN, row_lo, r, c2, p);
+        softmax_tile(s, m, l, alpha, sc);
+        wgmma_wait<0>();                     // P V of kt - 1 is done
+        fence_regs(o);
+        if (lane == 0) mbar_arrive(bar_e + 8 * pst);
+        pack_p(s, pa);
+      }
+      if (lane == 0) mbar_arrive(bar_qe);    // every S of this item is done
+
+      // last P V
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      mbar_wait(bar_v + 8 * st, ph);
+      fence_regs(o);
+      wgmma_fence();
+      issue_pv<D>(o, pa, s_v + st * C::TILE_KV);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (lane == 0) mbar_arrive(bar_e + 8 * st);
+      ++it;
+
+      // epilogue: 1 / l over the quad's partial sums, bf16 stores of the D
+      // real columns of rows < S
+      float inv[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
+        l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
+        inv[j] = 1.f / fmaxf(l[j], 1e-30f);
+      }
+      uint16_t* og =
+          static_cast<uint16_t*>(p.o) + w.b * p.os.b + w.h * p.os.h;
+      const int row_a = row_lo + r, row_b = row_a + 8;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int col = j * 8 + c2;
+        if (row_a < p.S)
+          *reinterpret_cast<uint32_t*>(og + row_a * p.os.s + col) =
+              pack_bf16(o[4 * j] * inv[0], o[4 * j + 1] * inv[0]);
+        if (row_b < p.S)
+          *reinterpret_cast<uint32_t*>(og + row_b * p.os.s + col) =
+              pack_bf16(o[4 * j + 2] * inv[1], o[4 * j + 3] * inv[1]);
       }
     }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      alpha[i] = exp2f(m[i] - m_new);
-      m[i] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pv = exp2f(s[nt][e] - m[e >> 1]);
-        s[nt][e] = pv;
-        rs[e >> 1] += pv;
-      }
-    }
-    l[0] = l[0] * alpha[0] + rs[0];
-    l[1] = l[1] * alpha[1] + rs[1];
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      acc[nd][0] *= alpha[0];
-      acc[nd][1] *= alpha[0];
-      acc[nd][2] *= alpha[1];
-      acc[nd][3] *= alpha[1];
-    }
-
-    // O += P V: the S fragments of keys [16j, 16j+16) are the A fragment.
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      pa[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      pa[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      pa[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        // B fragment (k = key, n = head-dim column): keys 2t, 2t+1 (+8).
-        const uint16_t* vc = Vs + (j * 16 + t * 2) * LD + nd * 8 + g;
-        const uint32_t b0 = uint32_t(vc[0]) | (uint32_t(vc[LD]) << 16);
-        const uint32_t b1 = uint32_t(vc[8 * LD]) | (uint32_t(vc[9 * LD]) << 16);
-        mma_bf16(acc[nd], pa, b0, b1);
-      }
-    }
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    inv[i] = 1.f / fmaxf(l[i], 1e-30f);
-  }
-  uint16_t* og = static_cast<uint16_t*>(p.o) + b * p.os.b + h * p.os.h;
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) {
-    const int col = nd * 8 + t * 2;
-    if (row_a < p.S)
-      *reinterpret_cast<uint32_t*>(og + row_a * p.os.s + col) =
-          pack_bf16(acc[nd][0] * inv[0], acc[nd][1] * inv[0]);
-    if (row_b < p.S)
-      *reinterpret_cast<uint32_t*>(og + row_b * p.os.s + col) =
-          pack_bf16(acc[nd][2] * inv[1], acc[nd][3] * inv[1]);
   }
 }
 
@@ -462,9 +832,83 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-constexpr size_t smem_bf16(int D) { return size_t(3) * 64 * (D + 8) * 2; }
 constexpr size_t smem_f32(int D) {
   return (size_t(2) * D * LDT + size_t(64) * (D + 4) + size_t(64) * LDT) * 4;
+}
+
+// cuTensorMapEncodeTiled is a driver-API function; the library links only
+// the runtime, so it is fetched through the runtime's entry-point query.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+cudaError_t encode_fn(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (!cached) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || !ptr)
+      return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// Rank-4 bf16 map over (D, S, heads, B) with element strides (s, h, b); a
+// box is 64 columns x `rows` rows of one head, 128-byte swizzled.
+cudaError_t tensor_map(CUtensorMap* map, EncodeTiled encode, const void* ptr,
+                       int D, int S, int heads, int B, const Strides& st,
+                       int rows) {
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(heads),
+                              cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(st.s) * 2, cuuint64_t(st.h) * 2,
+                                 cuuint64_t(st.b) * 2};
+  const cuuint32_t box[4] = {cuuint32_t(SPAN), cuuint32_t(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);   // out of bounds reads as zeros
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
+  EncodeTiled encode;
+  cudaError_t err = encode_fn(&encode);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  if ((err = tensor_map(&tq, encode, p.q, D, p.S, p.H, p.B, p.qs, BM)) ||
+      (err = tensor_map(&tk, encode, p.k, D, p.S, p.KV, p.B, p.ks, BN)) ||
+      (err = tensor_map(&tv, encode, p.v, D, p.S, p.KV, p.B, p.vs, BN)))
+    return err;
+  auto kernel = flash_wgmma_kernel<D>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Cfg<D>::SMEM);
+  if (err != cudaSuccess) return err;
+  const int items = (p.S + BM - 1) / BM * p.H * p.B;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)))
+    return err;
+  const int grid = items < sms ? items : sms;   // persistent: <= 1 per SM
+  kernel<<<grid, WS_THREADS, Cfg<D>::SMEM, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -488,21 +932,23 @@ extern "C" int repro_flash_attention(
   p.ks = {k_sb, k_sh, k_ss};
   p.vs = {v_sb, v_sh, v_ss};
   p.os = {o_sb, o_sh, o_ss};
+  p.B = B;
   p.H = H;
   p.KV = KV;
   p.S = S;
   p.causal = causal;
   p.window = window;
   p.scale_log2 = LOG2E / sqrtf(float(D));
+  p.neg_raw = NEG_INF / p.scale_log2;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 1 && D == 64)
-    err = launch(flash_bf16_kernel<64>, grid, smem_bf16(64), st, p);
+    err = launch_bf16<64>(p, st);
   else if (dtype == 1 && D == 112)
-    err = launch(flash_bf16_kernel<112>, grid, smem_bf16(112), st, p);
+    err = launch_bf16<112>(p, st);
   else if (dtype == 1 && D == 128)
-    err = launch(flash_bf16_kernel<128>, grid, smem_bf16(128), st, p);
+    err = launch_bf16<128>(p, st);
   else if (dtype == 0 && D == 64)
     err = launch(flash_f32_kernel<64>, grid, smem_f32(64), st, p);
   else if (dtype == 0 && D == 112)

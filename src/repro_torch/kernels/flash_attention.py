@@ -1,10 +1,12 @@
 """Flash attention for Hopper: wrapper, plain version and cost model.
 
 Port of ``repro.kernels.flash_attention`` (the Pallas ``_attn_kernel``).
-The CUDA kernel is ``csrc/flash_attention.cu``: blocked online-softmax GQA
-attention with fp32 ``m``/``l``/``acc``, causal and sliding-window masks,
-skipping of fully masked KV tiles, and masking of a ragged sequence edge
-(any ``S``, unlike the Pallas kernel's ``S % bq == 0``).
+The CUDA kernels are in ``csrc/flash_attention.cu``: blocked online-softmax
+GQA attention with fp32 ``m``/``l``/``acc``, causal and sliding-window
+masks, skipping of fully masked KV tiles, and masking of a ragged sequence
+edge (any ``S``, unlike the Pallas kernel's ``S % bq == 0``).  bf16 runs on
+the tensor cores (TMA-fed ``wgmma``, warp-specialised, persistent); fp32 on
+the CUDA cores.
 
 On a CPU tensor :func:`flash_attention` computes the plain version
 (:func:`repro_torch.kernels.ref.attention_ref`); on a CUDA tensor it launches
@@ -68,6 +70,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"kernel head dim must be one of {HEAD_DIMS}, "
                          f"got {d}")
     o = torch.empty_like(q)
+    # 16-byte rows and bases: the fp32 kernel's vector loads, and the bf16
+    # kernel's TMA tensor maps (base and strides multiples of 16 bytes)
     vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
         if t.stride(-1) != 1 or any(st % vec for st in t.stride()[:3]) \

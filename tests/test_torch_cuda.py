@@ -50,11 +50,27 @@ def _close(got, want, tol):
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
 
 
+# The bf16 kernel's boundaries: its tiles are 128 query rows (two
+# warpgroups of 64) by 128 keys, so S runs across one row, the warpgroup
+# split, the tile edge and a second tile; every head dim it is built for;
+# GQA groups 1 and 4; windows that are not a multiple of the tile; and
+# non-causal with and without a window.
+FLASH_EDGES = [(2, 4, 4, s, d, True, 0) for s in (1, 63, 64, 65, 127, 128, 129,
+                                                 910) for d in (64, 112, 128)] + \
+    [(1, 8, 2, s, d, True, 0) for s in (1, 63, 64, 65, 127, 128, 129, 910)
+     for d in (64, 112, 128)] + \
+    [(1, 8, 2, 910, 128, True, 100), (1, 8, 2, 910, 112, True, 200),
+     (1, 4, 4, 910, 64, True, 100), (2, 4, 1, 910, 128, True, 200),
+     (2, 4, 1, 300, 128, False, 0), (1, 4, 4, 129, 112, False, 0),
+     (1, 8, 2, 910, 64, False, 150)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,kv,s,d,causal,window", [
     (2, 8, 2, 128, 64, True, 0), (1, 8, 4, 37, 128, True, 0),
     (2, 4, 4, 200, 64, False, 0), (1, 8, 2, 300, 128, True, 100),
-    (1, 4, 4, 150, 112, True, 0), (2, 8, 8, 64, 112, False, 0)])
+    (1, 4, 4, 150, 112, True, 0), (2, 8, 8, 64, 112, False, 0),
+    *FLASH_EDGES])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_matches_plain(cuda, rng, b, h, kv, s, d, causal,
                                     window, dtype):
@@ -80,6 +96,26 @@ def test_flash_kernel_reads_bshd_views_without_copies(cuda, rng):
     assert got.is_contiguous() and got.shape == q.shape
     want = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                              k.transpose(1, 2)).transpose(1, 2)
+    _close(got, want, TOL["attn"]["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [65, 910])
+@pytest.mark.parametrize("d", [64, 112, 128])
+def test_flash_kernel_bshd_views_match_plain(cuda, rng, s, d):
+    """The model's path: (B, S, H, D) activations through
+    ``ops.flash_attention_bshd``, which hands the kernel transposed views
+    (its tensor maps read them through their strides), GQA group 4."""
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda, torch.bfloat16) for shape in
+        ((2, s, 8, d), (2, s, 2, d), (2, s, 2, d)))
+    before = fa.launches
+    got = ops.flash_attention_bshd(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.shape == q.shape and got.stride() == q.stride()
+    want = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2)).transpose(1, 2)
     _close(got, want, TOL["attn"]["bfloat16"])
 
 

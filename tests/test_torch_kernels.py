@@ -227,3 +227,63 @@ def test_cpu_calls_launch_nothing_and_markers_carry_costs():
     assert session.regions[0][1] == fa.cost_estimate(
         (1, 4, 16, 16), 2, 4, causal=True)
     assert session.regions[1][1] == rms.cost_estimate((3, 16), 4)
+
+
+# -- chip_smoke.py's ptxas report ------------------------------------------------
+
+_PTXAS = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_c45a2b1818flash_wgmma_kernelILi{d}EEEv14CUtensorMap_stS1_S1_NS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_c45a2b1818flash_wgmma_kernelILi{d}EEEv14CUtensorMap_stS1_S1_NS_6ParamsE
+    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+"""
+_PTXAS_OTHERS = """\
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__74c2a8ec_10_rmsnorm_cu_a1f8713914rmsnorm_kernelIfEEvPKT_PKfPS1_xif' for 'sm_90a'
+ptxas info    : Function properties for _ZN43_GLOBAL__N__74c2a8ec_10_rmsnorm_cu_a1f8713914rmsnorm_kernelIfEEvPKT_PKfPS1_xif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 27 registers, used 1 barriers, 128 bytes smem
+ptxas info    : Compiling entry function '_ZN38_GLOBAL__N__025e8cd1_6_ssd_cu_f5ebf9df10ssd_kernelI13__nv_bfloat16EEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN38_GLOBAL__N__025e8cd1_6_ssd_cu_f5ebf9df10ssd_kernelI13__nv_bfloat16EEvNS_6ParamsE
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 121 registers, used 1 barriers
+"""
+
+
+def _chip_smoke(monkeypatch, tmp_path, text):
+    """``chip_smoke`` with its build directory pointed at a report."""
+    import importlib.util
+    import os
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(repo, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    monkeypatch.setattr(cs.kbuild, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(cs.kbuild, "source_hash", lambda: "h")
+    (tmp_path / "h").mkdir()
+    (tmp_path / "h" / cs.kbuild.PTXAS_LOG).write_text(text)
+    return cs
+
+
+def test_ptxas_report_names_every_instance(monkeypatch, tmp_path):
+    text = "".join(_PTXAS.format(d=d, spill=0) for d in (128, 112, 64))
+    cs = _chip_smoke(monkeypatch, tmp_path, text + _PTXAS_OTHERS)
+    rows = cs.ptxas_report()
+    assert [r["kernel"] for r in rows] == [
+        "flash_wgmma_kernel<128>", "flash_wgmma_kernel<112>",
+        "flash_wgmma_kernel<64>", "rmsnorm_kernel<f32>", "ssd_kernel<bf16>"]
+    assert rows[0] == {"kernel": "flash_wgmma_kernel<128>", "registers": 168,
+                       "spill_stores": 0, "spill_loads": 0}
+    assert rows[-1]["spill_stores"] == 4 and rows[-1]["registers"] == 121
+
+
+@pytest.mark.parametrize("dims,spill", [((128, 112, 64), 16),
+                                        ((128, 64), 0)])
+def test_ptxas_report_fails_a_spilling_or_missing_flash_instance(
+        monkeypatch, tmp_path, dims, spill):
+    text = "".join(_PTXAS.format(d=d, spill=spill if d == 112 else 0)
+                   for d in dims)
+    cs = _chip_smoke(monkeypatch, tmp_path, text)
+    with pytest.raises(AssertionError, match="flash_wgmma_kernel<112>"):
+        cs.ptxas_report()
