@@ -8,7 +8,8 @@ JAX package.  Phases, each reported on its own lines:
 1. build   -- compile the kernels from ``src/repro_torch/kernels/csrc``
               into ``build/repro_torch_kernels/`` and print the seconds;
               one ``ptxas:`` line per kernel instance (registers, spill
-              bytes; a bf16 flash instance that spills fails the run);
+              bytes; a bf16 flash or SSD instance, the ``wgmma`` ones,
+              that spills fails the run);
               print the card's name and power limit.
 2. kernels -- every kernel against its plain PyTorch version on the card,
               in bf16 and fp32, at the main paths' shapes (granite-3-8b
@@ -16,9 +17,11 @@ JAX package.  Phases, each reported on its own lines:
               112 and its SSD scan) plus a window, a ragged S or L, a
               non-causal and a strong-decay case: max abs error against the
               tolerance, kernel ms, plain ms, one library call's ms (none
-              for the SSD scan) and the bound in ms; flash rows also give
-              ms / library ms (``vs_library``) and bound / ms
-              (``frac_of_bound``).
+              for the SSD scan) and the bound in ms; flash and SSD rows
+              also give bound / ms (``frac_of_bound``) and TFLOP/s, flash
+              rows ms / library ms (``vs_library``); then the bf16
+              rmsnorm kernel against ``F.rms_norm`` at the served shapes,
+              medians of interleaved timings (``rmsnorm-interleaved``).
 3. serve   -- two models at full width and depth, random weights from a
               seed, bf16, each served by ServingEngine(max_batch=8,
               max_len=2048) with 8 requests of 256-1024 prompt tokens and
@@ -48,6 +51,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -90,7 +94,10 @@ SOURCES = {
 }
 # kernel entry points in csrc/, as ptxas names their instances
 KERNEL_NAMES = ("flash_wgmma_kernel", "flash_f32_kernel", "rmsnorm_kernel",
-                "ssd_kernel")
+                "ssd_wgmma_kernel", "ssd_f32_kernel")
+# bf16 instances that issue wgmma: a spill or a missing instance fails
+WGMMA_INSTANCES = tuple(f"flash_wgmma_kernel<{d}>" for d in fa.HEAD_DIMS) + \
+    ("ssd_wgmma_kernel",)
 MODELS = ("granite-3-8b", "zamba2-7b")   # served in this order
 SEED = 0
 N_REQUESTS, MAX_NEW = 8, 32
@@ -140,22 +147,24 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 def _instance(mangled: str) -> str:
-    """``flash_wgmma_kernel<128>``, ``ssd_kernel<bf16>``, ... from a
-    mangled entry-point name."""
+    """``flash_wgmma_kernel<128>``, ``rmsnorm_kernel<bf16>``,
+    ``ssd_wgmma_kernel``, ... from a mangled entry-point name."""
     for k in KERNEL_NAMES:
         if k in mangled:
             arg = mangled.split(k, 1)[1]
             m = re.match(r"ILi(\d+)E", arg)
             if m:
                 return f"{k}<{m.group(1)}>"
-            return f"{k}<{'bf16' if arg.startswith('I13__nv_bfloat16') else 'f32'}>"
+            if arg.startswith("I13__nv_bfloat16"):
+                return f"{k}<bf16>"
+            return f"{k}<f32>" if arg.startswith("If") else k
     return mangled
 
 
 def ptxas_report() -> list:
     """Registers and spill bytes of every kernel instance, read from the
-    ``ptxas -v`` report the build kept; raises if a bf16 flash instance
-    spills or is missing."""
+    ``ptxas -v`` report the build kept; raises if a ``wgmma`` instance
+    (bf16 flash, bf16 SSD) spills or is missing."""
     path = kbuild.BUILD_ROOT / kbuild.source_hash() / kbuild.PTXAS_LOG
     rows, cur = [], None
     for line in path.read_text().splitlines():
@@ -175,11 +184,11 @@ def ptxas_report() -> list:
         if m:
             cur["registers"] = int(m.group(1))
     by_name = {r["kernel"]: r for r in rows}
-    for d in fa.HEAD_DIMS:
-        r = by_name.get(f"flash_wgmma_kernel<{d}>")
+    for name in WGMMA_INSTANCES:
+        r = by_name.get(name)
         if r is None or r.get("spill_stores", 1) or r.get("spill_loads", 1):
-            raise AssertionError(f"flash_wgmma_kernel<{d}>: missing or "
-                                 f"spills in the ptxas report: {r}")
+            raise AssertionError(f"{name}: missing or spills in the ptxas "
+                                 f"report: {r}")
     return rows
 
 
@@ -286,6 +295,35 @@ def check_rmsnorm(gen, n, d, dtype, *, tag=""):
     return row
 
 
+def rmsnorm_vs_library(gen, plen: int, rounds: int = 11) -> list:
+    """The bf16 rmsnorm kernel against ``F.rms_norm`` (weight in x's dtype)
+    at the served shapes: prefill (granite, zamba2, zamba2's gated norm)
+    and decode.  Each value is the median over ``rounds`` timings taken in
+    turns (kernel, library, then library, kernel, ...), so drift on the
+    card falls on both alike."""
+    rows = []
+    for n, d in ((8 * plen, 4096), (8 * plen, 3584), (8 * plen, 7168),
+                 (8, 4096), (8, 3584)):
+        x = torch.randn((n, d), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        scale = 1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
+        scale_x = scale.to(x.dtype)
+        fns = {"kernel": lambda: rms.rmsnorm(x, scale),
+               "library": lambda: F.rms_norm(x, (d,), scale_x, 1e-5)}
+        times = {"kernel": [], "library": []}
+        for i in range(rounds):
+            for name in (("kernel", "library") if i % 2 == 0
+                         else ("library", "kernel")):
+                times[name].append(time_ms(fns[name], iters=50))
+        k = statistics.median(times["kernel"])
+        lib = statistics.median(times["library"])
+        row = {"shape": [n, d], "kernel_ms": k, "library_ms": lib,
+               "kernel_over_library": k / lib, "rounds": rounds}
+        log(f"rmsnorm-interleaved: {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
 def check_ssd(gen, b, l, h, g, dtype, *, decay=0.1, init=True, tag=""):
     """Times the kernel as the served path calls it: model-layout (B, L, H,
     P) x through ``ops.ssd_chunked_kernel``, with b/c strided slices of one
@@ -312,17 +350,16 @@ def check_ssd(gen, b, l, h, g, dtype, *, decay=0.1, init=True, tag=""):
     plain_ms = time_ms(lambda: ref.ssd_ref(*args), iters=3, warmup=1)
     costs = ssd.cost_estimate(args[0].shape, g, n, x.element_size(),
                               init_state=init)
-    # the bound is at the input dtype's peak (bf16: the tensor cores); the
-    # kernel itself computes in fp32 on the CUDA cores, whose bound is
-    # reported beside it
+    # the bound is at the input dtype's peak: bf16 on the tensor cores,
+    # where the bf16 kernel runs; fp32 on the CUDA cores, where the fp32
+    # kernel runs
     bound_ms, bound_by = bound(costs, dtype)
-    cc_ms, cc_by = bound(costs, torch.float32)
     row = {"name": "ssd_scan", "shape": [b, l, h, g, p, n],
            "dtype": str(dtype).replace("torch.", ""), "decay": decay,
            "init_state": init, "max_abs_err": err,
            "tol": TOL["ssd_scan"][dtype], "ms": ms, "plain_ms": plain_ms,
            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-           "bound_ms_cuda_cores": cc_ms, "bound_by_cuda_cores": cc_by,
+           "frac_of_bound": bound_ms / ms,
            "tflops": costs["flops"] / ms / 1e9}
     log(f"kernel-check {tag}: {json.dumps(row)}")
     return row
@@ -351,6 +388,7 @@ def kernel_checks(plen: int) -> dict:
         check_ssd(gen, 2, 37, 16, 2, dt, init=False, tag="ragged")
         check_ssd(gen, 2, 200, 8, 1, dt, decay=20.0, tag="strong-decay")
     check_flash(gen, 8, 32, 32, plen, 112, f32, tag="zamba2-prefill")
+    rmsnorm_vs_library(gen, plen)
     return {
         "granite-3-8b": {
             "flash_attention": check_flash(gen, 8, 32, 8, plen, 128, bf16,

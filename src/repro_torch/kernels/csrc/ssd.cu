@@ -10,9 +10,8 @@
 //   S_new = exp(a_total) S + B^T (x o exp(a_total - acs))
 // x (B,H,L,P) is already multiplied by dt, a (B,H,L) is fp32, b/c
 // (B,G,L,N) are shared by the H / G heads of a group (head h reads group
-// h / (H / G): a broadcast costs no copy).  All arithmetic is fp32; the
-// state is fp32 and carried across a sequential chunk loop inside the
-// block.  P = N = 64.
+// h / (H / G): a broadcast costs no copy).  The state is fp32, carried
+// across a sequential chunk loop inside the block, P = N = 64.
 //
 // Where it differs from the Pallas kernel, and why:
 // * It writes the final state, (B,H,P,N) fp32 as the model keeps it: the
@@ -20,40 +19,77 @@
 // * It takes any L.  Steps past L in the last chunk are masked: their x, b,
 //   c and a are zero, so they add nothing to y or the state and do not
 //   decay it, and their y is not stored.
-// * The chunk is this kernel's tile choice (64 steps, sized to shared
-//   memory), not the caller's; the result does not depend on it beyond
-//   rounding.
+// * The chunk is this kernel's tile choice (64 steps), not the caller's;
+//   the result does not depend on it beyond rounding.
+// * Every exponent is clamped at 0 (the reference's invariant that every
+//   exp argument is <= 0), so a cumulative sum that is not monotone by an
+//   ulp cannot overflow.
 //
 // What bounds it on the H100: the four chunk products do
 // 2*C*(N+P) + 4*N*P = 32768 operations per step against ~260 bytes moved
 // per step in bf16 (x and y of one head, b/c shared by the heads, a).  On
-// the CUDA cores in fp32, as this first version runs them, that is above
-// the balance point, so the kernel is bound by operations; on the bf16
-// tensor cores (mma.sync / wgmma, later work) it would be bound by bytes.
+// the bf16 tensor cores that is below the balance point (~295 operations a
+// byte), so bf16 is bound by bytes: 0.0726 ms at zamba2's served shape
+// (B=8, L=910, H=112, one group).  fp32 runs on the CUDA cores, where the
+// same work is bound by operations.
 //
-// What the design does about it: one block of 256 threads per (batch,
-// head), 2 blocks per SM.  Each chunk is staged once in shared memory as
-// fp32 (x row-major; b and c transposed so a thread's four rows are one
-// 16-byte load), and every product gives each thread a 4 x 4 tile of a
-// 64 x 64 result, read as float4 pairs from shared memory (16 FMAs per two
-// loads).  The within-chunk product skips the key steps past the thread's
-// last row (causal).  The cumulative sums are taken sequentially in one
-// order by every thread that needs them, so acs is monotone and every exp
-// argument is <= 0 (the reference's stability invariant).  The state
-// lives in registers (each thread owns a 4 x 4 tile of the 64 x 64 state)
-// and is copied to shared memory once per chunk for the C S product.
+// bf16 (`ssd_wgmma_kernel`), what the design does about it:
+// * Tensor cores with split operands.  Per chunk and head, G = C B^T comes
+//   from the bf16 inputs in one m64n64k64 `wgmma` product (exact products,
+//   fp32 sums).  The other three products each have an fp32 operand -- the
+//   masked, decayed G_h = G o exp(acs_i - acs_j) [i >= j], the chunk-start
+//   state S, and x o w with w_j = exp(a_total - acs_j) -- and rounding that
+//   operand once to bf16 fails the bf16 check (2e-2 against the sequential
+//   recurrence) at the served length.  Each is split into hi = bf16(v) and
+//   lo = bf16(v - hi) and run as two products into one fp32 accumulator:
+//   7 passes of 64 x 64 x 64 a chunk where the function needs 4, ~0.05 ms
+//   of tensor-core time at the served shape, under the bytes bound.
+// * The state lives in `wgmma` accumulator registers (fp32, P x N, the
+//   model's layout, so `init` loads into it and the final state stores out
+//   of it) for the whole chunk loop.  Once a chunk its hi/lo parts go to
+//   shared memory as the K-major B operand of y = C S^T; the rows of that
+//   product are scaled by exp(acs_i) in registers, and G_h x accumulates
+//   into the same registers with G_h's hi/lo parts as the register A
+//   operand (no shared memory).  The update S = exp(a_total) S +
+//   (x o w)^T B reads x o w (written as hi/lo into the buffer that held S)
+//   and b transposed from shared memory: `wgmma` reads bf16 operands in
+//   either major order, so nothing is transposed by hand.
+// * Heads of one group share b and c.  A block of three warpgroups takes
+//   three heads of one (batch, group); each chunk's b and c tiles are
+//   loaded once for all three.  Each warpgroup computes its own C B^T (one
+//   pass of its seven: sharing it would move 16 KB of fp32 through shared
+//   memory a chunk).  One block an SM (133 KB of shared memory, 168
+//   registers a thread, no spills): zamba2's 896 (batch, head) items run
+//   as 304 blocks (38 a batch, the last with one head) in 2.3 waves.  Two
+//   blocks of two warpgroups an SM ran ~10% faster but need <= 128
+//   registers, where ptxas spills.
+// * TMA-fed chunks.  x, b and c arrive by TMA (128-byte swizzled 64 x 64
+//   tiles, rows past L zero-filled) into a ring of two chunk stages, each
+//   completed on an mbarrier; one thread refills the stage the last chunk
+//   used as soon as every warpgroup has released it, so chunk k + 1 loads
+//   while chunk k computes.  The decays are fp32 with stride H along L in
+//   the served layout and come by `cp.async`, a chunk ahead.
+// * Cumulative decays by a warp scan (5 shuffle steps) instead of a serial
+//   loop; exponents clamped at 0 as above.
+//
+// fp32 (`ssd_f32_kernel`): the tensor cores take no full-precision fp32,
+// so a CUDA-core kernel keeps exact fp32 arithmetic (tolerance 2e-3): one
+// block of 256 threads per (batch, head), 2 blocks per SM.  Each chunk is
+// staged in shared memory (x row-major; b and c transposed so a thread's
+// four rows are one 16-byte load), and every product gives each thread a
+// 4 x 4 tile of a 64 x 64 result.  The within-chunk product skips the key
+// steps past the thread's last row (causal).  The cumulative sums are taken
+// sequentially in one order by every thread that needs them, so acs is
+// monotone.  The state lives in registers (a 4 x 4 tile per thread) and is
+// copied to shared memory once per chunk for the C S product.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int C = 64;          // steps per chunk
 constexpr int P = 64;          // head dim
 constexpr int N = 64;          // state dim
-constexpr int NT = 256;        // threads per block: a 16 x 16 grid of 4 x 4 tiles
-constexpr int LDS = 68;        // row stride (floats) of the 64-wide tiles
 
 struct Params {
   const void* x;
@@ -68,93 +104,437 @@ struct Params {
   long long b_sb, b_sg, b_sl;
   long long c_sb, c_sg, c_sl;
   long long y_sb, y_sh, y_sl;
-  int H, L, heads_per_group;
+  int B, H, G, L, heads_per_group;
 };
 
-template <typename T>
-struct Io;
+// ---------------------------------------------------------------------------
+// bf16: TMA + wgmma, split-bf16 operands
+// ---------------------------------------------------------------------------
 
-template <>
-struct Io<float> {
-  static constexpr int V = 4;   // elements per 16-byte load
-  __device__ static void load(const float* p, float (&f)[4]) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    f[0] = v.x;
-    f[1] = v.y;
-    f[2] = v.z;
-    f[3] = v.w;
-  }
-  __device__ static void store4(float* p, const float (&f)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-  }
-};
+constexpr int NC = 3;                      // warpgroups (heads) per block
+constexpr int NS = 2;                      // chunk stages in the ring
+constexpr int WG_THREADS = NC * 128;
+constexpr int TILE = C * 128;              // one 64 x 64 bf16 tile, bytes
+constexpr int STAGE = (NC + 2) * TILE;     // x of each head, b, c
+constexpr int BUF = 2 * TILE;              // a warpgroup's hi/lo operand
+constexpr int VEC = 5 * C + 4;             // acs, exp(acs), w, exp(a_total),
+                                           // a of two chunks
+constexpr int WG_SMEM = 1024 + NS * STAGE + NC * BUF + 16 * NS +
+                        NC * VEC * 4;
 
-template <>
-struct Io<__nv_bfloat16> {
-  static constexpr int V = 8;
-  __device__ static void load(const __nv_bfloat16* p, float (&f)[8]) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+// D (64 x 64, fp32) (+)= A (64 x 16) * B (16 x 64), both from shared
+// memory; TA / TB set the transpose bit of an MN-major operand.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// A 64 x 64 tile, K-major (rows of 64 bf16, the reduction along the row):
+// k-step ks starts 16 columns (32 bytes) further along each row.
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int ks) {
+  return sw128_desc(tile + ks * 32, 16, 1024);
+}
+
+// A 64 x 64 tile, MN-major (the reduction runs down the rows): k-step ks
+// starts 16 rows further down.
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int ks) {
+  return sw128_desc(tile + ks * 16 * 128, TILE, 1024);
+}
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Make this thread's shared-memory writes visible to wgmma and TMA.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Shared-memory accesses by 32-bit address (no 64-bit generic pointers
+// held across the chunk loop).
+__device__ __forceinline__ void sts_u32(uint32_t a, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(a), "r"(v) : "memory");
+}
+__device__ __forceinline__ void sts_v4(uint32_t a, const uint32_t (&v)[4]) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+               "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+               : "memory");
+}
+__device__ __forceinline__ void sts_f2(uint32_t a, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(a), "f"(x),
+               "f"(y)
+               : "memory");
+}
+__device__ __forceinline__ void lds_v4(uint32_t a, uint32_t (&v)[4]) {
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "r"(a)
+               : "memory");
+}
+__device__ __forceinline__ float lds_f(uint32_t a) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ float2 lds_f2(uint32_t a) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+// 4 bytes from global to shared memory, asynchronously; zeros if !valid.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// fp32 pair -> bf16 pairs hi = bf16(v) and lo = bf16(v - hi).
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - hf.x, v1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// One block: heads h0 .. h0 + NC - 1 of group g, batch blockIdx.y;
+// warpgroup w takes head h0 + w (a warpgroup past the group's last head
+// leaves at once).  Accumulator fragments (64 x 64 fp32, 32 a thread): row
+// r or r + 8 (r = 16 * warp + lane / 4), columns 8q + c2, 8q + c2 + 1
+// (c2 = 2 * (lane % 4)); element 4q + 2 * half + {0, 1}.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                     const __grid_constant__ CUtensorMap tm_b,
+                     const __grid_constant__ CUtensorMap tm_c,
+                     const Params p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // 128-byte swizzled tiles want 1024-byte aligned bases
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_buf = base + NS * STAGE;            // [NC] hi, lo
+  const uint32_t bar_full = s_buf + NC * BUF;          // [NS] chunk landed
+  const uint32_t bar_empty = bar_full + 8 * NS;        // [NS] chunk read
+
+  const int nhb = (p.heads_per_group + NC - 1) / NC;
+  const int g = blockIdx.x / nhb;
+  const int h0 = g * p.heads_per_group + (blockIdx.x % nhb) * NC;
+  const int nact = min(NC, (g + 1) * p.heads_per_group - h0);
+  const int bb = blockIdx.y;
+  const int wg = threadIdx.x / 128, tw = threadIdx.x % 128;
+  const int warp = tw / 32, lane = tw % 32;
+  const int nchunks = (p.L + C - 1) / C;
+
+  if (threadIdx.x == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 v = __bfloat1622float2(h[i]);
-      f[2 * i] = v.x;
-      f[2 * i + 1] = v.y;
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 4 * nact);   // one arrival a warp
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __device__ static void store4(__nv_bfloat16* p, const float (&f)[4]) {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(f[0], f[1]);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(f[2], f[3]);
-    uint2 raw;
-    raw.x = *reinterpret_cast<uint32_t*>(&lo);
-    raw.y = *reinterpret_cast<uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(p) = raw;
+  __syncthreads();
+  if (wg >= nact) return;
+
+  // chunk k into stage k % NS: x of each live head, b and c (one thread)
+  auto issue = [&](int k) {
+    const int s = k % NS;
+    const uint32_t st = base + s * STAGE, bar = bar_full + 8 * s;
+    mbar_expect_tx(bar, (nact + 2) * TILE);
+    for (int i = 0; i < nact; ++i)
+      tma_load_4d(st + i * TILE, &tm_x, bar, 0, k * C, h0 + i, bb);
+    tma_load_4d(st + NC * TILE, &tm_b, bar, 0, k * C, g, bb);
+    tma_load_4d(st + (NC + 1) * TILE, &tm_c, bar, 0, k * C, g, bb);
+  };
+  if (threadIdx.x == 0) {
+    prefetch_map(&tm_x);
+    prefetch_map(&tm_b);
+    prefetch_map(&tm_c);
+    for (int k = 0; k < NS && k < nchunks; ++k) issue(k);
   }
-};
+
+  const int h = h0 + wg;
+  const int r = warp * 16 + (lane >> 2);
+  const int c2 = (lane & 3) * 2;
+  const uint32_t buf_hi = s_buf + wg * BUF, buf_lo = buf_hi + TILE;
+  // fp32 vectors of the chunk: acs, exp(acs_i), exp(a_total - acs_j),
+  // exp(a_total)
+  const uint32_t acs = bar_empty + 8 * NS + wg * VEC * 4;
+  const uint32_t ein = acs + C * 4, wout = ein + C * 4, dec = wout + C * 4;
+  const uint32_t a_ring = dec + 16;                    // [2][C] log decays
+
+  // the state, S[p][n] (rows p, columns n)
+  float s[32];
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float2 v = make_float2(0.f, 0.f);
+      if (p.init)
+        v = *reinterpret_cast<const float2*>(
+            p.init + (static_cast<long long>(bb) * p.H + h) * P * N +
+            (r + 8 * half) * N + 8 * q + c2);
+      s[4 * q + 2 * half] = v.x;
+      s[4 * q + 2 * half + 1] = v.y;
+    }
+
+  // this head's decays of chunk k into ring slot k % 2 (warp 0; lane l
+  // takes steps 2l and 2l + 1; steps past L read as 0)
+  auto fetch_a = [&](int k) {
+    const float* ag = p.a + bb * p.a_sb + h * p.a_sh;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int l = k * C + 2 * lane + e;
+      cp_async4(a_ring + ((k & 1) * C + 2 * lane + e) * 4,
+                l < p.L ? ag + l * p.a_sl : ag, l < p.L);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  if (warp == 0) fetch_a(0);
+
+  for (int k = 0; k < nchunks; ++k) {
+    const int st = k % NS;
+    const uint32_t ph = (k / NS) & 1;
+    const int l0 = k * C, nv = min(C, p.L - l0);
+    const uint32_t x_st = base + st * STAGE + wg * TILE;
+    const uint32_t b_st = base + st * STAGE + NC * TILE;
+    const uint32_t c_st = b_st + TILE;
+
+    // refill the stage chunk k - 1 used with chunk k + NS - 1
+    if (threadIdx.x == 0 && k >= 1 && k + NS - 1 < nchunks) {
+      mbar_wait(bar_empty + 8 * ((k - 1) % NS), ((k - 1) / NS) & 1);
+      issue(k + NS - 1);
+    }
+
+    // every read of the buffer and the decays by the last chunk is done
+    bar_sync(1 + wg, 128);
+    if (warp == 0) {
+      // inclusive scan of the chunk's log decays
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      const float2 av = lds_f2(a_ring + ((k & 1) * C + 2 * lane) * 4);
+      if (k + 1 < nchunks) fetch_a(k + 1);
+      float inc = av.x + av.y;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float t = __shfl_up_sync(0xffffffffu, inc, o);
+        if (lane >= o) inc += t;
+      }
+      float excl = __shfl_up_sync(0xffffffffu, inc, 1);
+      if (lane == 0) excl = 0.f;
+      const float tot = __shfl_sync(0xffffffffu, inc, 31);
+      const float a0 = excl + av.x, a1 = inc;
+      sts_f2(acs + lane * 8, a0, a1);
+      sts_f2(ein + lane * 8, __expf(fminf(a0, 0.f)), __expf(fminf(a1, 0.f)));
+      sts_f2(wout + lane * 8, __expf(fminf(tot - a0, 0.f)),
+             __expf(fminf(tot - a1, 0.f)));
+      if (lane == 0) sts_f2(dec, __expf(fminf(tot, 0.f)), 0.f);
+    }
+    // S as hi/lo bf16 into the buffer: row p, columns n, 128-byte swizzle
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r + 8 * half;
+        const int off = row * 128 + ((q ^ (row & 7)) << 4) + c2 * 2;
+        uint32_t hi, lo;
+        split2(s[4 * q + 2 * half], s[4 * q + 2 * half + 1], hi, lo);
+        sts_u32(buf_hi + off, hi);
+        sts_u32(buf_lo + off, lo);
+      }
+    fence_proxy_async();
+    mbar_wait(bar_full + 8 * st, ph);
+    bar_sync(1 + wg, 128);
+
+    // G = C B^T (bf16 inputs, one pass)
+    float gacc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss_n64<0, 0>(gacc, kmajor(c_st, ks), kmajor(b_st, ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(gacc);
+
+    // G_h = G o exp(acs_i - acs_j) for j <= i as hi/lo A fragments (k-step
+    // q / 2 holds columns 16 (q / 2) .. + 15)
+    uint32_t ghi[4][4], glo[4][4];
+    {
+      const float ai[2] = {lds_f(acs + r * 4), lds_f(acs + (r + 8) * 4)};
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int j = 8 * q + c2;
+        const float2 aj = lds_f2(acs + j * 4);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = r + 8 * half;
+          const float v0 = gacc[4 * q + 2 * half] *
+                           __expf(fminf(ai[half] - aj.x, 0.f)) *
+                           (i >= j ? 1.f : 0.f);
+          const float v1 = gacc[4 * q + 2 * half + 1] *
+                           __expf(fminf(ai[half] - aj.y, 0.f)) *
+                           (i >= j + 1 ? 1.f : 0.f);
+          split2(v0, v1, ghi[q >> 1][(q & 1) * 2 + half],
+                 glo[q >> 1][(q & 1) * 2 + half]);
+        }
+      }
+    }
+
+    // y = C S_hi^T + C S_lo^T, rows times exp(acs_i)
+    float y[32];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss_n64<0, 0>(y, kmajor(c_st, ks), kmajor(buf_hi, ks), ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss_n64<0, 0>(y, kmajor(c_st, ks), kmajor(buf_lo, ks), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(y);
+    {
+      const float e0 = lds_f(ein + r * 4), e1 = lds_f(ein + (r + 8) * 4);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) y[i] *= (i & 2) ? e1 : e0;
+    }
+
+    // y += G_h x, x (steps x P) read as an MN-major B
+    fence_regs(y);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_rs_n64(y, ghi[ks], mnmajor(x_st, ks));
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_rs_n64(y, glo[ks], mnmajor(x_st, ks));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(y);
+    uint16_t* yg = static_cast<uint16_t*>(p.y) + bb * p.y_sb + h * p.y_sh;
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int i = r + 8 * half;
+        if (i < nv)
+          *reinterpret_cast<uint32_t*>(yg + (l0 + i) * p.y_sl + 8 * q + c2) =
+              pack_bf16(y[4 * q + 2 * half], y[4 * q + 2 * half + 1]);
+      }
+
+    // x o w as hi/lo into the buffer (C S^T has read it): same swizzled
+    // offsets as the x tile, rows scaled by w_j
+#pragma unroll 1
+    for (int ch = tw; ch < C * 8; ch += 128) {
+      const float wj = lds_f(wout + (ch >> 3) * 4);
+      uint32_t in[4], hi[4], lo[4];
+      lds_v4(x_st + ch * 16, in);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&in[e]));
+        split2(f.x * wj, f.y * wj, hi[e], lo[e]);
+      }
+      sts_v4(buf_hi + ch * 16, hi);
+      sts_v4(buf_lo + ch * 16, lo);
+    }
+    fence_proxy_async();
+    bar_sync(1 + wg, 128);
+
+    // S = exp(a_total) S + (x o w)^T B: A = (x o w) and B = b, both
+    // MN-major (steps down the rows)
+    const float d = lds_f(dec);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= d;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss_n64<1, 1>(s, mnmajor(buf_hi, ks), mnmajor(b_st, ks), 1);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss_n64<1, 1>(s, mnmajor(buf_lo, ks), mnmajor(b_st, ks), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+  }
+
+  float* sg = p.state + (static_cast<long long>(bb) * p.H + h) * P * N;
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<float2*>(sg + (r + 8 * half) * N + 8 * q + c2) =
+          make_float2(s[4 * q + 2 * half], s[4 * q + 2 * half + 1]);
+}
+
+cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
+  EncodeTiled encode;
+  cudaError_t err = encode_fn(&encode);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tx, tb, tc;
+  if ((err = tensor_map_4d(&tx, encode, p.x, P, p.L, p.H, p.B, p.x_sl,
+                           p.x_sh, p.x_sb, C)) ||
+      (err = tensor_map_4d(&tb, encode, p.b, N, p.L, p.G, p.B, p.b_sl,
+                           p.b_sg, p.b_sb, C)) ||
+      (err = tensor_map_4d(&tc, encode, p.c, N, p.L, p.G, p.B, p.c_sl,
+                           p.c_sg, p.c_sb, C)))
+    return err;
+  err = cudaFuncSetAttribute(ssd_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             WG_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.G * ((p.heads_per_group + NC - 1) / NC), p.B);
+  ssd_wgmma_kernel<<<grid, WG_THREADS, WG_SMEM, stream>>>(tx, tb, tc, p);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// fp32: CUDA cores, exact fp32
+// ---------------------------------------------------------------------------
+
+constexpr int NT = 256;        // threads per block: a 16 x 16 grid of 4 x 4 tiles
+constexpr int LDS = 68;        // row stride (floats) of the 64-wide tiles
 
 // Rows [0, 64) of a (rows, 64) slab (row stride rs elements) into shared
-// memory as fp32; rows >= nv become zeros.  Row-major (dst[r][k]) with
+// memory; rows >= nv become zeros.  Row-major (dst[r][k]) with
 // neighbouring threads on neighbouring 16-byte pieces of a row, so the
 // global loads coalesce.
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long rs, int nv, int tid) {
-  constexpr int V = Io<T>::V;
-  constexpr int NCH = 64 / V;
-  for (int idx = tid; idx < 64 * NCH; idx += NT) {
-    const int r = idx / NCH, ch = idx % NCH;
-    float f[V];
-    if (r < nv) {
-      Io<T>::load(src + r * rs + ch * V, f);
-    } else {
-#pragma unroll
-      for (int k = 0; k < V; ++k) f[k] = 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < V; k += 4)
-      *reinterpret_cast<float4*>(dst + r * LDS + ch * V + k) =
-          make_float4(f[k], f[k + 1], f[k + 2], f[k + 3]);
+  for (int idx = tid; idx < 64 * 16; idx += NT) {
+    const int r = idx / 16, ch = idx % 16;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < nv) v = *reinterpret_cast<const float4*>(src + r * rs + ch * 4);
+    *reinterpret_cast<float4*>(dst + r * LDS + ch * 4) = v;
   }
 }
 
 // The same slab transposed (dst[k][r]); neighbouring threads take
 // neighbouring rows, so the transposed stores do not conflict.
-template <typename T>
-__device__ __forceinline__ void load_rows_t(float* dst, const T* src,
+__device__ __forceinline__ void load_rows_t(float* dst, const float* src,
                                             long long rs, int nv, int tid) {
-  constexpr int V = Io<T>::V;
-  constexpr int NCH = 64 / V;
-  for (int idx = tid; idx < 64 * NCH; idx += NT) {
+  for (int idx = tid; idx < 64 * 16; idx += NT) {
     const int r = idx % 64, ch = idx / 64;
-    float f[V];
-    if (r < nv) {
-      Io<T>::load(src + r * rs + ch * V, f);
-    } else {
-#pragma unroll
-      for (int k = 0; k < V; ++k) f[k] = 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < V; ++k) dst[(ch * V + k) * LDS + r] = f[k];
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < nv) v = *reinterpret_cast<const float4*>(src + r * rs + ch * 4);
+    dst[(ch * 4 + 0) * LDS + r] = v.x;
+    dst[(ch * 4 + 1) * LDS + r] = v.y;
+    dst[(ch * 4 + 2) * LDS + r] = v.z;
+    dst[(ch * 4 + 3) * LDS + r] = v.w;
   }
 }
 
@@ -172,8 +552,7 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT, 2) ssd_kernel(Params p) {
+__global__ void __launch_bounds__(NT, 2) ssd_f32_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   float* Xs = smem;              // [C][LDS]  x[j][p]
   float* Bt = Xs + C * LDS;      // [N][LDS]  b[j][n] as Bt[n][j]
@@ -192,11 +571,11 @@ __global__ void __launch_bounds__(NT, 2) ssd_kernel(Params p) {
   const int r0 = (tid >> 4) * 4;   // rows of this thread's tiles
   const int c0 = (tid & 15) * 4;   // columns of this thread's tiles
 
-  const T* xg = static_cast<const T*>(p.x) + bb * p.x_sb + h * p.x_sh;
+  const float* xg = static_cast<const float*>(p.x) + bb * p.x_sb + h * p.x_sh;
   const float* ag = p.a + bb * p.a_sb + h * p.a_sh;
-  const T* bg = static_cast<const T*>(p.b) + bb * p.b_sb + g * p.b_sg;
-  const T* cg = static_cast<const T*>(p.c) + bb * p.c_sb + g * p.c_sg;
-  T* yg = static_cast<T*>(p.y) + bb * p.y_sb + h * p.y_sh;
+  const float* bg = static_cast<const float*>(p.b) + bb * p.b_sb + g * p.b_sg;
+  const float* cg = static_cast<const float*>(p.c) + bb * p.c_sb + g * p.c_sg;
+  float* yg = static_cast<float*>(p.y) + bb * p.y_sb + h * p.y_sh;
   const long long st_off = (static_cast<long long>(bb) * p.H + h) * P * N;
 
   // This thread's tile of the state: S[r0 + i][c0 + q] (n = r0 + i,
@@ -217,9 +596,9 @@ __global__ void __launch_bounds__(NT, 2) ssd_kernel(Params p) {
     const int l0 = kc * C;
     const int nv = min(C, p.L - l0);   // steps of this chunk inside L
     __syncthreads();                   // the previous chunk is fully read
-    load_rows<T>(Xs, xg + l0 * p.x_sl, p.x_sl, nv, tid);
-    load_rows_t<T>(Bt, bg + l0 * p.b_sl, p.b_sl, nv, tid);
-    load_rows_t<T>(Ct, cg + l0 * p.c_sl, p.c_sl, nv, tid);
+    load_rows(Xs, xg + l0 * p.x_sl, p.x_sl, nv, tid);
+    load_rows_t(Bt, bg + l0 * p.b_sl, p.b_sl, nv, tid);
+    load_rows_t(Ct, cg + l0 * p.c_sl, p.c_sl, nv, tid);
     if (tid < C) As[tid] = tid < nv ? ag[(l0 + tid) * p.a_sl] : 0.f;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -282,10 +661,12 @@ __global__ void __launch_bounds__(NT, 2) ssd_kernel(Params p) {
         const int i = r0 + ii;
         if (i < nv) {
           const float e = Ein[i];
-          float out[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) out[q] = fmaf(e, yo[ii][q], yd[ii][q]);
-          Io<T>::store4(yg + (l0 + i) * p.y_sl + c0, out);
+          float4 out;
+          out.x = fmaf(e, yo[ii][0], yd[ii][0]);
+          out.y = fmaf(e, yo[ii][1], yd[ii][1]);
+          out.z = fmaf(e, yo[ii][2], yd[ii][2]);
+          out.w = fmaf(e, yo[ii][3], yd[ii][3]);
+          *reinterpret_cast<float4*>(yg + (l0 + i) * p.y_sl + c0) = out;
         }
       }
     }
@@ -326,14 +707,14 @@ __global__ void __launch_bounds__(NT, 2) ssd_kernel(Params p) {
         make_float4(s[0][q], s[1][q], s[2][q], s[3][q]);
 }
 
-constexpr size_t kSmem = (size_t(5) * 64 * LDS + 4 * C + 4) * sizeof(float);
+constexpr size_t kSmemF32 = (size_t(5) * 64 * LDS + 4 * C + 4) * sizeof(float);
 
-template <typename T>
-cudaError_t launch(dim3 grid, cudaStream_t stream, const Params& p) {
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kSmem));
+      ssd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(kSmemF32));
   if (err != cudaSuccess) return err;
-  ssd_kernel<T><<<grid, NT, kSmem, stream>>>(p);
+  ssd_f32_kernel<<<dim3(p.H, p.B), NT, kSmemF32, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -376,12 +757,13 @@ extern "C" int repro_ssd_scan(
   p.y_sb = y_sb;
   p.y_sh = y_sh;
   p.y_sl = y_sl;
+  p.B = B;
   p.H = H;
+  p.G = G;
   p.L = L;
   p.heads_per_group = H / G;
-  const dim3 grid(H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return int(launch<__nv_bfloat16>(grid, st, p));
-  if (dtype == 0) return int(launch<float>(grid, st, p));
+  if (dtype == 1) return int(launch_bf16(p, st));
+  if (dtype == 0) return int(launch_f32(p, st));
   return int(cudaErrorInvalidValue);
 }

@@ -1,9 +1,11 @@
 """Mamba2 SSD chunk scan for Hopper: wrapper, plain version and cost model.
 
 Port of ``repro.kernels.ssd`` (the Pallas ``_ssd_kernel``).  The CUDA
-kernel is ``csrc/ssd.cu``: a chunked scan with the fp32 state carried
+kernels are in ``csrc/ssd.cu``: a chunked scan with the fp32 state carried
 across a sequential chunk loop, that returns the final state and takes any
 ``L`` (the Pallas kernel drops the state and needs ``L % chunk == 0``).
+bf16 runs on the tensor cores (``wgmma``, TMA-fed chunks), fp32 on the CUDA
+cores.
 
 On a CPU tensor :func:`ssd_scan` computes the plain version
 (:func:`repro_torch.kernels.ref.ssd_ref`); on a CUDA tensor it launches the
@@ -56,6 +58,30 @@ def _validate(x, a, b, c, init_state) -> None:
         raise ValueError("all inputs must be on one device")
 
 
+def canonical_groups(b, c):
+    """b/c (B, G, L, N) as the kernel's tensor maps can address them.
+
+    A TMA map needs a nonzero stride for every dim it walks: b/c broadcast
+    over the heads as expanded views (group stride 0, all groups the same)
+    become one group, which every head reads; if only one of the two is
+    broadcast, that one is made dense so both keep G groups."""
+    g = b.shape[1]
+    if g > 1 and b.stride(1) == 0 and c.stride(1) == 0:
+        return b[:, :1], c[:, :1]
+    return tuple(t.contiguous() if g > 1 and t.stride(1) == 0 else t
+                 for t in (b, c))
+
+
+def kernel_strides(t) -> list:
+    """The (b, h|g, l) element strides handed to the kernel.  A dim of size
+    one is only ever read at index 0, so its stride (which PyTorch leaves
+    free: it may be 0 or odd) is given as the span of the other dims, a
+    valid TMA stride whenever theirs are."""
+    span = max(st * sz for st, sz in zip(t.stride(), t.shape) if sz > 1)
+    return [st if sz > 1 else span for st, sz in zip(t.stride()[:3],
+                                                     t.shape[:3])]
+
+
 def ssd_scan(x, a, b, c, init_state=None):
     """Chunked SSD scan.
 
@@ -78,17 +104,19 @@ def ssd_scan(x, a, b, c, init_state=None):
     if x.dtype not in DTYPE_CODES:
         raise ValueError(f"kernel takes float32 or bfloat16, got {x.dtype}")
     bsz, h, l, p = x.shape
-    g, n = b.shape[1], b.shape[-1]
+    n = b.shape[-1]
     if p != HEAD_DIM or n != STATE_DIM:
         raise ValueError(f"kernel is built for head dim {HEAD_DIM} and state "
                          f"dim {STATE_DIM}, got P={p}, N={n}")
     if bsz > 65535:
         raise ValueError(f"batch {bsz} exceeds the kernel's grid")
+    b, c = canonical_groups(b, c)
+    g = b.shape[1]
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     vec = 16 // x.element_size()
     for name, t in (("x", x), ("b", b), ("c", c), ("y", y)):
-        if t.stride(-1) != 1 or any(st % vec for st in t.stride()[:3]) \
+        if t.stride(-1) != 1 or any(st % vec for st in kernel_strides(t)) \
                 or t.data_ptr() % 16:
             raise ValueError(f"{name}: last dim must be contiguous and rows "
                              f"16-byte aligned (strides {t.stride()})")
@@ -99,8 +127,9 @@ def ssd_scan(x, a, b, c, init_state=None):
         x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
         None if init_state is None else init_state.data_ptr(),
         y.data_ptr(), state.data_ptr(), DTYPE_CODES[x.dtype], bsz, h, g, l,
-        *x.stride()[:3], *a.stride(), *b.stride()[:3], *c.stride()[:3],
-        *y.stride()[:3], torch.cuda.current_stream(x.device).cuda_stream)
+        *kernel_strides(x), *a.stride(), *kernel_strides(b),
+        *kernel_strides(c), *kernel_strides(y),
+        torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "ssd_scan")
     launches += 1
     return y, state

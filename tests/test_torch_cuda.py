@@ -235,14 +235,51 @@ def test_ssd_kernel_matches_plain(cuda, rng, b, l, h, g, decay, init, dtype):
     assert bool(torch.isfinite(y.float()).all())
 
 
+# The bf16 kernel's boundaries: chunks of 64 steps in a ring of two stages,
+# two heads of one group per block.  L runs across one chunk, the ring and
+# a ragged tail; head counts the two heads a block takes do not divide
+# (7 heads of one group; 2 groups of 3); one step; strong decay.
+SSD_EDGES = [(1, l, 4, 1, 0.1) for l in (63, 64, 65, 127, 128, 129, 192,
+                                         193, 300)] + \
+    [(2, 150, 7, 1, 0.1), (1, 130, 6, 2, 0.1), (2, 1, 7, 1, 0.5),
+     (1, 257, 4, 2, 20.0)]
+
+
 @pytest.mark.cuda
-def test_ssd_kernel_reads_a_zero_head_stride(cuda, rng):
+@pytest.mark.parametrize("b,l,h,g,decay", SSD_EDGES)
+@pytest.mark.parametrize("init", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_edges_match_plain(cuda, rng, b, l, h, g, decay, init,
+                                      dtype):
+    """(B, H, L, P) inputs as the wrapper takes them, b/c with G groups;
+    y and the final state against the sequential recurrence."""
+    dt = getattr(torch, dtype)
+
+    def arr(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda)
+    x = arr(b, h, l, 64).to(dt)
+    a = -decay * arr(b, h, l).abs()
+    bm, cm = arr(b, g, l, 64).to(dt), arr(b, g, l, 64).to(dt)
+    s0 = arr(b, h, 64, 64) if init else None
+    before = ssd.launches
+    y, state = ssd.ssd_scan(x, a, bm, cm, s0)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    want_y, want_state = ref.ssd_ref(x, a, bm, cm, s0)
+    _close(y, want_y, TOL["ssd"][dtype])
+    _close(state, want_state, TOL["ssd"][dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_reads_a_zero_head_stride(cuda, rng, dtype):
     """b/c broadcast over heads as an expanded view (head stride 0) give
     what the grouped layout gives."""
     b, l, h, n = 1, 70, 4, 64
     x, bm, cm = (torch.from_numpy(rng.standard_normal(s).astype(
-        np.float32)).to(cuda) for s in ((b, l, h, 64), (b, l, 1, n),
-                                        (b, l, 1, n)))
+        np.float32)).to(cuda, getattr(torch, dtype))
+        for s in ((b, l, h, 64), (b, l, 1, n), (b, l, 1, n)))
     a = -0.1 * torch.rand((b, l, h), device=cuda)
     y1, s1 = ops.ssd_chunked_kernel(x, a, bm, cm)
     y2, s2 = ops.ssd_chunked_kernel(x, a, bm.expand(b, l, h, n),

@@ -243,10 +243,16 @@ ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__74c2a8ec_10_rmsnorm_c
 ptxas info    : Function properties for _ZN43_GLOBAL__N__74c2a8ec_10_rmsnorm_cu_a1f8713914rmsnorm_kernelIfEEvPKT_PKfPS1_xif
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 27 registers, used 1 barriers, 128 bytes smem
-ptxas info    : Compiling entry function '_ZN38_GLOBAL__N__025e8cd1_6_ssd_cu_f5ebf9df10ssd_kernelI13__nv_bfloat16EEvNS_6ParamsE' for 'sm_90a'
-ptxas info    : Function properties for _ZN38_GLOBAL__N__025e8cd1_6_ssd_cu_f5ebf9df10ssd_kernelI13__nv_bfloat16EEvNS_6ParamsE
+ptxas info    : Compiling entry function '_ZN38_GLOBAL__N__025e8cd1_6_ssd_cu_f5ebf9df14ssd_f32_kernelENS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN38_GLOBAL__N__025e8cd1_6_ssd_cu_f5ebf9df14ssd_f32_kernelENS_6ParamsE
     8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 121 registers, used 1 barriers
+"""
+_PTXAS_SSD = """\
+ptxas info    : Compiling entry function '_ZN38_GLOBAL__N__025e8cd1_6_ssd_cu_f5ebf9df16ssd_wgmma_kernelE14CUtensorMap_stS0_S0_NS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN38_GLOBAL__N__025e8cd1_6_ssd_cu_f5ebf9df16ssd_wgmma_kernelE14CUtensorMap_stS0_S0_NS_6ParamsE
+    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads
+ptxas info    : Used 128 registers, used 16 barriers
 """
 
 
@@ -268,14 +274,30 @@ def _chip_smoke(monkeypatch, tmp_path, text):
 
 def test_ptxas_report_names_every_instance(monkeypatch, tmp_path):
     text = "".join(_PTXAS.format(d=d, spill=0) for d in (128, 112, 64))
-    cs = _chip_smoke(monkeypatch, tmp_path, text + _PTXAS_OTHERS)
+    cs = _chip_smoke(monkeypatch, tmp_path,
+                     text + _PTXAS_OTHERS + _PTXAS_SSD.format(spill=0))
     rows = cs.ptxas_report()
     assert [r["kernel"] for r in rows] == [
         "flash_wgmma_kernel<128>", "flash_wgmma_kernel<112>",
-        "flash_wgmma_kernel<64>", "rmsnorm_kernel<f32>", "ssd_kernel<bf16>"]
+        "flash_wgmma_kernel<64>", "rmsnorm_kernel<f32>", "ssd_f32_kernel",
+        "ssd_wgmma_kernel"]
     assert rows[0] == {"kernel": "flash_wgmma_kernel<128>", "registers": 168,
                        "spill_stores": 0, "spill_loads": 0}
-    assert rows[-1]["spill_stores"] == 4 and rows[-1]["registers"] == 121
+    # a CUDA-core instance that spills is reported, not failed
+    assert rows[-2]["spill_stores"] == 4 and rows[-2]["registers"] == 121
+    assert rows[-1] == {"kernel": "ssd_wgmma_kernel", "registers": 128,
+                        "spill_stores": 0, "spill_loads": 0}
+
+
+@pytest.mark.parametrize("ssd", ["spills", "missing"])
+def test_ptxas_report_fails_a_spilling_or_missing_ssd_wgmma_instance(
+        monkeypatch, tmp_path, ssd):
+    text = "".join(_PTXAS.format(d=d, spill=0) for d in (128, 112, 64))
+    if ssd == "spills":
+        text += _PTXAS_SSD.format(spill=4)
+    cs = _chip_smoke(monkeypatch, tmp_path, text + _PTXAS_OTHERS)
+    with pytest.raises(AssertionError, match="ssd_wgmma_kernel"):
+        cs.ptxas_report()
 
 
 @pytest.mark.parametrize("dims,spill", [((128, 112, 64), 16),

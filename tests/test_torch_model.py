@@ -305,8 +305,8 @@ def test_entry_points_need_cuda_by_default(monkeypatch):
 
 def _port_files():
     root = os.path.join(REPO, "src", "repro_torch")
-    files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "profile_serve.py")]
+    files = [os.path.join(REPO, n) for n in
+             ("chip_smoke.py", "profile_serve.py", "profile_ssd.py")]
     for d, _, names in os.walk(root):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return files
