@@ -37,9 +37,39 @@ JAX package.  Phases, each reported on its own lines:
               through the caches) must agree with a plain full forward, the
               same model code with every kernel wrapper swapped for its
               plain version: granite in bf16, zamba2 in fp32 (see serve()).
-4. the kernels line (JSON: every kernel at the zamba2-7b path's shapes with
-   its launches there, and per path the rows it was timed at), then the
-   last line ``{"ok": true, "device": {...}}``.
+4. train   -- once the served weights are freed, three parts:
+              (a) the RMSNorm backward kernel against ``ref.rmsnorm_bwd_ref``
+              and against autograd through ``ref.rmsnorm_ref``, at
+              granite's training shape (16384, 4096) in bf16 and fp32 and
+              at a ragged (4097, 1032): max abs error against the
+              tolerance (dscale, an fp32 sum, at fp32's tolerance whatever
+              x's dtype), ms, plain ms, the library's ms (the backward of
+              one ``F.rms_norm``, timed through ``torch.autograd.grad``) and
+              the bound; with the forward at the same shape;
+              (b) lms-demo at full config (8 layers, d=512): the first
+              batch's gradients leaf by leaf, then three AdamW steps of
+              ``make_train_step``, through the kernels against the same
+              code with the plain versions swapped in; the gradients, loss,
+              grad norm and param norm must agree within TRAIN_TOL (limits
+              set between the sound gaps and those of planted backward
+              faults, ``train_faults.py``);
+              (c) ``train()`` on granite-3-8b at full width, 8 of its 40
+              layers (fp32 params, grads and AdamW moments take 16 bytes a
+              parameter: all 40 layers need 131 GB), seq 2048, global batch
+              8, remat "minimal", bf16 compute, TRAIN_STEPS steps with a
+              recording stack: step time (median of steps 2-6), tokens/s,
+              MFU against the card's bf16 peak (model flops and the flops
+              ``FlopCounterMode`` counted), peak GB, finite losses, and
+              RMSNorm forward / backward launches equal to 17 norms a
+              forward plus 16 remat recomputes, and 17 backwards, for each
+              step (the loop counts flops on meta tensors, which launch
+              nothing).
+5. the kernels line (JSON: every kernel with its launches summed over the
+   paths driven -- serve granite, serve zamba2, train granite -- its
+   numbers at this path's shapes (zamba2's prefill for flash, SSD and the
+   forward RMSNorm; granite's training shape for the RMSNorm backward), and
+   per path its launches and the rows it was timed at), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no last line.
 """
@@ -55,7 +85,7 @@ import statistics
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -64,7 +94,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    ShapeConfig, TrainConfig, get_config)
+from repro_torch.data.pipeline import SyntheticTokenSource  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -72,8 +104,11 @@ from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.kernels import ssd  # noqa: E402
 from repro_torch.models.params import flatten, unflatten  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
-    forward, init_cache, init_model_params)
+    forward, init_cache, init_model_params, loss_fn)
 from repro_torch.serve.engine import ServingEngine  # noqa: E402
+from repro_torch.train.loop import train  # noqa: E402
+from repro_torch.train.step import (  # noqa: E402
+    batch_to_device, make_train_step)
 
 # H100 SXM published peaks (dense): HBM bytes/s, and FLOP/s by input type
 # (bf16 on the tensor cores; fp32 on the CUDA cores, which the fp32 kernels
@@ -82,6 +117,12 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {"flash_attention": {torch.bfloat16: 2e-2, torch.float32: 2e-5},
        "rmsnorm": {torch.bfloat16: 2e-2, torch.float32: 1e-5},
+       # dx: the forward's tolerances (fp32 arithmetic in both, dx rounded
+       # to x's dtype)
+       "rmsnorm_backward": {torch.bfloat16: 2e-2, torch.float32: 1e-5},
+       # dscale: an fp32 sum over the rows in the kernel and the plain
+       # version alike, whatever x's dtype, so fp32's tolerance in both
+       "rmsnorm_dscale": {torch.bfloat16: 1e-5, torch.float32: 1e-5},
        "ssd_scan": {torch.bfloat16: 2e-2, torch.float32: 2e-3}}
 MODEL_TOL = 5e-2          # model logits (bf16 in tests/test_kernels.py)
 SOURCES = {
@@ -89,11 +130,15 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:35"),
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:21"),
+    # the gradient of the same Pallas kernel, which has none of its own
+    "rmsnorm_backward": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                         "src/repro/kernels/rmsnorm.py:21"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd.cu",
                  "src/repro/kernels/ssd.py:26"),
 }
 # kernel entry points in csrc/, as ptxas names their instances
 KERNEL_NAMES = ("flash_wgmma_kernel", "flash_f32_kernel", "rmsnorm_kernel",
+                "rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel",
                 "ssd_wgmma_kernel", "ssd_f32_kernel")
 # bf16 instances that issue wgmma: a spill or a missing instance fails
 WGMMA_INSTANCES = tuple(f"flash_wgmma_kernel<{d}>" for d in fa.HEAD_DIMS) + \
@@ -102,6 +147,27 @@ MODELS = ("granite-3-8b", "zamba2-7b")   # served in this order
 SEED = 0
 N_REQUESTS, MAX_NEW = 8, 32
 MAX_BATCH, MAX_LEN = 8, 2048
+# Training (phase 4): granite-3-8b at full width, TRAIN_LAYERS of its 40
+# layers, TRAIN_SHAPE tokens a step; lms-demo for the kernel-vs-plain steps.
+TRAIN_MODEL, TRAIN_LAYERS, TRAIN_STEPS = "granite-3-8b", 8, 6
+TRAIN_SHAPE = ShapeConfig("train_2k", seq_len=2048, global_batch=8,
+                          kind="train")
+PARITY_SHAPE = ShapeConfig("parity", seq_len=512, global_batch=8,
+                           kind="train")
+# Kernel path vs plain path (relative gaps): the step-0 gradients leaf by
+# leaf (``grads``), then PARITY_STEPS AdamW steps' loss, grad norm and
+# param norm.  The two paths differ only where an fp32 sum taken in another
+# order rounds a norm's output or its dx to another bf16 value.  Each limit
+# lies between the sound kernel's largest gap and the planted backward
+# faults' (``train_faults.py`` on an H100): grads 3.7e-3 sound vs 0.13 and
+# more; loss 1.1e-4 vs 3.6e-3 and more for the dx faults; grad norm 6.4e-4
+# vs 9.0e-2 and more for the dx faults; param norm 3.2e-7 vs 7.8e-6 and
+# more for all but dscale without r.  The dscale faults move loss and grad
+# norm by 1.1e-4-1.7e-3, too close to the sound gaps to separate: the
+# gradient gap catches them (0.95 and 1.0).
+PARITY_STEPS = 3
+TRAIN_TOL = {"loss": 1e-3, "grad_norm": 1e-2, "param_norm": 2e-6,
+             "grads": 2e-2}
 
 
 def log(msg: str) -> None:
@@ -199,14 +265,16 @@ def bound(costs: dict, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(name: str, got, want, dtype) -> float:
-    """Max abs error; raises when |got - want| > tol * (1 + |want|)."""
+def compare(name: str, got, want, dtype, magnitude=None) -> float:
+    """Max abs error; raises when |got - want| > tol * (1 + m), m = |want|
+    or, for a sum whose terms cancel, the sum of their magnitudes."""
     tol = TOL[name][dtype]
     g, w = got.float(), want.float()
     err = (g - w).abs()
     if not bool(torch.isfinite(g).all()):
         raise AssertionError(f"{name}: non-finite output")
-    worst = float((err - tol * (1.0 + w.abs())).max())
+    m = w.abs() if magnitude is None else magnitude
+    worst = float((err - tol * (1.0 + m)).max())
     if worst > 0:
         raise AssertionError(f"{name}: error {float(err.max()):.3e} beyond "
                              f"tolerance {tol:g}")
@@ -290,6 +358,64 @@ def check_rmsnorm(gen, n, d, dtype, *, tag=""):
            "tol": TOL["rmsnorm"][dtype], "ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by,
+           "gbps": costs["bytes"] / ms / 1e6}
+    log(f"kernel-check {tag}: {json.dumps(row)}")
+    return row
+
+
+def dscale_magnitude(x, dy, eps: float = 1e-5):
+    """Sum over the rows of |dy x r|: the magnitude term of dscale's
+    tolerance."""
+    xf = x.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (dy.float().abs() * xf.abs() * r).reshape(-1, x.shape[-1]).sum(
+        dim=0)
+
+
+def check_rmsnorm_bwd(gen, n, d, dtype, *, tag=""):
+    """The backward kernel against the plain closed form and against
+    autograd through the plain forward; times it beside the plain version
+    and the backward of one ``F.rms_norm`` (weight in x's dtype)."""
+    dev = torch.device("cuda")
+    x = torch.randn((n, d), generator=gen, device=dev, dtype=dtype)
+    dy = torch.randn((n, d), generator=gen, device=dev, dtype=dtype)
+    scale = 1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+    eps = 1e-5
+    dx, dscale = rms.rmsnorm_bwd(x, scale, dy, eps=eps)
+    want_dx, want_ds = ref.rmsnorm_bwd_ref(x, scale, dy, eps=eps)
+    xr = x.detach().clone().requires_grad_()
+    sr = scale.detach().clone().requires_grad_()
+    ag_dx, ag_ds = torch.autograd.grad(ref.rmsnorm_ref(xr, sr, eps=eps),
+                                       (xr, sr), dy)
+    # dscale sums n products dy x r: its rounding grows with the sum of
+    # their magnitudes, which a small dscale (terms that cancel) hides
+    ds_mag = dscale_magnitude(x, dy, eps)
+    dx_err = max(compare("rmsnorm_backward", dx, want_dx, dtype),
+                 compare("rmsnorm_backward", dx, ag_dx, dtype))
+    ds_err = max(compare("rmsnorm_dscale", dscale, want_ds, dtype, ds_mag),
+                 compare("rmsnorm_dscale", dscale, ag_ds, dtype, ds_mag))
+    # the error as a share of its limit's magnitude term, for the record
+    ds_rel = float(((dscale - want_ds).abs() / (1.0 + ds_mag)).max())
+    del want_dx, want_ds, ag_dx, ag_ds, xr, sr, ds_mag
+    ms = time_ms(lambda: rms.rmsnorm_bwd(x, scale, dy, eps=eps), iters=20)
+    plain_ms = time_ms(lambda: ref.rmsnorm_bwd_ref(x, scale, dy, eps=eps),
+                       iters=5)
+    xl = x.detach().clone().requires_grad_()
+    wl = scale.to(dtype).requires_grad_()
+    yl = F.rms_norm(xl, (d,), wl, eps)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        yl, (xl, wl), dy, retain_graph=True), iters=20)
+    costs = rms.bwd_cost_estimate(x.shape, x.element_size())
+    bound_ms, bound_by = bound(costs, torch.float32)
+    row = {"name": "rmsnorm_backward", "shape": [n, d],
+           "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": max(dx_err, ds_err), "dx_err": dx_err,
+           "tol": TOL["rmsnorm_backward"][dtype], "dscale_err": ds_err,
+           "dscale_err_rel": ds_rel,
+           "dscale_tol": TOL["rmsnorm_dscale"][dtype], "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "vs_library": ms / library_ms, "frac_of_bound": bound_ms / ms,
            "gbps": costs["bytes"] / ms / 1e6}
     log(f"kernel-check {tag}: {json.dumps(row)}")
     return row
@@ -414,14 +540,26 @@ def kernel_checks(plen: int) -> dict:
 
 
 class Recorder:
-    """Minimal usermetric/markers hooks: keeps what the engine reports."""
+    """Minimal usermetric/markers hooks: keeps what the engine and the
+    training loop report."""
 
     def __init__(self):
         self.metrics = []
+        self.events = []
         self.regions = {}
+
+    @property
+    def markers(self):
+        return self
 
     def metric(self, name, fields, tags=None):
         self.metrics.append((name, dict(fields), tags))
+
+    def event(self, name, text):
+        self.events.append((name, text))
+
+    def flush(self):
+        pass
 
     def region(self, name, counters=None):
         return _Region(self, name, counters)
@@ -455,21 +593,64 @@ class _Region:
         return False
 
 
+class RecorderAgent:
+    """Host-agent hooks: keeps the step constants and the per-step times."""
+
+    def __init__(self):
+        self.constants = {}
+        self.steps = []
+
+    def set_step_constants(self, **kwargs):
+        self.constants.update(kwargs)
+
+    def collect_step(self, *, step, step_time_s, extra_events=None):
+        self.steps.append({"step": step, "step_time_s": step_time_s,
+                           **(extra_events or {})})
+
+
+class RecorderStack:
+    """The monitoring-stack hooks ``train()`` calls, recording what the
+    loop reports (the port's loop takes any such object)."""
+
+    def __init__(self):
+        self.um = Recorder()
+        self.agent = RecorderAgent()
+        self.jobs = []
+
+    @contextmanager
+    def job(self, job_id, user=None, hosts=None, tags=None):
+        self.jobs.append(job_id)
+        yield
+
+    def host_agent(self, host):
+        return self.agent
+
+    def usermetric(self, host=None):
+        return self.um
+
+    def on_finding(self, fn):
+        return fn
+
+    def findings(self):
+        return []
+
+
 @contextmanager
 def plain_kernels():
     """Within the block every kernel wrapper computes its plain version,
     on the card too (and counts no launch): the same model code then gives
     the plain forward the kernel path is held to."""
-    saved = (fa.flash_attention, rms.rmsnorm, ssd.ssd_scan)
+    saved = (fa.flash_attention, rms.rmsnorm, rms.rmsnorm_bwd, ssd.ssd_scan)
 
     def attention(q, k, v, *, causal=True, window=0, softcap=0.0):
         return ref.attention_ref(q, k, v, causal=causal, window=window)
-    fa.flash_attention, rms.rmsnorm, ssd.ssd_scan = (
-        attention, ref.rmsnorm_ref, ref.ssd_ref)
+    fa.flash_attention, rms.rmsnorm, rms.rmsnorm_bwd, ssd.ssd_scan = (
+        attention, ref.rmsnorm_ref, ref.rmsnorm_bwd_ref, ref.ssd_ref)
     try:
         yield
     finally:
-        fa.flash_attention, rms.rmsnorm, ssd.ssd_scan = saved
+        (fa.flash_attention, rms.rmsnorm, rms.rmsnorm_bwd,
+         ssd.ssd_scan) = saved
 
 
 def expected_launches(cfg, n_batches: int, n_forwards: int) -> dict:
@@ -480,11 +661,11 @@ def expected_launches(cfg, n_batches: int, n_forwards: int) -> dict:
         groups = cfg.num_layers // cfg.hybrid.attn_every
         norms = 2 * cfg.num_layers + 2 * groups + 1
         return {"flash_attention": groups * n_batches,
-                "rmsnorm": norms * n_forwards,
+                "rmsnorm": norms * n_forwards, "rmsnorm_backward": 0,
                 "ssd_scan": cfg.num_layers * n_batches}
     return {"flash_attention": cfg.num_layers * n_batches,
             "rmsnorm": (2 * cfg.num_layers + 1) * n_forwards,
-            "ssd_scan": 0}
+            "rmsnorm_backward": 0, "ssd_scan": 0}
 
 
 def serve(name: str) -> dict:
@@ -619,6 +800,163 @@ def model_check(params, cfg, prompt, steps: int = 3,
                                  pos=len(seq) - 1)
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: train
+# ---------------------------------------------------------------------------
+
+
+def train_kernel_checks() -> dict:
+    """The RMSNorm backward (and forward) kernels at granite's training
+    shape, plus fp32 and a ragged shape; returns the main path's rows."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    n = TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len
+    d = get_config(TRAIN_MODEL).d_model
+    rows = {"rmsnorm_backward": check_rmsnorm_bwd(
+        gen, n, d, torch.bfloat16, tag="train-main-path")}
+    check_rmsnorm_bwd(gen, n, d, torch.float32, tag="train")
+    check_rmsnorm_bwd(gen, 4097, 1032, torch.bfloat16, tag="ragged")
+    rows["rmsnorm"] = check_rmsnorm(gen, n, d, torch.bfloat16,
+                                    tag="train-main-path")
+    return rows
+
+
+def parity_run(swap=nullcontext, steps: int = PARITY_STEPS) -> dict:
+    """One lms-demo run (full config) from the seed's fp32 params: the
+    gradients of the first batch by leaf, then ``steps`` AdamW steps of
+    make_train_step, all within ``swap()`` (``plain_kernels`` for the plain
+    path).  Returns the per-step metrics, the gradients and the launches."""
+    cfg = get_config("lms-demo")
+    tcfg = TrainConfig(warmup_steps=0, total_steps=steps,
+                       learning_rate=1e-3, remat_policy="minimal")
+    step_fn, opt = make_train_step(cfg, tcfg)
+    params = init_model_params(cfg, seed=SEED, device="cuda")
+    state = opt.init(params)
+    source = SyntheticTokenSource(cfg.vocab_size, seed=SEED)
+    batches = []
+    for step in range(steps):
+        t = source.batch(step, PARITY_SHAPE.global_batch,
+                         PARITY_SHAPE.seq_len)
+        batches.append(batch_to_device(
+            {"tokens": t[:, :-1], "labels": t[:, 1:]}, "cuda"))
+    ops.reset_launch_counts()
+    metrics = []
+    with swap():
+        flat = {k: v.detach().requires_grad_()
+                for k, v in flatten(params).items()}
+        loss, _ = loss_fn(unflatten(flat), cfg, batches[0],
+                          attn_impl=tcfg.attn_impl, remat=tcfg.remat_policy)
+        grads = dict(zip(flat, torch.autograd.grad(loss,
+                                                   list(flat.values()))))
+        del flat, loss
+        for step, batch in enumerate(batches):
+            params, state, m = step_fn(params, state, batch, step)
+            metrics.append({k: float(m[k]) for k in TRAIN_TOL
+                            if k != "grads"})
+    counts = ops.launch_counts()
+    del params, state
+    return {"metrics": metrics, "grads": grads, "launches": counts}
+
+
+def parity_gaps(got: dict, want: dict) -> list:
+    """Relative gaps of ``got`` from ``want`` (two parity_run results): per
+    step the loss, grad norm and param norm, and at step 0 ``grads``, the
+    largest ||g - g_want|| / ||g_want|| over the leaves."""
+    grads = max(float((got["grads"][k] - g).norm() / g.norm())
+                for k, g in want["grads"].items())
+    return [{**{k: abs(a[k] - b[k]) / abs(b[k]) for k in a},
+             **({"grads": grads} if step == 0 else {})}
+            for step, (a, b) in enumerate(zip(got["metrics"],
+                                              want["metrics"]))]
+
+
+def train_parity() -> None:
+    """lms-demo at full config: the kernel path's gradients and AdamW steps
+    against the same code with the plain versions swapped in."""
+    cfg = get_config("lms-demo")
+    runs = {"kernels": parity_run(), "plain": parity_run(plain_kernels)}
+    norms = 2 * cfg.num_layers + 1
+    passes = PARITY_STEPS + 1                   # + the step-0 gradients
+    want = {"kernels": (passes * (norms + 2 * cfg.num_layers),
+                        passes * norms), "plain": (0, 0)}
+    for name, run in runs.items():
+        c = run["launches"]
+        if (c["rmsnorm"], c["rmsnorm_backward"]) != want[name]:
+            raise AssertionError(f"train parity {name}: launches {c}")
+    gaps = parity_gaps(runs["kernels"], runs["plain"])
+    for step, (a, b, rel) in enumerate(zip(runs["kernels"]["metrics"],
+                                           runs["plain"]["metrics"], gaps)):
+        log(f"train: parity lms-demo step {step}: kernels {json.dumps(a)} "
+            f"plain {json.dumps(b)} relative {json.dumps(rel)} "
+            f"(limits {json.dumps(TRAIN_TOL)})")
+        # "not <=" so that a NaN gap fails too
+        if not all(math.isfinite(v) for v in a.values()) or \
+                not all(v <= TRAIN_TOL[k] for k, v in rel.items()):
+            raise AssertionError("kernel-path training disagrees with the "
+                                 "plain path")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def train_run() -> dict:
+    """``train()`` on granite-3-8b at full width and TRAIN_LAYERS layers;
+    checks steps, finite losses and launch counts; returns the numbers."""
+    cfg = dataclasses.replace(get_config(TRAIN_MODEL),
+                              num_layers=TRAIN_LAYERS)
+    # the reference's schedule (100 warmup steps): these are a run's first
+    tcfg = TrainConfig(total_steps=TRAIN_STEPS, optimizer="adamw",
+                       remat_policy="minimal", seed=SEED)
+    st = RecorderStack()
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    result = train(cfg, tcfg, TRAIN_SHAPE, stack=st,
+                   job_id=f"chip-smoke-{TRAIN_MODEL}",
+                   step_callback=lambda s, m: losses.append(
+                       float(m["loss"])))
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+
+    norms = 2 * cfg.num_layers + 1              # ln1, ln2 a layer + final
+    recomputed = 2 * cfg.num_layers             # remat reruns ln1, ln2
+    passes = TRAIN_STEPS                        # flops count on meta
+    want = {"flash_attention": 0,
+            "rmsnorm": passes * (norms + recomputed),
+            "rmsnorm_backward": passes * norms, "ssd_scan": 0}
+    if counts != want:
+        raise AssertionError(f"train: launch counts {counts}, expected "
+                             f"{want}")
+    if result.steps_run != TRAIN_STEPS or len(losses) != TRAIN_STEPS or \
+            not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train: {result}, losses {losses}")
+    times = [s["step_time_s"] for s in st.agent.steps]
+    step_s = statistics.median(times[1:])
+    c = st.agent.constants
+    peak = PEAK_FLOPS[torch.bfloat16]
+    if c["PEAK_FLOPS"] != peak:
+        raise AssertionError(f"train: step constants carry peak "
+                             f"{c['PEAK_FLOPS']}, expected {peak}")
+    out = {"model": TRAIN_MODEL, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "params": cfg.param_count(),
+           "seq_len": TRAIN_SHAPE.seq_len,
+           "global_batch": TRAIN_SHAPE.global_batch,
+           "optimizer": tcfg.optimizer, "remat": tcfg.remat_policy,
+           "steps": result.steps_run, "wall_s": wall_s,
+           "step_times_s": times, "step_s_median_2_6": step_s,
+           "tokens_per_s": c["tokens_per_step"] / step_s,
+           "mfu_model_flops": c["model_flops"] / step_s / peak,
+           "mfu_counted_flops": c["hlo_flops"] / step_s / peak,
+           "model_flops": c["model_flops"], "counted_flops": c["hlo_flops"],
+           "peak_flops": peak, "peak_memory_gb": peak_gb, "losses": losses,
+           "launches": counts, "regions": sorted(st.um.regions)}
+    log(f"train: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -654,26 +992,36 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"serve: {name} phase {time.monotonic() - t0:.2f} s")
 
-    # Phase 4: kernels line (this slice's path, zamba2-7b, and per path the
-    # rows each kernel was timed at), then the result
-    path = MODELS[-1]
+    # Phase 4: train, once the served weights are freed
+    t0 = time.monotonic()
+    train_path = f"train:{TRAIN_MODEL}"
+    rows[train_path] = train_kernel_checks()
+    train_parity()
+    launches = {m: served[m]["launches"] for m in MODELS}
+    launches[train_path] = train_run()["launches"]
+    log(f"train: phase {time.monotonic() - t0:.2f} s")
+
+    # Phase 5: kernels line (launches summed over the paths; numbers at
+    # zamba2-7b's prefill shapes, the backward's at granite's training
+    # shape; per path the rows each kernel was timed at), then the result
     kernels = []
     for name, (src, replaces) in SOURCES.items():
-        r = rows[path][name]
+        r = rows[train_path if name == "rmsnorm_backward" else MODELS[-1]][
+            name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": served[path]["launches"][name],
+            "launches": sum(n[name] for n in launches.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **{k: r[k] for k in ("vs_library", "frac_of_bound") if k in r},
-            "paths": {m: {"launches": served[m]["launches"][name],
+            "paths": {p: {"launches": n[name],
                           "rows": [{k: v for k, v in rr.items()
                                     if k != "name"}
-                                   for key, rr in rows[m].items()
+                                   for rr in rows[p].values()
                                    if rr["name"] == name]}
-                      for m in MODELS if served[m]["launches"][name]}})
+                      for p, n in launches.items() if n[name]}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

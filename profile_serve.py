@@ -94,11 +94,14 @@ def union_length(intervals) -> float:
     return total
 
 
-def breakdown(trace: dict) -> dict:
+def breakdown(trace: dict, prefix: str = "serve:") -> dict:
+    """Per annotated phase whose name starts with ``prefix`` (the last one
+    of each name): wall, device-busy and idle share, kernel time by class
+    and the ten costliest kernels."""
     events = trace["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     phases = [e for e in events if e.get("cat") == "user_annotation"
-              and e.get("name", "").startswith("serve:")]
+              and e.get("name", "").startswith(prefix)]
     out = {}
     for ph in phases:
         t0, t1 = ph["ts"], ph["ts"] + ph["dur"]

@@ -7,8 +7,11 @@ from repro_torch.configs.base import (
     MoEConfig,
     ModelConfig,
     RWKVConfig,
+    SHAPES,
+    SMOKE_SHAPE,
     SSMConfig,
     ShapeConfig,
+    TrainConfig,
     available_archs,
     get_config,
     reduce_for_smoke,
@@ -21,8 +24,11 @@ __all__ = [
     "MoEConfig",
     "ModelConfig",
     "RWKVConfig",
+    "SHAPES",
+    "SMOKE_SHAPE",
     "SSMConfig",
     "ShapeConfig",
+    "TrainConfig",
     "available_archs",
     "get_config",
     "reduce_for_smoke",

@@ -1,8 +1,10 @@
 """Configuration system for the PyTorch port.
 
 A copy of the JAX package's ``configs/base.py`` (the port imports nothing of
-that package): :class:`ModelConfig` with its sub-configs, :class:`ShapeConfig`,
-the registry and the smoke reduction.  The registry lists only the
+that package): :class:`ModelConfig` with its sub-configs and parameter
+counts, :class:`ShapeConfig` with ``SHAPES`` and ``SMOKE_SHAPE``,
+:class:`TrainConfig`, the registry and the smoke reduction.  ``MeshConfig``
+and ``RunConfig`` wait for the distributed slice.  The registry lists only the
 architectures the port ships; other families arrive with their model code.
 """
 
@@ -168,6 +170,47 @@ class ModelConfig:
     def vocab_padded(self) -> int:
         return _round_up(self.vocab_size, self.vocab_pad_to)
 
+    def param_count(self) -> int:
+        """Approximate parameter count (embedding + blocks), for 6ND math.
+        Only the families the port ships are counted (dense GQA, and the
+        hybrid's Mamba2 layers plus shared attention blocks); MoE has no
+        experts here, so every parameter is active.  Other families' counts
+        arrive with their model code."""
+        if self.moe is not None or self.rwkv is not None or \
+                self.attention_type != "gqa" or self.family == "encdec":
+            raise NotImplementedError(
+                f"{self.name}: the port counts the parameters of dense GQA "
+                f"and hybrid configurations only")
+        d = self.d_model
+        n = self.vocab_padded * d                       # embedding
+        if not self.tie_embeddings:
+            n += self.vocab_padded * d                  # lm head
+        if self.family == "hybrid":
+            n += self._ssm_params() * self.num_layers
+            n += self._attn_params() * self.hybrid.num_shared_blocks
+        else:
+            mats = 3 if self.mlp_type == "swiglu" else 2
+            n += (self._attn_params() + mats * d * self.d_ff) * \
+                self.num_layers
+        return n
+
+    def _attn_params(self) -> int:
+        d, hd = self.d_model, self.head_dim
+        return d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd \
+            + self.num_heads * hd * d
+
+    def _ssm_params(self) -> int:
+        d = self.d_model
+        s = self.ssm
+        di = s.d_inner(d)
+        nh = s.num_heads(d)
+        conv_dim = di + 2 * s.n_groups * s.state_dim
+        p = d * (2 * di + 2 * s.n_groups * s.state_dim + nh)   # in_proj
+        p += conv_dim * s.conv_width
+        p += 2 * nh                                             # A_log, D
+        p += di * d                                             # out_proj
+        return p
+
 
 # --------------------------------------------------------------------------
 # Shapes
@@ -180,6 +223,53 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                       # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+# --------------------------------------------------------------------------
+# Train / run config
+# --------------------------------------------------------------------------
+
+
+@dataclass
+class TrainConfig:
+    """The reference's training settings, field for field.  The one-device
+    port reads none of ``scan_unroll`` (its layers run in a Python loop),
+    ``seq_parallel`` or ``grad_compression`` (no mesh, so no sharding and
+    no data-parallel exchange; a mesh raises): they are kept so a
+    configuration passes between the two packages unchanged."""
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    optimizer: str = "adamw"        # adamw | adafactor
+    num_microbatches: int = 1       # gradient accumulation
+    remat_policy: str = "minimal"   # none | minimal | full
+    grad_compression: str = "none"  # none | int8 | bf16  (DP all-reduce)
+    attn_impl: str = "masked"       # masked | recursive | flash (§Perf)
+    scan_unroll: int = 1            # layer-scan unroll factor
+    grad_sync_dtype: str = "float32"  # float32 | bfloat16 DP reduction
+    seq_parallel: bool = False      # Megatron-SP residual sharding (§Perf)
+    seed: int = 0
+    # LMS monitoring
+    monitor: bool = True
+    monitor_interval: int = 1       # emit metrics every N steps
+    halt_on_straggler: bool = False  # straggler finding -> elastic restart
+    # checkpointing
+    ckpt_dir: str = ""
+    ckpt_interval: int = 100
+    ckpt_keep: int = 3
 
 
 # --------------------------------------------------------------------------
@@ -283,3 +373,6 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     if cfg.rope_type == "mrope":
         c.mrope_sections = (4, 2, 2)   # sums to head_dim/2 = 8
     return c
+
+
+SMOKE_SHAPE = ShapeConfig("smoke", seq_len=32, global_batch=2, kind="train")

@@ -50,6 +50,14 @@ SIGNATURES = {
         _L, _I, _F,                     # rows, d, eps
         _P,                             # stream
     ],
+    "repro_rmsnorm_bwd": [
+        _P, _P, _P, _P,                 # x, scale, dy, dx
+        _P, _P,                         # partial scratch, dscale
+        _I,                             # dtype code
+        _L, _I, _F,                     # rows, d, eps
+        _I,                             # blocks (rows of the scratch)
+        _P,                             # stream
+    ],
     "repro_ssd_scan": [
         _P, _P, _P, _P, _P,             # x, a, b, c, init state (or null)
         _P, _P,                         # y, final state

@@ -12,6 +12,12 @@ analytic flops/bytes.  ``torch.cuda.synchronize()`` runs inside the region
 so its wall time is the kernel's.  Calls made while a CUDA graph is being
 captured are not instrumented (a sync is illegal there); uninstrumented
 calls pay one ``None`` check.
+
+Gradients: :func:`fused_rmsnorm` under grad goes through
+:class:`RMSNormFunction`, whose forward is the RMSNorm kernel and whose
+backward is the RMSNorm backward kernel (a ``kernel:rmsnorm_backward``
+region).  The flash and SSD wrappers have no backward, as their Pallas
+kernels have none.
 """
 
 from __future__ import annotations
@@ -39,12 +45,13 @@ def set_kernel_markers(session):
 def launch_counts() -> dict:
     """Kernel launches per kernel since the last reset."""
     return {"flash_attention": _fa.launches, "rmsnorm": _rms.launches,
-            "ssd_scan": _ssd.launches}
+            "rmsnorm_backward": _rms.bwd_launches, "ssd_scan": _ssd.launches}
 
 
 def reset_launch_counts() -> None:
     _fa.launches = 0
     _rms.launches = 0
+    _rms.bwd_launches = 0
     _ssd.launches = 0
 
 
@@ -74,7 +81,9 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0):
     return o.transpose(1, 2)
 
 
-def fused_rmsnorm(x, scale, *, eps: float = 1e-5):
+def _rmsnorm(x, scale, eps: float):
+    if _markers is None:
+        return _rms.rmsnorm(x, scale, eps=eps)
     m, region = _region(
         "rmsnorm", x, lambda: _rms.cost_estimate(x.shape, x.element_size()))
     with region:
@@ -82,6 +91,40 @@ def fused_rmsnorm(x, scale, *, eps: float = 1e-5):
         if m is not None:
             _sync(y)
     return y
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """RMSNorm with the kernel's gradient: forward = the RMSNorm kernel,
+    backward = the RMSNorm backward kernel (their plain versions on the
+    CPU).  Saves x and scale; r is recomputed in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rmsnorm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        m, region = _region(
+            "rmsnorm_backward", x,
+            lambda: _rms.bwd_cost_estimate(x.shape, x.element_size()))
+        with region:
+            dx, dscale = _rms.rmsnorm_bwd(x, scale, dy, eps=ctx.eps)
+            if m is not None:
+                _sync(dx)
+        return dx, dscale, None
+
+
+def fused_rmsnorm(x, scale, *, eps: float = 1e-5):
+    """RMSNorm over the last dim.  Under grad (grad mode on and x or scale
+    requiring it) through :class:`RMSNormFunction`; otherwise, as when
+    serving under ``inference_mode``, one direct forward call."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RMSNormFunction.apply(x, scale, eps)
+    return _rmsnorm(x, scale, eps)
 
 
 def ssd_chunked_kernel(x, dt_log_decay, b_mat, c_mat, init_state=None):

@@ -40,6 +40,20 @@ def rmsnorm_ref(x, scale, *, eps: float = 1e-5):
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
 
 
+def rmsnorm_bwd_ref(x, scale, dy, *, eps: float = 1e-5):
+    """Gradient of :func:`rmsnorm_ref` in fp32, from the closed form: with
+    g = dy * scale and r = rsqrt(mean(x^2) + eps) per row,
+    dx = r g - x r^3 mean(x g) and dscale = sum over rows of dy x r.
+    Returns (dx in x's dtype, dscale (d,) fp32)."""
+    d = x.shape[-1]
+    xf, dyf = x.float(), dy.float()
+    g = dyf * scale.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    dx = r * g - xf * r.pow(3) * (xf * g).mean(dim=-1, keepdim=True)
+    dscale = (dyf * xf * r).reshape(-1, d).sum(dim=0)
+    return dx.to(x.dtype), dscale
+
+
 def ssd_ref(x, a, b, c, init_state=None):
     """Sequential SSD recurrence (the definitional form).
 

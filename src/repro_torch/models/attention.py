@@ -1,5 +1,11 @@
-"""GQA attention: prefill + decode paths (port of ``repro.models.attention``).
+"""GQA attention: train, prefill and decode paths (port of
+``repro.models.attention``).
 
+* **train** runs, by ``attn_impl``: ``"masked"`` (the reference's default)
+  plain :func:`full_attention`; ``"recursive"``
+  :func:`recursive_causal_attention` for S >= 512 (else masked), as the
+  reference does; ``"flash"`` the flash kernel, forward only: under grad it
+  raises, as ``jax.grad`` through the reference's Pallas call fails.
 * **prefill** runs the flash kernel through
   :func:`repro_torch.kernels.ops.flash_attention_bshd` (the plain version on
   the CPU).  The JAX package runs ``chunked_attention`` there; both compute
@@ -92,6 +98,66 @@ def full_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     return _ungroup(out)
 
 
+def merge_partial(parts):
+    """Merge (m, l, acc) partial-softmax triples (the recursive causal
+    decomposition)."""
+    m = parts[0][0]
+    for p in parts[1:]:
+        m = torch.maximum(m, p[0])
+    l = sum(torch.exp(pm - m) * pl for pm, pl, _ in parts)
+    acc = sum(torch.exp(pm - m)[..., None] * pa for pm, _, pa in parts)
+    return m, l, acc
+
+
+def _partial_full(q, k, v, *, causal, q_offset, k_offset):
+    """Un-normalized attention stats (m, l, acc) of q against a k/v slice;
+    fp32 scores, probabilities cast to q's dtype for the PV product."""
+    b, sq, h, dd = q.shape
+    kvh = k.shape[2]
+    qg = _group(q, kvh).float()
+    kk = k.transpose(1, 2).float()
+    vv = v.transpose(1, 2)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, kk) * (1.0 / math.sqrt(dd))
+    if causal:
+        q_pos = q_offset + torch.arange(sq, device=q.device)
+        k_pos = k_offset + torch.arange(k.shape[1], device=q.device)
+        s = s + _mask_bias(q_pos, k_pos, causal=True, window=0)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgqs,bksd->bkgqd", p.to(q.dtype), vv).float()
+    return m, l, acc
+
+
+def recursive_causal_attention(q, k, v, *, levels=3, q_offset=0,
+                               k_offset=0):
+    """FLOP-exact causal attention via recursive block decomposition:
+    causal(S) = causal(lower half) + dense(q_hi x k_lo) + causal(upper
+    half), down to ``levels`` or 128 rows."""
+    def stats(q, k, v, level, q_off, k_off):
+        sq = q.shape[1]
+        if level == 0 or sq <= 128 or sq % 2:
+            return _partial_full(q, k, v, causal=True, q_offset=q_off,
+                                 k_offset=k_off)
+        half = sq // 2
+        q_lo, q_hi = q[:, :half], q[:, half:]
+        k_lo, k_hi = k[:, :half], k[:, half:]
+        v_lo, v_hi = v[:, :half], v[:, half:]
+        m1, l1, a1 = stats(q_lo, k_lo, v_lo, level - 1, q_off, k_off)
+        # strictly-lower dense rectangle: q_hi attends all of k_lo, unmasked
+        m2, l2, a2 = _partial_full(q_hi, k_lo, v_lo, causal=False,
+                                   q_offset=0, k_offset=0)
+        m3, l3, a3 = stats(q_hi, k_hi, v_hi, level - 1, q_off + half,
+                           k_off + half)
+        m_hi, l_hi, a_hi = merge_partial([(m2, l2, a2), (m3, l3, a3)])
+        return (torch.cat([m1, m_hi], dim=-1), torch.cat([l1, l_hi], dim=-1),
+                torch.cat([a1, a_hi], dim=-2))
+
+    m, l, acc = stats(q, k, v, levels, q_offset, k_offset)
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return _ungroup(out.to(q.dtype))
+
+
 def _cache_write(cache_arr, new, slot: int):
     """Decode cache write at ``slot``, in place (the reference's "dus"
     branch; a PyTorch cache is a mutable buffer, so no copy is made)."""
@@ -99,11 +165,15 @@ def _cache_write(cache_arr, new, slot: int):
     return cache_arr
 
 
+ATTN_IMPLS = ("masked", "recursive", "flash")
+
+
 def gqa_attention(p, x, cfg: ModelConfig, *, rope=None, mode="prefill",
-                  cache=None, pos=None):
+                  cache=None, pos=None, attn_impl="masked"):
     """Full GQA attention block.
 
-    mode: "prefill" | "decode".
+    mode: "train" | "prefill" | "decode".
+    attn_impl (train): "masked" | "recursive" | "flash".
     rope: (cos, sin) tables matching x's sequence positions, or None.
     cache: {"k", "v"} (B, max_len, KV, D) buffers, written in place.
     pos: number of tokens already in the cache (decode).
@@ -124,7 +194,21 @@ def gqa_attention(p, x, cfg: ModelConfig, *, rope=None, mode="prefill",
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
-    if mode == "prefill":
+    if mode == "train":
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {attn_impl!r} (one of {ATTN_IMPLS})")
+        if attn_impl == "flash":
+            if torch.is_grad_enabled() and q.requires_grad:
+                raise NotImplementedError(
+                    "the flash kernel is forward-only (as the reference's "
+                    "Pallas kernel, which jax.grad cannot differentiate); "
+                    "train with attn_impl='masked' or 'recursive'")
+            out = ops.flash_attention_bshd(q, k, v, causal=True)
+        elif attn_impl == "recursive" and s >= 512:
+            out = recursive_causal_attention(q, k, v)
+        else:
+            out = full_attention(q, k, v, causal=True)
+    elif mode == "prefill":
         out = ops.flash_attention_bshd(q, k, v, causal=True)
         if cache is not None:
             # prefill attends to the unrounded k/v; the cache keeps its dtype
@@ -138,7 +222,8 @@ def gqa_attention(p, x, cfg: ModelConfig, *, rope=None, mode="prefill",
         out = full_attention(q, ck.to(dt), cv.to(dt), causal=False,
                              kv_valid=pos + 1, q_offset=pos)
     else:
-        raise ValueError(f"mode {mode!r} is not ported (prefill | decode)")
+        raise ValueError(f"mode {mode!r} is not one of train | prefill | "
+                         f"decode")
 
     y = out.reshape(b, s, h * hd) @ p["wo"].to(dt).reshape(h * hd, d)
     return y, cache

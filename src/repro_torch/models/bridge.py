@@ -3,21 +3,21 @@
 :func:`params_from_numpy` takes the JAX parameters as numpy arrays, either
 the nested dict or the "/"-joined flat keys of the JAX checkpoint format, and
 returns the port's nested dict of tensors.  The layouts match 1:1 (no
-transposes).  :func:`load_npz_checkpoint` reads that checkpoint format
-(``step_<n>/params.npz`` + ``manifest.json``) with numpy alone, so a
-JAX-trained checkpoint serves in the port.
+transposes).  :func:`load_npz_checkpoint` reads the params of that
+checkpoint format (``step_<n>/params.npz`` + ``manifest.json``, read by
+:mod:`repro_torch.ckpt.checkpoint`), so a JAX-trained checkpoint serves in
+the port.
 """
 
 from __future__ import annotations
 
-import json
-import os
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.ckpt.checkpoint import read_group
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.params import compute_dtype_for, flatten, unflatten
 from repro_torch.models.transformer import model_specs
@@ -52,20 +52,6 @@ def params_from_numpy(tree_or_flat: dict, cfg: ModelConfig, device=None,
 
 
 def load_npz_checkpoint(ckpt_dir: str, step: Optional[int] = None) -> dict:
-    """Flat "/"-keyed numpy params of a JAX checkpoint (latest step by
+    """Flat "/"-keyed numpy params of a checkpoint (latest step by
     default)."""
-    if step is None:
-        steps = sorted(
-            int(d[len("step_"):]) for d in os.listdir(ckpt_dir)
-            if d.startswith("step_") and os.path.exists(
-                os.path.join(ckpt_dir, d, "manifest.json")))
-        if not steps:
-            raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
-        step = steps[-1]
-    path = os.path.join(ckpt_dir, f"step_{step:010d}")
-    with open(os.path.join(path, "manifest.json")) as f:
-        manifest = json.load(f)
-    if "params" not in manifest.get("groups", []):
-        raise KeyError(f"checkpoint {path} holds no params group")
-    with np.load(os.path.join(path, "params.npz")) as z:
-        return {k: z[k] for k in z.files}
+    return read_group(ckpt_dir, "params", step)[1]

@@ -145,3 +145,21 @@ def lm_logits(p, h, cfg: ModelConfig):
     else:
         w = p["lm_head"].to(h.dtype)
     return h @ w
+
+
+def cross_entropy(logits, targets, cfg: ModelConfig, mask=None):
+    """Mean CE over valid targets, in fp32; padded vocab entries are set
+    to -1e9.  logits: (B, S, vocab_padded); targets: (B, S) int; mask:
+    (B, S) or None (then every target counts)."""
+    lf = logits.float()
+    if cfg.vocab_padded != cfg.vocab_size:
+        pad = torch.arange(cfg.vocab_padded, device=lf.device) >= \
+            cfg.vocab_size
+        lf = lf.masked_fill(pad, -1e9)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -10,16 +10,19 @@ reference's and are written in place.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (
+    checkpoint, create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import attn_specs, gqa_attention
 from repro_torch.models.layers import (
-    apply_mlp, apply_norm, embed_tokens, embedding_specs, lm_logits,
-    mlp_specs, norm_specs, rope_table)
+    apply_mlp, apply_norm, cross_entropy, embed_tokens, embedding_specs,
+    lm_logits, mlp_specs, norm_specs, rope_table)
 from repro_torch.models.params import (
     flatten, init_params, spec, stack_specs, unflatten)
 from repro_torch.models.ssm import (
@@ -113,11 +116,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                        device=device)
 
 
-def _attn_block(p, x, cfg, *, rope, mode, cache, pos):
+def _attn_block(p, x, cfg, *, rope, mode, cache, pos, attn_impl="masked"):
     """Pre-norm transformer block; returns (x, cache)."""
     h = apply_norm(p["ln1"], x, cfg)
     y, cache = gqa_attention(p["attn"], h, cfg, rope=rope, mode=mode,
-                             cache=cache, pos=pos)
+                             cache=cache, pos=pos, attn_impl=attn_impl)
     x = x + y
     h = apply_norm(p["ln2"], x, cfg)
     x = x + apply_mlp(p["mlp"], h, cfg)
@@ -135,6 +138,42 @@ def _mamba_block(p, x, cfg, *, mode, cache):
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked tree (views, no copies)."""
     return unflatten({k: v[i] for k, v in flatten(tree).items()})
+
+
+def _unstack(tree) -> list:
+    """Per-layer trees of a stacked tree, one ``unbind`` per leaf: its
+    backward stacks the layers' gradients once, where indexing layer by
+    layer would add a full-size gradient per layer."""
+    cols = {k: v.unbind(0) for k, v in flatten(tree).items()}
+    n = len(next(iter(cols.values())))
+    return [unflatten({k: c[i] for k, c in cols.items()}) for i in range(n)]
+
+
+REMAT_POLICIES = ("none", "minimal", "full")
+
+# remat "minimal": the ops whose outputs are kept (x @ W lowers to a 2-D mm)
+_minimal_remat = partial(create_selective_checkpoint_contexts,
+                         [torch.ops.aten.mm.default,
+                          torch.ops.aten.addmm.default])
+
+
+def _train_layers(layers, x, cfg, *, rope, attn_impl, remat):
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat {remat!r} (one of {REMAT_POLICIES})")
+
+    def block(lp, x):
+        return _attn_block(lp, x, cfg, rope=rope, mode="train", cache=None,
+                           pos=None, attn_impl=attn_impl)[0]
+
+    for lp in _unstack(layers):
+        if remat == "none":
+            x = block(lp, x)
+        elif remat == "full":
+            x = checkpoint(block, lp, x, use_reentrant=False)
+        else:
+            x = checkpoint(block, lp, x, use_reentrant=False,
+                           context_fn=_minimal_remat)
+    return x
 
 
 def _depth(tree) -> int:
@@ -168,18 +207,23 @@ def _hybrid_forward(params, x, cfg, *, rope, mode, cache, pos):
 
 
 def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
-            pos=None):
+            pos=None, attn_impl="masked", remat="none"):
     """Run the model.
 
     tokens: (B, S) int64.  decode: S is the number of new tokens (1).
+    mode: "train" | "prefill" | "decode".
     cache: stacked cache tree, written in place (prefill fills slots
-    [0, S); decode writes slot ``pos``).
+    [0, S); decode writes slot ``pos``); None in train mode.
     pos: int — tokens already in the cache (decode only).
+    attn_impl, remat: train mode only (see the module docstring).
     Returns (logits, cache).
     """
     _check_supported(cfg)
     if mode == "decode" and (cache is None or pos is None):
         raise ValueError("decode needs a cache and pos")
+    if mode == "train" and cfg.family == "hybrid":
+        raise NotImplementedError("hybrid training is not ported: the SSD "
+                                  "kernel has no backward")
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None, :]
     if pos is not None:
@@ -192,6 +236,9 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
     if cfg.family == "hybrid":
         x = _hybrid_forward(params, x, cfg, rope=rope, mode=mode,
                             cache=cache, pos=pos)
+    elif mode == "train":
+        x = _train_layers(params["dense_layers"], x, cfg, rope=rope,
+                          attn_impl=attn_impl, remat=remat)
     else:
         layers = params["dense_layers"]
         for i in range(_depth(layers)):
@@ -201,6 +248,18 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
 
     x = apply_norm(params["final_norm"], x, cfg)
     return lm_logits(params["embed"], x, cfg), cache
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl="masked",
+            remat="none"):
+    """Next-token CE loss.  batch: {"tokens", "labels"} (B, S) int tensors
+    on the params' device; labels < 0 are masked out.  Returns
+    (loss, {"loss": loss})."""
+    logits, _ = forward(params, cfg, tokens=batch["tokens"], mode="train",
+                        attn_impl=attn_impl, remat=remat)
+    labels = batch["labels"]
+    loss = cross_entropy(logits, labels.clamp_min(0), cfg, mask=labels >= 0)
+    return loss, {"loss": loss}
 
 
 def init_model_params(cfg: ModelConfig, seed: int = 0, device=None,

@@ -1,0 +1,249 @@
+"""Monitored training loop on one device (port of ``repro.train.loop``).
+
+The loop is a *job* in the LMS sense, wired as the reference wires it:
+
+* the job bracket (``stack.job``) tags every metric of the run;
+* one host agent emits the HPM metrics each step from the step constants
+  (:func:`counted_step_constants`) and the step time;
+* ``usermetric`` carries the ``train`` series (loss, grad norm, lr) and the
+  ``run_state`` events (start, checkpoint, failure injected, halt, finish);
+* marker regions ``data_wait``, ``train_step`` and ``checkpoint``;
+* a ``nan_loss`` finding (or a NaN loss seen directly) halts the run, a
+  ``step_time_straggler`` finding does when ``halt_on_straggler`` is set.
+
+Fault tolerance: auto-resume from the latest checkpoint, atomic keep-k
+saves, deterministic data replay (step-keyed source), optional failure
+injection.
+
+The monitoring stack is duck-typed and required: any object with
+``.job(...)``, ``.host_agent(host)``, ``.usermetric(host=...)``,
+``.on_finding`` and ``.findings()`` (``repro.core.MonitoringStack`` is
+one), so the port imports nothing of the monitoring package.  There is no
+``jit``: the step runs eagerly; meshes belong to the distributed slice and
+raise.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from contextlib import nullcontext
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.ckpt.checkpoint import CheckpointManager
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.data.pipeline import (
+    DataLoader, SyntheticTokenSource, make_batch_fn)
+from repro_torch.models.transformer import init_model_params
+from repro_torch.train.step import (
+    batch_to_device, count_step_flops, make_train_step)
+
+# Published dense peaks by card name: FLOP/s (bf16 on the tensor cores) and
+# device-memory bytes/s.  NVIDIA's data sheet, SXM part at full power.
+DEVICE_PEAKS = {"H100": (989e12, 3.35e12)}
+
+
+class InjectedFailure(RuntimeError):
+    """Raised by the failure-injection hook (restart-path testing)."""
+
+
+@dataclass
+class TrainResult:
+    steps_run: int
+    final_step: int
+    last_loss: float
+    findings: list
+    resumed_from: Optional[int]
+
+
+def device_peaks(device: torch.device) -> tuple:
+    """(peak FLOP/s, memory bytes/s) of a known CUDA card; raises for any
+    other device (pass the peaks to :func:`train` instead)."""
+    if device.type == "cuda":
+        name = torch.cuda.get_device_name(device)
+        for key, peaks in DEVICE_PEAKS.items():
+            if key in name:
+                return peaks
+        raise ValueError(f"no published peaks for {name!r}; pass "
+                         f"peak_flops and hbm_bw")
+    raise ValueError(f"no peaks for device {device}; pass peak_flops and "
+                     f"hbm_bw")
+
+
+def counted_step_constants(flops: float, *, model_flops: float,
+                           tokens_per_step: float, peak_flops: float,
+                           hbm_bw: float) -> dict:
+    """HPM step constants of one step, for the host agent.
+
+    ``hlo_flops`` is what :func:`~repro_torch.train.step.count_step_flops`
+    counts for one step (forward, backward and the remat recomputes; matrix
+    products and attention, not elementwise work): the counterpart of the
+    reference's compiled-step cost analysis.  There is no
+    counterpart of its bytes (``hlo_bytes``) or collective bytes
+    (``collective_bytes``, ``wire_bytes``), so the MEM group's
+    ``mem_gb_per_s`` / ``hbm_bw_util``, the ICI group and the ``train_step``
+    region's roofline placement are absent; FLOPS (``gflops_per_s``,
+    ``hw_flops_util``, ``mfu``, ``useful_flop_ratio``) and GOODPUT are
+    derived.  The card's peaks ride along as the raw events ``PEAK_FLOPS``
+    and ``HBM_BW``, which the group formulas read before their built-in
+    constants.
+    """
+    return {"hlo_flops": float(flops), "model_flops": float(model_flops),
+            "tokens_per_step": float(tokens_per_step),
+            "PEAK_FLOPS": float(peak_flops), "HBM_BW": float(hbm_bw)}
+
+
+def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
+          shape: ShapeConfig, *, stack, hosts: Optional[list] = None,
+          device=None, peak_flops: Optional[float] = None,
+          hbm_bw: Optional[float] = None, mesh=None,
+          fail_at_step: Optional[int] = None,
+          step_callback: Optional[Callable] = None,
+          user: str = "user", job_id: Optional[str] = None,
+          markers: bool = True) -> TrainResult:
+    """Run (or resume) a monitored training job on one device (default
+    CUDA).  ``peak_flops``/``hbm_bw`` default to the card's published
+    peaks (:data:`DEVICE_PEAKS`)."""
+    if mesh is not None:
+        raise NotImplementedError("meshes belong to the distributed slice; "
+                                  "this loop runs on one device")
+    device = resolve_device(device)
+    if peak_flops is None or hbm_bw is None:
+        pf, bw = device_peaks(device)
+        peak_flops = pf if peak_flops is None else peak_flops
+        hbm_bw = bw if hbm_bw is None else hbm_bw
+    hosts = hosts or ["host0"]
+    host = hosts[0]
+    job_id = job_id or f"{model_cfg.name}-{int(time.time())}"
+
+    # ---- data (deterministic, resumable) ---------------------------------
+    source = SyntheticTokenSource(model_cfg.vocab_size, seed=train_cfg.seed)
+    batch_fn = make_batch_fn(source, model_cfg, shape)
+
+    # ---- params / resume ---------------------------------------------------
+    train_step, opt = make_train_step(model_cfg, train_cfg)
+    ckpt = CheckpointManager(train_cfg.ckpt_dir, keep=train_cfg.ckpt_keep) \
+        if train_cfg.ckpt_dir else None
+    resumed_from = None
+    start_step = 0
+    params = init_model_params(model_cfg, seed=train_cfg.seed, device=device)
+    opt_state = opt.init(params)
+    if ckpt and ckpt.latest_step() is not None:
+        start_step, trees = ckpt.restore(
+            {"params": params, "opt_state": opt_state})
+        params, opt_state = trees["params"], trees["opt_state"]
+        resumed_from = start_step
+
+    loader = DataLoader(batch_fn, global_batch=shape.global_batch,
+                        start_step=start_step)
+
+    # ---- LMS wiring ----------------------------------------------------------
+    tokens_per_step = shape.global_batch * shape.seq_len
+    model_flops = 6 * model_cfg.param_count() * tokens_per_step
+    agent = stack.host_agent(host)
+    um = stack.usermetric(host=host)
+    mk = um.markers if (markers and train_cfg.monitor) else None
+    step_counters: dict = {}
+    halted = {"reason": None}
+
+    @stack.on_finding
+    def _react(finding):
+        if finding.rule == "nan_loss":
+            halted["reason"] = "nan_loss"
+        if finding.rule == "step_time_straggler" and \
+                train_cfg.halt_on_straggler:
+            halted["reason"] = f"straggler:{finding.host}"
+
+    last_loss = float("nan")
+    steps_run = 0
+    step = start_step
+    try:
+        with stack.job(job_id, user=user, hosts=hosts,
+                       tags={"arch": model_cfg.name, "shape": shape.name}):
+            um.event("run_state", f"starting {model_cfg.name} at step "
+                     f"{start_step}")
+            counted = False
+            while step < train_cfg.total_steps:
+                step_idx, np_batch = next(loader)
+                data_wait = loader.wait_time_s
+                batch = batch_to_device(np_batch, device)
+
+                if not counted:
+                    # one-time, before the first step: the step constants
+                    # from a flop-counted pass over meta copies of the
+                    # params and this batch (the reference reads them from
+                    # the compiled step)
+                    consts = counted_step_constants(
+                        count_step_flops(params, batch, model_cfg,
+                                         train_cfg),
+                        model_flops=model_flops,
+                        tokens_per_step=tokens_per_step,
+                        peak_flops=peak_flops, hbm_bw=hbm_bw)
+                    agent.set_step_constants(**consts)
+                    # static per-call work counter of the train_step region
+                    # (flops only: there is no bytes counterpart)
+                    step_counters = {"flops": consts["hlo_flops"]}
+                    counted = True
+
+                if mk:
+                    mk.record("data_wait", data_wait)
+                t0 = time.monotonic()
+                with (mk.region("train_step", counters=step_counters)
+                      if mk else nullcontext()):
+                    # forward, backward and the optimizer update run
+                    # eagerly; the loss read waits for the whole step
+                    params, opt_state, metrics = train_step(
+                        params, opt_state, batch, step_idx)
+                    loss = float(metrics["loss"])
+                step_time = time.monotonic() - t0
+
+                # LMS per-step emission
+                if train_cfg.monitor and \
+                        step_idx % train_cfg.monitor_interval == 0:
+                    agent.collect_step(step=step_idx, step_time_s=step_time,
+                                       extra_events={"data_wait_s":
+                                                     data_wait})
+                    um.metric("train",
+                              {"loss": loss,
+                               "grad_norm": float(metrics["grad_norm"]),
+                               "lr": float(metrics["lr"])})
+                if math.isnan(loss):
+                    um.event("run_state", f"NaN loss at step {step_idx}")
+                    halted["reason"] = "nan_loss"
+
+                last_loss = loss
+                steps_run += 1
+                step = step_idx + 1
+
+                if step_callback:
+                    step_callback(step, metrics)
+                if ckpt and step % train_cfg.ckpt_interval == 0 and \
+                        not math.isnan(loss):
+                    with (mk.region("checkpoint") if mk
+                          else nullcontext()):
+                        ckpt.save(step, {"params": params,
+                                         "opt_state": opt_state},
+                                  {"arch": model_cfg.name, "step": step})
+                    um.event("run_state", f"checkpoint at {step}")
+                if fail_at_step is not None and step >= fail_at_step:
+                    um.event("run_state", f"injected failure at {step}")
+                    raise InjectedFailure(f"injected at step {step}")
+                if halted["reason"]:
+                    um.event("run_state", f"halt: {halted['reason']}")
+                    break
+            um.event("run_state", "finished")
+            # flush inside the job bracket so marker points are enriched
+            # with the live job's tags (jobid/username) by the router
+            um.flush()
+    finally:
+        um.flush()
+        loader.close()
+        if ckpt:
+            ckpt.wait()
+
+    return TrainResult(steps_run, step, last_loss, stack.findings(),
+                       resumed_from)

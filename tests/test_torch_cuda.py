@@ -7,7 +7,11 @@ tests/test_torch_cuda.py``.  Each kernel is held against its plain PyTorch
 version on the same inputs, at the reference's tolerances (fp32 attention
 2e-5, fp32 rmsnorm 1e-5, fp32 SSD 2e-3, bf16 2e-2, model logits fp32 1e-4
 and bf16 5e-2; the hybrid model's bf16 logits relative to the largest, as
-in ``chip_smoke.py``).
+in ``chip_smoke.py``).  The RMSNorm backward takes the forward's
+tolerances, relative to (1 + |want|) as ``chip_smoke.compare`` does, and
+for dscale, a sum over every row, relative to (1 + the sum of its terms'
+magnitudes); training steps on the card against the same steps on
+the CPU in fp32 take 1e-4 relative.
 """
 
 import dataclasses
@@ -23,9 +27,11 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.kernels import ssd  # noqa: E402
 from repro_torch.models.params import flatten, unflatten  # noqa: E402
+from repro_torch.configs import TrainConfig  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     forward, init_cache, init_model_params)
 from repro_torch.serve.engine import ServingEngine  # noqa: E402
+from repro_torch.train.step import make_train_step  # noqa: E402
 
 TOL = {"attn": {"float32": 2e-5, "bfloat16": 2e-2},
        "rms": {"float32": 1e-5, "bfloat16": 2e-2},
@@ -135,6 +141,117 @@ def test_rmsnorm_kernel_matches_plain(cuda, rng, n, d, dtype):
     _close(got, ref.rmsnorm_ref(x, scale), TOL["rms"][dtype])
 
 
+def _rel_close(got, want, tol, magnitude=None):
+    """|got - want| <= tol * (1 + m), m = |want| or given magnitudes."""
+    g, w = got.float().cpu(), want.float().cpu()
+    m = w.abs() if magnitude is None else magnitude.float().cpu()
+    assert bool(((g - w).abs() <= tol * (1 + m)).all()), \
+        float((g - w).abs().max())
+
+
+def _dscale_magnitude(x, dy, eps=1e-5):
+    """Sum over rows of |dy x r|: dscale's rounding grows with it, where a
+    small dscale (terms that cancel) would hide it."""
+    xf = x.float().reshape(-1, x.shape[-1])
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (dy.float().reshape(xf.shape).abs() * xf.abs() * r).sum(dim=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(8, 4096), (1000, 512), (5, 1032),
+                                 (4097, 1032), (3, 7168), (7, 24),
+                                 (300, 16384)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_backward_kernel_matches_plain(cuda, rng, n, d, dtype):
+    """Row slots (d <= 1024: 8 rows a block) and wide rows, ragged n and d,
+    a row wider than the default shared-memory window (16384 fp32 sums)."""
+    dt = getattr(torch, dtype)
+    x, dy = (torch.from_numpy(rng.standard_normal((n, d)).astype(
+        np.float32)).to(cuda, dt) for _ in range(2))
+    scale = torch.from_numpy(
+        (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(cuda)
+    before = rms.bwd_launches
+    dx, dscale = rms.rmsnorm_bwd(x, scale, dy)
+    torch.cuda.synchronize()
+    assert rms.bwd_launches == before + 1
+    assert dx.dtype == dt and dscale.dtype == torch.float32
+    want_dx, want_ds = ref.rmsnorm_bwd_ref(x, scale, dy)
+    _rel_close(dx, want_dx, TOL["rms"][dtype])
+    # dscale is an fp32 sum in the kernel and the plain version alike:
+    # fp32's tolerance whatever x's dtype
+    _rel_close(dscale, want_ds, TOL["rms"]["float32"],
+               _dscale_magnitude(x, dy))
+    again = rms.rmsnorm_bwd(x, scale, dy)[1]
+    assert torch.equal(again, dscale)              # no atomics: same bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_norm_under_grad_runs_the_backward_kernel(cuda, rng, dtype):
+    dt = getattr(torch, dtype)
+    xn = rng.standard_normal((3, 11, 512)).astype(np.float32)
+    x = torch.from_numpy(xn).to(cuda, dt).requires_grad_()
+    scale = torch.ones(512, device=cuda, requires_grad=True)
+    dy = torch.from_numpy(rng.standard_normal((3, 11, 512)).astype(
+        np.float32)).to(cuda, dt)
+    ops.reset_launch_counts()
+    y = ops.fused_rmsnorm(x, scale)
+    assert y.grad_fn is not None
+    y.backward(dy)
+    assert ops.launch_counts()["rmsnorm"] == 1
+    assert ops.launch_counts()["rmsnorm_backward"] == 1
+    xr = x.detach().clone().requires_grad_()
+    sr = scale.detach().clone().requires_grad_()
+    ref.rmsnorm_ref(xr, sr).backward(dy)
+    _rel_close(x.grad, xr.grad, TOL["rms"][dtype])
+    _rel_close(scale.grad, sr.grad, TOL["rms"]["float32"],
+               _dscale_magnitude(x.detach(), dy))
+    with torch.inference_mode():
+        ops.fused_rmsnorm(x, scale)
+    assert ops.launch_counts()["rmsnorm_backward"] == 1
+
+
+@pytest.mark.cuda
+def test_train_flash_attention_raises_under_grad(cuda):
+    cfg = _two_layer_lms_demo("bfloat16")
+    p = init_model_params(cfg, seed=0, device=cuda)
+    leaf = p["dense_layers"]["attn"]["wq"].requires_grad_()
+    toks = torch.zeros((1, 64), dtype=torch.long, device=cuda)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        forward(p, cfg, tokens=toks, mode="train", attn_impl="flash")
+    with torch.no_grad():
+        logits, _ = forward(p, cfg, tokens=toks, mode="train",
+                            attn_impl="flash")
+    assert logits.shape == (1, 64, cfg.vocab_padded)
+    assert leaf.requires_grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
+def test_train_steps_on_card_match_cpu(cuda, rng, optimizer):
+    """Two layers at lms-demo widths in fp32: three steps (2 microbatches,
+    remat "minimal") through the kernels on the card against the plain
+    versions on the CPU, same params and batches."""
+    cfg = _two_layer_lms_demo("float32")
+    tcfg = TrainConfig(optimizer=optimizer, warmup_steps=0,
+                       learning_rate=1e-3, num_microbatches=2)
+    toks = rng.integers(0, cfg.vocab_size, (3, 4, 65))
+    out = {}
+    for dev in ("cpu", cuda):
+        p = init_model_params(cfg, seed=0, device="cpu")
+        p = unflatten({k: v.to(dev) for k, v in flatten(p).items()})
+        step_fn, opt = make_train_step(cfg, tcfg)
+        state = opt.init(p)
+        out[str(dev)] = []
+        for i in range(3):
+            t = torch.from_numpy(toks[i]).to(dev)
+            p, state, m = step_fn(p, state, {"tokens": t[:, :-1],
+                                             "labels": t[:, 1:]}, i)
+            out[str(dev)].append([float(m[k]) for k in
+                                  ("loss", "grad_norm", "param_norm")])
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4)
+
+
 @pytest.mark.cuda
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 4, 16, 32, device=cuda)
@@ -145,6 +262,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         rms.rmsnorm(x, torch.ones(12, device=cuda))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         rms.rmsnorm(x.half()[:, :8].contiguous(), torch.ones(8, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        rms.rmsnorm_bwd(x, torch.ones(12, device=cuda), x)
+    y = torch.zeros(4, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        rms.rmsnorm_bwd(y, torch.ones(16, device=cuda), y.t().contiguous().t())
+    with pytest.raises(ValueError, match="does not match"):
+        rms.rmsnorm_bwd(y, torch.ones(16, device=cuda), y.float())
 
 
 def _two_layer_lms_demo(dtype):
@@ -182,7 +306,7 @@ def test_model_on_card_matches_plain_on_cpu(cuda, rng, dtype, tol):
         _close(b, a, tol)
     assert ops.launch_counts() == {"flash_attention": 2,
                                    "rmsnorm": 4 * (2 * 2 + 1),
-                                   "ssd_scan": 0}
+                                   "rmsnorm_backward": 0, "ssd_scan": 0}
 
 
 @pytest.mark.cuda
@@ -362,4 +486,4 @@ def test_hybrid_model_on_card_matches_plain_on_cpu(cuda, rng, dtype, tol,
     assert ops.launch_counts() == {
         "flash_attention": groups,
         "rmsnorm": 4 * (2 * num_layers + 2 * groups + 1),
-        "ssd_scan": num_layers}
+        "rmsnorm_backward": 0, "ssd_scan": num_layers}

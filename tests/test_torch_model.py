@@ -306,7 +306,8 @@ def test_entry_points_need_cuda_by_default(monkeypatch):
 def _port_files():
     root = os.path.join(REPO, "src", "repro_torch")
     files = [os.path.join(REPO, n) for n in
-             ("chip_smoke.py", "profile_serve.py", "profile_ssd.py")]
+             ("chip_smoke.py", "profile_serve.py", "profile_ssd.py",
+              "profile_train.py", "train_faults.py")]
     for d, _, names in os.walk(root):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return files
@@ -315,6 +316,10 @@ def _port_files():
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 10
+    scanned = {os.path.relpath(p, os.path.join(REPO, "src", "repro_torch"))
+               for p in files}
+    assert {"train/optim.py", "train/step.py", "train/loop.py",
+            "ckpt/checkpoint.py", "data/pipeline.py"} <= scanned
     bad = []
     for path in files:
         with open(path) as f:
@@ -336,6 +341,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import repro_torch.serve.engine, repro_torch.models.bridge\n"
             "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
+            "import repro_torch.train.loop, repro_torch.ckpt\n"
+            "import repro_torch.data\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "print(bad)\n"
