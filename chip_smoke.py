@@ -64,11 +64,39 @@ JAX package.  Phases, each reported on its own lines:
               forward plus 16 remat recomputes, and 17 backwards, for each
               step (the loop counts flops on meta tensors, which launch
               nothing).
-5. the kernels line (JSON: every kernel with its launches summed over the
-   paths driven -- serve granite, serve zamba2, train granite -- its
-   numbers at this path's shapes (zamba2's prefill for flash, SSD and the
-   forward RMSNorm; granite's training shape for the RMSNorm backward), and
-   per path its launches and the rows it was timed at), then the last line
+5. monitor -- the monitored job over HTTP, through the port's CLIs and
+              its LMS client (``repro_torch.core``), against a small HTTP
+              receiver in this script that answers as a stack does and
+              decodes what it is sent with the port's ``decode_line``:
+              (a) ``repro_torch.launch.train`` on lms-demo at full config,
+              seq 256 x batch 8, MONITOR_STEPS steps with a checkpoint every
+              MONITOR_CKPT steps and a failure injected at MONITOR_FAIL;
+              the second call must resume from the last checkpoint and
+              finish; (b) the client's cost: MONITOR_STEPS steps without
+              checkpoints, monitored and with ``--no-monitor`` in turns
+              (COST_RUNS), the cost being the difference of the two
+              modes' mean step walls over the whole window (the steps
+              that post included); (c) ``repro_torch.launch.serve`` on
+              lms-demo for MONITOR_REQUESTS requests.  Checks: one
+              ``train`` and one ``hpm`` point a monitored step, each
+              ``mfu`` equal to
+              6 N T / step time / 989e12, ``_calib`` points carrying the
+              card's peaks, ``/job/start`` and ``/job/end`` in pairs, one
+              ``serve_request`` point a request, no failed post, failed
+              ``/alerts`` poll or dropped point, and the launches of each
+              run (train: 17 RMSNorm forwards and 17 backwards a step;
+              serve: 8 flash a prefill batch, 17 RMSNorm a forward).  Then
+              (d) kernel marker regions at the serve CLI's shapes, through
+              a marker session of the client: each ``kernel:*`` region's
+              roofline fraction from the received sums and the card's
+              calibrated peaks must lie in (0, 1.05].  One ``monitor:``
+              JSON line sums it up.
+6. the kernels line (JSON: every kernel with its launches summed over the
+   paths driven -- serve granite, serve zamba2, train granite, the train
+   CLI and the serve CLI on lms-demo -- its numbers at this path's shapes
+   (zamba2's prefill for flash, SSD and the forward RMSNorm; granite's
+   training shape for the RMSNorm backward), and per path its launches and
+   the rows it was timed at), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no last line.
@@ -77,15 +105,20 @@ Any failure raises, so the script exits non-zero and prints no last line.
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
-from contextlib import contextmanager, nullcontext
+from contextlib import contextmanager, nullcontext, redirect_stdout
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -96,17 +129,23 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import (  # noqa: E402
     ShapeConfig, TrainConfig, get_config)
+from repro_torch.core import RemoteStack, calibrate  # noqa: E402
+from repro_torch.core.line_protocol import decode_line  # noqa: E402
+from repro_torch.core.marker import CALIB_REGION  # noqa: E402
 from repro_torch.data.pipeline import SyntheticTokenSource  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.kernels import ssd  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models.params import flatten, unflatten  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     forward, init_cache, init_model_params, loss_fn)
 from repro_torch.serve.engine import ServingEngine  # noqa: E402
-from repro_torch.train.loop import train  # noqa: E402
+from repro_torch.train.loop import (  # noqa: E402
+    InjectedFailure, device_peaks, train)
 from repro_torch.train.step import (  # noqa: E402
     batch_to_device, make_train_step)
 
@@ -168,6 +207,15 @@ PARITY_SHAPE = ShapeConfig("parity", seq_len=512, global_batch=8,
 PARITY_STEPS = 3
 TRAIN_TOL = {"loss": 1e-3, "grad_norm": 1e-2, "param_norm": 2e-6,
              "grads": 2e-2}
+# Monitor (phase 5): the CLIs on lms-demo at full config.
+MONITOR_STEPS, MONITOR_CKPT, MONITOR_FAIL = 60, 20, 30
+MONITOR_SEQ, MONITOR_BATCH = 256, 8
+MONITOR_REQUESTS = 16
+# the client's cost: MONITOR_STEPS steps without checkpoints (a background
+# checkpoint write slows the steps it overlaps), monitored or not, in turns
+COST_RUNS = ("on", "off", "off", "on")
+# what the reference's TPU constants would put under a roofline
+TPU_PEAKS = (197e12, 819e9)
 
 
 def log(msg: str) -> None:
@@ -552,7 +600,7 @@ class Recorder:
     def markers(self):
         return self
 
-    def metric(self, name, fields, tags=None):
+    def metric(self, name, fields, tags=None, ts=None):
         self.metrics.append((name, dict(fields), tags))
 
     def event(self, name, text):
@@ -957,6 +1005,358 @@ def train_run() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: monitor -- the CLIs against an HTTP receiver
+# ---------------------------------------------------------------------------
+
+
+class Receiver:
+    """A stand-in for a stack's HTTP face (``/ping``, ``/write``,
+    ``/job/start``, ``/job/end``, ``/alerts`` with no alerts), on
+    ``127.0.0.1`` and a free port: keeps every line it is sent, decoded with
+    the port's ``decode_line``, and the job signals in order."""
+
+    def __init__(self):
+        self.points = []                # (Point, bytes of its line)
+        self.signals = []               # ("start" | "end", jobid)
+        self.bad_lines = []
+        lock = threading.Lock()
+        rec = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def _reply(self, code, payload=None):
+                body = b"" if code == 204 else json.dumps(
+                    payload or {}).encode()
+                self.send_response(code)
+                if code != 204:
+                    self.send_header("Content-Type", "application/json")
+                    self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                path = self.path.split("?", 1)[0]
+                if path == "/ping":
+                    self._reply(204)
+                elif path == "/alerts":
+                    self._reply(200, {"alerts": []})
+                else:
+                    self._reply(404, {"error": "not found"})
+
+            def do_POST(self):
+                path = self.path.split("?", 1)[0]
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                if path == "/write":
+                    n = 0
+                    with lock:
+                        for line in body.decode().split("\n"):
+                            if not line.strip():
+                                continue
+                            try:
+                                rec.points.append(
+                                    (decode_line(line), len(line) + 1))
+                                n += 1
+                            except ValueError as e:
+                                rec.bad_lines.append(f"{line!r}: {e}")
+                    self._reply(200, {"written": n, "errors": []})
+                elif path in ("/job/start", "/job/end"):
+                    with lock:
+                        rec.signals.append((path.rsplit("/", 1)[1],
+                                            json.loads(body)["jobid"]))
+                    self._reply(200, {"ok": True})
+                else:
+                    self._reply(404, {"error": "not found"})
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._thread = threading.Thread(target=self.httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    @property
+    def url(self) -> str:
+        h, p = self.httpd.server_address[:2]
+        return f"http://{h}:{p}"
+
+    def measurement(self, name, region=None) -> list:
+        return [p for p, _ in self.points if p.measurement == name and (
+            region is None or p.tags.get("region") == region)]
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self._thread.join(timeout=10)
+
+
+class _Tee(io.TextIOBase):
+    """stdout that also keeps what was written."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.buf.write(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_cli(main_fn, argv, **kw) -> tuple:
+    """(printed text, ``client:`` stats) of one CLI call, its output
+    printed as it goes."""
+    tee = _Tee(sys.stdout)
+    with redirect_stdout(tee):
+        main_fn(argv, **kw)
+    text = tee.buf.getvalue()
+    client = [json.loads(line.split(" ", 1)[1]) for line in
+              text.splitlines() if line.startswith("client: ")]
+    return text, client[-1]
+
+
+def step_walls(marks, ckpt_interval: int = 0) -> list:
+    """Wall seconds of each step from the callbacks' (step, time) marks of
+    one run: a step's time is since the previous step's callback; the
+    first step of a run and each step after a checkpoint save are left
+    out."""
+    return [t - t_prev for (s_prev, t_prev), (s, t) in zip(marks, marks[1:])
+            if s == s_prev + 1 and not (ckpt_interval and
+                                        s_prev % ckpt_interval == 0)]
+
+
+def monitor_kernel_rows() -> dict:
+    """Kernel-vs-plain rows at the two CLI paths' shapes: serve (4 prompts
+    of up to 16 tokens a prefill batch; 4 rows a decode step) and train
+    (2048 rows of d=512)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bf16 = torch.bfloat16
+    return {
+        "serve-cli:lms-demo": {
+            "flash_attention": check_flash(gen, 4, 8, 4, 16, 64, bf16,
+                                           tag="serve-cli-prefill"),
+            "rmsnorm": check_rmsnorm(gen, 4 * 16, 512, bf16,
+                                     tag="serve-cli-prefill"),
+            "rmsnorm_decode": check_rmsnorm(gen, 4, 512, bf16,
+                                            tag="serve-cli-decode")},
+        "train-cli:lms-demo": {
+            "rmsnorm": check_rmsnorm(gen, 2048, 512, bf16,
+                                     tag="train-cli"),
+            "rmsnorm_backward": check_rmsnorm_bwd(gen, 2048, 512, bf16,
+                                                  tag="train-cli")},
+    }
+
+
+def roofline_check(url: str, rec: Receiver, peaks: tuple,
+                   dev="cuda") -> dict:
+    """``kernel:*`` marker regions at the serve CLI's shapes through a
+    marker session of the port's client, under a job on the receiver that
+    records ``peaks``; each region's roofline fraction from the received
+    sums and the received ``_calib`` peaks."""
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn((4, 16, 8, 64), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    kv = torch.randn((4, 16, 4, 64), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    x = torch.randn((4 * 16, 512), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    scale = torch.ones(512, device=dev)
+    stack = RemoteStack(url)
+    job = "chip-smoke-roofline"
+    with stack.job(job, user="chip-smoke", hosts=["host0"]):
+        um = stack.usermetric(host="host0")
+        calibrate(um, *peaks)
+        prev = ops.set_kernel_markers(um.markers)
+        try:
+            for _ in range(20):
+                ops.flash_attention_bshd(q, kv, kv, causal=True)
+                ops.fused_rmsnorm(x, scale)
+        finally:
+            ops.set_kernel_markers(prev)
+    stack.close()
+    calib = rec.measurement("marker", CALIB_REGION)[-1].fields
+    pf, bw = calib["peak_flops"], calib["peak_bw"]
+    out = {}
+    for region in ("kernel:flash_attention", "kernel:rmsnorm"):
+        pts = rec.measurement("marker", region)
+        tot = {k: sum(p.fields[k] for p in pts)
+               for k in ("flops", "bytes", "time_s", "calls")}
+        achieved = tot["flops"] / tot["time_s"]
+        frac = achieved / min(pf, bw * tot["flops"] / tot["bytes"])
+        tpu = achieved / min(TPU_PEAKS[0],
+                             TPU_PEAKS[1] * tot["flops"] / tot["bytes"])
+        if tot["calls"] != 20 or not 0 < frac <= 1.05:
+            raise AssertionError(f"monitor: {region} {tot}, roofline "
+                                 f"fraction {frac}")
+        out[region] = {"calls": tot["calls"], "roofline_frac": frac,
+                       "roofline_frac_on_tpu_constants": tpu}
+    return out
+
+
+def monitor_phase() -> tuple:
+    """Drive both CLIs against a receiver and check what arrives; returns
+    (the summary, launches by path)."""
+    cfg = get_config("lms-demo")
+    rec = Receiver()
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
+                            dir=str(kbuild.BUILD_ROOT.parent))
+    base = ["--arch", "lms-demo", "--steps", str(MONITOR_STEPS),
+            "--seq-len", str(MONITOR_SEQ), "--global-batch",
+            str(MONITOR_BATCH), "--lms-url", rec.url]
+    launches, marks, clients = {}, {}, {}
+    try:
+        # (a) train with a failure at MONITOR_FAIL, then resume
+        ops.reset_launch_counts()
+        marks["fail"], marks["resume"] = [], []
+        argv = base + ["--ckpt-dir", ckpt,
+                       "--ckpt-interval", str(MONITOR_CKPT)]
+        try:
+            run_cli(train_cli.main, argv + ["--fail-at-step",
+                                            str(MONITOR_FAIL)],
+                    step_callback=lambda s, m: marks["fail"].append(
+                        (s, time.monotonic())))
+            raise AssertionError("monitor: no injected failure")
+        except InjectedFailure:
+            pass
+        text, clients["train"] = run_cli(
+            train_cli.main, argv, step_callback=lambda s, m: marks[
+                "resume"].append((s, time.monotonic())))
+        torch.cuda.synchronize()
+        launches["train-cli:lms-demo"] = ops.launch_counts()
+        resumed = MONITOR_FAIL // MONITOR_CKPT * MONITOR_CKPT
+        steps = [s for s, _ in marks["fail"] + marks["resume"]]
+        if steps != list(range(1, MONITOR_FAIL + 1)) + list(
+                range(resumed + 1, MONITOR_STEPS + 1)) or \
+                f"resumed_from={resumed}" not in text:
+            raise AssertionError(f"monitor: steps run {steps}")
+        # (b) the client's cost
+        cost = []
+        for i, mode in enumerate(COST_RUNS):
+            run_marks = []
+            ops.reset_launch_counts()
+            _, clients[f"cost{i}_{mode}"] = run_cli(
+                train_cli.main, base + (["--no-monitor"] if mode == "off"
+                                        else []),
+                step_callback=lambda s, m: run_marks.append(
+                    (s, time.monotonic())))
+            cost.append((mode, step_walls(run_marks), ops.launch_counts()))
+        # (c) serve
+        ops.reset_launch_counts()
+        _, clients["serve"] = run_cli(
+            serve_cli.main, ["--arch", "lms-demo", "--requests",
+                             str(MONITOR_REQUESTS), "--lms-url", rec.url])
+        torch.cuda.synchronize()
+        launches["serve-cli:lms-demo"] = ops.launch_counts()
+        # (d) kernel regions on the card's roofline
+        roofline = roofline_check(rec.url, rec,
+                                  device_peaks(torch.device("cuda")))
+    finally:
+        rec.close()
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    # -- checks --------------------------------------------------------------
+    n_monitored = len(steps)
+    norms = 2 * cfg.num_layers + 1
+    want = {"train-cli:lms-demo": {
+        "flash_attention": 0, "rmsnorm": norms * n_monitored,
+        "rmsnorm_backward": norms * n_monitored, "ssd_scan": 0}}
+    batches = math.ceil(MONITOR_REQUESTS / 4)       # the CLI's --max-batch
+    want["serve-cli:lms-demo"] = expected_launches(cfg, batches,
+                                                   batches * 16)
+    for path, w in want.items():
+        if launches[path] != w:
+            raise AssertionError(f"monitor: {path} launches "
+                                 f"{launches[path]}, expected {w}")
+    for mode, _, counts in cost:
+        if counts != {k: v * MONITOR_STEPS // n_monitored
+                      for k, v in want["train-cli:lms-demo"].items()}:
+            raise AssertionError(f"monitor: cost run ({mode}) launches "
+                                 f"{counts}")
+    n_hpm = n_monitored + MONITOR_STEPS * COST_RUNS.count("on")
+    if rec.bad_lines:
+        raise AssertionError(f"monitor: undecodable lines {rec.bad_lines[:3]}")
+    train_pts = rec.measurement("train")
+    hpm = rec.measurement("hpm")
+    if len(train_pts) != n_hpm or len(hpm) != n_hpm:
+        raise AssertionError(f"monitor: {len(train_pts)} train and "
+                             f"{len(hpm)} hpm points for {n_hpm} "
+                             f"monitored steps")
+    peak = PEAK_FLOPS[torch.bfloat16]
+    tokens = MONITOR_SEQ * MONITOR_BATCH
+    model_flops = 6 * cfg.param_count() * tokens
+    for p in hpm:
+        want_mfu = model_flops / p.fields["step_time_s"] / peak
+        if not math.isclose(p.fields["mfu"], want_mfu, rel_tol=1e-9):
+            raise AssertionError(f"monitor: mfu {p.fields['mfu']} != "
+                                 f"{want_mfu}")
+    calib = rec.measurement("marker", CALIB_REGION)
+    n_jobs = 2 + len(COST_RUNS) + 2         # + serve, the roofline job
+    if len(calib) != n_jobs or any(
+            (c.fields["peak_flops"], c.fields["peak_bw"]) !=
+            (peak, PEAK_BYTES) for c in calib):
+        raise AssertionError(f"monitor: calibration points "
+                             f"{[c.fields for c in calib]}")
+    starts = [j for kind, j in rec.signals if kind == "start"]
+    ends = [j for kind, j in rec.signals if kind == "end"]
+    if starts != ends or len(starts) != n_jobs or \
+            len(set(starts)) != n_jobs:
+        raise AssertionError(f"monitor: job signals {rec.signals}")
+    reqs = rec.measurement("serve_request")
+    if len(reqs) != MONITOR_REQUESTS:
+        raise AssertionError(f"monitor: {len(reqs)} serve_request points")
+    if any(c[k] for c in clients.values() for k in (
+            "failed_flushes", "failed", "poll_failures", "dropped_points")):
+        raise AssertionError(f"monitor: failed posts or polls {clients}")
+
+    walls = {m: [w for mode, ws, _ in cost if mode == m for w in ws]
+             for m in ("on", "off")}
+    # the whole window (first step's callback to the last's, over the
+    # steps) keeps the few steps that post; the medians leave them out
+    step_on, step_off = (statistics.fmean(walls["on"]),
+                         statistics.fmean(walls["off"]))
+    med_on, med_off = (statistics.median(walls["on"]),
+                       statistics.median(walls["off"]))
+    with_ckpt = statistics.median(
+        step_walls(marks["fail"], MONITOR_CKPT) +
+        step_walls(marks["resume"], MONITOR_CKPT))
+    timed = statistics.median(p.fields["step_time_s"] for p in hpm)
+    by_meas: dict = {}
+    for p, nbytes in rec.points:
+        m = by_meas.setdefault(p.measurement, {"points": 0, "bytes": 0})
+        m["points"] += 1
+        m["bytes"] += nbytes
+    ttft = [p.fields["ttft_s"] for p in reqs]
+    lat = [p.fields["latency_s"] for p in reqs]
+    out = {"model": cfg.name, "params": cfg.param_count(),
+           "seq_len": MONITOR_SEQ, "global_batch": MONITOR_BATCH,
+           "steps_monitored": n_monitored, "resumed_from": resumed,
+           "step_wall_s_window": step_on,
+           "step_wall_s_window_no_monitor": step_off,
+           "monitor_cost_s_per_step": step_on - step_off,
+           "step_wall_s_median": med_on,
+           "step_wall_s_median_no_monitor": med_off,
+           "monitor_cost_s_per_step_median": med_on - med_off,
+           "step_wall_s_by_cost_run": [
+               [mode, statistics.fmean(ws), statistics.median(ws)]
+               for mode, ws, _ in cost],
+           "step_wall_s_median_with_checkpoints": with_ckpt,
+           "step_time_s_median_timed": timed,
+           "tokens_per_s": tokens / step_on,
+           "mfu_wall": model_flops / step_on / peak,
+           "mfu_timed": model_flops / timed / peak,
+           "posted_by_measurement": by_meas, "client": clients,
+           "client_post_s_per_step": clients["train"]["seconds"] / (
+               MONITOR_STEPS - resumed),
+           "ttft_s_p50": float(np.percentile(ttft, 50)),
+           "latency_s_p50": float(np.percentile(lat, 50)),
+           "latency_s_p99": float(np.percentile(lat, 99)),
+           "roofline": roofline, "launches": launches}
+    log(f"monitor: {json.dumps(out)}")
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1001,7 +1401,13 @@ def main() -> int:
     launches[train_path] = train_run()["launches"]
     log(f"train: phase {time.monotonic() - t0:.2f} s")
 
-    # Phase 5: kernels line (launches summed over the paths; numbers at
+    # Phase 5: the monitored job over HTTP through the CLIs
+    t0 = time.monotonic()
+    rows.update(monitor_kernel_rows())
+    launches.update(monitor_phase()[1])
+    log(f"monitor: phase {time.monotonic() - t0:.2f} s")
+
+    # Phase 6: kernels line (launches summed over the paths; numbers at
     # zamba2-7b's prefill shapes, the backward's at granite's training
     # shape; per path the rows each kernel was timed at), then the result
     kernels = []

@@ -11,14 +11,16 @@ raises.
 
 The CUDA path is kept short on the host, since a decode step calls it once
 per norm on a few rows: the C entry points are resolved once, the stream is
-read raw (no ``torch.cuda.Stream`` object), and the alignment and ``d``
-checks run in C, which answers ``BAD_LAYOUT``.
+read raw (``compat.current_raw_stream``, no ``torch.cuda.Stream`` object),
+and the alignment and ``d`` checks run in C, which answers
+``BAD_LAYOUT``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.compat import current_raw_stream
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import check, load_library
 
@@ -92,7 +94,7 @@ def rmsnorm(x, scale, *, eps: float = 1e-5):
     dev = x.get_device()
     err = _fn("repro_rmsnorm")(
         x.data_ptr(), scale.data_ptr(), y.data_ptr(), code, x.numel() // d,
-        d, eps, torch._C._cuda_getCurrentRawStream(dev))
+        d, eps, current_raw_stream(dev))
     if err:
         _raise(err, x, "rmsnorm")
     launches += 1
@@ -134,7 +136,7 @@ def rmsnorm_bwd(x, scale, dy, *, eps: float = 1e-5):
     err = _fn("repro_rmsnorm_bwd")(
         x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
         partial.data_ptr(), dscale.data_ptr(), code, n, d, eps, blocks,
-        torch._C._cuda_getCurrentRawStream(dev))
+        current_raw_stream(dev))
     if err:
         _raise(err, x, "rmsnorm_bwd")
     bwd_launches += 1

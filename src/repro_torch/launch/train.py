@@ -1,0 +1,100 @@
+"""Training entry point: ``python -m repro_torch.launch.train --arch lms-demo
+--lms-url http://HOST:PORT``.
+
+Runs a monitored training job on one device (the CUDA card unless
+``--device cpu``) and reports it to a monitoring stack served elsewhere
+over HTTP (a ``repro.core`` stack started with ``serve_http=True``):
+checkpoint auto-resume, failure injection (``--fail-at-step``), the loss
+every 10 steps, the findings the stack raised, what the client posted
+(requests, points, bytes, seconds, failed flushes) and the URL of the
+job's report on the stack.  Meshes, tensor parallelism and gradient compression
+belong to the distributed slice and have no flags here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import uuid
+from typing import Callable, Optional
+
+from repro_torch import resolve_device
+from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+from repro_torch.core import RemoteStack
+from repro_torch.launch.common import (
+    add_stack_args, resolve_peaks)
+from repro_torch.train.loop import train
+
+
+def main(argv=None, *, step_callback: Optional[Callable] = None) -> int:
+    """``step_callback(step, metrics)`` is called after each step's own
+    reporting, for a program that drives the CLI."""
+    ap = argparse.ArgumentParser(prog="repro-torch-train")
+    ap.add_argument("--arch", default="lms-demo")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-runnable; head dim 16 has no "
+                         "flash instance on the card)")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--seq-len", type=int, default=256)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--optimizer", default="adamw",
+                    choices=["adamw", "adafactor"])
+    ap.add_argument("--remat", default="none",
+                    choices=["none", "minimal", "full"])
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-interval", type=int, default=50)
+    ap.add_argument("--no-monitor", action="store_true")
+    ap.add_argument("--fail-at-step", type=int, default=None,
+                    help="inject a failure (restart-path testing)")
+    ap.add_argument("--user", default=os.environ.get("USER", "user"))
+    add_stack_args(ap)
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    shape = ShapeConfig("cli", seq_len=args.seq_len,
+                        global_batch=args.global_batch, kind="train")
+    tcfg = TrainConfig(
+        learning_rate=args.lr, total_steps=args.steps,
+        warmup_steps=max(1, args.steps // 20),
+        optimizer=args.optimizer, num_microbatches=args.microbatches,
+        remat_policy=args.remat,
+        ckpt_dir=args.ckpt_dir, ckpt_interval=args.ckpt_interval,
+        monitor=not args.no_monitor)
+    device = resolve_device(args.device)
+    peak_flops, hbm_bw = resolve_peaks(args, device)
+
+    stack = RemoteStack(args.lms_url)
+    print(f"LMS HTTP endpoint: {stack.url}")
+    losses = []
+
+    def cb(step, metrics):
+        losses.append(float(metrics["loss"]))
+        if step % 10 == 0 or step == 1:
+            print(f"step {step:5d}  loss {losses[-1]:.4f}  "
+                  f"grad {float(metrics['grad_norm']):.3f}", flush=True)
+        if step_callback is not None:
+            step_callback(step, metrics)
+
+    job_id = f"{cfg.name}-{uuid.uuid4().hex[:8]}"
+    try:
+        result = train(cfg, tcfg, shape, stack=stack, device=device,
+                       peak_flops=peak_flops, hbm_bw=hbm_bw,
+                       fail_at_step=args.fail_at_step, step_callback=cb,
+                       user=args.user, job_id=job_id)
+    finally:
+        stack.close()
+    print(f"done: steps={result.steps_run} final_loss={result.last_loss:.4f}"
+          f" resumed_from={result.resumed_from}")
+    for f in result.findings:
+        print(f"finding: {f.rule} on {f.host} ({f.duration_s:.0f}s)")
+    print(f"client: {json.dumps(stack.stats)}")
+    print(f"job: {job_id} report: {stack.report_url(job_id)}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

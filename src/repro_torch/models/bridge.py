@@ -19,7 +19,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.ckpt.checkpoint import read_group
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.params import compute_dtype_for, flatten, unflatten
+from repro_torch.models.params import (
+    compute_dtype_for, flatten, fp32_leaves, unflatten)
 from repro_torch.models.transformer import model_specs
 
 
@@ -31,7 +32,7 @@ def params_from_numpy(tree_or_flat: dict, cfg: ModelConfig, device=None,
     shape.  ``compute_dtype`` casts matrices and the embedding once (the
     same numbers as the reference's cast at each use); the leaves the
     model reads in fp32 (norm scales, Mamba2 ``A_log``/``dt_bias``) stay
-    fp32 (``params.FP32_LEAVES``)."""
+    fp32 (``params.fp32_leaves(cfg)``)."""
     device = resolve_device(device)
     flat = flatten(tree_or_flat) if any(
         isinstance(v, dict) for v in tree_or_flat.values()) else tree_or_flat
@@ -41,13 +42,15 @@ def params_from_numpy(tree_or_flat: dict, cfg: ModelConfig, device=None,
     if missing or extra:
         raise KeyError(f"params do not match {cfg.name}: missing {missing}, "
                        f"unexpected {extra}")
+    keep = fp32_leaves(cfg)
     out = {}
     for path, s in specs.items():
         arr = np.asarray(flat[path])
         if tuple(arr.shape) != s.shape:
             raise ValueError(f"{path}: shape {arr.shape}, expected {s.shape}")
         t = torch.from_numpy(np.array(arr)).to(device)   # writable copy
-        out[path] = t.to(compute_dtype_for(path, t.dtype, compute_dtype))
+        out[path] = t.to(compute_dtype_for(path, t.dtype, compute_dtype,
+                                           keep))
     return unflatten(out)
 
 

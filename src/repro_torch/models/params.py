@@ -23,10 +23,16 @@ import torch
 
 from repro_torch import resolve_device
 
-# Leaves the model reads in fp32, so a one-time compute-dtype cast leaves
-# them alone: norm parameters (``apply_norm``, ``rmsnorm_gated``) and the
-# Mamba2 decay parameters (``mamba2_block`` computes dt and A in fp32).
-FP32_LEAVES = ("scale", "bias", "norm_scale", "A_log", "dt_bias")
+# Leaves the model reads in fp32, by last key, so a one-time compute-dtype
+# cast leaves them alone: norm parameters (``apply_norm``,
+# ``rmsnorm_gated``, MLA's ``q_norm`` / ``kv_norm``), the Mamba2 decay
+# parameters (``mamba2_block`` computes dt and A in fp32) and RWKV6's decay
+# and bonus (``w0``, ``decay_w2``, ``bonus_u``, read in fp32 by
+# ``rwkv6_time_mix``) ...
+FP32_LEAVES = ("scale", "bias", "norm_scale", "A_log", "dt_bias", "q_norm",
+               "kv_norm", "w0", "decay_w2", "bonus_u")
+# ... and every leaf of RWKV6's LayerNorms, by prefix.
+FP32_PREFIXES = ("ln_tm_", "ln_cm_", "ln_x_")
 
 
 @dataclass(frozen=True)
@@ -98,12 +104,25 @@ def _fan_in(shape) -> int:
     return int(math.prod(shape[:-1]))
 
 
+def fp32_leaves(cfg=None) -> tuple:
+    """The last keys a model of ``cfg`` reads in fp32: ``FP32_LEAVES``, and
+    the MoE ``router`` when the config routes in fp32 (``router_dtype``)."""
+    moe = getattr(cfg, "moe", None)
+    if moe is not None and moe.router_dtype == "float32":
+        return FP32_LEAVES + ("router",)
+    return FP32_LEAVES
+
+
 def compute_dtype_for(path: str, dtype: torch.dtype,
-                      compute_dtype: Optional[torch.dtype]) -> torch.dtype:
+                      compute_dtype: Optional[torch.dtype],
+                      keep: tuple = FP32_LEAVES) -> torch.dtype:
     """Storage dtype of a leaf after the optional one-time compute cast:
-    matrices and the embedding take ``compute_dtype``, ``FP32_LEAVES``
-    stay."""
-    if compute_dtype is None or path.rsplit("/", 1)[-1] in FP32_LEAVES:
+    matrices and the embedding take ``compute_dtype``; a leaf whose last
+    key is in ``keep`` (:func:`fp32_leaves`) or starts with one of
+    ``FP32_PREFIXES`` stays."""
+    leaf = path.rsplit("/", 1)[-1]
+    if compute_dtype is None or leaf in keep or \
+            leaf.startswith(FP32_PREFIXES):
         return dtype
     return compute_dtype
 
@@ -126,14 +145,17 @@ def _init_leaf(s: ParamSpec, path: str, seed: int,
 
 
 def init_params(specs, seed: int = 0, device=None,
-                compute_dtype: Optional[torch.dtype] = None):
+                compute_dtype: Optional[torch.dtype] = None,
+                keep: tuple = FP32_LEAVES):
     """Initialize concrete parameters on ``device``, one leaf at a time.
 
-    ``compute_dtype`` casts each matrix once as it is made (``FP32_LEAVES``
-    stay fp32), so a bf16 model never holds its fp32 copy whole."""
+    ``compute_dtype`` casts each matrix once as it is made (the leaves
+    ``keep`` names stay fp32, see :func:`compute_dtype_for`), so a bf16
+    model never holds its fp32 copy whole."""
     device = resolve_device(device)
     out = {}
     for path, s in flatten(specs).items():
         t = _init_leaf(s, path, seed, device)
-        out[path] = t.to(compute_dtype_for(path, t.dtype, compute_dtype))
+        out[path] = t.to(compute_dtype_for(path, t.dtype, compute_dtype,
+                                           keep))
     return unflatten(out)

@@ -24,7 +24,7 @@ from repro_torch.models.layers import (
     apply_mlp, apply_norm, cross_entropy, embed_tokens, embedding_specs,
     lm_logits, mlp_specs, norm_specs, rope_table)
 from repro_torch.models.params import (
-    flatten, init_params, spec, stack_specs, unflatten)
+    flatten, fp32_leaves, init_params, spec, stack_specs, unflatten)
 from repro_torch.models.ssm import (
     mamba2_block, mamba2_cache_specs, mamba2_specs)
 
@@ -266,6 +266,7 @@ def init_model_params(cfg: ModelConfig, seed: int = 0, device=None,
                       compute_dtype: Any = None):
     """Initialize the model on ``device`` (default CUDA).  ``compute_dtype``
     (e.g. ``torch.bfloat16``) casts matrices and the embedding once as they
-    are made; the leaves read in fp32 (``params.FP32_LEAVES``) stay fp32."""
+    are made; the leaves read in fp32 (``params.fp32_leaves(cfg)``) stay
+    fp32."""
     return init_params(model_specs(cfg), seed, device=resolve_device(device),
-                       compute_dtype=compute_dtype)
+                       compute_dtype=compute_dtype, keep=fp32_leaves(cfg))

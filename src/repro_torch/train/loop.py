@@ -7,7 +7,10 @@ The loop is a *job* in the LMS sense, wired as the reference wires it:
   (:func:`counted_step_constants`) and the step time;
 * ``usermetric`` carries the ``train`` series (loss, grad norm, lr) and the
   ``run_state`` events (start, checkpoint, failure injected, halt, finish);
-* marker regions ``data_wait``, ``train_step`` and ``checkpoint``;
+* marker regions ``data_wait``, ``train_step`` and ``checkpoint``, and
+  the device's peaks as the stack's calibration point (region ``_calib``,
+  :func:`repro_torch.core.marker.calibrate`), which the stack's roofline
+  of marker regions reads;
 * a ``nan_loss`` finding (or a NaN loss seen directly) halts the run, a
   ``step_time_straggler`` finding does when ``halt_on_straggler`` is set.
 
@@ -17,8 +20,12 @@ injection.
 
 The monitoring stack is duck-typed and required: any object with
 ``.job(...)``, ``.host_agent(host)``, ``.usermetric(host=...)``,
-``.on_finding`` and ``.findings()`` (``repro.core.MonitoringStack`` is
-one), so the port imports nothing of the monitoring package.  There is no
+``.on_finding`` and ``.findings()``: ``repro.core.MonitoringStack`` in
+the same process, or :class:`repro_torch.core.RemoteStack` for a stack
+reached over HTTP.  A stack with ``.poll_findings()`` (the remote one) is
+asked for new findings at each monitor interval, outside the timed step,
+so its findings halt the run as the in-process stack's callbacks do.
+Every post to a remote stack happens outside the timed step.  There is no
 ``jit``: the step runs eagerly; meshes belong to the distributed slice and
 raise.
 """
@@ -36,6 +43,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.core.marker import calibrate
 from repro_torch.data.pipeline import (
     DataLoader, SyntheticTokenSource, make_batch_fn)
 from repro_torch.models.transformer import init_model_params
@@ -89,8 +97,9 @@ def counted_step_constants(flops: float, *, model_flops: float,
     region's roofline placement are absent; FLOPS (``gflops_per_s``,
     ``hw_flops_util``, ``mfu``, ``useful_flop_ratio``) and GOODPUT are
     derived.  The card's peaks ride along as the raw events ``PEAK_FLOPS``
-    and ``HBM_BW``, which the group formulas read before their built-in
-    constants.
+    and ``HBM_BW``, which the HPM group formulas read.  The roofline of
+    marker regions is the stack's query and sees no step constants: it
+    reads the peaks of the calibration point that :func:`train` records.
     """
     return {"hlo_flops": float(flops), "model_flops": float(model_flops),
             "tokens_per_step": float(tokens_per_step),
@@ -149,6 +158,7 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
     mk = um.markers if (markers and train_cfg.monitor) else None
     step_counters: dict = {}
     halted = {"reason": None}
+    poll_findings = getattr(stack, "poll_findings", None)
 
     @stack.on_finding
     def _react(finding):
@@ -166,6 +176,9 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
                        tags={"arch": model_cfg.name, "shape": shape.name}):
             um.event("run_state", f"starting {model_cfg.name} at step "
                      f"{start_step}")
+            # the device's peaks, where the stack's marker roofline reads
+            # them (flushed at once, inside the job bracket)
+            calibrate(um, peak_flops, hbm_bw)
             counted = False
             while step < train_cfg.total_steps:
                 step_idx, np_batch = next(loader)
@@ -199,7 +212,9 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
                     params, opt_state, metrics = train_step(
                         params, opt_state, batch, step_idx)
                     loss = float(metrics["loss"])
-                step_time = time.monotonic() - t0
+                    # timed before the region's exit, which may post the
+                    # marker deltas
+                    step_time = time.monotonic() - t0
 
                 # LMS per-step emission
                 if train_cfg.monitor and \
@@ -211,6 +226,8 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
                               {"loss": loss,
                                "grad_norm": float(metrics["grad_norm"]),
                                "lr": float(metrics["lr"])})
+                    if poll_findings is not None:
+                        poll_findings()
                 if math.isnan(loss):
                     um.event("run_state", f"NaN loss at step {step_idx}")
                     halted["reason"] = "nan_loss"

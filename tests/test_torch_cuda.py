@@ -487,3 +487,14 @@ def test_hybrid_model_on_card_matches_plain_on_cpu(cuda, rng, dtype, tol,
         "flash_attention": groups,
         "rmsnorm": 4 * (2 * num_layers + 2 * groups + 1),
         "rmsnorm_backward": 0, "ssd_scan": num_layers}
+
+
+@pytest.mark.cuda
+def test_compat_raw_stream_is_the_current_stream(cuda):
+    from repro_torch import compat
+    assert compat.current_raw_stream(torch.cuda.current_device()) == \
+        torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert compat.current_raw_stream(torch.cuda.current_device()) == \
+            side.cuda_stream

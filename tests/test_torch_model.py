@@ -29,6 +29,8 @@ from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.bridge import (  # noqa: E402
     load_npz_checkpoint, params_from_numpy)
+from repro_torch.configs import MoEConfig  # noqa: E402
+from repro_torch.models import params as tparams  # noqa: E402
 from repro_torch.models.params import flatten  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -307,7 +309,9 @@ def _port_files():
     root = os.path.join(REPO, "src", "repro_torch")
     files = [os.path.join(REPO, n) for n in
              ("chip_smoke.py", "profile_serve.py", "profile_ssd.py",
-              "profile_train.py", "train_faults.py")]
+              "profile_train.py", "train_faults.py",
+              "examples/train_monitored_torch.py",
+              "examples/serve_requests_torch.py")]
     for d, _, names in os.walk(root):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return files
@@ -319,7 +323,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     scanned = {os.path.relpath(p, os.path.join(REPO, "src", "repro_torch"))
                for p in files}
     assert {"train/optim.py", "train/step.py", "train/loop.py",
-            "ckpt/checkpoint.py", "data/pipeline.py"} <= scanned
+            "ckpt/checkpoint.py", "data/pipeline.py", "compat.py",
+            "launch/__init__.py", "launch/common.py", "launch/train.py",
+            "launch/serve.py"} <= scanned
+    assert {f"core/{n}.py" for n in (
+        "__init__", "line_protocol", "perf_groups", "usermetric", "marker",
+        "host_agent", "httpd")} <= scanned
+    assert {os.path.join("..", "..", "examples", n) for n in (
+        "train_monitored_torch.py", "serve_requests_torch.py")} <= scanned
     bad = []
     for path in files:
         with open(path) as f:
@@ -342,7 +353,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.serve.engine, repro_torch.models.bridge\n"
             "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
             "import repro_torch.train.loop, repro_torch.ckpt\n"
-            "import repro_torch.data\n"
+            "import repro_torch.data, repro_torch.compat\n"
+            "import repro_torch.core, repro_torch.core.httpd\n"
+            "import repro_torch.launch.train, repro_torch.launch.serve\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "print(bad)\n"
@@ -351,3 +364,49 @@ def test_importing_the_port_loads_no_jax():
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+# -- fp32 leaves of the one-time compute cast -------------------------------------
+
+_OLD_FP32_LEAVES = ("scale", "bias", "norm_scale", "A_log", "dt_bias")
+
+
+@pytest.mark.parametrize("name", ["granite-3-8b", "zamba2-7b", "lms-demo"])
+def test_compute_cast_keeps_the_fp32_leaves_of_the_shipped_models(name):
+    """The widened rule keeps exactly the leaves these models kept."""
+    cfg = get_config(name)
+    paths = list(flatten(ttf.model_specs(cfg)))
+    keep = tparams.fp32_leaves(cfg)
+    kept = {p for p in paths if tparams.compute_dtype_for(
+        p, torch.float32, torch.bfloat16, keep) == torch.float32}
+    assert kept and kept == {p for p in paths
+                             if p.rsplit("/", 1)[-1] in _OLD_FP32_LEAVES}
+
+
+@pytest.mark.parametrize("router_dtype", ["float32", "bfloat16"])
+def test_compute_cast_keeps_what_the_reference_reads_in_fp32(router_dtype):
+    """RWKV6's decay, bonus and LayerNorm leaves, MLA's latent norms and the
+    MoE router (when it routes in fp32) stay fp32; matrices are cast."""
+    fp32 = ["w0", "decay_w2", "bonus_u", "ln_tm_scale", "ln_tm_bias",
+            "ln_cm_scale", "ln_cm_bias", "ln_x_scale", "ln_x_bias",
+            "q_norm", "kv_norm", "scale", "A_log"]
+    cast = ["decay_w1", "wr", "wq_a", "wkv_a", "w_gate", "embed"]
+    specs = {"layers": {n: tparams.spec((2, 8), (None, None))
+                        for n in fp32 + cast},
+             "moe": {"router": tparams.spec((8, 4), ("embed", "experts"))}}
+    cfg = dataclasses.replace(
+        get_config("lms-demo"),
+        moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=16,
+                      router_dtype=router_dtype))
+    out = tparams.init_params(specs, device="cpu",
+                              compute_dtype=torch.bfloat16,
+                              keep=tparams.fp32_leaves(cfg))
+    for n in fp32:
+        assert out["layers"][n].dtype == torch.float32, n
+    for n in cast:
+        assert out["layers"][n].dtype == torch.bfloat16, n
+    assert out["moe"]["router"].dtype == (
+        torch.float32 if router_dtype == "float32" else torch.bfloat16)
+    # without a config the router is a matrix like any other
+    assert tparams.compute_dtype_for("moe/router", torch.float32,
+                                     torch.bfloat16) == torch.bfloat16

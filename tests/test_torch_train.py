@@ -33,7 +33,7 @@ from repro.ckpt import checkpoint as jckpt  # noqa: E402
 from repro.configs import base as jbase  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.core import MonitoringStack  # noqa: E402
-from repro.core.marker import MARKER_MEASUREMENT  # noqa: E402
+from repro.core.marker import CALIB_REGION, MARKER_MEASUREMENT  # noqa: E402
 from repro.data import pipeline as jdata  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
@@ -685,7 +685,9 @@ def test_train_loop_matches_the_jax_loop(model, tmp_path):
             stack.close()
     jv, tv = out["jax"], out["port"]
     assert tv["measurements"] == jv["measurements"]
-    assert tv["regions"] == jv["regions"]
+    # the port also records its device's peaks as the calibration point
+    # (the reference run has no device peaks to record)
+    assert tv["regions"] == jv["regions"] | {CALIB_REGION}
     assert tv["events"] == jv["events"]
     for key in ("loss", "grad_norm", "lr"):
         np.testing.assert_allclose(tv["train"][key], jv["train"][key],
