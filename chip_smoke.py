@@ -14,29 +14,47 @@ JAX package.  Phases, each reported on its own lines:
 2. kernels -- every kernel against its plain PyTorch version on the card,
               in bf16 and fp32, at the main paths' shapes (granite-3-8b
               prefill and decode, lms-demo, zamba2-7b's flash at head dim
-              112 and its SSD scan) plus a window, a ragged S or L, a
-              non-causal and a strong-decay case: max abs error against the
-              tolerance, kernel ms, plain ms, one library call's ms (none
-              for the SSD scan) and the bound in ms; flash and SSD rows
-              also give bound / ms (``frac_of_bound``) and TFLOP/s, flash
-              rows ms / library ms (``vs_library``); then the bf16
-              rmsnorm kernel against ``F.rms_norm`` at the served shapes,
-              medians of interleaved timings (``rmsnorm-interleaved``).
-3. serve   -- two models at full width and depth, random weights from a
-              seed, bf16, each served by ServingEngine(max_batch=8,
-              max_len=2048) with 8 requests of 256-1024 prompt tokens and
-              32 new tokens each: granite-3-8b (40 layers, d=4096), then,
-              once granite's weights and cache are freed, zamba2-7b (81
-              Mamba2 layers, d=3584, 13 shared-attention applications).
-              Launch counts are zeroed just before each run and read just
-              after; they must be what the model's forwards launch (granite:
-              40 flash per prefill, 81 rmsnorm per forward; zamba2: 81
-              ssd_scan and 13 flash per prefill, 189 rmsnorm per forward).
-              The logits must be finite and of the expected shape, and on a
-              64-token input the kernel path (prefill, then 3 decode steps
-              through the caches) must agree with a plain full forward, the
-              same model code with every kernel wrapper swapped for its
-              plain version: granite in bf16, zamba2 in fp32 (see serve()).
+              112 and its SSD scan, phi3-medium-14b's GQA 40/10,
+              nemotron-4-340b's head dim 192, mixtral-8x7b's windowed
+              prefill over the long-context batch) plus a window, a ragged
+              S or L, a non-causal and a strong-decay case: max abs error
+              against the tolerance, kernel ms, plain ms, one library
+              call's ms (none for the SSD scan; a windowed flash row's is
+              ``scaled_dot_product_attention`` with the band as a boolean
+              mask) and the bound in ms; flash and SSD rows also give
+              bound / ms (``frac_of_bound``) and TFLOP/s, flash rows ms /
+              library ms (``vs_library``); then the bf16 rmsnorm kernel
+              against ``F.rms_norm`` at the served shapes, medians of
+              interleaved timings (``rmsnorm-interleaved``).
+3. serve   -- five models at full width, random weights from a seed, bf16,
+              one after the other (each freed before the next), each served
+              by ServingEngine(max_batch=8): granite-3-8b (40 layers),
+              zamba2-7b (81 Mamba2 layers, 13 shared-attention
+              applications), phi3-medium-14b (40 layers, d=5120) and
+              nemotron-4-340b (4 of its 96 layers, d=18432, head dim 192,
+              LayerNorm) with 8 requests of 256-1024 prompt tokens, 32 new
+              tokens each and max_len 2048; then mixtral-8x7b (16 of its 32
+              layers, 8 experts, top 2, sliding window 4096) with the
+              long-context workload: 4 requests of 4200-6000 prompt tokens,
+              16 new tokens, max_len 8192, so prefill runs the windowed
+              flash kernel, the 4096-slot ring cache is filled from the
+              prompts' tails and decode wraps it (SERVED).  Each reports
+              TTFT, prefill s, decode tokens/s and peak GB.  Launch counts
+              are zeroed just before each run and read just after; they
+              must be what the model's forwards launch (flash once per
+              attention layer a prefill, ssd_scan once per Mamba2 layer a
+              prefill, rmsnorm once per RMSNorm a forward; nemotron's
+              LayerNorms launch none).  The logits must be finite and of
+              the expected shape, and the kernel path (prefill, then 3
+              decode steps through the caches) must agree with a plain full
+              forward, the same model code with every kernel wrapper
+              swapped for its plain version, on a 64-token input (granite,
+              phi3 and nemotron in bf16, zamba2 in fp32); mixtral's input is
+              the window + 64 tokens, its check in fp32 at 4 layers with the
+              checked token routed alike in every layer, after the bf16
+              routes of the two paths are compared at the served depth (a
+              measurement: bf16 rounding may flip a near-tied expert; see
+              serve()).
 4. train   -- once the served weights are freed, three parts:
               (a) the RMSNorm backward kernel against ``ref.rmsnorm_bwd_ref``
               and against autograd through ``ref.rmsnorm_ref``, at
@@ -92,8 +110,8 @@ JAX package.  Phases, each reported on its own lines:
               calibrated peaks must lie in (0, 1.05].  One ``monitor:``
               JSON line sums it up.
 6. the kernels line (JSON: every kernel with its launches summed over the
-   paths driven -- serve granite, serve zamba2, train granite, the train
-   CLI and the serve CLI on lms-demo -- its numbers at this path's shapes
+   paths driven -- the five served models, train granite, the train CLI
+   and the serve CLI on lms-demo -- its numbers at one path's shapes
    (zamba2's prefill for flash, SSD and the forward RMSNorm; granite's
    training shape for the RMSNorm backward), and per path its launches and
    the rows it was timed at), then the last line
@@ -140,6 +158,7 @@ from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.kernels import ssd  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.params import flatten, unflatten  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     forward, init_cache, init_model_params, loss_fn)
@@ -164,6 +183,9 @@ TOL = {"flash_attention": {torch.bfloat16: 2e-2, torch.float32: 2e-5},
        "rmsnorm_dscale": {torch.bfloat16: 1e-5, torch.float32: 1e-5},
        "ssd_scan": {torch.bfloat16: 2e-2, torch.float32: 2e-3}}
 MODEL_TOL = 5e-2          # model logits (bf16 in tests/test_kernels.py)
+# the plain attention runs batch row by batch row where the whole batch's
+# (B, H, S, S) fp32 scores would pass this (the long-context shape: 18 GB)
+PLAIN_SCORE_BYTES = 4e9
 SOURCES = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:35"),
@@ -182,10 +204,28 @@ KERNEL_NAMES = ("flash_wgmma_kernel", "flash_f32_kernel", "rmsnorm_kernel",
 # bf16 instances that issue wgmma: a spill or a missing instance fails
 WGMMA_INSTANCES = tuple(f"flash_wgmma_kernel<{d}>" for d in fa.HEAD_DIMS) + \
     ("ssd_wgmma_kernel",)
-MODELS = ("granite-3-8b", "zamba2-7b")   # served in this order
 SEED = 0
 N_REQUESTS, MAX_NEW = 8, 32
 MAX_BATCH, MAX_LEN = 8, 2048
+# The long-context workload (mixtral): LONG_REQUESTS prompts drawn from
+# LONG_PROMPT tokens, LONG_NEW new tokens, caches of LONG_MAX_LEN (the
+# sliding window of 4096 keeps a ring of 4096 slots).
+LONG_REQUESTS, LONG_PROMPT, LONG_NEW = 4, (4200, 6000), 16
+LONG_MAX_LEN = 8192
+# Served in this order, each at full width: the layers served (None = all)
+# and the workload ("short": N_REQUESTS prompts of 256-1024 tokens, MAX_NEW
+# new tokens, MAX_LEN; "long": the long-context one).  nemotron-4-340b's 96
+# layers are 680 GB in bf16: 4 of them (46.5 GB with the 256000-token embed
+# and unembed) fit beside the 3.7 GB of its full-sequence logits; mixtral's
+# 32 layers are 93 GB: 16 fit (47 GB).
+SERVED = {"granite-3-8b": (None, "short"), "zamba2-7b": (None, "short"),
+          "phi3-medium-14b": (None, "short"),
+          "nemotron-4-340b": (4, "short"), "mixtral-8x7b": (16, "long")}
+MODELS = tuple(SERVED)
+# mixtral's model check: a prompt of window + MIX_CHECK_TAIL tokens (the
+# ring wraps in prefill and again in decode), in fp32 at MIX_CHECK_LAYERS
+# layers (16 fp32 layers, 94 GB, do not fit)
+MIX_CHECK_TAIL, MIX_CHECK_LAYERS = 64, 4
 # Training (phase 4): granite-3-8b at full width, TRAIN_LAYERS of its 40
 # layers, TRAIN_SHAPE tokens a step; lms-demo for the kernel-vs-plain steps.
 TRAIN_MODEL, TRAIN_LAYERS, TRAIN_STEPS = "granite-3-8b", 8, 6
@@ -230,13 +270,28 @@ def gpu_line() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def smoke_prompts(cfg) -> list:
-    """The served workload: N_REQUESTS prompts of 256-1024 tokens drawn
-    from SEED (``profile_serve.py`` traces the same batch)."""
+def smoke_prompts(cfg, workload: str = "short") -> list:
+    """The served workload: N_REQUESTS prompts of 256-1024 tokens, or
+    (``"long"``) LONG_REQUESTS of LONG_PROMPT tokens, drawn from SEED
+    (``profile_serve.py`` traces the same batch)."""
     rng = np.random.default_rng(SEED)
-    lens = rng.integers(256, 1025, size=N_REQUESTS)
+    n, (lo, hi) = (N_REQUESTS, (256, 1024)) if workload == "short" else \
+        (LONG_REQUESTS, LONG_PROMPT)
+    lens = rng.integers(lo, hi + 1, size=n)
     return [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32)
             for n in lens]
+
+
+def serve_plan(name: str) -> tuple:
+    """(config cut to its served depth, prompts, max_len, new tokens) of a
+    served model."""
+    layers, workload = SERVED[name]
+    cfg = get_config(name)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if workload == "short":
+        return cfg, smoke_prompts(cfg), MAX_LEN, MAX_NEW
+    return cfg, smoke_prompts(cfg, workload), LONG_MAX_LEN, LONG_NEW
 
 
 def serving_params(cfg) -> dict:
@@ -344,15 +399,22 @@ def check_flash(gen, b, h, kv, s, d, dtype, *, causal=True, window=0,
     k = torch.randn((b, s, kv, d), generator=gen, device=dev, dtype=dtype)
     v = torch.randn((b, s, kv, d), generator=gen, device=dev, dtype=dtype)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def plain():
+        if b * h * s * s * 4 <= PLAIN_SCORE_BYTES:
+            return ref.attention_ref(qt, kt, vt, causal=causal,
+                                     window=window)
+        return torch.cat([ref.attention_ref(qt[i:i + 1], kt[i:i + 1],
+                                            vt[i:i + 1], causal=causal,
+                                            window=window)
+                          for i in range(b)])
     got = ops.flash_attention_bshd(q, k, v, causal=causal, window=window)
-    want = ref.attention_ref(qt, kt, vt, causal=causal,
-                             window=window).transpose(1, 2)
+    want = plain().transpose(1, 2)
     err = compare("flash_attention", got, want, dtype)
     del want
     ms = time_ms(lambda: ops.flash_attention_bshd(q, k, v, causal=causal,
                                                   window=window))
-    plain_ms = time_ms(lambda: ref.attention_ref(qt, kt, vt, causal=causal,
-                                                 window=window), iters=3)
+    plain_ms = time_ms(plain, iters=3)
     if window:
         qp = torch.arange(s, device=dev)[:, None]
         kp = torch.arange(s, device=dev)[None, :]
@@ -539,11 +601,12 @@ def check_ssd(gen, b, l, h, g, dtype, *, decay=0.1, init=True, tag=""):
     return row
 
 
-def kernel_checks(plen: int) -> dict:
+def kernel_checks(plen: int, lplen: int) -> dict:
     """All kernel checks; returns, per served model, the rows at that
     path's own prefill shapes (S = the served batch's padded prompt
-    length): {model: {kernel: row}}, with zamba2's gated norm (d=7168)
-    under "rmsnorm_gated"."""
+    length: ``plen``, or ``lplen`` for the long-context workload):
+    {model: {kernel: row}}, with zamba2's gated norm (d=7168) under
+    "rmsnorm_gated"."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bf16, f32 = torch.bfloat16, torch.float32
     for dt in (bf16, f32):
@@ -554,6 +617,7 @@ def kernel_checks(plen: int) -> dict:
         check_flash(gen, 2, 8, 4, 200, 64, dt, causal=False,
                     tag="non-causal")
         check_flash(gen, 2, 32, 32, 300, 112, dt, tag="zamba2-ragged")
+        check_flash(gen, 2, 8, 1, 700, 192, dt, window=300, tag="window-192")
         check_rmsnorm(gen, 8 * 1024, 4096, dt, tag="granite-prefill")
         check_rmsnorm(gen, 8, 4096, dt, tag="granite-decode")
         check_rmsnorm(gen, 8 * 1024, 512, dt, tag="lms-demo-prefill")
@@ -562,8 +626,23 @@ def kernel_checks(plen: int) -> dict:
         check_ssd(gen, 2, 37, 16, 2, dt, init=False, tag="ragged")
         check_ssd(gen, 2, 200, 8, 1, dt, decay=20.0, tag="strong-decay")
     check_flash(gen, 8, 32, 32, plen, 112, f32, tag="zamba2-prefill")
+    check_flash(gen, 8, 96, 8, plen, 192, f32, tag="nemotron-prefill")
     rmsnorm_vs_library(gen, plen)
     return {
+        "phi3-medium-14b": {
+            "flash_attention": check_flash(gen, 8, 40, 10, plen, 128, bf16,
+                                           tag="phi3-main-path-prefill"),
+            "rmsnorm": check_rmsnorm(gen, 8 * plen, 5120, bf16,
+                                     tag="phi3-main-path-prefill")},
+        "nemotron-4-340b": {
+            "flash_attention": check_flash(gen, 8, 96, 8, plen, 192, bf16,
+                                           tag="nemotron-main-path-prefill")},
+        "mixtral-8x7b": {
+            "flash_attention": check_flash(
+                gen, LONG_REQUESTS, 32, 8, lplen, 128, bf16, window=4096,
+                tag="mixtral-main-path-prefill"),
+            "rmsnorm": check_rmsnorm(gen, LONG_REQUESTS * lplen, 4096, bf16,
+                                     tag="mixtral-main-path-prefill")},
         "granite-3-8b": {
             "flash_attention": check_flash(gen, 8, 32, 8, plen, 128, bf16,
                                            tag="main-path-prefill"),
@@ -704,24 +783,25 @@ def plain_kernels():
 def expected_launches(cfg, n_batches: int, n_forwards: int) -> dict:
     """Kernel launches of serving: each prefill batch runs flash once per
     attention layer and the SSD scan once per Mamba2 layer; every forward
-    (prefill or decode step) runs rmsnorm once per norm."""
+    (prefill or decode step) runs rmsnorm once per norm (none where the
+    norms are LayerNorms, which have no kernel)."""
     if cfg.family == "hybrid":
         groups = cfg.num_layers // cfg.hybrid.attn_every
         norms = 2 * cfg.num_layers + 2 * groups + 1
         return {"flash_attention": groups * n_batches,
                 "rmsnorm": norms * n_forwards, "rmsnorm_backward": 0,
                 "ssd_scan": cfg.num_layers * n_batches}
+    norms = 0 if cfg.norm_type == "layernorm" else 2 * cfg.num_layers + 1
     return {"flash_attention": cfg.num_layers * n_batches,
-            "rmsnorm": (2 * cfg.num_layers + 1) * n_forwards,
-            "rmsnorm_backward": 0, "ssd_scan": 0}
+            "rmsnorm": norms * n_forwards, "rmsnorm_backward": 0,
+            "ssd_scan": 0}
 
 
 def serve(name: str) -> dict:
-    """Serve the smoke workload with ``name`` at full width and depth, check
-    its launches, logits and a short kernel-vs-plain run; the weights and
-    caches are freed on return."""
-    cfg = get_config(name)
-    prompts = smoke_prompts(cfg)
+    """Serve ``name``'s workload at full width (depth as SERVED says),
+    check its launches, logits and a short kernel-vs-plain run; the weights
+    and caches are freed on return."""
+    cfg, prompts, max_len, max_new = serve_plan(name)
     t0 = time.monotonic()
     params = serving_params(cfg)
     torch.cuda.synchronize()
@@ -731,7 +811,7 @@ def serve(name: str) -> dict:
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
 
     rec = Recorder()
-    eng = ServingEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
+    eng = ServingEngine(cfg, params, max_batch=MAX_BATCH, max_len=max_len,
                         usermetric=rec, markers=rec)
     finite = []
 
@@ -745,7 +825,7 @@ def serve(name: str) -> dict:
         return run
     eng.prefill, eng.decode = checked(eng.prefill), checked(eng.decode)
     for p in prompts:
-        eng.submit(p, max_new_tokens=MAX_NEW)
+        eng.submit(p, max_new_tokens=max_new)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -756,15 +836,16 @@ def serve(name: str) -> dict:
     wall_s = time.monotonic() - t0
     counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del eng
 
-    if len(done) != len(prompts) or any(len(r.output) != MAX_NEW
+    if len(done) != len(prompts) or any(len(r.output) != max_new
                                         for r in done):
         raise AssertionError("not every request got its tokens")
     if not all(bool(f) for f in finite):
         raise AssertionError("non-finite logits")
-    n_batches = math.ceil(len(prompts) / eng.max_batch)
+    n_batches = math.ceil(len(prompts) / MAX_BATCH)
     want = expected_launches(cfg, n_batches,
-                             n_batches * MAX_NEW)  # 1 prefill + 31 decode
+                             n_batches * max_new)  # 1 prefill + decode
     if counts != want:
         raise AssertionError(f"{name}: launch counts {counts}, expected "
                              f"{want}")
@@ -772,7 +853,9 @@ def serve(name: str) -> dict:
     pre = [f for n, f, _ in rec.metrics if n == "serve_prefill"]
     dec = [f for n, f, _ in rec.metrics if n == "serve_decode"]
     reqs = [f for n, f, _ in rec.metrics if n == "serve_request"]
-    out = {"model": name, "wall_s": wall_s,
+    out = {"model": name, "layers": cfg.num_layers, "params": n_params,
+           "requests": len(prompts), "max_new": max_new, "max_len": max_len,
+           "wall_s": wall_s,
            "prefill_s": sum(f["prefill_time_s"] for f in pre),
            "prompt_len": max(f["prompt_len"] for f in pre),
            "ttft_s_max": max(f["ttft_s"] for f in reqs),
@@ -801,8 +884,88 @@ def serve(name: str) -> dict:
         model_check(params32, dataclasses.replace(cfg, dtype="float32"),
                     prompts[0][:64], cache_dtype=torch.float32)
         del params32
+    elif cfg.moe is not None:
+        # A prompt past the window, so that prefill fills the ring from its
+        # tail and decode wraps it.  In bf16 the kernel and plain paths
+        # round each layer's activations differently, which can flip a
+        # near-tied second expert (measured here at the served depth, not
+        # a check); in fp32 the two paths compute one function and must
+        # route the checked token alike in every layer.  16 fp32 layers do
+        # not fit beside anything: MIX_CHECK_LAYERS of them, made from the
+        # served weights as the bf16 ones are dropped.
+        prompt = prompts[0][:cfg.sliding_window + MIX_CHECK_TAIL]
+        route_agreement(params, cfg, prompt)
+        flat = flatten(params)
+        del params
+        params32 = unflatten(fp32_prefix(flat, MIX_CHECK_LAYERS))
+        torch.cuda.empty_cache()
+        model_check(params32, dataclasses.replace(
+            cfg, dtype="float32", num_layers=MIX_CHECK_LAYERS), prompt,
+            cache_dtype=torch.float32)
+        del params32
     else:
         model_check(params, cfg, prompts[0][:64])
+    return out
+
+
+def fp32_prefix(flat: dict, layers: int) -> dict:
+    """An fp32 copy of the first ``layers`` layers (and the embed and final
+    norm) of a flat bf16 tree, popping each source leaf as it is copied so
+    that the two never sit whole on the card together."""
+    out = {}
+    for k in list(flat):
+        v = flat.pop(k)
+        out[k] = (v[:layers] if k.split("/")[0].endswith("_layers")
+                  else v).float()
+        del v
+    return out
+
+
+@contextmanager
+def recorded_routes():
+    """Within the block every MoE layer's routing is kept: the experts of
+    each token, one (T, k) tensor a layer in call order."""
+    routes, route_topk = [], moe.route_topk
+
+    def record(logits, top_k):
+        gates, experts, probs = route_topk(logits, top_k)
+        routes.append(experts)
+        return gates, experts, probs
+    moe.route_topk = record
+    try:
+        yield routes
+    finally:
+        moe.route_topk = route_topk
+
+
+def routes_differ(got: list, want: list) -> list:
+    """Per layer, the tokens of ``got`` routed otherwise than the last
+    tokens of ``want`` (a full forward that may see more tokens)."""
+    return [int((g != w[-g.shape[0]:]).any(dim=-1).sum())
+            for g, w in zip(got, want)]
+
+
+def route_agreement(params, cfg, prompt) -> dict:
+    """The prefill routes of the kernel path against the plain path's at
+    the served depth and dtype (a measurement: in bf16 the two paths may
+    flip a near-tied expert), with the last logit's relative gap."""
+    dev = params["final_norm"]["scale"].device
+    toks = torch.tensor([[int(t) for t in prompt]], device=dev)
+    with torch.inference_mode():
+        with recorded_routes() as got:
+            gl, _ = forward(params, cfg, tokens=toks, mode="prefill")
+        with plain_kernels(), recorded_routes() as want:
+            wl, _ = forward(params, cfg, tokens=toks, mode="prefill")
+    flips = routes_differ(got, want)
+    g, w = gl[:, -1].float(), wl[:, -1].float()
+    out = {"model": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+           "tokens": toks.shape[1], "token_layers_routed_otherwise":
+           sum(flips), "by_layer": flips,
+           "last_token_routed_otherwise": any(
+               bool((a[-1] != b[-1]).any()) for a, b in zip(got, want)),
+           "last_logit_rel_err": float((g - w).abs().max() / w.abs().max()),
+           "argmax_equal": int(g.argmax()) == int(w.argmax())}
+    log(f"serve: routes {json.dumps(out)}")
     return out
 
 
@@ -811,17 +974,20 @@ def model_check(params, cfg, prompt, steps: int = 3,
     """A short input through the kernel path -- prefill, then decode steps
     through the caches -- against a plain full forward over the same
     sequence at each step, same weights.  Error relative to the largest
-    logit, limit MODEL_TOL; argmax equal at every step."""
+    logit, limit MODEL_TOL; argmax equal at every step; with MoE layers the
+    checked (last) token routed alike in every layer."""
     dev = params["final_norm"]["scale"].device
     seq = [int(t) for t in prompt]
+    routes = recorded_routes if cfg.moe is not None else nullcontext
     cache = init_cache(cfg, 1, len(seq) + steps, dtype=cache_dtype,
                        device=dev)
     with torch.inference_mode():
         toks = torch.tensor([seq], device=dev)
-        got, cache = forward(params, cfg, tokens=toks, mode="prefill",
-                             cache=cache)
+        with routes() as got_routes:
+            got, cache = forward(params, cfg, tokens=toks, mode="prefill",
+                                 cache=cache)
         for step in range(steps + 1):
-            with plain_kernels():
+            with plain_kernels(), routes() as want_routes:
                 want, _ = forward(params, cfg,
                                   tokens=torch.tensor([seq], device=dev),
                                   mode="prefill")
@@ -829,23 +995,33 @@ def model_check(params, cfg, prompt, steps: int = 3,
             err = float((g - w).abs().max())
             rel = err / float(w.abs().max())
             same = int(g.argmax()) == int(w.argmax())
+            routed = ""
+            last_alike = True
+            if cfg.moe is not None:
+                flips = routes_differ(got_routes, want_routes)
+                last_alike = all(bool((a[-1] == b[-1]).all())
+                                 for a, b in zip(got_routes, want_routes))
+                routed = (f", tokens routed otherwise by layer {flips}, "
+                          f"checked token routed "
+                          f"{'alike' if last_alike else 'otherwise'}")
             log(f"serve: model check {cfg.name} {cfg.dtype} "
                 f"{'prefill' if step == 0 else 'decode'} at position "
                 f"{len(seq) - 1}: max abs logit err {err:.4e}, relative "
                 f"{rel:.4e} (limit {MODEL_TOL}), argmax "
-                f"{'equal' if same else 'differs'}")
+                f"{'equal' if same else 'differs'}{routed}")
             if not bool(torch.isfinite(g).all()) or rel > MODEL_TOL \
-                    or not same:
+                    or not same or not last_alike:
                 raise AssertionError("kernel-path logits disagree with the "
                                      "plain forward")
             if step == steps:
                 break
             seq.append(int(w.argmax()))
-            got, cache = forward(params, cfg,
-                                 tokens=torch.tensor([[seq[-1]]],
-                                                     device=dev),
-                                 mode="decode", cache=cache,
-                                 pos=len(seq) - 1)
+            with routes() as got_routes:
+                got, cache = forward(params, cfg,
+                                     tokens=torch.tensor([[seq[-1]]],
+                                                         device=dev),
+                                     mode="decode", cache=cache,
+                                     pos=len(seq) - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -1376,11 +1552,12 @@ def main() -> int:
         log(f"ptxas: {json.dumps(r)}")
     log(f"gpu: {gpu_line()}")
 
-    plen = max(len(p) for p in smoke_prompts(get_config(MODELS[0])))
+    plen, lplen = (max(len(p) for p in serve_plan(m)[1])
+                   for m in ("granite-3-8b", "mixtral-8x7b"))
 
     # Phase 2: kernels against plain
     t0 = time.monotonic()
-    rows = kernel_checks(plen)
+    rows = kernel_checks(plen, lplen)
     log(f"kernels: all checks within tolerance "
         f"({time.monotonic() - t0:.2f} s)")
 
@@ -1412,7 +1589,7 @@ def main() -> int:
     # shape; per path the rows each kernel was timed at), then the result
     kernels = []
     for name, (src, replaces) in SOURCES.items():
-        r = rows[train_path if name == "rmsnorm_backward" else MODELS[-1]][
+        r = rows[train_path if name == "rmsnorm_backward" else "zamba2-7b"][
             name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,

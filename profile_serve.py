@@ -5,9 +5,9 @@ Run from the root of a checkout on a machine with a CUDA card::
 
     python3 profile_serve.py [--model granite-3-8b] [--out DIR]
 
-It serves ``chip_smoke.py``'s own workload (its seed, prompt draw of
-256-1024 tokens, request count and new tokens; random bf16 weights) with
-the model at full width: once untraced (warm-up; its engine metrics are
+It serves ``chip_smoke.py``'s own workload for the model (``serve_plan``:
+its seed, prompt draw, request count, new tokens, cache length and served
+depth; random bf16 weights) at full width: once untraced (warm-up; its engine metrics are
 printed), then once more under ``torch.profiler`` with the engine's
 ``serve:prefill`` / ``serve:decode`` regions as trace annotations.  From the
 Chrome trace (written gzipped to ``<out>/profile_<model>.json.gz``, by
@@ -31,8 +31,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 import chip_smoke  # also puts the checkout's src/ on sys.path
-from chip_smoke import MAX_BATCH, MAX_LEN, MAX_NEW, ROOT
-from repro_torch.configs import get_config
+from chip_smoke import MAX_BATCH, ROOT
 from repro_torch.serve.engine import ServingEngine
 
 OUR_KERNELS = chip_smoke.KERNEL_NAMES     # the port's kernels, by name
@@ -135,17 +134,16 @@ def main() -> int:
     print(f"gpu: {chip_smoke.gpu_line()}; torch {torch.__version__}",
           flush=True)
 
-    cfg = get_config(args.model)
+    cfg, prompts, max_len, max_new = chip_smoke.serve_plan(args.model)
     params = chip_smoke.serving_params(cfg)
-    prompts = chip_smoke.smoke_prompts(cfg)
 
     def serve(markers):
         metrics = Metrics()
         eng = ServingEngine(cfg, params, max_batch=MAX_BATCH,
-                            max_len=MAX_LEN, usermetric=metrics,
+                            max_len=max_len, usermetric=metrics,
                             markers=markers)
         for p in prompts:
-            eng.submit(p, max_new_tokens=MAX_NEW)
+            eng.submit(p, max_new_tokens=max_new)
         torch.cuda.synchronize()
         t0 = time.monotonic()
         eng.run_until_empty()

@@ -172,15 +172,14 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Approximate parameter count (embedding + blocks), for 6ND math.
-        Only the families the port ships are counted (dense GQA, and the
-        hybrid's Mamba2 layers plus shared attention blocks); MoE has no
-        experts here, so every parameter is active.  Other families' counts
-        arrive with their model code."""
-        if self.moe is not None or self.rwkv is not None or \
-                self.attention_type != "gqa" or self.family == "encdec":
+        Only the families the port ships are counted (dense and MoE GQA,
+        and the hybrid's Mamba2 layers plus shared attention blocks).  Other
+        families' counts arrive with their model code."""
+        if self.rwkv is not None or self.attention_type != "gqa" or \
+                self.family == "encdec":
             raise NotImplementedError(
                 f"{self.name}: the port counts the parameters of dense GQA "
-                f"and hybrid configurations only")
+                f"and hybrid configurations, and of GQA MoE ones, only")
         d = self.d_model
         n = self.vocab_padded * d                       # embedding
         if not self.tie_embeddings:
@@ -189,15 +188,37 @@ class ModelConfig:
             n += self._ssm_params() * self.num_layers
             n += self._attn_params() * self.hybrid.num_shared_blocks
         else:
-            mats = 3 if self.mlp_type == "swiglu" else 2
-            n += (self._attn_params() + mats * d * self.d_ff) * \
+            n += (self._attn_params() + self._mlp_params()) * \
                 self.num_layers
         return n
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only routed top-k experts)."""
+        if self.moe is None:
+            return self.param_count()
+        d = self.d_model
+        m = self.moe
+        moe_layers = self.num_layers - m.num_dense_layers
+        expert_p = 3 * d * m.d_ff_expert                # swiglu expert
+        inactive = (m.num_experts - m.top_k) * expert_p * moe_layers
+        return self.param_count() - inactive
 
     def _attn_params(self) -> int:
         d, hd = self.d_model, self.head_dim
         return d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd \
             + self.num_heads * hd * d
+
+    def _mlp_params(self) -> int:
+        d = self.d_model
+        if self.moe is not None:
+            m = self.moe
+            p = m.num_experts * 3 * d * m.d_ff_expert
+            p += d * m.num_experts                       # router
+            if m.num_shared_experts:
+                p += 3 * d * m.d_ff_shared
+            return p
+        mats = 3 if self.mlp_type == "swiglu" else 2
+        return mats * d * self.d_ff
 
     def _ssm_params(self) -> int:
         d = self.d_model
@@ -304,7 +325,11 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
 _LOADED = False
 
 ARCH_MODULES = [
+    "mixtral_8x7b",
+    "nemotron_4_340b",
     "granite_3_8b",
+    "yi_34b",
+    "phi3_medium_14b",
     "lms_demo",
     "zamba2_7b",
 ]

@@ -12,7 +12,7 @@
 // Unlike the Pallas kernel it masks the ragged edge (keys >= S, no store of
 // rows >= S), so any S works.  Tensors are addressed through (b, h, s)
 // strides with the head dim contiguous, so the model's (B,S,H,D) activations
-// need no copy.  Head dims 64, 112 and 128.
+// need no copy.  Head dims 64, 112, 128 and 192.
 //
 // What bounds it on the H100: at the prefill shapes (S ~ 1k, D = 112-128)
 // the two matrix products do ~S/2 multiply-adds per byte moved, above the
@@ -34,8 +34,9 @@
 //   score tile and P).
 // * TMA into a ring.  The Q tile is loaded once per item; the K and V tiles
 //   (128 keys) of each live KV step go into a ring of 3 shared-memory
-//   stages (225 KB in all at D = 128), each completed on its own `mbarrier`
-//   (K and V apart, so Q K^T starts before V lands).  Consumers hand a
+//   stages (225 KB in all at D = 128; at D = 192 the tile is 64 keys, since
+//   three 128-key stages would need 336 KB), each completed on its own
+//   `mbarrier` (K and V apart, so Q K^T starts before V lands).  Consumers hand a
 //   stage back through an "empty" barrier and the Q tile through a "Q read"
 //   barrier.  The tensor maps are rank 4 over (D, S, heads, B) with the
 //   caller's byte strides, so contiguous (B,H,S,D) tensors and transposed
@@ -43,9 +44,11 @@
 //   past S come in as zeros.  The head dim is loaded as 64-column boxes
 //   with 128-byte swizzle; at D = 112 the second box runs past the tensor's
 //   112 columns and TMA fills columns 112-127 with zeros.
-// * `wgmma`.  S = Q K^T is m64n128k16 with both operands in shared memory
-//   (K is K-major, no transpose; D/16 k-steps, 7 at D = 112).  O += P V is
-//   m64nDk16 with P from registers: the fp32 score fragment of keys
+// * `wgmma`.  S = Q K^T is m64n128k16 (m64n64k16 at D = 192) with both
+//   operands in shared memory (K is K-major, no transpose; D/16 k-steps, 7
+//   at D = 112).  O += P V is m64nDk16 with P from registers: at D = 192 the
+//   96 accumulators, 32 scores and 16 P words leave room in the 240
+//   registers a consumer holds.  The fp32 score fragment of keys
 //   16j..16j+15, packed pairwise to bf16, is the A fragment of k-step j, so
 //   P never touches shared memory.  V (keys x D) is MN-major for this
 //   product and is read with the transpose bit.
@@ -120,16 +123,23 @@ __device__ __forceinline__ bool tile_live(int q0, int k0, const Params& p) {
 // ---------------------------------------------------------------------------
 
 constexpr int BM = 128;               // query rows per block
-constexpr int BN = 128;               // keys per KV tile
-constexpr int NSTAGE = 3;             // K/V ring depth
 constexpr int NCONS = 2;              // consumer warpgroups (64 rows each)
 constexpr int WS_THREADS = (NCONS + 1) * 128;
 constexpr int ORDER_GROUP = 8;        // (batch, head) pairs per item group
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;    // 128*24 + 256*240 <= 65536
 
+// Keys per KV tile and ring depth by head dim: 128 keys in 3 stages up to
+// D = 128 (225 KB at D = 128); at D = 192 a 128-key stage is 48 KB, so 3 of
+// them (336 KB) or 2 (240 KB) pass the 227 KB a block may hold, and the
+// tile is 64 keys in 3 stages (193 KB).  Fewer than 2 stages cannot work:
+// a consumer waits for K of tile j before it releases V of tile j - 1.
 template <int D>
 struct Cfg {
+  static constexpr int BN = D > 128 ? 64 : 128;  // keys per KV tile
+  static constexpr int NSTAGE = 3;               // K/V ring depth
+  static constexpr int NS = BN / 2;              // score floats a thread
+  static constexpr int PK = BN / 16;             // k-steps of P V
   static constexpr int DP = (D + SPAN - 1) / SPAN * SPAN;   // padded head dim
   static constexpr int NCH = DP / SPAN;          // 64-column boxes per row
   static constexpr int KSTEPS = D / 16;          // k-steps of Q K^T
@@ -138,6 +148,7 @@ struct Cfg {
   static constexpr int NBAR = 2 + 3 * NSTAGE;    // q, q read, k[], v[], empty[]
   static constexpr int SMEM = 1024 + TILE_Q + 2 * NSTAGE * TILE_KV + 8 * NBAR;
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  static_assert(SMEM <= 232448, "over the 227 KB a block may use");
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -219,6 +230,37 @@ __device__ __forceinline__ void wgmma_rs_n112(float (&d)[56],
 }
 
 
+// D (64 x 192, fp32) += A (64 x 16, registers) * B (16 x 192, smem,
+// MN-major: the transpose bit is set)
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // The work items: (q-tile, batch, head).  They come in groups of
 // ORDER_GROUP (batch, head) pairs, so that the K/V a group reads stays in L2
 // while its q-tiles run; inside a group the heaviest q-tiles come first
@@ -228,6 +270,7 @@ struct Item {
   int q0, b, h, kt_lo, kt_hi;   // live KV tiles: [kt_lo, kt_hi)
 };
 
+template <int BN>
 __device__ __forceinline__ Item work_item(int t, const Params& p) {
   const int nbh = p.B * p.H;
   const int nqt = (p.S + BM - 1) / BM;
@@ -248,15 +291,17 @@ __device__ __forceinline__ Item work_item(int t, const Params& p) {
   return w;
 }
 
-// Scale-folded online softmax of one 64 x 128 score tile (raw scores in
-// `s`, turned into unnormalised probabilities), after the masks; returns
-// the factor the accumulator must be rescaled by, per fragment row.
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
+// Scale-folded online softmax of one 64 x BN score tile (raw scores in
+// `s`, NS = BN / 2 a thread, turned into unnormalised probabilities), after
+// the masks; returns the factor the accumulator must be rescaled by, per
+// fragment row.
+template <int NS>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2],
                                              float sc) {
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int i = 0; i < 64; ++i)
+  for (int i = 0; i < NS; ++i)
     mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
   float msc[2], rs[2] = {0.f, 0.f};
 #pragma unroll
@@ -268,7 +313,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
     msc[j] = mx[j] * sc;
   }
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     s[i] = ex2(fmaf(s[i], sc, -msc[(i >> 1) & 1]));
     rs[(i >> 1) & 1] += s[i];
   }
@@ -278,13 +323,15 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
 
 // Masks of one tile for one warpgroup's rows: applied only where the tile
 // crosses the diagonal, the window's left edge or S.
-__device__ __forceinline__ void mask_tile(float (&s)[64], int k0, int row_lo,
+template <int NS>
+__device__ __forceinline__ void mask_tile(float (&s)[NS], int k0, int row_lo,
                                           int r, int c2, const Params& p) {
+  constexpr int BN = 2 * NS;
   const bool edge = (k0 + BN > p.S) || (p.causal && k0 + BN - 1 > row_lo) ||
                     (p.window && k0 <= row_lo + 63 - p.window);
   if (!edge) return;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     const int row = row_lo + r + ((i >> 1) & 1) * 8;
     const int col = k0 + (i >> 2) * 8 + c2 + (i & 1);
     if (!key_ok(row, col, p)) s[i] = p.neg_raw;
@@ -292,26 +339,33 @@ __device__ __forceinline__ void mask_tile(float (&s)[64], int k0, int row_lo,
 }
 
 // P as bf16 A fragments: k-step j of P V takes the keys 16j .. 16j + 15.
-__device__ __forceinline__ void pack_p(const float (&s)[64],
-                                       uint32_t (&pa)[8][4]) {
+template <int NS>
+__device__ __forceinline__ void pack_p(const float (&s)[NS],
+                                       uint32_t (&pa)[NS / 8][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NS / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       pa[j][e] = pack_bf16(s[8 * j + 2 * e], s[8 * j + 2 * e + 1]);
 }
 
-// S = Q K^T for one warpgroup: 64 rows x 128 keys, both operands K-major in
+// S = Q K^T for one warpgroup: 64 rows x BN keys, both operands K-major in
 // shared memory; issued, not waited for.
 template <int D>
-__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_wg,
+__device__ __forceinline__ void issue_qk(float (&s)[Cfg<D>::NS], uint32_t q_wg,
                                          uint32_t k_st) {
+  constexpr int BN = Cfg<D>::BN;
 #pragma unroll
   for (int ks = 0; ks < Cfg<D>::KSTEPS; ++ks) {
     const uint32_t off = (ks & 3) * 32;   // 16 columns = 32 bytes
-    wgmma_ss_n128(s, sw128_desc(q_wg + (ks >> 2) * BM * 128 + off, 16, 1024),
-                  sw128_desc(k_st + (ks >> 2) * BN * 128 + off, 16, 1024),
-                  ks > 0);
+    const uint64_t da =
+        sw128_desc(q_wg + (ks >> 2) * BM * 128 + off, 16, 1024);
+    const uint64_t db =
+        sw128_desc(k_st + (ks >> 2) * BN * 128 + off, 16, 1024);
+    if constexpr (BN == 128)
+      wgmma_ss_n128(s, da, db, ks > 0);
+    else
+      wgmma_ss_n64<0, 0>(s, da, db, ks > 0);
   }
 }
 
@@ -319,12 +373,15 @@ __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_wg,
 // issued, not waited for.
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
-                                         const uint32_t (&pa)[8][4],
+                                         const uint32_t (&pa)[Cfg<D>::PK][4],
                                          uint32_t v_st) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const uint64_t dv = sw128_desc(v_st + j * 16 * 128, BN * 128, 1024);
-    if constexpr (D == 128)
+  for (int j = 0; j < Cfg<D>::PK; ++j) {
+    const uint64_t dv =
+        sw128_desc(v_st + j * 16 * 128, Cfg<D>::BN * 128, 1024);
+    if constexpr (D == 192)
+      wgmma_rs_n192(o, pa[j], dv);
+    else if constexpr (D == 128)
       wgmma_rs_n128(o, pa[j], dv);
     else if constexpr (D == 112)
       wgmma_rs_n112(o, pa[j], dv);
@@ -344,6 +401,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
                        const __grid_constant__ CUtensorMap tm_v,
                        const Params p) {
   using C = Cfg<D>;
+  constexpr int NSTAGE = C::NSTAGE;
   extern __shared__ __align__(1024) unsigned char smem_ws[];
   // 128-byte swizzled tiles want 1024-byte aligned bases
   const uint32_t s_q = (smem_u32(smem_ws) + 1023u) & ~1023u;
@@ -379,7 +437,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       prefetch_map(&tm_v);
       int it = 0;   // K/V tiles issued, over all items
       for (int t = blockIdx.x, n = 0; t < items; t += gridDim.x, ++n) {
-        const Item w = work_item(t, p);
+        const Item w = work_item<C::BN>(t, p);
         const int kvh = w.h / (p.H / p.KV);
         mbar_wait(bar_qe, (n & 1) ^ 1);      // the first pass is free
         mbar_expect_tx(bar_q, C::TILE_Q);
@@ -394,13 +452,13 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
           mbar_expect_tx(bar_k + 8 * st, C::TILE_KV);
 #pragma unroll
           for (int c = 0; c < C::NCH; ++c)
-            tma_load_4d(s_k + st * C::TILE_KV + c * BN * 128, &tm_k,
-                        bar_k + 8 * st, c * SPAN, kt * BN, kvh, w.b);
+            tma_load_4d(s_k + st * C::TILE_KV + c * C::BN * 128, &tm_k,
+                        bar_k + 8 * st, c * SPAN, kt * C::BN, kvh, w.b);
           mbar_expect_tx(bar_v + 8 * st, C::TILE_KV);
 #pragma unroll
           for (int c = 0; c < C::NCH; ++c)
-            tma_load_4d(s_v + st * C::TILE_KV + c * BN * 128, &tm_v,
-                        bar_v + 8 * st, c * SPAN, kt * BN, kvh, w.b);
+            tma_load_4d(s_v + st * C::TILE_KV + c * C::BN * 128, &tm_v,
+                        bar_v + 8 * st, c * SPAN, kt * C::BN, kvh, w.b);
         }
       }
     }
@@ -414,7 +472,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     const uint32_t q_wg = s_q + wg * 64 * 128;   // this warpgroup's rows
     int it = 0;                                  // K/V tiles consumed
     for (int t = blockIdx.x, n = 0; t < items; t += gridDim.x, ++n) {
-      const Item w = work_item(t, p);
+      const Item w = work_item<C::BN>(t, p);
       const int row_lo = w.q0 + 64 * wg;
       mbar_wait(bar_q, n & 1);
       if (row_lo >= p.S) {
@@ -435,8 +493,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
       float m[2] = {p.neg_raw, p.neg_raw};   // running max, raw scores
       float l[2] = {0.f, 0.f};               // this thread's partial sums
-      float s[64], alpha[2];
-      uint32_t pa[8][4];                     // P of the previous tile
+      float s[C::NS], alpha[2];
+      uint32_t pa[C::PK][4];                 // P of the previous tile
 
       // first tile: S, softmax, P (the accumulator is still zero)
       int st = it % NSTAGE;
@@ -448,7 +506,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
-      mask_tile(s, w.kt_lo * BN, row_lo, r, c2, p);
+      mask_tile(s, w.kt_lo * C::BN, row_lo, r, c2, p);
       softmax_tile(s, m, l, alpha, sc);
       pack_p(s, pa);
 
@@ -477,7 +535,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         fence_regs(o);
         wgmma_wait<1>();                     // S of kt is ready
         fence_regs(s);
-        mask_tile(s, kt * BN, row_lo, r, c2, p);
+        mask_tile(s, kt * C::BN, row_lo, r, c2, p);
         softmax_tile(s, m, l, alpha, sc);
         wgmma_wait<0>();                     // P V of kt - 1 is done
         fence_regs(o);
@@ -732,9 +790,9 @@ cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
   if ((err = tensor_map_4d(&tq, encode, p.q, D, p.S, p.H, p.B, p.qs.s,
                            p.qs.h, p.qs.b, BM)) ||
       (err = tensor_map_4d(&tk, encode, p.k, D, p.S, p.KV, p.B, p.ks.s,
-                           p.ks.h, p.ks.b, BN)) ||
+                           p.ks.h, p.ks.b, Cfg<D>::BN)) ||
       (err = tensor_map_4d(&tv, encode, p.v, D, p.S, p.KV, p.B, p.vs.s,
-                           p.vs.h, p.vs.b, BN)))
+                           p.vs.h, p.vs.b, Cfg<D>::BN)))
     return err;
   auto kernel = flash_wgmma_kernel<D>;
   err = cudaFuncSetAttribute(kernel,
@@ -790,11 +848,15 @@ extern "C" int repro_flash_attention(
     err = launch_bf16<112>(p, st);
   else if (dtype == 1 && D == 128)
     err = launch_bf16<128>(p, st);
+  else if (dtype == 1 && D == 192)
+    err = launch_bf16<192>(p, st);
   else if (dtype == 0 && D == 64)
     err = launch(flash_f32_kernel<64>, grid, smem_f32(64), st, p);
   else if (dtype == 0 && D == 112)
     err = launch(flash_f32_kernel<112>, grid, smem_f32(112), st, p);
   else if (dtype == 0 && D == 128)
     err = launch(flash_f32_kernel<128>, grid, smem_f32(128), st, p);
+  else if (dtype == 0 && D == 192)
+    err = launch(flash_f32_kernel<192>, grid, smem_f32(192), st, p);
   return int(err);
 }

@@ -20,7 +20,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import check, load_library
 
-HEAD_DIMS = (64, 112, 128)                # template instances in the .cu
+HEAD_DIMS = (64, 112, 128, 192)           # template instances in the .cu
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0                              # kernel launches since reset
@@ -49,6 +49,15 @@ def _validate(q, k, v, window: int, softcap: float) -> None:
         raise ValueError(f"window must be >= 0, got {window}")
 
 
+def _check_instance(q) -> None:
+    """Raises unless the library has a kernel for q's dtype and head dim."""
+    if q.dtype not in DTYPE_CODES:
+        raise ValueError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"kernel head dim must be one of {HEAD_DIMS}, "
+                         f"got {q.shape[-1]}")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0):
     """q: (B, H, S, D); k/v: (B, KV, S, D) -> (B, H, S, D) in q's dtype.
@@ -63,12 +72,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    _check_instance(q)
     b, h, s, d = q.shape
-    if q.dtype not in DTYPE_CODES:
-        raise ValueError(f"kernel takes float32 or bfloat16, got {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"kernel head dim must be one of {HEAD_DIMS}, "
-                         f"got {d}")
     o = torch.empty_like(q)
     # 16-byte rows and bases: the fp32 kernel's vector loads, and the bf16
     # kernel's TMA tensor maps (base and strides multiples of 16 bytes)

@@ -27,8 +27,10 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
         ok &= kpos <= qpos
     if window:
         ok &= kpos > qpos - window
-    scores = scores.masked_fill(~ok, float("-inf"))
+    # at most two (B, H, S, S) fp32 tensors live at once
+    scores.masked_fill_(~ok, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
+    del scores
     # rows with no valid key -> zeros
     probs = torch.nan_to_num(probs, nan=0.0)
     return (probs @ vf).to(q.dtype)

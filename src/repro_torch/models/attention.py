@@ -3,9 +3,10 @@
 
 * **train** runs, by ``attn_impl``: ``"masked"`` (the reference's default)
   plain :func:`full_attention`; ``"recursive"``
-  :func:`recursive_causal_attention` for S >= 512 (else masked), as the
-  reference does; ``"flash"`` the flash kernel, forward only: under grad it
-  raises, as ``jax.grad`` through the reference's Pallas call fails.
+  :func:`recursive_causal_attention` for S >= 512 without a sliding window
+  (else masked), as the reference does; ``"flash"`` the flash kernel,
+  forward only: under grad it raises, as ``jax.grad`` through the
+  reference's Pallas call fails.
 * **prefill** runs the flash kernel through
   :func:`repro_torch.kernels.ops.flash_attention_bshd` (the plain version on
   the CPU).  The JAX package runs ``chunked_attention`` there; both compute
@@ -14,10 +15,16 @@
 * **decode** attends one query token over every cache slot with plain
   :func:`full_attention` and ``kv_valid = pos + 1`` masking, as the
   reference does (it is not a kernel there either).
+* **sliding window** (``cfg.sliding_window``) masks keys more than
+  ``window - 1`` positions back in every mode.  A cache of exactly
+  ``window`` slots is a ring: prefill leaves the last ``window`` positions
+  in slots ``p mod window``, decode writes slot ``pos mod window`` and
+  rebuilds each slot's absolute position (:func:`_ring_slots`), so the
+  causal, window and ``kp >= 0`` masks stay exact.
 
 Shapes: x (B, S, d); q (B, S, H, D); k/v (B, S, KV, D); H = KV * G.
-Sliding-window caches, logit softcaps, MLA and cross-attention are not
-ported yet and raise ``NotImplementedError`` at model level.
+Logit softcaps, MLA and cross-attention are not ported yet and raise
+``NotImplementedError`` at model level.
 """
 
 from __future__ import annotations
@@ -77,10 +84,12 @@ def _ungroup(o):
 
 
 def full_attention(q, k, v, *, causal=True, window=0, q_offset=0,
-                   kv_valid=None):
+                   kv_valid=None, k_pos=None):
     """Plain masked attention; scores and softmax in fp32, probabilities
     cast to q's dtype for the PV product.  q_offset: absolute position of
-    q[0] (decode: pos).  kv_valid: number of valid cache slots."""
+    q[0] (decode: pos).  kv_valid: number of valid cache slots.  k_pos:
+    absolute position of each key (a ring cache's slots), default
+    0 .. Sk - 1."""
     b, sq, h, dd = q.shape
     kvh = k.shape[2]
     qg = _group(q, kvh).float()                           # (B,KV,G,Sq,D)
@@ -90,7 +99,8 @@ def full_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     # reference's fp32-accumulated scores
     scores = torch.einsum("bkgqd,bksd->bkgqs", qg, kk) * (1.0 / math.sqrt(dd))
     q_pos = q_offset + torch.arange(sq, device=q.device)
-    k_pos = torch.arange(k.shape[1], device=q.device)
+    if k_pos is None:
+        k_pos = torch.arange(k.shape[1], device=q.device)
     scores = scores + _mask_bias(q_pos, k_pos, causal=causal, window=window,
                                  kv_valid=kv_valid)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
@@ -158,6 +168,24 @@ def recursive_causal_attention(q, k, v, *, levels=3, q_offset=0,
     return _ungroup(out.to(q.dtype))
 
 
+def _ring_slots(pos: int, window: int, device=None) -> torch.Tensor:
+    """Absolute positions held by each ring-buffer slot when ``pos`` tokens
+    have been written: slot s holds the largest p < pos with p = s (mod
+    window); negative -> never written (masked by ``kp >= 0``)."""
+    s = torch.arange(window, device=device)
+    return pos - 1 - torch.remainder(pos - 1 - s, window)
+
+
+def _ring_fill(cache_arr, new, window: int) -> None:
+    """Prefill of a ring cache, in place: positions s - window .. s - 1 of
+    ``new`` (B, s, ...) go to slots p mod window (two slice copies)."""
+    s = new.shape[1]
+    r = s % window
+    tail = new[:, s - window:].to(cache_arr.dtype)
+    cache_arr[:, r:] = tail[:, :window - r]
+    cache_arr[:, :r] = tail[:, window - r:]
+
+
 def _cache_write(cache_arr, new, slot: int):
     """Decode cache write at ``slot``, in place (the reference's "dus"
     branch; a PyTorch cache is a mutable buffer, so no copy is made)."""
@@ -175,12 +203,12 @@ def gqa_attention(p, x, cfg: ModelConfig, *, rope=None, mode="prefill",
     mode: "train" | "prefill" | "decode".
     attn_impl (train): "masked" | "recursive" | "flash".
     rope: (cos, sin) tables matching x's sequence positions, or None.
-    cache: {"k", "v"} (B, max_len, KV, D) buffers, written in place.
+    cache: {"k", "v"} (B, cache_len, KV, D) buffers, written in place;
+    cache_len = min(max_len, window) under a sliding window (a ring when it
+    equals the window).
     pos: number of tokens already in the cache (decode).
     Returns (out, cache).
     """
-    if cfg.sliding_window:
-        raise NotImplementedError("sliding-window attention is not ported")
     if cfg.attn_logit_softcap:
         raise NotImplementedError("attention logit softcap is not ported")
     dt = x.dtype
@@ -194,6 +222,7 @@ def gqa_attention(p, x, cfg: ModelConfig, *, rope=None, mode="prefill",
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
+    window = cfg.sliding_window
     if mode == "train":
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} (one of {ATTN_IMPLS})")
@@ -203,24 +232,41 @@ def gqa_attention(p, x, cfg: ModelConfig, *, rope=None, mode="prefill",
                     "the flash kernel is forward-only (as the reference's "
                     "Pallas kernel, which jax.grad cannot differentiate); "
                     "train with attn_impl='masked' or 'recursive'")
-            out = ops.flash_attention_bshd(q, k, v, causal=True)
-        elif attn_impl == "recursive" and s >= 512:
+            out = ops.flash_attention_bshd(q, k, v, causal=True,
+                                           window=window)
+        elif attn_impl == "recursive" and s >= 512 and not window:
+            # the reference computes the recursive path and then replaces
+            # it with the masked one under a window; only the latter runs
             out = recursive_causal_attention(q, k, v)
         else:
-            out = full_attention(q, k, v, causal=True)
+            out = full_attention(q, k, v, causal=True, window=window)
     elif mode == "prefill":
-        out = ops.flash_attention_bshd(q, k, v, causal=True)
+        out = ops.flash_attention_bshd(q, k, v, causal=True, window=window)
         if cache is not None:
             # prefill attends to the unrounded k/v; the cache keeps its dtype
-            cache["k"][:, :s] = k.to(cache["k"].dtype)
-            cache["v"][:, :s] = v.to(cache["v"].dtype)
+            if window and window < s:
+                _ring_fill(cache["k"], k, window)
+                _ring_fill(cache["v"], v, window)
+            else:
+                cache["k"][:, :s] = k.to(cache["k"].dtype)
+                cache["v"][:, :s] = v.to(cache["v"].dtype)
     elif mode == "decode":
         if cache is None or pos is None:
             raise ValueError("decode needs a cache and pos")
-        ck = _cache_write(cache["k"], k, pos)
-        cv = _cache_write(cache["v"], v, pos)
-        out = full_attention(q, ck.to(dt), cv.to(dt), causal=False,
-                             kv_valid=pos + 1, q_offset=pos)
+        if window and cache["k"].shape[1] == window:
+            slot = pos % window
+            ck = _cache_write(cache["k"], k, slot)
+            cv = _cache_write(cache["v"], v, slot)
+            out = full_attention(q, ck.to(dt), cv.to(dt), causal=True,
+                                 window=window, q_offset=pos,
+                                 k_pos=_ring_slots(pos + 1, window,
+                                                   q.device))
+        else:
+            ck = _cache_write(cache["k"], k, pos)
+            cv = _cache_write(cache["v"], v, pos)
+            out = full_attention(q, ck.to(dt), cv.to(dt), causal=False,
+                                 window=window, kv_valid=pos + 1,
+                                 q_offset=pos)
     else:
         raise ValueError(f"mode {mode!r} is not one of train | prefill | "
                          f"decode")

@@ -8,8 +8,12 @@ carry across frameworks 1:1 (see :mod:`repro_torch.models.bridge`).
 Initialization draws normal * ``1/sqrt(fan_in)`` like the reference, from a
 ``torch.Generator`` on the target device.  Each leaf is seeded from
 ``seed`` and a CRC of its "/"-joined path, so an init is reproducible across
-processes and independent of leaf order.  Its random bits differ from
-JAX's: tests carry JAX parameters across instead of comparing two inits.
+processes and independent of leaf order.  A stacked leaf (leading axis
+``layers`` or ``inner_layers``) is drawn one layer at a time from its
+generator, each slice in fp32 and stored at once in the leaf's dtype, so
+its fp32 draw never sits whole on the device (mixtral's stacked ``w_gate``
+at 16 layers is 30 GB in fp32).  Its random bits differ from JAX's: tests
+carry JAX parameters across instead of comparing two inits.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ FP32_LEAVES = ("scale", "bias", "norm_scale", "A_log", "dt_bias", "q_norm",
                "kv_norm", "w0", "decay_w2", "bonus_u")
 # ... and every leaf of RWKV6's LayerNorms, by prefix.
 FP32_PREFIXES = ("ln_tm_", "ln_cm_", "ln_x_")
+# leading axes that ``stack_specs`` adds: such leaves are drawn by slices
+STACK_AXES = ("layers", "inner_layers")
 
 
 @dataclass(frozen=True)
@@ -127,21 +133,33 @@ def compute_dtype_for(path: str, dtype: torch.dtype,
     return compute_dtype
 
 
-def _init_leaf(s: ParamSpec, path: str, seed: int,
-               device: torch.device) -> torch.Tensor:
+def _init_leaf(s: ParamSpec, path: str, seed: int, device: torch.device,
+               dtype: torch.dtype) -> torch.Tensor:
+    """One leaf in ``dtype``; a "normal" leaf is drawn in fp32 from its own
+    generator, a stacked one slice by slice along the stack axis (the
+    fan-in still counts that axis, as JAX's does)."""
     if s.init == "zeros":
-        return torch.zeros(s.shape, dtype=s.dtype, device=device)
+        return torch.zeros(s.shape, dtype=s.dtype, device=device).to(dtype)
     if s.init == "ones":
-        return torch.ones(s.shape, dtype=s.dtype, device=device)
+        return torch.ones(s.shape, dtype=s.dtype, device=device).to(dtype)
     if s.init == "constant":
-        return torch.full(s.shape, s.value, dtype=s.dtype, device=device)
+        return torch.full(s.shape, s.value, dtype=s.dtype,
+                          device=device).to(dtype)
     std = s.scale if s.scale is not None else 1.0 / math.sqrt(
         max(_fan_in(s.shape), 1))
     gen = torch.Generator(device=device)
     gen.manual_seed(zlib.crc32(f"{seed}:{path}".encode()))
-    x = torch.randn(s.shape, generator=gen, dtype=torch.float32,
-                    device=device)
-    return x.mul_(std).to(s.dtype)
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=device).mul_(std)
+
+    if len(s.shape) < 2 or s.axes[0] not in STACK_AXES:
+        return draw(s.shape).to(dtype)
+    out = torch.empty(s.shape, dtype=dtype, device=device)
+    for i in range(s.shape[0]):
+        out[i] = draw(s.shape[1:])
+    return out
 
 
 def init_params(specs, seed: int = 0, device=None,
@@ -151,11 +169,11 @@ def init_params(specs, seed: int = 0, device=None,
 
     ``compute_dtype`` casts each matrix once as it is made (the leaves
     ``keep`` names stay fp32, see :func:`compute_dtype_for`), so a bf16
-    model never holds its fp32 copy whole."""
+    model never holds its fp32 copy whole, nor a stacked leaf's."""
     device = resolve_device(device)
     out = {}
     for path, s in flatten(specs).items():
-        t = _init_leaf(s, path, seed, device)
-        out[path] = t.to(compute_dtype_for(path, t.dtype, compute_dtype,
-                                           keep))
+        out[path] = _init_leaf(
+            s, path, seed, device,
+            compute_dtype_for(path, s.dtype, compute_dtype, keep))
     return unflatten(out)

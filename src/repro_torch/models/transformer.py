@@ -1,11 +1,13 @@
-"""Model assembly, dense and hybrid families (port of
+"""Model assembly, dense, MoE and hybrid families (port of
 ``repro.models.transformer``).
 
-:func:`forward` runs a decoder-only dense LM, or a zamba2-style hybrid
-(Mamba2 backbone with shared attention blocks), in prefill or decode mode.
-The reference scans stacked layer parameters with ``jax.lax.scan``; here a
-loop walks the leading layer axes.  Caches are stacked over layers like the
-reference's and are written in place.
+:func:`forward` runs a decoder-only dense or MoE LM (``dense_layers`` then
+``moe_layers``, as the reference), or a zamba2-style hybrid (Mamba2 backbone
+with shared attention blocks), in prefill or decode mode; dense models also
+train.  The reference scans stacked layer parameters with ``jax.lax.scan``;
+here a loop walks the leading layer axes.  Caches are stacked over layers
+like the reference's and are written in place; under a sliding window each
+layer's KV cache holds ``min(max_len, window)`` slots.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from repro_torch.models.attention import attn_specs, gqa_attention
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, cross_entropy, embed_tokens, embedding_specs,
     lm_logits, mlp_specs, norm_specs, rope_table)
+from repro_torch.models.moe import apply_moe, moe_specs
 from repro_torch.models.params import (
     flatten, fp32_leaves, init_params, spec, stack_specs, unflatten)
 from repro_torch.models.ssm import (
@@ -30,10 +33,9 @@ from repro_torch.models.ssm import (
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    ported = cfg.moe is None and (
-        cfg.family == "dense" or (cfg.family == "hybrid"
-                                  and cfg.hybrid is not None
-                                  and cfg.ssm is not None))
+    ported = cfg.family in ("dense", "moe") or (
+        cfg.family == "hybrid" and cfg.moe is None
+        and cfg.hybrid is not None and cfg.ssm is not None)
     if not ported:
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
     if cfg.attention_type != "gqa":
@@ -43,9 +45,14 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"rope {cfg.rope_type!r} is not ported")
 
 
-def _attn_block_specs(cfg: ModelConfig):
-    return {"ln1": norm_specs(cfg), "attn": attn_specs(cfg),
-            "ln2": norm_specs(cfg), "mlp": mlp_specs(cfg)}
+def _attn_block_specs(cfg: ModelConfig, d_ff=None, moe_layer=False):
+    out = {"ln1": norm_specs(cfg), "attn": attn_specs(cfg),
+           "ln2": norm_specs(cfg)}
+    if moe_layer:
+        out["moe"] = moe_specs(cfg)
+    else:
+        out["mlp"] = mlp_specs(cfg, d_ff=d_ff)
+    return out
 
 
 def _layer_plan(cfg: ModelConfig) -> dict:
@@ -54,6 +61,9 @@ def _layer_plan(cfg: ModelConfig) -> dict:
         n_groups = cfg.num_layers // cfg.hybrid.attn_every
         rem = cfg.num_layers - n_groups * cfg.hybrid.attn_every
         return {"hybrid_groups": n_groups, "hybrid_rem": rem}
+    if cfg.moe is not None:
+        return {"dense": cfg.moe.num_dense_layers,
+                "moe": cfg.num_layers - cfg.moe.num_dense_layers}
     return {"dense": cfg.num_layers}
 
 
@@ -77,7 +87,14 @@ def model_specs(cfg: ModelConfig):
         out["shared"] = stack_specs(_attn_block_specs(cfg),
                                     cfg.hybrid.num_shared_blocks)
         return out
-    out["dense_layers"] = stack_specs(_attn_block_specs(cfg), plan["dense"])
+    if plan.get("dense"):
+        d_ff = cfg.moe.d_ff_dense if (cfg.moe is not None
+                                      and cfg.moe.d_ff_dense) else None
+        out["dense_layers"] = stack_specs(_attn_block_specs(cfg, d_ff=d_ff),
+                                          plan["dense"])
+    if plan.get("moe"):
+        out["moe_layers"] = stack_specs(
+            _attn_block_specs(cfg, moe_layer=True), plan["moe"])
     return out
 
 
@@ -92,11 +109,14 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
     place, so it allocates that dtype up front."""
     _check_supported(cfg)
     plan = _layer_plan(cfg)
-    kv = spec((batch, max_len, cfg.num_kv_heads, cfg.head_dim),
+    kv_len = min(max_len, cfg.sliding_window) if cfg.sliding_window \
+        else max_len
+    kv = spec((batch, kv_len, cfg.num_kv_heads, cfg.head_dim),
               ("batch", "cache_seq", "kv_heads", None), dtype, init="zeros")
     attn = {"k": kv, "v": kv}
     if cfg.family != "hybrid":
-        return {"dense": stack_specs(attn, plan["dense"])}
+        return {key: stack_specs(attn, plan[key])
+                for key in ("dense", "moe") if plan.get(key)}
     mamba = mamba2_cache_specs(cfg, batch, getattr(torch, cfg.dtype))
     out = {}
     if plan["hybrid_groups"]:
@@ -116,15 +136,35 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                        device=device)
 
 
-def _attn_block(p, x, cfg, *, rope, mode, cache, pos, attn_impl="masked"):
-    """Pre-norm transformer block; returns (x, cache)."""
+def _attn_block(p, x, cfg, *, rope, mode, cache, pos, attn_impl="masked",
+                aux=None):
+    """Pre-norm transformer block, its FFN an MLP or (with ``p["moe"]``)
+    the MoE; returns (x, cache).  ``aux``: a dict the MoE statistics are
+    added to (see :func:`forward`)."""
     h = apply_norm(p["ln1"], x, cfg)
     y, cache = gqa_attention(p["attn"], h, cfg, rope=rope, mode=mode,
                              cache=cache, pos=pos, attn_impl=attn_impl)
     x = x + y
     h = apply_norm(p["ln2"], x, cfg)
-    x = x + apply_mlp(p["mlp"], h, cfg)
-    return x, cache
+    if "moe" in p:
+        y, stats = apply_moe(p["moe"], h, cfg)
+        if aux is not None:
+            _combine_aux(aux, stats)
+    else:
+        y = apply_mlp(p["mlp"], h, cfg)
+    return x + y, cache
+
+
+def _combine_aux(acc: dict, stats: dict) -> None:
+    """The reference's layer reduction of the MoE statistics: aux loss and
+    dropped fraction summed, max load the largest."""
+    if not acc:
+        acc.update(stats)
+        return
+    for k in ("moe_aux_loss", "moe_dropped_frac"):
+        acc[k] = acc[k] + stats[k]
+    acc["moe_max_load"] = torch.maximum(acc["moe_max_load"],
+                                        stats["moe_max_load"])
 
 
 def _mamba_block(p, x, cfg, *, mode, cache):
@@ -207,15 +247,20 @@ def _hybrid_forward(params, x, cfg, *, rope, mode, cache, pos):
 
 
 def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
-            pos=None, attn_impl="masked", remat="none"):
+            pos=None, attn_impl="masked", remat="none", aux=None):
     """Run the model.
 
     tokens: (B, S) int64.  decode: S is the number of new tokens (1).
     mode: "train" | "prefill" | "decode".
     cache: stacked cache tree, written in place (prefill fills slots
-    [0, S); decode writes slot ``pos``); None in train mode.
+    [0, S), or a ring's slots p mod window; decode writes slot ``pos``, or
+    ``pos mod window``); None in train mode.
     pos: int — tokens already in the cache (decode only).
     attn_impl, remat: train mode only (see the module docstring).
+    aux: optional dict, filled with the MoE statistics of this pass as the
+    reference's forward returns them (``moe_aux_loss`` and
+    ``moe_dropped_frac`` summed over the MoE layers, ``moe_max_load`` their
+    largest); untouched by models without MoE layers.
     Returns (logits, cache).
     """
     _check_supported(cfg)
@@ -224,6 +269,10 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
     if mode == "train" and cfg.family == "hybrid":
         raise NotImplementedError("hybrid training is not ported: the SSD "
                                   "kernel has no backward")
+    if mode == "train" and cfg.moe is not None:
+        raise NotImplementedError(
+            "MoE training is not ported: loss_fn lacks the reference's "
+            "router aux-loss term (ROADMAP Queue 1, MoE training)")
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None, :]
     if pos is not None:
@@ -240,11 +289,14 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
         x = _train_layers(params["dense_layers"], x, cfg, rope=rope,
                           attn_impl=attn_impl, remat=remat)
     else:
-        layers = params["dense_layers"]
-        for i in range(_depth(layers)):
-            lc = None if cache is None else _layer(cache["dense"], i)
-            x, _ = _attn_block(_layer(layers, i), x, cfg, rope=rope,
-                               mode=mode, cache=lc, pos=pos)
+        for group, key in (("dense_layers", "dense"), ("moe_layers", "moe")):
+            if group not in params:
+                continue
+            layers = params[group]
+            for i in range(_depth(layers)):
+                lc = None if cache is None else _layer(cache[key], i)
+                x, _ = _attn_block(_layer(layers, i), x, cfg, rope=rope,
+                                   mode=mode, cache=lc, pos=pos, aux=aux)
 
     x = apply_norm(params["final_norm"], x, cfg)
     return lm_logits(params["embed"], x, cfg), cache

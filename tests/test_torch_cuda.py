@@ -57,14 +57,19 @@ def _close(got, want, tol):
 
 
 # The bf16 kernel's boundaries: its tiles are 128 query rows (two
-# warpgroups of 64) by 128 keys, so S runs across one row, the warpgroup
-# split, the tile edge and a second tile; every head dim it is built for;
-# GQA groups 1 and 4; windows that are not a multiple of the tile; and
-# non-causal with and without a window.
+# warpgroups of 64) by 128 keys (64 at D = 192), so S runs across one row,
+# the warpgroup split, the tile edges and a second tile; every head dim it is
+# built for; GQA groups 1 and 4; windows that are not a multiple of the
+# tile, and long windowed sequences (mixtral's band, many skipped tiles);
+# and non-causal with and without a window.
 FLASH_EDGES = [(2, 4, 4, s, d, True, 0) for s in (1, 63, 64, 65, 127, 128, 129,
-                                                 910) for d in (64, 112, 128)] + \
+                                                 910)
+               for d in (64, 112, 128, 192)] + \
     [(1, 8, 2, s, d, True, 0) for s in (1, 63, 64, 65, 127, 128, 129, 910)
-     for d in (64, 112, 128)] + \
+     for d in (64, 112, 128, 192)] + \
+    [(1, 8, 1, 910, 192, True, 300), (1, 4, 1, 1500, 128, True, 1024),
+     (1, 4, 1, 1500, 192, True, 1000), (1, 4, 2, 700, 192, False, 200),
+     (1, 4, 1, 4500, 128, True, 4096)] + \
     [(1, 8, 2, 910, 128, True, 100), (1, 8, 2, 910, 112, True, 200),
      (1, 4, 4, 910, 64, True, 100), (2, 4, 1, 910, 128, True, 200),
      (2, 4, 1, 300, 128, False, 0), (1, 4, 4, 129, 112, False, 0),
@@ -107,7 +112,7 @@ def test_flash_kernel_reads_bshd_views_without_copies(cuda, rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("s", [65, 910])
-@pytest.mark.parametrize("d", [64, 112, 128])
+@pytest.mark.parametrize("d", [64, 112, 128, 192])
 def test_flash_kernel_bshd_views_match_plain(cuda, rng, s, d):
     """The model's path: (B, S, H, D) activations through
     ``ops.flash_attention_bshd``, which hands the kernel transposed views
@@ -498,3 +503,58 @@ def test_compat_raw_stream_is_the_current_stream(cuda):
     with torch.cuda.stream(side):
         assert compat.current_raw_stream(torch.cuda.current_device()) == \
             side.cuda_stream
+
+
+def _small(name, dtype, **kw):
+    """A model of ``name``'s family at widths the kernels have instances
+    for, 2 layers."""
+    return dataclasses.replace(get_config(name), num_layers=2, dtype=dtype,
+                               vocab_size=500, vocab_pad_to=128, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype,tol,kw", [
+    # nemotron's head dim 192, LayerNorm and squared ReLU
+    ("nemotron-4-340b", "float32", 1e-4,
+     {"d_model": 768, "num_heads": 4, "num_kv_heads": 1, "d_ff": 1024}),
+    ("nemotron-4-340b", "bfloat16", 5e-2,
+     {"d_model": 768, "num_heads": 4, "num_kv_heads": 1, "d_ff": 1024}),
+    # mixtral's MoE with a window of 32 under 45-token prompts: the windowed
+    # flash kernel, the ring filled from the tail and wrapped by decode
+    ("mixtral-8x7b", "float32", 1e-4,
+     {"d_model": 512, "num_heads": 4, "num_kv_heads": 2, "d_ff": 256,
+      "sliding_window": 32})])
+def test_window_and_moe_models_on_card_match_plain_on_cpu(cuda, rng, name,
+                                                         dtype, tol, kw):
+    """Prefill + 3 decode steps through the kernels on the card vs the
+    plain versions on the CPU, same weights and decode tokens."""
+    cfg = _small(name, dtype, **kw)
+    if cfg.moe is not None:
+        cfg.moe = dataclasses.replace(cfg.moe, d_ff_expert=256)
+    p_cpu = init_model_params(cfg, seed=0, device="cpu")
+    p_gpu = unflatten({k: v.to(cuda) for k, v in flatten(p_cpu).items()})
+    toks = rng.integers(0, cfg.vocab_size, (2, 45))
+    ops.reset_launch_counts()
+    fed = []
+    with torch.inference_mode():
+        outs = []
+        for dev, p in (("cpu", p_cpu), (cuda, p_gpu)):
+            cache = init_cache(cfg, 2, 64, dtype=getattr(torch, dtype),
+                               device=dev)
+            logits, cache = forward(p, cfg, tokens=torch.from_numpy(toks).to(
+                dev), mode="prefill", cache=cache)
+            seq = [logits[:, -1].float().cpu()]
+            for step in range(3):
+                if dev == "cpu":
+                    fed.append(torch.argmax(seq[-1], dim=-1)[:, None])
+                logits, cache = forward(p, cfg, tokens=fed[step].to(dev),
+                                        mode="decode", cache=cache,
+                                        pos=45 + step)
+                seq.append(logits[:, -1].float().cpu())
+            outs.append(seq)
+    for want, got in zip(*outs):
+        err = float((got - want).abs().max())
+        assert err <= tol * max(1.0, float(want.abs().max())), err
+    norms = 0 if cfg.norm_type == "layernorm" else 4 * (2 * 2 + 1)
+    assert ops.launch_counts() == {"flash_attention": 2, "rmsnorm": norms,
+                                   "rmsnorm_backward": 0, "ssd_scan": 0}

@@ -57,6 +57,8 @@ FLASH_SWEEP = [
     (1, 4, 2, 64, 16, True, 24, "float32"),      # sliding window
     (1, 4, 4, 64, 64, True, 0, "bfloat16"),
     (1, 8, 2, 64, 16, True, 16, "bfloat16"),
+    (1, 8, 1, 64, 192, True, 0, "float32"),      # nemotron's head dim
+    (1, 8, 1, 64, 192, True, 24, "bfloat16"),
 ]
 
 
@@ -134,6 +136,19 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
                            torch.zeros(1, 2, 9, 16))
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_attention(q, k.bfloat16(), k.bfloat16())
+
+
+@pytest.mark.parametrize("d", [64, 112, 128, 192])
+def test_flash_kernel_instances_take_the_served_head_dims(d):
+    """The library has an instance for every served head dim (192 is
+    nemotron's); 96 and 16 (the smoke configs) have none."""
+    for dtype in (torch.float32, torch.bfloat16):
+        fa._check_instance(torch.zeros(1, 1, 1, d, dtype=dtype))
+    for bad in (96, 16):
+        with pytest.raises(ValueError, match="head dim"):
+            fa._check_instance(torch.zeros(1, 1, 1, bad))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa._check_instance(torch.zeros(1, 1, 1, d, dtype=torch.float16))
 
 
 @pytest.mark.parametrize("s,causal,window", [
@@ -273,14 +288,14 @@ def _chip_smoke(monkeypatch, tmp_path, text):
 
 
 def test_ptxas_report_names_every_instance(monkeypatch, tmp_path):
-    text = "".join(_PTXAS.format(d=d, spill=0) for d in (128, 112, 64))
+    text = "".join(_PTXAS.format(d=d, spill=0) for d in (128, 112, 64, 192))
     cs = _chip_smoke(monkeypatch, tmp_path,
                      text + _PTXAS_OTHERS + _PTXAS_SSD.format(spill=0))
     rows = cs.ptxas_report()
     assert [r["kernel"] for r in rows] == [
         "flash_wgmma_kernel<128>", "flash_wgmma_kernel<112>",
-        "flash_wgmma_kernel<64>", "rmsnorm_kernel<f32>", "ssd_f32_kernel",
-        "ssd_wgmma_kernel"]
+        "flash_wgmma_kernel<64>", "flash_wgmma_kernel<192>",
+        "rmsnorm_kernel<f32>", "ssd_f32_kernel", "ssd_wgmma_kernel"]
     assert rows[0] == {"kernel": "flash_wgmma_kernel<128>", "registers": 168,
                        "spill_stores": 0, "spill_loads": 0}
     # a CUDA-core instance that spills is reported, not failed
@@ -292,7 +307,7 @@ def test_ptxas_report_names_every_instance(monkeypatch, tmp_path):
 @pytest.mark.parametrize("ssd", ["spills", "missing"])
 def test_ptxas_report_fails_a_spilling_or_missing_ssd_wgmma_instance(
         monkeypatch, tmp_path, ssd):
-    text = "".join(_PTXAS.format(d=d, spill=0) for d in (128, 112, 64))
+    text = "".join(_PTXAS.format(d=d, spill=0) for d in (128, 112, 64, 192))
     if ssd == "spills":
         text += _PTXAS_SSD.format(spill=4)
     cs = _chip_smoke(monkeypatch, tmp_path, text + _PTXAS_OTHERS)
@@ -300,12 +315,21 @@ def test_ptxas_report_fails_a_spilling_or_missing_ssd_wgmma_instance(
         cs.ptxas_report()
 
 
-@pytest.mark.parametrize("dims,spill", [((128, 112, 64), 16),
-                                        ((128, 64), 0)])
+@pytest.mark.parametrize("dims,spill", [((128, 112, 64, 192), 16),
+                                        ((128, 64, 192), 0)])
 def test_ptxas_report_fails_a_spilling_or_missing_flash_instance(
         monkeypatch, tmp_path, dims, spill):
     text = "".join(_PTXAS.format(d=d, spill=spill if d == 112 else 0)
                    for d in dims)
     cs = _chip_smoke(monkeypatch, tmp_path, text)
     with pytest.raises(AssertionError, match="flash_wgmma_kernel<112>"):
+        cs.ptxas_report()
+
+
+def test_ptxas_report_fails_without_the_head_dim_192_instance(
+        monkeypatch, tmp_path):
+    text = "".join(_PTXAS.format(d=d, spill=0) for d in (128, 112, 64))
+    cs = _chip_smoke(monkeypatch, tmp_path,
+                     text + _PTXAS_SSD.format(spill=0))
+    with pytest.raises(AssertionError, match="flash_wgmma_kernel<192>"):
         cs.ptxas_report()

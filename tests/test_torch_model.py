@@ -131,7 +131,14 @@ def test_apply_norm_matches_jax(rng, norm_type):
                                         ("granite-3-8b", True),
                                         ("granite-3-8b", False),
                                         ("zamba2-7b", True),
-                                        ("zamba2-7b", False)])
+                                        ("zamba2-7b", False),
+                                        ("phi3-medium-14b", True),
+                                        ("phi3-medium-14b", False),
+                                        ("yi-34b", True), ("yi-34b", False),
+                                        ("nemotron-4-340b", True),
+                                        ("nemotron-4-340b", False),
+                                        ("mixtral-8x7b", True),
+                                        ("mixtral-8x7b", False)])
 def test_model_specs_match_jax_layouts(name, smoke):
     """Parameter and decode-cache spec trees: same paths, same shapes."""
     from repro.models.params import ParamSpec
@@ -147,6 +154,44 @@ def test_model_specs_match_jax_layouts(name, smoke):
     got = {k: s.shape for k, s in
            flatten(ttf.cache_specs(tcfg, 8, 2048)).items()}
     assert got == shapes(jtf.cache_specs(jcfg, 8, 2048))
+
+
+@pytest.mark.parametrize("name", ["granite-3-8b", "zamba2-7b", "lms-demo",
+                                  "phi3-medium-14b", "yi-34b",
+                                  "nemotron-4-340b", "mixtral-8x7b"])
+def test_param_counts_match_jax(name):
+    jcfg, tcfg = jget_config(name), get_config(name)
+    assert tcfg.param_count() == jcfg.param_count()
+    assert tcfg.active_param_count() == jcfg.active_param_count()
+
+
+def test_stacked_leaves_are_drawn_slice_by_slice(monkeypatch):
+    """A stacked leaf is drawn one layer at a time (never whole in fp32),
+    seeded by (seed, path), with std 1/sqrt(L*d) as JAX's fan-in; in bf16
+    it holds the fp32 draw's values rounded."""
+    specs = {"layers": tparams.stack_specs(
+        {"w": tparams.spec((64, 96), ("embed", "mlp"))}, 4),
+        "flat": tparams.spec((32, 8), ("embed", "mlp"))}
+    shapes = []
+    randn = torch.randn
+
+    def spy(*args, **kw):
+        shapes.append(tuple(args[0]))
+        return randn(*args, **kw)
+    monkeypatch.setattr(torch, "randn", spy)
+    a = flatten(tparams.init_params(specs, seed=5, device="cpu"))
+    assert shapes == [(64, 96)] * 4 + [(32, 8)]
+    b = flatten(tparams.init_params(specs, seed=5, device="cpu"))
+    c = flatten(tparams.init_params(specs, seed=6, device="cpu"))
+    half = flatten(tparams.init_params(specs, seed=5, device="cpu",
+                                       compute_dtype=torch.bfloat16))
+    w = a["layers/w"]
+    assert torch.equal(w, b["layers/w"])
+    assert not torch.equal(w, c["layers/w"])
+    assert not torch.equal(w[0], w[1])          # each slice its own draw
+    assert abs(float(w.std()) * np.sqrt(4 * 64) - 1.0) < 0.05
+    assert half["layers/w"].dtype == torch.bfloat16
+    assert torch.equal(half["layers/w"], w.to(torch.bfloat16))
 
 
 def test_init_is_seeded_and_scaled():
@@ -200,6 +245,85 @@ def test_prefill_and_decode_match_jax(rng, dtype, tol):
         _close(tl, jl, tol)
         nxt = np.asarray(jnp.argmax(jl[:, -1], axis=-1))
     assert tcache["dense"]["k"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("name", ["phi3-medium-14b", "yi-34b",
+                                  "nemotron-4-340b"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_dense_family_prefill_and_decode_match_jax(rng, name, dtype, tol):
+    """The rest of the dense family at smoke width: phi3 (GQA 4/1), yi
+    (rope theta 5e6) and nemotron (LayerNorm, squared-ReLU, vocab 512 in
+    256000's place); prefill then 4 decode steps, caches in the compute
+    dtype so that fp32 holds them to 1e-4 as well."""
+    jc, tc = _cfgs(name, dtype)
+    jp = jtf.init_model_params(jc, seed=0)
+    tp = _carry(jp, tc)
+    toks = rng.integers(0, tc.vocab_size, (2, 12))
+    jcache = jtf.init_cache(jc, 2, 24, dtype=getattr(jnp, dtype))
+    jl, jcache, _ = jtf.forward(jp, jc, tokens=jnp.asarray(toks, jnp.int32),
+                                mode="prefill", cache=jcache)
+    tcache = ttf.init_cache(tc, 2, 24, dtype=getattr(torch, dtype),
+                            device="cpu")
+    with torch.inference_mode():
+        tl, tcache = ttf.forward(tp, tc, tokens=torch.from_numpy(toks),
+                                 mode="prefill", cache=tcache)
+    _close(tl, jl, tol)
+    nxt = np.asarray(jnp.argmax(jl[:, -1], axis=-1))
+    for step in range(4):
+        pos = 12 + step
+        jl, jcache, _ = jtf.forward(
+            jp, jc, tokens=jnp.asarray(nxt[:, None], jnp.int32),
+            mode="decode", cache=jcache, pos=jnp.int32(pos))
+        with torch.inference_mode():
+            tl, tcache = ttf.forward(
+                tp, tc, tokens=torch.from_numpy(nxt[:, None].copy()),
+                mode="decode", cache=tcache, pos=pos)
+        _close(tl, jl, tol)
+        nxt = np.asarray(jnp.argmax(jl[:, -1], axis=-1))
+    _close(tcache["dense"]["v"], jcache["dense"]["v"], tol)
+
+
+@pytest.mark.parametrize("s,cache_len", [(20, 16), (10, 16), (6, 12)])
+def test_sliding_window_cache_matches_jax(rng, s, cache_len):
+    """GQA attention under mixtral's smoke window (16) in fp32, against the
+    JAX ``gqa_attention`` at 2e-5: a prefill longer than the window (the
+    ring keeps the prompt's tail in slots p mod 16), one inside it, and a
+    cache shorter than the window (the full cache with the window mask);
+    then decode steps, past the ring's wrap where there is a ring.  Outputs
+    and cache contents at every step."""
+    from repro.models import attention as jattn
+    from repro_torch.models import attention as tattn
+    jc, tc = _cfgs("mixtral-8x7b", "float32")
+    assert tc.sliding_window == 16
+    p = {k: (rng.standard_normal(sp.shape) / np.sqrt(sp.shape[0])
+             ).astype(np.float32) for k, sp in tattn.attn_specs(tc).items()}
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    tp = {k: _t(v) for k, v in p.items()}
+    b, hd = 2, tc.head_dim
+    shape = (b, cache_len, tc.num_kv_heads, hd)
+    jcache = {"k": jnp.zeros(shape), "v": jnp.zeros(shape)}
+    tcache = {"k": torch.zeros(shape), "v": torch.zeros(shape)}
+
+    def step(pos, n, mode):
+        x = rng.standard_normal((b, n, tc.d_model)).astype(np.float32)
+        posn = np.arange(pos, pos + n)[None, :]
+        jr = jlayers.rope_table(jnp.asarray(posn), hd, tc.rope_theta)
+        tr = tlayers.rope_table(torch.from_numpy(posn), hd, tc.rope_theta)
+        kw = {} if mode == "prefill" else {"pos": pos}
+        jy, jc_ = jattn.gqa_attention(
+            jp, jnp.asarray(x), jc, rope=jr, mode=mode, cache=jcache,
+            **{k: jnp.int32(v) for k, v in kw.items()})
+        ty, tc_ = tattn.gqa_attention(tp, _t(x), tc, rope=tr, mode=mode,
+                                      cache=tcache, **kw)
+        _close(ty, jy, 2e-5)
+        for k in ("k", "v"):
+            _close(tc_[k], jc_[k], 2e-5)
+        return jc_
+
+    jcache = step(0, s, "prefill")
+    steps = 20 if cache_len == tc.sliding_window else cache_len - s
+    for i in range(steps):
+        jcache = step(s + i, 1, "decode")
 
 
 def test_full_width_lms_demo_prefill_matches_jax(rng):
@@ -268,12 +392,12 @@ def test_bridge_checks_keys_shapes_and_keeps_norms_fp32():
 # -- what the port does not take, and where it runs ---------------------------
 
 
-@pytest.mark.parametrize("change", [{"sliding_window": 8},
+@pytest.mark.parametrize("change", [{"attention_type": "mla"},
                                     {"attn_logit_softcap": 30.0}])
 def test_unported_attention_options_raise(rng, change):
     cfg = dataclasses.replace(get_config("lms-demo", smoke=True), **change)
-    p = ttf.init_model_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
+        p = ttf.init_model_params(cfg, device="cpu")
         ttf.forward(p, cfg, tokens=torch.zeros(1, 4, dtype=torch.long))
 
 
@@ -309,7 +433,7 @@ def _port_files():
     root = os.path.join(REPO, "src", "repro_torch")
     files = [os.path.join(REPO, n) for n in
              ("chip_smoke.py", "profile_serve.py", "profile_ssd.py",
-              "profile_train.py", "train_faults.py",
+              "profile_train.py", "profile_moe_counts.py", "train_faults.py",
               "examples/train_monitored_torch.py",
               "examples/serve_requests_torch.py")]
     for d, _, names in os.walk(root):
@@ -329,6 +453,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {f"core/{n}.py" for n in (
         "__init__", "line_protocol", "perf_groups", "usermetric", "marker",
         "host_agent", "httpd")} <= scanned
+    assert {"models/moe.py", "configs/phi3_medium_14b.py",
+            "configs/yi_34b.py", "configs/nemotron_4_340b.py",
+            "configs/mixtral_8x7b.py"} <= scanned
     assert {os.path.join("..", "..", "examples", n) for n in (
         "train_monitored_torch.py", "serve_requests_torch.py")} <= scanned
     bad = []

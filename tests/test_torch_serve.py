@@ -26,9 +26,9 @@ from repro_torch.models.transformer import forward, init_cache  # noqa: E402
 from repro_torch.serve.engine import ServingEngine, make_serve_fns  # noqa: E402
 
 
-def _smoke(dtype="float32"):
-    jc = dataclasses.replace(jget_config("lms-demo", smoke=True), dtype=dtype)
-    tc = dataclasses.replace(get_config("lms-demo", smoke=True), dtype=dtype)
+def _smoke(dtype="float32", name="lms-demo"):
+    jc = dataclasses.replace(jget_config(name, smoke=True), dtype=dtype)
+    tc = dataclasses.replace(get_config(name, smoke=True), dtype=dtype)
     jp = init_model_params(jc, seed=0)
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), tc, device="cpu")
     return jc, tc, jp, tp
@@ -38,10 +38,14 @@ def _prompts(rng, lens):
     return [rng.integers(1, 500, size=n).astype(np.int32) for n in lens]
 
 
-@pytest.mark.parametrize("lens,max_batch", [((5, 9, 3, 12, 7), 4),
-                                            ((16,), 1)])
-def test_greedy_tokens_match_jax_engine(rng, lens, max_batch):
-    jc, tc, jp, tp = _smoke("float32")
+@pytest.mark.parametrize("lens,max_batch,name", [
+    pytest.param((5, 9, 3, 12, 7), 4, "lms-demo", id="lens0-4"),
+    pytest.param((16,), 1, "lms-demo", id="lens1-1"),
+    # MoE with a window of 16: prompts past the window fill the ring from
+    # their tail, and decode wraps it
+    pytest.param((20, 9, 33), 2, "mixtral-8x7b", id="mixtral-ring")])
+def test_greedy_tokens_match_jax_engine(rng, lens, max_batch, name):
+    jc, tc, jp, tp = _smoke("float32", name)
     prompts = _prompts(rng, lens)
     jeng = JaxEngine(jc, jp, max_batch=max_batch, max_len=48, jit=False)
     teng = ServingEngine(tc, tp, max_batch=max_batch, max_len=48,
