@@ -55,7 +55,7 @@ JAX package.  Phases, each reported on its own lines:
               routes of the two paths are compared at the served depth (a
               measurement: bf16 rounding may flip a near-tied expert; see
               serve()).
-4. train   -- once the served weights are freed, three parts:
+4. train   -- once the served weights are freed:
               (a) the RMSNorm backward kernel against ``ref.rmsnorm_bwd_ref``
               and against autograd through ``ref.rmsnorm_ref``, at
               granite's training shape (16384, 4096) in bf16 and fp32 and
@@ -64,23 +64,49 @@ JAX package.  Phases, each reported on its own lines:
               x's dtype), ms, plain ms, the library's ms (the backward of
               one ``F.rms_norm``, timed through ``torch.autograd.grad``) and
               the bound; with the forward at the same shape;
-              (b) lms-demo at full config (8 layers, d=512): the first
-              batch's gradients leaf by leaf, then three AdamW steps of
-              ``make_train_step``, through the kernels against the same
-              code with the plain versions swapped in; the gradients, loss,
-              grad norm and param norm must agree within TRAIN_TOL (limits
-              set between the sound gaps and those of planted backward
-              faults, ``train_faults.py``);
-              (c) ``train()`` on granite-3-8b at full width, 8 of its 40
-              layers (fp32 params, grads and AdamW moments take 16 bytes a
-              parameter: all 40 layers need 131 GB), seq 2048, global batch
+              (b) the SSD backward kernel against ``ref.ssd_bwd_ref``
+              (autograd through the chunked plain form) at zamba2's
+              training shape (B=8, L=2048, H=112, one group) and at a
+              ragged one (L = 1000, 4 groups of 4 heads, an initial state
+              and a final state's gradient), bf16 and fp32: each gradient's
+              max error against the tolerance (dx, da, db, dc, d_init), ms,
+              plain ms and the bound at the inputs' dtype (no library call
+              computes SSD); in fp32 the same gradients rounded to bf16 must
+              fail the fp32 limit (a control of lower precision); with
+              zamba2's SSD forward and RMSNorm backward at its shape;
+              (c) kernel-vs-plain training: lms-demo at full config
+              (8 layers, d=512, bf16), and in fp32 a narrow hybrid with
+              zamba2's layout and Mamba2 widths (d=1024, 2 groups of 2
+              and 1 trailing layer, P = N = 64) and mixtral-8x7b at full
+              width, 2 layers (where the two paths route alike): the
+              first batch's
+              gradients leaf by leaf, then three optimizer steps of
+              ``make_train_step`` (AdamW; Adafactor for mixtral), through
+              the kernels against the same code with the plain versions
+              swapped in; the gradients, loss, grad norm and param norm
+              must agree within TRAIN_TOL (limits set between the sound
+              gaps and those of planted backward faults,
+              ``train_faults.py``); then the narrow hybrid in bf16, the
+              main path's dtype, whose gradients carry ~7% of rounding
+              noise on either path: the kernel path's step-0 gradients
+              against the fp32 plain path's, within HYBRID_BF16_TOL;
+              (d) ``train()`` at full width, seq 2048, global batch
               8, remat "minimal", bf16 compute, TRAIN_STEPS steps with a
-              recording stack: step time (median of steps 2-6), tokens/s,
-              MFU against the card's bf16 peak (model flops and the flops
-              ``FlopCounterMode`` counted), peak GB, finite losses, and
-              RMSNorm forward / backward launches equal to 17 norms a
-              forward plus 16 remat recomputes, and 17 backwards, for each
-              step (the loop counts flops on meta tensors, which launch
+              recording stack, on granite-3-8b (8 of its 40 layers, AdamW;
+              fp32 params, grads and AdamW moments take 16 bytes a
+              parameter: all 40 layers need 131 GB), zamba2-7b (15 of its
+              81 Mamba2 layers: 2 groups of 6 with both shared weight
+              sets, and the 3 trailing ones; AdamW) and mixtral-8x7b (2 of
+              its 32 layers, Adafactor; with the aux term and the dropped
+              fraction a step): step time (median of steps 2-6),
+              tokens/s, MFU against the card's bf16 peak (model flops 6 N
+              T with N the active parameters, and the flops
+              ``FlopCounterMode`` and the SSD cost model counted), peak
+              GB, finite losses, and the launches of every step
+              (``train_launches``: an RMSNorm a norm forward and again in
+              each checkpointed block's re-run, a backward a norm; an SSD
+              scan a Mamba2 layer and again in its re-run, a backward a
+              layer; the loop counts flops on meta tensors, which launch
               nothing).
 5. monitor -- the monitored job over HTTP, through the port's CLIs and
               its LMS client (``repro_torch.core``), against a small HTTP
@@ -110,12 +136,12 @@ JAX package.  Phases, each reported on its own lines:
               calibrated peaks must lie in (0, 1.05].  One ``monitor:``
               JSON line sums it up.
 6. the kernels line (JSON: every kernel with its launches summed over the
-   paths driven -- the five served models, train granite, the train CLI
-   and the serve CLI on lms-demo -- its numbers at one path's shapes
-   (zamba2's prefill for flash, SSD and the forward RMSNorm; granite's
-   training shape for the RMSNorm backward), and per path its launches and
-   the rows it was timed at), then the last line
-   ``{"ok": true, "device": {...}}``.
+   paths driven -- the five served models, train granite, zamba2 and
+   mixtral, the train CLI and the serve CLI on lms-demo -- its numbers at
+   one path's shapes (zamba2's prefill for flash, SSD and the forward
+   RMSNorm; granite's training shape for the RMSNorm backward, zamba2's
+   for the SSD backward), and per path its launches and the rows it was
+   timed at), then the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no last line.
 """
@@ -181,7 +207,19 @@ TOL = {"flash_attention": {torch.bfloat16: 2e-2, torch.float32: 2e-5},
        # dscale: an fp32 sum over the rows in the kernel and the plain
        # version alike, whatever x's dtype, so fp32's tolerance in both
        "rmsnorm_dscale": {torch.bfloat16: 1e-5, torch.float32: 1e-5},
-       "ssd_scan": {torch.bfloat16: 2e-2, torch.float32: 2e-3}}
+       "ssd_scan": {torch.bfloat16: 2e-2, torch.float32: 2e-3},
+       # dx, da, db, dc, d_init: fp32 arithmetic in the kernel and the plain
+       # version alike, from the same (bf16) inputs; dx, db, dc rounded to
+       # x's dtype (bf16: one unit apart, 7.8e-3, where the two fp32 values
+       # straddle a rounding point).  fp32, at the decay this script runs
+       # (0.1): the sound kernel lies <= 7.6e-4 from the plain version (da;
+       # the other gradients <= 2.8e-4), while the same gradients rounded
+       # to bf16 lie 3.9e-3 from it; check_ssd_bwd fails if that control
+       # passes.  (Under strong decay, decay 20, the fp32 chunked
+       # algorithm itself drifts 1.5e-3 from the plain version; the card
+       # tests hold that case to 1e-2.)  Both limits lie between the sound
+       # gaps and the planted faults' (``train_faults.py``; PERF.md §6)
+       "ssd_scan_backward": {torch.bfloat16: 2e-2, torch.float32: 2e-3}}
 MODEL_TOL = 5e-2          # model logits (bf16 in tests/test_kernels.py)
 # the plain attention runs batch row by batch row where the whole batch's
 # (B, H, S, S) fp32 scores would pass this (the long-context shape: 18 GB)
@@ -196,11 +234,15 @@ SOURCES = {
                          "src/repro/kernels/rmsnorm.py:21"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd.cu",
                  "src/repro/kernels/ssd.py:26"),
+    # the gradient of the SSD Pallas kernel, which has none of its own
+    "ssd_scan_backward": ("src/repro_torch/kernels/csrc/ssd_bwd.cu",
+                          "src/repro/kernels/ssd.py:26"),
 }
 # kernel entry points in csrc/, as ptxas names their instances
 KERNEL_NAMES = ("flash_wgmma_kernel", "flash_f32_kernel", "rmsnorm_kernel",
                 "rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel",
-                "ssd_wgmma_kernel", "ssd_f32_kernel")
+                "ssd_wgmma_kernel", "ssd_f32_kernel", "ssd_bwd_kernel",
+                "ssd_bwd_group_sum_kernel")
 # bf16 instances that issue wgmma: a spill or a missing instance fails
 WGMMA_INSTANCES = tuple(f"flash_wgmma_kernel<{d}>" for d in fa.HEAD_DIMS) + \
     ("ssd_wgmma_kernel",)
@@ -226,9 +268,17 @@ MODELS = tuple(SERVED)
 # ring wraps in prefill and again in decode), in fp32 at MIX_CHECK_LAYERS
 # layers (16 fp32 layers, 94 GB, do not fit)
 MIX_CHECK_TAIL, MIX_CHECK_LAYERS = 64, 4
-# Training (phase 4): granite-3-8b at full width, TRAIN_LAYERS of its 40
-# layers, TRAIN_SHAPE tokens a step; lms-demo for the kernel-vs-plain steps.
-TRAIN_MODEL, TRAIN_LAYERS, TRAIN_STEPS = "granite-3-8b", 8, 6
+# Training (phase 4): TRAIN_STEPS steps of TRAIN_SHAPE tokens, each model
+# at full width with the layers and optimizer below: granite-3-8b (the
+# RMSNorm backward's main path) 8 of its 40 layers; zamba2-7b 15 of its 81
+# Mamba2 layers, 2 groups of 6 (both shared weight sets) and the 3 trailing
+# layers, 1.51B parameters; mixtral-8x7b 2 of its 32 layers, 3.17B
+# parameters, with Adafactor (AdamW's 16 bytes a parameter leave little
+# room for the expert buffers).
+TRAIN_MODEL, TRAIN_STEPS = "granite-3-8b", 6
+TRAIN_LAYERS_OF = {TRAIN_MODEL: 8, "zamba2-7b": 15, "mixtral-8x7b": 2}
+TRAIN_OPTIMIZER = {TRAIN_MODEL: "adamw", "zamba2-7b": "adamw",
+                   "mixtral-8x7b": "adafactor"}
 TRAIN_SHAPE = ShapeConfig("train_2k", seq_len=2048, global_batch=8,
                           kind="train")
 PARITY_SHAPE = ShapeConfig("parity", seq_len=512, global_batch=8,
@@ -247,6 +297,14 @@ PARITY_SHAPE = ShapeConfig("parity", seq_len=512, global_batch=8,
 PARITY_STEPS = 3
 TRAIN_TOL = {"loss": 1e-3, "grad_norm": 1e-2, "param_norm": 2e-6,
              "grads": 2e-2}
+# The narrow hybrid in bf16: the kernel path's step-0 gradients against the
+# fp32 plain path's (the largest relative L2 gap over the leaves).  bf16
+# rounding alone puts either path ~7% away (kernels 0.068, plain 0.064 on
+# an H100), above TRAIN_TOL's 2e-2; the planted SSD-backward faults lie at
+# 0.20 (da without the cross-chunk term), 0.48 (decays one step late) and
+# 0.56 (db of one head of a group) (``train_faults.py``'s ``bf16-parity``
+# lines).
+HYBRID_BF16_TOL = 0.1
 # Monitor (phase 5): the CLIs on lms-demo at full config.
 MONITOR_STEPS, MONITOR_CKPT, MONITOR_FAIL = 60, 20, 30
 MONITOR_SEQ, MONITOR_BATCH = 256, 8
@@ -368,18 +426,20 @@ def bound(costs: dict, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(name: str, got, want, dtype, magnitude=None) -> float:
+def compare(name: str, got, want, dtype, magnitude=None,
+            what: str = "") -> float:
     """Max abs error; raises when |got - want| > tol * (1 + m), m = |want|
     or, for a sum whose terms cancel, the sum of their magnitudes."""
     tol = TOL[name][dtype]
     g, w = got.float(), want.float()
     err = (g - w).abs()
+    label = f"{name} {what}".strip()
     if not bool(torch.isfinite(g).all()):
-        raise AssertionError(f"{name}: non-finite output")
+        raise AssertionError(f"{label}: non-finite output")
     m = w.abs() if magnitude is None else magnitude
     worst = float((err - tol * (1.0 + m)).max())
     if worst > 0:
-        raise AssertionError(f"{name}: error {float(err.max()):.3e} beyond "
+        raise AssertionError(f"{label}: error {float(err.max()):.3e} beyond "
                              f"tolerance {tol:g}")
     return float(err.max())
 
@@ -601,6 +661,87 @@ def check_ssd(gen, b, l, h, g, dtype, *, decay=0.1, init=True, tag=""):
     return row
 
 
+SSD_GRADS = ("dx", "da", "db", "dc", "d_init")
+
+
+def ssd_bwd_inputs(gen, b, l, h, g, dtype, *, decay=0.1, init=False):
+    """Kernel-layout SSD backward inputs as the model hands them over:
+    transposed views of model-layout x, a and dy, b/c strided slices of one
+    (B, L, 2*G*N) activation; with ``init`` an initial state and a final
+    state's gradient."""
+    dev = torch.device("cuda")
+    p = n = 64
+    x = torch.randn((b, l, h, p), generator=gen, device=dev, dtype=dtype)
+    a = -decay * torch.randn((b, l, h), generator=gen, device=dev).abs()
+    bc = torch.randn((b, l, 2 * g * n), generator=gen, device=dev,
+                     dtype=dtype)
+    dy = torch.randn((b, l, h, p), generator=gen, device=dev, dtype=dtype)
+    s0 = torch.randn((b, h, p, n), generator=gen, device=dev) if init \
+        else None
+    ds = torch.randn((b, h, p, n), generator=gen, device=dev) if init \
+        else None
+    return (x.transpose(1, 2), a.transpose(1, 2),
+            bc[..., :g * n].view(b, l, g, n).transpose(1, 2),
+            bc[..., g * n:].view(b, l, g, n).transpose(1, 2),
+            dy.transpose(1, 2), s0, ds)
+
+
+def ssd_bwd_gaps(got, want) -> dict:
+    """Per gradient, the largest of |got - want| / (1 + |want|), the
+    quantity ``compare`` holds to the tolerance."""
+    return {k: float(((g.float() - w.float()).abs()
+                      / (1.0 + w.float().abs())).max())
+            for k, g, w in zip(SSD_GRADS, got, want) if w is not None}
+
+
+def check_ssd_bwd(gen, b, l, h, g, dtype, *, decay=0.1, init=False,
+                  tag=""):
+    """The SSD backward kernel against ``ref.ssd_bwd_ref`` (autograd
+    through the chunked plain form) on the same inputs, called as the
+    autograd Function calls it; every gradient within the tolerance, the
+    relative gaps logged beside it."""
+    args = ssd_bwd_inputs(gen, b, l, h, g, dtype, decay=decay, init=init)
+    got = ssd.ssd_scan_bwd(*args)
+    want = ref.ssd_bwd_ref(*args)
+    errs = {k: compare("ssd_scan_backward", gt, w, dtype, what=k)
+            for k, gt, w in zip(SSD_GRADS, got, want) if w is not None}
+    gaps = ssd_bwd_gaps(got, want)
+    control = None
+    if dtype == torch.float32:
+        # the fp32 limit must reject fp32 gradients rounded to bf16
+        control = max(ssd_bwd_gaps([None if t is None else t.bfloat16()
+                                    for t in got], want).values())
+        if not control > TOL["ssd_scan_backward"][dtype]:
+            raise AssertionError(
+                f"ssd_scan_backward: gradients rounded to bf16 pass the fp32 "
+                f"limit (gap {control:.3e}); the check cannot tell fp32 "
+                f"from bf16")
+    del got, want
+    ms = time_ms(lambda: ssd.ssd_scan_bwd(*args))
+    plain_ms = time_ms(lambda: ref.ssd_bwd_ref(*args), iters=2, warmup=1)
+    x, bm = args[0], args[2]
+    costs = ssd.bwd_cost_estimate(x.shape, g, bm.shape[-1], x.element_size(),
+                                  init_state=init)
+    # the bound is at the input dtype's peak, as the forward's; the kernel
+    # runs its arithmetic in fp32 on the CUDA cores whatever the dtype, a
+    # design whose own floor (the operations at fp32's peak) is logged
+    # beside it
+    bound_ms, bound_by = bound(costs, dtype)
+    row = {"name": "ssd_scan_backward", "shape": [b, l, h, g, 64, 64],
+           "dtype": str(dtype).replace("torch.", ""), "decay": decay,
+           "init_state": init, "max_abs_err": max(errs.values()),
+           **{f"{k}_err": v for k, v in errs.items()},
+           "rel_gaps": gaps, "bf16_control_gap": control,
+           "fp32_cores_ops_ms": costs["flops"] / PEAK_FLOPS[torch.float32]
+           * 1e3, "tol": TOL["ssd_scan_backward"][dtype],
+           "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "frac_of_bound": bound_ms / ms,
+           "tflops": costs["flops"] / ms / 1e9}
+    log(f"kernel-check {tag}: {json.dumps(row)}")
+    return row
+
+
 def kernel_checks(plen: int, lplen: int) -> dict:
     """All kernel checks; returns, per served model, the rows at that
     path's own prefill shapes (S = the served batch's padded prompt
@@ -767,17 +908,19 @@ def plain_kernels():
     """Within the block every kernel wrapper computes its plain version,
     on the card too (and counts no launch): the same model code then gives
     the plain forward the kernel path is held to."""
-    saved = (fa.flash_attention, rms.rmsnorm, rms.rmsnorm_bwd, ssd.ssd_scan)
+    saved = (fa.flash_attention, rms.rmsnorm, rms.rmsnorm_bwd, ssd.ssd_scan,
+             ssd.ssd_scan_bwd)
 
     def attention(q, k, v, *, causal=True, window=0, softcap=0.0):
         return ref.attention_ref(q, k, v, causal=causal, window=window)
-    fa.flash_attention, rms.rmsnorm, rms.rmsnorm_bwd, ssd.ssd_scan = (
-        attention, ref.rmsnorm_ref, ref.rmsnorm_bwd_ref, ref.ssd_ref)
+    (fa.flash_attention, rms.rmsnorm, rms.rmsnorm_bwd, ssd.ssd_scan,
+     ssd.ssd_scan_bwd) = (attention, ref.rmsnorm_ref, ref.rmsnorm_bwd_ref,
+                          ref.ssd_ref, ref.ssd_bwd_ref)
     try:
         yield
     finally:
-        (fa.flash_attention, rms.rmsnorm, rms.rmsnorm_bwd,
-         ssd.ssd_scan) = saved
+        (fa.flash_attention, rms.rmsnorm, rms.rmsnorm_bwd, ssd.ssd_scan,
+         ssd.ssd_scan_bwd) = saved
 
 
 def expected_launches(cfg, n_batches: int, n_forwards: int) -> dict:
@@ -790,11 +933,12 @@ def expected_launches(cfg, n_batches: int, n_forwards: int) -> dict:
         norms = 2 * cfg.num_layers + 2 * groups + 1
         return {"flash_attention": groups * n_batches,
                 "rmsnorm": norms * n_forwards, "rmsnorm_backward": 0,
-                "ssd_scan": cfg.num_layers * n_batches}
+                "ssd_scan": cfg.num_layers * n_batches,
+                "ssd_scan_backward": 0}
     norms = 0 if cfg.norm_type == "layernorm" else 2 * cfg.num_layers + 1
     return {"flash_attention": cfg.num_layers * n_batches,
             "rmsnorm": norms * n_forwards, "rmsnorm_backward": 0,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "ssd_scan_backward": 0}
 
 
 def serve(name: str) -> dict:
@@ -1030,34 +1174,106 @@ def model_check(params, cfg, prompt, steps: int = 3,
 
 
 def train_kernel_checks() -> dict:
-    """The RMSNorm backward (and forward) kernels at granite's training
-    shape, plus fp32 and a ragged shape; returns the main path's rows."""
+    """The backward kernels (and forwards) at the training paths' shapes:
+    the RMSNorm backward at granite's (16384, 4096) in bf16 and fp32 and at
+    a ragged (4097, 1032); the SSD backward at zamba2's training shape (B=8,
+    L=2048, H=112, one group) and at a ragged one (L = 1000, 4 groups of 4
+    heads, with an initial state and a final state's gradient), each in
+    bf16 and fp32, with zamba2's SSD forward and RMSNorm backward at its
+    training shape.  Returns each training path's main rows."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bf16, f32 = torch.bfloat16, torch.float32
     n = TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len
+    b, l = TRAIN_SHAPE.global_batch, TRAIN_SHAPE.seq_len
     d = get_config(TRAIN_MODEL).d_model
-    rows = {"rmsnorm_backward": check_rmsnorm_bwd(
-        gen, n, d, torch.bfloat16, tag="train-main-path")}
-    check_rmsnorm_bwd(gen, n, d, torch.float32, tag="train")
-    check_rmsnorm_bwd(gen, 4097, 1032, torch.bfloat16, tag="ragged")
-    rows["rmsnorm"] = check_rmsnorm(gen, n, d, torch.bfloat16,
-                                    tag="train-main-path")
-    return rows
+    granite = {"rmsnorm_backward": check_rmsnorm_bwd(
+        gen, n, d, bf16, tag="train-main-path")}
+    check_rmsnorm_bwd(gen, n, d, f32, tag="train")
+    check_rmsnorm_bwd(gen, 4097, 1032, bf16, tag="ragged")
+    granite["rmsnorm"] = check_rmsnorm(gen, n, d, bf16,
+                                       tag="train-main-path")
+    zcfg = get_config("zamba2-7b")
+    heads = zcfg.ssm.num_heads(zcfg.d_model)
+    zamba = {"ssd_scan_backward": check_ssd_bwd(
+        gen, b, l, heads, 1, bf16, tag="zamba2-train-main-path")}
+    check_ssd_bwd(gen, b, l, heads, 1, f32, tag="zamba2-train")
+    for dt in (bf16, f32):
+        check_ssd_bwd(gen, 2, 1000, 16, 4, dt, init=True, tag="ragged")
+    zamba["ssd_scan"] = check_ssd(gen, b, l, heads, 1, bf16, init=False,
+                                  tag="zamba2-train-main-path")
+    zamba["rmsnorm_backward"] = check_rmsnorm_bwd(
+        gen, n, zcfg.d_model, bf16, tag="zamba2-train-main-path")
+    return {"train:granite-3-8b": granite, "train:zamba2-7b": zamba,
+            "train:mixtral-8x7b": {"rmsnorm_backward":
+                                   granite["rmsnorm_backward"]}}
 
 
-def parity_run(swap=nullcontext, steps: int = PARITY_STEPS) -> dict:
-    """One lms-demo run (full config) from the seed's fp32 params: the
-    gradients of the first batch by leaf, then ``steps`` AdamW steps of
-    make_train_step, all within ``swap()`` (``plain_kernels`` for the plain
-    path).  Returns the per-step metrics, the gradients and the launches."""
-    cfg = get_config("lms-demo")
-    tcfg = TrainConfig(warmup_steps=0, total_steps=steps,
-                       learning_rate=1e-3, remat_policy="minimal")
+def narrow_hybrid(dtype: str = "float32"):
+    """zamba2-7b's layout and Mamba2 widths (P = N = 64, so the SSD kernels
+    take it) at d_model 1024: 2 groups of 2 Mamba2 layers, each followed
+    by one of the 2 shared attention blocks (8 heads of 128), and 1
+    trailing layer.  fp32 by default, for the kernel-vs-plain parity: in
+    bf16 the kernel path's and the plain path's step-0 gradients each lie
+    6.4-6.8% from the fp32 ones (``train_faults.py``'s ``bf16-noise``
+    line), above TRAIN_TOL; the bf16 model is held to the fp32 plain path
+    at HYBRID_BF16_TOL (``hybrid_bf16_check``)."""
+    cfg = get_config("zamba2-7b")
+    return dataclasses.replace(
+        cfg, name="zamba2-narrow", num_layers=5, d_model=1024, num_heads=8,
+        num_kv_heads=8, head_dim=128, d_ff=2048, dtype=dtype,
+        hybrid=dataclasses.replace(cfg.hybrid, attn_every=2))
+
+
+def parity_models() -> dict:
+    """The kernel-vs-plain training checks: (config, optimizer) each.  The
+    hybrid and the MoE run in fp32, where the two paths compute one
+    function (the hybrid's bf16 rounding noise: ``narrow_hybrid``; bf16
+    rounding flips near-tied experts: ``route_agreement``)."""
+    return {"lms-demo": (get_config("lms-demo"), "adamw"),
+            "zamba2-narrow-fp32": (narrow_hybrid(), "adamw"),
+            "mixtral-8x7b-fp32": (dataclasses.replace(
+                get_config("mixtral-8x7b"), num_layers=TRAIN_LAYERS_OF[
+                    "mixtral-8x7b"], dtype="float32"), "adafactor")}
+
+
+def train_launches(cfg, passes: int) -> dict:
+    """Kernel launches of ``passes`` train passes under remat "minimal"
+    (forward, the re-run of each checkpointed block, backward; the step's
+    flop count runs on meta tensors and launches nothing): an RMSNorm a
+    norm forward, again for the norms inside checkpointed blocks (every
+    block but the hybrid's shared attention), and a backward a norm; an SSD
+    scan a Mamba2 layer, again in its re-run, and a backward; no flash
+    (train attention is the masked one)."""
+    n = cfg.num_layers
+    if cfg.family == "hybrid":
+        groups = n // cfg.hybrid.attn_every
+        norms = 2 * n + 2 * groups + 1     # ln and gated norm a Mamba2 block
+        return {"flash_attention": 0, "rmsnorm": passes * (norms + 2 * n),
+                "rmsnorm_backward": passes * norms,
+                "ssd_scan": passes * 2 * n, "ssd_scan_backward": passes * n}
+    norms = 2 * n + 1                       # ln1, ln2 a block + final
+    return {"flash_attention": 0, "rmsnorm": passes * (norms + 2 * n),
+            "rmsnorm_backward": passes * norms, "ssd_scan": 0,
+            "ssd_scan_backward": 0}
+
+
+def parity_run(swap=nullcontext, steps: int = PARITY_STEPS, cfg=None,
+               optimizer: str = "adamw") -> dict:
+    """One run of ``cfg`` (default lms-demo at full config) from the seed's
+    params: the gradients of the first batch by leaf, then ``steps`` (0
+    or more) optimizer steps of make_train_step, all within ``swap()``
+    (``plain_kernels`` for the plain path).  Returns the per-step metrics,
+    the gradients (on the host) and the launches."""
+    cfg = cfg or get_config("lms-demo")
+    tcfg = TrainConfig(warmup_steps=0, total_steps=max(steps, 1),
+                       learning_rate=1e-3, remat_policy="minimal",
+                       optimizer=optimizer)
     step_fn, opt = make_train_step(cfg, tcfg)
     params = init_model_params(cfg, seed=SEED, device="cuda")
     state = opt.init(params)
     source = SyntheticTokenSource(cfg.vocab_size, seed=SEED)
     batches = []
-    for step in range(steps):
+    for step in range(max(steps, 1)):
         t = source.batch(step, PARITY_SHAPE.global_batch,
                          PARITY_SHAPE.seq_len)
         batches.append(batch_to_device(
@@ -1069,10 +1285,12 @@ def parity_run(swap=nullcontext, steps: int = PARITY_STEPS) -> dict:
                 for k, v in flatten(params).items()}
         loss, _ = loss_fn(unflatten(flat), cfg, batches[0],
                           attn_impl=tcfg.attn_impl, remat=tcfg.remat_policy)
-        grads = dict(zip(flat, torch.autograd.grad(loss,
-                                                   list(flat.values()))))
+        # kept on the host: mixtral's fp32 gradients (12.7 GB) would sit
+        # on the card through this run's steps and the other path's run
+        grads = {k: g.cpu() for k, g in zip(flat, torch.autograd.grad(
+            loss, list(flat.values())))}
         del flat, loss
-        for step, batch in enumerate(batches):
+        for step, batch in enumerate(batches[:steps]):
             params, state, m = step_fn(params, state, batch, step)
             metrics.append({k: float(m[k]) for k in TRAIN_TOL
                             if k != "grads"})
@@ -1093,70 +1311,93 @@ def parity_gaps(got: dict, want: dict) -> list:
                                               want["metrics"]))]
 
 
-def train_parity() -> None:
-    """lms-demo at full config: the kernel path's gradients and AdamW steps
-    against the same code with the plain versions swapped in."""
-    cfg = get_config("lms-demo")
-    runs = {"kernels": parity_run(), "plain": parity_run(plain_kernels)}
-    norms = 2 * cfg.num_layers + 1
+def train_parity(name: str) -> list:
+    """A parity model's kernel path (gradients and optimizer steps) against
+    the same code with the plain versions swapped in; returns the gaps."""
+    cfg, optimizer = parity_models()[name]
+    runs = {"kernels": parity_run(cfg=cfg, optimizer=optimizer),
+            "plain": parity_run(plain_kernels, cfg=cfg,
+                                optimizer=optimizer)}
     passes = PARITY_STEPS + 1                   # + the step-0 gradients
-    want = {"kernels": (passes * (norms + 2 * cfg.num_layers),
-                        passes * norms), "plain": (0, 0)}
-    for name, run in runs.items():
-        c = run["launches"]
-        if (c["rmsnorm"], c["rmsnorm_backward"]) != want[name]:
-            raise AssertionError(f"train parity {name}: launches {c}")
+    want = {"kernels": train_launches(cfg, passes),
+            "plain": train_launches(cfg, 0)}
+    for path, run in runs.items():
+        if run["launches"] != want[path]:
+            raise AssertionError(f"train parity {name} {path}: launches "
+                                 f"{run['launches']}, expected {want[path]}")
     gaps = parity_gaps(runs["kernels"], runs["plain"])
     for step, (a, b, rel) in enumerate(zip(runs["kernels"]["metrics"],
                                            runs["plain"]["metrics"], gaps)):
-        log(f"train: parity lms-demo step {step}: kernels {json.dumps(a)} "
+        log(f"train: parity {name} step {step}: kernels {json.dumps(a)} "
             f"plain {json.dumps(b)} relative {json.dumps(rel)} "
             f"(limits {json.dumps(TRAIN_TOL)})")
         # "not <=" so that a NaN gap fails too
         if not all(math.isfinite(v) for v in a.values()) or \
                 not all(v <= TRAIN_TOL[k] for k, v in rel.items()):
-            raise AssertionError("kernel-path training disagrees with the "
-                                 "plain path")
+            raise AssertionError(f"kernel-path training of {name} disagrees "
+                                 f"with the plain path")
+    if cfg.family == "hybrid":
+        hybrid_bf16_check(runs["plain"]["grads"])
     del runs
     torch.cuda.empty_cache()
+    return gaps
 
 
-def train_run() -> dict:
-    """``train()`` on granite-3-8b at full width and TRAIN_LAYERS layers;
-    checks steps, finite losses and launch counts; returns the numbers."""
-    cfg = dataclasses.replace(get_config(TRAIN_MODEL),
-                              num_layers=TRAIN_LAYERS)
+def hybrid_bf16_check(fp32_grads: dict) -> float:
+    """The narrow hybrid in bf16 through the kernels (``ssd_wgmma_kernel``
+    and ``ssd_bwd_kernel<bf16>``, as zamba2's training runs them): its
+    step-0 gradients against ``fp32_grads``, the fp32 plain path's, leaf by
+    leaf; the largest relative gap must be within HYBRID_BF16_TOL."""
+    cfg = narrow_hybrid("bfloat16")
+    run = parity_run(cfg=cfg, steps=0)
+    if run["launches"] != train_launches(cfg, 1):
+        raise AssertionError(f"bf16 hybrid check: launches {run['launches']}"
+                             f", expected {train_launches(cfg, 1)}")
+    gap = max(float((run["grads"][k].float() - g).norm() / g.norm())
+              for k, g in fp32_grads.items())
+    log(f"train: bf16 {cfg.name} step-0 gradients vs the fp32 plain path: "
+        f"{json.dumps({'grads': gap, 'limit': HYBRID_BF16_TOL})}")
+    # "not <=" so that a NaN gap fails too
+    if not gap <= HYBRID_BF16_TOL:
+        raise AssertionError(f"bf16 kernel-path gradients of {cfg.name} lie "
+                             f"{gap:.3e} from the fp32 plain path's")
+    return gap
+
+
+def train_run(model: str) -> dict:
+    """``train()`` on ``model`` at full width and TRAIN_LAYERS_OF[model]
+    layers; checks steps, finite losses and launch counts; returns the
+    numbers (with MoE layers, the aux term and dropped fraction a step)."""
+    cfg = dataclasses.replace(get_config(model),
+                              num_layers=TRAIN_LAYERS_OF[model])
     # the reference's schedule (100 warmup steps): these are a run's first
-    tcfg = TrainConfig(total_steps=TRAIN_STEPS, optimizer="adamw",
+    tcfg = TrainConfig(total_steps=TRAIN_STEPS,
+                       optimizer=TRAIN_OPTIMIZER[model],
                        remat_policy="minimal", seed=SEED)
     st = RecorderStack()
-    losses = []
+    metrics = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.monotonic()
     result = train(cfg, tcfg, TRAIN_SHAPE, stack=st,
-                   job_id=f"chip-smoke-{TRAIN_MODEL}",
-                   step_callback=lambda s, m: losses.append(
-                       float(m["loss"])))
+                   job_id=f"chip-smoke-{model}",
+                   step_callback=lambda s, m: metrics.append(
+                       {k: float(v) for k, v in m.items()}))
     torch.cuda.synchronize()
     wall_s = time.monotonic() - t0
     counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
 
-    norms = 2 * cfg.num_layers + 1              # ln1, ln2 a layer + final
-    recomputed = 2 * cfg.num_layers             # remat reruns ln1, ln2
-    passes = TRAIN_STEPS                        # flops count on meta
-    want = {"flash_attention": 0,
-            "rmsnorm": passes * (norms + recomputed),
-            "rmsnorm_backward": passes * norms, "ssd_scan": 0}
+    want = train_launches(cfg, TRAIN_STEPS)
     if counts != want:
-        raise AssertionError(f"train: launch counts {counts}, expected "
-                             f"{want}")
+        raise AssertionError(f"train {model}: launch counts {counts}, "
+                             f"expected {want}")
+    losses = [m["loss"] for m in metrics]
     if result.steps_run != TRAIN_STEPS or len(losses) != TRAIN_STEPS or \
-            not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"train: {result}, losses {losses}")
+            not all(math.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"train {model}: {result}, metrics {metrics}")
     times = [s["step_time_s"] for s in st.agent.steps]
     step_s = statistics.median(times[1:])
     c = st.agent.constants
@@ -1164,8 +1405,14 @@ def train_run() -> dict:
     if c["PEAK_FLOPS"] != peak:
         raise AssertionError(f"train: step constants carry peak "
                              f"{c['PEAK_FLOPS']}, expected {peak}")
-    out = {"model": TRAIN_MODEL, "layers": cfg.num_layers,
+    tokens = TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len
+    if c["model_flops"] != 6 * cfg.active_param_count() * tokens:
+        raise AssertionError(f"train {model}: model flops "
+                             f"{c['model_flops']} are not 6 N T of the "
+                             f"active parameters")
+    out = {"model": model, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "params": cfg.param_count(),
+           "active_params": cfg.active_param_count(),
            "seq_len": TRAIN_SHAPE.seq_len,
            "global_batch": TRAIN_SHAPE.global_batch,
            "optimizer": tcfg.optimizer, "remat": tcfg.remat_policy,
@@ -1176,6 +1423,9 @@ def train_run() -> dict:
            "mfu_counted_flops": c["hlo_flops"] / step_s / peak,
            "model_flops": c["model_flops"], "counted_flops": c["hlo_flops"],
            "peak_flops": peak, "peak_memory_gb": peak_gb, "losses": losses,
+           **({k: [m[k] for m in metrics] for k in
+               ("moe_aux_loss", "moe_dropped_frac", "moe_max_load")}
+              if cfg.moe is not None else {}),
            "launches": counts, "regions": sorted(st.um.regions)}
     log(f"train: {json.dumps(out)}")
     return out
@@ -1437,7 +1687,8 @@ def monitor_phase() -> tuple:
     norms = 2 * cfg.num_layers + 1
     want = {"train-cli:lms-demo": {
         "flash_attention": 0, "rmsnorm": norms * n_monitored,
-        "rmsnorm_backward": norms * n_monitored, "ssd_scan": 0}}
+        "rmsnorm_backward": norms * n_monitored, "ssd_scan": 0,
+        "ssd_scan_backward": 0}}
     batches = math.ceil(MONITOR_REQUESTS / 4)       # the CLI's --max-batch
     want["serve-cli:lms-demo"] = expected_launches(cfg, batches,
                                                    batches * 16)
@@ -1571,11 +1822,12 @@ def main() -> int:
 
     # Phase 4: train, once the served weights are freed
     t0 = time.monotonic()
-    train_path = f"train:{TRAIN_MODEL}"
-    rows[train_path] = train_kernel_checks()
-    train_parity()
+    rows.update(train_kernel_checks())
     launches = {m: served[m]["launches"] for m in MODELS}
-    launches[train_path] = train_run()["launches"]
+    for name in parity_models():
+        train_parity(name)
+    for model in TRAIN_LAYERS_OF:
+        launches[f"train:{model}"] = train_run(model)["launches"]
     log(f"train: phase {time.monotonic() - t0:.2f} s")
 
     # Phase 5: the monitored job over HTTP through the CLIs
@@ -1585,12 +1837,14 @@ def main() -> int:
     log(f"monitor: phase {time.monotonic() - t0:.2f} s")
 
     # Phase 6: kernels line (launches summed over the paths; numbers at
-    # zamba2-7b's prefill shapes, the backward's at granite's training
-    # shape; per path the rows each kernel was timed at), then the result
+    # zamba2-7b's prefill shapes, the RMSNorm backward's at granite's
+    # training shape, the SSD backward's at zamba2's; per path the rows
+    # each kernel was timed at), then the result
+    main_rows = {"rmsnorm_backward": f"train:{TRAIN_MODEL}",
+                 "ssd_scan_backward": "train:zamba2-7b"}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
-        r = rows[train_path if name == "rmsnorm_backward" else "zamba2-7b"][
-            name]
+        r = rows[main_rows.get(name, "zamba2-7b")][name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,

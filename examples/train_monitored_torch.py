@@ -106,7 +106,7 @@ def main(argv=None) -> int:
         "client_post_s_per_step": stack.stats["seconds"] / len(walls)
         if walls else None,
         "tokens_per_s": tokens / step_s if step_s else None,
-        "mfu": 6 * cfg.param_count() * tokens / step_s / peak_flops
+        "mfu": 6 * cfg.active_param_count() * tokens / step_s / peak_flops
         if step_s else None,
         "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9
         if device.type == "cuda" else None,

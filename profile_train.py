@@ -3,19 +3,21 @@
 
 Run from the root of a checkout on a machine with a CUDA card::
 
-    python3 profile_train.py [--steps 3] [--out DIR]
+    python3 profile_train.py [--model granite-3-8b] [--steps 3] [--out DIR]
 
-It runs ``chip_smoke.py``'s training run (granite-3-8b at full width and
-``chip_smoke.TRAIN_LAYERS`` layers, seq 2048, global batch 8, AdamW, remat
+It runs one of ``chip_smoke.py``'s training runs (``--model``: granite-3-8b,
+zamba2-7b or mixtral-8x7b, at full width and ``chip_smoke.TRAIN_LAYERS_OF``
+layers with ``chip_smoke.TRAIN_OPTIMIZER``; seq 2048, global batch 8, remat
 "minimal", bf16 compute, fp32 params; random weights from its seed) through
 ``train()`` under ``torch.profiler``, with the loop's marker regions
 (``data_wait``, ``train_step``) as trace annotations.  From the Chrome
-trace (written gzipped to ``<out>/profile_train.json.gz``, by default under
-the gitignored ``build/profiles``) it prints the last ``train_step``'s wall
-seconds, device-busy seconds (union of kernel intervals), the device's idle
-share, and kernel time by class (the port's kernels by name, matrix
-products, the rest) and by the ten costliest kernels; and the step times of
-every step, traced.
+trace (written gzipped to ``<out>/profile_train_<model>.json.gz``, by
+default under the gitignored ``build/profiles``) it prints the last
+``train_step``'s wall seconds, device-busy seconds (union of kernel
+intervals), the device's idle share, and kernel time by class (the port's
+kernels by name -- the SSD scan's forward and backward kernels each a class
+of their own --, matrix products, the rest) and by the ten costliest
+kernels; and the step times of every step, traced.
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ class AnnotatingRecorder(chip_smoke.Recorder):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default=chip_smoke.TRAIN_MODEL,
+                    choices=sorted(chip_smoke.TRAIN_LAYERS_OF))
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profiles"))
     args = ap.parse_args()
@@ -55,9 +59,11 @@ def main() -> int:
         return 1
     print(f"gpu: {chip_smoke.gpu_line()}; torch {torch.__version__}",
           flush=True)
-    cfg = dataclasses.replace(get_config(chip_smoke.TRAIN_MODEL),
-                              num_layers=chip_smoke.TRAIN_LAYERS)
-    tcfg = TrainConfig(total_steps=args.steps, optimizer="adamw",
+    cfg = dataclasses.replace(
+        get_config(args.model),
+        num_layers=chip_smoke.TRAIN_LAYERS_OF[args.model])
+    tcfg = TrainConfig(total_steps=args.steps,
+                       optimizer=chip_smoke.TRAIN_OPTIMIZER[args.model],
                        remat_policy="minimal", seed=chip_smoke.SEED)
     stack = chip_smoke.RecorderStack()
     stack.um = AnnotatingRecorder()
@@ -66,7 +72,7 @@ def main() -> int:
         train(cfg, tcfg, chip_smoke.TRAIN_SHAPE, stack=stack,
               job_id="profile-train")
     os.makedirs(args.out, exist_ok=True)
-    path = os.path.join(args.out, "profile_train.json")
+    path = os.path.join(args.out, f"profile_train_{args.model}.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
         trace = json.load(f)

@@ -70,6 +70,23 @@ SIGNATURES = {
         _L, _L, _L,                     # y strides
         _P,                             # stream
     ],
+    "repro_ssd_scan_bwd": [
+        _P, _P, _P, _P, _P,             # x, a, b, c, dy
+        _P, _P,                         # init state, dstate (or null)
+        _P, _P, _P, _P, _P,             # dx, da, db, dc, d_init (or null)
+        _P, _P, _P,                     # scratch: states, db / dc by head
+        _I,                             # dtype code
+        _I, _I, _I, _I,                 # B, H, G, L
+        _L, _L, _L,                     # x strides (b, h, l), elements
+        _L, _L, _L,                     # a strides
+        _L, _L, _L,                     # b strides (b, g, l)
+        _L, _L, _L,                     # c strides
+        _L, _L, _L,                     # dy strides
+        _L, _L, _L,                     # dx strides
+        _L, _L, _L,                     # db strides (b, g, l)
+        _L, _L, _L,                     # dc strides
+        _P,                             # stream
+    ],
 }
 
 _lib = None

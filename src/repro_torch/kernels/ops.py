@@ -16,8 +16,12 @@ calls pay one ``None`` check.
 Gradients: :func:`fused_rmsnorm` under grad goes through
 :class:`RMSNormFunction`, whose forward is the RMSNorm kernel and whose
 backward is the RMSNorm backward kernel (a ``kernel:rmsnorm_backward``
-region).  The flash and SSD wrappers have no backward, as their Pallas
-kernels have none.
+region); :func:`ssd_chunked_kernel` under grad through
+:class:`SSDFunction`, forward the SSD scan kernel, backward the SSD
+backward kernel (``kernel:ssd_scan_backward``).  The Pallas kernels have no
+backward: the reference differentiates its jnp forms where the port calls
+these kernels.  The flash wrapper has none (train-mode flash is
+forward-only in both packages).
 """
 
 from __future__ import annotations
@@ -45,7 +49,8 @@ def set_kernel_markers(session):
 def launch_counts() -> dict:
     """Kernel launches per kernel since the last reset."""
     return {"flash_attention": _fa.launches, "rmsnorm": _rms.launches,
-            "rmsnorm_backward": _rms.bwd_launches, "ssd_scan": _ssd.launches}
+            "rmsnorm_backward": _rms.bwd_launches, "ssd_scan": _ssd.launches,
+            "ssd_scan_backward": _ssd.bwd_launches}
 
 
 def reset_launch_counts() -> None:
@@ -53,6 +58,7 @@ def reset_launch_counts() -> None:
     _rms.launches = 0
     _rms.bwd_launches = 0
     _ssd.launches = 0
+    _ssd.bwd_launches = 0
 
 
 def _region(name: str, t: torch.Tensor, costs_fn):
@@ -127,6 +133,58 @@ def fused_rmsnorm(x, scale, *, eps: float = 1e-5):
     return _rmsnorm(x, scale, eps)
 
 
+def _ssd_scan(x, a, b, c, init_state):
+    """The scan on model-layout tensors (see :func:`ssd_chunked_kernel`)."""
+    xt = x.transpose(1, 2)
+    bt, ct = b.transpose(1, 2), c.transpose(1, 2)
+    m, region = _region(
+        "ssd_scan", x,
+        lambda: _ssd.cost_estimate(xt.shape, bt.shape[1], bt.shape[-1],
+                                   x.element_size(),
+                                   init_state=init_state is not None))
+    with region:
+        y, state = _ssd.ssd_scan(xt, a.transpose(1, 2), bt, ct, init_state)
+        if m is not None:
+            _sync(y)
+    return y.transpose(1, 2), state
+
+
+class SSDFunction(torch.autograd.Function):
+    """The SSD scan with the kernels' gradient: forward = the SSD scan
+    kernel, backward = the SSD backward kernel (their plain versions on the
+    CPU; shapes only on meta tensors, whose flops ``FlopCounterMode`` takes
+    from the cost model).  Model layout:
+    x (B, L, H, P), a (B, L, H), b/c (B, L, G, N).  Saves the inputs; the
+    chunk-start states are recomputed in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, c, init_state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, a, b, c, init_state)
+        return _ssd_scan(x, a, b, c, init_state)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, a, b, c, init_state = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.to(x.dtype)
+        xt = x.transpose(1, 2)
+        bt = b.transpose(1, 2)
+        m, region = _region(
+            "ssd_scan_backward", x,
+            lambda: _ssd.bwd_cost_estimate(
+                xt.shape, bt.shape[1], bt.shape[-1], x.element_size(),
+                init_state=init_state is not None))
+        with region:
+            dx, da, db, dc, d_init = _ssd.ssd_scan_bwd(
+                xt, a.transpose(1, 2), bt, c.transpose(1, 2),
+                dy.contiguous().transpose(1, 2), init_state,
+                None if dstate is None else dstate.contiguous())
+            if m is not None:
+                _sync(dx)
+        return (dx.transpose(1, 2), da.transpose(1, 2), db.transpose(1, 2),
+                dc.transpose(1, 2), d_init)
+
+
 def ssd_chunked_kernel(x, dt_log_decay, b_mat, c_mat, init_state=None):
     """Kernel-backed counterpart of ``models.ssm.ssd_chunked``.
 
@@ -135,17 +193,12 @@ def ssd_chunked_kernel(x, dt_log_decay, b_mat, c_mat, init_state=None):
     layout), head h reading group h // (H / G); init_state: (B, H, P, N)
     or None.  The kernel reads the groups through strides, so no head copy
     is made.  Returns (y (B, L, H, P), final state (B, H, P, N) fp32).
+    Under grad (grad mode on and an input requiring it) through
+    :class:`SSDFunction`; otherwise, as when serving under
+    ``inference_mode``, one direct call of the scan.
     """
-    xt = x.transpose(1, 2)
-    at = dt_log_decay.transpose(1, 2)
-    bt, ct = b_mat.transpose(1, 2), c_mat.transpose(1, 2)
-    m, region = _region(
-        "ssd_scan", x,
-        lambda: _ssd.cost_estimate(xt.shape, bt.shape[1], bt.shape[-1],
-                                   x.element_size(),
-                                   init_state=init_state is not None))
-    with region:
-        y, state = _ssd.ssd_scan(xt, at, bt, ct, init_state)
-        if m is not None:
-            _sync(y)
-    return y.transpose(1, 2), state
+    args = (x, dt_log_decay, b_mat, c_mat, init_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in args):
+        return SSDFunction.apply(*args)
+    return _ssd_scan(*args)

@@ -2,7 +2,9 @@
 
 Straightforward dense math, no blocking, written independently of the
 kernels.  The kernel wrappers call these for tensors on the CPU, and
-``chip_smoke.py`` holds each kernel against them on the card.
+``chip_smoke.py`` holds each kernel against them on the card.  The SSD
+backward's plain version takes autograd's gradients through
+:func:`ssd_chunked_ref`, the port's copy of the reference's chunked form.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
@@ -78,3 +81,75 @@ def ssd_ref(x, a, b, c, init_state=None):
             xf[:, :, t, :, None] * bf[:, :, t, None, :]
         ys.append(torch.einsum("bhpn,bhn->bhp", s, cf[:, :, t]))
     return torch.stack(ys, dim=2).to(x.dtype), s
+
+
+def ssd_chunked_ref(x, a, b, c, init_state=None, *, chunk: int = 64):
+    """Chunked SSD scan in fp32 (the port's copy of the reference's
+    ``models.ssm.ssd_chunked``, Mamba2 alg. 1), in the kernel's layout.
+
+    Arguments and results as :func:`ssd_ref`.  Within a chunk the
+    decay-masked ``C B^T`` product applied to x; between chunks a carried
+    state.  A ragged L is padded with zero steps (x, a, b and c zero: they
+    add nothing and decay nothing) where the reference shrinks its chunk to
+    ``gcd(L, chunk)``; the result is the same function.  Differentiable:
+    autograd through it keeps one (B, H, P, N) state a chunk, not a step.
+    """
+    bsz, h, l, p = x.shape
+    g, n = b.shape[1], b.shape[-1]
+    nc = -(-l // chunk)
+    pad = nc * chunk - l
+
+    def chunks(t, dims):          # (B, *, L[, D]) fp32 -> (B, H, nc, C[, D])
+        t = F.pad(t.float(), (0, 0, 0, pad) if dims else (0, pad))
+        if t.shape[1] != h:
+            t = t.repeat_interleave(h // g, dim=1)
+        return t.reshape(bsz, h, nc, chunk, *t.shape[3:])
+
+    xc, bc, cc = chunks(x, 1), chunks(b, 1), chunks(c, 1)
+    acs = chunks(a, 0).cumsum(dim=-1)                     # (B, H, nc, C)
+    total = acs[..., -1]                                  # (B, H, nc)
+    # exponents acs_i - acs_j below the diagonal, -inf above it, and the
+    # constant 0 on it: the same function, but no gradient flows into acs
+    # through the diagonal, whose terms would cancel between acs_i and acs_j
+    below = torch.ones((chunk, chunk), dtype=torch.bool,
+                       device=x.device).tril(-1)
+    seg = (acs[..., :, None] - acs[..., None, :]).masked_fill(
+        ~below, float("-inf")).masked_fill(
+            torch.eye(chunk, dtype=torch.bool, device=x.device), 0.0)
+    y = ((cc @ bc.transpose(-1, -2)) * torch.exp(seg)) @ xc   # within chunks
+    decay_to_end = torch.exp(total[..., None] - acs)
+    states = (xc * decay_to_end[..., None]).transpose(-1, -2) @ bc
+    s = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device) \
+        if init_state is None else init_state.float()
+    starts = []
+    for k in range(nc):                                   # chunk-start states
+        starts.append(s)
+        s = s * torch.exp(total[:, :, k])[..., None, None] + states[:, :, k]
+    prev = torch.stack(starts, dim=2)                     # (B, H, nc, P, N)
+    y = y + (cc @ prev.transpose(-1, -2)) * torch.exp(acs)[..., None]
+    return y.reshape(bsz, h, nc * chunk, p)[:, :, :l].to(x.dtype), s
+
+
+def ssd_bwd_ref(x, a, b, c, dy, init_state=None, dstate=None):
+    """Gradient of the SSD scan (:func:`ssd_ref`'s function) for the output
+    gradient ``dy`` (x's shape) and, optionally, the final state's gradient
+    ``dstate`` (B, H, P, N), taken by autograd through
+    :func:`ssd_chunked_ref` in fp32 from the inputs widened to fp32.
+
+    Returns (dx in x's dtype, da (B, H, L) fp32, db and dc (B, G, L, N) in
+    b's dtype, each summed over the heads of its group, d_init (B, H, P, N)
+    fp32, or None without ``init_state``)."""
+    leaves = [t.detach().float().requires_grad_() for t in (x, a, b, c)]
+    init = None if init_state is None else \
+        init_state.detach().float().requires_grad_()
+    with torch.enable_grad():
+        y, state = ssd_chunked_ref(*leaves, init)
+        outs, grads = [y], [dy.float()]
+        if dstate is not None:
+            outs.append(state)
+            grads.append(dstate.float())
+        got = torch.autograd.grad(
+            outs, leaves + ([] if init is None else [init]), grads)
+    dx, da, db, dc = got[:4]
+    return (dx.to(x.dtype), da, db.to(b.dtype), dc.to(c.dtype),
+            got[4] if init is not None else None)

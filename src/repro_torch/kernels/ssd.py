@@ -1,20 +1,30 @@
-"""Mamba2 SSD chunk scan for Hopper: wrapper, plain version and cost model.
+"""Mamba2 SSD chunk scan for Hopper: wrappers, plain versions and cost
+models, forward and backward.
 
-Port of ``repro.kernels.ssd`` (the Pallas ``_ssd_kernel``).  The CUDA
+Port of ``repro.kernels.ssd`` (the Pallas ``_ssd_kernel``).  The forward
 kernels are in ``csrc/ssd.cu``: a chunked scan with the fp32 state carried
 across a sequential chunk loop, that returns the final state and takes any
 ``L`` (the Pallas kernel drops the state and needs ``L % chunk == 0``).
 bf16 runs on the tensor cores (``wgmma``, TMA-fed chunks), fp32 on the CUDA
-cores.
+cores.  The backward (:func:`ssd_scan_bwd`, ``csrc/ssd_bwd.cu``) runs in
+fp32 on the CUDA cores for both dtypes.
 
-On a CPU tensor :func:`ssd_scan` computes the plain version
-(:func:`repro_torch.kernels.ref.ssd_ref`); on a CUDA tensor it launches the
-kernel or raises.
+On a CPU tensor the wrappers compute the plain versions
+(:func:`repro_torch.kernels.ref.ssd_ref`, :func:`~repro_torch.kernels.ref.
+ssd_bwd_ref`); otherwise they call the custom ops ``repro_torch::ssd_scan``
+and ``repro_torch::ssd_scan_bwd``, which launch the kernel on a CUDA tensor
+(or raise) and, on meta tensors, launch and compute nothing and return
+empty outputs of the right shapes.  Each op has a flop formula (the cost
+model's), so :class:`~torch.utils.flop_counter.FlopCounterMode` counts the
+SSD as it counts aten's products (``train.step.count_step_flops``).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import check, load_library
@@ -24,6 +34,7 @@ HEAD_DIM = STATE_DIM = 64                 # P and N the kernel is built for
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0                              # kernel launches since reset
+bwd_launches = 0                          # backward launches since reset
 
 
 def _validate(x, a, b, c, init_state) -> None:
@@ -82,6 +93,20 @@ def kernel_strides(t) -> list:
                                                      t.shape[:3])]
 
 
+def _check_kernel_args(x, b) -> None:
+    """What both kernels take: a CUDA tensor, fp32 or bf16, P = N = 64."""
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in DTYPE_CODES:
+        raise ValueError(f"kernel takes float32 or bfloat16, got {x.dtype}")
+    p, n = x.shape[-1], b.shape[-1]
+    if p != HEAD_DIM or n != STATE_DIM:
+        raise ValueError(f"kernel is built for head dim {HEAD_DIM} and state "
+                         f"dim {STATE_DIM}, got P={p}, N={n}")
+    if x.shape[0] > 65535:
+        raise ValueError(f"batch {x.shape[0]} exceeds the kernel's grid")
+
+
 def ssd_scan(x, a, b, c, init_state=None):
     """Chunked SSD scan.
 
@@ -95,21 +120,23 @@ def ssd_scan(x, a, b, c, init_state=None):
     Returns (y (B, H, L, P) in x's dtype with x's strides, final state
     (B, H, P, N) fp32).
     """
-    global launches
     _validate(x, a, b, c, init_state)
     if x.device.type == "cpu":
         return ref.ssd_ref(x, a, b, c, init_state)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.dtype not in DTYPE_CODES:
-        raise ValueError(f"kernel takes float32 or bfloat16, got {x.dtype}")
+    if x.device.type != "meta":
+        _check_kernel_args(x, b)
+    return torch.ops.repro_torch.ssd_scan(x, a, b, c, init_state)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=(),
+                         device_types="cuda")
+def _scan_op(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, init_state: Optional[torch.Tensor]
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The scan kernel's launch, on inputs :func:`ssd_scan` checked."""
+    global launches
     bsz, h, l, p = x.shape
     n = b.shape[-1]
-    if p != HEAD_DIM or n != STATE_DIM:
-        raise ValueError(f"kernel is built for head dim {HEAD_DIM} and state "
-                         f"dim {STATE_DIM}, got P={p}, N={n}")
-    if bsz > 65535:
-        raise ValueError(f"batch {bsz} exceeds the kernel's grid")
     b, c = canonical_groups(b, c)
     g = b.shape[1]
     y = torch.empty_like(x)
@@ -135,22 +162,179 @@ def ssd_scan(x, a, b, c, init_state=None):
     return y, state
 
 
+@_scan_op.register_fake
+def _scan_shapes(x, a, b, c, init_state):
+    bsz, h, _, p = x.shape
+    return torch.empty_like(x), x.new_empty((bsz, h, p, b.shape[-1]),
+                                            dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan, get_raw=True)
+def _scan_flops(x, a, b, c, init_state, *, out_val=None, **kwargs) -> float:
+    return cost_estimate(x.shape, b.shape[1], b.shape[-1], x.element_size(),
+                         init_state=init_state is not None)["flops"]
+
+
+def causal_pairs(l: int) -> int:
+    """(i, j) pairs with j <= i inside the chunks of ``l`` steps: the
+    within-chunk products are causal, so these are all they need."""
+    full, tail = divmod(int(l), CHUNK)
+    return full * CHUNK * (CHUNK + 1) // 2 + tail * (tail + 1) // 2
+
+
 def cost_estimate(x_shape, groups: int, state_n: int, itemsize: int, *,
                   init_state: bool = False) -> dict:
     """Per-call ``{flops, bytes}`` of the work the kernel does at its own
     chunk.
 
-    FLOPs per step: the within-chunk pair (C B^T then P x, 2*C*(N+P)) and
-    the state pair (C S and B^T x, 2*N*P each), counted over the L steps
-    the call has (the masked tail of the last chunk is not work the
-    function needs).  Bytes: one read of x, a, b/c (once per (batch,
-    group): a broadcast over heads is read once) and of the initial state
-    when given; one write of y and of the final state."""
+    FLOPs: the within-chunk pair (C B^T then P x, 2*(N+P) a pair), over
+    the causal pairs of each chunk (:func:`causal_pairs`: the upper
+    triangle and the last chunk's masked tail are not work the function
+    needs), and the state pair (C S and B^T x, 2*N*P each) a step.
+    Bytes: one read of x, a, b/c (once per (batch, group): a broadcast
+    over heads is read once) and of the initial state when given; one
+    write of y and of the final state."""
     bsz, h, l, p = (int(v) for v in x_shape)
     n = int(state_n)
-    c = min(CHUNK, l)
-    flops = float(bsz * h * l) * (2.0 * c * (n + p) + 4.0 * n * p)
+    flops = float(bsz * h) * (2.0 * (n + p) * causal_pairs(l)
+                              + 4.0 * n * p * l)
     elems = bsz * h * l * 2 * p + bsz * groups * l * 2 * n
     state_bytes = bsz * h * p * n * 4 * (2 if init_state else 1)
     return {"flops": flops,
             "bytes": float(elems * itemsize + bsz * h * l * 4 + state_bytes)}
+
+
+def _rows(t) -> list:
+    """The (b, h|g, l) element strides of a backward-kernel operand: last
+    dim contiguous, row strides a multiple of 4 (the kernel moves 4
+    elements a load), 4-element aligned; a dim of size one is never
+    stepped, so its stride is passed as 0."""
+    st = [s if sz > 1 else 0 for s, sz in zip(t.stride()[:3], t.shape[:3])]
+    if t.stride(-1) != 1 or any(s % 4 for s in st) or \
+            t.data_ptr() % (4 * t.element_size()):
+        raise ValueError(f"last dim must be contiguous, strides a multiple "
+                         f"of 4 and rows aligned to 4 elements (shape "
+                         f"{tuple(t.shape)}, strides {t.stride()})")
+    return st
+
+
+def ssd_scan_bwd(x, a, b, c, dy, init_state=None, dstate=None):
+    """Gradient of :func:`ssd_scan` for the output gradient ``dy`` (x's
+    shape and dtype) and, optionally, the final state's ``dstate`` (B, H,
+    P, N) fp32.
+
+    Inputs as :func:`ssd_scan`; b/c may have any strides along (b, g, l),
+    zero included.  Returns (dx in x's dtype with x's strides, da (B, H, L)
+    fp32, db and dc (B, G, L, N) in b's dtype, each summed over the heads
+    of its group and laid out as a (B, L, G, N) tensor's transpose, d_init
+    (B, H, P, N) fp32 or None without ``init_state``)."""
+    _validate(x, a, b, c, init_state)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    bsz, h, l, p = x.shape
+    n = b.shape[-1]
+    if dstate is not None and (tuple(dstate.shape) != (bsz, h, p, n)
+                               or dstate.dtype != torch.float32
+                               or dstate.device != x.device):
+        raise ValueError(f"dstate {tuple(dstate.shape)} {dstate.dtype}, "
+                         f"expected {(bsz, h, p, n)} float32")
+    if x.device.type == "cpu":
+        return ref.ssd_bwd_ref(x, a, b, c, dy, init_state, dstate)
+    if x.device.type != "meta":
+        _check_kernel_args(x, b)
+    grads = torch.ops.repro_torch.ssd_scan_bwd(x, a, b, c, dy, init_state,
+                                               dstate)
+    return (*grads[:4], grads[4] if init_state is not None else None)
+
+
+def _bwd_outputs(x, b, init_state) -> list:
+    """Empty dx, da, db, dc (and d_init with ``init_state``)."""
+    bsz, h, l, p = x.shape
+    g, n = b.shape[1], b.shape[-1]
+
+    def grads_of_b():                 # (B, G, L, N), model memory order
+        return x.new_empty((bsz, l, g, n), dtype=b.dtype).transpose(1, 2)
+    out = [torch.empty_like(x), x.new_empty((bsz, h, l), dtype=torch.float32),
+           grads_of_b(), grads_of_b()]
+    if init_state is not None:
+        out.append(x.new_empty((bsz, h, p, n), dtype=torch.float32))
+    return out
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=(),
+                         device_types="cuda")
+def _bwd_op(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor, dy: torch.Tensor,
+            init_state: Optional[torch.Tensor],
+            dstate: Optional[torch.Tensor]) -> list[torch.Tensor]:
+    """The backward kernel's launch, on inputs :func:`ssd_scan_bwd`
+    checked: [dx, da, db, dc] and d_init with ``init_state``."""
+    global bwd_launches
+    bsz, h, l, p = x.shape
+    g, n = b.shape[1], b.shape[-1]
+    out = _bwd_outputs(x, b, init_state)
+    dx, da, db, dc = out[:4]
+    d_init = out[4] if init_state is not None else None
+    strides = [_rows(t) for t in (x, b, c, dy, dx, db, dc)]
+    for name, t in (("init_state", init_state), ("dstate", dstate)):
+        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    nc = -(-l // CHUNK)
+    ws = torch.empty((bsz, h, nc, p, n), dtype=torch.float32,
+                     device=x.device)
+    db_h = torch.empty((bsz, h, l, n), dtype=torch.float32, device=x.device)
+    dc_h = torch.empty_like(db_h)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    err = load_library().repro_ssd_scan_bwd(
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        dy.data_ptr(), ptr(init_state), ptr(dstate), dx.data_ptr(),
+        da.data_ptr(), db.data_ptr(), dc.data_ptr(), ptr(d_init),
+        ws.data_ptr(), db_h.data_ptr(), dc_h.data_ptr(),
+        DTYPE_CODES[x.dtype], bsz, h, g, l, *strides[0], *a.stride(),
+        *strides[1], *strides[2], *strides[3], *strides[4], *strides[5],
+        *strides[6], torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "ssd_scan_bwd")
+    bwd_launches += 1
+    return out
+
+
+@_bwd_op.register_fake
+def _bwd_shapes(x, a, b, c, dy, init_state, dstate):
+    return _bwd_outputs(x, b, init_state)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd, get_raw=True)
+def _bwd_flops(x, a, b, c, dy, init_state, dstate, *, out_val=None,
+               **kwargs) -> float:
+    return bwd_cost_estimate(x.shape, b.shape[1], b.shape[-1],
+                             x.element_size(),
+                             init_state=init_state is not None)["flops"]
+
+
+def bwd_cost_estimate(x_shape, groups: int, state_n: int, itemsize: int, *,
+                      init_state: bool = False) -> dict:
+    """Backward ``{flops, bytes}`` of the function, counted as
+    :func:`cost_estimate` counts the forward.
+
+    FLOPs: the five within-chunk products (C B^T, dY X^T, and the ones
+    giving dx, db and dc from them: 2*(3N + 2P) a pair), all causal, over
+    the causal pairs of each chunk (:func:`causal_pairs`); and a step and
+    head the four state products (dx and db from the end-state gradient,
+    dc from the start state, the gradient's carry: 8*N*P) and the
+    recompute of the chunk-start states (2*N*P).  Bytes: one read of x,
+    dy, a, b/c (once per (batch, group)) and of the initial state when
+    given; one write of dx, da, db/dc and of its gradient.  The kernel's
+    fp32 scratch (the states, the per-head db/dc terms) is its own cost,
+    not the function's."""
+    bsz, h, l, p = (int(v) for v in x_shape)
+    n = int(state_n)
+    flops = float(bsz * h) * (2.0 * (3 * n + 2 * p) * causal_pairs(l)
+                              + 10.0 * n * p * l)
+    elems = bsz * h * l * 3 * p + bsz * groups * l * 4 * n
+    state_bytes = bsz * h * p * n * 4 * 2 if init_state else 0
+    return {"flops": flops,
+            "bytes": float(elems * itemsize + bsz * h * l * 4 * 2
+                           + state_bytes)}

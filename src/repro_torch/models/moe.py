@@ -18,6 +18,12 @@ triples.  Shared experts add a dense swiglu MLP.  The router runs in fp32
 when ``router_dtype == "float32"`` (JAX promotes the bf16 x against the
 fp32 router the same way).
 
+Under autograd the dispatch's index write and the combine's ``index_add_``
+differentiate as the reference's scatter-set and scatter-add (a dropped
+triple, zeroed in the dummy row, gets no gradient); the router's gradient
+flows through the gates into the combine and through the probabilities
+into the aux loss.
+
 Ties: :func:`route_topk` picks experts by a stable descending sort of the
 probabilities, so of two equal probabilities the lower expert index wins, as
 ``jax.lax.top_k`` orders them.
@@ -97,7 +103,12 @@ def _dispatch_group(xt, logits, cfg: ModelConfig, cap: int):
     e_sorted = flat_e[order]
     tok_sorted = flat_tok[order]
     g_sorted = flat_g[order]
-    counts = torch.bincount(flat_e, minlength=e)          # (E,)
+    if flat_e.device.type == "meta":
+        # bincount sizes its output from the data, which a meta tensor (a
+        # train step's flop count) does not have
+        counts = flat_e.new_empty((e,))
+    else:
+        counts = torch.bincount(flat_e, minlength=e)      # (E,)
     starts = counts.cumsum(0) - counts
     rank = torch.arange(t * k, device=dev) - starts[e_sorted]
     keep = rank < cap

@@ -1,11 +1,13 @@
 """Mamba2 (SSD) sequence mixer (port of the Mamba2 half of
 ``repro.models.ssm``; RWKV6 is not ported yet).
 
-Prefill runs the chunked SSD scan through the kernel wrapper
+Train and prefill run the chunked SSD scan through the kernel wrapper
 :func:`repro_torch.kernels.ops.ssd_chunked_kernel` (the plain sequential
-recurrence on the CPU), starting from the cache's state and returning the
-final state.  Decode is the plain recurrent update, as in the reference
-(it is not a kernel there either).  Caches are written in place.
+recurrence on the CPU), which under grad differentiates through the SSD
+backward kernel; prefill starts from the cache's state and keeps the final
+state, train starts from zeros and drops it, as the reference does.  Decode
+is the plain recurrent update, as in the reference (it is not a kernel
+there either).  Caches are written in place.
 
 Numerical-safety invariant, as in the reference: the decays are
 exponentials of differences of cumulative log-decays with the larger index
@@ -77,6 +79,7 @@ def mamba2_cache_specs(cfg: ModelConfig, batch: int,
 def mamba2_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None):
     """Mamba2 mixer.  x: (B, L, d) -> (y, cache).
 
+    train: the chunked scan from zeros with zero conv history, no cache.
     prefill: the chunked scan from the cache's SSM state (zeros when there
     is no cache) and zero conv history; writes the conv tail and the final
     state into the cache.  decode: the recurrent update of the cached
@@ -100,11 +103,13 @@ def mamba2_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None):
             raise ValueError("decode needs a cache")
         xbc, conv_state = _causal_conv(xbc, p["conv_w"].to(dt_),
                                        p["conv_b"].to(dt_), cache["conv"])
-    elif mode == "prefill":
+    elif mode in ("train", "prefill"):
+        if mode == "train" and cache is not None:
+            raise ValueError("train mode takes no cache")
         xbc, conv_state = _causal_conv(xbc, p["conv_w"].to(dt_),
                                        p["conv_b"].to(dt_), None)
     else:
-        raise ValueError(f"mode {mode!r} is not ported (prefill | decode)")
+        raise ValueError(f"mode {mode!r} (train | prefill | decode)")
 
     xin = xbc[..., :di]
     b_mat = xbc[..., di:di + gn].reshape(bsz, l, g, n)

@@ -3,11 +3,17 @@
 
 :func:`forward` runs a decoder-only dense or MoE LM (``dense_layers`` then
 ``moe_layers``, as the reference), or a zamba2-style hybrid (Mamba2 backbone
-with shared attention blocks), in prefill or decode mode; dense models also
-train.  The reference scans stacked layer parameters with ``jax.lax.scan``;
-here a loop walks the leading layer axes.  Caches are stacked over layers
-like the reference's and are written in place; under a sliding window each
-layer's KV cache holds ``min(max_len, window)`` slots.
+with shared attention blocks), in train, prefill or decode mode.  The
+reference scans stacked layer parameters with ``jax.lax.scan``; here a loop
+walks the leading layer axes.  Caches are stacked over layers like the
+reference's and are written in place; under a sliding window each layer's
+KV cache holds ``min(max_len, window)`` slots.
+
+Train mode rematerializes as the reference places ``jax.checkpoint``: each
+dense or MoE block, each Mamba2 block of a hybrid group and each trailing
+(``rem``) Mamba2 block is checkpointed under the policy; the hybrid's
+shared attention blocks are not.  :func:`loss_fn` adds the MoE router's
+aux term as the reference does.
 """
 
 from __future__ import annotations
@@ -197,22 +203,29 @@ _minimal_remat = partial(create_selective_checkpoint_contexts,
                           torch.ops.aten.addmm.default])
 
 
-def _train_layers(layers, x, cfg, *, rope, attn_impl, remat):
-    if remat not in REMAT_POLICIES:
-        raise ValueError(f"remat {remat!r} (one of {REMAT_POLICIES})")
+def _checkpointed(fn, remat: str):
+    """``fn`` rematerialized under the policy (``"none"``: ``fn`` itself)."""
+    if remat == "none":
+        return fn
+    kw = {} if remat == "full" else {"context_fn": _minimal_remat}
+    return partial(checkpoint, fn, use_reentrant=False, **kw)
 
+
+def _train_layers(layers, x, cfg, *, rope, attn_impl, remat, aux=None):
+    """Train-mode pass over stacked attention blocks, each checkpointed;
+    the MoE statistics of each block come out of the checkpointed call and
+    are combined into ``aux``."""
     def block(lp, x):
-        return _attn_block(lp, x, cfg, rope=rope, mode="train", cache=None,
-                           pos=None, attn_impl=attn_impl)[0]
+        stats = {}
+        x = _attn_block(lp, x, cfg, rope=rope, mode="train", cache=None,
+                        pos=None, attn_impl=attn_impl, aux=stats)[0]
+        return x, stats
 
+    run = _checkpointed(block, remat)
     for lp in _unstack(layers):
-        if remat == "none":
-            x = block(lp, x)
-        elif remat == "full":
-            x = checkpoint(block, lp, x, use_reentrant=False)
-        else:
-            x = checkpoint(block, lp, x, use_reentrant=False,
-                           context_fn=_minimal_remat)
+        x, stats = run(lp, x)
+        if stats and aux is not None:
+            _combine_aux(aux, stats)
     return x
 
 
@@ -221,10 +234,26 @@ def _depth(tree) -> int:
     return next(iter(flatten(tree).values())).shape[0]
 
 
-def _hybrid_forward(params, x, cfg, *, rope, mode, cache, pos):
+def _hybrid_forward(params, x, cfg, *, rope, mode, cache, pos,
+                    attn_impl="masked", remat="none"):
     """Mamba2 groups, each followed by a shared attention block (weights
     ``group % num_shared_blocks``), then the ``rem`` Mamba2 blocks."""
     nsb = cfg.hybrid.num_shared_blocks
+    if mode == "train":
+        def mamba(lp, x):
+            return _mamba_block(lp, x, cfg, mode="train", cache=None)[0]
+        run = _checkpointed(mamba, remat)
+        if "groups" in params:
+            shared = _unstack(params["shared"])
+            for gi, gp in enumerate(_unstack(params["groups"])):
+                for lp in _unstack(gp):
+                    x = run(lp, x)
+                x, _ = _attn_block(shared[gi % nsb], x, cfg, rope=rope,
+                                   mode="train", cache=None, pos=None,
+                                   attn_impl=attn_impl)
+        for lp in _unstack(params["rem"]) if "rem" in params else []:
+            x = run(lp, x)
+        return x
     if "groups" in params:
         for gi in range(_depth(params["groups"])):
             gp = _layer(params["groups"], gi)
@@ -266,13 +295,8 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
     _check_supported(cfg)
     if mode == "decode" and (cache is None or pos is None):
         raise ValueError("decode needs a cache and pos")
-    if mode == "train" and cfg.family == "hybrid":
-        raise NotImplementedError("hybrid training is not ported: the SSD "
-                                  "kernel has no backward")
-    if mode == "train" and cfg.moe is not None:
-        raise NotImplementedError(
-            "MoE training is not ported: loss_fn lacks the reference's "
-            "router aux-loss term (ROADMAP Queue 1, MoE training)")
+    if mode == "train" and remat not in REMAT_POLICIES:
+        raise ValueError(f"remat {remat!r} (one of {REMAT_POLICIES})")
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None, :]
     if pos is not None:
@@ -284,10 +308,13 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
 
     if cfg.family == "hybrid":
         x = _hybrid_forward(params, x, cfg, rope=rope, mode=mode,
-                            cache=cache, pos=pos)
+                            cache=cache, pos=pos, attn_impl=attn_impl,
+                            remat=remat)
     elif mode == "train":
-        x = _train_layers(params["dense_layers"], x, cfg, rope=rope,
-                          attn_impl=attn_impl, remat=remat)
+        for group in ("dense_layers", "moe_layers"):
+            if group in params:
+                x = _train_layers(params[group], x, cfg, rope=rope,
+                                  attn_impl=attn_impl, remat=remat, aux=aux)
     else:
         for group, key in (("dense_layers", "dense"), ("moe_layers", "moe")):
             if group not in params:
@@ -305,13 +332,20 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
 def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl="masked",
             remat="none"):
     """Next-token CE loss.  batch: {"tokens", "labels"} (B, S) int tensors
-    on the params' device; labels < 0 are masked out.  Returns
-    (loss, {"loss": loss})."""
+    on the params' device; labels < 0 are masked out.  Returns (total,
+    metrics): for a model with MoE layers the total adds ``0.01 *
+    moe_aux_loss / num_layers`` to the loss and the metrics carry the MoE
+    statistics beside ``loss``, as the reference's; otherwise the total is
+    the loss and the metrics ``{"loss": loss}``."""
+    aux = {}
     logits, _ = forward(params, cfg, tokens=batch["tokens"], mode="train",
-                        attn_impl=attn_impl, remat=remat)
+                        attn_impl=attn_impl, remat=remat, aux=aux)
     labels = batch["labels"]
     loss = cross_entropy(logits, labels.clamp_min(0), cfg, mask=labels >= 0)
-    return loss, {"loss": loss}
+    if cfg.moe is None:
+        return loss, {"loss": loss}
+    total = loss + 0.01 * aux["moe_aux_loss"] / max(cfg.num_layers, 1)
+    return total, {"loss": loss, **aux}
 
 
 def init_model_params(cfg: ModelConfig, seed: int = 0, device=None,

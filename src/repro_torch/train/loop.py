@@ -152,7 +152,9 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
 
     # ---- LMS wiring ----------------------------------------------------------
     tokens_per_step = shape.global_batch * shape.seq_len
-    model_flops = 6 * model_cfg.param_count() * tokens_per_step
+    # 6 N T with N the parameters a token touches (MoE: its top-k experts),
+    # as the reference's ``_active_params``
+    model_flops = 6 * model_cfg.active_param_count() * tokens_per_step
     agent = stack.host_agent(host)
     um = stack.usermetric(host=host)
     mk = um.markers if (markers and train_cfg.monitor) else None

@@ -86,9 +86,11 @@ def count_step_flops(params, batch, model_cfg: ModelConfig,
     """Flops of one step's forward and backward, remat recomputes included,
     as :class:`~torch.utils.flop_counter.FlopCounterMode` counts them
     (matrix products and attention; not elementwise work or the optimizer
-    update).  The pass runs on meta copies of ``params`` and ``batch``:
-    the counts depend on shapes only, so nothing is computed, no device
-    memory is taken and no kernel is launched."""
+    update), the SSD scan's forward and backward included (their custom ops
+    carry the cost model's flops: ``kernels.ssd.cost_estimate`` /
+    ``bwd_cost_estimate``).  The pass runs on meta copies of ``params`` and
+    ``batch``: the counts depend on shapes only, so nothing is computed, no
+    device memory is taken and no kernel is launched."""
     def meta(tree):
         return unflatten({k: torch.empty_like(v, device="meta")
                           for k, v in flatten(tree).items()})

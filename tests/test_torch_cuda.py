@@ -10,8 +10,11 @@ and bf16 5e-2; the hybrid model's bf16 logits relative to the largest, as
 in ``chip_smoke.py``).  The RMSNorm backward takes the forward's
 tolerances, relative to (1 + |want|) as ``chip_smoke.compare`` does, and
 for dscale, a sum over every row, relative to (1 + the sum of its terms'
-magnitudes); training steps on the card against the same steps on
-the CPU in fp32 take 1e-4 relative.
+magnitudes); the SSD backward 2e-3 in fp32 (1e-2 under strong decay, the
+chunked algorithm's own fp32 error there) and 2e-2 in bf16, relative to
+(1 + |want|);
+training steps on the card against the same steps on the CPU in fp32 take
+1e-4 relative.
 """
 
 import dataclasses
@@ -35,7 +38,11 @@ from repro_torch.train.step import make_train_step  # noqa: E402
 
 TOL = {"attn": {"float32": 2e-5, "bfloat16": 2e-2},
        "rms": {"float32": 1e-5, "bfloat16": 2e-2},
-       "ssd": {"float32": 2e-3, "bfloat16": 2e-2}}
+       "ssd": {"float32": 2e-3, "bfloat16": 2e-2},
+       # the SSD backward (chip_smoke.TOL's note); under strong decay the
+       # fp32 chunked algorithm's own error reaches ~1.5e-3 kernel vs plain
+       "ssd_bwd": {"float32": 2e-3, "bfloat16": 2e-2},
+       "ssd_bwd_strong_decay": {"float32": 1e-2, "bfloat16": 2e-2}}
 
 
 @pytest.fixture
@@ -311,7 +318,8 @@ def test_model_on_card_matches_plain_on_cpu(cuda, rng, dtype, tol):
         _close(b, a, tol)
     assert ops.launch_counts() == {"flash_attention": 2,
                                    "rmsnorm": 4 * (2 * 2 + 1),
-                                   "rmsnorm_backward": 0, "ssd_scan": 0}
+                                   "rmsnorm_backward": 0, "ssd_scan": 0,
+                                   "ssd_scan_backward": 0}
 
 
 @pytest.mark.cuda
@@ -491,7 +499,8 @@ def test_hybrid_model_on_card_matches_plain_on_cpu(cuda, rng, dtype, tol,
     assert ops.launch_counts() == {
         "flash_attention": groups,
         "rmsnorm": 4 * (2 * num_layers + 2 * groups + 1),
-        "rmsnorm_backward": 0, "ssd_scan": num_layers}
+        "rmsnorm_backward": 0, "ssd_scan": num_layers,
+        "ssd_scan_backward": 0}
 
 
 @pytest.mark.cuda
@@ -557,4 +566,116 @@ def test_window_and_moe_models_on_card_match_plain_on_cpu(cuda, rng, name,
         assert err <= tol * max(1.0, float(want.abs().max())), err
     norms = 0 if cfg.norm_type == "layernorm" else 4 * (2 * 2 + 1)
     assert ops.launch_counts() == {"flash_attention": 2, "rmsnorm": norms,
-                                   "rmsnorm_backward": 0, "ssd_scan": 0}
+                                   "rmsnorm_backward": 0, "ssd_scan": 0,
+                                   "ssd_scan_backward": 0}
+
+
+# The SSD backward kernel: the chunk loop forward and in reverse, ragged
+# tails, one step, groups of several heads (db/dc summed over them), strong
+# decay, with and without an initial state (and then a final state's
+# gradient).
+SSD_BWD_CASES = [(2, 200, 8, 2, 0.1, True), (1, 150, 6, 3, 0.1, False),
+                 (2, 64, 4, 1, 0.1, True), (1, 1, 4, 1, 0.5, True),
+                 (1, 300, 7, 1, 20.0, False), (2, 129, 4, 4, 0.1, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,g,decay,init", SSD_BWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_backward_kernel_matches_plain(cuda, rng, b, l, h, g, decay,
+                                           init, dtype):
+    """ssd.ssd_scan_bwd on model-layout views (x, a, dy transposed; b/c
+    strided slices of one activation) against ref.ssd_bwd_ref on the same
+    tensors: every gradient within TOL["ssd_bwd"] (strong decay:
+    TOL["ssd_bwd_strong_decay"]), relative to (1 + |want|)."""
+    dt = getattr(torch, dtype)
+    p = n = 64
+
+    def arr(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda)
+    x = arr(b, l, h, p).to(dt).transpose(1, 2)
+    a = (-decay * arr(b, l, h).abs()).transpose(1, 2)
+    bc = arr(b, l, 2 * g * n).to(dt)
+    bm = bc[..., :g * n].view(b, l, g, n).transpose(1, 2)
+    cm = bc[..., g * n:].view(b, l, g, n).transpose(1, 2)
+    dy = arr(b, l, h, p).to(dt).transpose(1, 2)
+    s0 = arr(b, h, p, n) if init else None
+    ds = arr(b, h, p, n) if init else None
+    before = ssd.bwd_launches
+    got = ssd.ssd_scan_bwd(x, a, bm, cm, dy, s0, ds)
+    torch.cuda.synchronize()
+    assert ssd.bwd_launches == before + 1
+    want = ref.ssd_bwd_ref(x, a, bm, cm, dy, s0, ds)
+    assert got[0].dtype == dt and got[2].dtype == dt
+    assert (got[4] is None) == (not init)
+    tol = TOL["ssd_bwd" if decay < 1 else "ssd_bwd_strong_decay"][dtype]
+    for g_, w in zip(got, want):
+        if w is not None:
+            _close(g_, w, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_function_on_card_matches_cpu(cuda, rng, dtype):
+    """ops.ssd_chunked_kernel under grad: the scan and backward kernels on
+    the card against the plain versions on the CPU, model layout, b/c an
+    expanded view of one group (zero stride) whose gradient sums over the
+    heads; one forward and one backward launch."""
+    dt = getattr(torch, dtype)
+    b, l, h, n = 2, 150, 4, 64
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in
+            ((b, l, h, 64), (b, l, h), (b, l, 1, n), (b, l, 1, n),
+             (b, l, h, 64))]
+    arrs[1] = -0.1 * np.abs(arrs[1])
+    out = {}
+    for dev in ("cpu", cuda):
+        x, a, bm, cm = (torch.from_numpy(v).to(dev, dt if i != 1 else
+                                               torch.float32)
+                        .requires_grad_() for i, v in enumerate(arrs[:4]))
+        dy = torch.from_numpy(arrs[4]).to(dev, dt)
+        ops.reset_launch_counts()
+        y, _ = ops.ssd_chunked_kernel(x, a, bm.expand(b, l, h, n),
+                                      cm.expand(b, l, h, n))
+        grads = torch.autograd.grad(y, (x, a, bm, cm), dy)
+        out[str(dev)] = [y.detach()] + list(grads)
+        if dev == cuda:
+            counts = ops.launch_counts()
+            assert (counts["ssd_scan"], counts["ssd_scan_backward"]) == (1, 1)
+    _close(out["cuda"][0], out["cpu"][0], TOL["ssd"][dtype])
+    for got, want in zip(out["cuda"][1:], out["cpu"][1:]):
+        _close(got, want, TOL["ssd_bwd"][dtype])
+
+
+@pytest.mark.cuda
+def test_hybrid_train_steps_on_card_match_cpu(cuda, rng):
+    """A small hybrid with the kernels' Mamba2 widths (2 groups of 2 and a
+    trailing layer) in fp32: two AdamW steps (remat "minimal") through the
+    SSD scan, its backward and the RMSNorm kernels on the card against the
+    plain versions on the CPU, same params and batches: loss, grad norm
+    and param norm at 1e-4 relative; launches as counted."""
+    cfg = _small_hybrid("float32", 5, 2)
+    tcfg = TrainConfig(optimizer="adamw", warmup_steps=0, learning_rate=1e-3,
+                       remat_policy="minimal")
+    toks = rng.integers(0, cfg.vocab_size, (2, 2, 97))
+    out = {}
+    for dev in ("cpu", cuda):
+        p = init_model_params(cfg, seed=0, device="cpu")
+        p = unflatten({k: v.to(dev) for k, v in flatten(p).items()})
+        step_fn, opt = make_train_step(cfg, tcfg)
+        state = opt.init(p)
+        ops.reset_launch_counts()
+        out[str(dev)] = []
+        for i in range(2):
+            t = torch.from_numpy(toks[i]).to(dev)
+            p, state, m = step_fn(p, state, {"tokens": t[:, :-1],
+                                             "labels": t[:, 1:]}, i)
+            out[str(dev)].append([float(m[k]) for k in
+                                  ("loss", "grad_norm", "param_norm")])
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4)
+    layers, groups = 5, 2
+    norms = 2 * layers + 2 * groups + 1
+    assert ops.launch_counts() == {
+        "flash_attention": 0, "rmsnorm": 2 * (norms + 2 * layers),
+        "rmsnorm_backward": 2 * norms, "ssd_scan": 2 * 2 * layers,
+        "ssd_scan_backward": 2 * layers}

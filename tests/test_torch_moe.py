@@ -231,16 +231,6 @@ def test_mixtral_prefill_and_decode_match_jax(rng, dtype, tol, top_k):
                                _np(jcache["moe"]["v"]), rtol=tol, atol=tol)
 
 
-def test_moe_training_raises():
-    _, tc = _cfgs()
-    p = ttf.init_model_params(tc, device="cpu")
-    toks = torch.zeros(1, 8, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        ttf.forward(p, tc, tokens=toks, mode="train")
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        ttf.loss_fn(p, tc, {"tokens": toks, "labels": toks})
-
-
 @pytest.mark.parametrize("router_dtype", ["float32", "bfloat16"])
 def test_bridge_carries_the_moe_leaves(router_dtype):
     """Router fp32 when routing is fp32, the expert stacks cast once."""

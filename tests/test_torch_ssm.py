@@ -185,19 +185,23 @@ def test_ssd_bf16_plain_matches_oracle(rng):
 
 def test_ssd_cost_estimate():
     """The served shape (B=8, L=910, H=112, P=N=64, one group) at the
-    kernel's chunk of 64: ~26.7 GFLOP and ~0.23 GB."""
+    kernel's chunk of 64: the within-chunk products over the causal pairs
+    of 14 full chunks and a 14-step tail, ~20.1 GFLOP; ~0.23 GB."""
     c = ssd.cost_estimate((8, 112, 910, 64), 1, 64, 2)
     steps = 8 * 112 * 910
-    assert c["flops"] == steps * (2.0 * 64 * 128 + 4.0 * 64 * 64)
+    pairs = 14 * 64 * 65 // 2 + 14 * 15 // 2
+    assert ssd.causal_pairs(910) == pairs
+    assert c["flops"] == 8 * 112 * (2.0 * 128 * pairs) \
+        + steps * 4.0 * 64 * 64
     assert c["bytes"] == (steps * 2 * 64 * 2 + 8 * 910 * 2 * 64 * 2
                           + steps * 4 + 8 * 112 * 64 * 64 * 4)
-    assert abs(c["flops"] / 1e9 - 26.72) < 0.01
+    assert abs(c["flops"] / 1e9 - 20.06) < 0.01
     assert abs(c["bytes"] / 1e9 - 0.2285) < 0.001
     with_init = ssd.cost_estimate((8, 112, 910, 64), 1, 64, 2,
                                   init_state=True)
     assert with_init["bytes"] - c["bytes"] == 8 * 112 * 64 * 64 * 4
     assert ssd.cost_estimate((1, 2, 10, 8), 2, 4, 4)["flops"] == \
-        1 * 2 * 10 * (2.0 * 10 * 12 + 4.0 * 8 * 4)
+        1 * 2 * (2.0 * 12 * 55 + 4.0 * 8 * 4 * 10)
 
 
 def test_ssd_wrapper_rejects_what_the_kernel_does_not_take():

@@ -269,9 +269,10 @@ def test_flash_train_attention_is_forward_only(model, rng):
 def test_unported_training_raises(model):
     jc, tc, jp = model
     toks = torch.zeros((1, 8), dtype=torch.long)
-    hybrid = get_config("zamba2-7b", smoke=True)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        ttf.forward({}, hybrid, tokens=toks, mode="train")
+    unported = dataclasses.replace(get_config("lms-demo", smoke=True),
+                                   family="ssm")
+    with pytest.raises(NotImplementedError, match="family"):
+        ttf.forward({}, unported, tokens=toks, mode="train")
     with pytest.raises(ValueError, match="remat"):
         ttf.forward(_port_params(jp, tc), tc, tokens=toks, mode="train",
                     remat="some")
