@@ -208,14 +208,16 @@ TOL = {"flash_attention": {torch.bfloat16: 2e-2, torch.float32: 2e-5},
        # version alike, whatever x's dtype, so fp32's tolerance in both
        "rmsnorm_dscale": {torch.bfloat16: 1e-5, torch.float32: 1e-5},
        "ssd_scan": {torch.bfloat16: 2e-2, torch.float32: 2e-3},
-       # dx, da, db, dc, d_init: fp32 arithmetic in the kernel and the plain
-       # version alike, from the same (bf16) inputs; dx, db, dc rounded to
-       # x's dtype (bf16: one unit apart, 7.8e-3, where the two fp32 values
-       # straddle a rounding point).  fp32, at the decay this script runs
-       # (0.1): the sound kernel lies <= 7.6e-4 from the plain version (da;
-       # the other gradients <= 2.8e-4), while the same gradients rounded
-       # to bf16 lie 3.9e-3 from it; check_ssd_bwd fails if that control
-       # passes.  (Under strong decay, decay 20, the fp32 chunked
+       # dx, da, db, dc, d_init: fp32 sums in the kernel and the plain
+       # version alike, from the same (bf16) inputs (the bf16 kernel's
+       # products take fp32 operands as hi/lo bf16 pairs, ~2^-17 of each);
+       # dx, db, dc rounded to x's dtype (bf16: one unit apart, 7.8e-3,
+       # where the two values straddle a rounding point; the sound bf16
+       # kernel lies <= 0.39 of the limit).  fp32, at the decay this
+       # script runs (0.1): the sound kernel lies <= 7.6e-4 from the plain
+       # version (da; the other gradients <= 2.8e-4), while the same
+       # gradients rounded to bf16 lie 3.9e-3 from it; check_ssd_bwd
+       # fails if that control passes.  (Under strong decay, decay 20, the fp32 chunked
        # algorithm itself drifts 1.5e-3 from the plain version; the card
        # tests hold that case to 1e-2.)  Both limits lie between the sound
        # gaps and the planted faults' (``train_faults.py``; PERF.md §6)
@@ -241,11 +243,12 @@ SOURCES = {
 # kernel entry points in csrc/, as ptxas names their instances
 KERNEL_NAMES = ("flash_wgmma_kernel", "flash_f32_kernel", "rmsnorm_kernel",
                 "rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel",
-                "ssd_wgmma_kernel", "ssd_f32_kernel", "ssd_bwd_kernel",
+                "ssd_wgmma_kernel", "ssd_f32_kernel", "ssd_bwd_states_kernel",
+                "ssd_bwd_wgmma_kernel", "ssd_bwd_kernel",
                 "ssd_bwd_group_sum_kernel")
 # bf16 instances that issue wgmma: a spill or a missing instance fails
 WGMMA_INSTANCES = tuple(f"flash_wgmma_kernel<{d}>" for d in fa.HEAD_DIMS) + \
-    ("ssd_wgmma_kernel",)
+    ("ssd_wgmma_kernel", "ssd_bwd_states_kernel", "ssd_bwd_wgmma_kernel")
 SEED = 0
 N_REQUESTS, MAX_NEW = 8, 32
 MAX_BATCH, MAX_LEN = 8, 2048
@@ -722,18 +725,24 @@ def check_ssd_bwd(gen, b, l, h, g, dtype, *, decay=0.1, init=False,
     x, bm = args[0], args[2]
     costs = ssd.bwd_cost_estimate(x.shape, g, bm.shape[-1], x.element_size(),
                                   init_state=init)
-    # the bound is at the input dtype's peak, as the forward's; the kernel
-    # runs its arithmetic in fp32 on the CUDA cores whatever the dtype, a
-    # design whose own floor (the operations at fp32's peak) is logged
-    # beside it
+    # the bound is at the input dtype's peak, as the forward's.  Beside it:
+    # the fp32 kernel's own floor (its operations on the CUDA cores at
+    # fp32's peak), and the kernels' scratch traffic (the chunk-start
+    # states and the db/dc partials, each written and read once) at the
+    # memory rate, which the function's bound does not count
     bound_ms, bound_by = bound(costs, dtype)
+    scratch = ssd.bwd_scratch(x.shape, ssd.bwd_partials(dtype, h, g))[
+        "bytes"]
     row = {"name": "ssd_scan_backward", "shape": [b, l, h, g, 64, 64],
            "dtype": str(dtype).replace("torch.", ""), "decay": decay,
            "init_state": init, "max_abs_err": max(errs.values()),
            **{f"{k}_err": v for k, v in errs.items()},
            "rel_gaps": gaps, "bf16_control_gap": control,
            "fp32_cores_ops_ms": costs["flops"] / PEAK_FLOPS[torch.float32]
-           * 1e3, "tol": TOL["ssd_scan_backward"][dtype],
+           * 1e3 if dtype == torch.float32 else None,
+           "scratch_bytes": scratch,
+           "scratch_ms": scratch / PEAK_BYTES * 1e3,
+           "tol": TOL["ssd_scan_backward"][dtype],
            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "frac_of_bound": bound_ms / ms,
@@ -1345,7 +1354,7 @@ def train_parity(name: str) -> list:
 
 def hybrid_bf16_check(fp32_grads: dict) -> float:
     """The narrow hybrid in bf16 through the kernels (``ssd_wgmma_kernel``
-    and ``ssd_bwd_kernel<bf16>``, as zamba2's training runs them): its
+    and ``ssd_bwd_wgmma_kernel``, as zamba2's training runs them): its
     step-0 gradients against ``fp32_grads``, the fp32 plain path's, leaf by
     leaf; the largest relative gap must be within HYBRID_BF16_TOL."""
     cfg = narrow_hybrid("bfloat16")

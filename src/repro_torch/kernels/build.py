@@ -31,7 +31,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 
-# C entry points and their argument types; each returns a cudaError_t.
+# C entry points and their argument types; each returns a cudaError_t
+# (repro_ssd_bwd_partials a count).
 SIGNATURES = {
     "repro_flash_attention": [
         _P, _P, _P, _P,                 # q, k, v, o
@@ -74,9 +75,10 @@ SIGNATURES = {
         _P, _P, _P, _P, _P,             # x, a, b, c, dy
         _P, _P,                         # init state, dstate (or null)
         _P, _P, _P, _P, _P,             # dx, da, db, dc, d_init (or null)
-        _P, _P, _P,                     # scratch: states, db / dc by head
+        _P, _P, _P,                     # scratch: states, db / dc partials
         _I,                             # dtype code
         _I, _I, _I, _I,                 # B, H, G, L
+        _I,                             # b/c groups as read
         _L, _L, _L,                     # x strides (b, h, l), elements
         _L, _L, _L,                     # a strides
         _L, _L, _L,                     # b strides (b, g, l)
@@ -87,6 +89,7 @@ SIGNATURES = {
         _L, _L, _L,                     # dc strides
         _P,                             # stream
     ],
+    "repro_ssd_bwd_partials": [_I, _I, _I],     # dtype code, H, G
 }
 
 _lib = None

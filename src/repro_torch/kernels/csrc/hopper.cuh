@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels:
-// mbarriers, TMA tile loads and their tensor maps, shared-memory matrix
-// descriptors and the wgmma instructions the kernels issue.  Included by
-// flash_attention.cu and ssd.cu; each includes it into its own anonymous
-// namespace.
+// mbarriers, TMA tile and bulk loads and their tensor maps, named barriers,
+// shared-memory accesses by 32-bit address, hi/lo bf16 splits,
+// shared-memory matrix descriptors and the wgmma instructions the kernels
+// issue.  Included by flash_attention.cu, ssd.cu and ssd_bwd.cu; each
+// includes it into its own anonymous namespace.
 
 #pragma once
 
@@ -103,6 +104,106 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x -> low 16 bits
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+constexpr uint32_t TILE64 = 64 * 128;   // one 64 x 64 bf16 tile, bytes
+
+// A 64 x 64 tile, K-major (rows of 64 bf16, the reduction along the row):
+// k-step ks starts 16 columns (32 bytes) further along each row.
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int ks) {
+  return sw128_desc(tile + ks * 32, 16, 1024);
+}
+
+// A 64 x 64 tile, MN-major (the reduction runs down the rows): k-step ks
+// starts 16 rows further down.
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int ks) {
+  return sw128_desc(tile + ks * 16 * 128, TILE64, 1024);
+}
+
+// Named barriers: every thread of `count` waits (sync) or only signals
+// (arrive).
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Make this thread's shared-memory writes visible to wgmma and TMA.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Shared-memory accesses by 32-bit address (no 64-bit generic pointers
+// held across the chunk loop).
+__device__ __forceinline__ void sts_u32(uint32_t a, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(a), "r"(v) : "memory");
+}
+__device__ __forceinline__ void sts_v4(uint32_t a, const uint32_t (&v)[4]) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+               "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+               : "memory");
+}
+__device__ __forceinline__ void sts_f(uint32_t a, float x) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(a), "f"(x) : "memory");
+}
+__device__ __forceinline__ void sts_f2(uint32_t a, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(a), "f"(x),
+               "f"(y)
+               : "memory");
+}
+__device__ __forceinline__ void lds_v4(uint32_t a, uint32_t (&v)[4]) {
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "r"(a)
+               : "memory");
+}
+__device__ __forceinline__ uint32_t lds_u32(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ float lds_f(uint32_t a) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ float2 lds_f2(uint32_t a) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+// `bytes` (a multiple of 16) from 16-byte aligned global memory to shared
+// memory in one bulk copy, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// 4 bytes from global to shared memory, asynchronously; zeros if !valid.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// fp32 pair -> bf16 pairs hi = bf16(v) and lo = bf16(v - hi).
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - hf.x, v1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // D (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, smem,

@@ -6,8 +6,9 @@ kernels are in ``csrc/ssd.cu``: a chunked scan with the fp32 state carried
 across a sequential chunk loop, that returns the final state and takes any
 ``L`` (the Pallas kernel drops the state and needs ``L % chunk == 0``).
 bf16 runs on the tensor cores (``wgmma``, TMA-fed chunks), fp32 on the CUDA
-cores.  The backward (:func:`ssd_scan_bwd`, ``csrc/ssd_bwd.cu``) runs in
-fp32 on the CUDA cores for both dtypes.
+cores.  So does the backward (:func:`ssd_scan_bwd`, ``csrc/ssd_bwd.cu``):
+bf16 through a states kernel and a reverse ``wgmma`` kernel whose blocks
+sum the db/dc of their two heads, fp32 on the CUDA cores.
 
 On a CPU tensor the wrappers compute the plain versions
 (:func:`repro_torch.kernels.ref.ssd_ref`, :func:`~repro_torch.kernels.ref.
@@ -93,6 +94,18 @@ def kernel_strides(t) -> list:
                                                      t.shape[:3])]
 
 
+def _tma_strides(name: str, t) -> list:
+    """:func:`kernel_strides` of a tensor the bf16 kernels address by TMA
+    (fp32 ones the same way): last dim contiguous, strides and base aligned
+    to 16 bytes."""
+    st = kernel_strides(t)
+    if t.stride(-1) != 1 or any(s % (16 // t.element_size()) for s in st) \
+            or t.data_ptr() % 16:
+        raise ValueError(f"{name}: last dim must be contiguous and rows "
+                         f"16-byte aligned (strides {t.stride()})")
+    return st
+
+
 def _check_kernel_args(x, b) -> None:
     """What both kernels take: a CUDA tensor, fp32 or bf16, P = N = 64."""
     if x.device.type != "cuda":
@@ -141,12 +154,8 @@ def _scan_op(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     g = b.shape[1]
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
-    vec = 16 // x.element_size()
-    for name, t in (("x", x), ("b", b), ("c", c), ("y", y)):
-        if t.stride(-1) != 1 or any(st % vec for st in kernel_strides(t)) \
-                or t.data_ptr() % 16:
-            raise ValueError(f"{name}: last dim must be contiguous and rows "
-                             f"16-byte aligned (strides {t.stride()})")
+    strides = [_tma_strides(name, t) for name, t in
+               (("x", x), ("b", b), ("c", c), ("y", y))]
     if init_state is not None and (not init_state.is_contiguous()
                                    or init_state.data_ptr() % 16):
         raise ValueError("init_state must be contiguous and 16-byte aligned")
@@ -154,8 +163,7 @@ def _scan_op(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
         None if init_state is None else init_state.data_ptr(),
         y.data_ptr(), state.data_ptr(), DTYPE_CODES[x.dtype], bsz, h, g, l,
-        *kernel_strides(x), *a.stride(), *kernel_strides(b),
-        *kernel_strides(c), *kernel_strides(y),
+        *strides[0], *a.stride(), *strides[1], *strides[2], *strides[3],
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "ssd_scan")
     launches += 1
@@ -276,15 +284,22 @@ def _bwd_op(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     out = _bwd_outputs(x, b, init_state)
     dx, da, db, dc = out[:4]
     d_init = out[4] if init_state is not None else None
-    strides = [_rows(t) for t in (x, b, c, dy, dx, db, dc)]
     for name, t in (("init_state", init_state), ("dstate", dstate)):
         if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    nc = -(-l // CHUNK)
-    ws = torch.empty((bsz, h, nc, p, n), dtype=torch.float32,
-                     device=x.device)
-    db_h = torch.empty((bsz, h, l, n), dtype=torch.float32, device=x.device)
-    dc_h = torch.empty_like(db_h)
+    if x.dtype == torch.bfloat16:
+        # TMA-read inputs; b/c broadcast over the groups are read as one
+        b, c = canonical_groups(b, c)
+        strides = [_tma_strides(name, t) for name, t in
+                   (("x", x), ("b", b), ("c", c), ("dy", dy))]
+    else:
+        strides = [_rows(t) for t in (x, b, c, dy)]
+    strides += [_rows(t) for t in (dx, db, dc)]
+    parts = bwd_partials(x.dtype, h, g)
+    ws = torch.empty(bwd_scratch(x.shape, parts)["states"] // 4,
+                     dtype=torch.float32, device=x.device)
+    part = torch.empty((2, bsz, parts, l, n), dtype=torch.float32,
+                       device=x.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -292,10 +307,11 @@ def _bwd_op(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
         dy.data_ptr(), ptr(init_state), ptr(dstate), dx.data_ptr(),
         da.data_ptr(), db.data_ptr(), dc.data_ptr(), ptr(d_init),
-        ws.data_ptr(), db_h.data_ptr(), dc_h.data_ptr(),
-        DTYPE_CODES[x.dtype], bsz, h, g, l, *strides[0], *a.stride(),
-        *strides[1], *strides[2], *strides[3], *strides[4], *strides[5],
-        *strides[6], torch.cuda.current_stream(x.device).cuda_stream)
+        ws.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+        DTYPE_CODES[x.dtype], bsz, h, g, l, b.shape[1],
+        *strides[0], *a.stride(), *strides[1], *strides[2], *strides[3],
+        *strides[4], *strides[5], *strides[6],
+        torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "ssd_scan_bwd")
     bwd_launches += 1
     return out
@@ -312,6 +328,30 @@ def _bwd_flops(x, a, b, c, dy, init_state, dstate, *, out_val=None,
     return bwd_cost_estimate(x.shape, b.shape[1], b.shape[-1],
                              x.element_size(),
                              init_state=init_state is not None)["flops"]
+
+
+def bwd_partials(dtype, heads: int, groups: int) -> int:
+    """The fp32 db/dc partials a batch row that the backward kernels write
+    (one a head in fp32, one a block of a group's heads in bf16), as the
+    kernel library counts them."""
+    n = load_library().repro_ssd_bwd_partials(DTYPE_CODES[dtype], heads,
+                                              groups)
+    if n < 0:
+        raise ValueError(f"ssd_scan_bwd: no partials for {dtype}, "
+                         f"{heads} heads in {groups} groups")
+    return n
+
+
+def bwd_scratch(x_shape, parts: int) -> dict:
+    """The backward kernels' scratch for x of ``x_shape`` and ``parts``
+    db/dc partials a batch row (:func:`bwd_partials`): ``states``, the
+    bytes of the chunk-start states (16 KB a chunk and head: fp32 P x N, or
+    the bf16 kernel's hi/lo tiles), and ``bytes``, the traffic the states
+    and the fp32 partials make, each written once and read once."""
+    bsz, h, l, p = (int(v) for v in x_shape)
+    states = bsz * h * -(-l // CHUNK) * p * STATE_DIM * 4
+    partials = 2 * bsz * parts * l * STATE_DIM * 4
+    return {"states": states, "bytes": 2 * (states + partials)}
 
 
 def bwd_cost_estimate(x_shape, groups: int, state_n: int, itemsize: int, *,

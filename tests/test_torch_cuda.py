@@ -12,7 +12,8 @@ tolerances, relative to (1 + |want|) as ``chip_smoke.compare`` does, and
 for dscale, a sum over every row, relative to (1 + the sum of its terms'
 magnitudes); the SSD backward 2e-3 in fp32 (1e-2 under strong decay, the
 chunked algorithm's own fp32 error there) and 2e-2 in bf16, relative to
-(1 + |want|);
+(1 + |want|), and where autograd adds per-head db/dc that were each
+rounded to the dtype, one unit of the dtype at each term more;
 training steps on the card against the same steps on the CPU in fp32 take
 1e-4 relative.
 """
@@ -616,12 +617,86 @@ def test_ssd_backward_kernel_matches_plain(cuda, rng, b, l, h, g, decay,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,h,g,parts", [
+    ("bfloat16", 112, 1, 56),     # zamba2: blocks of two heads
+    ("bfloat16", 21, 3, 12),      # 7 heads a group: 4 blocks, one lone head
+    ("float32", 112, 1, 112)])    # one partial a head
+def test_ssd_bwd_partials(cuda, dtype, h, g, parts):
+    """The library's count of the backward's db/dc partials a batch row,
+    which sizes the scratch; an uneven split of heads is refused."""
+    assert ssd.bwd_partials(getattr(torch, dtype), h, g) == parts
+    with pytest.raises(ValueError):
+        ssd.bwd_partials(getattr(torch, dtype), 10, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,g,broadcast", [
+    (2, 260, 10, 2, False),     # 5 heads a group: blocks of 2, 2 and 1
+    (1, 200, 6, 1, False),      # 6 heads of one group: 3 partials a row
+    (2, 150, 4, 4, True)])      # b/c expanded over 4 groups: stride 0
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_backward_kernel_group_sums(cuda, rng, b, l, h, g, broadcast,
+                                        dtype):
+    """db/dc summed over a group's heads where the bf16 kernel's blocks of
+    two heads leave several partials (and a lone head) a group, and where
+    b/c reach ``ssd.ssd_scan_bwd`` as one group expanded over G groups
+    (group stride 0: each group's gradient is still its own heads' sum),
+    with an initial state and a final state's gradient; against
+    ref.ssd_bwd_ref at TOL["ssd_bwd"]."""
+    dt = getattr(torch, dtype)
+    p = n = 64
+
+    def arr(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda)
+    x = arr(b, l, h, p).to(dt).transpose(1, 2)
+    a = (-0.1 * arr(b, l, h).abs()).transpose(1, 2)
+    if broadcast:
+        one = arr(b, l, 2, n).to(dt)
+        bm = one[:, :, :1].expand(b, l, g, n).transpose(1, 2)
+        cm = one[:, :, 1:].expand(b, l, g, n).transpose(1, 2)
+        assert bm.stride(1) == cm.stride(1) == 0
+    else:
+        bc = arr(b, l, 2 * g * n).to(dt)
+        bm = bc[..., :g * n].view(b, l, g, n).transpose(1, 2)
+        cm = bc[..., g * n:].view(b, l, g, n).transpose(1, 2)
+    dy = arr(b, l, h, p).to(dt).transpose(1, 2)
+    s0, ds = arr(b, h, p, n), arr(b, h, p, n)
+    got = ssd.ssd_scan_bwd(x, a, bm, cm, dy, s0, ds)
+    torch.cuda.synchronize()
+    want = ref.ssd_bwd_ref(x, a, bm, cm, dy, s0, ds)
+    assert tuple(got[2].shape) == tuple(got[3].shape) == (b, g, l, n)
+    for g_, w in zip(got, want):
+        _close(g_, w, TOL["ssd_bwd"][dtype])
+
+
+def _close_sum_of_rounded(got, want, terms, tol):
+    """A sum over dim 2 of ``terms``, each rounded to its dtype before the
+    sum: |got - want| <= tol * (1 + |want|) plus one unit of the dtype at
+    each term (``terms`` the two sides' terms, the larger magnitude taken),
+    since a term may round the other way on each side."""
+    mag = torch.maximum(*(t.float().cpu().abs() for t in terms))
+    unit = torch.finfo(terms[0].dtype).eps * \
+        torch.exp2(torch.frexp(mag).exponent - 1.0)
+    g, w = got.float().cpu(), want.float().cpu()
+    limit = tol * (1.0 + w.abs()) + torch.where(mag > 0, unit, 0.0).sum(
+        2, keepdim=True)
+    excess = float(((g - w).abs() - limit).max())
+    assert excess <= 0, excess
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_function_on_card_matches_cpu(cuda, rng, dtype):
     """ops.ssd_chunked_kernel under grad: the scan and backward kernels on
     the card against the plain versions on the CPU, model layout, b/c an
     expanded view of one group (zero stride) whose gradient sums over the
-    heads; one forward and one backward launch."""
+    heads; one forward and one backward launch.  Every gradient the
+    backward writes (dx, da, each head's db and dc) is held at
+    TOL["ssd_bwd"]; the one group's db/dc are autograd's sums of the heads'
+    terms, each already rounded to the dtype, so they take that limit plus
+    one unit of each term (:func:`_close_sum_of_rounded`): where bf16 terms
+    cancel, one unit of a term exceeds the limit of their sum."""
     dt = getattr(torch, dtype)
     b, l, h, n = 2, 150, 4, 64
     arrs = [rng.standard_normal(s).astype(np.float32) for s in
@@ -635,16 +710,21 @@ def test_ssd_function_on_card_matches_cpu(cuda, rng, dtype):
                         .requires_grad_() for i, v in enumerate(arrs[:4]))
         dy = torch.from_numpy(arrs[4]).to(dev, dt)
         ops.reset_launch_counts()
-        y, _ = ops.ssd_chunked_kernel(x, a, bm.expand(b, l, h, n),
-                                      cm.expand(b, l, h, n))
-        grads = torch.autograd.grad(y, (x, a, bm, cm), dy)
+        bh, ch = bm.expand(b, l, h, n), cm.expand(b, l, h, n)
+        y, _ = ops.ssd_chunked_kernel(x, a, bh, ch)
+        grads = torch.autograd.grad(y, (x, a, bm, cm, bh, ch), dy)
         out[str(dev)] = [y.detach()] + list(grads)
         if dev == cuda:
             counts = ops.launch_counts()
             assert (counts["ssd_scan"], counts["ssd_scan_backward"]) == (1, 1)
-    _close(out["cuda"][0], out["cpu"][0], TOL["ssd"][dtype])
-    for got, want in zip(out["cuda"][1:], out["cpu"][1:]):
-        _close(got, want, TOL["ssd_bwd"][dtype])
+    got, want = out["cuda"], out["cpu"]
+    _close(got[0], want[0], TOL["ssd"][dtype])
+    tol = TOL["ssd_bwd"][dtype]
+    for i in (1, 2, 5, 6):                       # dx, da, db and dc by head
+        _close(got[i], want[i], tol)
+    for i in (3, 4):                             # the group's db, dc
+        _close_sum_of_rounded(got[i], want[i], (got[i + 2], want[i + 2]),
+                              tol)
 
 
 @pytest.mark.cuda

@@ -270,6 +270,20 @@ ptxas info    : Function properties for _ZN38_GLOBAL__N__025e8cd1_6_ssd_cu_f5ebf
     0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads
 ptxas info    : Used 128 registers, used 16 barriers
 """
+_PTXAS_SSD_BWD = """\
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__8e1e1fc1_10_ssd_bwd_cu_67a758f221ssd_bwd_states_kernelE14CUtensorMap_stS0_NS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN43_GLOBAL__N__8e1e1fc1_10_ssd_bwd_cu_67a758f221ssd_bwd_states_kernelE14CUtensorMap_stS0_NS_6ParamsE
+    0 bytes stack frame, {states} bytes spill stores, {states} bytes spill loads
+ptxas info    : Used 116 registers, used 16 barriers
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__8e1e1fc1_10_ssd_bwd_cu_67a758f220ssd_bwd_wgmma_kernelE14CUtensorMap_stS0_S0_S0_NS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN43_GLOBAL__N__8e1e1fc1_10_ssd_bwd_cu_67a758f220ssd_bwd_wgmma_kernelE14CUtensorMap_stS0_S0_S0_NS_6ParamsE
+    16 bytes stack frame, {reverse} bytes spill stores, {reverse} bytes spill loads
+ptxas info    : Used 255 registers, used 16 barriers
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__8e1e1fc1_10_ssd_bwd_cu_67a758f214ssd_bwd_kernelENS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN43_GLOBAL__N__8e1e1fc1_10_ssd_bwd_cu_67a758f214ssd_bwd_kernelENS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 149 registers, used 1 barriers
+"""
 
 
 def _chip_smoke(monkeypatch, tmp_path, text):
@@ -291,18 +305,45 @@ def _chip_smoke(monkeypatch, tmp_path, text):
 def test_ptxas_report_names_every_instance(monkeypatch, tmp_path):
     text = "".join(_PTXAS.format(d=d, spill=0) for d in (128, 112, 64, 192))
     cs = _chip_smoke(monkeypatch, tmp_path,
-                     text + _PTXAS_OTHERS + _PTXAS_SSD.format(spill=0))
+                     text + _PTXAS_OTHERS + _PTXAS_SSD.format(spill=0) +
+                     _PTXAS_SSD_BWD.format(states=0, reverse=0))
     rows = cs.ptxas_report()
     assert [r["kernel"] for r in rows] == [
         "flash_wgmma_kernel<128>", "flash_wgmma_kernel<112>",
         "flash_wgmma_kernel<64>", "flash_wgmma_kernel<192>",
-        "rmsnorm_kernel<f32>", "ssd_f32_kernel", "ssd_wgmma_kernel"]
+        "rmsnorm_kernel<f32>", "ssd_f32_kernel", "ssd_wgmma_kernel",
+        "ssd_bwd_states_kernel", "ssd_bwd_wgmma_kernel", "ssd_bwd_kernel"]
     assert rows[0] == {"kernel": "flash_wgmma_kernel<128>", "registers": 168,
                        "spill_stores": 0, "spill_loads": 0}
     # a CUDA-core instance that spills is reported, not failed
-    assert rows[-2]["spill_stores"] == 4 and rows[-2]["registers"] == 121
-    assert rows[-1] == {"kernel": "ssd_wgmma_kernel", "registers": 128,
-                        "spill_stores": 0, "spill_loads": 0}
+    assert rows[5]["spill_stores"] == 4 and rows[5]["registers"] == 121
+    assert rows[6] == {"kernel": "ssd_wgmma_kernel", "registers": 128,
+                       "spill_stores": 0, "spill_loads": 0}
+    assert rows[8] == {"kernel": "ssd_bwd_wgmma_kernel", "registers": 255,
+                       "spill_stores": 0, "spill_loads": 0}
+
+
+@pytest.mark.parametrize("name,fault", [
+    ("ssd_bwd_states_kernel", "spills"), ("ssd_bwd_states_kernel", "missing"),
+    ("ssd_bwd_wgmma_kernel", "spills"), ("ssd_bwd_wgmma_kernel", "missing")])
+def test_ptxas_report_fails_a_spilling_or_missing_ssd_backward_instance(
+        monkeypatch, tmp_path, name, fault):
+    """Both bf16 SSD backward kernels issue wgmma: each is required in the
+    report and may not spill."""
+    text = "".join(_PTXAS.format(d=d, spill=0) for d in (128, 112, 64, 192))
+    bwd = _PTXAS_SSD_BWD.format(
+        states=16 if (name, fault) == ("ssd_bwd_states_kernel", "spills")
+        else 0,
+        reverse=16 if (name, fault) == ("ssd_bwd_wgmma_kernel", "spills")
+        else 0)
+    if fault == "missing":
+        entries = bwd.split("ptxas info    : Compiling")
+        bwd = "ptxas info    : Compiling".join(
+            e for e in entries if name not in e.split("\n")[0])
+    cs = _chip_smoke(monkeypatch, tmp_path,
+                     text + _PTXAS_SSD.format(spill=0) + bwd)
+    with pytest.raises(AssertionError, match=name):
+        cs.ptxas_report()
 
 
 @pytest.mark.parametrize("ssd", ["spills", "missing"])

@@ -274,3 +274,22 @@ def test_ssd_bwd_cost_estimate():
     assert with_init["bytes"] - c["bytes"] == 2 * 8 * 112 * 64 * 64 * 4
     assert ssd.bwd_cost_estimate((1, 2, 10, 8), 2, 4, 4)["flops"] == \
         1 * 2 * (2.0 * (3 * 4 + 2 * 8) * 55 + 10.0 * 8 * 4 * 10)
+
+
+@pytest.mark.parametrize("parts,total", [
+    (56, 1879048192),     # bf16: two heads a block, 56 partials a row
+    (112, 2818572288)])   # fp32: one partial a head
+def test_ssd_bwd_scratch(parts, total):
+    """The backward kernels' scratch at zamba2's training shape (B=8,
+    L=2048, H=112, one group): 32 chunk-start states of 16 KB a head
+    (0.47 GB) and the fp32 db/dc partials a (batch, step), each written
+    and read once; a ragged L rounds the states up to whole chunks.  (The
+    partial counts are the library's, ``ssd.bwd_partials``, checked on the
+    card.)"""
+    s = ssd.bwd_scratch((8, 112, 2048, 64), parts)
+    assert s["states"] == 8 * 112 * 32 * 64 * 64 * 4
+    assert s["bytes"] == total == 2 * (s["states"]
+                                       + 2 * 8 * parts * 2048 * 64 * 4)
+    odd = ssd.bwd_scratch((2, 21, 1000, 64), 12)
+    assert odd["states"] == 2 * 21 * 16 * 16384
+    assert odd["bytes"] == 2 * (odd["states"] + 2 * 2 * 12 * 1000 * 64 * 4)
