@@ -16,7 +16,11 @@ JAX package.  Phases, each reported on its own lines:
               prefill and decode, lms-demo, zamba2-7b's flash at head dim
               112 and its SSD scan, phi3-medium-14b's GQA 40/10,
               nemotron-4-340b's head dim 192, mixtral-8x7b's windowed
-              prefill over the long-context batch) plus a window, a ragged
+              prefill over the long-context batch, deepseek-v2-236b's MLA
+              prefill (q and k 192 wide, v 128, which the adapter pads
+              to 192; the row also times the kernel alone on the padded V)
+              and its latent norms, qwen2-vl-7b's prefill of 8 x 2048
+              tokens) plus a window, a ragged
               S or L, a non-causal and a strong-decay case: max abs error
               against the tolerance, kernel ms, plain ms, one library
               call's ms (none for the SSD scan; a windowed flash row's is
@@ -26,9 +30,9 @@ JAX package.  Phases, each reported on its own lines:
               library ms (``vs_library``); then the bf16 rmsnorm kernel
               against ``F.rms_norm`` at the served shapes, medians of
               interleaved timings (``rmsnorm-interleaved``).
-3. serve   -- five models at full width, random weights from a seed, bf16,
-              one after the other (each freed before the next), each served
-              by ServingEngine(max_batch=8): granite-3-8b (40 layers),
+3. serve   -- seven models at full width, random weights from a seed,
+              bf16, one after the other (each freed before the next), six
+              served by ServingEngine(max_batch=8): granite-3-8b (40 layers),
               zamba2-7b (81 Mamba2 layers, 13 shared-attention
               applications), phi3-medium-14b (40 layers, d=5120) and
               nemotron-4-340b (4 of its 96 layers, d=18432, head dim 192,
@@ -38,13 +42,24 @@ JAX package.  Phases, each reported on its own lines:
               long-context workload: 4 requests of 4200-6000 prompt tokens,
               16 new tokens, max_len 8192, so prefill runs the windowed
               flash kernel, the 4096-slot ring cache is filled from the
-              prompts' tails and decode wraps it (SERVED).  Each reports
-              TTFT, prefill s, decode tokens/s and peak GB.  Launch counts
+              prompts' tails and decode wraps it; deepseek-v2-236b (6 of
+              its 60 layers: the dense layer 0 and 5 MoE layers of 160
+              experts, top 6, 2 shared; MLA, whose prefill runs flash
+              with a V narrower than Q and K and whose decode attends in
+              the latent space; the short workload) (SERVED); then
+              qwen2-vl-7b (all 28 layers) through ``make_serve_fns`` with
+              its extras, since the engine passes none (as the
+              reference's): 8 rows of BOS, a 32 x 32 image of patch
+              embeddings and 1023 text tokens with Qwen2-VL's M-RoPE
+              positions, 31 decode steps whose positions continue the
+              text's.  Each reports TTFT, prefill s, decode tokens/s and
+              peak GB (deepseek also its cache bytes a token and layer).
+              Launch counts
               are zeroed just before each run and read just after; they
               must be what the model's forwards launch (flash once per
               attention layer a prefill, ssd_scan once per Mamba2 layer a
-              prefill, rmsnorm once per RMSNorm a forward; nemotron's
-              LayerNorms launch none).  The logits must be finite and of
+              prefill, rmsnorm once per RMSNorm a forward, MLA's q_norm
+              and kv_norm included; nemotron's LayerNorms launch none).  The logits must be finite and of
               the expected shape, and the kernel path (prefill, then 3
               decode steps through the caches) must agree with a plain full
               forward, the same model code with every kernel wrapper
@@ -54,7 +69,10 @@ JAX package.  Phases, each reported on its own lines:
               checked token routed alike in every layer, after the bf16
               routes of the two paths are compared at the served depth (a
               measurement: bf16 rounding may flip a near-tied expert; see
-              serve()).
+              serve()); deepseek's the same at 64 tokens and 2 layers (the
+              dense one and a MoE one); qwen2-vl's in fp32 at 4 layers on an
+              8 x 8 image and 63 text tokens, the same extras on both
+              paths.
 4. train   -- once the served weights are freed:
               (a) the RMSNorm backward kernel against ``ref.rmsnorm_bwd_ref``
               and against autograd through ``ref.rmsnorm_ref``, at
@@ -98,7 +116,11 @@ JAX package.  Phases, each reported on its own lines:
               81 Mamba2 layers: 2 groups of 6 with both shared weight
               sets, and the 3 trailing ones; AdamW) and mixtral-8x7b (2 of
               its 32 layers, Adafactor; with the aux term and the dropped
-              fraction a step): step time (median of steps 2-6),
+              fraction a step), deepseek-v2-236b (its dense layer and one
+              MoE layer, Adafactor, global batch 2: the masked
+              attention's fp32 scores of 128 heads are 2.1 GB a row) and
+              qwen2-vl-7b (4 of its 28 layers, AdamW, with the loop's stub
+              patches and positions): step time (median of steps 2-6),
               tokens/s, MFU against the card's bf16 peak (model flops 6 N
               T with N the active parameters, and the flops
               ``FlopCounterMode`` and the SSD cost model counted), peak
@@ -136,8 +158,9 @@ JAX package.  Phases, each reported on its own lines:
               calibrated peaks must lie in (0, 1.05].  One ``monitor:``
               JSON line sums it up.
 6. the kernels line (JSON: every kernel with its launches summed over the
-   paths driven -- the five served models, train granite, zamba2 and
-   mixtral, the train CLI and the serve CLI on lms-demo -- its numbers at
+   paths driven -- the seven served models, train granite, zamba2,
+   mixtral, deepseek and qwen2-vl, the train CLI and the serve CLI on
+   lms-demo -- its numbers at
    one path's shapes (zamba2's prefill for flash, SSD and the forward
    RMSNorm; granite's training shape for the RMSNorm backward, zamba2's
    for the SSD backward), and per path its launches and the rows it was
@@ -166,6 +189,11 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# The allocator maps segments that grow in place: deepseek-v2-236b's
+# training step frees 4.3 GB score tensors in its backward and then asks
+# for its 5 GB expert stacks' optimizer temporaries, which fixed segments
+# refuse for fragmentation (13.7 GiB reserved but unused at the refusal)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -187,8 +215,9 @@ from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.params import flatten, unflatten  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
-    forward, init_cache, init_model_params, loss_fn)
-from repro_torch.serve.engine import ServingEngine  # noqa: E402
+    _layer_plan, forward, init_cache, init_model_params, loss_fn)
+from repro_torch.serve.engine import (  # noqa: E402
+    ServingEngine, make_serve_fns)
 from repro_torch.train.loop import (  # noqa: E402
     InjectedFailure, device_peaks, train)
 from repro_torch.train.step import (  # noqa: E402
@@ -263,14 +292,30 @@ LONG_MAX_LEN = 8192
 # layers are 680 GB in bf16: 4 of them (46.5 GB with the 256000-token embed
 # and unembed) fit beside the 3.7 GB of its full-sequence logits; mixtral's
 # 32 layers are 93 GB: 16 fit (47 GB).
+# deepseek-v2-236b's 60 layers are ~470 GB: layer 0 (dense FFN) and 5 MoE
+# layers (160 experts, top 6, 2 shared) are 42.5 GB with the untied
+# 102400-token embed and unembed.
 SERVED = {"granite-3-8b": (None, "short"), "zamba2-7b": (None, "short"),
           "phi3-medium-14b": (None, "short"),
-          "nemotron-4-340b": (4, "short"), "mixtral-8x7b": (16, "long")}
+          "nemotron-4-340b": (4, "short"), "mixtral-8x7b": (16, "long"),
+          "deepseek-v2-236b": (6, "short")}
 MODELS = tuple(SERVED)
-# mixtral's model check: a prompt of window + MIX_CHECK_TAIL tokens (the
-# ring wraps in prefill and again in decode), in fp32 at MIX_CHECK_LAYERS
-# layers (16 fp32 layers, 94 GB, do not fit)
-MIX_CHECK_TAIL, MIX_CHECK_LAYERS = 64, 4
+# the MoE models' check: a prompt of window + MIX_CHECK_TAIL tokens (the
+# ring wraps in prefill and again in decode; deepseek has no window), in
+# fp32 at MOE_CHECK_LAYERS layers (16 fp32 mixtral layers, 94 GB, do not
+# fit; deepseek's 2 are its dense layer and one MoE layer)
+MIX_CHECK_TAIL = 64
+MOE_CHECK_LAYERS = {"mixtral-8x7b": 4, "deepseek-v2-236b": 2}
+# The VLM (qwen2-vl-7b, all 28 layers), served through make_serve_fns with
+# its extras (the engine passes none, as the reference's): VLM_ROWS rows of
+# BOS, a VLM_GRID x VLM_GRID image of patch embeddings (N(0, 0.02^2) from
+# SEED) and VLM_TEXT text tokens from default_rng(SEED), with Qwen2-VL's
+# M-RoPE positions (vlm_inputs); then VLM_NEW - 1 decode steps in a cache
+# of VLM_MAX_LEN.  Its model check: fp32, VLM_CHECK_LAYERS layers, an image
+# of VLM_CHECK_GRID^2 patches and VLM_CHECK_TEXT text tokens.
+VLM_MODEL = "qwen2-vl-7b"
+VLM_ROWS, VLM_GRID, VLM_TEXT, VLM_NEW, VLM_MAX_LEN = 8, 32, 1023, 32, 2304
+VLM_CHECK_LAYERS, VLM_CHECK_GRID, VLM_CHECK_TEXT = 4, 8, 63
 # Training (phase 4): TRAIN_STEPS steps of TRAIN_SHAPE tokens, each model
 # at full width with the layers and optimizer below: granite-3-8b (the
 # RMSNorm backward's main path) 8 of its 40 layers; zamba2-7b 15 of its 81
@@ -278,12 +323,21 @@ MIX_CHECK_TAIL, MIX_CHECK_LAYERS = 64, 4
 # layers, 1.51B parameters; mixtral-8x7b 2 of its 32 layers, 3.17B
 # parameters, with Adafactor (AdamW's 16 bytes a parameter leave little
 # room for the expert buffers).
+# deepseek-v2-236b: its dense layer and one MoE layer, 5.36B parameters
+# (2 of 60), Adafactor, batch 2: parameters, gradients and Adafactor state
+# take ~54 GB, and one fp32 score tensor of its 128 heads at 2048^2 (the
+# masked attention) is 2.1 GB a row.  qwen2-vl-7b: 4 of its 28 layers, AdamW,
+# with the loop's stub extras (patches and positions, ``_extras_fn``).
 TRAIN_MODEL, TRAIN_STEPS = "granite-3-8b", 6
-TRAIN_LAYERS_OF = {TRAIN_MODEL: 8, "zamba2-7b": 15, "mixtral-8x7b": 2}
+TRAIN_LAYERS_OF = {TRAIN_MODEL: 8, "zamba2-7b": 15, "mixtral-8x7b": 2,
+                   "deepseek-v2-236b": 2, VLM_MODEL: 4}
 TRAIN_OPTIMIZER = {TRAIN_MODEL: "adamw", "zamba2-7b": "adamw",
-                   "mixtral-8x7b": "adafactor"}
+                   "mixtral-8x7b": "adafactor",
+                   "deepseek-v2-236b": "adafactor", VLM_MODEL: "adamw"}
 TRAIN_SHAPE = ShapeConfig("train_2k", seq_len=2048, global_batch=8,
                           kind="train")
+TRAIN_SHAPE_OF = {"deepseek-v2-236b": ShapeConfig(
+    "train_2k_b2", seq_len=2048, global_batch=2, kind="train")}
 PARITY_SHAPE = ShapeConfig("parity", seq_len=512, global_batch=8,
                            kind="train")
 # Kernel path vs plain path (relative gaps): the step-0 gradients leaf by
@@ -359,6 +413,40 @@ def serving_params(cfg) -> dict:
     """Random weights from SEED on the card, bf16 but for the fp32 norm
     scales."""
     return init_model_params(cfg, seed=SEED, compute_dtype=torch.bfloat16)
+
+
+def vlm_seq_len(grid: int, text: int) -> int:
+    """Tokens of a VLM row: BOS, grid x grid patches, ``text`` tokens."""
+    return 1 + grid * grid + text
+
+
+def vlm_positions(grid: int, text: int, device=None) -> torch.Tensor:
+    """(S, 3) M-RoPE positions by Qwen2-VL's rule: BOS at (0, 0, 0), patch
+    (r, c) of the image at (1, 1 + r, 1 + c), text token j at
+    t = h = w = 1 + grid + j."""
+    r, c = torch.meshgrid(torch.arange(grid), torch.arange(grid),
+                          indexing="ij")
+    img = torch.stack([torch.ones_like(r), 1 + r, 1 + c], -1).reshape(-1, 3)
+    txt = (1 + grid + torch.arange(text))[:, None].expand(text, 3)
+    return torch.cat([torch.zeros(1, 3, dtype=torch.long), img,
+                      txt]).to(device)
+
+
+def vlm_inputs(cfg, rows: int, grid: int, text: int, dtype, dev) -> tuple:
+    """(tokens (rows, S), extras) of the VLM workload on ``dev``: BOS
+    (token 0), the patch positions (token 0, replaced by the patches) and
+    text tokens from default_rng(SEED); ``patches`` (rows, grid^2, d) from
+    N(0, 0.02^2) seeded by SEED in ``dtype``; ``mrope_pos`` (rows, S, 3)."""
+    rng = np.random.default_rng(SEED)
+    toks = np.zeros((rows, vlm_seq_len(grid, text)), np.int64)
+    toks[:, 1 + grid * grid:] = rng.integers(1, cfg.vocab_size,
+                                             size=(rows, text))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    patches = (0.02 * torch.randn((rows, grid * grid, cfg.d_model),
+                                  generator=gen, device=dev)).to(dtype)
+    mpos = vlm_positions(grid, text, dev)[None].expand(rows, -1, 3)
+    return torch.from_numpy(toks).to(dev), {"patches": patches,
+                                            "mrope_pos": mpos.contiguous()}
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -453,14 +541,18 @@ def compare(name: str, got, want, dtype, magnitude=None,
 
 
 def check_flash(gen, b, h, kv, s, d, dtype, *, causal=True, window=0,
-                tag=""):
+                dv=None, tag=""):
     """Times the kernel as the served path calls it: (B, S, H, D)
     activations through ``ops.flash_attention_bshd``, which hands the kernel
-    transposed views."""
+    transposed views.  ``dv`` < D: V of that width (MLA), which the adapter
+    pads to D; the plain version and SDPA take it as it is, and the row
+    also times the kernel alone on the padded V (``kernel_padded_ms``), so
+    the adapter's pad and slice are the difference."""
     dev = torch.device("cuda")
+    dv = d if dv is None else dv
     q = torch.randn((b, s, h, d), generator=gen, device=dev, dtype=dtype)
     k = torch.randn((b, s, kv, d), generator=gen, device=dev, dtype=dtype)
-    v = torch.randn((b, s, kv, d), generator=gen, device=dev, dtype=dtype)
+    v = torch.randn((b, s, kv, dv), generator=gen, device=dev, dtype=dtype)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
     def plain():
@@ -495,7 +587,7 @@ def check_flash(gen, b, h, kv, s, d, dtype, *, causal=True, window=0,
                                                   enable_gqa=True)
     library_ms = time_ms(lib)
     costs = fa.cost_estimate(qt.shape, kv, q.element_size(), causal=causal,
-                             window=window)
+                             window=window, dv=dv)
     bound_ms, bound_by = bound(costs, dtype)
     row = {"name": "flash_attention", "shape": [b, h, kv, s, d],
            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
@@ -505,6 +597,16 @@ def check_flash(gen, b, h, kv, s, d, dtype, *, causal=True, window=0,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "vs_library": ms / library_ms, "frac_of_bound": bound_ms / ms,
            "tflops": costs["flops"] / ms / 1e9}
+    if dv != d:
+        vp = F.pad(v, (0, d - dv)).transpose(1, 2)
+        padded = fa.cost_estimate(qt.shape, kv, q.element_size(),
+                                  causal=causal, window=window)
+        row.update({"dv": dv, "kernel_padded_ms": time_ms(
+            lambda: fa.flash_attention(qt, kt, vp, causal=causal,
+                                       window=window)),
+            "padded_bound_ms": bound(padded, dtype)[0],
+            "padded_bytes": padded["bytes"], "bytes": costs["bytes"]})
+        del vp
     log(f"kernel-check {tag}: {json.dumps(row)}")
     return row
 
@@ -777,8 +879,36 @@ def kernel_checks(plen: int, lplen: int) -> dict:
         check_ssd(gen, 2, 200, 8, 1, dt, decay=20.0, tag="strong-decay")
     check_flash(gen, 8, 32, 32, plen, 112, f32, tag="zamba2-prefill")
     check_flash(gen, 8, 96, 8, plen, 192, f32, tag="nemotron-prefill")
+    mla = get_config("deepseek-v2-236b").mla
+    qk, dv = mla.qk_nope_head_dim + mla.qk_rope_head_dim, mla.v_head_dim
+    dcfg = get_config("deepseek-v2-236b")
+    mla, dh = dcfg.mla, dcfg.num_heads
+    qk, dv = mla.qk_nope_head_dim + mla.qk_rope_head_dim, mla.v_head_dim
+    check_flash(gen, 8, dh, dh, plen, qk, f32, dv=dv,
+                tag="deepseek-mla-prefill")
+    check_flash(gen, 2, 8, 8, 300, qk, bf16, dv=dv, tag="mla-ragged")
     rmsnorm_vs_library(gen, plen)
+    vcfg = get_config(VLM_MODEL)
+    vlen = vlm_seq_len(VLM_GRID, VLM_TEXT)
     return {
+        "deepseek-v2-236b": {
+            "flash_attention": check_flash(
+                gen, 8, dh, dh, plen, qk, bf16, dv=dv,
+                tag="deepseek-main-path-prefill"),
+            "rmsnorm": check_rmsnorm(gen, 8 * plen, dcfg.d_model, bf16,
+                                     tag="deepseek-main-path-prefill"),
+            "rmsnorm_q_norm": check_rmsnorm(
+                gen, 8 * plen, mla.q_lora_rank, bf16,
+                tag="deepseek-main-path-prefill-q-norm"),
+            "rmsnorm_kv_norm": check_rmsnorm(
+                gen, 8 * plen, mla.kv_lora_rank, bf16,
+                tag="deepseek-main-path-prefill-kv-norm")},
+        VLM_MODEL: {
+            "flash_attention": check_flash(
+                gen, VLM_ROWS, vcfg.num_heads, vcfg.num_kv_heads, vlen,
+                vcfg.head_dim, bf16, tag="qwen2-vl-main-path-prefill"),
+            "rmsnorm": check_rmsnorm(gen, VLM_ROWS * vlen, vcfg.d_model,
+                                     bf16, tag="qwen2-vl-main-path-prefill")},
         "phi3-medium-14b": {
             "flash_attention": check_flash(gen, 8, 40, 10, plen, 128, bf16,
                                            tag="phi3-main-path-prefill"),
@@ -932,11 +1062,20 @@ def plain_kernels():
          ssd.ssd_scan_bwd) = saved
 
 
+def block_norms(cfg) -> int:
+    """RMSNorms of one attention block: ln1 and ln2, and MLA's q_norm and
+    kv_norm; none where the norms are LayerNorms (no kernel)."""
+    if cfg.norm_type == "layernorm":
+        return 0
+    return 4 if cfg.attention_type == "mla" else 2
+
+
 def expected_launches(cfg, n_batches: int, n_forwards: int) -> dict:
     """Kernel launches of serving: each prefill batch runs flash once per
     attention layer and the SSD scan once per Mamba2 layer; every forward
     (prefill or decode step) runs rmsnorm once per norm (none where the
-    norms are LayerNorms, which have no kernel)."""
+    norms are LayerNorms, which have no kernel; MLA's latent norms
+    included)."""
     if cfg.family == "hybrid":
         groups = cfg.num_layers // cfg.hybrid.attn_every
         norms = 2 * cfg.num_layers + 2 * groups + 1
@@ -944,7 +1083,8 @@ def expected_launches(cfg, n_batches: int, n_forwards: int) -> dict:
                 "rmsnorm": norms * n_forwards, "rmsnorm_backward": 0,
                 "ssd_scan": cfg.num_layers * n_batches,
                 "ssd_scan_backward": 0}
-    norms = 0 if cfg.norm_type == "layernorm" else 2 * cfg.num_layers + 1
+    norms = block_norms(cfg) * cfg.num_layers + (
+        cfg.norm_type != "layernorm")
     return {"flash_attention": cfg.num_layers * n_batches,
             "rmsnorm": norms * n_forwards, "rmsnorm_backward": 0,
             "ssd_scan": 0, "ssd_scan_backward": 0}
@@ -1022,6 +1162,14 @@ def serve(name: str) -> dict:
            "decode_s": sum(f["decode_time_s"] for f in dec),
            "peak_memory_gb": peak_gb, "launches": counts,
            "regions": sorted(rec.regions)}
+    if cfg.attention_type == "mla":
+        # a token's cache a layer: the latent and the shared rope key,
+        # against the per-head K (nope + rope) and V it stands for
+        a = cfg.mla
+        out["cache_bytes_per_token_layer"] = 2 * (a.kv_lora_rank
+                                                  + a.qk_rope_head_dim)
+        out["decompressed_kv_bytes_per_token_layer"] = 2 * cfg.num_heads * (
+            a.qk_nope_head_dim + a.qk_rope_head_dim + a.v_head_dim)
     log(f"serve: {json.dumps(out)}")
 
     if cfg.family == "hybrid":
@@ -1043,33 +1191,125 @@ def serve(name: str) -> dict:
         # round each layer's activations differently, which can flip a
         # near-tied second expert (measured here at the served depth, not
         # a check); in fp32 the two paths compute one function and must
-        # route the checked token alike in every layer.  16 fp32 layers do
-        # not fit beside anything: MIX_CHECK_LAYERS of them, made from the
-        # served weights as the bf16 ones are dropped.
+        # route the checked token alike in every layer.  The served layers
+        # do not fit in fp32 beside anything: MOE_CHECK_LAYERS of them,
+        # made from the served weights as the bf16 ones are dropped.
         prompt = prompts[0][:cfg.sliding_window + MIX_CHECK_TAIL]
         route_agreement(params, cfg, prompt)
         flat = flatten(params)
         del params
-        params32 = unflatten(fp32_prefix(flat, MIX_CHECK_LAYERS))
+        cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                    num_layers=MOE_CHECK_LAYERS[name])
+        params32 = unflatten(fp32_prefix(flat, cfg32))
         torch.cuda.empty_cache()
-        model_check(params32, dataclasses.replace(
-            cfg, dtype="float32", num_layers=MIX_CHECK_LAYERS), prompt,
-            cache_dtype=torch.float32)
+        model_check(params32, cfg32, prompt, cache_dtype=torch.float32)
         del params32
     else:
         model_check(params, cfg, prompts[0][:64])
     return out
 
 
-def fp32_prefix(flat: dict, layers: int) -> dict:
-    """An fp32 copy of the first ``layers`` layers (and the embed and final
-    norm) of a flat bf16 tree, popping each source leaf as it is copied so
-    that the two never sit whole on the card together."""
+def serve_vlm(name: str = VLM_MODEL) -> dict:
+    """Serve the VLM at full width and depth through ``make_serve_fns``
+    with its extras (the engine passes none, as the reference's does, so
+    an M-RoPE model cannot go through it): one prefill of VLM_ROWS rows of
+    an image and text, then VLM_NEW - 1 greedy decode steps whose M-RoPE
+    positions continue the text's (they differ from the cache slot).
+    Checks shapes, finite logits and launches, then an fp32 model check at
+    VLM_CHECK_LAYERS layers on an input of the same kind; the weights are
+    freed on return."""
+    cfg = get_config(name)
+    t0 = time.monotonic()
+    params = serving_params(cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in flatten(params).values())
+    log(f"serve: {name} init {time.monotonic() - t0:.2f} s, "
+        f"{n_params} params, layers={cfg.num_layers} d={cfg.d_model}, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    dev = params["final_norm"]["scale"].device
+    toks, extras = vlm_inputs(cfg, VLM_ROWS, VLM_GRID, VLM_TEXT,
+                              torch.bfloat16, dev)
+    s = toks.shape[1]
+    text_pos = int(extras["mrope_pos"].max()) + 1
+    prefill, decode = make_serve_fns(cfg)
+    finite, out_tokens = [], []
+
+    def checked(logits):
+        if logits.shape != (VLM_ROWS, cfg.vocab_padded):
+            raise AssertionError(f"logits shape {tuple(logits.shape)}")
+        finite.append(torch.isfinite(logits).all())
+        return torch.argmax(logits, dim=-1)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        t0 = time.monotonic()
+        cache = init_cache(cfg, VLM_ROWS, VLM_MAX_LEN, device=dev)
+        logits, cache = prefill(params, toks, cache, extras)
+        nxt = checked(logits)
+        out_tokens.append(nxt.cpu())              # sync: real prefill time
+        prefill_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        for k in range(VLM_NEW - 1):
+            mpos = torch.full((VLM_ROWS, 1, 3), text_pos + k,
+                              dtype=torch.long, device=dev)
+            logits, cache = decode(params, cache, nxt[:, None], s + k,
+                                   {"mrope_pos": mpos})
+            nxt = checked(logits)
+            out_tokens.append(nxt.cpu())
+        decode_s = time.monotonic() - t0
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del cache, logits
+    if not all(bool(f) for f in finite):
+        raise AssertionError("non-finite logits")
+    want = expected_launches(cfg, 1, VLM_NEW)
+    if counts != want:
+        raise AssertionError(f"{name}: launch counts {counts}, expected "
+                             f"{want}")
+    steps = VLM_NEW - 1
+    out = {"model": name, "layers": cfg.num_layers, "params": n_params,
+           "rows": VLM_ROWS, "prompt_len": s,
+           "patches": VLM_GRID * VLM_GRID, "text_tokens": VLM_TEXT,
+           "max_new": VLM_NEW, "max_len": VLM_MAX_LEN, "served_by":
+           "make_serve_fns", "prefill_s": prefill_s, "ttft_s": prefill_s,
+           "decode_s": decode_s,
+           "decode_step_tokens_per_s": VLM_ROWS * steps / decode_s,
+           "decode_tokens_per_s": VLM_ROWS * VLM_NEW / decode_s,
+           "peak_memory_gb": peak_gb, "launches": counts,
+           "first_row_tokens": [int(t[0]) for t in out_tokens[:8]]}
+    log(f"serve: {json.dumps(out)}")
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=VLM_CHECK_LAYERS)
+    flat = flatten(params)
+    del params
+    params32 = unflatten(fp32_prefix(flat, cfg32))
+    torch.cuda.empty_cache()
+    ctoks, cextras = vlm_inputs(cfg32, 1, VLM_CHECK_GRID, VLM_CHECK_TEXT,
+                                torch.float32, dev)
+    model_check(params32, cfg32, ctoks[0].tolist(), cache_dtype=torch.float32,
+                extras=cextras)
+    del params32
+    return out
+
+
+def fp32_prefix(flat: dict, cfg) -> dict:
+    """An fp32 copy of the layers of ``cfg`` (a cut of the served config:
+    the first of its dense and of its MoE layers, as its layer plan says)
+    and of the embed and final norm, from a flat bf16 tree, popping each
+    source leaf as it is copied so that the two never sit whole on the card
+    together."""
+    plan = _layer_plan(cfg)
+    keep = {"dense_layers": plan.get("dense", 0),
+            "moe_layers": plan.get("moe", 0)}
     out = {}
     for k in list(flat):
         v = flat.pop(k)
-        out[k] = (v[:layers] if k.split("/")[0].endswith("_layers")
-                  else v).float()
+        group = k.split("/")[0]
+        if keep.get(group, 1):
+            out[k] = (v[:keep[group]] if group in keep else v).float()
         del v
     return out
 
@@ -1123,14 +1363,18 @@ def route_agreement(params, cfg, prompt) -> dict:
 
 
 def model_check(params, cfg, prompt, steps: int = 3,
-                cache_dtype=torch.bfloat16) -> None:
+                cache_dtype=torch.bfloat16, extras=None) -> None:
     """A short input through the kernel path -- prefill, then decode steps
     through the caches -- against a plain full forward over the same
     sequence at each step, same weights.  Error relative to the largest
     logit, limit MODEL_TOL; argmax equal at every step; with MoE layers the
-    checked (last) token routed alike in every layer."""
+    checked (last) token routed alike in every layer.  ``extras``: the
+    prompt's modality inputs (a VLM's ``patches`` and ``mrope_pos``, batch
+    1); each decoded token takes the next M-RoPE position, the largest so
+    far + 1 (t = h = w), in both paths."""
     dev = params["final_norm"]["scale"].device
     seq = [int(t) for t in prompt]
+    extras = dict(extras or {})
     routes = recorded_routes if cfg.moe is not None else nullcontext
     cache = init_cache(cfg, 1, len(seq) + steps, dtype=cache_dtype,
                        device=dev)
@@ -1138,12 +1382,12 @@ def model_check(params, cfg, prompt, steps: int = 3,
         toks = torch.tensor([seq], device=dev)
         with routes() as got_routes:
             got, cache = forward(params, cfg, tokens=toks, mode="prefill",
-                                 cache=cache)
+                                 cache=cache, extras=extras)
         for step in range(steps + 1):
             with plain_kernels(), routes() as want_routes:
                 want, _ = forward(params, cfg,
                                   tokens=torch.tensor([seq], device=dev),
-                                  mode="prefill")
+                                  mode="prefill", extras=extras)
             g, w = got[:, -1].float(), want[:, -1].float()
             err = float((g - w).abs().max())
             rel = err / float(w.abs().max())
@@ -1169,12 +1413,19 @@ def model_check(params, cfg, prompt, steps: int = 3,
             if step == steps:
                 break
             seq.append(int(w.argmax()))
+            step_extras = {}
+            if "mrope_pos" in extras:
+                mpos = extras["mrope_pos"]
+                nxt = torch.full((1, 1, 3), int(mpos.max()) + 1,
+                                 dtype=mpos.dtype, device=dev)
+                extras["mrope_pos"] = torch.cat([mpos, nxt], dim=1)
+                step_extras = {"mrope_pos": nxt}
             with routes() as got_routes:
                 got, cache = forward(params, cfg,
                                      tokens=torch.tensor([[seq[-1]]],
                                                          device=dev),
                                      mode="decode", cache=cache,
-                                     pos=len(seq) - 1)
+                                     pos=len(seq) - 1, extras=step_extras)
 
 
 # ---------------------------------------------------------------------------
@@ -1212,9 +1463,27 @@ def train_kernel_checks() -> dict:
                                   tag="zamba2-train-main-path")
     zamba["rmsnorm_backward"] = check_rmsnorm_bwd(
         gen, n, zcfg.d_model, bf16, tag="zamba2-train-main-path")
+    dcfg = get_config("deepseek-v2-236b")
+    dshape = TRAIN_SHAPE_OF["deepseek-v2-236b"]
+    dn = dshape.global_batch * dshape.seq_len
+    deepseek = {}
+    for key, width in (("", dcfg.d_model),
+                       ("_q_norm", dcfg.mla.q_lora_rank),
+                       ("_kv_norm", dcfg.mla.kv_lora_rank)):
+        tag = f"deepseek-train-main-path{key.replace('_', '-')}"
+        deepseek["rmsnorm_backward" + key] = check_rmsnorm_bwd(
+            gen, dn, width, bf16, tag=tag)
+        deepseek["rmsnorm" + key] = check_rmsnorm(gen, dn, width, bf16,
+                                                  tag=tag)
+    vd = get_config(VLM_MODEL).d_model
+    vlm = {"rmsnorm_backward": check_rmsnorm_bwd(
+        gen, n, vd, bf16, tag="qwen2-vl-train-main-path"),
+        "rmsnorm": check_rmsnorm(gen, n, vd, bf16,
+                                 tag="qwen2-vl-train-main-path")}
     return {"train:granite-3-8b": granite, "train:zamba2-7b": zamba,
             "train:mixtral-8x7b": {"rmsnorm_backward":
-                                   granite["rmsnorm_backward"]}}
+                                   granite["rmsnorm_backward"]},
+            "train:deepseek-v2-236b": deepseek, f"train:{VLM_MODEL}": vlm}
 
 
 def narrow_hybrid(dtype: str = "float32"):
@@ -1260,8 +1529,10 @@ def train_launches(cfg, passes: int) -> dict:
         return {"flash_attention": 0, "rmsnorm": passes * (norms + 2 * n),
                 "rmsnorm_backward": passes * norms,
                 "ssd_scan": passes * 2 * n, "ssd_scan_backward": passes * n}
-    norms = 2 * n + 1                       # ln1, ln2 a block + final
-    return {"flash_attention": 0, "rmsnorm": passes * (norms + 2 * n),
+    per_block = block_norms(cfg)            # ln1, ln2 (+ MLA's 2)
+    norms = per_block * n + 1               # + the final norm
+    return {"flash_attention": 0,
+            "rmsnorm": passes * (norms + per_block * n),
             "rmsnorm_backward": passes * norms, "ssd_scan": 0,
             "ssd_scan_backward": 0}
 
@@ -1379,6 +1650,7 @@ def train_run(model: str) -> dict:
     numbers (with MoE layers, the aux term and dropped fraction a step)."""
     cfg = dataclasses.replace(get_config(model),
                               num_layers=TRAIN_LAYERS_OF[model])
+    shape = TRAIN_SHAPE_OF.get(model, TRAIN_SHAPE)
     # the reference's schedule (100 warmup steps): these are a run's first
     tcfg = TrainConfig(total_steps=TRAIN_STEPS,
                        optimizer=TRAIN_OPTIMIZER[model],
@@ -1389,7 +1661,7 @@ def train_run(model: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.monotonic()
-    result = train(cfg, tcfg, TRAIN_SHAPE, stack=st,
+    result = train(cfg, tcfg, shape, stack=st,
                    job_id=f"chip-smoke-{model}",
                    step_callback=lambda s, m: metrics.append(
                        {k: float(v) for k, v in m.items()}))
@@ -1414,7 +1686,7 @@ def train_run(model: str) -> dict:
     if c["PEAK_FLOPS"] != peak:
         raise AssertionError(f"train: step constants carry peak "
                              f"{c['PEAK_FLOPS']}, expected {peak}")
-    tokens = TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len
+    tokens = shape.global_batch * shape.seq_len
     if c["model_flops"] != 6 * cfg.active_param_count() * tokens:
         raise AssertionError(f"train {model}: model flops "
                              f"{c['model_flops']} are not 6 N T of the "
@@ -1422,8 +1694,7 @@ def train_run(model: str) -> dict:
     out = {"model": model, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "params": cfg.param_count(),
            "active_params": cfg.active_param_count(),
-           "seq_len": TRAIN_SHAPE.seq_len,
-           "global_batch": TRAIN_SHAPE.global_batch,
+           "seq_len": shape.seq_len, "global_batch": shape.global_batch,
            "optimizer": tcfg.optimizer, "remat": tcfg.remat_policy,
            "steps": result.steps_run, "wall_s": wall_s,
            "step_times_s": times, "step_s_median_2_6": step_s,
@@ -1821,18 +2092,23 @@ def main() -> int:
     log(f"kernels: all checks within tolerance "
         f"({time.monotonic() - t0:.2f} s)")
 
-    # Phase 3: serve, one model after the other
+    # Phase 3: serve, one model after the other; the VLM last, through
+    # make_serve_fns
     served = {}
     for name in MODELS:
         t0 = time.monotonic()
         served[name] = serve(name)
         torch.cuda.empty_cache()
         log(f"serve: {name} phase {time.monotonic() - t0:.2f} s")
+    t0 = time.monotonic()
+    served[VLM_MODEL] = serve_vlm()
+    torch.cuda.empty_cache()
+    log(f"serve: {VLM_MODEL} phase {time.monotonic() - t0:.2f} s")
 
     # Phase 4: train, once the served weights are freed
     t0 = time.monotonic()
     rows.update(train_kernel_checks())
-    launches = {m: served[m]["launches"] for m in MODELS}
+    launches = {m: served[m]["launches"] for m in served}
     for name in parity_models():
         train_parity(name)
     for model in TRAIN_LAYERS_OF:

@@ -6,8 +6,9 @@ Run from the root of a checkout on a machine with a CUDA card::
     python3 profile_train.py [--model granite-3-8b] [--steps 3] [--out DIR]
 
 It runs one of ``chip_smoke.py``'s training runs (``--model``: granite-3-8b,
-zamba2-7b or mixtral-8x7b, at full width and ``chip_smoke.TRAIN_LAYERS_OF``
-layers with ``chip_smoke.TRAIN_OPTIMIZER``; seq 2048, global batch 8, remat
+zamba2-7b, mixtral-8x7b, deepseek-v2-236b or qwen2-vl-7b, at full width and
+``chip_smoke.TRAIN_LAYERS_OF`` layers with ``chip_smoke.TRAIN_OPTIMIZER``;
+seq 2048, global batch 8 or as ``chip_smoke.TRAIN_SHAPE_OF`` says, remat
 "minimal", bf16 compute, fp32 params; random weights from its seed) through
 ``train()`` under ``torch.profiler``, with the loop's marker regions
 (``data_wait``, ``train_step``) as trace annotations.  From the Chrome
@@ -65,11 +66,12 @@ def main() -> int:
     tcfg = TrainConfig(total_steps=args.steps,
                        optimizer=chip_smoke.TRAIN_OPTIMIZER[args.model],
                        remat_policy="minimal", seed=chip_smoke.SEED)
+    shape = chip_smoke.TRAIN_SHAPE_OF.get(args.model, chip_smoke.TRAIN_SHAPE)
     stack = chip_smoke.RecorderStack()
     stack.um = AnnotatingRecorder()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        train(cfg, tcfg, chip_smoke.TRAIN_SHAPE, stack=stack,
+        train(cfg, tcfg, shape, stack=stack,
               job_id="profile-train")
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, f"profile_train_{args.model}.json")
@@ -81,8 +83,7 @@ def main() -> int:
     os.remove(path)
     print("traced: " + json.dumps({
         "model": cfg.name, "layers": cfg.num_layers,
-        "tokens_per_step": chip_smoke.TRAIN_SHAPE.global_batch *
-        chip_smoke.TRAIN_SHAPE.seq_len,
+        "tokens_per_step": shape.global_batch * shape.seq_len,
         "step_times_s": [s["step_time_s"] for s in stack.agent.steps]}),
         flush=True)
     for phase, row in breakdown(trace, prefix="train_step").items():

@@ -1,6 +1,7 @@
 """Architecture configs the port ships: lms-demo, granite-3-8b,
 phi3-medium-14b, yi-34b, nemotron-4-340b (dense GQA), mixtral-8x7b (MoE
-with a sliding window) and zamba2-7b (hybrid)."""
+with a sliding window), deepseek-v2-236b (MoE with MLA), qwen2-vl-7b (VLM
+with M-RoPE) and zamba2-7b (hybrid)."""
 
 from repro_torch.configs.base import (
     ARCH_MODULES,

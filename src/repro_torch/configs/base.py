@@ -5,7 +5,8 @@ that package): :class:`ModelConfig` with its sub-configs and parameter
 counts, :class:`ShapeConfig` with ``SHAPES`` and ``SMOKE_SHAPE``,
 :class:`TrainConfig`, the registry and the smoke reduction.  ``MeshConfig``
 and ``RunConfig`` wait for the distributed slice.  The registry lists only the
-architectures the port ships; other families arrive with their model code.
+architectures the port ships (9 of the reference's 11: RWKV6 and the
+encoder-decoder arrive with their model code).
 """
 
 from __future__ import annotations
@@ -172,14 +173,15 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Approximate parameter count (embedding + blocks), for 6ND math.
-        Only the families the port ships are counted (dense and MoE GQA,
-        and the hybrid's Mamba2 layers plus shared attention blocks).  Other
-        families' counts arrive with their model code."""
-        if self.rwkv is not None or self.attention_type != "gqa" or \
+        Only the families the port ships are counted (dense, MoE and VLM
+        decoders with GQA or MLA attention, and the hybrid's Mamba2 layers
+        plus shared attention blocks).  RWKV6's and the encoder-decoder's
+        counts arrive with their model code."""
+        if self.rwkv is not None or self.attention_type == "none" or \
                 self.family == "encdec":
             raise NotImplementedError(
-                f"{self.name}: the port counts the parameters of dense GQA "
-                f"and hybrid configurations, and of GQA MoE ones, only")
+                f"{self.name}: the port counts the parameters of GQA and "
+                f"MLA decoders and of the hybrid only")
         d = self.d_model
         n = self.vocab_padded * d                       # embedding
         if not self.tie_embeddings:
@@ -204,7 +206,17 @@ class ModelConfig:
         return self.param_count() - inactive
 
     def _attn_params(self) -> int:
-        d, hd = self.d_model, self.head_dim
+        d = self.d_model
+        if self.attention_type == "mla":
+            a = self.mla
+            qk_dim = a.qk_nope_head_dim + a.qk_rope_head_dim
+            p = d * a.q_lora_rank + a.q_lora_rank * self.num_heads * qk_dim
+            p += d * (a.kv_lora_rank + a.qk_rope_head_dim)
+            p += a.kv_lora_rank * self.num_heads * (a.qk_nope_head_dim
+                                                    + a.v_head_dim)
+            p += self.num_heads * a.v_head_dim * d
+            return p
+        hd = self.head_dim
         return d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd \
             + self.num_heads * hd * d
 
@@ -332,6 +344,8 @@ ARCH_MODULES = [
     "phi3_medium_14b",
     "lms_demo",
     "zamba2_7b",
+    "deepseek_v2_236b",
+    "qwen2_vl_7b",
 ]
 
 

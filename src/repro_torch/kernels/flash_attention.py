@@ -10,10 +10,14 @@ the CUDA cores.
 
 On a CPU tensor :func:`flash_attention` computes the plain version
 (:func:`repro_torch.kernels.ref.attention_ref`); on a CUDA tensor it launches
-the kernel or raises.
+the kernel or raises.  The kernel takes one head dim for q, k and v; a V
+narrower than Q and K (MLA) is padded to it by
+:func:`repro_torch.kernels.ops.flash_attention_bshd`.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -106,14 +110,20 @@ def attended_pairs(s: int, *, causal: bool, window: int) -> int:
 
 
 def cost_estimate(q_shape, kv_heads: int, itemsize: int, *,
-                  causal: bool = True, window: int = 0) -> dict:
-    """Per-call ``{flops, bytes}`` of the work this call needs.
+                  causal: bool = True, window: int = 0,
+                  dv: Optional[int] = None) -> dict:
+    """Per-call ``{flops, bytes}`` of the work this call needs, V's head dim
+    ``dv`` (default q's D) included: a V the adapter pads to D counts at
+    its own width, since the padding is the kernel's cost, not the
+    function's.
 
-    FLOPs: 2*D for QK^T and 2*D for PV per attended (query, key) pair,
+    FLOPs: 2*D for QK^T and 2*Dv for PV per attended (query, key) pair,
     counted exactly from the masks (the kernel's tile skipping does a little
-    more).  Bytes: one read of q/k/v and one write of o."""
+    more).  Bytes: one read of q and k at D and of v at Dv, one write of o
+    at Dv."""
     b, h, s, d = q_shape
+    dv = d if dv is None else dv
     pairs = attended_pairs(s, causal=causal, window=window)
-    flops = 4.0 * b * h * d * pairs
-    elems = b * s * d * (2 * h + 2 * kv_heads)
+    flops = 2.0 * b * h * (d + dv) * pairs
+    elems = b * s * (h + kv_heads) * (d + dv)
     return {"flops": flops, "bytes": float(elems * itemsize)}

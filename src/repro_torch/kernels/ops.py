@@ -74,17 +74,30 @@ def _sync(t: torch.Tensor) -> None:
 
 
 def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B, S, H, D); k/v: (B, S, KV, D) -> (B, S, H, D)."""
+    """q, k: (B, S, H | KV, Dqk); v: (B, S, KV, Dv) with Dv <= Dqk ->
+    (B, S, H, Dv).
+
+    A V narrower than Q and K (MLA: Dqk 192, Dv 128) is zero-padded to Dqk
+    for the kernel's one head dim, and the output's first Dv columns are
+    returned: the padding's columns of P V are zeros, and the softmax scale
+    stays 1/sqrt(Dqk).  The same adapter runs on the CPU, around the plain
+    version."""
+    dqk, dv = q.shape[-1], v.shape[-1]
+    if dv > dqk:
+        raise ValueError(f"v's head dim {dv} is wider than q's and k's "
+                         f"{dqk}")
+    if dv < dqk:
+        v = torch.nn.functional.pad(v, (0, dqk - dv))
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     m, region = _region(
         "flash_attention", q,
         lambda: _fa.cost_estimate(qt.shape, kt.shape[1], q.element_size(),
-                                  causal=causal, window=window))
+                                  causal=causal, window=window, dv=dv))
     with region:
         o = _fa.flash_attention(qt, kt, vt, causal=causal, window=window)
         if m is not None:
             _sync(o)
-    return o.transpose(1, 2)
+    return o.transpose(1, 2)[..., :dv]
 
 
 def _rmsnorm(x, scale, eps: float):

@@ -1,4 +1,4 @@
-"""GQA attention: train, prefill and decode paths (port of
+"""GQA and MLA attention: train, prefill and decode paths (port of
 ``repro.models.attention``).
 
 * **train** runs, by ``attn_impl``: ``"masked"`` (the reference's default)
@@ -22,8 +22,15 @@
   rebuilds each slot's absolute position (:func:`_ring_slots`), so the
   causal, window and ``kp >= 0`` masks stay exact.
 
+* **MLA** (DeepSeek-V2, :func:`mla_attention`) caches the normalized
+  latent ``ckv`` (``kv_lora_rank`` wide) and the shared rotated ``krope``
+  (``qk_rope_head_dim``) instead of per-head K/V.  Train and prefill
+  decompress them to per-head K (nope + rope) and V; prefill runs the
+  flash kernel with a V narrower than Q and K.  Decode absorbs ``wkv_b``
+  into the query and the output, so it attends in the latent space.
+
 Shapes: x (B, S, d); q (B, S, H, D); k/v (B, S, KV, D); H = KV * G.
-Logit softcaps, MLA and cross-attention are not ported yet and raise
+Logit softcaps and cross-attention are not ported yet and raise
 ``NotImplementedError`` at model level.
 """
 
@@ -36,7 +43,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_norm, apply_rope
 from repro_torch.models.params import spec
 
 NEG_INF = -2.0 ** 30   # large-but-finite; keeps softmax NaN-free on empty rows
@@ -50,6 +57,23 @@ def attn_specs(cfg: ModelConfig, num_kv_heads: Optional[int] = None):
         "wk": spec((d, kv, hd), ("embed", "kv_heads", None)),
         "wv": spec((d, kv, hd), ("embed", "kv_heads", None)),
         "wo": spec((h, hd, d), ("heads", None, "embed")),
+    }
+
+
+def mla_specs(cfg: ModelConfig):
+    a = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk = a.qk_nope_head_dim + a.qk_rope_head_dim
+    return {
+        "wq_a": spec((d, a.q_lora_rank), ("embed", "q_lora")),
+        "q_norm": spec((a.q_lora_rank,), ("q_lora",), init="ones"),
+        "wq_b": spec((a.q_lora_rank, h, qk), ("q_lora", "heads", None)),
+        "wkv_a": spec((d, a.kv_lora_rank + a.qk_rope_head_dim),
+                      ("embed", "kv_lora")),
+        "kv_norm": spec((a.kv_lora_rank,), ("kv_lora",), init="ones"),
+        "wkv_b": spec((a.kv_lora_rank, h, a.qk_nope_head_dim + a.v_head_dim),
+                      ("kv_lora", "heads", None)),
+        "wo": spec((h, a.v_head_dim, d), ("heads", None, "embed")),
     }
 
 
@@ -272,4 +296,93 @@ def gqa_attention(p, x, cfg: ModelConfig, *, rope=None, mode="prefill",
                          f"decode")
 
     y = out.reshape(b, s, h * hd) @ p["wo"].to(dt).reshape(h * hd, d)
+    return y, cache
+
+
+def mla_attention(p, x, cfg: ModelConfig, *, rope, mode="prefill",
+                  cache=None, pos=None, attn_impl="masked"):
+    """Multi-head Latent Attention (DeepSeek-V2).
+
+    mode: "train" | "prefill" | "decode".
+    attn_impl (train): "recursive" runs :func:`recursive_causal_attention`
+    for S >= 512; anything else the masked :func:`full_attention` (the
+    reference ignores "flash" here, and so does the port).
+    rope: (cos, sin) tables of width ``qk_rope_head_dim // 2``.
+    cache: {"ckv" (B, max_len, kv_lora_rank), "krope" (B, max_len,
+    qk_rope_head_dim)}, written in place.
+    pos: number of tokens already in the cache (decode).
+    Returns (out, cache).
+
+    Decode attends in the latent space: q_eff = q_nope w_k (per head, into
+    the kv_lora space), scores = q_eff ckv^T + q_rope krope^T in fp32,
+    the softmax over the valid slots, o = (probs ckv) w_v.
+    """
+    if cfg.attn_logit_softcap:
+        raise NotImplementedError("attention logit softcap is not ported")
+    a = cfg.mla
+    dt = x.dtype
+    b, s, d = x.shape
+    h = cfg.num_heads
+    nope, rdim, r = a.qk_nope_head_dim, a.qk_rope_head_dim, a.kv_lora_rank
+    cos, sin = rope
+
+    q_lat = apply_norm({"scale": p["q_norm"]}, x @ p["wq_a"].to(dt), cfg,
+                       eps=1e-6)
+    q = (q_lat @ p["wq_b"].to(dt).reshape(a.q_lora_rank, -1)).view(
+        b, s, h, nope + rdim)
+    q_nope, q_rope = q[..., :nope], apply_rope(q[..., nope:], cos, sin)
+
+    kv_a = x @ p["wkv_a"].to(dt)                           # (B, S, r + rope)
+    # the RMSNorm kernel takes contiguous rows: the latent is a strided
+    # slice of the 576-wide row, so it is copied first
+    c_kv = apply_norm({"scale": p["kv_norm"]}, kv_a[..., :r].contiguous(),
+                      cfg, eps=1e-6)
+    k_rope = apply_rope(kv_a[..., None, r:], cos, sin)[..., 0, :]  # shared
+
+    wkv_b = p["wkv_b"].to(dt)                              # (r, H, nope + v)
+    w_k, w_v = wkv_b[..., :nope], wkv_b[..., nope:]
+
+    if mode in ("train", "prefill"):
+        k_nope = torch.einsum("bsr,rhk->bshk", c_kv, w_k)
+        v = torch.einsum("bsr,rhk->bshk", c_kv, w_v)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rdim)],
+                      dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        if mode == "train":
+            if attn_impl not in ATTN_IMPLS:
+                raise ValueError(f"attn_impl {attn_impl!r} (one of "
+                                 f"{ATTN_IMPLS})")
+            if attn_impl == "recursive" and s >= 512:
+                out = recursive_causal_attention(qq, k, v)
+            else:
+                out = full_attention(qq, k, v, causal=True)
+        else:
+            out = ops.flash_attention_bshd(qq, k, v, causal=True)
+            if cache is not None:
+                cache["ckv"][:, :s] = c_kv.to(cache["ckv"].dtype)
+                cache["krope"][:, :s] = k_rope.to(cache["krope"].dtype)
+    elif mode == "decode":
+        if cache is None or pos is None:
+            raise ValueError("decode needs a cache and pos")
+        ckv = _cache_write(cache["ckv"], c_kv, pos).to(dt)
+        krope = _cache_write(cache["krope"], k_rope, pos).to(dt)
+        q_eff = torch.einsum("bshk,rhk->bshr", q_nope, w_k)
+        # bf16 products are exact in fp32: the reference's fp32-accumulated
+        # scores
+        scores = (torch.einsum("bshr,btr->bhst", q_eff.float(), ckv.float())
+                  + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                                 krope.float())) / math.sqrt(nope + rdim)
+        scores = scores + _mask_bias(
+            pos + torch.arange(s, device=x.device),
+            torch.arange(ckv.shape[1], device=x.device), causal=False,
+            window=0, kv_valid=pos + 1)
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        o_lat = torch.einsum("bhst,btr->bshr", probs, ckv)
+        out = torch.einsum("bshr,rhk->bshk", o_lat, w_v)
+    else:
+        raise ValueError(f"mode {mode!r} is not one of train | prefill | "
+                         f"decode")
+
+    y = out.reshape(b, s, h * a.v_head_dim) @ \
+        p["wo"].to(dt).reshape(h * a.v_head_dim, d)
     return y, cache

@@ -2,7 +2,8 @@
 ``repro.models.layers``).
 
 Plain functions on tensors; parameters are nested dicts keyed like the JAX
-tree.  The compute dtype follows the activations; parameters are cast at use
+tree.  RoPE tables come from integer positions (:func:`rope_table`) or,
+for Qwen2-VL's M-RoPE, from (t, h, w) positions (:func:`mrope_table`).  The compute dtype follows the activations; parameters are cast at use
 sites as in the reference (a no-op when the bridge already cast them once).
 Every RMSNorm goes through the fused kernel wrapper
 (:func:`repro_torch.kernels.ops.fused_rmsnorm`); layernorm stays plain.
@@ -70,6 +71,24 @@ def rope_table(positions: torch.Tensor, head_dim: int, theta: float):
     """positions: (..., S) int -> cos, sin: (..., S, head_dim // 2) fp32."""
     freqs = rope_freqs(head_dim, theta, device=positions.device)
     ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_table(positions: torch.Tensor, head_dim: int, theta: float,
+                sections):
+    """Qwen2-VL multimodal RoPE: positions (..., S, 3) int for (t, h, w).
+
+    The head_dim // 2 frequency bands are split into ``sections`` (t, h,
+    w, in that order); each band takes its angle from its component.
+    Returns cos, sin of shape (..., S, head_dim // 2), fp32."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"head_dim // 2 = {half}")
+    freqs = rope_freqs(head_dim, theta, device=positions.device)
+    comp = torch.cat([torch.full((s,), i, dtype=torch.long)
+                      for i, s in enumerate(sections)]).to(positions.device)
+    ang = positions.float()[..., comp] * freqs              # (..., S, half)
     return torch.cos(ang), torch.sin(ang)
 
 

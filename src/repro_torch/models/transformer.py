@@ -1,9 +1,11 @@
-"""Model assembly, dense, MoE and hybrid families (port of
+"""Model assembly, dense, MoE, VLM and hybrid families (port of
 ``repro.models.transformer``).
 
 :func:`forward` runs a decoder-only dense or MoE LM (``dense_layers`` then
-``moe_layers``, as the reference), or a zamba2-style hybrid (Mamba2 backbone
-with shared attention blocks), in train, prefill or decode mode.  The
+``moe_layers``, as the reference; GQA or MLA attention), a VLM decoder
+(patch embeddings merged into the token stream, M-RoPE positions), or a
+zamba2-style hybrid (Mamba2 backbone with shared attention blocks), in
+train, prefill or decode mode.  The
 reference scans stacked layer parameters with ``jax.lax.scan``; here a loop
 walks the leading layer axes.  Caches are stacked over layers like the
 reference's and are written in place; under a sliding window each layer's
@@ -27,10 +29,11 @@ from torch.utils.checkpoint import (
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import attn_specs, gqa_attention
+from repro_torch.models.attention import (
+    attn_specs, gqa_attention, mla_attention, mla_specs)
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, cross_entropy, embed_tokens, embedding_specs,
-    lm_logits, mlp_specs, norm_specs, rope_table)
+    lm_logits, mlp_specs, mrope_table, norm_specs, rope_table)
 from repro_torch.models.moe import apply_moe, moe_specs
 from repro_torch.models.params import (
     flatten, fp32_leaves, init_params, spec, stack_specs, unflatten)
@@ -39,21 +42,21 @@ from repro_torch.models.ssm import (
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    ported = cfg.family in ("dense", "moe") or (
+    ported = cfg.family in ("dense", "moe", "vlm") or (
         cfg.family == "hybrid" and cfg.moe is None
         and cfg.hybrid is not None and cfg.ssm is not None)
     if not ported:
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
-    if cfg.attention_type != "gqa":
+    if cfg.attention_type not in ("gqa", "mla"):
         raise NotImplementedError(
             f"attention {cfg.attention_type!r} is not ported")
-    if cfg.rope_type not in ("rope", "none"):
+    if cfg.rope_type not in ("rope", "mrope", "none"):
         raise NotImplementedError(f"rope {cfg.rope_type!r} is not ported")
 
 
 def _attn_block_specs(cfg: ModelConfig, d_ff=None, moe_layer=False):
-    out = {"ln1": norm_specs(cfg), "attn": attn_specs(cfg),
-           "ln2": norm_specs(cfg)}
+    attn = mla_specs(cfg) if cfg.attention_type == "mla" else attn_specs(cfg)
+    out = {"ln1": norm_specs(cfg), "attn": attn, "ln2": norm_specs(cfg)}
     if moe_layer:
         out["moe"] = moe_specs(cfg)
     else:
@@ -109,7 +112,9 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
     """Spec tree of the decode caches (zero-init), stacked over layers.
 
     The KV cache is ``dtype`` (bf16) whatever the compute dtype, and the
-    SSM state fp32, as in the reference.  The conv tail is kept in the
+    SSM state fp32, as in the reference.  MLA caches the latent ``ckv``
+    (B, max_len, kv_lora_rank) and ``krope`` (B, max_len,
+    qk_rope_head_dim) in place of K and V.  The conv tail is kept in the
     compute dtype: the reference's prefill returns it in that dtype and
     decode carries it so (bf16 when serving in bf16); the port writes it in
     place, so it allocates that dtype up front."""
@@ -117,9 +122,19 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
     plan = _layer_plan(cfg)
     kv_len = min(max_len, cfg.sliding_window) if cfg.sliding_window \
         else max_len
-    kv = spec((batch, kv_len, cfg.num_kv_heads, cfg.head_dim),
-              ("batch", "cache_seq", "kv_heads", None), dtype, init="zeros")
-    attn = {"k": kv, "v": kv}
+    if cfg.attention_type == "mla":
+        a = cfg.mla
+        attn = {"ckv": spec((batch, max_len, a.kv_lora_rank),
+                            ("batch", "cache_seq", None), dtype,
+                            init="zeros"),
+                "krope": spec((batch, max_len, a.qk_rope_head_dim),
+                              ("batch", "cache_seq", None), dtype,
+                              init="zeros")}
+    else:
+        kv = spec((batch, kv_len, cfg.num_kv_heads, cfg.head_dim),
+                  ("batch", "cache_seq", "kv_heads", None), dtype,
+                  init="zeros")
+        attn = {"k": kv, "v": kv}
     if cfg.family != "hybrid":
         return {key: stack_specs(attn, plan[key])
                 for key in ("dense", "moe") if plan.get(key)}
@@ -148,8 +163,10 @@ def _attn_block(p, x, cfg, *, rope, mode, cache, pos, attn_impl="masked",
     the MoE; returns (x, cache).  ``aux``: a dict the MoE statistics are
     added to (see :func:`forward`)."""
     h = apply_norm(p["ln1"], x, cfg)
-    y, cache = gqa_attention(p["attn"], h, cfg, rope=rope, mode=mode,
-                             cache=cache, pos=pos, attn_impl=attn_impl)
+    attention = mla_attention if cfg.attention_type == "mla" \
+        else gqa_attention
+    y, cache = attention(p["attn"], h, cfg, rope=rope, mode=mode,
+                         cache=cache, pos=pos, attn_impl=attn_impl)
     x = x + y
     h = apply_norm(p["ln2"], x, cfg)
     if "moe" in p:
@@ -275,8 +292,37 @@ def _hybrid_forward(params, x, cfg, *, rope, mode, cache, pos,
     return x
 
 
+def _rope_for(cfg: ModelConfig, positions, extras):
+    """The (cos, sin) tables of this pass: none without RoPE; at
+    ``qk_rope_head_dim`` for MLA (only that part of a head rotates); from
+    ``extras["mrope_pos"]`` (B, S, 3) for M-RoPE."""
+    if cfg.rope_type == "none":
+        return None
+    hd = cfg.mla.qk_rope_head_dim if cfg.attention_type == "mla" \
+        else cfg.head_dim
+    if cfg.rope_type == "mrope":
+        if "mrope_pos" not in extras:
+            raise KeyError("mrope_pos: an M-RoPE model needs its (B, S, 3) "
+                           "positions in extras")
+        return mrope_table(extras["mrope_pos"], hd, cfg.rope_theta,
+                           cfg.mrope_sections)
+    return rope_table(positions, hd, cfg.rope_theta)
+
+
+def _merge_patches(x, patches):
+    """The VLM's patch embeddings (B, P, d) in place of tokens 1 .. P, as
+    the reference merges them (cast to x's dtype)."""
+    p_len = patches.shape[1]
+    if p_len > x.shape[1] - 1:
+        raise ValueError(f"{p_len} patches do not fit after the first of "
+                         f"{x.shape[1]} tokens")
+    return torch.cat([x[:, :1], patches.to(x.dtype), x[:, 1 + p_len:]],
+                     dim=1)
+
+
 def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
-            pos=None, attn_impl="masked", remat="none", aux=None):
+            pos=None, extras=None, attn_impl="masked", remat="none",
+            aux=None):
     """Run the model.
 
     tokens: (B, S) int64.  decode: S is the number of new tokens (1).
@@ -285,6 +331,11 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
     [0, S), or a ring's slots p mod window; decode writes slot ``pos``, or
     ``pos mod window``); None in train mode.
     pos: int — tokens already in the cache (decode only).
+    extras: modality inputs, as the reference's: ``"patches"`` (B, P, d),
+    merged in place of tokens 1 .. P by a VLM (P <= S - 1, else
+    ``ValueError``), and ``"mrope_pos"`` (B, S, 3) int, the (t, h, w)
+    positions an M-RoPE model's rope reads (which may differ from the cache
+    slot ``pos``).
     attn_impl, remat: train mode only (see the module docstring).
     aux: optional dict, filled with the MoE statistics of this pass as the
     reference's forward returns them (``moe_aux_loss`` and
@@ -302,9 +353,11 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
     if pos is not None:
         positions = positions + pos
 
+    extras = extras or {}
     x = embed_tokens(params["embed"], tokens, cfg)
-    rope = None if cfg.rope_type == "none" else rope_table(
-        positions, cfg.head_dim, cfg.rope_theta)
+    if cfg.family == "vlm" and "patches" in extras:
+        x = _merge_patches(x, extras["patches"])
+    rope = _rope_for(cfg, positions, extras)
 
     if cfg.family == "hybrid":
         x = _hybrid_forward(params, x, cfg, rope=rope, mode=mode,
@@ -332,14 +385,18 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
 def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl="masked",
             remat="none"):
     """Next-token CE loss.  batch: {"tokens", "labels"} (B, S) int tensors
-    on the params' device; labels < 0 are masked out.  Returns (total,
+    on the params' device, and any extras (every other entry, e.g. a VLM's
+    ``patches`` and ``mrope_pos``) for :func:`forward`; labels < 0 are
+    masked out.  Returns (total,
     metrics): for a model with MoE layers the total adds ``0.01 *
     moe_aux_loss / num_layers`` to the loss and the metrics carry the MoE
     statistics beside ``loss``, as the reference's; otherwise the total is
     the loss and the metrics ``{"loss": loss}``."""
     aux = {}
+    extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
     logits, _ = forward(params, cfg, tokens=batch["tokens"], mode="train",
-                        attn_impl=attn_impl, remat=remat, aux=aux)
+                        extras=extras, attn_impl=attn_impl, remat=remat,
+                        aux=aux)
     labels = batch["labels"]
     loss = cross_entropy(logits, labels.clamp_min(0), cfg, mask=labels >= 0)
     if cfg.moe is None:

@@ -29,18 +29,23 @@ from repro_torch.models.transformer import forward, init_cache
 def make_serve_fns(cfg: ModelConfig):
     """Returns (prefill_fn, decode_fn).
 
-    prefill(params, tokens, cache) -> (last_logits, cache)
-    decode(params, cache, tokens, pos) -> (logits, cache)
+    prefill(params, tokens, cache, extras=None) -> (last_logits, cache)
+    decode(params, cache, tokens, pos, extras=None) -> (logits, cache)
+
+    ``extras`` are the modality inputs :func:`forward` takes (a VLM's
+    ``patches`` and ``mrope_pos``).  Only these functions take them:
+    :class:`ServingEngine` calls them without, as the reference's engine
+    does, so a VLM is served through them and not the engine.
     """
 
-    def prefill(params, tokens, cache):
+    def prefill(params, tokens, cache, extras=None):
         logits, cache = forward(params, cfg, tokens=tokens, mode="prefill",
-                                cache=cache)
+                                cache=cache, extras=extras)
         return logits[:, -1], cache
 
-    def decode(params, cache, tokens, pos):
+    def decode(params, cache, tokens, pos, extras=None):
         logits, cache = forward(params, cfg, tokens=tokens, mode="decode",
-                                cache=cache, pos=pos)
+                                cache=cache, pos=pos, extras=extras)
         return logits[:, -1], cache
 
     return prefill, decode
@@ -65,7 +70,10 @@ class ServingEngine:
     token lands at position plen-1 (where the first sampled logit is read);
     the left padding is BOS (token 0) and is attended — the reference
     engine's documented simplification, kept so the two agree.  Greedy
-    argmax runs over the padded vocabulary, as in the reference.
+    argmax runs over the padded vocabulary, as in the reference.  It passes
+    no extras, as the reference's engine: an M-RoPE model raises a
+    ``KeyError`` for its missing ``mrope_pos`` (serve it through
+    :func:`make_serve_fns`).
     """
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,

@@ -38,6 +38,7 @@ from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -131,7 +132,8 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
 
     # ---- data (deterministic, resumable) ---------------------------------
     source = SyntheticTokenSource(model_cfg.vocab_size, seed=train_cfg.seed)
-    batch_fn = make_batch_fn(source, model_cfg, shape)
+    batch_fn = make_batch_fn(source, model_cfg, shape,
+                             extras_fn=_extras_fn(model_cfg, shape))
 
     # ---- params / resume ---------------------------------------------------
     train_step, opt = make_train_step(model_cfg, train_cfg)
@@ -266,3 +268,20 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
 
     return TrainResult(steps_run, step, last_loss, stack.findings(),
                        resumed_from)
+
+
+def _extras_fn(cfg: ModelConfig, shape: ShapeConfig):
+    """The reference's stub modality inputs of a batch, or None: a VLM's
+    ``patches`` (zeros, fp32; the ViT frontend is a stub) at the first
+    ``min(vlm_num_patches, S - 2)`` positions after BOS, and ``mrope_pos``
+    with t = h = w = the token's index."""
+    if cfg.family == "vlm":
+        def fn(step, rows):
+            p = min(cfg.vlm_num_patches, max(shape.seq_len - 2, 1))
+            return {
+                "patches": np.zeros((rows, p, cfg.d_model), np.float32),
+                "mrope_pos": np.broadcast_to(
+                    np.arange(shape.seq_len, dtype=np.int32)[None, :, None],
+                    (rows, shape.seq_len, 3)).copy()}
+        return fn
+    return None

@@ -13,7 +13,9 @@ the learning rate) are computed in fp32, as the reference does.
 
 ``update`` works in place: it overwrites the params and the state given to
 it (where the reference donates their buffers to the jitted step) and
-returns them.  ``clip_by_global_norm`` scales the gradients in place.
+returns them.  Its arithmetic on each leaf runs in place too, so a leaf
+needs at most two temporaries of its size (deepseek-v2-236b's expert
+stacks are 5 GB each in fp32).  ``clip_by_global_norm`` scales the gradients in place.
 Sharding specs (``opt_state_specs``) wait for the distributed slice.
 """
 
@@ -109,7 +111,8 @@ def adamw(cfg: TrainConfig) -> Optimizer:
             step = (m / c1).div_((v / c2).sqrt_().add_(eps))
             pf = p.float()
             step.add_(pf, alpha=wd)
-            p.copy_(pf - lr * step)
+            p.copy_(step.mul_(-lr).add_(pf))      # pf - lr * step
+            del step                # before the next leaf's temporaries
         state["count"] = torch.tensor(count, dtype=torch.int32)
         return params, state
 
@@ -161,22 +164,23 @@ def adafactor(cfg: TrainConfig, momentum_dtype=torch.bfloat16) -> Optimizer:
                 s["vc"].mul_(beta2).add_(g2.mean(dim=-2), alpha=rest)
                 vr, vc = s["vr"], s["vc"]
                 denom = vr.mean(dim=-1, keepdim=True).clamp_min(eps2)
-                vhat = vr[..., None] * vc[..., None, :] / denom[..., None]
-                upd = g * torch.rsqrt(vhat + eps2)
+                vhat = (vr[..., None] * vc[..., None, :]).div_(
+                    denom[..., None])
+                upd = vhat.add_(eps2).rsqrt_().mul_(g)
             else:
                 s["v"].mul_(beta2).add_(g2, alpha=rest)
-                upd = g * torch.rsqrt(s["v"] + eps2)
+                upd = (s["v"] + eps2).rsqrt_().mul_(g)
             del g2
             # update clipping by RMS (Shazeer & Stern eq. 6)
             rms = torch.sqrt(upd.square().mean() + eps2)
-            upd = upd / (rms / clip_thresh).clamp_min(1.0)
+            upd.div_((rms / clip_thresh).clamp_min(1.0))
             if b1:
-                m = b1 * s["m"].float() + (1 - b1) * upd
-                upd = m
-                s["m"] = m.to(momentum_dtype)
+                upd = s["m"].float().mul_(b1).add_(upd, alpha=1 - b1)
+                s["m"] = upd.to(momentum_dtype)
             pf = p.float()
-            upd = upd + wd * pf
-            p.copy_(pf - lr * upd)
+            upd.add_(pf, alpha=wd)
+            p.copy_(upd.mul_(-lr).add_(pf))       # pf - lr * upd
+            del upd                 # before the next leaf's temporaries
         state["count"] = torch.tensor(count, dtype=torch.int32)
         return params, state
 

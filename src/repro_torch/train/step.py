@@ -13,7 +13,8 @@
   update (AdamW / Adafactor), in place (see :mod:`repro_torch.train.optim`);
 * metrics ``loss``, ``grad_norm``, ``lr`` and ``param_norm``.
 
-``batch`` holds (B, S) integer tensors on the params' device.  Params are
+``batch`` holds (B, S) integer tensors on the params' device, and any
+extras (split along the batch like the tokens).  Params are
 leaves that need no grad; the step takes gradients of detached views.
 Meshes and compressed gradient exchange (``train/compression.py``) belong
 to the distributed slice: a mesh raises.
@@ -139,6 +140,12 @@ def make_eval_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
 
 
 def batch_to_device(np_batch: dict, device: Optional[torch.device]) -> dict:
-    """numpy (B, S) token batch -> int64 tensors on ``device``."""
-    return {k: torch.as_tensor(v).to(device=device, dtype=torch.long)
-            for k, v in np_batch.items()}
+    """numpy batch -> tensors on ``device``: integer entries (tokens,
+    labels, a VLM's ``mrope_pos``) as int64, floating ones (a VLM's
+    ``patches``) in their own floating dtype (the model casts them)."""
+    out = {}
+    for k, v in np_batch.items():
+        t = torch.as_tensor(v)
+        out[k] = t.to(device=device, dtype=None if t.is_floating_point()
+                      else torch.long)
+    return out

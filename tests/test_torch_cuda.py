@@ -15,7 +15,8 @@ chunked algorithm's own fp32 error there) and 2e-2 in bf16, relative to
 (1 + |want|), and where autograd adds per-head db/dc that were each
 rounded to the dtype, one unit of the dtype at each term more;
 training steps on the card against the same steps on the CPU in fp32 take
-1e-4 relative.
+1e-4 relative; an MLA block's outputs and caches take the attention
+tolerances relative to the largest (1 at least).
 """
 
 import dataclasses
@@ -30,7 +31,11 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.kernels import ssd  # noqa: E402
-from repro_torch.models.params import flatten, unflatten  # noqa: E402
+from repro_torch.models.attention import (  # noqa: E402
+    mla_attention, mla_specs)
+from repro_torch.models.layers import rope_table  # noqa: E402
+from repro_torch.models.params import (  # noqa: E402
+    flatten, init_params, unflatten)
 from repro_torch.configs import TrainConfig  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     forward, init_cache, init_model_params)
@@ -263,6 +268,82 @@ def test_train_steps_on_card_match_cpu(cuda, rng, optimizer):
             out[str(dev)].append([float(m[k]) for k in
                                   ("loss", "grad_norm", "param_norm")])
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [65, 910])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_adapter_with_narrower_v_on_card_matches_cpu(cuda, rng, s,
+                                                           dtype):
+    """MLA's prefill: q and k 192 wide, v 128.  The adapter pads V to 192
+    for the D = 192 instance and returns the first 128 columns, on the card
+    as on the CPU (around the plain version there); one launch."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dt) for shape in
+        ((2, s, 4, 192), (2, s, 4, 192), (2, s, 4, 128)))
+    want = ops.flash_attention_bshd(q, k, v)
+    before = fa.launches
+    got = ops.flash_attention_bshd(q.to(cuda), k.to(cuda), v.to(cuda))
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.shape == (2, s, 4, 128) and got.dtype == dt
+    _close(got, want, TOL["attn"][dtype])
+    with pytest.raises(ValueError, match="wider"):
+        ops.flash_attention_bshd(q.to(cuda)[..., :128],
+                                 k.to(cuda)[..., :128], v.to(cuda)[..., :1]
+                                 .expand(2, s, 4, 192))
+    with pytest.raises(ValueError, match="head dim"):     # no D = 24
+        ops.flash_attention_bshd(q.to(cuda)[..., :24], k.to(cuda)[..., :24],
+                                 v.to(cuda)[..., :16])
+    assert fa.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
+def test_mla_block_prefill_and_decode_on_card_match_cpu(cuda, rng, dtype,
+                                                        tol):
+    """One MLA block at deepseek's head and latent widths (qk 128 + 64, v
+    128, lora 512 / 1536), 4 heads: a 45-token prefill through the flash
+    adapter and the RMSNorm kernel (q_norm, kv_norm), then 3 absorbed decode
+    steps, on the card against the CPU; outputs relative to the largest,
+    the caches too."""
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"), d_model=512,
+                              num_heads=4, num_kv_heads=4, dtype=dtype)
+    dt = getattr(torch, dtype)
+    a = cfg.mla
+    p_cpu = init_params(mla_specs(cfg), seed=0, device="cpu")
+    p_gpu = {k: v.to(cuda) for k, v in p_cpu.items()}
+    xs = [torch.from_numpy(rng.standard_normal((2, n, 512)).astype(
+        np.float32)).to(dt) for n in (45, 1, 1, 1)]
+    ops.reset_launch_counts()
+    outs = {}
+    for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+        cache = {"ckv": torch.zeros((2, 64, a.kv_lora_rank), dtype=dt,
+                                    device=dev),
+                 "krope": torch.zeros((2, 64, a.qk_rope_head_dim), dtype=dt,
+                                      device=dev)}
+        ys, pos = [], 0
+        with torch.inference_mode():
+            for mode, x in zip(("prefill", "decode", "decode", "decode"),
+                               xs):
+                n = x.shape[1]
+                rope = rope_table(torch.arange(pos, pos + n, device=dev)
+                                  [None], a.qk_rope_head_dim, cfg.rope_theta)
+                y, cache = mla_attention(p, x.to(dev), cfg, rope=rope,
+                                         mode=mode, cache=cache,
+                                         pos=None if mode == "prefill"
+                                         else pos)
+                ys.append(y.float().cpu())
+                pos += n
+        outs[dev] = ys + [cache["ckv"].float().cpu(),
+                          cache["krope"].float().cpu()]
+    for want, got in zip(outs["cpu"], outs["cuda"]):
+        err = float((got - want).abs().max())
+        assert err <= tol * max(1.0, float(want.abs().max())), err
+    assert ops.launch_counts() == {"flash_attention": 1, "rmsnorm": 2 * 4,
+                                   "rmsnorm_backward": 0, "ssd_scan": 0,
+                                   "ssd_scan_backward": 0}
 
 
 @pytest.mark.cuda

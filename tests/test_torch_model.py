@@ -138,7 +138,11 @@ def test_apply_norm_matches_jax(rng, norm_type):
                                         ("nemotron-4-340b", True),
                                         ("nemotron-4-340b", False),
                                         ("mixtral-8x7b", True),
-                                        ("mixtral-8x7b", False)])
+                                        ("mixtral-8x7b", False),
+                                        ("deepseek-v2-236b", True),
+                                        ("deepseek-v2-236b", False),
+                                        ("qwen2-vl-7b", True),
+                                        ("qwen2-vl-7b", False)])
 def test_model_specs_match_jax_layouts(name, smoke):
     """Parameter and decode-cache spec trees: same paths, same shapes."""
     from repro.models.params import ParamSpec
@@ -158,7 +162,8 @@ def test_model_specs_match_jax_layouts(name, smoke):
 
 @pytest.mark.parametrize("name", ["granite-3-8b", "zamba2-7b", "lms-demo",
                                   "phi3-medium-14b", "yi-34b",
-                                  "nemotron-4-340b", "mixtral-8x7b"])
+                                  "nemotron-4-340b", "mixtral-8x7b",
+                                  "deepseek-v2-236b", "qwen2-vl-7b"])
 def test_param_counts_match_jax(name):
     jcfg, tcfg = jget_config(name), get_config(name)
     assert tcfg.param_count() == jcfg.param_count()
@@ -398,7 +403,7 @@ def test_bridge_checks_keys_shapes_and_keeps_norms_fp32():
 # -- what the port does not take, and where it runs ---------------------------
 
 
-@pytest.mark.parametrize("change", [{"attention_type": "mla"},
+@pytest.mark.parametrize("change", [{"attention_type": "none"},
                                     {"attn_logit_softcap": 30.0}])
 def test_unported_attention_options_raise(rng, change):
     cfg = dataclasses.replace(get_config("lms-demo", smoke=True), **change)
@@ -461,7 +466,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "host_agent", "httpd")} <= scanned
     assert {"models/moe.py", "configs/phi3_medium_14b.py",
             "configs/yi_34b.py", "configs/nemotron_4_340b.py",
-            "configs/mixtral_8x7b.py"} <= scanned
+            "configs/mixtral_8x7b.py", "configs/deepseek_v2_236b.py",
+            "configs/qwen2_vl_7b.py"} <= scanned
     assert {os.path.join("..", "..", "examples", n) for n in (
         "train_monitored_torch.py", "serve_requests_torch.py")} <= scanned
     bad = []

@@ -261,8 +261,13 @@ def test_moe_config_has_the_reference_fields_and_defaults():
 
 @pytest.mark.parametrize("smoke", [False, True])
 @pytest.mark.parametrize("name", ["phi3-medium-14b", "yi-34b",
-                                  "nemotron-4-340b", "mixtral-8x7b"])
+                                  "nemotron-4-340b", "mixtral-8x7b",
+                                  "deepseek-v2-236b", "qwen2-vl-7b"])
 def test_new_configs_are_copies_of_the_reference(name, smoke):
-    """Every field, full and smoke-reduced (mixtral's window 16 included)."""
+    """Every field, full and smoke-reduced (mixtral's window 16, the MLA
+    config and the M-RoPE sections included), and the parameter counts."""
     assert dataclasses.asdict(get_config(name, smoke=smoke)) == \
         dataclasses.asdict(jget_config(name, smoke=smoke))
+    tc, jc = get_config(name, smoke=smoke), jget_config(name, smoke=smoke)
+    assert tc.param_count() == jc.param_count()
+    assert tc.active_param_count() == jc.active_param_count()
