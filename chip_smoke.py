@@ -20,7 +20,8 @@ JAX package.  Phases, each reported on its own lines:
               prefill (q and k 192 wide, v 128, which the adapter pads
               to 192; the row also times the kernel alone on the padded V)
               and its latent norms, qwen2-vl-7b's prefill of 8 x 2048
-              tokens) plus a window, a ragged
+              tokens, seamless-m4t-large-v2's decoder prefill at head dim
+              64 and rwkv6-1.6b's final norm) plus a window, a ragged
               S or L, a non-causal and a strong-decay case: max abs error
               against the tolerance, kernel ms, plain ms, one library
               call's ms (none for the SSD scan; a windowed flash row's is
@@ -30,8 +31,8 @@ JAX package.  Phases, each reported on its own lines:
               library ms (``vs_library``); then the bf16 rmsnorm kernel
               against ``F.rms_norm`` at the served shapes, medians of
               interleaved timings (``rmsnorm-interleaved``).
-3. serve   -- seven models at full width, random weights from a seed,
-              bf16, one after the other (each freed before the next), six
+3. serve   -- nine models at full width, random weights from a seed,
+              bf16, one after the other (each freed before the next), seven
               served by ServingEngine(max_batch=8): granite-3-8b (40 layers),
               zamba2-7b (81 Mamba2 layers, 13 shared-attention
               applications), phi3-medium-14b (40 layers, d=5120) and
@@ -46,13 +47,22 @@ JAX package.  Phases, each reported on its own lines:
               its 60 layers: the dense layer 0 and 5 MoE layers of 160
               experts, top 6, 2 shared; MLA, whose prefill runs flash
               with a V narrower than Q and K and whose decode attends in
-              the latent space; the short workload) (SERVED); then
+              the latent space; the short workload), rwkv6-1.6b (all 24
+              layers; its WKV recurrence is plain PyTorch, as the
+              reference's is jnp, so it launches only the RMSNorm of its
+              final norm; the short workload, whose padded 910 tokens make
+              the WKV chunk gcd(910, 32) = 2) (SERVED); then
               qwen2-vl-7b (all 28 layers) through ``make_serve_fns`` with
               its extras, since the engine passes none (as the
               reference's): 8 rows of BOS, a 32 x 32 image of patch
               embeddings and 1023 text tokens with Qwen2-VL's M-RoPE
               positions, 31 decode steps whose positions continue the
-              text's.  Each reports TTFT, prefill s, decode tokens/s and
+              text's; then seamless-m4t-large-v2 (24 encoder and 24
+              decoder layers) the same way with its source frames (8 rows
+              of 4096 frames from N(0, 0.02^2), the audio frontend being a
+              stub): the short workload's prompts, 31 decode steps that
+              read the bf16 cross K/V from the cache.  Each reports TTFT,
+              prefill s, decode tokens/s and
               peak GB (deepseek also its cache bytes a token and layer).
               Launch counts
               are zeroed just before each run and read just after; they
@@ -72,7 +82,15 @@ JAX package.  Phases, each reported on its own lines:
               serve()); deepseek's the same at 64 tokens and 2 layers (the
               dense one and a MoE one); qwen2-vl's in fp32 at 4 layers on an
               8 x 8 image and 63 text tokens, the same extras on both
-              paths.
+              paths; rwkv6-1.6b's in fp32 at all 24 layers, after its
+              chunked WKV is held to the sequential ``ref.wkv6_ref`` (fp32,
+              2e-4) at the served shape (8, 910, chunk 2) and at 2048
+              tokens (chunk 32), both timed (``wkv:`` lines); seamless's in
+              fp32 at 4 encoder and 4 decoder layers over 512 source
+              frames.  The MoE models' route lines give, at each (token,
+              layer) routed otherwise, the k-th expert's logit margin
+              beside one bf16 unit of those logits and the two paths'
+              logit gap.
 4. train   -- once the served weights are freed:
               (a) the RMSNorm backward kernel against ``ref.rmsnorm_bwd_ref``
               and against autograd through ``ref.rmsnorm_ref``, at
@@ -118,9 +136,11 @@ JAX package.  Phases, each reported on its own lines:
               its 32 layers, Adafactor; with the aux term and the dropped
               fraction a step), deepseek-v2-236b (its dense layer and one
               MoE layer, Adafactor, global batch 2: the masked
-              attention's fp32 scores of 128 heads are 2.1 GB a row) and
+              attention's fp32 scores of 128 heads are 2.1 GB a row),
               qwen2-vl-7b (4 of its 28 layers, AdamW, with the loop's stub
-              patches and positions): step time (median of steps 2-6),
+              patches and positions), rwkv6-1.6b (all 24 layers, AdamW) and
+              seamless-m4t-large-v2 (all 24 + 24 layers, AdamW, global
+              batch 4, the loop's stub source frames): step time (median of steps 2-6),
               tokens/s, MFU against the card's bf16 peak (model flops 6 N
               T with N the active parameters, and the flops
               ``FlopCounterMode`` and the SSD cost model counted), peak
@@ -158,9 +178,9 @@ JAX package.  Phases, each reported on its own lines:
               calibrated peaks must lie in (0, 1.05].  One ``monitor:``
               JSON line sums it up.
 6. the kernels line (JSON: every kernel with its launches summed over the
-   paths driven -- the seven served models, train granite, zamba2,
-   mixtral, deepseek and qwen2-vl, the train CLI and the serve CLI on
-   lms-demo -- its numbers at
+   paths driven -- the nine served models, train granite, zamba2,
+   mixtral, deepseek, qwen2-vl, rwkv6 and seamless, the train CLI and the
+   serve CLI on lms-demo -- its numbers at
    one path's shapes (zamba2's prefill for flash, SSD and the forward
    RMSNorm; granite's training shape for the RMSNorm backward, zamba2's
    for the SSD backward), and per path its launches and the rows it was
@@ -214,8 +234,10 @@ from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.params import flatten, unflatten  # noqa: E402
+from repro_torch.models.ssm import wkv6_chunked  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
-    _layer_plan, forward, init_cache, init_model_params, loss_fn)
+    _layer_plan, forward, init_cache, init_model_params, loss_fn,
+    model_specs)
 from repro_torch.serve.engine import (  # noqa: E402
     ServingEngine, make_serve_fns)
 from repro_torch.train.loop import (  # noqa: E402
@@ -250,7 +272,10 @@ TOL = {"flash_attention": {torch.bfloat16: 2e-2, torch.float32: 2e-5},
        # algorithm itself drifts 1.5e-3 from the plain version; the card
        # tests hold that case to 1e-2.)  Both limits lie between the sound
        # gaps and the planted faults' (``train_faults.py``; PERF.md §6)
-       "ssd_scan_backward": {torch.bfloat16: 2e-2, torch.float32: 2e-3}}
+       "ssd_scan_backward": {torch.bfloat16: 2e-2, torch.float32: 2e-3},
+       # not a kernel: RWKV6's chunked WKV recurrence (plain PyTorch)
+       # against its sequential oracle, the reference's own tolerance
+       "wkv6": {torch.float32: 2e-4}}
 MODEL_TOL = 5e-2          # model logits (bf16 in tests/test_kernels.py)
 # the plain attention runs batch row by batch row where the whole batch's
 # (B, H, S, S) fp32 scores would pass this (the long-context shape: 18 GB)
@@ -295,10 +320,13 @@ LONG_MAX_LEN = 8192
 # deepseek-v2-236b's 60 layers are ~470 GB: layer 0 (dense FFN) and 5 MoE
 # layers (160 experts, top 6, 2 shared) are 42.5 GB with the untied
 # 102400-token embed and unembed.
+# rwkv6-1.6b (all 24 layers) runs no flash or SSD kernel: its WKV
+# recurrence is plain PyTorch (as the reference's is jnp), its block norms
+# LayerNorms; its final norm is an RMSNorm (the config's norm type).
 SERVED = {"granite-3-8b": (None, "short"), "zamba2-7b": (None, "short"),
           "phi3-medium-14b": (None, "short"),
           "nemotron-4-340b": (4, "short"), "mixtral-8x7b": (16, "long"),
-          "deepseek-v2-236b": (6, "short")}
+          "deepseek-v2-236b": (6, "short"), "rwkv6-1.6b": (None, "short")}
 MODELS = tuple(SERVED)
 # the MoE models' check: a prompt of window + MIX_CHECK_TAIL tokens (the
 # ring wraps in prefill and again in decode; deepseek has no window), in
@@ -316,6 +344,16 @@ MOE_CHECK_LAYERS = {"mixtral-8x7b": 4, "deepseek-v2-236b": 2}
 VLM_MODEL = "qwen2-vl-7b"
 VLM_ROWS, VLM_GRID, VLM_TEXT, VLM_NEW, VLM_MAX_LEN = 8, 32, 1023, 32, 2304
 VLM_CHECK_LAYERS, VLM_CHECK_GRID, VLM_CHECK_TEXT = 4, 8, 63
+# The encoder-decoder (seamless-m4t-large-v2, 24 encoder and 24 decoder
+# layers), served through make_serve_fns with its source frames (the
+# engine passes none, as the reference's): the short workload's prompts,
+# right-aligned and BOS-padded as the engine pads them, and source frames
+# of (N_REQUESTS, encdec_source_len, d) from N(0, 0.02^2) seeded by SEED
+# (the audio frontend is a stub); then MAX_NEW - 1 decode steps.  Its model
+# check: fp32, ENCDEC_CHECK_LAYERS encoder and decoder layers,
+# ENCDEC_CHECK_FRAMES source frames, a 64-token prompt.
+ENCDEC_MODEL = "seamless-m4t-large-v2"
+ENCDEC_CHECK_LAYERS, ENCDEC_CHECK_FRAMES = 4, 512
 # Training (phase 4): TRAIN_STEPS steps of TRAIN_SHAPE tokens, each model
 # at full width with the layers and optimizer below: granite-3-8b (the
 # RMSNorm backward's main path) 8 of its 40 layers; zamba2-7b 15 of its 81
@@ -328,16 +366,24 @@ VLM_CHECK_LAYERS, VLM_CHECK_GRID, VLM_CHECK_TEXT = 4, 8, 63
 # take ~54 GB, and one fp32 score tensor of its 128 heads at 2048^2 (the
 # masked attention) is 2.1 GB a row.  qwen2-vl-7b: 4 of its 28 layers, AdamW,
 # with the loop's stub extras (patches and positions, ``_extras_fn``).
+# rwkv6-1.6b: all 24 layers, AdamW (1.6B parameters, 26 GB of params,
+# grads and moments).  seamless-m4t-large-v2: all 24 + 24 layers, AdamW,
+# batch 4: its fp32 logits over the padded vocabulary of 258,048 are 16.9
+# GB a copy at batch 8, and the cross-entropy keeps more than one.
 TRAIN_MODEL, TRAIN_STEPS = "granite-3-8b", 6
 TRAIN_LAYERS_OF = {TRAIN_MODEL: 8, "zamba2-7b": 15, "mixtral-8x7b": 2,
-                   "deepseek-v2-236b": 2, VLM_MODEL: 4}
+                   "deepseek-v2-236b": 2, VLM_MODEL: 4, "rwkv6-1.6b": 24,
+                   ENCDEC_MODEL: 24}
 TRAIN_OPTIMIZER = {TRAIN_MODEL: "adamw", "zamba2-7b": "adamw",
                    "mixtral-8x7b": "adafactor",
-                   "deepseek-v2-236b": "adafactor", VLM_MODEL: "adamw"}
+                   "deepseek-v2-236b": "adafactor", VLM_MODEL: "adamw",
+                   "rwkv6-1.6b": "adamw", ENCDEC_MODEL: "adamw"}
 TRAIN_SHAPE = ShapeConfig("train_2k", seq_len=2048, global_batch=8,
                           kind="train")
 TRAIN_SHAPE_OF = {"deepseek-v2-236b": ShapeConfig(
-    "train_2k_b2", seq_len=2048, global_batch=2, kind="train")}
+    "train_2k_b2", seq_len=2048, global_batch=2, kind="train"),
+    ENCDEC_MODEL: ShapeConfig("train_2k_b4", seq_len=2048, global_batch=4,
+                              kind="train")}
 PARITY_SHAPE = ShapeConfig("parity", seq_len=512, global_batch=8,
                            kind="train")
 # Kernel path vs plain path (relative gaps): the step-0 gradients leaf by
@@ -890,7 +936,16 @@ def kernel_checks(plen: int, lplen: int) -> dict:
     rmsnorm_vs_library(gen, plen)
     vcfg = get_config(VLM_MODEL)
     vlen = vlm_seq_len(VLM_GRID, VLM_TEXT)
+    scfg = get_config(ENCDEC_MODEL)
     return {
+        ENCDEC_MODEL: {
+            "flash_attention": check_flash(
+                gen, N_REQUESTS, scfg.num_heads, scfg.num_kv_heads, plen,
+                scfg.head_dim, bf16, tag="seamless-main-path-prefill")},
+        "rwkv6-1.6b": {
+            "rmsnorm": check_rmsnorm(gen, 8 * plen,
+                                     get_config("rwkv6-1.6b").d_model, bf16,
+                                     tag="rwkv6-main-path-prefill")},
         "deepseek-v2-236b": {
             "flash_attention": check_flash(
                 gen, 8, dh, dh, plen, qk, bf16, dv=dv,
@@ -1064,8 +1119,9 @@ def plain_kernels():
 
 def block_norms(cfg) -> int:
     """RMSNorms of one attention block: ln1 and ln2, and MLA's q_norm and
-    kv_norm; none where the norms are LayerNorms (no kernel)."""
-    if cfg.norm_type == "layernorm":
+    kv_norm; none where the norms are LayerNorms (no kernel), as an RWKV6
+    block's are."""
+    if cfg.norm_type == "layernorm" or cfg.family == "ssm":
         return 0
     return 4 if cfg.attention_type == "mla" else 2
 
@@ -1075,7 +1131,10 @@ def expected_launches(cfg, n_batches: int, n_forwards: int) -> dict:
     attention layer and the SSD scan once per Mamba2 layer; every forward
     (prefill or decode step) runs rmsnorm once per norm (none where the
     norms are LayerNorms, which have no kernel; MLA's latent norms
-    included)."""
+    included).  RWKV6 runs neither flash nor SSD, and its one RMSNorm is
+    the final norm; an encoder-decoder's flash calls are its decoder's
+    self-attention (the encoder and the cross-attention run the plain
+    masked attention, as the reference)."""
     if cfg.family == "hybrid":
         groups = cfg.num_layers // cfg.hybrid.attn_every
         norms = 2 * cfg.num_layers + 2 * groups + 1
@@ -1085,7 +1144,8 @@ def expected_launches(cfg, n_batches: int, n_forwards: int) -> dict:
                 "ssd_scan_backward": 0}
     norms = block_norms(cfg) * cfg.num_layers + (
         cfg.norm_type != "layernorm")
-    return {"flash_attention": cfg.num_layers * n_batches,
+    attention_layers = 0 if cfg.family == "ssm" else cfg.num_layers
+    return {"flash_attention": attention_layers * n_batches,
             "rmsnorm": norms * n_forwards, "rmsnorm_backward": 0,
             "ssd_scan": 0, "ssd_scan_backward": 0}
 
@@ -1185,6 +1245,8 @@ def serve(name: str) -> dict:
         model_check(params32, dataclasses.replace(cfg, dtype="float32"),
                     prompts[0][:64], cache_dtype=torch.float32)
         del params32
+    elif cfg.family == "ssm":
+        rwkv_checks(params, cfg, prompts[0][:64], out["prompt_len"])
     elif cfg.moe is not None:
         # A prompt past the window, so that prefill fills the ring from its
         # tail and decode wraps it.  In bf16 the kernel and plain paths
@@ -1209,6 +1271,80 @@ def serve(name: str) -> dict:
     return out
 
 
+def run_serve_fns(cfg, params, toks, extras, max_len: int, new: int, *,
+                  decode_extras=None, markers=None) -> dict:
+    """Serve one batch through ``make_serve_fns``, as the engine would with
+    the extras it does not pass: one prefill of ``toks`` (B, S) with
+    ``extras`` into a cache of ``max_len``, then ``new - 1`` greedy decode
+    steps (``decode_extras(k)``: step k's extras, e.g. a VLM's M-RoPE
+    positions), under ``markers``' ``serve:prefill`` / ``serve:decode``
+    regions when given.  Each step's logits must be finite and
+    (B, vocab_padded).  Returns the seconds of each phase and the greedy
+    tokens (B, new); the cache is freed on return."""
+    rows, s = toks.shape
+    prefill, decode = make_serve_fns(cfg)
+    region = markers.region if markers is not None else \
+        (lambda name, counters=None: nullcontext())
+    out = []
+
+    def take(logits):
+        if logits.shape != (rows, cfg.vocab_padded):
+            raise AssertionError(f"logits shape {tuple(logits.shape)}")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("non-finite logits")
+        nxt = torch.argmax(logits, dim=-1)
+        out.append(nxt.cpu())
+        return nxt
+
+    with torch.inference_mode():
+        t0 = time.monotonic()
+        with region("serve:prefill"):
+            cache = init_cache(cfg, rows, max_len, device=toks.device)
+            logits, cache = prefill(params, toks, cache, extras)
+            nxt = take(logits)                # sync: real prefill time
+        prefill_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        with region("serve:decode"):
+            for k in range(new - 1):
+                logits, cache = decode(
+                    params, cache, nxt[:, None], s + k,
+                    None if decode_extras is None else decode_extras(k))
+                nxt = take(logits)
+        decode_s = time.monotonic() - t0
+    return {"prefill_s": prefill_s, "decode_s": decode_s,
+            "tokens": torch.stack(out, dim=1)}
+
+
+def served_by_fns(name, cfg, params, toks, extras, max_len, new,
+                  decode_extras=None) -> dict:
+    """``run_serve_fns`` on the served weights with the launches zeroed
+    just before and read just after, checked against
+    ``expected_launches``; returns the run's numbers."""
+    rows, s = toks.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = run_serve_fns(cfg, params, toks, extras, max_len, new,
+                        decode_extras=decode_extras)
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = expected_launches(cfg, 1, new)
+    if counts != want:
+        raise AssertionError(f"{name}: launch counts {counts}, expected "
+                             f"{want}")
+    steps = new - 1
+    n_params = sum(t.numel() for t in flatten(params).values())
+    return {"model": name, "layers": cfg.num_layers, "params": n_params,
+            "rows": rows, "prompt_len": s, "max_new": new,
+            "max_len": max_len, "served_by": "make_serve_fns",
+            "prefill_s": res["prefill_s"], "ttft_s": res["prefill_s"],
+            "decode_s": res["decode_s"],
+            "decode_step_tokens_per_s": rows * steps / res["decode_s"],
+            "decode_tokens_per_s": rows * new / res["decode_s"],
+            "peak_memory_gb": peak_gb, "launches": counts,
+            "first_row_tokens": res["tokens"][0, :8].tolist()}
+
+
 def serve_vlm(name: str = VLM_MODEL) -> dict:
     """Serve the VLM at full width and depth through ``make_serve_fns``
     with its extras (the engine passes none, as the reference's does, so
@@ -1222,63 +1358,18 @@ def serve_vlm(name: str = VLM_MODEL) -> dict:
     t0 = time.monotonic()
     params = serving_params(cfg)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in flatten(params).values())
     log(f"serve: {name} init {time.monotonic() - t0:.2f} s, "
-        f"{n_params} params, layers={cfg.num_layers} d={cfg.d_model}, "
+        f"layers={cfg.num_layers} d={cfg.d_model}, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     dev = params["final_norm"]["scale"].device
     toks, extras = vlm_inputs(cfg, VLM_ROWS, VLM_GRID, VLM_TEXT,
                               torch.bfloat16, dev)
-    s = toks.shape[1]
     text_pos = int(extras["mrope_pos"].max()) + 1
-    prefill, decode = make_serve_fns(cfg)
-    finite, out_tokens = [], []
-
-    def checked(logits):
-        if logits.shape != (VLM_ROWS, cfg.vocab_padded):
-            raise AssertionError(f"logits shape {tuple(logits.shape)}")
-        finite.append(torch.isfinite(logits).all())
-        return torch.argmax(logits, dim=-1)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    with torch.inference_mode():
-        t0 = time.monotonic()
-        cache = init_cache(cfg, VLM_ROWS, VLM_MAX_LEN, device=dev)
-        logits, cache = prefill(params, toks, cache, extras)
-        nxt = checked(logits)
-        out_tokens.append(nxt.cpu())              # sync: real prefill time
-        prefill_s = time.monotonic() - t0
-        t0 = time.monotonic()
-        for k in range(VLM_NEW - 1):
-            mpos = torch.full((VLM_ROWS, 1, 3), text_pos + k,
-                              dtype=torch.long, device=dev)
-            logits, cache = decode(params, cache, nxt[:, None], s + k,
-                                   {"mrope_pos": mpos})
-            nxt = checked(logits)
-            out_tokens.append(nxt.cpu())
-        decode_s = time.monotonic() - t0
-    counts = ops.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    del cache, logits
-    if not all(bool(f) for f in finite):
-        raise AssertionError("non-finite logits")
-    want = expected_launches(cfg, 1, VLM_NEW)
-    if counts != want:
-        raise AssertionError(f"{name}: launch counts {counts}, expected "
-                             f"{want}")
-    steps = VLM_NEW - 1
-    out = {"model": name, "layers": cfg.num_layers, "params": n_params,
-           "rows": VLM_ROWS, "prompt_len": s,
-           "patches": VLM_GRID * VLM_GRID, "text_tokens": VLM_TEXT,
-           "max_new": VLM_NEW, "max_len": VLM_MAX_LEN, "served_by":
-           "make_serve_fns", "prefill_s": prefill_s, "ttft_s": prefill_s,
-           "decode_s": decode_s,
-           "decode_step_tokens_per_s": VLM_ROWS * steps / decode_s,
-           "decode_tokens_per_s": VLM_ROWS * VLM_NEW / decode_s,
-           "peak_memory_gb": peak_gb, "launches": counts,
-           "first_row_tokens": [int(t[0]) for t in out_tokens[:8]]}
+    out = served_by_fns(
+        name, cfg, params, toks, extras, VLM_MAX_LEN, VLM_NEW,
+        decode_extras=lambda k: {"mrope_pos": torch.full(
+            (VLM_ROWS, 1, 3), text_pos + k, dtype=torch.long, device=dev)})
+    out.update({"patches": VLM_GRID * VLM_GRID, "text_tokens": VLM_TEXT})
     log(f"serve: {json.dumps(out)}")
 
     cfg32 = dataclasses.replace(cfg, dtype="float32",
@@ -1295,34 +1386,147 @@ def serve_vlm(name: str = VLM_MODEL) -> dict:
     return out
 
 
+def encdec_inputs(cfg, prompts, frames: int, dtype, dev) -> tuple:
+    """(tokens (B, S), extras) of the encoder-decoder workload on ``dev``:
+    the prompts right-aligned and BOS-padded to the longest, as the engine
+    aligns them, and ``src_frames`` (B, frames, d) from N(0, 0.02^2)
+    seeded by SEED, in ``dtype``."""
+    plen = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), plen), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, plen - len(p):] = p
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    src = 0.02 * torch.randn((len(prompts), frames, cfg.d_model),
+                             generator=gen, device=dev)
+    return torch.from_numpy(toks).to(dev), {"src_frames": src.to(dtype)}
+
+
+def serve_encdec(name: str = ENCDEC_MODEL) -> dict:
+    """Serve the encoder-decoder at full width and depth through
+    ``make_serve_fns`` with its source frames (the engine passes none, as
+    the reference's): the short workload's prompts over N_REQUESTS rows of
+    encdec_source_len frames, then MAX_NEW - 1 decode steps that read the
+    cross K/V (bf16) from the cache.  Checks shapes, finite logits and
+    launches (flash once per decoder layer a prefill, no RMSNorm: its norms
+    are LayerNorms), then an fp32 model check at ENCDEC_CHECK_LAYERS
+    encoder and decoder layers; the weights are freed on return."""
+    cfg = get_config(name)
+    t0 = time.monotonic()
+    params = serving_params(cfg)
+    torch.cuda.synchronize()
+    log(f"serve: {name} init {time.monotonic() - t0:.2f} s, "
+        f"layers={cfg.num_encoder_layers}+{cfg.num_layers} "
+        f"d={cfg.d_model}, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    dev = params["final_norm"]["scale"].device
+    prompts = smoke_prompts(cfg)
+    toks, extras = encdec_inputs(cfg, prompts, cfg.encdec_source_len,
+                                 torch.bfloat16, dev)
+    out = served_by_fns(name, cfg, params, toks, extras, MAX_LEN, MAX_NEW)
+    out.update({"encoder_layers": cfg.num_encoder_layers,
+                "source_frames": cfg.encdec_source_len})
+    log(f"serve: {json.dumps(out)}")
+
+    cfg32 = dataclasses.replace(
+        cfg, dtype="float32", num_layers=ENCDEC_CHECK_LAYERS,
+        num_encoder_layers=ENCDEC_CHECK_LAYERS,
+        encdec_source_len=ENCDEC_CHECK_FRAMES)
+    flat = flatten(params)
+    del params
+    params32 = unflatten(fp32_prefix(flat, cfg32))
+    torch.cuda.empty_cache()
+    ctoks, cextras = encdec_inputs(cfg32, [prompts[0][:64]],
+                                   ENCDEC_CHECK_FRAMES, torch.float32, dev)
+    model_check(params32, cfg32, ctoks[0].tolist(), cache_dtype=torch.float32,
+                extras=cextras)
+    del params32
+    return out
+
+
+def check_wkv(gen, b, l, cfg) -> dict:
+    """RWKV6's chunked WKV recurrence (plain PyTorch, not a kernel) against
+    its sequential oracle ``ref.wkv6_ref`` in fp32 at (b, l) and the
+    model's heads, with an initial state: output and final state within
+    TOL["wkv6"], the chunk that ``wkv6_chunked``'s gcd rule takes at l, and
+    both timed."""
+    dev = gen.device
+    h, d = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+    r, k, v = (torch.randn((b, l, h, d), generator=gen, device=dev)
+               for _ in range(3))
+    logw = -0.5 * torch.randn((b, l, h, d), generator=gen, device=dev).abs()
+    u = 0.5 * torch.randn((h, d), generator=gen, device=dev)
+    s0 = torch.randn((b, h, d, d), generator=gen, device=dev)
+    y, state = wkv6_chunked(r, k, v, logw, u, chunk=32, init_state=s0)
+    want_y, want_state = ref.wkv6_ref(r, k, v, logw, u, init_state=s0)
+    err = max(compare("wkv6", y, want_y, torch.float32),
+              compare("wkv6", state, want_state, torch.float32))
+    del want_y, want_state
+    row = {"name": "wkv6_chunked", "shape": [b, l, h, d],
+           "chunk": 32 if l % 32 == 0 else math.gcd(l, 32),
+           "max_abs_err": err, "tol": TOL["wkv6"][torch.float32],
+           "ms": time_ms(lambda: wkv6_chunked(r, k, v, logw, u, chunk=32,
+                                              init_state=s0),
+                         iters=3, warmup=1),
+           "plain_ms": time_ms(lambda: ref.wkv6_ref(r, k, v, logw, u,
+                                                    init_state=s0),
+                               iters=1, warmup=1)}
+    log(f"wkv: {json.dumps(row)}")
+    return row
+
+
+def rwkv_checks(params, cfg, prompt, plen: int) -> None:
+    """RWKV6 in fp32 (all its layers fit): the chunked WKV against its
+    sequential oracle at the served prefill shape (N_REQUESTS x ``plen``,
+    whose chunk the gcd rule shrinks) and the training length; then the
+    model's prefill and decode steps through the caches against plain full
+    forwards (``model_check``)."""
+    gen = torch.Generator(device=params["final_norm"]["scale"].device)
+    gen.manual_seed(SEED)
+    for l in (plen, TRAIN_SHAPE.seq_len):
+        check_wkv(gen, N_REQUESTS, l, cfg)
+    params32 = unflatten({k: v.float() for k, v in flatten(params).items()})
+    model_check(params32, dataclasses.replace(cfg, dtype="float32"), prompt,
+                cache_dtype=torch.float32)
+    del params32
+
+
 def fp32_prefix(flat: dict, cfg) -> dict:
     """An fp32 copy of the layers of ``cfg`` (a cut of the served config:
-    the first of its dense and of its MoE layers, as its layer plan says)
-    and of the embed and final norm, from a flat bf16 tree, popping each
-    source leaf as it is copied so that the two never sit whole on the card
-    together."""
-    plan = _layer_plan(cfg)
-    keep = {"dense_layers": plan.get("dense", 0),
-            "moe_layers": plan.get("moe", 0)}
+    the first of its dense and of its MoE layers, as its layer plan says;
+    an encoder-decoder's first encoder and decoder layers) and of the rest
+    (embed, norms), from a flat bf16 tree, popping each source leaf as it
+    is copied so that the two never sit whole on the card together."""
+    if cfg.family == "encdec":
+        cut = {"encoder/layers": cfg.num_encoder_layers,
+               "dec_layers": cfg.num_layers}
+    else:
+        plan = _layer_plan(cfg)
+        cut = {"dense_layers": plan.get("dense", 0),
+               "moe_layers": plan.get("moe", 0)}
     out = {}
     for k in list(flat):
         v = flat.pop(k)
-        group = k.split("/")[0]
-        if keep.get(group, 1):
-            out[k] = (v[:keep[group]] if group in keep else v).float()
+        n = next((c for g, c in cut.items() if k.startswith(g + "/")), None)
+        if n is None:
+            out[k] = v.float()
+        elif n:
+            out[k] = v[:n].float()
         del v
     return out
 
 
 @contextmanager
-def recorded_routes():
+def recorded_routes(logits=None):
     """Within the block every MoE layer's routing is kept: the experts of
-    each token, one (T, k) tensor a layer in call order."""
+    each token, one (T, k) tensor a layer in call order; and, into the
+    list ``logits`` when given, each layer's router logits (T, E) fp32."""
     routes, route_topk = [], moe.route_topk
 
-    def record(logits, top_k):
-        gates, experts, probs = route_topk(logits, top_k)
+    def record(router_logits, top_k):
+        gates, experts, probs = route_topk(router_logits, top_k)
         routes.append(experts)
+        if logits is not None:
+            logits.append(router_logits.float())
         return gates, experts, probs
     moe.route_topk = record
     try:
@@ -1338,18 +1542,57 @@ def routes_differ(got: list, want: list) -> list:
             for g, w in zip(got, want)]
 
 
+def bf16_unit(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place at |x| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30)))
+                      - 7)
+
+
+def route_margins(got_logits, want_logits, got, want, top_k: int) -> list:
+    """At each (token, layer) pair the two paths route otherwise: whether
+    their top-k sets differ ("set") or only the order within them ("rank":
+    the same experts and gates, so the same output), and the plain path's
+    logit margin that decides it -- between its k-th and (k+1)-th expert
+    for a set flip, the smallest between adjacent experts of its top k for
+    a rank swap -- in logits and router probabilities, beside one bf16
+    unit of those logits and the largest gap between the two paths' logits
+    of that token.  Two experts swap only if their margin is at most twice
+    that gap (each logit moves by at most the gap); a margin beyond it
+    would be a routing fault."""
+    rows = []
+    for layer, (gz, wz, ge, we) in enumerate(zip(got_logits, want_logits,
+                                                 got, want)):
+        for t in (ge != we).any(dim=-1).nonzero().flatten().tolist():
+            ws = wz[t].sort(descending=True).values[:top_k + 1]
+            wp = torch.softmax(wz[t], dim=-1).sort(descending=True).values
+            rank = bool((ge[t].sort().values == we[t].sort().values).all())
+            j = int((ws[:top_k - 1] - ws[1:top_k]).argmin()) if rank \
+                else top_k - 1
+            rows.append({
+                "layer": layer, "token": t, "kind": "rank" if rank else "set",
+                "logit_margin": float(ws[j] - ws[j + 1]),
+                "prob_margin": float(wp[j] - wp[j + 1]),
+                "bf16_unit": float(bf16_unit(ws[j:j + 2]).max()),
+                "paths_logit_gap": float((gz[t] - wz[t]).abs().max())})
+    return rows
+
+
 def route_agreement(params, cfg, prompt) -> dict:
     """The prefill routes of the kernel path against the plain path's at
     the served depth and dtype (a measurement: in bf16 the two paths may
-    flip a near-tied expert), with the last logit's relative gap."""
+    flip a near-tied expert), with the last logit's relative gap and, at
+    each pair routed otherwise, the k-th expert's margin beside one bf16
+    unit of the logits and the paths' logit gap (``route_margins``)."""
     dev = params["final_norm"]["scale"].device
     toks = torch.tensor([[int(t) for t in prompt]], device=dev)
+    got_z, want_z = [], []
     with torch.inference_mode():
-        with recorded_routes() as got:
+        with recorded_routes(got_z) as got:
             gl, _ = forward(params, cfg, tokens=toks, mode="prefill")
-        with plain_kernels(), recorded_routes() as want:
+        with plain_kernels(), recorded_routes(want_z) as want:
             wl, _ = forward(params, cfg, tokens=toks, mode="prefill")
     flips = routes_differ(got, want)
+    margins = route_margins(got_z, want_z, got, want, cfg.moe.top_k)
     g, w = gl[:, -1].float(), wl[:, -1].float()
     out = {"model": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
            "tokens": toks.shape[1], "token_layers_routed_otherwise":
@@ -1357,7 +1600,22 @@ def route_agreement(params, cfg, prompt) -> dict:
            "last_token_routed_otherwise": any(
                bool((a[-1] != b[-1]).any()) for a, b in zip(got, want)),
            "last_logit_rel_err": float((g - w).abs().max() / w.abs().max()),
-           "argmax_equal": int(g.argmax()) == int(w.argmax())}
+           "argmax_equal": int(g.argmax()) == int(w.argmax()),
+           "set_flips": sum(m["kind"] == "set" for m in margins),
+           "rank_swaps": sum(m["kind"] == "rank" for m in margins),
+           "set_flips_within_one_bf16_unit": sum(
+               m["kind"] == "set" and m["logit_margin"] <= m["bf16_unit"]
+               for m in margins),
+           "flips_within_twice_paths_gap": sum(
+               m["logit_margin"] <= 2 * m["paths_logit_gap"]
+               for m in margins),
+           "largest_margin_over_unit": max(
+               (m["logit_margin"] / m["bf16_unit"] for m in margins),
+               default=None),
+           "largest_margin_over_twice_paths_gap": max(
+               (m["logit_margin"] / max(2 * m["paths_logit_gap"], 1e-30)
+                for m in margins), default=None),
+           "margins": margins}
     log(f"serve: routes {json.dumps(out)}")
     return out
 
@@ -1480,10 +1738,16 @@ def train_kernel_checks() -> dict:
         gen, n, vd, bf16, tag="qwen2-vl-train-main-path"),
         "rmsnorm": check_rmsnorm(gen, n, vd, bf16,
                                  tag="qwen2-vl-train-main-path")}
+    rd = get_config("rwkv6-1.6b").d_model
+    rwkv = {"rmsnorm_backward": check_rmsnorm_bwd(
+        gen, n, rd, bf16, tag="rwkv6-train-main-path"),
+        "rmsnorm": check_rmsnorm(gen, n, rd, bf16,
+                                 tag="rwkv6-train-main-path")}
     return {"train:granite-3-8b": granite, "train:zamba2-7b": zamba,
             "train:mixtral-8x7b": {"rmsnorm_backward":
                                    granite["rmsnorm_backward"]},
-            "train:deepseek-v2-236b": deepseek, f"train:{VLM_MODEL}": vlm}
+            "train:deepseek-v2-236b": deepseek, f"train:{VLM_MODEL}": vlm,
+            "train:rwkv6-1.6b": rwkv}
 
 
 def narrow_hybrid(dtype: str = "float32"):
@@ -1521,7 +1785,9 @@ def train_launches(cfg, passes: int) -> dict:
     norm forward, again for the norms inside checkpointed blocks (every
     block but the hybrid's shared attention), and a backward a norm; an SSD
     scan a Mamba2 layer, again in its re-run, and a backward; no flash
-    (train attention is the masked one)."""
+    (train attention is the masked one).  RWKV6's one RMSNorm, the final
+    norm, sits outside the checkpointed blocks; an encoder-decoder's norms
+    are LayerNorms."""
     n = cfg.num_layers
     if cfg.family == "hybrid":
         groups = n // cfg.hybrid.attn_every
@@ -1530,7 +1796,7 @@ def train_launches(cfg, passes: int) -> dict:
                 "rmsnorm_backward": passes * norms,
                 "ssd_scan": passes * 2 * n, "ssd_scan_backward": passes * n}
     per_block = block_norms(cfg)            # ln1, ln2 (+ MLA's 2)
-    norms = per_block * n + 1               # + the final norm
+    norms = per_block * n + (cfg.norm_type != "layernorm")   # + the final
     return {"flash_attention": 0,
             "rmsnorm": passes * (norms + per_block * n),
             "rmsnorm_backward": passes * norms, "ssd_scan": 0,
@@ -1693,6 +1959,10 @@ def train_run(model: str) -> dict:
                              f"active parameters")
     out = {"model": model, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "params": cfg.param_count(),
+           # the leaves themselves (RWKV6's count, the reference's, is
+           # 6.6% more)
+           "leaf_params": sum(math.prod(sp.shape) for sp in flatten(
+               model_specs(cfg)).values()),
            "active_params": cfg.active_param_count(),
            "seq_len": shape.seq_len, "global_batch": shape.global_batch,
            "optimizer": tcfg.optimizer, "remat": tcfg.remat_policy,
@@ -2092,18 +2362,19 @@ def main() -> int:
     log(f"kernels: all checks within tolerance "
         f"({time.monotonic() - t0:.2f} s)")
 
-    # Phase 3: serve, one model after the other; the VLM last, through
-    # make_serve_fns
+    # Phase 3: serve, one model after the other; the VLM and the
+    # encoder-decoder last, through make_serve_fns
     served = {}
     for name in MODELS:
         t0 = time.monotonic()
         served[name] = serve(name)
         torch.cuda.empty_cache()
         log(f"serve: {name} phase {time.monotonic() - t0:.2f} s")
-    t0 = time.monotonic()
-    served[VLM_MODEL] = serve_vlm()
-    torch.cuda.empty_cache()
-    log(f"serve: {VLM_MODEL} phase {time.monotonic() - t0:.2f} s")
+    for name, fn in ((VLM_MODEL, serve_vlm), (ENCDEC_MODEL, serve_encdec)):
+        t0 = time.monotonic()
+        served[name] = fn()
+        torch.cuda.empty_cache()
+        log(f"serve: {name} phase {time.monotonic() - t0:.2f} s")
 
     # Phase 4: train, once the served weights are freed
     t0 = time.monotonic()

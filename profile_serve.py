@@ -9,7 +9,10 @@ It serves ``chip_smoke.py``'s own workload for the model (``serve_plan``:
 its seed, prompt draw, request count, new tokens, cache length and served
 depth; random bf16 weights) at full width: once untraced (warm-up; its engine metrics are
 printed), then once more under ``torch.profiler`` with the engine's
-``serve:prefill`` / ``serve:decode`` regions as trace annotations.  From the
+``serve:prefill`` / ``serve:decode`` regions as trace annotations.  The
+encoder-decoder (``--model seamless-m4t-large-v2``) is served as
+``chip_smoke.serve_encdec`` serves it, through ``make_serve_fns`` with its
+source frames (``chip_smoke.run_serve_fns``, under the same regions).  From the
 Chrome trace (written gzipped to ``<out>/profile_<model>.json.gz``, by
 default under the gitignored ``build/profiles``) it prints, per phase: wall
 seconds, device-busy seconds (union of kernel intervals), the device's idle
@@ -123,18 +126,10 @@ def breakdown(trace: dict, prefix: str = "serve:") -> dict:
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", default="granite-3-8b")
-    ap.add_argument("--out", default=os.path.join(ROOT, "build", "profiles"))
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("profile_serve: CUDA is not available", file=sys.stderr)
-        return 1
-    print(f"gpu: {chip_smoke.gpu_line()}; torch {torch.__version__}",
-          flush=True)
-
-    cfg, prompts, max_len, max_new = chip_smoke.serve_plan(args.model)
+def engine_server(model: str):
+    """serve(markers) -> (wall s, metric points) of the model's workload
+    through the engine."""
+    cfg, prompts, max_len, max_new = chip_smoke.serve_plan(model)
     params = chip_smoke.serving_params(cfg)
 
     def serve(markers):
@@ -149,7 +144,45 @@ def main() -> int:
         eng.run_until_empty()
         torch.cuda.synchronize()
         return time.monotonic() - t0, metrics.points
+    return serve
 
+
+def encdec_server(model: str):
+    """serve(markers) -> (wall s, prefill and decode seconds as the
+    engine's points) of the encoder-decoder's workload through
+    ``make_serve_fns``."""
+    cfg = chip_smoke.get_config(model)
+    params = chip_smoke.serving_params(cfg)
+    toks, extras = chip_smoke.encdec_inputs(
+        cfg, chip_smoke.smoke_prompts(cfg), cfg.encdec_source_len,
+        torch.bfloat16, params["final_norm"]["scale"].device)
+
+    def serve(markers):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = chip_smoke.run_serve_fns(cfg, params, toks, extras,
+                                       chip_smoke.MAX_LEN, chip_smoke.MAX_NEW,
+                                       markers=markers)
+        torch.cuda.synchronize()
+        return time.monotonic() - t0, [
+            ("serve_prefill", {"prefill_time_s": res["prefill_s"]}),
+            ("serve_decode", {"decode_time_s": res["decode_s"]})]
+    return serve
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default="granite-3-8b")
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "profiles"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_serve: CUDA is not available", file=sys.stderr)
+        return 1
+    print(f"gpu: {chip_smoke.gpu_line()}; torch {torch.__version__}",
+          flush=True)
+
+    serve = encdec_server(args.model) \
+        if args.model == chip_smoke.ENCDEC_MODEL else engine_server(args.model)
     wall, points = serve(None)
     untraced = {n: f for n, f in points if n in ("serve_prefill",
                                                  "serve_decode")}

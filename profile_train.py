@@ -6,7 +6,8 @@ Run from the root of a checkout on a machine with a CUDA card::
     python3 profile_train.py [--model granite-3-8b] [--steps 3] [--out DIR]
 
 It runs one of ``chip_smoke.py``'s training runs (``--model``: granite-3-8b,
-zamba2-7b, mixtral-8x7b, deepseek-v2-236b or qwen2-vl-7b, at full width and
+zamba2-7b, mixtral-8x7b, deepseek-v2-236b, qwen2-vl-7b, rwkv6-1.6b or
+seamless-m4t-large-v2, at full width and
 ``chip_smoke.TRAIN_LAYERS_OF`` layers with ``chip_smoke.TRAIN_OPTIMIZER``;
 seq 2048, global batch 8 or as ``chip_smoke.TRAIN_SHAPE_OF`` says, remat
 "minimal", bf16 compute, fp32 params; random weights from its seed) through

@@ -1,7 +1,8 @@
-"""Architecture configs the port ships: lms-demo, granite-3-8b,
-phi3-medium-14b, yi-34b, nemotron-4-340b (dense GQA), mixtral-8x7b (MoE
-with a sliding window), deepseek-v2-236b (MoE with MLA), qwen2-vl-7b (VLM
-with M-RoPE) and zamba2-7b (hybrid)."""
+"""Architecture configs the port ships, the reference's 11: lms-demo,
+granite-3-8b, phi3-medium-14b, yi-34b, nemotron-4-340b (dense GQA),
+mixtral-8x7b (MoE with a sliding window), deepseek-v2-236b (MoE with MLA),
+qwen2-vl-7b (VLM with M-RoPE), zamba2-7b (hybrid), rwkv6-1.6b (RWKV6) and
+seamless-m4t-large-v2 (encoder-decoder)."""
 
 from repro_torch.configs.base import (
     ARCH_MODULES,

@@ -4,9 +4,8 @@ A copy of the JAX package's ``configs/base.py`` (the port imports nothing of
 that package): :class:`ModelConfig` with its sub-configs and parameter
 counts, :class:`ShapeConfig` with ``SHAPES`` and ``SMOKE_SHAPE``,
 :class:`TrainConfig`, the registry and the smoke reduction.  ``MeshConfig``
-and ``RunConfig`` wait for the distributed slice.  The registry lists only the
-architectures the port ships (9 of the reference's 11: RWKV6 and the
-encoder-decoder arrive with their model code).
+and ``RunConfig`` wait for the distributed slice.  The registry lists all 11
+of the reference's architectures.
 """
 
 from __future__ import annotations
@@ -172,26 +171,19 @@ class ModelConfig:
         return _round_up(self.vocab_size, self.vocab_pad_to)
 
     def param_count(self) -> int:
-        """Approximate parameter count (embedding + blocks), for 6ND math.
-        Only the families the port ships are counted (dense, MoE and VLM
-        decoders with GQA or MLA attention, and the hybrid's Mamba2 layers
-        plus shared attention blocks).  RWKV6's and the encoder-decoder's
-        counts arrive with their model code."""
-        if self.rwkv is not None or self.attention_type == "none" or \
-                self.family == "encdec":
-            raise NotImplementedError(
-                f"{self.name}: the port counts the parameters of GQA and "
-                f"MLA decoders and of the hybrid only")
+        """Approximate parameter count (embedding + blocks), for 6ND math,
+        term for term the reference's (so, as there, RWKV6's block count
+        has 7 d x d matrices and the decay LoRA twice, and an enc-dec's
+        cross-attention is counted with its encoder layers)."""
         d = self.d_model
         n = self.vocab_padded * d                       # embedding
         if not self.tie_embeddings:
             n += self.vocab_padded * d                  # lm head
-        if self.family == "hybrid":
-            n += self._ssm_params() * self.num_layers
+        n += self._block_params() * self.num_layers
+        if self.family == "encdec":
+            n += self._block_params(cross=True) * self.num_encoder_layers
+        if self.hybrid is not None:
             n += self._attn_params() * self.hybrid.num_shared_blocks
-        else:
-            n += (self._attn_params() + self._mlp_params()) * \
-                self.num_layers
         return n
 
     def active_param_count(self) -> int:
@@ -216,6 +208,8 @@ class ModelConfig:
                                                     + a.v_head_dim)
             p += self.num_heads * a.v_head_dim * d
             return p
+        if self.attention_type == "none":
+            return 0
         hd = self.head_dim
         return d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd \
             + self.num_heads * hd * d
@@ -233,6 +227,8 @@ class ModelConfig:
         return mats * d * self.d_ff
 
     def _ssm_params(self) -> int:
+        if self.ssm is None:
+            return 0
         d = self.d_model
         s = self.ssm
         di = s.d_inner(d)
@@ -242,6 +238,28 @@ class ModelConfig:
         p += conv_dim * s.conv_width
         p += 2 * nh                                             # A_log, D
         p += di * d                                             # out_proj
+        return p
+
+    def _rwkv_params(self) -> int:
+        if self.rwkv is None:
+            return 0
+        d = self.d_model
+        r = self.rwkv
+        p = 6 * d * d                                   # r, k, v, g, o, + 1
+        p += 2 * (d * r.decay_lora + r.decay_lora * d)  # decay LoRA, twice
+        p += d * r.mix_lora * 5 * 2                     # token-shift LoRAs
+        p += 2 * d * self.d_ff                          # channel mix (k, v)
+        p += d * d                                      # receptance
+        return p
+
+    def _block_params(self, cross: bool = False) -> int:
+        if self.family == "ssm" and self.rwkv is not None:
+            return self._rwkv_params()
+        if self.family == "hybrid":
+            return self._ssm_params()
+        p = self._attn_params() + self._mlp_params()
+        if cross:
+            p += self._attn_params()
         return p
 
 
@@ -337,6 +355,8 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
 _LOADED = False
 
 ARCH_MODULES = [
+    "seamless_m4t_large_v2",
+    "rwkv6_1p6b",
     "mixtral_8x7b",
     "nemotron_4_340b",
     "granite_3_8b",

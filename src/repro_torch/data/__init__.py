@@ -1,6 +1,7 @@
 """Token data pipeline (port of ``repro.data``)."""
 
 from repro_torch.data.pipeline import (
-    DataLoader, SyntheticTokenSource, make_batch_fn)
+    DataLoader, MemmapTokenSource, SyntheticTokenSource, make_batch_fn)
 
-__all__ = ["DataLoader", "SyntheticTokenSource", "make_batch_fn"]
+__all__ = ["DataLoader", "MemmapTokenSource", "SyntheticTokenSource",
+           "make_batch_fn"]

@@ -6,11 +6,11 @@ package; given the same seed and step they give byte-identical batches.
 * :class:`SyntheticTokenSource` — deterministic Zipf-ish token stream keyed
   by (seed, step); reproducible across restarts, so checkpoint-resume
   replays the exact same batches.
+* :class:`MemmapTokenSource` — windows of a flat binary token file
+  (uint16 / uint32), keyed by (seed, step) the same way.
 * :func:`make_batch_fn` — step -> host-local {"tokens", "labels"} batch.
 * :class:`DataLoader` — per-host row sharding + background prefetch thread;
   the measured queue wait is exported as the ``data_wait_s`` raw event.
-
-The file-backed ``MemmapTokenSource`` is not copied yet.
 """
 
 from __future__ import annotations
@@ -41,6 +41,24 @@ class SyntheticTokenSource:
         doc = rng.random((batch_size, seq_len + 1)) < (1.0 / 512)
         toks = np.where(doc, 0, toks)
         return toks
+
+
+class MemmapTokenSource:
+    """Windows from a flat binary token file: each row seq_len + 1 tokens
+    from a start drawn from (seed, step), widened to int32."""
+
+    def __init__(self, path: str, dtype=np.uint16, seed: int = 0):
+        self.tokens = np.memmap(path, dtype=dtype, mode="r")
+        self.seed = seed
+
+    def batch(self, step: int, batch_size: int, seq_len: int) -> np.ndarray:
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step]))
+        n = len(self.tokens) - (seq_len + 1)
+        starts = rng.integers(0, max(n, 1), size=batch_size)
+        return np.stack([
+            np.asarray(self.tokens[s:s + seq_len + 1], dtype=np.int32)
+            for s in starts])
 
 
 def make_batch_fn(source, cfg, shape, extras_fn: Optional[Callable] = None):

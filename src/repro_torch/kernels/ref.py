@@ -5,6 +5,8 @@ kernels.  The kernel wrappers call these for tensors on the CPU, and
 ``chip_smoke.py`` holds each kernel against them on the card.  The SSD
 backward's plain version takes autograd's gradients through
 :func:`ssd_chunked_ref`, the port's copy of the reference's chunked form.
+:func:`wkv6_ref` stands for no kernel: it is the sequential oracle of
+RWKV6's chunked WKV recurrence, which runs in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -153,3 +155,27 @@ def ssd_bwd_ref(x, a, b, c, dy, init_state=None, dstate=None):
     dx, da, db, dc = got[:4]
     return (dx.to(x.dtype), da, db.to(b.dtype), dc.to(c.dtype),
             got[4] if init is not None else None)
+
+
+def wkv6_ref(r, k, v, logw, u, init_state=None):
+    """Sequential RWKV6 WKV recurrence, the oracle of
+    ``models.ssm.wkv6_chunked`` (a copy of the reference's ``wkv6_ref``,
+    not a kernel: RWKV6 runs none).
+
+    r/k/v: (B, L, H, D); logw: (B, L, H, D); u: (H, D); init_state:
+    (B, H, D, D) or None for zeros.  Per step, in fp32,
+    o_t = r_t . (S_t + diag(u) k_t v_t^T) and
+    S_{t+1} = diag(w_t) S_t + k_t v_t^T.  Returns (o (B, L, H, D) fp32, the
+    final state (B, H, D, D) fp32; the reference returns None there)."""
+    bsz, l, h, dh = r.shape
+    uf = u.float()[..., None]
+    s = torch.zeros((bsz, h, dh, dh), dtype=torch.float32,
+                    device=r.device) if init_state is None \
+        else init_state.float().clone()
+    outs = []
+    for t in range(l):
+        rt, kt, vt, wt = (x[:, t].float() for x in (r, k, v, logw))
+        kv = torch.einsum("bhd,bhe->bhde", kt, vt)
+        outs.append(torch.einsum("bhd,bhde->bhe", rt, s + uf * kv))
+        s = s * torch.exp(wt)[..., None] + kv
+    return torch.stack(outs, dim=1), s

@@ -11,7 +11,9 @@
   :func:`repro_torch.kernels.ops.flash_attention_bshd` (the plain version on
   the CPU).  The JAX package runs ``chunked_attention`` there; both compute
   the same causal online-softmax attention, except that the JAX path casts
-  the probabilities to the compute dtype before the PV product.
+  the probabilities to the compute dtype before the PV product.  A model
+  with a logit softcap prefills through the plain :func:`chunked_attention`
+  instead, as the reference does (its kernel takes no cap).
 * **decode** attends one query token over every cache slot with plain
   :func:`full_attention` and ``kv_valid = pos + 1`` masking, as the
   reference does (it is not a kernel there either).
@@ -29,9 +31,17 @@
   flash kernel with a V narrower than Q and K.  Decode absorbs ``wkv_b``
   into the query and the output, so it attends in the latent space.
 
+* **logit softcap** (``cfg.attn_logit_softcap``): scores become
+  ``cap * tanh(scores / cap)`` before the mask in every plain path (masked,
+  recursive, chunked, decode); train mode never runs flash on a capped
+  model, as the reference.  ``mla_attention`` ignores the cap, as the
+  reference's does.
+* **bidirectional** GQA (an encoder's) drops the causal mask;
+  **cross-attention** (:func:`cross_attention`) attends a decoder's
+  queries over the encoder's K/V (:func:`cross_kv`) with the plain
+  non-causal :func:`full_attention`, as the reference.
+
 Shapes: x (B, S, d); q (B, S, H, D); k/v (B, S, KV, D); H = KV * G.
-Logit softcaps and cross-attention are not ported yet and raise
-``NotImplementedError`` at model level.
 """
 
 from __future__ import annotations
@@ -95,6 +105,13 @@ def _mask_bias(q_pos, k_pos, *, causal: bool, window: int,
     return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
 
 
+def _softcap(scores, cap: float):
+    """``cap * tanh(scores / cap)``; the scores themselves without a cap."""
+    if cap and cap > 0.0:
+        return cap * torch.tanh(scores / cap)
+    return scores
+
+
 def _group(q, num_kv):
     """(B, Sq, H, D) -> (B, KV, G, Sq, D)."""
     b, s, h, dd = q.shape
@@ -108,12 +125,12 @@ def _ungroup(o):
 
 
 def full_attention(q, k, v, *, causal=True, window=0, q_offset=0,
-                   kv_valid=None, k_pos=None):
+                   kv_valid=None, softcap=0.0, k_pos=None):
     """Plain masked attention; scores and softmax in fp32, probabilities
     cast to q's dtype for the PV product.  q_offset: absolute position of
-    q[0] (decode: pos).  kv_valid: number of valid cache slots.  k_pos:
-    absolute position of each key (a ring cache's slots), default
-    0 .. Sk - 1."""
+    q[0] (decode: pos).  kv_valid: number of valid cache slots.  softcap:
+    the logit cap (0: none).  k_pos: absolute position of each key (a ring
+    cache's slots), default 0 .. Sk - 1."""
     b, sq, h, dd = q.shape
     kvh = k.shape[2]
     qg = _group(q, kvh).float()                           # (B,KV,G,Sq,D)
@@ -121,7 +138,8 @@ def full_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     vv = v.transpose(1, 2)
     # bf16 products are exact in fp32, so upcasting first gives the
     # reference's fp32-accumulated scores
-    scores = torch.einsum("bkgqd,bksd->bkgqs", qg, kk) * (1.0 / math.sqrt(dd))
+    scores = _softcap(torch.einsum("bkgqd,bksd->bkgqs", qg, kk)
+                      * (1.0 / math.sqrt(dd)), softcap)
     q_pos = q_offset + torch.arange(sq, device=q.device)
     if k_pos is None:
         k_pos = torch.arange(k.shape[1], device=q.device)
@@ -130,6 +148,45 @@ def full_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bksd->bkgqd", probs, vv)
     return _ungroup(out)
+
+
+def chunked_attention(q, k, v, *, causal=True, window=0, chunk_k=1024,
+                      softcap=0.0):
+    """K-chunked online-softmax attention (the reference's prefill path):
+    the (Sq, Sk) scores exist one (Sq, chunk_k) slab at a time; fp32
+    scores, m, l and acc, probabilities cast to q's dtype for the PV
+    product.  A chunk that does not divide Sk shrinks to gcd(Sk, chunk_k),
+    as the reference's.  The port prefills a model with a softcap here."""
+    b, sq, h, dd = q.shape
+    sk, kvh, dv = k.shape[1], k.shape[2], v.shape[-1]
+    if sk % chunk_k != 0:
+        chunk_k = math.gcd(sk, chunk_k) or sk
+    qg = _group(q, kvh).float()                           # (B,KV,G,Sq,D)
+    kk = k.transpose(1, 2).float()                        # (B,KV,Sk,D)
+    vv = v.transpose(1, 2)
+    q_pos = torch.arange(sq, device=q.device)
+    scale = 1.0 / math.sqrt(dd)
+    g = h // kvh
+    m = torch.full((b, kvh, g, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kvh, g, sq, dv), dtype=torch.float32,
+                      device=q.device)
+    for j0 in range(0, sk, chunk_k):
+        s = _softcap(torch.einsum("bkgqd,bksd->bkgqs", qg,
+                                  kk[:, :, j0:j0 + chunk_k]) * scale, softcap)
+        k_pos = j0 + torch.arange(chunk_k, device=q.device)
+        s = s + _mask_bias(q_pos, k_pos, causal=causal, window=window)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqs,bksd->bkgqd", p.to(q.dtype),
+            vv[:, :, j0:j0 + chunk_k]).float()
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return _ungroup(out.to(q.dtype))
 
 
 def merge_partial(parts):
@@ -143,7 +200,7 @@ def merge_partial(parts):
     return m, l, acc
 
 
-def _partial_full(q, k, v, *, causal, q_offset, k_offset):
+def _partial_full(q, k, v, *, causal, q_offset, k_offset, softcap=0.0):
     """Un-normalized attention stats (m, l, acc) of q against a k/v slice;
     fp32 scores, probabilities cast to q's dtype for the PV product."""
     b, sq, h, dd = q.shape
@@ -151,7 +208,8 @@ def _partial_full(q, k, v, *, causal, q_offset, k_offset):
     qg = _group(q, kvh).float()
     kk = k.transpose(1, 2).float()
     vv = v.transpose(1, 2)
-    s = torch.einsum("bkgqd,bksd->bkgqs", qg, kk) * (1.0 / math.sqrt(dd))
+    s = _softcap(torch.einsum("bkgqd,bksd->bkgqs", qg, kk)
+                 * (1.0 / math.sqrt(dd)), softcap)
     if causal:
         q_pos = q_offset + torch.arange(sq, device=q.device)
         k_pos = k_offset + torch.arange(k.shape[1], device=q.device)
@@ -163,8 +221,8 @@ def _partial_full(q, k, v, *, causal, q_offset, k_offset):
     return m, l, acc
 
 
-def recursive_causal_attention(q, k, v, *, levels=3, q_offset=0,
-                               k_offset=0):
+def recursive_causal_attention(q, k, v, *, levels=3, softcap=0.0,
+                               q_offset=0, k_offset=0):
     """FLOP-exact causal attention via recursive block decomposition:
     causal(S) = causal(lower half) + dense(q_hi x k_lo) + causal(upper
     half), down to ``levels`` or 128 rows."""
@@ -172,7 +230,7 @@ def recursive_causal_attention(q, k, v, *, levels=3, q_offset=0,
         sq = q.shape[1]
         if level == 0 or sq <= 128 or sq % 2:
             return _partial_full(q, k, v, causal=True, q_offset=q_off,
-                                 k_offset=k_off)
+                                 k_offset=k_off, softcap=softcap)
         half = sq // 2
         q_lo, q_hi = q[:, :half], q[:, half:]
         k_lo, k_hi = k[:, :half], k[:, half:]
@@ -180,7 +238,7 @@ def recursive_causal_attention(q, k, v, *, levels=3, q_offset=0,
         m1, l1, a1 = stats(q_lo, k_lo, v_lo, level - 1, q_off, k_off)
         # strictly-lower dense rectangle: q_hi attends all of k_lo, unmasked
         m2, l2, a2 = _partial_full(q_hi, k_lo, v_lo, causal=False,
-                                   q_offset=0, k_offset=0)
+                                   q_offset=0, k_offset=0, softcap=softcap)
         m3, l3, a3 = stats(q_hi, k_hi, v_hi, level - 1, q_off + half,
                            k_off + half)
         m_hi, l_hi, a_hi = merge_partial([(m2, l2, a2), (m3, l3, a3)])
@@ -221,11 +279,15 @@ ATTN_IMPLS = ("masked", "recursive", "flash")
 
 
 def gqa_attention(p, x, cfg: ModelConfig, *, rope=None, mode="prefill",
-                  cache=None, pos=None, attn_impl="masked"):
+                  cache=None, pos=None, attn_impl="masked",
+                  bidirectional=False):
     """Full GQA attention block.
 
     mode: "train" | "prefill" | "decode".
-    attn_impl (train): "masked" | "recursive" | "flash".
+    attn_impl (train): "masked" | "recursive" | "flash"; a model with a
+    logit softcap never runs flash in train mode, and "recursive" runs only
+    causal attention without a window, as the reference.
+    bidirectional: no causal mask (an encoder's blocks).
     rope: (cos, sin) tables matching x's sequence positions, or None.
     cache: {"k", "v"} (B, cache_len, KV, D) buffers, written in place;
     cache_len = min(max_len, window) under a sliding window (a ring when it
@@ -233,8 +295,6 @@ def gqa_attention(p, x, cfg: ModelConfig, *, rope=None, mode="prefill",
     pos: number of tokens already in the cache (decode).
     Returns (out, cache).
     """
-    if cfg.attn_logit_softcap:
-        raise NotImplementedError("attention logit softcap is not ported")
     dt = x.dtype
     b, s, d = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -247,25 +307,35 @@ def gqa_attention(p, x, cfg: ModelConfig, *, rope=None, mode="prefill",
         k = apply_rope(k, cos, sin)
 
     window = cfg.sliding_window
+    cap = cfg.attn_logit_softcap
+    causal = not bidirectional
     if mode == "train":
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} (one of {ATTN_IMPLS})")
-        if attn_impl == "flash":
+        if attn_impl == "flash" and not cap:
             if torch.is_grad_enabled() and q.requires_grad:
                 raise NotImplementedError(
                     "the flash kernel is forward-only (as the reference's "
                     "Pallas kernel, which jax.grad cannot differentiate); "
                     "train with attn_impl='masked' or 'recursive'")
-            out = ops.flash_attention_bshd(q, k, v, causal=True,
+            out = ops.flash_attention_bshd(q, k, v, causal=causal,
                                            window=window)
-        elif attn_impl == "recursive" and s >= 512 and not window:
+        elif attn_impl == "recursive" and causal and s >= 512 \
+                and not window:
             # the reference computes the recursive path and then replaces
             # it with the masked one under a window; only the latter runs
-            out = recursive_causal_attention(q, k, v)
+            out = recursive_causal_attention(q, k, v, softcap=cap)
         else:
-            out = full_attention(q, k, v, causal=True, window=window)
+            out = full_attention(q, k, v, causal=causal, window=window,
+                                 softcap=cap)
     elif mode == "prefill":
-        out = ops.flash_attention_bshd(q, k, v, causal=True, window=window)
+        if cap:
+            # the reference's prefill path; its kernel takes no cap
+            out = chunked_attention(q, k, v, causal=causal, window=window,
+                                    softcap=cap)
+        else:
+            out = ops.flash_attention_bshd(q, k, v, causal=causal,
+                                           window=window)
         if cache is not None:
             # prefill attends to the unrounded k/v; the cache keeps its dtype
             if window and window < s:
@@ -282,7 +352,7 @@ def gqa_attention(p, x, cfg: ModelConfig, *, rope=None, mode="prefill",
             ck = _cache_write(cache["k"], k, slot)
             cv = _cache_write(cache["v"], v, slot)
             out = full_attention(q, ck.to(dt), cv.to(dt), causal=True,
-                                 window=window, q_offset=pos,
+                                 window=window, q_offset=pos, softcap=cap,
                                  k_pos=_ring_slots(pos + 1, window,
                                                    q.device))
         else:
@@ -290,13 +360,37 @@ def gqa_attention(p, x, cfg: ModelConfig, *, rope=None, mode="prefill",
             cv = _cache_write(cache["v"], v, pos)
             out = full_attention(q, ck.to(dt), cv.to(dt), causal=False,
                                  window=window, kv_valid=pos + 1,
-                                 q_offset=pos)
+                                 q_offset=pos, softcap=cap)
     else:
         raise ValueError(f"mode {mode!r} is not one of train | prefill | "
                          f"decode")
 
     y = out.reshape(b, s, h * hd) @ p["wo"].to(dt).reshape(h * hd, d)
     return y, cache
+
+
+def cross_attention(p, x, kv_cache, cfg: ModelConfig):
+    """A decoder's cross-attention over the encoder's K/V (``cross_kv``;
+    (B, S_src, KV, D), cast to x's dtype): plain non-causal
+    :func:`full_attention` with no cap, as the reference's."""
+    dt = x.dtype
+    b, s, d = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    q = (x @ p["wq"].to(dt).reshape(d, h * hd)).view(b, s, h, hd)
+    out = full_attention(q, kv_cache["k"].to(dt), kv_cache["v"].to(dt),
+                         causal=False, window=0)
+    return out.reshape(b, s, h * hd) @ p["wo"].to(dt).reshape(h * hd, d)
+
+
+def cross_kv(p, enc_out, cfg: ModelConfig):
+    """The cross-attention K/V of one decoder layer from the encoder's
+    output (B, S_src, d), in its dtype: {"k", "v"} (B, S_src, KV, D)."""
+    dt = enc_out.dtype
+    b, s, d = enc_out.shape
+    kvh, hd = cfg.num_kv_heads, cfg.head_dim
+    k = (enc_out @ p["wk"].to(dt).reshape(d, kvh * hd)).view(b, s, kvh, hd)
+    v = (enc_out @ p["wv"].to(dt).reshape(d, kvh * hd)).view(b, s, kvh, hd)
+    return {"k": k, "v": v}
 
 
 def mla_attention(p, x, cfg: ModelConfig, *, rope, mode="prefill",
@@ -316,9 +410,9 @@ def mla_attention(p, x, cfg: ModelConfig, *, rope, mode="prefill",
     Decode attends in the latent space: q_eff = q_nope w_k (per head, into
     the kv_lora space), scores = q_eff ckv^T + q_rope krope^T in fp32,
     the softmax over the valid slots, o = (probs ckv) w_v.
+
+    ``cfg.attn_logit_softcap`` is not read: the reference's MLA ignores it.
     """
-    if cfg.attn_logit_softcap:
-        raise NotImplementedError("attention logit softcap is not ported")
     a = cfg.mla
     dt = x.dtype
     b, s, d = x.shape

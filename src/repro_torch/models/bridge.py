@@ -31,8 +31,8 @@ def params_from_numpy(tree_or_flat: dict, cfg: ModelConfig, device=None,
     Every leaf of the model's spec tree must be present with its spec's
     shape.  ``compute_dtype`` casts matrices and the embedding once (the
     same numbers as the reference's cast at each use); the leaves the
-    model reads in fp32 (norm scales, Mamba2 ``A_log``/``dt_bias``) stay
-    fp32 (``params.fp32_leaves(cfg)``)."""
+    model reads in fp32 (norm scales, Mamba2 ``A_log``/``dt_bias``, RWKV6's
+    decay and bonus) stay fp32 (``params.fp32_leaves(cfg)``)."""
     device = resolve_device(device)
     flat = flatten(tree_or_flat) if any(
         isinstance(v, dict) for v in tree_or_flat.values()) else tree_or_flat

@@ -1,5 +1,4 @@
-"""Mamba2 (SSD) sequence mixer (port of the Mamba2 half of
-``repro.models.ssm``; RWKV6 is not ported yet).
+"""Mamba2 (SSD) and RWKV6 sequence mixers (port of ``repro.models.ssm``).
 
 Train and prefill run the chunked SSD scan through the kernel wrapper
 :func:`repro_torch.kernels.ops.ssd_chunked_kernel` (the plain sequential
@@ -9,12 +8,21 @@ state, train starts from zeros and drops it, as the reference does.  Decode
 is the plain recurrent update, as in the reference (it is not a kernel
 there either).  Caches are written in place.
 
+RWKV6 ("Finch") runs no kernel, in the reference as here: train and
+prefill run the chunked WKV recurrence :func:`wkv6_chunked` in plain
+PyTorch with an fp32 state (from the cache's state in prefill), decode
+steps the recurrence token by token.  Its chunk shrinks to gcd(L, chunk)
+when the chunk does not divide L, as the reference's does, so the two
+compute the same sums.
+
 Numerical-safety invariant, as in the reference: the decays are
 exponentials of differences of cumulative log-decays with the larger index
 first, so no ``exp`` sees a positive argument.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -147,3 +155,255 @@ def mamba2_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None):
     y = y.reshape(bsz, l, di)
     y = rmsnorm_gated(p["norm_scale"], y, z, eps=cfg.norm_eps)
     return y @ p["out_proj"].to(dt_), cache
+
+
+# ==========================================================================
+# RWKV6 ("Finch"): data-dependent per-channel decay
+# ==========================================================================
+
+
+def rwkv6_specs(cfg: ModelConfig):
+    r = cfg.rwkv
+    d = cfg.d_model
+    nh = d // r.head_dim
+    return {
+        # sublayer LayerNorms (RWKV uses LN, not RMSNorm)
+        "ln_tm_scale": spec((d,), ("norm",), init="ones"),
+        "ln_tm_bias": spec((d,), ("norm",), init="zeros"),
+        "ln_cm_scale": spec((d,), ("norm",), init="ones"),
+        "ln_cm_bias": spec((d,), ("norm",), init="zeros"),
+        # token-shift ddlerp: base mus + shared low-rank mixer
+        "mu_x": spec((d,), ("embed",), init="zeros"),
+        "mu_rkvwg": spec((5, d), (None, "embed"), init="zeros"),
+        "mix_w1": spec((d, 5 * r.mix_lora), ("embed", None), scale=0.02),
+        "mix_w2": spec((5, r.mix_lora, d), (None, None, "embed"), scale=0.02),
+        # projections
+        "wr": spec((d, d), ("embed", "inner")),
+        "wk": spec((d, d), ("embed", "inner")),
+        "wv": spec((d, d), ("embed", "inner")),
+        "wg": spec((d, d), ("embed", "inner")),
+        "wo": spec((d, d), ("inner", "embed")),
+        # data-dependent decay LoRA: w = exp(-exp(w0 + tanh(xw W1) W2))
+        "w0": spec((d,), ("embed",), init="constant", value=-0.7),
+        "decay_w1": spec((d, r.decay_lora), ("embed", None), scale=0.02),
+        "decay_w2": spec((r.decay_lora, d), (None, "embed"), scale=0.02),
+        "bonus_u": spec((nh, r.head_dim), ("ssm_heads", None), scale=0.5),
+        # per-head group norm
+        "ln_x_scale": spec((d,), ("inner",), init="ones"),
+        "ln_x_bias": spec((d,), ("inner",), init="zeros"),
+        # channel mix
+        "cm_mu_k": spec((d,), ("embed",), init="zeros"),
+        "cm_mu_r": spec((d,), ("embed",), init="zeros"),
+        "cm_wk": spec((d, cfg.d_ff), ("embed", "mlp")),
+        "cm_wv": spec((cfg.d_ff, d), ("mlp", "embed")),
+        "cm_wr": spec((d, d), ("embed", "inner")),
+    }
+
+
+def rwkv6_cache_specs(cfg: ModelConfig, batch: int,
+                      shift_dtype=torch.float32):
+    """Spec of one layer's decode cache, zero-init (the counterpart of the
+    reference's ``rwkv6_init_cache``): the last token of each sublayer's
+    input (``shift_tm``, ``shift_cm``) and the fp32 WKV state (B, H, D,
+    D).  The shifts are kept in the compute dtype: the reference's prefill
+    returns them in that dtype and decode carries them so; the port writes
+    them in place, so it allocates that dtype up front."""
+    d = cfg.d_model
+    hd = cfg.rwkv.head_dim
+    shift = spec((batch, d), ("batch", "embed"), shift_dtype, init="zeros")
+    return {"shift_tm": shift, "shift_cm": shift,
+            "wkv": spec((batch, d // hd, hd, hd),
+                        ("batch", "ssm_heads", None, None), torch.float32,
+                        init="zeros")}
+
+
+def _token_shift(x, last=None):
+    """x_{t-1}, with the previous segment's final token (or 0) at t = 0."""
+    if last is None:
+        last = torch.zeros_like(x[:, :1])
+    else:
+        last = last[:, None] if last.dim() == 2 else last
+    return torch.cat([last.to(x.dtype), x[:, :-1]], dim=1)
+
+
+class _WKVIntra(torch.autograd.Function):
+    """The within-chunk scores of :func:`wkv6_chunked`,
+    A_ij = sum_d r_id k_jd exp(lp_excl_id - lp_jd) for j < i (0 on and
+    above the diagonal), from fp32 (B, nc, C, H, D) inputs -> (B, nc, C, C,
+    H).  The reference builds the (B, nc, C, C, H, D) exponent whole (4.3 GB
+    a layer at 8 x 2048 tokens, chunk 32, 32 heads of 64); here one query
+    row i at a time meets the keys before it, in the forward and again in
+    the backward, which saves only the inputs.  The same sums, and every
+    exponent <= 0 as there."""
+
+    @staticmethod
+    def _row(rc, kc, lp_excl, lp, i):
+        e = torch.exp(lp_excl[:, :, i:i + 1] - lp[:, :, :i])  # (B,nc,i,H,D)
+        return e, kc[:, :, :i] * e
+
+    @staticmethod
+    def forward(ctx, rc, kc, lp_excl, lp):
+        ctx.save_for_backward(rc, kc, lp_excl, lp)
+        b, nc, c, h, _ = rc.shape
+        out = rc.new_zeros((b, nc, c, c, h))
+        for i in range(1, c):
+            _, ke = _WKVIntra._row(rc, kc, lp_excl, lp, i)
+            out[:, :, i, :i] = (rc[:, :, i:i + 1] * ke).sum(-1)
+        return out
+
+    @staticmethod
+    def backward(ctx, da):
+        rc, kc, lp_excl, lp = ctx.saved_tensors
+        dr, dk = torch.zeros_like(rc), torch.zeros_like(kc)
+        dlpe, dlp = torch.zeros_like(lp_excl), torch.zeros_like(lp)
+        for i in range(1, rc.shape[2]):
+            e, ke = _WKVIntra._row(rc, kc, lp_excl, lp, i)
+            g = da[:, :, i, :i, :, None]                       # (B,nc,i,H,1)
+            gr = g * rc[:, :, i:i + 1]
+            dr[:, :, i] = (g * ke).sum(2)
+            dk[:, :, :i] += gr * e
+            dexpo = gr * ke                                    # d/d exponent
+            dlpe[:, :, i] = dexpo.sum(2)
+            dlp[:, :, :i] -= dexpo
+        return dr, dk, dlpe, dlp
+
+
+def wkv6_chunked(r, k, v, logw, u, *, chunk: int, init_state=None):
+    """Chunked WKV6.
+
+    r/k/v: (B, L, H, D); logw: (B, L, H, D) (log decay, <= 0); u: (H, D)
+    bonus.  State S: (B, H, D, D) with S_{t+1} = diag(w_t) S_t + k_t v_t^T
+    and o_t = r_t . S_t + (r_t . (u * k_t)) v_t.  When ``chunk`` does not
+    divide L the chunk is gcd(L, chunk), as in the reference.  Sums in
+    fp32.  Returns (o (B, L, H, D) in r's dtype, final state fp32)."""
+    bsz, l, h, dh = r.shape
+    if l % chunk != 0:
+        chunk = math.gcd(l, chunk) or l
+    nc = l // chunk
+
+    def to_chunks(t):
+        return t.float().reshape(bsz, nc, chunk, h, dh)
+
+    rc, kc, vc, wc = map(to_chunks, (r, k, v, logw))
+    lp = torch.cumsum(wc, dim=2)                           # inclusive
+    lp_excl = lp - wc                                      # sum_{s<t}
+    lp_end = lp[:, :, -1]                                  # (B,nc,H,D)
+
+    # within a chunk: the strictly lower scores and the bonus diagonal
+    a_intra = _WKVIntra.apply(rc, kc, lp_excl, lp)         # (B,nc,Ci,Cj,H)
+    a_diag = torch.einsum("bzihd,bzihd,hd->bzih", rc, kc, u.float())
+    eye = torch.eye(chunk, dtype=a_intra.dtype, device=r.device)
+    a_full = a_intra + a_diag[:, :, :, None, :] * eye[None, None, :, :, None]
+    y_intra = torch.einsum("bzijh,bzjhd->bzihd", a_full, vc)
+
+    # each chunk's state contribution: sum_j diag(exp(lp_end - lp_j)) k v^T
+    k_dec = kc * torch.exp(lp_end[:, :, None] - lp)        # <= 1
+    s_chunk = torch.einsum("bzjhd,bzjhe->bzhde", k_dec, vc)
+
+    # across chunks, in order
+    s = torch.zeros((bsz, h, dh, dh), dtype=torch.float32, device=r.device) \
+        if init_state is None else init_state.float()
+    decay = torch.exp(lp_end)
+    prev = []
+    for z in range(nc):
+        prev.append(s)
+        s = s * decay[:, z][..., None] + s_chunk[:, z]
+    prev_states = torch.stack(prev, dim=1)                 # (B,nc,H,D,D)
+
+    # the state's output: r_i decayed from the chunk's start
+    r_dec = rc * torch.exp(lp_excl)                        # <= 1
+    y_inter = torch.einsum("bzihd,bzhde->bzihe", r_dec, prev_states)
+
+    y = (y_intra + y_inter).reshape(bsz, l, h, dh)
+    return y.to(r.dtype), s
+
+
+def _rwkv_groupnorm(x, scale, bias, nh, eps=64e-5):
+    """Per-head LayerNorm over head_dim (RWKV's ln_x), in fp32."""
+    bsz, l, d = x.shape
+    xh = x.reshape(bsz, l, nh, d // nh).float()
+    mu = xh.mean(dim=-1, keepdim=True)
+    var = xh.var(dim=-1, keepdim=True, correction=0)
+    y = (xh - mu) * torch.rsqrt(var + eps)
+    return y.reshape(bsz, l, d) * scale.float() + bias.float()
+
+
+def rwkv6_time_mix(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
+                   chunk: int = 32):
+    """RWKV6 time mix.  x: (B, L, d) -> (y, cache).
+
+    train: the chunked recurrence from a zero state and a zero shift.
+    prefill: from the cache's state and shift (zeros without a cache);
+    writes the last token and the final state into the cache.  decode: the
+    recurrence token by token from the cached state, written back in
+    place."""
+    r_cfg = cfg.rwkv
+    dt_ = x.dtype
+    bsz, l, d = x.shape
+    nh = d // r_cfg.head_dim
+    hd = r_cfg.head_dim
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r} (train | prefill | decode)")
+    if mode == "decode" and cache is None:
+        raise ValueError("decode needs a cache")
+
+    last = cache["shift_tm"] if cache is not None else None
+    sx = _token_shift(x, last) - x
+
+    # ddlerp mixing coefficients
+    xxx = x + sx * p["mu_x"].to(dt_)
+    mix = torch.tanh(xxx @ p["mix_w1"].to(dt_))
+    mix = mix.reshape(bsz, l, 5, r_cfg.mix_lora)
+    mus = torch.einsum("blfm,fmd->blfd", mix, p["mix_w2"].to(dt_))
+    mus = mus + p["mu_rkvwg"].to(dt_)[None, None]
+    xr, xk, xv, xw, xg = (x + sx * mus[:, :, i] for i in range(5))
+
+    r = (xr @ p["wr"].to(dt_)).reshape(bsz, l, nh, hd)
+    k = (xk @ p["wk"].to(dt_)).reshape(bsz, l, nh, hd)
+    v = (xv @ p["wv"].to(dt_)).reshape(bsz, l, nh, hd)
+    g = F.silu(xg @ p["wg"].to(dt_))
+
+    w_raw = p["w0"].float() + \
+        torch.tanh(xw @ p["decay_w1"].to(dt_)).float() @ p["decay_w2"].float()
+    logw = -torch.exp(torch.clamp(w_raw, -20.0, 10.0))     # <= 0
+    logw = logw.reshape(bsz, l, nh, hd)
+    u = p["bonus_u"].float()
+
+    if mode == "decode":
+        s = cache["wkv"]                                    # (B,H,D,D)
+        outs = []
+        for t in range(l):
+            rt, kt, vt = r[:, t].float(), k[:, t].float(), v[:, t].float()
+            kv = torch.einsum("bhd,bhe->bhde", kt, vt)
+            outs.append(torch.einsum("bhd,bhde->bhe", rt,
+                                     s + u[..., None] * kv))
+            s = s * torch.exp(logw[:, t])[..., None] + kv
+        y = torch.stack(outs, dim=1)                        # (B,L,H,D) fp32
+    else:
+        init = cache["wkv"] if cache is not None else None
+        y, s = wkv6_chunked(r, k, v, logw, u, chunk=chunk, init_state=init)
+    if cache is not None:
+        cache["shift_tm"].copy_(x[:, -1])
+        cache["wkv"].copy_(s)
+
+    y = _rwkv_groupnorm(y.reshape(bsz, l, d).float(), p["ln_x_scale"],
+                        p["ln_x_bias"], nh)
+    y = (y * g.float()).to(dt_)
+    return y @ p["wo"].to(dt_), cache
+
+
+def rwkv6_channel_mix(p, x, cfg: ModelConfig, *, mode="prefill",
+                      cache=None):
+    """RWKV6 channel mix (relu^2 key, sigmoid receptance); with a cache,
+    from its shift, and the last token written back in place."""
+    dt_ = x.dtype
+    last = cache["shift_cm"] if cache is not None else None
+    sx = _token_shift(x, last) - x
+    xk = x + sx * p["cm_mu_k"].to(dt_)
+    xr = x + sx * p["cm_mu_r"].to(dt_)
+    k = torch.relu(xk @ p["cm_wk"].to(dt_)).square()
+    v = k @ p["cm_wv"].to(dt_)
+    out = torch.sigmoid(xr @ p["cm_wr"].to(dt_)) * v
+    if cache is not None:
+        cache["shift_cm"].copy_(x[:, -1])
+    return out, cache

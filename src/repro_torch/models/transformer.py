@@ -1,25 +1,29 @@
-"""Model assembly, dense, MoE, VLM and hybrid families (port of
+"""Model assembly, every family of the reference (port of
 ``repro.models.transformer``).
 
 :func:`forward` runs a decoder-only dense or MoE LM (``dense_layers`` then
 ``moe_layers``, as the reference; GQA or MLA attention), a VLM decoder
-(patch embeddings merged into the token stream, M-RoPE positions), or a
-zamba2-style hybrid (Mamba2 backbone with shared attention blocks), in
-train, prefill or decode mode.  The
-reference scans stacked layer parameters with ``jax.lax.scan``; here a loop
-walks the leading layer axes.  Caches are stacked over layers like the
+(patch embeddings merged into the token stream, M-RoPE positions), a
+zamba2-style hybrid (Mamba2 backbone with shared attention blocks), RWKV6
+(``layers`` of time-mix and channel-mix blocks) or an encoder-decoder (a
+bidirectional encoder over ``extras["src_frames"]``, decoder blocks with
+cross-attention, sinusoidal positions), in train, prefill or decode mode.
+The reference scans stacked layer parameters with ``jax.lax.scan``; here a
+loop walks the leading layer axes.  Caches are stacked over layers like the
 reference's and are written in place; under a sliding window each layer's
 KV cache holds ``min(max_len, window)`` slots.
 
 Train mode rematerializes as the reference places ``jax.checkpoint``: each
 dense or MoE block, each Mamba2 block of a hybrid group and each trailing
-(``rem``) Mamba2 block is checkpointed under the policy; the hybrid's
-shared attention blocks are not.  :func:`loss_fn` adds the MoE router's
-aux term as the reference does.
+(``rem``) Mamba2 block, each RWKV6 block and each encoder and decoder block
+is checkpointed under the policy; the hybrid's shared attention blocks are
+not.  :func:`loss_fn` adds the MoE router's aux term as the reference does.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from functools import partial
 from typing import Any
 
@@ -30,7 +34,8 @@ from torch.utils.checkpoint import (
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (
-    attn_specs, gqa_attention, mla_attention, mla_specs)
+    attn_specs, cross_attention, cross_kv, gqa_attention, mla_attention,
+    mla_specs)
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, cross_entropy, embed_tokens, embedding_specs,
     lm_logits, mlp_specs, mrope_table, norm_specs, rope_table)
@@ -38,25 +43,46 @@ from repro_torch.models.moe import apply_moe, moe_specs
 from repro_torch.models.params import (
     flatten, fp32_leaves, init_params, spec, stack_specs, unflatten)
 from repro_torch.models.ssm import (
-    mamba2_block, mamba2_cache_specs, mamba2_specs)
+    mamba2_block, mamba2_cache_specs, mamba2_specs, rwkv6_cache_specs,
+    rwkv6_channel_mix, rwkv6_specs, rwkv6_time_mix)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
+    """Refuses what no shipped config uses and the port does not take: an
+    RWKV6 (``family="ssm"``) without its ``rwkv`` config or with
+    attention, a hybrid that is not Mamba2 with shared attention blocks, an
+    encoder-decoder with MLA or MoE layers, and attention or RoPE kinds
+    other than GQA / MLA and rope / mrope / none."""
+    if cfg.family == "ssm":
+        if cfg.rwkv is None or cfg.attention_type != "none":
+            raise NotImplementedError(
+                f"family 'ssm' is ported as RWKV6 only (an rwkv config, "
+                f"attention_type 'none'), not with attention "
+                f"{cfg.attention_type!r}")
+        return
     ported = cfg.family in ("dense", "moe", "vlm") or (
         cfg.family == "hybrid" and cfg.moe is None
-        and cfg.hybrid is not None and cfg.ssm is not None)
+        and cfg.hybrid is not None and cfg.ssm is not None) or (
+        cfg.family == "encdec" and cfg.moe is None
+        and cfg.attention_type == "gqa")
     if not ported:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported in this form (hybrid: "
+            f"Mamba2 with shared attention, no MoE; encdec: GQA, no MoE)")
     if cfg.attention_type not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"attention {cfg.attention_type!r} is not ported")
+            f"attention {cfg.attention_type!r} is not ported outside RWKV6")
     if cfg.rope_type not in ("rope", "mrope", "none"):
         raise NotImplementedError(f"rope {cfg.rope_type!r} is not ported")
 
 
-def _attn_block_specs(cfg: ModelConfig, d_ff=None, moe_layer=False):
+def _attn_block_specs(cfg: ModelConfig, d_ff=None, moe_layer=False,
+                      cross=False):
     attn = mla_specs(cfg) if cfg.attention_type == "mla" else attn_specs(cfg)
     out = {"ln1": norm_specs(cfg), "attn": attn, "ln2": norm_specs(cfg)}
+    if cross:
+        out["ln_cross"] = norm_specs(cfg)
+        out["cross"] = attn_specs(cfg)
     if moe_layer:
         out["moe"] = moe_specs(cfg)
     else:
@@ -66,6 +92,8 @@ def _attn_block_specs(cfg: ModelConfig, d_ff=None, moe_layer=False):
 
 def _layer_plan(cfg: ModelConfig) -> dict:
     """How many layers of each kind, as stacked groups."""
+    if cfg.family == "ssm":                               # rwkv6
+        return {"rwkv": cfg.num_layers}
     if cfg.family == "hybrid":
         n_groups = cfg.num_layers // cfg.hybrid.attn_every
         rem = cfg.num_layers - n_groups * cfg.hybrid.attn_every
@@ -81,10 +109,22 @@ def model_specs(cfg: ModelConfig):
 
     hybrid: ``groups`` stacks ``attn_every`` Mamba2 blocks per group
     (axes groups x inner_layers), ``rem`` the Mamba2 blocks after the last
-    group, ``shared`` the ``num_shared_blocks`` attention blocks."""
+    group, ``shared`` the ``num_shared_blocks`` attention blocks.  RWKV6:
+    ``layers``.  encdec: ``encoder`` ({``layers``, ``final_norm``}) and
+    ``dec_layers``, decoder blocks with a cross-attention sublayer."""
     _check_supported(cfg)
     plan = _layer_plan(cfg)
     out = {"embed": embedding_specs(cfg), "final_norm": norm_specs(cfg)}
+    if cfg.family == "ssm":
+        out["layers"] = stack_specs(rwkv6_specs(cfg), plan["rwkv"])
+        return out
+    if cfg.family == "encdec":
+        out["encoder"] = {"layers": stack_specs(_attn_block_specs(cfg),
+                                                cfg.num_encoder_layers),
+                          "final_norm": norm_specs(cfg)}
+        out["dec_layers"] = stack_specs(_attn_block_specs(cfg, cross=True),
+                                        cfg.num_layers)
+        return out
     if cfg.family == "hybrid":
         mamba = {"ln": norm_specs(cfg), **mamba2_specs(cfg)}
         if plan["hybrid_groups"]:
@@ -117,9 +157,16 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
     qk_rope_head_dim) in place of K and V.  The conv tail is kept in the
     compute dtype: the reference's prefill returns it in that dtype and
     decode carries it so (bf16 when serving in bf16); the port writes it in
-    place, so it allocates that dtype up front."""
+    place, so it allocates that dtype up front.  So are RWKV6's token
+    shifts; its WKV state is fp32.  An encoder-decoder's ``cross`` K/V
+    (B, encdec_source_len, KV, D) are bf16 whatever ``dtype``: the
+    reference's prefill casts them to bf16."""
     _check_supported(cfg)
     plan = _layer_plan(cfg)
+    if cfg.family == "ssm":
+        return stack_specs(rwkv6_cache_specs(cfg, batch,
+                                             getattr(torch, cfg.dtype)),
+                           plan["rwkv"])
     kv_len = min(max_len, cfg.sliding_window) if cfg.sliding_window \
         else max_len
     if cfg.attention_type == "mla":
@@ -135,6 +182,13 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
                   ("batch", "cache_seq", "kv_heads", None), dtype,
                   init="zeros")
         attn = {"k": kv, "v": kv}
+    if cfg.family == "encdec":
+        cross = spec((batch, cfg.encdec_source_len, cfg.num_kv_heads,
+                      cfg.head_dim), ("batch", "cache_seq", "kv_heads", None),
+                     torch.bfloat16, init="zeros")
+        return {"self": stack_specs(attn, cfg.num_layers),
+                "cross": stack_specs({"k": cross, "v": cross},
+                                     cfg.num_layers)}
     if cfg.family != "hybrid":
         return {key: stack_specs(attn, plan[key])
                 for key in ("dense", "moe") if plan.get(key)}
@@ -158,16 +212,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _attn_block(p, x, cfg, *, rope, mode, cache, pos, attn_impl="masked",
-                aux=None):
+                aux=None, cross_kv_cache=None, bidirectional=False):
     """Pre-norm transformer block, its FFN an MLP or (with ``p["moe"]``)
     the MoE; returns (x, cache).  ``aux``: a dict the MoE statistics are
-    added to (see :func:`forward`)."""
+    added to (see :func:`forward`).  ``cross_kv_cache``: the encoder's K/V
+    of this decoder layer, attended after the self-attention.
+    ``bidirectional``: self-attention without the causal mask (an
+    encoder's)."""
     h = apply_norm(p["ln1"], x, cfg)
-    attention = mla_attention if cfg.attention_type == "mla" \
-        else gqa_attention
-    y, cache = attention(p["attn"], h, cfg, rope=rope, mode=mode,
-                         cache=cache, pos=pos, attn_impl=attn_impl)
+    if cfg.attention_type == "mla":
+        y, cache = mla_attention(p["attn"], h, cfg, rope=rope, mode=mode,
+                                 cache=cache, pos=pos, attn_impl=attn_impl)
+    else:
+        y, cache = gqa_attention(p["attn"], h, cfg, rope=rope, mode=mode,
+                                 cache=cache, pos=pos, attn_impl=attn_impl,
+                                 bidirectional=bidirectional)
     x = x + y
+    if cross_kv_cache is not None:
+        h = apply_norm(p["ln_cross"], x, cfg)
+        x = x + cross_attention(p["cross"], h, cross_kv_cache, cfg)
     h = apply_norm(p["ln2"], x, cfg)
     if "moe" in p:
         y, stats = apply_moe(p["moe"], h, cfg)
@@ -188,6 +251,20 @@ def _combine_aux(acc: dict, stats: dict) -> None:
         acc[k] = acc[k] + stats[k]
     acc["moe_max_load"] = torch.maximum(acc["moe_max_load"],
                                         stats["moe_max_load"])
+
+
+def _rwkv_block(p, x, cfg, *, mode, cache):
+    """RWKV6 block: LayerNorm -> time mix, LayerNorm -> channel mix, each
+    residual; returns (x, cache)."""
+    ln_tm = {"scale": p["ln_tm_scale"], "bias": p["ln_tm_bias"]}
+    ln_cm = {"scale": p["ln_cm_scale"], "bias": p["ln_cm_bias"]}
+    lcfg = dataclasses.replace(cfg, norm_type="layernorm")
+    y, cache = rwkv6_time_mix(p, apply_norm(ln_tm, x, lcfg), cfg, mode=mode,
+                              cache=cache)
+    x = x + y
+    y, cache = rwkv6_channel_mix(p, apply_norm(ln_cm, x, lcfg), cfg,
+                                 mode=mode, cache=cache)
+    return x + y, cache
 
 
 def _mamba_block(p, x, cfg, *, mode, cache):
@@ -228,19 +305,24 @@ def _checkpointed(fn, remat: str):
     return partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
-def _train_layers(layers, x, cfg, *, rope, attn_impl, remat, aux=None):
+def _train_layers(layers, x, cfg, *, rope, attn_impl, remat, aux=None,
+                  cross=None, bidirectional=False):
     """Train-mode pass over stacked attention blocks, each checkpointed;
     the MoE statistics of each block come out of the checkpointed call and
-    are combined into ``aux``."""
-    def block(lp, x):
+    are combined into ``aux``.  ``cross``: per layer, the encoder's K/V of
+    a decoder block (made outside the checkpoints, as the reference);
+    ``bidirectional``: an encoder's blocks."""
+    def block(lp, x, ckv):
         stats = {}
         x = _attn_block(lp, x, cfg, rope=rope, mode="train", cache=None,
-                        pos=None, attn_impl=attn_impl, aux=stats)[0]
+                        pos=None, attn_impl=attn_impl, aux=stats,
+                        cross_kv_cache=ckv, bidirectional=bidirectional)[0]
         return x, stats
 
     run = _checkpointed(block, remat)
-    for lp in _unstack(layers):
-        x, stats = run(lp, x)
+    per_layer = _unstack(layers)
+    for lp, ckv in zip(per_layer, cross or [None] * len(per_layer)):
+        x, stats = run(lp, x, ckv)
         if stats and aux is not None:
             _combine_aux(aux, stats)
     return x
@@ -292,6 +374,86 @@ def _hybrid_forward(params, x, cfg, *, rope, mode, cache, pos,
     return x
 
 
+def _rwkv_forward(params, x, cfg, *, mode, cache, remat="none"):
+    """The RWKV6 blocks in order; in train mode each checkpointed under the
+    policy, in prefill and decode each writing its cache layer in place."""
+    if mode == "train":
+        run = _checkpointed(
+            lambda lp, x: _rwkv_block(lp, x, cfg, mode="train",
+                                      cache=None)[0], remat)
+        for lp in _unstack(params["layers"]):
+            x = run(lp, x)
+        return x
+    for i in range(_depth(params["layers"])):
+        x, _ = _rwkv_block(_layer(params["layers"], i), x, cfg, mode=mode,
+                           cache=None if cache is None else _layer(cache, i))
+    return x
+
+
+def _sinusoidal(positions, d: int):
+    """Absolute sinusoidal position encoding (enc-dec family), fp32:
+    positions (..., S) -> (..., S, d), sines then cosines."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def encode(params, cfg: ModelConfig, src_frames, remat="none"):
+    """The encoder over the (stub) frame embeddings (B, S_src, d), cast to
+    the compute dtype, with sinusoidal positions: bidirectional masked
+    attention in every block (``mode="train"``, as the reference runs it,
+    whether serving or training; checkpointed under ``remat``), then its
+    final norm.  Returns (B, S_src, d)."""
+    x = src_frames.to(getattr(torch, cfg.dtype))
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = x + _sinusoidal(pos, cfg.d_model).to(x.dtype)
+    x = _train_layers(params["encoder"]["layers"], x, cfg, rope=None,
+                      attn_impl="masked", remat=remat, bidirectional=True)
+    return apply_norm(params["encoder"]["final_norm"], x, cfg)
+
+
+def encdec_cross_caches(params, cfg: ModelConfig, enc_out) -> list:
+    """Per decoder layer, the cross K/V of the encoder's output in its
+    dtype: [{"k", "v"} (B, S_src, KV, D)] (the reference stacks them)."""
+    return [cross_kv(lp["cross"], enc_out, cfg)
+            for lp in _unstack(params["dec_layers"])]
+
+
+def _encdec_forward(params, x, cfg, *, mode, cache, pos, extras,
+                    attn_impl="masked", remat="none"):
+    """Train and prefill encode ``extras["src_frames"]`` and make the cross
+    K/V (prefill also writes them into ``cache["cross"]``, in bf16 as the
+    reference's prefill casts them); decode reads them from the cache.
+    Then the decoder blocks: self-attention (its cache in ``cache["self"]``)
+    and cross-attention."""
+    if mode in ("train", "prefill"):
+        if "src_frames" not in extras:
+            raise KeyError("src_frames: an encoder-decoder needs its "
+                           "(B, S_src, d) source frames in extras")
+        enc = encode(params, cfg, extras["src_frames"],
+                     remat=remat if mode == "train" else "none")
+        cross = encdec_cross_caches(params, cfg, enc)
+        del enc
+    else:
+        cross = [_layer(cache["cross"], i)
+                 for i in range(_depth(params["dec_layers"]))]
+    if mode == "train":
+        return _train_layers(params["dec_layers"], x, cfg, rope=None,
+                             attn_impl=attn_impl, remat=remat, cross=cross)
+    for i in range(_depth(params["dec_layers"])):
+        x, _ = _attn_block(_layer(params["dec_layers"], i), x, cfg,
+                           rope=None, mode=mode, pos=pos,
+                           cache=None if cache is None
+                           else _layer(cache["self"], i),
+                           cross_kv_cache=cross[i])
+        if mode == "prefill" and cache is not None:
+            for key in ("k", "v"):
+                cache["cross"][key][i].copy_(cross[i][key])
+    return x
+
+
 def _rope_for(cfg: ModelConfig, positions, extras):
     """The (cos, sin) tables of this pass: none without RoPE; at
     ``qk_rope_head_dim`` for MLA (only that part of a head rotates); from
@@ -333,9 +495,11 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
     pos: int — tokens already in the cache (decode only).
     extras: modality inputs, as the reference's: ``"patches"`` (B, P, d),
     merged in place of tokens 1 .. P by a VLM (P <= S - 1, else
-    ``ValueError``), and ``"mrope_pos"`` (B, S, 3) int, the (t, h, w)
+    ``ValueError``), ``"mrope_pos"`` (B, S, 3) int, the (t, h, w)
     positions an M-RoPE model's rope reads (which may differ from the cache
-    slot ``pos``).
+    slot ``pos``), and ``"src_frames"`` (B, S_src, d), the source an
+    encoder-decoder encodes in train and prefill mode (decode reads the
+    cross K/V from the cache).
     attn_impl, remat: train mode only (see the module docstring).
     aux: optional dict, filled with the MoE statistics of this pass as the
     reference's forward returns them (``moe_aux_loss`` and
@@ -357,9 +521,17 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
     x = embed_tokens(params["embed"], tokens, cfg)
     if cfg.family == "vlm" and "patches" in extras:
         x = _merge_patches(x, extras["patches"])
+    if cfg.family == "encdec":
+        x = x + _sinusoidal(positions, cfg.d_model).to(x.dtype)
     rope = _rope_for(cfg, positions, extras)
 
-    if cfg.family == "hybrid":
+    if cfg.family == "ssm":
+        x = _rwkv_forward(params, x, cfg, mode=mode, cache=cache,
+                          remat=remat)
+    elif cfg.family == "encdec":
+        x = _encdec_forward(params, x, cfg, mode=mode, cache=cache, pos=pos,
+                            extras=extras, attn_impl=attn_impl, remat=remat)
+    elif cfg.family == "hybrid":
         x = _hybrid_forward(params, x, cfg, rope=rope, mode=mode,
                             cache=cache, pos=pos, attn_impl=attn_impl,
                             remat=remat)

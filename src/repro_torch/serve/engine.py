@@ -33,9 +33,11 @@ def make_serve_fns(cfg: ModelConfig):
     decode(params, cache, tokens, pos, extras=None) -> (logits, cache)
 
     ``extras`` are the modality inputs :func:`forward` takes (a VLM's
-    ``patches`` and ``mrope_pos``).  Only these functions take them:
-    :class:`ServingEngine` calls them without, as the reference's engine
-    does, so a VLM is served through them and not the engine.
+    ``patches`` and ``mrope_pos``; an encoder-decoder's ``src_frames`` at
+    prefill, whose cross K/V decode then reads from the cache).  Only these
+    functions take them: :class:`ServingEngine` calls them without, as the
+    reference's engine does, so a VLM and an encoder-decoder are served
+    through them and not the engine.
     """
 
     def prefill(params, tokens, cache, extras=None):
@@ -72,8 +74,8 @@ class ServingEngine:
     engine's documented simplification, kept so the two agree.  Greedy
     argmax runs over the padded vocabulary, as in the reference.  It passes
     no extras, as the reference's engine: an M-RoPE model raises a
-    ``KeyError`` for its missing ``mrope_pos`` (serve it through
-    :func:`make_serve_fns`).
+    ``KeyError`` for its missing ``mrope_pos``, an encoder-decoder for its
+    missing ``src_frames`` (serve them through :func:`make_serve_fns`).
     """
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,

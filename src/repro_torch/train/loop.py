@@ -274,7 +274,9 @@ def _extras_fn(cfg: ModelConfig, shape: ShapeConfig):
     """The reference's stub modality inputs of a batch, or None: a VLM's
     ``patches`` (zeros, fp32; the ViT frontend is a stub) at the first
     ``min(vlm_num_patches, S - 2)`` positions after BOS, and ``mrope_pos``
-    with t = h = w = the token's index."""
+    with t = h = w = the token's index; an encoder-decoder's
+    ``src_frames``, zeros of (rows, encdec_source_len, d), fp32 (the audio
+    frontend is a stub)."""
     if cfg.family == "vlm":
         def fn(step, rows):
             p = min(cfg.vlm_num_patches, max(shape.seq_len - 2, 1))
@@ -283,5 +285,10 @@ def _extras_fn(cfg: ModelConfig, shape: ShapeConfig):
                 "mrope_pos": np.broadcast_to(
                     np.arange(shape.seq_len, dtype=np.int32)[None, :, None],
                     (rows, shape.seq_len, 3)).copy()}
+        return fn
+    if cfg.family == "encdec":
+        def fn(step, rows):
+            return {"src_frames": np.zeros(
+                (rows, cfg.encdec_source_len, cfg.d_model), np.float32)}
         return fn
     return None

@@ -840,3 +840,112 @@ def test_hybrid_train_steps_on_card_match_cpu(cuda, rng):
         "flash_attention": 0, "rmsnorm": 2 * (norms + 2 * layers),
         "rmsnorm_backward": 2 * norms, "ssd_scan": 2 * 2 * layers,
         "ssd_scan_backward": 2 * layers}
+
+
+# -- RWKV6 and the encoder-decoder ---------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_at_the_encdec_prefill_shape(cuda, rng, dtype):
+    """seamless-m4t-large-v2's decoder prefill, (8, 16 / 16, 910, 64),
+    through the model-layout adapter, against the plain version."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal((8, 910, 16, 64)).astype(
+        np.float32)).to(cuda, dt) for _ in range(3))
+    before = fa.launches
+    got = ops.flash_attention_bshd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal=True).transpose(1, 2)
+    _close(got, want, TOL["attn"][dtype])
+
+
+def _new_family(name, dtype):
+    """The smoke config of ``name``; the encoder-decoder at head dim 64 (a
+    flash instance; the smoke head dim, 16, has none), 2 + 2 layers."""
+    cfg = dataclasses.replace(get_config(name, smoke=True), dtype=dtype)
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, d_model=256, num_heads=4,
+                                  num_kv_heads=4, head_dim=64)
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rwkv6-1.6b", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_new_families_on_card_match_cpu(cuda, rng, name, dtype, tol):
+    """Prefill of 45 tokens (RWKV6's chunk gcd(45, 32) = 1; the
+    encoder-decoder with its source frames) and 3 decode steps on the card
+    (flash for the decoder's prefill self-attention, the RMSNorm kernel for
+    RWKV6's final norm) against the same on the CPU, same weights; logits
+    relative to the largest; launches as counted."""
+    cfg = _new_family(name, dtype)
+    p_cpu = init_model_params(cfg, seed=0, device="cpu")
+    p_gpu = unflatten({k: v.to(cuda) for k, v in flatten(p_cpu).items()})
+    toks = rng.integers(0, cfg.vocab_size, (2, 45))
+    frames = rng.standard_normal((2, cfg.encdec_source_len,
+                                  cfg.d_model)).astype(np.float32)
+    ops.reset_launch_counts()
+    outs = []
+    with torch.inference_mode():
+        for dev, p in (("cpu", p_cpu), (cuda, p_gpu)):
+            extras = {"src_frames": torch.from_numpy(frames).to(dev)} \
+                if cfg.family == "encdec" else None
+            cache = init_cache(cfg, 2, 64, device=dev)
+            logits, cache = forward(p, cfg, tokens=torch.from_numpy(
+                toks).to(dev), mode="prefill", cache=cache, extras=extras)
+            seq = [logits[:, -1]]
+            nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            for step in range(3):
+                logits, cache = forward(p, cfg, tokens=nxt, mode="decode",
+                                        cache=cache, pos=45 + step)
+                seq.append(logits[:, -1])
+                nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            outs.append(seq)
+    for a, b in zip(*outs):
+        err = float((b.float().cpu() - a.float()).abs().max())
+        assert err <= tol * float(a.float().abs().max()), err
+    want = {"flash_attention": 2, "rmsnorm": 0} if cfg.family == "encdec" \
+        else {"flash_attention": 0, "rmsnorm": 4}
+    assert ops.launch_counts() == {**want, "rmsnorm_backward": 0,
+                                   "ssd_scan": 0, "ssd_scan_backward": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rwkv6-1.6b", "seamless-m4t-large-v2"])
+def test_new_families_train_steps_on_card_match_cpu(cuda, rng, name):
+    """Two AdamW steps in fp32 (remat "minimal", the loop's stub source
+    frames for the encoder-decoder) on the card against the CPU: loss,
+    grad norm and param norm at 1e-4 relative, but the RWKV6 model's grad
+    norm after the first update at 1e-3: a 1e-7 relative perturbation of
+    its parameters (fp32 rounding) moves that norm by 2.8e-4 on the CPU
+    alone (AdamW's first step moves each parameter by about the learning
+    rate, whatever its gradient's size)."""
+    cfg = _new_family(name, "float32")
+    tcfg = TrainConfig(optimizer="adamw", warmup_steps=0, learning_rate=1e-3,
+                       remat_policy="minimal")
+    toks = rng.integers(0, cfg.vocab_size, (2, 2, 65))
+    frames = rng.standard_normal((2, 2, cfg.encdec_source_len,
+                                  cfg.d_model)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = init_model_params(cfg, seed=0, device="cpu")
+        p = unflatten({k: v.to(dev) for k, v in flatten(p).items()})
+        step_fn, opt = make_train_step(cfg, tcfg)
+        state = opt.init(p)
+        out[str(dev)] = []
+        for i in range(2):
+            t = torch.from_numpy(toks[i]).to(dev)
+            batch = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+            if cfg.family == "encdec":
+                batch["src_frames"] = torch.from_numpy(frames[i]).to(dev)
+            p, state, m = step_fn(p, state, batch, i)
+            out[str(dev)].append([float(m[k]) for k in
+                                  ("loss", "grad_norm", "param_norm")])
+    got, want = np.array(out["cuda"]), np.array(out["cpu"])
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4)
+    np.testing.assert_allclose(got[1, [0, 2]], want[1, [0, 2]], rtol=1e-4)
+    np.testing.assert_allclose(got[1, 1], want[1, 1],
+                               rtol=1e-3 if cfg.family == "ssm" else 1e-4)

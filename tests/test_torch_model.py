@@ -142,7 +142,11 @@ def test_apply_norm_matches_jax(rng, norm_type):
                                         ("deepseek-v2-236b", True),
                                         ("deepseek-v2-236b", False),
                                         ("qwen2-vl-7b", True),
-                                        ("qwen2-vl-7b", False)])
+                                        ("qwen2-vl-7b", False),
+                                        ("rwkv6-1.6b", True),
+                                        ("rwkv6-1.6b", False),
+                                        ("seamless-m4t-large-v2", True),
+                                        ("seamless-m4t-large-v2", False)])
 def test_model_specs_match_jax_layouts(name, smoke):
     """Parameter and decode-cache spec trees: same paths, same shapes."""
     from repro.models.params import ParamSpec
@@ -163,7 +167,8 @@ def test_model_specs_match_jax_layouts(name, smoke):
 @pytest.mark.parametrize("name", ["granite-3-8b", "zamba2-7b", "lms-demo",
                                   "phi3-medium-14b", "yi-34b",
                                   "nemotron-4-340b", "mixtral-8x7b",
-                                  "deepseek-v2-236b", "qwen2-vl-7b"])
+                                  "deepseek-v2-236b", "qwen2-vl-7b",
+                                  "rwkv6-1.6b", "seamless-m4t-large-v2"])
 def test_param_counts_match_jax(name):
     jcfg, tcfg = jget_config(name), get_config(name)
     assert tcfg.param_count() == jcfg.param_count()
@@ -404,7 +409,7 @@ def test_bridge_checks_keys_shapes_and_keeps_norms_fp32():
 
 
 @pytest.mark.parametrize("change", [{"attention_type": "none"},
-                                    {"attn_logit_softcap": 30.0}])
+                                    {"rope_type": "alibi"}])
 def test_unported_attention_options_raise(rng, change):
     cfg = dataclasses.replace(get_config("lms-demo", smoke=True), **change)
     with pytest.raises(NotImplementedError):
@@ -467,7 +472,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"models/moe.py", "configs/phi3_medium_14b.py",
             "configs/yi_34b.py", "configs/nemotron_4_340b.py",
             "configs/mixtral_8x7b.py", "configs/deepseek_v2_236b.py",
-            "configs/qwen2_vl_7b.py"} <= scanned
+            "configs/qwen2_vl_7b.py", "configs/rwkv6_1p6b.py",
+            "configs/seamless_m4t_large_v2.py"} <= scanned
     assert {os.path.join("..", "..", "examples", n) for n in (
         "train_monitored_torch.py", "serve_requests_torch.py")} <= scanned
     bad = []

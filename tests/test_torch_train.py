@@ -131,17 +131,43 @@ def test_train_configs_are_copies_of_the_reference():
         assert get_config(name).param_count() == \
             jget_config(name).param_count() == \
             jget_config(name).active_param_count()
-    # MLA is counted as the reference counts it; RWKV6 and the
-    # encoder-decoder are not ported, and raise
-    assert get_config("deepseek-v2-236b").param_count() == \
-        jget_config("deepseek-v2-236b").param_count()
+    # MLA, RWKV6 and the encoder-decoder are counted as the reference
+    # counts them
+    for name in ("deepseek-v2-236b", "rwkv6-1.6b", "seamless-m4t-large-v2"):
+        assert get_config(name).param_count() == \
+            jget_config(name).param_count()
     for change in ({"family": "ssm", "attention_type": "none",
                     "rwkv": tbase.RWKVConfig()},
                    {"family": "encdec", "num_encoder_layers": 2}):
-        with pytest.raises(NotImplementedError,
-                           match="GQA and MLA decoders and of the hybrid"):
-            dataclasses.replace(get_config("lms-demo"),
+        assert dataclasses.replace(get_config("lms-demo"),
+                                   **change).param_count() == \
+            dataclasses.replace(jget_config("lms-demo"),
                                 **change).param_count()
+
+
+@pytest.mark.parametrize("dtype,seq_len", [(np.uint16, 16), (np.uint32, 7),
+                                           (np.uint16, 600)])
+def test_memmap_source_gives_the_reference_windows(tmp_path, dtype, seq_len):
+    """A token file the test writes: the same windows, bit for bit, from
+    both packages' ``MemmapTokenSource`` at several steps and seeds, and
+    through ``make_batch_fn``; a window longer than the file (600 of 500
+    tokens) takes what there is, as the reference's."""
+    path = tmp_path / "tokens.bin"
+    vocab = 60000 if dtype == np.uint16 else 200000
+    np.random.default_rng(1).integers(0, vocab, 500).astype(dtype).tofile(
+        path)
+    for seed in (0, 4):
+        js = jdata.MemmapTokenSource(str(path), dtype=dtype, seed=seed)
+        ts = tdata.MemmapTokenSource(str(path), dtype=dtype, seed=seed)
+        for step in (0, 3, 11):
+            want, got = js.batch(step, 5, seq_len), ts.batch(step, 5, seq_len)
+            assert got.dtype == want.dtype == np.int32
+            assert got.tobytes() == want.tobytes()
+    shape = tbase.ShapeConfig("m", seq_len, 4, "train")
+    jb = jdata.make_batch_fn(js, None, shape)(2, slice(0, 4))
+    tb = tdata.make_batch_fn(ts, None, shape)(2, slice(0, 4))
+    for k in jb:
+        assert tb[k].tobytes() == jb[k].tobytes()
 
 
 def test_data_pipeline_gives_the_reference_batches():
