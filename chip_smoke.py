@@ -28,9 +28,23 @@ JAX package.  Phases, each reported on its own lines:
               ``scaled_dot_product_attention`` with the band as a boolean
               mask) and the bound in ms; flash and SSD rows also give
               bound / ms (``frac_of_bound``) and TFLOP/s, flash rows ms /
-              library ms (``vs_library``); then the bf16 rmsnorm kernel
-              against ``F.rms_norm`` at the served shapes, medians of
-              interleaved timings (``rmsnorm-interleaved``).
+              library ms (``vs_library``); RMSNorm rows (decode rows of 1,
+              8 and 33, and MLA's latent read in place as the first 512
+              columns of 576-wide rows, among them) also give the kernels'
+              own device time (``device_ms``, from ``torch.profiler``'s
+              kernel events: ``device_ms()``) beside the back-to-back ms,
+              the same two for ``F.rms_norm`` (``library_device_ms``) and
+              the share of the bound on the device time; then the bf16
+              rmsnorm kernel against ``F.rms_norm`` at the served and the
+              narrow shapes, medians of interleaved timings
+              (``rmsnorm-interleaved``); then the turns: the previous
+              RMSNorm kernels (``ParentRMSNorm``, built from
+              ``csrc/parent/rmsnorm.cu`` into ``build/rmsnorm_parent/``)
+              and the current ones at every shape of ``RMSNORM_FWD_SHAPES`` and
+              ``RMSNORM_BWD_SHAPES``, timed parent, new, new, parent on this
+              card (``rmsnorm-turns`` lines: device and back-to-back ms of
+              each turn, ``F.rms_norm``'s device ms, the bound), the two
+              versions agreeing within the kernel check's tolerance.
 3. serve   -- nine models at full width, random weights from a seed,
               bf16, one after the other (each freed before the next), seven
               served by ServingEngine(max_batch=8): granite-3-8b (40 layers),
@@ -94,12 +108,15 @@ JAX package.  Phases, each reported on its own lines:
 4. train   -- once the served weights are freed:
               (a) the RMSNorm backward kernel against ``ref.rmsnorm_bwd_ref``
               and against autograd through ``ref.rmsnorm_ref``, at
-              granite's training shape (16384, 4096) in bf16 and fp32 and
-              at a ragged (4097, 1032): max abs error against the
-              tolerance (dscale, an fp32 sum, at fp32's tolerance whatever
-              x's dtype), ms, plain ms, the library's ms (the backward of
-              one ``F.rms_norm``, timed through ``torch.autograd.grad``) and
-              the bound; with the forward at the same shape;
+              granite's training shape (16384, 4096) in bf16 and fp32, at
+              a ragged (4097, 1032), on strided rows (fp32, 512 of 576) and
+              at deepseek's training widths (its kv_norm on the latent in
+              place): max abs error against the tolerance (dscale, an fp32
+              sum, at fp32's tolerance whatever x's dtype; the same bits on
+              a second call), ms and device ms, plain ms, the library's ms
+              and device ms (the backward of one ``F.rms_norm``, through
+              ``torch.autograd.grad``) and the bound; with the forward at
+              the same shape;
               (b) the SSD backward kernel against ``ref.ssd_bwd_ref``
               (autograd through the chunked plain form) at zamba2's
               training shape (B=8, L=2048, H=112, one group) and at a
@@ -191,6 +208,7 @@ Any failure raises, so the script exits non-zero and prints no last line.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import io
 import json
@@ -303,6 +321,21 @@ KERNEL_NAMES = ("flash_wgmma_kernel", "flash_f32_kernel", "rmsnorm_kernel",
 # bf16 instances that issue wgmma: a spill or a missing instance fails
 WGMMA_INSTANCES = tuple(f"flash_wgmma_kernel<{d}>" for d in fa.HEAD_DIMS) + \
     ("ssd_wgmma_kernel", "ssd_bwd_states_kernel", "ssd_bwd_wgmma_kernel")
+# RMSNorm rows timed by the turns phase (``rmsnorm_turns``) and by
+# ``profile_rmsnorm.py``, bf16: (rows, d) of the forward -- MLA's kv_norm
+# at prefill and in training, the lms-demo CLIs (train, serve prefill and
+# decode), decode rows, MLA's q_norm, rwkv6's final norm, the served
+# prefills (zamba2, granite, phi3 / deepseek, zamba2's gated norm) and
+# granite's training shape -- and of the backward (the lms-demo train CLI,
+# deepseek's three training widths, a ragged row, rwkv6, zamba2 / qwen2-vl
+# and granite in training)
+RMSNORM_FWD_SHAPES = ((7280, 512), (4096, 512), (2048, 512), (64, 512),
+                      (4, 512), (1, 4096), (8, 4096), (33, 4096), (8, 3584),
+                      (7280, 1536), (7280, 2048), (7280, 3584), (7280, 4096),
+                      (7280, 5120), (7280, 7168), (16384, 4096))
+RMSNORM_BWD_SHAPES = ((2048, 512), (4096, 512), (4096, 1536), (4097, 1032),
+                      (16384, 2048), (16384, 3584), (4096, 5120),
+                      (16384, 4096))
 SEED = 0
 N_REQUESTS, MAX_NEW = 8, 32
 MAX_BATCH, MAX_LEN = 8, 2048
@@ -510,18 +543,65 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fns: dict, iters: int = 50, warmup: int = 3) -> dict:
+    """Device time of each callable in ``fns``: the durations of the
+    kernels one call runs on the card, read from ``torch.profiler``'s kernel
+    events over ``iters`` back-to-back calls, so free of the host's launch
+    cost and of the gaps between launches.  Each callable has a profiler
+    session of its own (late in a long process the trace's device clock
+    strays from its host clock by more than a millisecond, so kernels
+    cannot be told apart by host-side ranges), and each kernel name's mean
+    duration counts as often as a call launches it (the profiler can drop a
+    few events: a mean over those recorded is not biased by them).  Returns
+    {name: (ms a call, kernels recorded a call)}."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    path = os.path.join(ROOT, "build", f"device_ms_{os.getpid()}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    for name, fn in fns.items():
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        os.remove(path)
+        by_kernel = {}
+        for k in events:
+            if k.get("cat") == "kernel":
+                by_kernel.setdefault(k["name"], []).append(k["dur"])
+        if not by_kernel:
+            raise AssertionError(f"device_ms: no kernel recorded for {name}")
+        out[name] = (sum(statistics.fmean(v) * max(1, round(len(v) / iters))
+                         for v in by_kernel.values()) / 1e3,
+                     sum(len(v) for v in by_kernel.values()) / iters)
+    return out
+
+
 def _instance(mangled: str) -> str:
-    """``flash_wgmma_kernel<128>``, ``rmsnorm_kernel<bf16>``,
-    ``ssd_wgmma_kernel``, ... from a mangled entry-point name."""
+    """``flash_wgmma_kernel<128>``, ``rmsnorm_kernel<bf16, 4>``,
+    ``ssd_wgmma_kernel``, ... from a mangled entry-point name (template
+    arguments: a type, an int, or a type and an int)."""
     for k in KERNEL_NAMES:
         if k in mangled:
             arg = mangled.split(k, 1)[1]
-            m = re.match(r"ILi(\d+)E", arg)
-            if m:
-                return f"{k}<{m.group(1)}>"
-            if arg.startswith("I13__nv_bfloat16"):
-                return f"{k}<bf16>"
-            return f"{k}<f32>" if arg.startswith("If") else k
+            m = re.match(r"I(13__nv_bfloat16|f)?(?:Li(\d+)E)?(?:Lb([01])E)?E",
+                         arg)
+            if not m or not (m.group(1) or m.group(2)):
+                return k
+            args = []
+            if m.group(1):
+                args.append("f32" if m.group(1) == "f" else "bf16")
+            if m.group(2):
+                args.append(m.group(2))
+            if m.group(3):
+                args.append(("false", "true")[int(m.group(3))])
+            return f"{k}<{', '.join(args)}>"
     return mangled
 
 
@@ -657,29 +737,59 @@ def check_flash(gen, b, h, kv, s, d, dtype, *, causal=True, window=0,
     return row
 
 
-def check_rmsnorm(gen, n, d, dtype, *, tag=""):
-    dev = torch.device("cuda")
-    x = torch.randn((n, d), generator=gen, device=dev, dtype=dtype)
-    scale = 1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+def rows_of(gen, n, d, dtype, ld=None):
+    """(n, d) random rows on the card; with ``ld`` > d, the first d
+    columns of (n, ld) rows (MLA's latent is the first 512 of 576)."""
+    full = torch.randn((n, ld or d), generator=gen, device="cuda",
+                       dtype=dtype)
+    return full[:, :d]
+
+
+def rmsnorm_times(row: dict, fns: dict, costs: dict, iters: int) -> dict:
+    """Adds to a kernel-check row the back-to-back ``ms`` of the kernel,
+    the plain version and the library call, their device times
+    (``device_ms``, ``library_device_ms``: the kernels' own durations) and
+    the bound, with the share of it reckoned on the device time."""
+    ms = {k: time_ms(fn, iters=iters if k != "plain" else 5)
+          for k, fn in fns.items()}
+    dev = device_ms({k: fns[k] for k in ("kernel", "library")})
+    bound_ms, bound_by = bound(costs, torch.float32)
+    row.update({
+        "ms": ms["kernel"], "device_ms": dev["kernel"][0],
+        "kernels_a_call": dev["kernel"][1], "plain_ms": ms["plain"],
+        "library_ms": ms["library"], "library_device_ms": dev["library"][0],
+        "library_kernels_a_call": dev["library"][1],
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "frac_of_bound": bound_ms / dev["kernel"][0],
+        "vs_library_device": dev["kernel"][0] / dev["library"][0],
+        "gbps": costs["bytes"] / dev["kernel"][0] / 1e6})
+    return row
+
+
+def check_rmsnorm(gen, n, d, dtype, *, tag="", ld=None):
+    """The forward kernel against the plain version, then its times beside
+    the plain version's and one ``F.rms_norm``'s (``rmsnorm_times``).
+    ``ld``: rows read with that stride (a slice of wider rows)."""
+    x = rows_of(gen, n, d, dtype, ld)
+    scale = 1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
     eps = 1e-5
     got = rms.rmsnorm(x, scale, eps=eps)
     want = ref.rmsnorm_ref(x, scale, eps=eps)
     err = compare("rmsnorm", got, want, dtype)
-    ms = time_ms(lambda: rms.rmsnorm(x, scale, eps=eps), iters=50)
-    plain_ms = time_ms(lambda: ref.rmsnorm_ref(x, scale, eps=eps), iters=50)
     # the library fuses only when the weight has x's dtype, so its weight is
     # the scale rounded to x's dtype (an fp32 weight on bf16 x runs unfused)
     scale_x = scale.to(dtype)
-    library_ms = time_ms(lambda: F.rms_norm(x, (d,), scale_x, eps), iters=50)
-    costs = rms.cost_estimate(x.shape, x.element_size())
-    # the arithmetic is fp32 on the CUDA cores whatever x's dtype
-    bound_ms, bound_by = bound(costs, torch.float32)
+    fns = {"kernel": lambda: rms.rmsnorm(x, scale, eps=eps),
+           "plain": lambda: ref.rmsnorm_ref(x, scale, eps=eps),
+           "library": lambda: F.rms_norm(x, (d,), scale_x, eps)}
     row = {"name": "rmsnorm", "shape": [n, d],
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
-           "tol": TOL["rmsnorm"][dtype], "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by,
-           "gbps": costs["bytes"] / ms / 1e6}
+           "tol": TOL["rmsnorm"][dtype]}
+    if ld:
+        row["row_stride"] = ld
+    # the arithmetic is fp32 on the CUDA cores whatever x's dtype
+    rmsnorm_times(row, fns, rms.cost_estimate(x.shape, x.element_size()),
+                  iters=50)
     log(f"kernel-check {tag}: {json.dumps(row)}")
     return row
 
@@ -693,14 +803,15 @@ def dscale_magnitude(x, dy, eps: float = 1e-5):
         dim=0)
 
 
-def check_rmsnorm_bwd(gen, n, d, dtype, *, tag=""):
+def check_rmsnorm_bwd(gen, n, d, dtype, *, tag="", ld=None):
     """The backward kernel against the plain closed form and against
-    autograd through the plain forward; times it beside the plain version
-    and the backward of one ``F.rms_norm`` (weight in x's dtype)."""
-    dev = torch.device("cuda")
-    x = torch.randn((n, d), generator=gen, device=dev, dtype=dtype)
-    dy = torch.randn((n, d), generator=gen, device=dev, dtype=dtype)
-    scale = 1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+    autograd through the plain forward, with dscale the same bits on a
+    second call; times it beside the plain version and the backward of one
+    ``F.rms_norm`` (weight in x's dtype).  ``ld``: x and dy read with that
+    row stride."""
+    x = rows_of(gen, n, d, dtype, ld)
+    dy = rows_of(gen, n, d, dtype, ld)
+    scale = 1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
     eps = 1e-5
     dx, dscale = rms.rmsnorm_bwd(x, scale, dy, eps=eps)
     want_dx, want_ds = ref.rmsnorm_bwd_ref(x, scale, dy, eps=eps)
@@ -717,40 +828,44 @@ def check_rmsnorm_bwd(gen, n, d, dtype, *, tag=""):
                  compare("rmsnorm_dscale", dscale, ag_ds, dtype, ds_mag))
     # the error as a share of its limit's magnitude term, for the record
     ds_rel = float(((dscale - want_ds).abs() / (1.0 + ds_mag)).max())
+    if not torch.equal(rms.rmsnorm_bwd(x, scale, dy, eps=eps)[1], dscale):
+        raise AssertionError(f"rmsnorm_backward {tag}: dscale differs "
+                             f"between two calls")
     del want_dx, want_ds, ag_dx, ag_ds, xr, sr, ds_mag
-    ms = time_ms(lambda: rms.rmsnorm_bwd(x, scale, dy, eps=eps), iters=20)
-    plain_ms = time_ms(lambda: ref.rmsnorm_bwd_ref(x, scale, dy, eps=eps),
-                       iters=5)
     xl = x.detach().clone().requires_grad_()
     wl = scale.to(dtype).requires_grad_()
     yl = F.rms_norm(xl, (d,), wl, eps)
-    library_ms = time_ms(lambda: torch.autograd.grad(
-        yl, (xl, wl), dy, retain_graph=True), iters=20)
-    costs = rms.bwd_cost_estimate(x.shape, x.element_size())
-    bound_ms, bound_by = bound(costs, torch.float32)
+    fns = {"kernel": lambda: rms.rmsnorm_bwd(x, scale, dy, eps=eps),
+           "plain": lambda: ref.rmsnorm_bwd_ref(x, scale, dy, eps=eps),
+           "library": lambda: torch.autograd.grad(yl, (xl, wl), dy,
+                                                  retain_graph=True)}
     row = {"name": "rmsnorm_backward", "shape": [n, d],
            "dtype": str(dtype).replace("torch.", ""),
            "max_abs_err": max(dx_err, ds_err), "dx_err": dx_err,
            "tol": TOL["rmsnorm_backward"][dtype], "dscale_err": ds_err,
            "dscale_err_rel": ds_rel,
-           "dscale_tol": TOL["rmsnorm_dscale"][dtype], "ms": ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "vs_library": ms / library_ms, "frac_of_bound": bound_ms / ms,
-           "gbps": costs["bytes"] / ms / 1e6}
+           "dscale_tol": TOL["rmsnorm_dscale"][dtype],
+           "dscale_same_bits": True}
+    if ld:
+        row["row_stride"] = ld
+    rmsnorm_times(row, fns, rms.bwd_cost_estimate(x.shape, x.element_size()),
+                  iters=20)
+    row["vs_library"] = row["ms"] / row["library_ms"]
     log(f"kernel-check {tag}: {json.dumps(row)}")
     return row
 
 
 def rmsnorm_vs_library(gen, plen: int, rounds: int = 11) -> list:
     """The bf16 rmsnorm kernel against ``F.rms_norm`` (weight in x's dtype)
-    at the served shapes: prefill (granite, zamba2, zamba2's gated norm)
-    and decode.  Each value is the median over ``rounds`` timings taken in
-    turns (kernel, library, then library, kernel, ...), so drift on the
-    card falls on both alike."""
+    at the served shapes: prefill (granite, zamba2, zamba2's gated norm),
+    decode, and the narrow rows (MLA's ``kv_norm`` at prefill and in
+    training, the lms-demo train CLI).  Each value is the median over
+    ``rounds`` timings taken in turns (kernel, library, then library,
+    kernel, ...), so drift on the card falls on both alike."""
     rows = []
     for n, d in ((8 * plen, 4096), (8 * plen, 3584), (8 * plen, 7168),
-                 (8, 4096), (8, 3584)):
+                 (8, 4096), (8, 3584), (8 * plen, 512), (4096, 512),
+                 (2048, 512)):
         x = torch.randn((n, d), generator=gen, device="cuda",
                         dtype=torch.bfloat16)
         scale = 1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
@@ -769,6 +884,123 @@ def rmsnorm_vs_library(gen, plen: int, rounds: int = 11) -> list:
         log(f"rmsnorm-interleaved: {json.dumps(row)}")
         rows.append(row)
     return rows
+
+
+PARENT_RMSNORM = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc",
+                              "parent", "rmsnorm.cu")
+
+
+class ParentRMSNorm:
+    """The previous RMSNorm kernels (the two-pass forward, the backward
+    with its per-element shared-memory sums), built with the port's flags
+    from the copy kept beside the current source (``csrc/parent/rmsnorm.cu``)
+    into ``build/rmsnorm_parent/``, and called as their wrapper called them:
+    contiguous rows, the backward's scratch of min(row slots, 4 x SMs) rows
+    and dscale allocated apart."""
+
+    def __init__(self):
+        out = kbuild.BUILD_ROOT.parent / "rmsnorm_parent"
+        out.mkdir(parents=True, exist_ok=True)
+        lib = out / "librmsnorm_parent.so"
+        subprocess.run([kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-shared",
+                        PARENT_RMSNORM, "-o", str(lib)], check=True,
+                       capture_output=True, text=True)
+        self.lib = ctypes.CDLL(str(lib))
+        p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_float)
+        self.lib.repro_rmsnorm.argtypes = [p, p, p, i, ll, i, f, p]
+        self.lib.repro_rmsnorm_bwd.argtypes = [p, p, p, p, p, p, i, ll, i, f,
+                                               i, p]
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def rmsnorm(self, x, scale, eps=1e-5):
+        y = torch.empty_like(x)
+        d = x.shape[-1]
+        kbuild.check(self.lib.repro_rmsnorm(
+            x.data_ptr(), scale.data_ptr(), y.data_ptr(),
+            rms.DTYPE_CODES[x.dtype], x.numel() // d, d, eps,
+            torch.cuda.current_stream().cuda_stream), "parent rmsnorm")
+        return y
+
+    def rmsnorm_bwd(self, x, scale, dy, eps=1e-5):
+        d = x.shape[-1]
+        n = x.numel() // d
+        blocks = max(1, min(-(-n // (8 if d <= 1024 else 1)), 4 * self.sms))
+        dx = torch.empty_like(x)
+        dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
+        partial = torch.empty((blocks, d), dtype=torch.float32,
+                              device=x.device)
+        kbuild.check(self.lib.repro_rmsnorm_bwd(
+            x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            partial.data_ptr(), dscale.data_ptr(), rms.DTYPE_CODES[x.dtype],
+            n, d, eps, blocks, torch.cuda.current_stream().cuda_stream),
+            "parent rmsnorm_bwd")
+        return dx, dscale
+
+
+def rmsnorm_turns(fwd_shapes=RMSNORM_FWD_SHAPES,
+                  bwd_shapes=RMSNORM_BWD_SHAPES) -> list:
+    """The parent's RMSNorm kernels and the new ones in turns on this card
+    (parent, new, new, parent), bf16, at every row of the two tables: the
+    kernels' device time (``device_ms``) and back-to-back ms of each turn,
+    ``F.rms_norm``'s device time (its autograd backward for the backward
+    rows) and the bytes bound, with each version's share of it on its mean
+    device time.  The two versions must agree within the kernel check's
+    tolerance (dscale at fp32's, relative to its terms' magnitudes)."""
+    parent = ParentRMSNorm()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bf16, eps = torch.bfloat16, 1e-5
+    out = []
+    for kind, shapes in (("forward", fwd_shapes), ("backward", bwd_shapes)):
+        for n, d in shapes:
+            x = torch.randn((n, d), generator=gen, device="cuda", dtype=bf16)
+            dy = torch.randn((n, d), generator=gen, device="cuda", dtype=bf16)
+            scale = 1.0 + 0.1 * torch.randn((d,), generator=gen,
+                                            device="cuda")
+            if kind == "forward":
+                fns = {"parent": lambda: parent.rmsnorm(x, scale, eps),
+                       "new": lambda: rms.rmsnorm(x, scale, eps=eps)}
+                compare("rmsnorm", fns["new"](), fns["parent"](), bf16,
+                        what="new vs parent")
+                lib = {"library": lambda: F.rms_norm(x, (d,), scale.to(bf16),
+                                                     eps)}
+                costs = rms.cost_estimate(x.shape, 2)
+            else:
+                fns = {"parent": lambda: parent.rmsnorm_bwd(x, scale, dy,
+                                                            eps),
+                       "new": lambda: rms.rmsnorm_bwd(x, scale, dy, eps=eps)}
+                (ndx, nds), (pdx, pds) = fns["new"](), fns["parent"]()
+                compare("rmsnorm_backward", ndx, pdx, bf16,
+                        what="new vs parent")
+                compare("rmsnorm_dscale", nds, pds, bf16,
+                        dscale_magnitude(x, dy, eps), what="new vs parent")
+                xl = x.detach().clone().requires_grad_()
+                wl = scale.to(bf16).requires_grad_()
+                yl = F.rms_norm(xl, (d,), wl, eps)
+                lib = {"library": lambda: torch.autograd.grad(
+                    yl, (xl, wl), dy, retain_graph=True)}
+                costs = rms.bwd_cost_estimate(x.shape, 2)
+            turns = {"parent": [], "new": []}
+            ms = {"parent": [], "new": []}
+            for order in (("parent", "new"), ("new", "parent")):
+                dev = device_ms({k: fns[k] for k in order})
+                for k in order:
+                    turns[k].append(dev[k][0])
+                    ms[k].append(time_ms(fns[k], iters=50))
+            bound_ms, _ = bound(costs, torch.float32)
+            row = {"kind": kind, "shape": [n, d], "bound_ms": bound_ms,
+                   "library_device_ms": device_ms(lib)["library"][0]}
+            for k in ("parent", "new"):
+                row[f"{k}_device_ms"] = turns[k]
+                row[f"{k}_ms"] = ms[k]
+                row[f"{k}_frac_of_bound"] = bound_ms / statistics.fmean(
+                    turns[k])
+            row["new_over_parent"] = statistics.fmean(turns["new"]) / \
+                statistics.fmean(turns["parent"])
+            log(f"rmsnorm-turns: {json.dumps(row)}")
+            out.append(row)
+            del x, dy, fns, lib
+    return out
 
 
 def check_ssd(gen, b, l, h, g, dtype, *, decay=0.1, init=True, tag=""):
@@ -920,6 +1152,9 @@ def kernel_checks(plen: int, lplen: int) -> dict:
         check_rmsnorm(gen, 8, 4096, dt, tag="granite-decode")
         check_rmsnorm(gen, 8 * 1024, 512, dt, tag="lms-demo-prefill")
         check_rmsnorm(gen, 8, 3584, dt, tag="zamba2-decode")
+        check_rmsnorm(gen, 1, 4096, dt, tag="decode-1")
+        check_rmsnorm(gen, 33, 4096, dt, tag="decode-33")
+        check_rmsnorm(gen, 8 * 1024, 512, dt, ld=576, tag="strided")
         check_ssd(gen, 8, plen, 112, 1, dt, tag="zamba2-prefill")
         check_ssd(gen, 2, 37, 16, 2, dt, init=False, tag="ragged")
         check_ssd(gen, 2, 200, 8, 1, dt, decay=20.0, tag="strong-decay")
@@ -955,8 +1190,10 @@ def kernel_checks(plen: int, lplen: int) -> dict:
             "rmsnorm_q_norm": check_rmsnorm(
                 gen, 8 * plen, mla.q_lora_rank, bf16,
                 tag="deepseek-main-path-prefill-q-norm"),
+            # the latent's rows, read in place from the wkv_a output
             "rmsnorm_kv_norm": check_rmsnorm(
                 gen, 8 * plen, mla.kv_lora_rank, bf16,
+                ld=mla.kv_lora_rank + mla.qk_rope_head_dim,
                 tag="deepseek-main-path-prefill-kv-norm")},
         VLM_MODEL: {
             "flash_attention": check_flash(
@@ -1708,6 +1945,7 @@ def train_kernel_checks() -> dict:
         gen, n, d, bf16, tag="train-main-path")}
     check_rmsnorm_bwd(gen, n, d, f32, tag="train")
     check_rmsnorm_bwd(gen, 4097, 1032, bf16, tag="ragged")
+    check_rmsnorm_bwd(gen, 1000, 512, f32, ld=576, tag="strided")
     granite["rmsnorm"] = check_rmsnorm(gen, n, d, bf16,
                                        tag="train-main-path")
     zcfg = get_config("zamba2-7b")
@@ -1725,14 +1963,15 @@ def train_kernel_checks() -> dict:
     dshape = TRAIN_SHAPE_OF["deepseek-v2-236b"]
     dn = dshape.global_batch * dshape.seq_len
     deepseek = {}
-    for key, width in (("", dcfg.d_model),
-                       ("_q_norm", dcfg.mla.q_lora_rank),
-                       ("_kv_norm", dcfg.mla.kv_lora_rank)):
+    latent = dcfg.mla.kv_lora_rank + dcfg.mla.qk_rope_head_dim
+    for key, width, ld in (("", dcfg.d_model, None),
+                           ("_q_norm", dcfg.mla.q_lora_rank, None),
+                           ("_kv_norm", dcfg.mla.kv_lora_rank, latent)):
         tag = f"deepseek-train-main-path{key.replace('_', '-')}"
         deepseek["rmsnorm_backward" + key] = check_rmsnorm_bwd(
-            gen, dn, width, bf16, tag=tag)
+            gen, dn, width, bf16, tag=tag, ld=ld)
         deepseek["rmsnorm" + key] = check_rmsnorm(gen, dn, width, bf16,
-                                                  tag=tag)
+                                                  tag=tag, ld=ld)
     vd = get_config(VLM_MODEL).d_model
     vlm = {"rmsnorm_backward": check_rmsnorm_bwd(
         gen, n, vd, bf16, tag="qwen2-vl-train-main-path"),
@@ -2361,6 +2600,9 @@ def main() -> int:
     rows = kernel_checks(plen, lplen)
     log(f"kernels: all checks within tolerance "
         f"({time.monotonic() - t0:.2f} s)")
+    t0 = time.monotonic()
+    rmsnorm_turns()
+    log(f"turns: phase {time.monotonic() - t0:.2f} s")
 
     # Phase 3: serve, one model after the other; the VLM and the
     # encoder-decoder last, through make_serve_fns

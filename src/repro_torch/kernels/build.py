@@ -46,18 +46,29 @@ SIGNATURES = {
         _P,                             # stream
     ],
     "repro_rmsnorm": [
-        _P, _P, _P,                     # x, scale, y
+        _P, _L,                         # x, its row stride (elements)
+        _P, _P,                         # scale, y
         _I,                             # dtype code
         _L, _I, _F,                     # rows, d, eps
+        _I, _I, _I, _I,                 # plan: VPT, tpr, slots; blocks
         _P,                             # stream
     ],
     "repro_rmsnorm_bwd": [
-        _P, _P, _P, _P,                 # x, scale, dy, dx
+        _P, _L,                         # x, its row stride (elements)
+        _P,                             # scale
+        _P, _L,                         # dy, its row stride
+        _P,                             # dx
         _P, _P,                         # partial scratch, dscale
         _I,                             # dtype code
         _L, _I, _F,                     # rows, d, eps
+        _I, _I, _I,                     # plan: VPT, tpr, slots
         _I,                             # blocks (rows of the scratch)
         _P,                             # stream
+    ],
+    "repro_rmsnorm_blocks_per_sm": [
+        _I, _I,                         # backward?, dtype code
+        _I, _I, _I, _I,                 # plan: VPT, tpr, slots; d
+        ctypes.POINTER(_I),             # out: blocks that fit on an SM
     ],
     "repro_ssd_scan": [
         _P, _P, _P, _P, _P,             # x, a, b, c, init state (or null)

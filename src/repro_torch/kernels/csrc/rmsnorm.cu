@@ -7,347 +7,496 @@
 // so it owes the kernel a gradient: `rmsnorm_bwd_kernel` below.
 //
 // What it computes: y = x * rsqrt(mean(x^2) + eps) * scale over the last
-// dim, in fp32, stored in x's dtype (bf16 or fp32); scale is fp32.
+// dim, in fp32, stored in x's dtype (bf16 or fp32); scale is fp32.  The
+// input rows may be strided (a row stride in elements, a multiple of 16
+// bytes; MLA's latent is the first 512 columns of 576-wide rows); the
+// outputs are contiguous.
 //
 // What bounds it on the H100: bytes.  ~4 operations per element against
-// one read and one write of x (2-4 bytes each): far below the card's
-// balance point, so the best it can do is stream x at the memory rate.
+// one read and one write of x (2-4 bytes each), far below the card's
+// balance point; at a few thousand rows or fewer, the latency of one trip
+// to memory and of the launch.
 //
-// What the design does about it: one pass that reads each row and writes
-// it once, 16-byte vector loads and stores (8 bf16 or 4 fp32 per thread and
-// step), the fp32 sum of squares reduced with warp shuffles.  A row of
-// d <= 1024 gets one warp (8 rows per block of 256 threads); a wider row
-// gets a block of 256 threads, whose warps combine their sums through
-// shared memory.  The second sweep over the row re-reads x, which a row of
-// at most a few KB finds in L1.
+// What the design does about it: every row is read from device memory
+// once and held in registers between its sum of squares and its write:
+// a row slot of `tpr` threads (a warp, or several) holds VPT 16-byte
+// vectors a thread (VPT a template parameter; thread t holds vectors t,
+// t + tpr, ..., so a warp's loads are contiguous, and a ragged tail of
+// vectors is masked).  A block is `slots` such row slots; a slot of one
+// warp reduces with shuffles alone, a wider one meets only its own named
+// barrier (`bar.sync 1 + slot`), through a double-buffered word a warp in
+// shared memory, so one barrier a row.  The host picks the plan
+// (`kernels/rmsnorm.py::plan`, chosen on the card): a warp a row for narrow
+// rows (d <= 1024 in bf16), a slot wide enough that each thread issues one
+// or two loads for decode rows, two vectors a thread for wide rows.  Rows
+// of up to 4 KB are walked by a grid of the blocks that fit on the card,
+// each slot loading its next row while the current one reduces (WALK);
+// wider rows get a slot each, which the block scheduler balances better.
 //
 // Backward (`repro_rmsnorm_bwd`): with g = dy * scale and r recomputed per
 // row, dx = r * g - x * r^3 * mean(x * g) and dscale = sum over rows of
-// dy * x * r.  Bound by bytes too (read x and dy, write dx).  Same row
-// layout and vector loads as the forward; a block walks rows
-// blockIdx.x, blockIdx.x + gridDim.x, ... (in slots of blockDim.y rows)
-// and sums dy * x * r for the columns its threads own in shared memory, so
-// no two threads touch one sum.  Each block writes its sums as one row of an
-// fp32 scratch (blocks x d), and `rmsnorm_dscale_kernel` adds those rows in
-// a fixed order: no atomics, the same bits on every run.
+// dy * x * r.  Bound by bytes too (read x and dy, write dx).  The same
+// slots and plans, in a grid of the blocks that fit on the card: x and dy
+// are read once, into registers (kept packed across the row's sums, so
+// the registers go to more blocks an SM and more loads in flight); each
+// thread keeps the dscale sums of the columns it owns in registers across
+// the rows its slot walks, so the per-element work touches no shared
+// memory.  At the end the block adds its slots' sums (through shared
+// memory, in slot order) and writes them as its row of an fp32 scratch:
+// one row a block.  `rmsnorm_dscale_kernel` then adds the scratch's rows
+// column by column, in a fixed order, with each thread's loads in flight
+// together and blocks narrow enough to fill the card: no atomics, the same
+// bits on every run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <initializer_list>
-
 namespace {
 
-constexpr int kWide = 256;   // threads per row when d > 1024
+constexpr int kMaxThreads = 512;              // a block's threads
+constexpr int kMaxSlots = 16;                 // row slots a block
+constexpr int kMaxWarps = kMaxThreads / 32;   // warps a slot
+constexpr int kMaxSmem = 200 * 1024;          // the backward's slot sums
 
 template <typename T>
-struct Vec;
+struct Pack;
 
 template <>
-struct Vec<float> {
+struct Pack<float> {
   static constexpr int N = 4;
-  __device__ static void load(const float* p, float (&f)[4]) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    f[0] = v.x;
-    f[1] = v.y;
-    f[2] = v.z;
-    f[3] = v.w;
+  __device__ static void unpack(const uint4& r, float (&f)[N]) {
+    f[0] = __uint_as_float(r.x);
+    f[1] = __uint_as_float(r.y);
+    f[2] = __uint_as_float(r.z);
+    f[3] = __uint_as_float(r.w);
   }
-  __device__ static void store(float* p, const float (&f)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  __device__ static uint4 pack(const float (&f)[N]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
   }
 };
 
 template <>
-struct Vec<__nv_bfloat16> {
+struct Pack<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float (&f)[8]) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  // a bf16 is the high half of the fp32 with its bits
+  __device__ static void unpack(const uint4& r, float (&f)[N]) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 v = __bfloat1622float2(h[i]);
-      f[2 * i] = v.x;
-      f[2 * i + 1] = v.y;
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
   }
-  __device__ static void store(__nv_bfloat16* p, const float (&f)[8]) {
-    uint4 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+  __device__ static uint4 pack(const float (&f)[N]) {
+    uint32_t w[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = raw;
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
   }
 };
 
-// blockDim.x threads per row, blockDim.y rows per block.
-template <typename T>
-__global__ void rmsnorm_kernel(const T* __restrict__ x,
-                               const float* __restrict__ scale,
-                               T* __restrict__ y, long long n, int d,
-                               float eps) {
-  constexpr int N = Vec<T>::N;
-  __shared__ float partial[32];
-  const long long row = (long long)blockIdx.x * blockDim.y + threadIdx.y;
-  const int nw = blockDim.x / 32;
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int step = blockDim.x * N;
-
-  float ss = 0.f;
-  if (row < n) {
-    const T* xr = x + row * d;
-    for (int i = threadIdx.x * N; i < d; i += step) {
-      float f[N];
-      Vec<T>::load(xr + i, f);
+// This thread's VPT vectors of a row (zeros past its end, or for no row).
+template <typename T, int VPT>
+__device__ __forceinline__ void load_row(const T* row, int nv, int tid,
+                                         int tpr, uint4 (&r)[VPT]) {
+  constexpr int N = Pack<T>::N;
 #pragma unroll
-      for (int j = 0; j < N; ++j) ss = fmaf(f[j], f[j], ss);
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-  if (lane == 0) partial[threadIdx.y * nw + w] = ss;
-  __syncthreads();
-  if (row >= n) return;
-  float total = 0.f;
-  for (int i = 0; i < nw; ++i) total += partial[threadIdx.y * nw + i];
-  const float r = rsqrtf(total / float(d) + eps);
-
-  const T* xr = x + row * d;
-  T* yr = y + row * d;
-  for (int i = threadIdx.x * N; i < d; i += step) {
-    float f[N], s[N];
-    Vec<T>::load(xr + i, f);
-#pragma unroll
-    for (int c = 0; c < N / 4; ++c) {
-      const float4 sv = *reinterpret_cast<const float4*>(scale + i + 4 * c);
-      s[4 * c] = sv.x;
-      s[4 * c + 1] = sv.y;
-      s[4 * c + 2] = sv.z;
-      s[4 * c + 3] = sv.w;
-    }
-#pragma unroll
-    for (int j = 0; j < N; ++j) f[j] = f[j] * r * s[j];
-    Vec<T>::store(yr + i, f);
+  for (int j = 0; j < VPT; ++j) {
+    const int v = j * tpr + tid;
+    r[j] = (row != nullptr && v < nv)
+               ? __ldg(reinterpret_cast<const uint4*>(row + v * N))
+               : make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
-// dx and this block's dscale sums; blockDim.x threads per row, blockDim.y
-// row slots per block; dynamic shared memory: blockDim.y * d floats.
-template <typename T>
-__global__ void rmsnorm_bwd_kernel(const T* __restrict__ x,
-                                   const float* __restrict__ scale,
-                                   const T* __restrict__ dy,
-                                   T* __restrict__ dx,
-                                   float* __restrict__ partial, long long n,
-                                   int d, float eps) {
-  constexpr int N = Vec<T>::N;
-  extern __shared__ float4 acc4[];
-  __shared__ float red[2][32];
-  float* acc = reinterpret_cast<float*>(acc4);
-  float* mine = acc + threadIdx.y * d;
-  const int nw = blockDim.x / 32;
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int step = blockDim.x * N;
-  for (int i = threadIdx.x * N; i < d; i += step) {
+template <int N>
+__device__ __forceinline__ void load_scale(const float* s, float (&f)[N]) {
 #pragma unroll
-    for (int c = 0; c < N / 4; ++c)
-      *reinterpret_cast<float4*>(mine + i + 4 * c) = make_float4(0, 0, 0, 0);
+  for (int q = 0; q < N / 4; ++q) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(s) + q);
+    f[4 * q] = v.x;
+    f[4 * q + 1] = v.y;
+    f[4 * q + 2] = v.z;
+    f[4 * q + 3] = v.w;
   }
+}
 
-  // The row loop is uniform over the block: a block of one wide row meets
-  // at __syncthreads in every trip.
-  const long long stride = (long long)gridDim.x * blockDim.y;
-  for (long long row0 = (long long)blockIdx.x * blockDim.y; row0 < n;
-       row0 += stride) {
-    const long long row = row0 + threadIdx.y;
-    const bool live = row < n;
-    const T* xr = x + row * d;
-    const T* gr = dy + row * d;
-    float sxx = 0.f, sxg = 0.f;
-    if (live) {
-      for (int i = threadIdx.x * N; i < d; i += step) {
-        float f[N], g[N];
-        Vec<T>::load(xr + i, f);
-        Vec<T>::load(gr + i, g);
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-        for (int c = 0; c < N / 4; ++c) {
-          const float4 sv = *reinterpret_cast<const float4*>(scale + i + 4 * c);
-          g[4 * c] *= sv.x;
-          g[4 * c + 1] *= sv.y;
-          g[4 * c + 2] *= sv.z;
-          g[4 * c + 3] *= sv.w;
-        }
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The barrier of one row slot's tpr threads (id 0 is __syncthreads').
+__device__ __forceinline__ void bar_slot(int slot, int tpr) {
+  asm volatile("bar.sync %0, %1;" ::"r"(slot + 1), "r"(tpr) : "memory");
+}
+
+// block (tpr, slots); slot s of block b walks rows b * slots + s, then
+// gridDim.x * slots further each time.  WALK: a slot has more than one row,
+// so it loads the next while the current one reduces (else the grid has a
+// slot for every row, and each thread's registers hold one row's vectors).
+template <typename T, int VPT, bool WALK>
+__global__ void __launch_bounds__(kMaxThreads)
+    rmsnorm_kernel(const T* __restrict__ x, long long ldx,
+                   const float* __restrict__ scale, T* __restrict__ y,
+                   long long n, int d, float eps) {
+  constexpr int N = Pack<T>::N;
+  __shared__ float red[kMaxSlots][2][kMaxWarps];
+  const int tpr = blockDim.x, tid = threadIdx.x, slot = threadIdx.y;
+  const int nv = d / N, nw = tpr / 32, w = tid / 32, lane = tid % 32;
+  const long long step = (long long)gridDim.x * blockDim.y;
+  long long row = (long long)blockIdx.x * blockDim.y + slot;
+  uint4 cur[VPT];
+  load_row<T, VPT>(row < n ? x + row * ldx : nullptr, nv, tid, tpr, cur);
+  int parity = 0;
+  for (; row < n; row += step) {
+    const long long next = row + step;
+    uint4 nxt[VPT];
+    if (WALK)
+      load_row<T, VPT>(next < n ? x + next * ldx : nullptr, nv, tid, tpr,
+                       nxt);
+    float ss = 0.f;
 #pragma unroll
-        for (int j = 0; j < N; ++j) {
-          sxx = fmaf(f[j], f[j], sxx);
-          sxg = fmaf(f[j], g[j], sxg);
-        }
-      }
+    for (int j = 0; j < VPT; ++j) {
+      float f[N];
+      Pack<T>::unpack(cur[j], f);
+#pragma unroll
+      for (int e = 0; e < N; ++e) ss = fmaf(f[e], f[e], ss);
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      sxx += __shfl_xor_sync(0xffffffffu, sxx, o);
-      sxg += __shfl_xor_sync(0xffffffffu, sxg, o);
-    }
+    ss = warp_sum(ss);
     if (nw > 1) {
-      if (lane == 0) {
-        red[0][w] = sxx;
-        red[1][w] = sxg;
+      // one word a warp, double-buffered: a warp that runs a row ahead
+      // writes the other buffer, and cannot run two ahead past the barrier
+      if (lane == 0) red[slot][parity][w] = ss;
+      bar_slot(slot, tpr);
+      ss = 0.f;
+      for (int i = 0; i < nw; ++i) ss += red[slot][parity][i];
+      parity ^= 1;
+    }
+    const float r = rsqrtf(ss / float(d) + eps);
+    T* yr = y + row * d;
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      const int v = j * tpr + tid;
+      if (v < nv) {
+        float f[N], s[N];
+        Pack<T>::unpack(cur[j], f);
+        load_scale<N>(scale + v * N, s);
+#pragma unroll
+        for (int e = 0; e < N; ++e) f[e] = f[e] * r * s[e];
+        *reinterpret_cast<uint4*>(yr + v * N) = Pack<T>::pack(f);
       }
-      __syncthreads();
+    }
+    if (WALK)
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) cur[j] = nxt[j];
+  }
+}
+
+// dx, and the block's dscale sums as row blockIdx.x of the scratch
+// `partial` (gridDim.x x d).  Dynamic shared memory: slots x d fp32 when
+// slots > 1.
+template <typename T, int VPT>
+__global__ void __launch_bounds__(kMaxThreads)
+    rmsnorm_bwd_kernel(const T* __restrict__ x, long long ldx,
+                       const float* __restrict__ scale,
+                       const T* __restrict__ dy, long long ldg,
+                       T* __restrict__ dx, float* __restrict__ partial,
+                       long long n, int d, float eps) {
+  constexpr int N = Pack<T>::N;
+  extern __shared__ float4 sums4[];
+  __shared__ float2 red[kMaxSlots][2][kMaxWarps];
+  const int tpr = blockDim.x, tid = threadIdx.x, slot = threadIdx.y;
+  const int nv = d / N, nw = tpr / 32, w = tid / 32, lane = tid % 32;
+  const long long step = (long long)gridDim.x * blockDim.y;
+  float acc[VPT][N];
+#pragma unroll
+  for (int j = 0; j < VPT; ++j)
+#pragma unroll
+    for (int e = 0; e < N; ++e) acc[j][e] = 0.f;
+
+  int parity = 0;
+  for (long long row = (long long)blockIdx.x * blockDim.y + slot; row < n;
+       row += step) {
+    uint4 xv[VPT], gv[VPT];
+    load_row<T, VPT>(x + row * ldx, nv, tid, tpr, xv);
+    load_row<T, VPT>(dy + row * ldg, nv, tid, tpr, gv);
+    float sxx = 0.f, sxg = 0.f;
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      const int v = j * tpr + tid;
+      if (v < nv) {
+        float f[N], g[N], s[N];
+        Pack<T>::unpack(xv[j], f);
+        Pack<T>::unpack(gv[j], g);
+        load_scale<N>(scale + v * N, s);
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          sxx = fmaf(f[e], f[e], sxx);
+          sxg = fmaf(f[e], g[e] * s[e], sxg);
+        }
+      }
+    }
+    sxx = warp_sum(sxx);
+    sxg = warp_sum(sxg);
+    if (nw > 1) {
+      if (lane == 0) red[slot][parity][w] = make_float2(sxx, sxg);
+      bar_slot(slot, tpr);
       sxx = 0.f;
       sxg = 0.f;
       for (int i = 0; i < nw; ++i) {
-        sxx += red[0][i];
-        sxg += red[1][i];
+        const float2 p = red[slot][parity][i];
+        sxx += p.x;
+        sxg += p.y;
       }
-      __syncthreads();  // red is written again by the next row
+      parity ^= 1;
     }
-    if (!live) continue;
     const float r = rsqrtf(sxx / float(d) + eps);
     const float k = r * r * r * (sxg / float(d));
     T* dr = dx + row * d;
-    for (int i = threadIdx.x * N; i < d; i += step) {
-      float f[N], g[N], s[N], o[N];
-      Vec<T>::load(xr + i, f);
-      Vec<T>::load(gr + i, g);
+    // the second pass unpacks x and dy again and reloads scale (an L1
+    // hit) rather than keeping the first pass's fp32 values live across the
+    // sums: fewer registers, so more blocks an SM and more loads in flight
+    const float* sc = scale;
+    asm volatile("" : "+l"(sc));
 #pragma unroll
-      for (int c = 0; c < N / 4; ++c) {
-        const float4 sv = *reinterpret_cast<const float4*>(scale + i + 4 * c);
-        s[4 * c] = sv.x;
-        s[4 * c + 1] = sv.y;
-        s[4 * c + 2] = sv.z;
-        s[4 * c + 3] = sv.w;
-      }
+    for (int j = 0; j < VPT; ++j) {
+      asm volatile("" : "+r"(xv[j].x), "+r"(xv[j].y), "+r"(xv[j].z),
+                   "+r"(xv[j].w));
+      asm volatile("" : "+r"(gv[j].x), "+r"(gv[j].y), "+r"(gv[j].z),
+                   "+r"(gv[j].w));
+    }
 #pragma unroll
-      for (int j = 0; j < N; ++j) o[j] = r * (g[j] * s[j]) - f[j] * k;
-      Vec<T>::store(dr + i, o);
+    for (int j = 0; j < VPT; ++j) {
+      const int v = j * tpr + tid;
+      if (v < nv) {
+        float f[N], g[N], s[N], o[N];
+        Pack<T>::unpack(xv[j], f);
+        Pack<T>::unpack(gv[j], g);
+        load_scale<N>(sc + v * N, s);
 #pragma unroll
-      for (int c = 0; c < N / 4; ++c) {
-        float4* a = reinterpret_cast<float4*>(mine + i + 4 * c);
-        float4 v = *a;
-        v.x = fmaf(g[4 * c] * f[4 * c], r, v.x);
-        v.y = fmaf(g[4 * c + 1] * f[4 * c + 1], r, v.y);
-        v.z = fmaf(g[4 * c + 2] * f[4 * c + 2], r, v.z);
-        v.w = fmaf(g[4 * c + 3] * f[4 * c + 3], r, v.w);
-        *a = v;
+        for (int e = 0; e < N; ++e) {
+          o[e] = r * (g[e] * s[e]) - f[e] * k;
+          acc[j][e] = fmaf(g[e] * f[e], r, acc[j][e]);
+        }
+        *reinterpret_cast<uint4*>(dr + v * N) = Pack<T>::pack(o);
       }
     }
   }
-  __syncthreads();
-  // this block's row of the scratch: the sums of its row slots
-  const int t = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nt = blockDim.x * blockDim.y;
+
+  // the block's row of the scratch: its slots' sums, added in slot order
   float* out = partial + (long long)blockIdx.x * d;
-  for (int c = t; c < d; c += nt) {
-    float v = 0.f;
-    for (int k = 0; k < (int)blockDim.y; ++k) v += acc[k * d + c];
-    out[c] = v;
+  float* mine = blockDim.y == 1 ? out
+                                : reinterpret_cast<float*>(sums4) + slot * d;
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) {
+    const int v = j * tpr + tid;
+    if (v < nv) {
+#pragma unroll
+      for (int q = 0; q < N / 4; ++q)
+        reinterpret_cast<float4*>(mine + v * N)[q] =
+            make_float4(acc[j][4 * q], acc[j][4 * q + 1], acc[j][4 * q + 2],
+                        acc[j][4 * q + 3]);
+    }
+  }
+  if (blockDim.y == 1) return;
+  __syncthreads();
+  const int d4 = d / 4;
+  const float4* s4 = sums4;
+  for (int c = slot * tpr + tid; c < d4; c += tpr * blockDim.y) {
+    float4 a = s4[c];
+    for (int k = 1; k < (int)blockDim.y; ++k) {
+      const float4 b = s4[k * d4 + c];
+      a.x += b.x;
+      a.y += b.y;
+      a.z += b.z;
+      a.w += b.w;
+    }
+    reinterpret_cast<float4*>(out)[c] = a;
   }
 }
 
-// dscale[c] = sum over the scratch's rows, in a fixed order; block (32, 8)
-// takes 32 columns, its 8 rows of threads stride over the scratch's rows.
-__global__ void rmsnorm_dscale_kernel(const float* __restrict__ partial,
-                                      float* __restrict__ dscale, int rows,
-                                      int d) {
-  __shared__ float red[8][33];
-  const int c = blockIdx.x * 32 + threadIdx.x;
+// dscale[c] = the sum of column c over the scratch's rows, in a fixed
+// order.  Block (cols, lanes): lane l sums rows l, l + lanes, ... with four
+// loads in flight, then the lanes' sums are added in lane order.
+__global__ void __launch_bounds__(kMaxThreads)
+    rmsnorm_dscale_kernel(const float* __restrict__ partial,
+                          float* __restrict__ dscale, int rows, int d) {
+  __shared__ float red[kMaxThreads];
+  const int cols = blockDim.x, lanes = blockDim.y;
+  const int c = blockIdx.x * cols + threadIdx.x;
   float v = 0.f;
-  if (c < d)
-    for (int k = threadIdx.y; k < rows; k += 8)
-      v += partial[(long long)k * d + c];
-  red[threadIdx.y][threadIdx.x] = v;
+  if (c < d) {
+    const float* p = partial + c;
+    int k = threadIdx.y;
+    for (; k + 3 * lanes < rows; k += 4 * lanes) {
+      const float a0 = __ldg(p + (long long)k * d);
+      const float a1 = __ldg(p + (long long)(k + lanes) * d);
+      const float a2 = __ldg(p + (long long)(k + 2 * lanes) * d);
+      const float a3 = __ldg(p + (long long)(k + 3 * lanes) * d);
+      v += a0;
+      v += a1;
+      v += a2;
+      v += a3;
+    }
+    for (; k < rows; k += lanes) v += __ldg(p + (long long)k * d);
+  }
+  red[threadIdx.y * cols + threadIdx.x] = v;
   __syncthreads();
   if (threadIdx.y == 0 && c < d) {
-    float total = 0.f;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) total += red[k][threadIdx.x];
-    dscale[c] = total;
+    float t = 0.f;
+    for (int i = 0; i < lanes; ++i) t += red[i * cols + threadIdx.x];
+    dscale[c] = t;
   }
 }
 
-// Rows of d <= 1024 get one warp each (8 row slots a block); wider rows a
-// block of kWide threads.
-dim3 row_block(int d) { return d <= 1024 ? dim3(32, 8) : dim3(kWide, 1); }
-
-template <typename T>
-cudaError_t launch(const void* x, const void* scale, void* y, long long n,
-                   int d, float eps, cudaStream_t stream) {
-  const dim3 block = row_block(d);
-  const long long blocks = (n + block.y - 1) / block.y;
-  rmsnorm_kernel<T><<<dim3(unsigned(blocks)), block, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(scale),
-      static_cast<T*>(y), n, d, eps);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_bwd(const void* x, const void* scale, const void* dy,
-                       void* dx, float* partial, float* dscale, long long n,
-                       int d, float eps, int blocks, cudaStream_t stream) {
-  const dim3 block = row_block(d);
-  const size_t smem = size_t(block.y) * d * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rmsnorm_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(smem));
-    if (err != cudaSuccess) return err;
+template <typename T, bool WALK>
+const void* fwd_kernel(int vpt) {
+  switch (vpt) {
+    case 1: return reinterpret_cast<const void*>(rmsnorm_kernel<T, 1, WALK>);
+    case 2: return reinterpret_cast<const void*>(rmsnorm_kernel<T, 2, WALK>);
+    case 4: return reinterpret_cast<const void*>(rmsnorm_kernel<T, 4, WALK>);
+    case 8: return reinterpret_cast<const void*>(rmsnorm_kernel<T, 8, WALK>);
   }
-  rmsnorm_bwd_kernel<T><<<dim3(unsigned(blocks)), block, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(scale),
-      static_cast<const T*>(dy), static_cast<T*>(dx), partial, n, d, eps);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rmsnorm_dscale_kernel<<<dim3(unsigned((d + 31) / 32)), dim3(32, 8), 0,
-                          stream>>>(partial, dscale, blocks, d);
-  return cudaGetLastError();
+  return nullptr;
 }
 
-// What a kernel takes: 16-byte aligned rows of d % (16 / itemsize) == 0.
+template <typename T>
+const void* bwd_kernel(int vpt) {
+  switch (vpt) {
+    case 1: return reinterpret_cast<const void*>(rmsnorm_bwd_kernel<T, 1>);
+    case 2: return reinterpret_cast<const void*>(rmsnorm_bwd_kernel<T, 2>);
+    case 4: return reinterpret_cast<const void*>(rmsnorm_bwd_kernel<T, 4>);
+    case 8: return reinterpret_cast<const void*>(rmsnorm_bwd_kernel<T, 8>);
+  }
+  return nullptr;
+}
+
+// The instance of a plan; the forward's walks rows (and prefetches) when
+// the grid has fewer slots than rows.
+const void* kernel_of(int backward, int dtype, int vpt, bool walk) {
+  if (backward)
+    return dtype == 0 ? bwd_kernel<float>(vpt)
+                      : bwd_kernel<__nv_bfloat16>(vpt);
+  if (dtype == 0)
+    return walk ? fwd_kernel<float, true>(vpt) : fwd_kernel<float, false>(vpt);
+  return walk ? fwd_kernel<__nv_bfloat16, true>(vpt)
+              : fwd_kernel<__nv_bfloat16, false>(vpt);
+}
+
+// What a kernel takes (else kBadLayout): 16-byte aligned pointers, d and
+// the row strides multiples of a vector, row strides >= d, and a plan
+// whose slots cover a row: a multiple of 32 threads a slot, at most
+// kMaxThreads a block and kMaxSlots slots, tpr * VPT vectors >= d's.
 constexpr int kBadLayout = -1;
 
-bool bad_layout(int dtype, int d, std::initializer_list<const void*> ptrs) {
-  if (d % (dtype == 0 ? 4 : 8)) return true;
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16) return true;
-  return false;
+bool bad_layout(int dtype, int d, long long ld1, long long ld2,
+                const void* const* ptrs, int nptrs, int vpt, int tpr,
+                int slots, int blocks) {
+  const int vec = dtype == 0 ? 4 : 8;
+  if (d % vec || ld1 % vec || ld2 % vec || ld1 < d || ld2 < d) return true;
+  for (int i = 0; i < nptrs; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return true;
+  if (vpt != 1 && vpt != 2 && vpt != 4 && vpt != 8) return true;
+  if (tpr < 32 || tpr % 32 || slots < 1 || slots > kMaxSlots ||
+      tpr * slots > kMaxThreads || blocks < 1)
+    return true;
+  return (long long)tpr * vpt * vec < d;
+}
+
+size_t bwd_smem(int d, int slots) {
+  return slots > 1 ? size_t(slots) * d * sizeof(float) : 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  x and y are (n, d) contiguous.
-// Returns a cudaError_t (0 on success), or -1 when d % (16 / itemsize) != 0
-// or a pointer is not 16-byte aligned.
-extern "C" int repro_rmsnorm(const void* x, const void* scale, void* y,
-                             int dtype, long long n, int d, float eps,
-                             void* stream) {
+// Forward.  dtype: 0 = float32, 1 = bfloat16.  x: n rows of d, ldx
+// elements apart; y: (n, d) contiguous.  The plan: VPT vectors a thread,
+// tpr threads a row slot, slots a block, blocks (any count >= 1: the slots
+// stride over the rows).  Returns a cudaError_t (0 on success), or -1 when
+// the layout or the plan is not one the kernel takes (bad_layout).
+extern "C" int repro_rmsnorm(const void* x, long long ldx, const void* scale,
+                             void* y, int dtype, long long n, int d,
+                             float eps, int vpt, int tpr, int slots,
+                             int blocks, void* stream) {
   if (n <= 0 || d <= 0 || (dtype != 0 && dtype != 1))
     return int(cudaErrorInvalidValue);
-  if (bad_layout(dtype, d, {x, scale, y})) return kBadLayout;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return int(launch<float>(x, scale, y, n, d, eps, st));
-  return int(launch<__nv_bfloat16>(x, scale, y, n, d, eps, st));
+  const void* ptrs[] = {x, scale, y};
+  if (bad_layout(dtype, d, ldx, d, ptrs, 3, vpt, tpr, slots, blocks))
+    return kBadLayout;
+  void* args[] = {&x, &ldx, &scale, &y, &n, &d, &eps};
+  const bool walk = (long long)blocks * slots < n;
+  cudaError_t err = cudaLaunchKernel(
+      kernel_of(0, dtype, vpt, walk), dim3(unsigned(blocks)),
+      dim3(unsigned(tpr), unsigned(slots)), args, 0,
+      static_cast<cudaStream_t>(stream));
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return int(err);
 }
 
-// Backward: x, dy and dx are (n, d) contiguous in the dtype's type, scale
-// and dscale (d,) fp32, partial a (blocks, d) fp32 scratch with
-// 1 <= blocks (any count: rows are strided over the blocks).  Same return
-// codes as repro_rmsnorm.
-extern "C" int repro_rmsnorm_bwd(const void* x, const void* scale,
-                                 const void* dy, void* dx, void* partial,
+// Backward: x and dy n rows of d, ldx and ldg elements apart; dx (n, d)
+// contiguous in the dtype's type; scale and dscale (d,) fp32; partial a
+// (blocks, d) fp32 scratch, one row a block of the row kernel.  The same
+// plan and return codes as repro_rmsnorm; two launches: the row kernel and
+// the dscale sum.
+extern "C" int repro_rmsnorm_bwd(const void* x, long long ldx,
+                                 const void* scale, const void* dy,
+                                 long long ldg, void* dx, void* partial,
                                  void* dscale, int dtype, long long n, int d,
-                                 float eps, int blocks, void* stream) {
-  if (n <= 0 || d <= 0 || blocks <= 0 || (dtype != 0 && dtype != 1))
+                                 float eps, int vpt, int tpr, int slots,
+                                 int blocks, void* stream) {
+  if (n <= 0 || d <= 0 || (dtype != 0 && dtype != 1))
     return int(cudaErrorInvalidValue);
-  if (bad_layout(dtype, d, {x, scale, dy, dx})) return kBadLayout;
+  const void* ptrs[] = {x, scale, dy, dx, partial, dscale};
+  if (bad_layout(dtype, d, ldx, ldg, ptrs, 6, vpt, tpr, slots, blocks))
+    return kBadLayout;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* p = static_cast<float*>(partial);
-  float* ds = static_cast<float*>(dscale);
-  if (dtype == 0)
-    return int(launch_bwd<float>(x, scale, dy, dx, p, ds, n, d, eps, blocks,
-                                 st));
-  return int(launch_bwd<__nv_bfloat16>(x, scale, dy, dx, p, ds, n, d, eps,
-                                       blocks, st));
+  const void* fn = kernel_of(1, dtype, vpt, true);
+  const size_t smem = bwd_smem(d, slots);
+  if (smem > kMaxSmem) return kBadLayout;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  void* args[] = {&x, &ldx, &scale, &dy, &ldg, &dx, &partial, &n, &d, &eps};
+  err = cudaLaunchKernel(fn, dim3(unsigned(blocks)),
+                         dim3(unsigned(tpr), unsigned(slots)), args, smem,
+                         st);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  // columns a block of the sum: enough blocks to fill the card
+  const int cols = d >= 32 * 128 ? 32 : d >= 16 * 128 ? 16 : 8;
+  rmsnorm_dscale_kernel<<<dim3(unsigned((d + cols - 1) / cols)),
+                          dim3(unsigned(cols), unsigned(kMaxThreads / cols)),
+                          0, st>>>(static_cast<const float*>(partial),
+                                   static_cast<float*>(dscale), blocks, d);
+  return int(cudaGetLastError());
+}
+
+// Writes to *blocks the blocks of a plan's instance that fit on one SM at
+// once; returns a cudaError_t, or -1 for a plan the kernel does not take.
+extern "C" int repro_rmsnorm_blocks_per_sm(int backward, int dtype, int vpt,
+                                           int tpr, int slots, int d,
+                                           int* blocks) {
+  if ((dtype != 0 && dtype != 1) || d <= 0) return kBadLayout;
+  if (bad_layout(dtype, d, d, d, nullptr, 0, vpt, tpr, slots, 1))
+    return kBadLayout;
+  const void* fn = kernel_of(backward, dtype, vpt, true);
+  const size_t smem = backward ? bwd_smem(d, slots) : 0;
+  if (smem > kMaxSmem) return kBadLayout;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
+                                                        tpr * slots, smem);
+  return int(err);
 }

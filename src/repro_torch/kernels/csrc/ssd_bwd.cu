@@ -25,7 +25,10 @@
 // state's contribution (c_i . dc_inter_i) and of the carried decays
 // (-x_i . dx_inter_i), and on the chunk's last step the gradient of its
 // total, exp(A) <G, S> + sum_i x_i . dx_inter_i.  Every exponent is clamped
-// at 0 as in the forward, with a zero derivative where the clamp binds.
+// at 0 as in the forward, but its derivative is the unclamped one's, as
+// in the reference: with a <= 0 every exponent is at most 0, so a positive
+// one is rounding (a decay under one fp32 unit of acs makes acs_i - acs_j
+// come out above 0 in the scan's order) and its term still counts.
 // db and dc sum over the heads of a group, in a fixed order (no atomics),
 // so the result does not depend on the blocks' schedule.
 //
@@ -402,7 +405,7 @@ __global__ void __launch_bounds__(NT, 1) ssd_bwd_kernel(Params p) {
           dv[jj] = pa[ii][jj] * e;
           // the diagonal's exponent is 0 whatever acs is: its terms would
           // enter the row and the column sum alike and cancel
-          const float t = arg <= 0.f && i != j ? gv[jj] * pa[ii][jj] : 0.f;
+          const float t = i != j ? gv[jj] * pa[ii][jj] : 0.f;
           rowp[ii] += t;
           colp[jj] += t;
         }
@@ -517,18 +520,14 @@ __global__ void __launch_bounds__(NT, 1) ssd_bwd_kernel(Params p) {
     // The gradient of acs, then da as its reverse cumulative sum.
     if (tid < C) {
       const int i = tid;
-      const float total = Acs[C - 1];
       float col = 0.f;
       for (int w = 0; w < 8; ++w) col += ColP[w * C + i];
-      const float cd = Acs[i] <= 0.f ? CdC[i] : 0.f;
-      const float ud = total - Acs[i] <= 0.f ? Udx[i] : 0.f;
-      float v = RowT[i] - col + cd - ud;
+      float v = RowT[i] - col + CdC[i] - Udx[i];
       if (i == C - 1) {            // the gradient of the chunk's total A
         float gs = 0.f, us = 0.f;
         for (int w = 0; w < 8; ++w) gs += Red[w];
-        for (int k = 0; k < C; ++k)
-          us += total - Acs[k] <= 0.f ? Udx[k] : 0.f;
-        v += (total <= 0.f ? dec * gs : 0.f) + us;
+        for (int k = 0; k < C; ++k) us += Udx[k];
+        v += dec * gs + us;
       }
       Dacs[i] = v;
     }
@@ -1082,8 +1081,8 @@ __global__ void __launch_bounds__(B_THREADS, 1)
           const float e0 = i >= j ? __expf(fminf(s0, 0.f)) : 0.f;
           const float e1 = i + 1 >= j ? __expf(fminf(s1, 0.f)) : 0.f;
           const float g0 = qa[x] * e0, g1 = qa[x + 1] * e1;
-          const float t0 = i > j && s0 <= 0.f ? g0 * pa[x] : 0.f;
-          const float t1 = i + 1 > j && s1 <= 0.f ? g1 * pa[x + 1] : 0.f;
+          const float t0 = i > j ? g0 * pa[x] : 0.f;
+          const float t1 = i + 1 > j ? g1 * pa[x + 1] : 0.f;
           rows[half] += t0 + t1;
           cs0 += t0;
           cs1 += t1;
@@ -1290,7 +1289,7 @@ __global__ void __launch_bounds__(B_THREADS, 1)
     // lane l takes steps 2l and 2l + 1)
     bar_sync(1 + wg, 128);
     if (warp == 0) {
-      const float2 m = lds_f2(misc);            // exp(A), A
+      const float em = lds_f(misc);             // exp(A)
       float gs = 0.f;
 #pragma unroll
       for (int w = 0; w < 4; ++w) gs += lds_f(gsp + w * 4);
@@ -1301,16 +1300,14 @@ __global__ void __launch_bounds__(B_THREADS, 1)
         float col = 0.f;
 #pragma unroll
         for (int w = 0; w < 4; ++w) col += lds_f(colp + (w * C + i) * 4);
-        const float ai = lds_f(acs + i * 4);
-        const float cd = ai <= 0.f ? lds_f(cdc + i * 4) : 0.f;
-        const float ud = m.y - ai <= 0.f ? lds_f(udx + i * 4) : 0.f;
-        dv[e] = col - lds_f(rowt + i * 4) + cd - ud;
+        const float ud = lds_f(udx + i * 4);
+        dv[e] = col - lds_f(rowt + i * 4) + lds_f(cdc + i * 4) - ud;
         us += ud;
       }
 #pragma unroll
       for (int o = 16; o >= 1; o >>= 1)
         us += __shfl_xor_sync(0xffffffffu, us, o);
-      if (lane == 31) dv[1] += (m.y <= 0.f ? m.x * gs : 0.f) + us;
+      if (lane == 31) dv[1] += em * gs + us;
       const float pair = dv[0] + dv[1];
       float suf = pair;                         // steps 2l .. 63
 #pragma unroll

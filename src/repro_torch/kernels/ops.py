@@ -126,7 +126,10 @@ class RMSNormFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, scale = ctx.saved_tensors
-        dy = dy.to(x.dtype).contiguous()
+        # the kernel reads dy's rows through their stride; only another
+        # dtype, or a layout it cannot read (an expanded gradient), is copied
+        if dy.dtype != x.dtype or (dy.is_cuda and _rms.rows(dy) is None):
+            dy = dy.to(x.dtype).contiguous()
         m, region = _region(
             "rmsnorm_backward", x,
             lambda: _rms.bwd_cost_estimate(x.shape, x.element_size()))

@@ -427,10 +427,7 @@ def mla_attention(p, x, cfg: ModelConfig, *, rope, mode="prefill",
     q_nope, q_rope = q[..., :nope], apply_rope(q[..., nope:], cos, sin)
 
     kv_a = x @ p["wkv_a"].to(dt)                           # (B, S, r + rope)
-    # the RMSNorm kernel takes contiguous rows: the latent is a strided
-    # slice of the 576-wide row, so it is copied first
-    c_kv = apply_norm({"scale": p["kv_norm"]}, kv_a[..., :r].contiguous(),
-                      cfg, eps=1e-6)
+    c_kv = apply_norm({"scale": p["kv_norm"]}, kv_a[..., :r], cfg, eps=1e-6)
     k_rope = apply_rope(kv_a[..., None, r:], cos, sin)[..., 0, :]  # shared
 
     wkv_b = p["wkv_b"].to(dt)                              # (r, H, nope + v)

@@ -143,8 +143,16 @@ def test_flash_kernel_bshd_views_match_plain(cuda, rng, s, d):
     _close(got, want, TOL["attn"]["bfloat16"])
 
 
+# The forward's plans: decode rows (at most rms.DECODE_ROWS, one or two
+# vectors a thread: 1, 8, 33, 64), narrow rows a warp each in slots of 8
+# (65, 1003: not a multiple of the slots), wide rows (7168; 1032 and 2056,
+# whose vectors do not divide the threads: a ragged tail) and a short row.
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d", [(8, 4096), (1000, 512), (5, 1032)])
+@pytest.mark.parametrize("n,d", [(8, 4096), (1000, 512), (5, 1032),
+                                 (1, 4096), (33, 4096), (64, 512),
+                                 (65, 512), (1003, 512), (3, 7168),
+                                 (100, 7168), (77, 2056), (300, 1032),
+                                 (7, 24)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_kernel_matches_plain(cuda, rng, n, d, dtype):
     dt = getattr(torch, dtype)
@@ -178,11 +186,15 @@ def _dscale_magnitude(x, dy, eps=1e-5):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d", [(8, 4096), (1000, 512), (5, 1032),
                                  (4097, 1032), (3, 7168), (7, 24),
-                                 (300, 16384)])
+                                 (300, 16384), (1003, 512), (9001, 512),
+                                 (33, 4096), (2000, 4096), (77, 2056)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_backward_kernel_matches_plain(cuda, rng, n, d, dtype):
-    """Row slots (d <= 1024: 8 rows a block) and wide rows, ragged n and d,
-    a row wider than the default shared-memory window (16384 fp32 sums)."""
+    """Narrow rows (a warp each, 16 slots a block; 1003 not a multiple of
+    them, 9001 more rows than the card's slots, so each slot walks several
+    and sums dscale across them) and wide rows, ragged n and d (1032, 2056:
+    a ragged tail of vectors), slot sums beyond the default shared-memory
+    window, one slot of 8 vectors a thread (16384 fp32)."""
     dt = getattr(torch, dtype)
     x, dy = (torch.from_numpy(rng.standard_normal((n, d)).astype(
         np.float32)).to(cuda, dt) for _ in range(2))
@@ -201,6 +213,59 @@ def test_rmsnorm_backward_kernel_matches_plain(cuda, rng, n, d, dtype):
                _dscale_magnitude(x, dy))
     again = rms.rmsnorm_bwd(x, scale, dy)[1]
     assert torch.equal(again, dscale)              # no atomics: same bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernels_read_strided_rows(cuda, rng, dtype):
+    """MLA's latent: the first 512 columns of (B, S, 576) rows, read in
+    place by both kernels (dy strided too); the outputs are contiguous."""
+    dt = getattr(torch, dtype)
+    x, dy = (torch.from_numpy(rng.standard_normal((3, 37, 576)).astype(
+        np.float32)).to(cuda, dt)[..., :512] for _ in range(2))
+    scale = torch.from_numpy(
+        (1.0 + 0.1 * rng.standard_normal(512)).astype(np.float32)).to(cuda)
+    assert rms.rows(x) == (3 * 37, 576)
+    before = (rms.launches, rms.bwd_launches)
+    y = rms.rmsnorm(x, scale)
+    dx, dscale = rms.rmsnorm_bwd(x, scale, dy)
+    torch.cuda.synchronize()
+    assert (rms.launches, rms.bwd_launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    assert y.is_contiguous() and dx.is_contiguous()
+    _close(y, ref.rmsnorm_ref(x, scale), TOL["rms"][dtype])
+    want_dx, want_ds = ref.rmsnorm_bwd_ref(x, scale, dy)
+    _rel_close(dx, want_dx, TOL["rms"][dtype])
+    _rel_close(dscale, want_ds, TOL["rms"]["float32"],
+               _dscale_magnitude(x, dy))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["stride", "offset", "transposed",
+                                    "leading"])
+def test_rmsnorm_kernels_refuse_unreadable_rows(cuda, dtype, layout):
+    """A row stride that is not a multiple of 16 bytes, rows that start off
+    a 16-byte boundary, a last dim that is not contiguous, leading dims
+    that do not flatten to one stride: ValueError, and no launch."""
+    dt = getattr(torch, dtype)
+    vec = 16 // torch.tensor([], dtype=dt).element_size()
+    if layout == "stride":
+        x = torch.randn(8, 512 + vec // 2, device=cuda).to(dt)[:, :512]
+    elif layout == "offset":
+        x = torch.randn(8 * 512 + 1, device=cuda).to(dt)[1:].view(8, 512)
+    elif layout == "transposed":
+        x = torch.randn(512, 8, device=cuda).to(dt).t()
+    else:
+        x = torch.randn(4, 3, 512, device=cuda).to(dt).transpose(0, 1)
+    assert rms.rows(x) is None
+    scale = torch.ones(512, device=cuda)
+    before = (rms.launches, rms.bwd_launches)
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        rms.rmsnorm(x, scale)
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        rms.rmsnorm_bwd(x, scale, x)
+    assert (rms.launches, rms.bwd_launches) == before
 
 
 @pytest.mark.cuda
@@ -695,6 +760,53 @@ def test_ssd_backward_kernel_matches_plain(cuda, rng, b, l, h, g, decay,
     for g_, w in zip(got, want):
         if w is not None:
             _close(g_, w, tol)
+
+
+# The 64 log decays of one chunk, drawn as -0.1 |N(0, 1)|, in which step 35
+# (-1.1e-7) lies under one fp32 unit of the running sum (-2.297): acs is
+# flat there, and a scan in another order than the sequential one can put
+# acs_35 one unit above acs_34, a positive exponent the clamp at 0 binds.
+FLAT_DECAYS = [
+    -0.02196592, -0.16631137, -0.017171094, -0.0350335, -0.014462319,
+    -0.03026332, -0.089864545, -0.08432474, -0.07017319, -0.050736774,
+    -0.07065414, -0.019057384, -0.14043254, -0.027747605, -0.01907371,
+    -0.17038898, -0.0127023235, -0.12130983, -0.062215514,
+    -0.00047918796, -0.011967825, -0.003344342, -0.08618801,
+    -0.015381331, -0.006760118, -0.061740793, -0.090830095, -0.2524493,
+    -0.027608816, -0.014809215, -0.2551609, -0.06942038, -0.08597249,
+    -0.015629275, -0.07582728, -1.1174713e-07, -0.012556513,
+    -0.017205805, -0.00062338583, -0.026602585, -0.15916131,
+    -0.0070993486, -0.028744107, -0.03292632, -0.01430026, -0.08070573,
+    -0.012243589, -0.004591552, -0.064832576, -0.09030425, -0.05492563,
+    -0.23361889, -0.036197644, -0.03126057, -0.017037516, -0.10073451,
+    -0.047760636, -0.09129375, -0.006059023, -0.0369002, -0.10791872,
+    -0.009841478, -0.2267011, -0.0029887669]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_backward_counts_a_decay_under_an_fp32_unit(cuda, rng, dtype):
+    """A chunk whose acs stays flat across a tiny decay: the gradient is
+    the unclamped function's, as the plain version's (exp of the segment
+    sums, no clamp), so every term counts even where rounding makes an
+    exponent positive.  Dropping that pair's term moves da at the flat
+    step by ~14 (4.31 against 18.65 in fp32 and fp64)."""
+    dt = getattr(torch, dtype)
+    b, l, h, g, p, n = 1, 128, 2, 1, 64, 64
+
+    def arr(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda)
+    a = (-0.1 * arr(b, h, l).abs()).contiguous()
+    a[:, :, 64:] = torch.tensor(np.array(FLAT_DECAYS, np.float32),
+                                device=cuda)
+    x, dy = (arr(b, h, l, p).to(dt) for _ in range(2))
+    bm, cm = (arr(b, g, l, n).to(dt) for _ in range(2))
+    got = ssd.ssd_scan_bwd(x, a, bm, cm, dy)
+    want = ref.ssd_bwd_ref(x, a, bm, cm, dy)
+    for g_, w in zip(got, want):
+        if w is not None:
+            _close(g_, w, TOL["ssd_bwd"][dtype])
 
 
 @pytest.mark.cuda

@@ -190,6 +190,105 @@ def test_rmsnorm_plain_matches_pallas_and_apply_norm(rng, shape, dtype):
     _close(got, japply_norm({"scale": js}, jx, cfg), tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_plain_on_strided_rows_matches_pallas_and_apply_norm(rng,
+                                                                     dtype):
+    """MLA's latent, the first columns of wider rows, read as rows of their
+    stride: on a CPU tensor the wrapper computes the plain version on the
+    view as it is (no copy), and agrees with the Pallas kernel and
+    apply_norm on the same values."""
+    from repro.configs import get_config
+    wide = rng.standard_normal((2, 5, 40)).astype(np.float32)
+    sn = (1.0 + 0.1 * rng.standard_normal(32)).astype(np.float32)
+    jx, tx = _pair(wide[..., :32], dtype)
+    tx = _pair(wide, dtype)[1][..., :32]
+    assert not tx.is_contiguous() and rms.rows(tx) == (10, 40)
+    js, ts = _pair(sn, "float32")
+    got = rms.rmsnorm(tx, ts, eps=1e-6)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    tol = TOL["rms"][dtype]
+    _close(got, jrmsnorm(jx, js, eps=1e-6, interpret=True), tol)
+    cfg = get_config("lms-demo", smoke=True)
+    _close(got, japply_norm({"scale": js}, jx, cfg, eps=1e-6), tol)
+
+
+def test_rmsnorm_rows_takes_one_row_stride_and_refuses_the_rest():
+    """``rms.rows``: (rows, row stride) where the kernels can read x, None
+    (the wrappers' ValueError on the card) where they cannot."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert rms.rows(torch.zeros(2, 3, 16)) == (6, 16)
+    assert rms.rows(torch.zeros(0, 16)) == (0, 16)
+    assert rms.rows(torch.zeros(2, 5, 576, dtype=bf16)[..., :512]) == \
+        (10, 576)
+    # size-1 dims take any stride; a slice of rows keeps one stride
+    assert rms.rows(torch.zeros(1, 7, 24)[:, :, :16]) == (7, 24)
+    assert rms.rows(torch.zeros(3, 1, 24)[..., :8]) == (3, 24)
+    assert rms.rows(torch.zeros(6, 4, 24)[::2, :, :8]) is None
+    assert rms.rows(torch.zeros(10, 24)[::2, :8]) == (5, 48)
+    # a stride that is not a multiple of 16 bytes
+    assert rms.rows(torch.zeros(4, 18)[:, :16]) is None
+    assert rms.rows(torch.zeros(4, 20, dtype=bf16)[:, :16]) is None
+    # d not a multiple of a vector; rows off a 16-byte boundary
+    assert rms.rows(torch.zeros(4, 6)) is None
+    assert rms.rows(torch.zeros(65)[1:].view(4, 16)) is None
+    # a last dim that is not contiguous; leading dims that do not flatten;
+    # a stride under d (expanded rows)
+    assert rms.rows(torch.zeros(16, 4).t()) is None
+    assert rms.rows(torch.zeros(4, 3, 16).transpose(0, 1)) is None
+    assert rms.rows(torch.zeros(1, 16).expand(4, 16)) is None
+    assert rms.rows(torch.zeros(4, 16, dtype=f32)) == (4, 16)
+
+
+@pytest.mark.parametrize("n,d,itemsize,backward", [
+    (8, 4096, 2, False), (1, 512, 2, False), (64, 3584, 2, False),
+    (7280, 512, 2, False), (2048, 1024, 4, False), (7280, 7168, 2, False),
+    (7280, 3584, 2, False), (7280, 1032, 2, False), (16384, 4096, 2, True),
+    (4096, 512, 2, True), (4097, 1032, 2, True), (300, 16384, 4, True),
+    (7, 24, 4, True), (65, 2056, 2, False)])
+def test_rmsnorm_plan_covers_the_row(n, d, itemsize, backward):
+    """Every plan is one the kernels take: a slot of whole warps, at most
+    MAX_THREADS a block, VPT one of the instances, its vectors covering the
+    row with less than a VPT's worth of threads idle at the tail."""
+    vpt, tpr, slots = rms.plan(n, d, itemsize, backward=backward)
+    nv = d * itemsize // 16
+    assert vpt in rms.VPTS and tpr % 32 == 0
+    assert tpr * slots <= rms.MAX_THREADS and slots >= 1
+    assert tpr * vpt >= nv > (tpr - 32) * vpt
+    if not backward and n <= rms.DECODE_ROWS:
+        assert vpt <= 2 or tpr == rms.MAX_THREADS and slots == 1
+    elif nv <= rms.NARROW_VECTORS:
+        assert tpr == 32 and 32 * vpt < 2 * nv + 32
+
+
+def test_rmsnorm_plan_shapes_and_limits():
+    # decode: one or two loads a thread; a narrow row: a warp, 8 a block;
+    # wide rows two vectors a thread (the forward where that leaves the
+    # least idle tail), in blocks of about 512 (forward) or 256 (backward)
+    # threads
+    assert rms.plan(8, 4096, 2) == (2, 256, 1)
+    assert rms.plan(4, 512, 2) == (2, 32, 1)
+    assert rms.plan(7280, 512, 2) == (2, 32, 8)
+    assert rms.plan(4096, 512, 2, backward=True) == (2, 32, 8)
+    assert rms.plan(7280, 4096, 2) == (2, 256, 2)
+    assert rms.plan(7280, 7168, 2) == (2, 448, 1)
+    assert rms.plan(7280, 3584, 2) == (2, 224, 2)
+    assert rms.plan(16384, 4096, 2, backward=True) == (2, 256, 1)
+    assert rms.plan(300, 16384, 4, backward=True) == (8, 512, 1)
+    assert rms.plan(4097, 1032, 2, backward=True) == (2, 96, 2)
+    assert rms.plan(4097, 1032, 2) == (1, 160, 3)
+    with pytest.raises(ValueError, match="wider than the kernels take"):
+        rms.plan(8, 65536, 2)
+    # the backward always walks (a scratch row a block); the forward walks
+    # rows of up to 4 KB in bf16, and gives wider ones a slot each
+    assert rms.walks(4096, 2, backward=True)
+    assert rms.walks(2048, 2) and rms.walks(512, 2) and rms.walks(1024, 4)
+    assert not rms.walks(3584, 2) and not rms.walks(2048, 4)
+    # the grid: a block for each slots' worth of rows, at most the card's
+    assert rms.grid_blocks(7280, 8, 132 * 8) == 910
+    assert rms.grid_blocks(16384, 4, 132) == 132
+    assert rms.grid_blocks(1, 16, 264) == 1
+
+
 def test_rmsnorm_wrapper_checks_scale():
     x = torch.zeros(4, 16)
     with pytest.raises(ValueError, match="float32"):
@@ -321,6 +420,36 @@ def test_ptxas_report_names_every_instance(monkeypatch, tmp_path):
                        "spill_stores": 0, "spill_loads": 0}
     assert rows[8] == {"kernel": "ssd_bwd_wgmma_kernel", "registers": 255,
                        "spill_stores": 0, "spill_loads": 0}
+
+
+_PTXAS_RMSNORM = """\
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__74c2a8ec_10_rmsnorm_cu_a1f8713914rmsnorm_kernelI13__nv_bfloat16Li2ELb1EEEvPKT_xPKfPS2_xif' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 16 barriers, 2048 bytes smem
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__74c2a8ec_10_rmsnorm_cu_a1f8713918rmsnorm_bwd_kernelIfLi8EEEvPKT_xPKfS3_xPS1_Pfxif' for 'sm_90a'
+    40 bytes stack frame, 36 bytes spill stores, 72 bytes spill loads
+ptxas info    : Used 128 registers, used 16 barriers, 4096 bytes smem
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__74c2a8ec_10_rmsnorm_cu_a1f8713921rmsnorm_dscale_kernelEPKfPfii' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 31 registers, used 1 barriers, 2048 bytes smem
+"""
+
+
+def test_ptxas_report_names_the_rmsnorm_plan_instances(monkeypatch,
+                                                        tmp_path):
+    """The RMSNorm instances carry a dtype, their vectors a thread and (the
+    forward) whether slots walk rows; a CUDA-core instance that spills is
+    reported, not failed."""
+    text = "".join(_PTXAS.format(d=d, spill=0) for d in (128, 112, 64, 192))
+    cs = _chip_smoke(monkeypatch, tmp_path,
+                     text + _PTXAS_RMSNORM + _PTXAS_SSD.format(spill=0) +
+                     _PTXAS_SSD_BWD.format(states=0, reverse=0))
+    rows = {r["kernel"]: r for r in cs.ptxas_report()}
+    assert rows["rmsnorm_kernel<bf16, 2, true>"]["registers"] == 40
+    assert rows["rmsnorm_bwd_kernel<f32, 8>"] == {
+        "kernel": "rmsnorm_bwd_kernel<f32, 8>", "registers": 128,
+        "spill_stores": 36, "spill_loads": 72}
+    assert rows["rmsnorm_dscale_kernel"]["registers"] == 31
 
 
 @pytest.mark.parametrize("name,fault", [

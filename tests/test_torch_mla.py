@@ -43,6 +43,7 @@ from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import params as tparams  # noqa: E402
@@ -183,16 +184,16 @@ def test_mla_attention_prefill_and_decode_match_jax(rng, dtype):
 def test_mla_norms_run_through_the_rmsnorm_wrapper_at_eps_1e6(rng,
                                                              monkeypatch):
     """q_norm and kv_norm go through the kernel wrapper (with ln1 and ln2
-    4 launches a layer on the card) at eps 1e-6, on contiguous rows: the
-    latent is a strided slice of the wkv_a output, copied before the
-    norm."""
+    4 launches a layer on the card) at eps 1e-6; kv_norm reads the latent
+    in place, the first kv_lora_rank columns of the wkv_a output's rows, as
+    rows of that output's stride (``rms.rows``), with no copy."""
     _, tc = _cfgs()
     pn = _np_params(tattn.mla_specs(tc))
     calls = []
     rmsnorm = ops._rmsnorm
 
     def spy(x, scale, eps):
-        calls.append((tuple(x.shape), eps, x.is_contiguous()))
+        calls.append((tuple(x.shape), eps, x.is_contiguous(), rms.rows(x)))
         return rmsnorm(x, scale, eps)
     monkeypatch.setattr(ops, "_rmsnorm", spy)
     x = torch.from_numpy(rng.standard_normal((2, 5, tc.d_model)).astype(
@@ -200,8 +201,10 @@ def test_mla_norms_run_through_the_rmsnorm_wrapper_at_eps_1e6(rng,
     tattn.mla_attention({k: torch.from_numpy(v) for k, v in pn.items()}, x,
                         tc, rope=_rope(tc, 0, 5, False), mode="train")
     a = tc.mla
-    assert calls == [((2, 5, a.q_lora_rank), 1e-6, True),
-                     ((2, 5, a.kv_lora_rank), 1e-6, True)]
+    latent = a.kv_lora_rank + a.qk_rope_head_dim
+    assert calls == [((2, 5, a.q_lora_rank), 1e-6, True,
+                      (10, a.q_lora_rank)),
+                     ((2, 5, a.kv_lora_rank), 1e-6, False, (10, latent))]
 
 
 # -- the flash adapter with a narrower V ---------------------------------------------

@@ -123,7 +123,8 @@ def emulate_wgmma_bwd(x, a, b, c, dy, init=None, dstate=None, split=_split,
         ght = _mm(bc, _t(cc)) * _t(e)
         xdy = _mm(xc, _t(yc))
         dtr = xdy * _t(e)
-        tt = torch.where(_t(off_diag) & (_t(seg) <= 0), ght * xdy, 0.0)
+        # every off-diagonal term counts, a rounded-up exponent's too
+        tt = torch.where(_t(off_diag), ght * xdy, 0.0)
         row_t, col_t = tt.sum(-2), tt.sum(-1)      # by i, by j
         d = _mm(yc, _t(xc)) * e
         # dx = Gh^T dY + diag(w) B G^T
@@ -144,10 +145,8 @@ def emulate_wgmma_bwd(x, a, b, c, dy, init=None, dstate=None, split=_split,
         # G <- exp(A) G + (dY o exp(acs))^T C
         gr = gr * dec + _mm2(tuple(_t(t) for t in split(
             yc.float() * ein[..., None])), cc)
-        dacs = row_t - col_t + torch.where(acs <= 0, cdc, 0.0) - \
-            torch.where(atot - acs <= 0, udx, 0.0)
-        last = torch.where(atot[..., 0] <= 0, dec[..., 0, 0] * gs, 0.0) + \
-            torch.where(atot - acs <= 0, udx, 0.0).sum(-1)
+        dacs = row_t - col_t + cdc - udx
+        last = dec[..., 0, 0] * gs + udx.sum(-1)
         dacs[..., -1] += last
         dac = torch.flip(torch.cumsum(torch.flip(dacs, [-1]), -1), [-1])
         dx[:, :, l0:l0 + nv] = dxc[:, :, :nv]

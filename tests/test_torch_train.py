@@ -398,10 +398,12 @@ def test_rmsnorm_bwd_cost_estimate():
     c = rms.bwd_cost_estimate((16384, 4096), 2)
     assert c["bytes"] == 3 * 16384 * 4096 * 2 + 8 * 4096
     assert c["flops"] == 10.0 * 16384 * 4096
-    # one block a row slot, at most BLOCKS_PER_SM a multiprocessor
-    assert rms.bwd_blocks(16384, 4096, 132) == rms.BLOCKS_PER_SM * 132
-    assert rms.bwd_blocks(5, 1032, 132) == 5
-    assert rms.bwd_blocks(17, 512, 132) == 3
+    # the scratch's rows: a block for each slots' worth of rows, at most
+    # the blocks that fit on the card at once
+    slots = rms.plan(16384, 4096, 2, backward=True)[2]
+    assert rms.grid_blocks(16384, slots, 132) == 132
+    assert rms.grid_blocks(5, 3, 264) == 2
+    assert rms.grid_blocks(17, 16, 264) == 2
 
 
 # -- optimizers ----------------------------------------------------------------------
