@@ -194,10 +194,39 @@ JAX package.  Phases, each reported on its own lines:
               roofline fraction from the received sums and the card's
               calibrated peaks must lie in (0, 1.05].  One ``monitor:``
               JSON line sums it up.
-6. the kernels line (JSON: every kernel with its launches summed over the
+6. dist    -- the data-parallel path (``train/step.py`` with a mesh,
+              ``parallel/``, ``train/compression.py``) at world size 1:
+              one NCCL rank through a file store under ``build/``:
+              (a) granite-3-8b (8 of its 40 layers, full width, seq 2048 x
+              batch 8) for DIST_STEPS AdamW steps through
+              ``make_train_step(..., mesh=make_mesh_for(1))`` with params
+              and AdamW state stored as the rank's pieces (on one rank the
+              leaves themselves: a copy fails the run), against the
+              one-device step from the same params and batches: loss, grad
+              norm and param norm within TRAIN_TOL (``bit_equal`` says
+              whether they are the same bits), step times and peak GB of
+              both, launches of both exactly ``train_launches``;
+              (b) mixtral-8x7b (2 layers, full width, bf16) with
+              ``impl="a2a"`` and capacity factor E / k (nothing drops) on
+              the (1, 1) mesh: the a2a dispatch must have run in every MoE
+              layer (``moe.dispatch_counts``), its logits within MODEL_TOL
+              of the largest and its gradients within TRAIN_TOL["grads"]
+              (relative L2) of the grouped dispatch's, both timed
+              (forward and backward of the cross-entropy);
+              (c) ``compressed_pmean`` (int8) over a one-rank group on one
+              batch's gradients of (a)'s granite: every element within
+              scale/2 of its row, timed;
+              (d) ``pipeline_apply`` with one stage holding (a)'s 8 layers
+              over PIPE_MICROBATCHES microbatches of the batch (flash
+              prefill attention, no grad) against the layers on the whole
+              batch: within the bf16 flash tolerance, and the stage's
+              launches (flash and two RMSNorms a layer a microbatch).
+              ``dist:`` JSON lines.
+7. the kernels line (JSON: every kernel with its launches summed over the
    paths driven -- the nine served models, train granite, zamba2,
    mixtral, deepseek, qwen2-vl, rwkv6 and seamless, the train CLI and the
-   serve CLI on lms-demo -- its numbers at
+   serve CLI on lms-demo, the dist phase's granite steps, pipeline stage
+   and mixtral a2a run -- its numbers at
    one path's shapes (zamba2's prefill for flash, SSD and the forward
    RMSNorm; granite's training shape for the RMSNorm backward, zamba2's
    for the SSD backward), and per path its launches and the rows it was
@@ -250,18 +279,28 @@ from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.kernels import ssd  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.mesh import make_mesh_for  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.layers import (  # noqa: E402
+    cross_entropy, embed_tokens, rope_table)
 from repro_torch.models.params import flatten, unflatten  # noqa: E402
 from repro_torch.models.ssm import wkv6_chunked  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
-    _layer_plan, forward, init_cache, init_model_params, loss_fn,
-    model_specs)
+    _layer_plan, _train_layers, forward, init_cache, init_model_params,
+    loss_fn, model_specs)
+from repro_torch.parallel.pipeline import pipeline_apply  # noqa: E402
+from repro_torch.parallel.sharding import (  # noqa: E402
+    TRAIN_RULES, PartitionConstraints, shard_tree)
 from repro_torch.serve.engine import (  # noqa: E402
     ServingEngine, make_serve_fns)
+from repro_torch.train.compression import (  # noqa: E402
+    compressed_pmean, quantize_int8)
 from repro_torch.train.loop import (  # noqa: E402
     InjectedFailure, device_peaks, train)
 from repro_torch.train.step import (  # noqa: E402
     batch_to_device, make_train_step)
+from repro_torch.train.step import shardings as step_shardings  # noqa: E402
+from torch.distributed.device_mesh import init_device_mesh  # noqa: E402
 
 # H100 SXM published peaks (dense): HBM bytes/s, and FLOP/s by input type
 # (bf16 on the tensor cores; fp32 on the CUDA cores, which the fp32 kernels
@@ -543,6 +582,32 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+PROFILE_TRIES = 3
+
+
+def _kernel_events(fn, iters: int) -> dict:
+    """{kernel name: [durations, µs]} of one profiler session over ``iters``
+    calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    path = os.path.join(ROOT, "build", f"device_ms_{os.getpid()}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    by_kernel = {}
+    for k in events:
+        if k.get("cat") == "kernel":
+            by_kernel.setdefault(k["name"], []).append(k["dur"])
+    return by_kernel
+
+
 def device_ms(fns: dict, iters: int = 50, warmup: int = 3) -> dict:
     """Device time of each callable in ``fns``: the durations of the
     kernels one call runs on the card, read from ``torch.profiler``'s kernel
@@ -552,31 +617,26 @@ def device_ms(fns: dict, iters: int = 50, warmup: int = 3) -> dict:
     strays from its host clock by more than a millisecond, so kernels
     cannot be told apart by host-side ranges), and each kernel name's mean
     duration counts as often as a call launches it (the profiler can drop a
-    few events: a mean over those recorded is not biased by them).  Returns
+    few events: a mean over those recorded is not biased by them).  A
+    session that records no kernel at all (now and then a whole session's
+    device activity goes missing on the H100 machines this script has run
+    on: whole runs of it met that, the kernel checks alone did not) is run
+    again, up to PROFILE_TRIES sessions, each retry logged; none recorded
+    fails.  Returns
     {name: (ms a call, kernels recorded a call)}."""
-    from torch.profiler import ProfilerActivity, profile
     out = {}
-    path = os.path.join(ROOT, "build", f"device_ms_{os.getpid()}.json")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
     for name, fn in fns.items():
         for _ in range(warmup):
             fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-        os.remove(path)
-        by_kernel = {}
-        for k in events:
-            if k.get("cat") == "kernel":
-                by_kernel.setdefault(k["name"], []).append(k["dur"])
-        if not by_kernel:
-            raise AssertionError(f"device_ms: no kernel recorded for {name}")
+        for attempt in range(PROFILE_TRIES):
+            by_kernel = _kernel_events(fn, iters)
+            if by_kernel:
+                break
+            log(f"device_ms: session {attempt + 1} recorded no kernel for "
+                f"{name}")
+        else:
+            raise AssertionError(f"device_ms: no kernel recorded for {name} "
+                                 f"in {PROFILE_TRIES} sessions")
         out[name] = (sum(statistics.fmean(v) * max(1, round(len(v) / iters))
                          for v in by_kernel.values()) / 1e3,
                      sum(len(v) for v in by_kernel.values()) / iters)
@@ -2573,6 +2633,327 @@ def monitor_phase() -> tuple:
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: dist -- the data-parallel training path at world size 1 (NCCL)
+# ---------------------------------------------------------------------------
+
+# (a) granite-3-8b at TRAIN_LAYERS_OF's 8 layers, TRAIN_SHAPE, DIST_STEPS
+# AdamW steps through make_train_step(mesh=make_mesh_for(1)) against the
+# one-device step from the same params and batches (parity_run's settings)
+DIST_STEPS = 3
+# (b) mixtral-8x7b at 2 layers, bf16, impl="a2a" on the (1, 1) mesh against
+# the grouped dispatch: rows x tokens, and a capacity factor of E / k, so
+# every expert can take every token (nothing drops on either path)
+A2A_ROWS, A2A_SEQ = 2, 2048
+# (c) int8 rows: |x - q * scale| <= scale / 2 in exact arithmetic; in fp32
+# the quotient x / scale and the product q * scale each round by up to one
+# unit in 2^24 of at most 127 scales, 254 such units of scale / 2 in all
+INT8_BOUND = 1.0 + 2 * 254 * 2.0 ** -24
+# (d) granite's 8 layers as one pipeline stage over the train batch
+PIPE_MICROBATCHES = 4
+
+
+@contextmanager
+def one_rank_world(backend: str = "nccl"):
+    """A one-rank process group through a file store under build/ (no
+    network: the store is a file the one rank creates and reads)."""
+    import torch.distributed as dist
+    store_dir = os.path.join(ROOT, "build", "dist_store")
+    shutil.rmtree(store_dir, ignore_errors=True)
+    os.makedirs(store_dir)
+    store = dist.FileStore(os.path.join(store_dir, "store"), 1)
+    kw = {}
+    if backend == "nccl":
+        torch.cuda.set_device(0)
+        kw = {"device_id": torch.device("cuda", 0)}
+    dist.init_process_group(backend, store=store, rank=0, world_size=1,
+                            **kw)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+
+def _sync(dev):
+    """A wait for the device's queued work (nothing to wait for on the
+    CPU, where the phase is rehearsed)."""
+    return torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+
+
+def dist_batches(cfg, shape, steps: int, dev) -> list:
+    source = SyntheticTokenSource(cfg.vocab_size, seed=SEED)
+    out = []
+    for step in range(steps):
+        t = source.batch(step, shape.global_batch, shape.seq_len)
+        out.append(batch_to_device({"tokens": t[:, :-1],
+                                    "labels": t[:, 1:]}, dev))
+    return out
+
+
+def dist_steps(cfg, tcfg, batches, mesh, dev) -> dict:
+    """``DIST_STEPS`` steps from the seed's params: one-device (``mesh``
+    None) or through the mesh with the params and AdamW state stored as
+    this rank's pieces.  Returns metrics, step times, peak GB, launches and
+    the final params."""
+    sync = _sync(dev)
+    params = init_model_params(cfg, seed=SEED, device=dev)
+    step_fn, opt = make_train_step(cfg, tcfg, mesh=mesh)
+    psh = None
+    if mesh is not None:
+        psh, _ = step_shardings(cfg, tcfg, mesh)
+        pieces = shard_tree(params, psh, mesh)
+        # one rank holds every leaf whole: its pieces are the leaves
+        if any(a is not b for a, b in zip(flatten(pieces).values(),
+                                          flatten(params).values())):
+            raise AssertionError("dist: a one-rank mesh copied a leaf")
+        params = pieces
+    state = opt.init(params, psh)
+    if dev == "cuda":
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    metrics, times = [], []
+    for i, batch in enumerate(batches):
+        t0 = time.monotonic()
+        params, state, m = step_fn(params, state, batch, i)
+        sync()
+        times.append(time.monotonic() - t0)
+        metrics.append({k: float(m[k]) for k in ("loss", "grad_norm",
+                                                 "param_norm")})
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" \
+        else None
+    del state
+    return {"metrics": metrics, "step_s": times, "peak_memory_gb": peak,
+            "launches": launches, "params": params}
+
+
+def dist_train(dev="cuda", cfg=None, shape=None, phase4=None) -> tuple:
+    """(a): the data-parallel step at world size 1 against the one-device
+    step; returns (row, the mesh run's params, the mesh, the batches)."""
+    cfg = cfg or dataclasses.replace(get_config(TRAIN_MODEL),
+                                     num_layers=TRAIN_LAYERS_OF[TRAIN_MODEL])
+    shape = shape or TRAIN_SHAPE
+    tcfg = TrainConfig(warmup_steps=0, total_steps=DIST_STEPS,
+                       learning_rate=1e-3, remat_policy="minimal",
+                       optimizer="adamw")
+    batches = dist_batches(cfg, shape, DIST_STEPS, dev)
+    one = dist_steps(cfg, tcfg, batches, None, dev)
+    del one["params"]
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    mesh = make_mesh_for(1, device_type=dev)
+    meshed = dist_steps(cfg, tcfg, batches, mesh, dev)
+    want = train_launches(cfg, DIST_STEPS)
+    for name, run in (("one-device", one), ("mesh", meshed)):
+        if run["launches"] != want:
+            raise AssertionError(f"dist {name}: launches {run['launches']}, "
+                                 f"expected {want}")
+    gaps = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in a}
+            for a, b in zip(meshed["metrics"], one["metrics"])]
+    row = {"model": TRAIN_MODEL, "layers": cfg.num_layers,
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "seq_len": shape.seq_len, "global_batch": shape.global_batch,
+           "mesh_metrics": meshed["metrics"],
+           "one_device_metrics": one["metrics"], "relative_gaps": gaps,
+           "bit_equal": meshed["metrics"] == one["metrics"],
+           "mesh_step_s": meshed["step_s"], "one_device_step_s": one["step_s"],
+           "mesh_step_s_median_2_3": statistics.median(meshed["step_s"][1:]),
+           "one_device_step_s_median_2_3": statistics.median(
+               one["step_s"][1:]),
+           "mesh_peak_gb": meshed["peak_memory_gb"],
+           "one_device_peak_gb": one["peak_memory_gb"],
+           "param_count": cfg.param_count(),
+           **({"phase4_train_step_s_median_2_6": phase4["step_s_median_2_6"],
+               "phase4_train_peak_gb": phase4["peak_memory_gb"]}
+              if phase4 else {}),
+           "launches": meshed["launches"]}
+    log(f"dist: train {json.dumps(row)} (limits {json.dumps(TRAIN_TOL)})")
+    if not all(math.isfinite(v) for m in meshed["metrics"]
+               for v in m.values()) or \
+            not all(v <= TRAIN_TOL[k] for g in gaps for k, v in g.items()):
+        raise AssertionError("dist: the mesh step disagrees with the "
+                             "one-device step")
+    return row, meshed["params"], mesh, batches
+
+
+def dist_compress(params, cfg, batch, dev="cuda") -> dict:
+    """(c): ``compressed_pmean`` over a one-rank group on granite's
+    gradient leaves (one batch's fp32 gradients): the int8 exchange runs,
+    and every element lies within scale/2 of its row of the gradient (times
+    INT8_BOUND, fp32's rounding)."""
+    import torch.distributed as dist
+    flat = {k: v.detach().requires_grad_() for k, v in flatten(params).items()}
+    loss, _ = loss_fn(unflatten(flat), cfg, batch, remat="minimal")
+    grads = unflatten(dict(zip(flat, torch.autograd.grad(
+        loss, list(flat.values())))))
+    del flat, loss
+    group = dist.new_group([0])
+    sync = _sync(dev)
+    sync()
+    t0 = time.monotonic()
+    mean = compressed_pmean(grads, group, "int8")
+    sync()
+    secs = time.monotonic() - t0
+    worst, n = 0.0, 0
+    for k, g in flatten(grads).items():
+        got = flatten(mean)[k]
+        rows = g.reshape(-1, g.shape[-1]) if g.ndim > 1 else g.reshape(1, -1)
+        _, scale = quantize_int8(rows)
+        err = (got.reshape(rows.shape) - rows).abs() / (scale / 2)
+        worst = max(worst, float(err.max()))
+        n += g.numel()
+    row = {"leaves": len(flatten(grads)), "elements": n,
+           "bytes_int8": n, "bytes_fp32": 4 * n, "s": secs,
+           "worst_error_over_half_scale": worst}
+    log(f"dist: compress {json.dumps(row)}")
+    if not worst <= INT8_BOUND:
+        raise AssertionError("dist: compressed_pmean outside its bound")
+    return row
+
+
+def dist_pipeline(params, cfg, batch, dev="cuda") -> tuple:
+    """(d): ``pipeline_apply`` with one stage holding granite's layers over
+    PIPE_MICROBATCHES microbatches of the train batch (flash prefill
+    attention, no grad) against the same layers run on the whole batch;
+    returns (row, the pipelined run's launches)."""
+    layers = params["dense_layers"]
+    stage = {k: v[None] for k, v in flatten(layers).items()}
+    mesh = init_device_mesh(dev, (1,), mesh_dim_names=("pipe",))
+    with torch.no_grad():
+        x = embed_tokens(params["embed"], batch["tokens"], cfg)
+        pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        rope = rope_table(pos, cfg.head_dim, cfg.rope_theta)
+
+        def stage_fn(p, xb):
+            return _train_layers(unflatten(p), xb, cfg, rope=rope,
+                                 attn_impl="flash", remat="none")
+        want = stage_fn(flatten(layers), x)
+        ops.reset_launch_counts()
+        got = pipeline_apply(stage_fn, stage, x, mesh=mesh,
+                             num_microbatches=PIPE_MICROBATCHES)
+        launches = ops.launch_counts()
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    row = {"stages": 1, "microbatches": PIPE_MICROBATCHES,
+           "shape": list(x.shape), "max_abs_err": err, "max_abs": scale,
+           "bit_equal": bool(torch.equal(got, want)),
+           "launches": launches}
+    log(f"dist: pipeline {json.dumps(row)}")
+    n = cfg.num_layers * PIPE_MICROBATCHES
+    if launches["flash_attention"] != n or launches["rmsnorm"] != 2 * n \
+            or not err <= TOL["flash_attention"][x.dtype] * max(scale, 1.0):
+        raise AssertionError("dist: the one-stage pipeline disagrees with "
+                             "the sequential layers")
+    return row, launches
+
+
+def a2a_run(cfg, params, batch, pc, dev="cuda", reps: int = 3) -> dict:
+    """Forward and backward of the cross-entropy (no aux term: the two
+    dispatches' aux statistics are defined apart, as the reference's)
+    through ``pc``'s dispatch; the logits, gradients, mean time and
+    launches."""
+    sync = _sync(dev)
+    flat = {k: v.detach().requires_grad_() for k, v in flatten(params).items()}
+
+    def once():
+        logits, _ = forward(unflatten(flat), cfg, tokens=batch["tokens"],
+                            mode="train", pc=pc)
+        labels = batch["labels"]
+        loss = cross_entropy(logits, labels, cfg)
+        return logits, torch.autograd.grad(loss, list(flat.values()))
+    moe.reset_dispatch_counts()
+    ops.reset_launch_counts()
+    logits, grads = once()
+    launches, dispatches = ops.launch_counts(), moe.dispatch_counts()
+    sync()
+    t0 = time.monotonic()
+    for _ in range(reps):
+        once()
+    sync()
+    return {"logits": logits.detach(), "grads": dict(zip(flat, grads)),
+            "s": (time.monotonic() - t0) / reps, "launches": launches,
+            "dispatches": dispatches}
+
+
+def dist_a2a(dev="cuda", cfg=None, rows=A2A_ROWS, seq=A2A_SEQ) -> tuple:
+    """(b): mixtral through ``impl="a2a"`` on the (1, 1) mesh against the
+    grouped dispatch: the a2a path must have run, its logits within
+    MODEL_TOL of the largest, its gradients within TRAIN_TOL["grads"]
+    (relative L2, leaf by leaf); returns (row, the a2a run's launches)."""
+    cfg = cfg or dataclasses.replace(
+        get_config("mixtral-8x7b"), num_layers=TRAIN_LAYERS_OF[
+            "mixtral-8x7b"])
+    m = cfg.moe
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, impl="a2a", capacity_factor=m.num_experts / m.top_k))
+    params = init_model_params(cfg, seed=SEED, device=dev,
+                               compute_dtype=getattr(torch, cfg.dtype))
+    t = SyntheticTokenSource(cfg.vocab_size, seed=SEED).batch(0, rows, seq)
+    batch = batch_to_device({"tokens": t[:, :-1], "labels": t[:, 1:]}, dev)
+    mesh = make_mesh_for(1, device_type=dev)
+    grouped = a2a_run(cfg, params, batch, None, dev)
+    a2a = a2a_run(cfg, params, batch,
+                  PartitionConstraints(TRAIN_RULES, mesh), dev)
+    n_moe = cfg.num_layers
+    if a2a["dispatches"] != {"grouped": 0, "a2a": n_moe} or \
+            grouped["dispatches"] != {"grouped": n_moe, "a2a": 0}:
+        raise AssertionError(f"dist: dispatches {a2a['dispatches']} / "
+                             f"{grouped['dispatches']}")
+    # one forward and backward, no remat: two norms a layer and the final
+    norms = 2 * cfg.num_layers + 1
+    want = {"flash_attention": 0, "rmsnorm": norms,
+            "rmsnorm_backward": norms, "ssd_scan": 0, "ssd_scan_backward": 0}
+    if a2a["launches"] != want:
+        raise AssertionError(f"dist: a2a launches {a2a['launches']}, "
+                             f"expected {want}")
+    lerr = float((a2a["logits"].float() - grouped["logits"].float()).abs()
+                 .max())
+    lmax = float(grouped["logits"].float().abs().max())
+    gerr = max(float((a2a["grads"][k].float() - g.float()).norm()
+                     / g.float().norm().clamp_min(1e-30))
+               for k, g in grouped["grads"].items())
+    row = {"model": "mixtral-8x7b", "layers": cfg.num_layers,
+           "rows": rows, "seq_len": seq, "dtype": cfg.dtype,
+           "capacity_factor": cfg.moe.capacity_factor,
+           "dispatches": a2a["dispatches"],
+           "logits_max_abs_err": lerr, "logits_max_abs": lmax,
+           "grads_max_rel_l2": gerr,
+           "bit_equal": bool(torch.equal(a2a["logits"], grouped["logits"]))
+           and all(torch.equal(a2a["grads"][k], g)
+                   for k, g in grouped["grads"].items()),
+           "a2a_fwd_bwd_s": a2a["s"], "grouped_fwd_bwd_s": grouped["s"],
+           "launches": a2a["launches"]}
+    log(f"dist: a2a {json.dumps(row)}")
+    if not lerr <= MODEL_TOL * max(lmax, 1.0) or \
+            not gerr <= TRAIN_TOL["grads"]:
+        raise AssertionError("dist: the a2a dispatch disagrees with the "
+                             "grouped one")
+    launches = a2a["launches"]
+    del params, grouped, a2a
+    return row, launches
+
+
+def dist_phase(dev: str = "cuda", backend: str = "nccl",
+               phase4=None) -> dict:
+    """Phase 6: (a)-(d) in one one-rank world; returns each path's
+    launches.  ``phase4``: phase 4's ``train_run`` row of the same model,
+    whose step time and peak (of ``train()``) (a) reports beside its own."""
+    with one_rank_world(backend):
+        row, params, mesh, batches = dist_train(dev, phase4=phase4)
+        cfg = dataclasses.replace(get_config(TRAIN_MODEL),
+                                  num_layers=TRAIN_LAYERS_OF[TRAIN_MODEL])
+        dist_compress(params, cfg, batches[0], dev)
+        _, pipe = dist_pipeline(params, cfg, batches[0], dev)
+        del params, batches
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        _, a2a = dist_a2a(dev)
+    return {f"dist:{TRAIN_MODEL}": row["launches"],
+            "dist:pipeline": pipe, "dist:mixtral-a2a": a2a}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2624,8 +3005,10 @@ def main() -> int:
     launches = {m: served[m]["launches"] for m in served}
     for name in parity_models():
         train_parity(name)
+    trained = {}
     for model in TRAIN_LAYERS_OF:
-        launches[f"train:{model}"] = train_run(model)["launches"]
+        trained[model] = train_run(model)
+        launches[f"train:{model}"] = trained[model]["launches"]
     log(f"train: phase {time.monotonic() - t0:.2f} s")
 
     # Phase 5: the monitored job over HTTP through the CLIs
@@ -2634,7 +3017,14 @@ def main() -> int:
     launches.update(monitor_phase()[1])
     log(f"monitor: phase {time.monotonic() - t0:.2f} s")
 
-    # Phase 6: kernels line (launches summed over the paths; numbers at
+    # Phase 6: the data-parallel path at world size 1 through NCCL
+    t0 = time.monotonic()
+    dist_launches = dist_phase(phase4=trained[TRAIN_MODEL])
+    launches.update(dist_launches)
+    rows.update({p: {} for p in dist_launches})      # no rows timed there
+    log(f"dist: phase {time.monotonic() - t0:.2f} s")
+
+    # Phase 7: kernels line (launches summed over the paths; numbers at
     # zamba2-7b's prefill shapes, the RMSNorm backward's at granite's
     # training shape, the SSD backward's at zamba2's; per path the rows
     # each kernel was timed at), then the result

@@ -17,6 +17,14 @@ Arrays are saved as numpy.  A bf16 leaf is saved as its raw 2-byte words
 reference's bfloat16 arrays, and read back from them.  ``load_checkpoint``
 puts the leaves back into the structure, dtypes and device of the
 templates.
+
+Under a mesh (the data-parallel step's pieces, :mod:`repro_torch.train.step`)
+a checkpoint still holds whole leaves: ``CheckpointManager.save`` with
+``shardings`` gathers them (every rank calls it) and the rank at the mesh's
+origin writes them.  ``load_checkpoint(..., shardings=, mesh=)`` reads the
+whole leaves on every rank and keeps the slice of each that the rank holds
+under the mesh it has now, which may be smaller than the writer's (the
+elastic restart path, as the reference's ``shardings=``).
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.params import flatten, unflatten
+from repro_torch.parallel import comm
+from repro_torch.parallel.sharding import gather_tree
 
 
 def to_numpy(leaf) -> np.ndarray:
@@ -123,20 +133,33 @@ def read_group(ckpt_dir: str, group: str,
 
 
 def load_checkpoint(ckpt_dir: str, templates: dict,
-                    step: Optional[int] = None):
+                    step: Optional[int] = None,
+                    shardings: Optional[dict] = None, mesh=None):
     """Load a step (the latest by default) into the templates' structure.
 
     templates: {"params": tree, ...}; each leaf gives the loaded array's
-    shape, dtype and device.  Returns (step, {"params": tree, ...})."""
+    shape, dtype and device.  ``shardings``: {group: Sharding tree} on
+    ``mesh``; a sharded group's leaves are this rank's slices of the whole
+    arrays (the templates are the pieces).  Returns (step, {"params": tree,
+    ...})."""
     step = step if step is not None else latest_step(ckpt_dir)
+    coord = comm.coordinate(mesh)
     out = {}
     for group, template in templates.items():
         step, flat = read_group(ckpt_dir, group, step)
+        fsh = flatten(shardings[group]) if shardings and \
+            group in shardings else {}
         tree = {}
         for key, like in flatten(template).items():
             if key not in flat:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
-            tree[key] = from_numpy(flat[key], like)
+            arr = flat[key]
+            if key in fsh:
+                if tuple(arr.shape) != fsh[key].shape:
+                    raise ValueError(f"{key}: shape {arr.shape}, the mesh's "
+                                     f"leaf is {fsh[key].shape}")
+                arr = arr[fsh[key].slices(coord)]
+            tree[key] = from_numpy(arr, like)
         out[group] = unflatten(tree)
     return step, out
 
@@ -151,8 +174,17 @@ class CheckpointManager:
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
-    def save(self, step: int, trees: dict, metadata: Optional[dict] = None):
+    def save(self, step: int, trees: dict, metadata: Optional[dict] = None,
+             shardings: Optional[dict] = None, mesh=None):
+        """Save ``trees``; with ``shardings`` ({group: Sharding tree}) the
+        trees are this rank's pieces on ``mesh``: every rank calls this, the
+        pieces are gathered, and the rank at the mesh's origin writes."""
         self.wait()
+        if shardings:
+            trees = {g: gather_tree(t, shardings[g], mesh) if g in shardings
+                     else t for g, t in trees.items()}
+            if any(comm.coordinate(mesh).values()):
+                return
         # device->host now (values frozen), file IO possibly in background
         host_trees = {g: {k: to_numpy(v) for k, v in flatten(t).items()}
                       for g, t in trees.items()}
@@ -182,9 +214,11 @@ class CheckpointManager:
             e, self._error = self._error, None
             raise e
 
-    def restore(self, templates: dict, step: Optional[int] = None):
+    def restore(self, templates: dict, step: Optional[int] = None,
+                shardings: Optional[dict] = None, mesh=None):
         self.wait()
-        return load_checkpoint(self.ckpt_dir, templates, step)
+        return load_checkpoint(self.ckpt_dir, templates, step, shardings,
+                               mesh)
 
     def latest_step(self) -> Optional[int]:
         return latest_step(self.ckpt_dir)

@@ -4,7 +4,8 @@
 ``shard_map`` (and its ``check_rep`` / ``check_vma`` and ``auto`` /
 ``axis_names`` kwargs) and Pallas-TPU's ``TPUCompilerParams`` /
 ``CompilerParams``.  Neither has a torch counterpart: the port has no
-``shard_map`` (meshes belong to the distributed slice) and no Pallas.
+Pallas, and no ``shard_map``: its distributed code runs one process a rank
+over ``torch.distributed`` (``repro_torch.parallel``).
 
 The port's one version-sensitive call is the raw CUDA stream of a device,
 which the RMSNorm wrappers read on every launch.  The private

@@ -291,11 +291,11 @@ SHAPES = {
 
 @dataclass
 class TrainConfig:
-    """The reference's training settings, field for field.  The one-device
-    port reads none of ``scan_unroll`` (its layers run in a Python loop),
-    ``seq_parallel`` or ``grad_compression`` (no mesh, so no sharding and
-    no data-parallel exchange; a mesh raises): they are kept so a
-    configuration passes between the two packages unchanged."""
+    """The reference's training settings, field for field.  The port reads
+    no ``scan_unroll`` (its layers run in a Python loop); ``grad_compression``
+    acts only with a mesh that has a "pod" axis, and ``seq_parallel`` with a
+    mesh raises (not ported).  Every field is kept so a configuration passes
+    between the two packages unchanged."""
     learning_rate: float = 3e-4
     weight_decay: float = 0.1
     beta1: float = 0.9

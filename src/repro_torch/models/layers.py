@@ -166,10 +166,13 @@ def lm_logits(p, h, cfg: ModelConfig):
     return h @ w
 
 
-def cross_entropy(logits, targets, cfg: ModelConfig, mask=None):
+def cross_entropy(logits, targets, cfg: ModelConfig, mask=None,
+                  denominator=None):
     """Mean CE over valid targets, in fp32; padded vocab entries are set
     to -1e9.  logits: (B, S, vocab_padded); targets: (B, S) int; mask:
-    (B, S) or None (then every target counts)."""
+    (B, S) or None (then every target counts).  ``denominator`` (with a
+    mask): divide the masked sum by it in place of the valid count (the
+    data-parallel loss's global count)."""
     lf = logits.float()
     if cfg.vocab_padded != cfg.vocab_size:
         pad = torch.arange(cfg.vocab_padded, device=lf.device) >= \
@@ -181,4 +184,6 @@ def cross_entropy(logits, targets, cfg: ModelConfig, mask=None):
     if mask is None:
         return nll.mean()
     mask = mask.float()
+    if denominator is not None:
+        return (nll * mask).sum() / denominator
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)

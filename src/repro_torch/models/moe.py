@@ -28,9 +28,23 @@ Ties: :func:`route_topk` picks experts by a stable descending sort of the
 probabilities, so of two equal probabilities the lower expert index wins, as
 ``jax.lax.top_k`` orders them.
 
-The expert-parallel all-to-all dispatch (``impl="a2a"``,
-``apply_moe_a2a``) needs a device mesh and is not ported (ROADMAP Queue 1,
-distributed training).
+Under a mesh (``pc.mesh``) each rank holds its own rows of the global batch
+(:mod:`repro_torch.train.step`).  The grouped dispatch then computes the
+reference's function of the global batch: with one dispatch group (every
+shipped config) the experts' counts of all data-parallel ranks are
+gathered (E integers a rank), a triple's rank within its expert is its
+rank among the triples of every earlier rank plus its own, and the
+capacity is that of the global token count, so the same triples are kept
+as the reference keeps; with several groups each rank dispatches its own
+whole groups.  The statistics come out as this rank's term of the global
+value: the mean over the data-parallel ranks of ``moe_aux_loss`` and
+``moe_dropped_frac`` and the largest ``moe_max_load`` are the reference's.
+
+``impl="a2a"`` runs :func:`apply_moe_a2a`, the expert-parallel all-to-all
+dispatch over the ``"model"`` axis, when the mesh meets its preconditions
+(no ``"pod"`` axis, ``num_experts`` and the local token count divisible by
+the ``"model"`` size), and otherwise the grouped dispatch, as the
+reference does; :func:`dispatch_counts` records which ran.
 """
 
 from __future__ import annotations
@@ -44,6 +58,21 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import apply_mlp, mlp_specs
 from repro_torch.models.params import spec
+from repro_torch.parallel import comm
+
+# dispatches run since the last reset, by kind ("grouped" or "a2a"); a
+# checkpointed block's re-run dispatches again
+_DISPATCHES = {"grouped": 0, "a2a": 0}
+
+
+def dispatch_counts() -> dict:
+    """MoE layer calls by dispatch kind since the last reset."""
+    return dict(_DISPATCHES)
+
+
+def reset_dispatch_counts() -> None:
+    for k in _DISPATCHES:
+        _DISPATCHES[k] = 0
 
 
 def moe_specs(cfg: ModelConfig):
@@ -86,8 +115,12 @@ def route_topk(router_logits: torch.Tensor, top_k: int):
     return gates, experts, probs
 
 
-def _dispatch_group(xt, logits, cfg: ModelConfig, cap: int):
+def _dispatch_group(xt, logits, cfg: ModelConfig, cap: int, dp=None):
     """One group's sort-based dispatch.  xt: (T, d); logits: (T, E).
+    ``dp``: (mesh, data-parallel axes) when this group is this rank's part
+    of a group spread over those ranks (the counts of every rank are
+    gathered and the ranks within an expert continue from the earlier
+    ranks'); ``cap`` is then the global group's capacity.
 
     Returns (xe (E, C, d), combine state, stats)."""
     m = cfg.moe
@@ -111,7 +144,18 @@ def _dispatch_group(xt, logits, cfg: ModelConfig, cap: int):
         counts = torch.bincount(flat_e, minlength=e)      # (E,)
     starts = counts.cumsum(0) - counts
     rank = torch.arange(t * k, device=dev) - starts[e_sorted]
-    keep = rank < cap
+    if dp is None:
+        keep = rank < cap
+        n = max(t * k, 1)
+        counts_all = counts
+        dropped = (1.0 - keep.float()).sum() / n
+    else:
+        every = comm.stack_over(counts, *dp)              # (ranks, E)
+        before = every[:comm.group_index(*dp)].sum(0)
+        keep = rank + before[e_sorted] < cap
+        counts_all = every.sum(0)
+        n = max(t * k * every.shape[0], 1)
+        dropped = (counts_all - counts_all.clamp_max(cap)).sum().float() / n
     # dropped triples all land, zeroed, in the dummy row e * cap
     buf_idx = torch.where(keep, e_sorted * cap + rank,
                           torch.full_like(rank, e * cap))
@@ -120,11 +164,12 @@ def _dispatch_group(xt, logits, cfg: ModelConfig, cap: int):
     xbuf[buf_idx] = xt[tok_sorted] * keep[:, None].to(xt.dtype)
     xe = xbuf[:e * cap].view(e, cap, d)
 
-    n = max(t * k, 1)
-    frac_tokens = counts.float() / n
+    frac_tokens = counts_all.float() / n
     stats = {
+        # with dp: this rank's term (its tokens' mean probabilities), whose
+        # mean over the ranks is the global statistic
         "aux_loss": e * (frac_tokens * probs.mean(dim=0)).sum(),
-        "dropped": (1.0 - keep.float()).sum() / n,
+        "dropped": dropped,
         "max_load": frac_tokens.max() * e,
     }
     return xe, (buf_idx, tok_sorted, g_sorted), stats
@@ -139,30 +184,53 @@ def _combine_group(ye, state, t: int):
     return ye.new_zeros((t, d)).index_add_(0, tok_sorted, y_sorted)
 
 
-def apply_moe(p, x, cfg: ModelConfig):
+def _a2a_fits(x, cfg: ModelConfig, mesh) -> bool:
+    """The all-to-all dispatch's preconditions, as the reference checks
+    them: no "pod" axis, the experts and this rank's tokens divisible by
+    the "model" size."""
+    sizes = comm.axis_sizes(mesh)
+    tp = sizes.get("model", 1)
+    return "pod" not in sizes and cfg.moe.num_experts % tp == 0 and \
+        (x.shape[0] * x.shape[1]) % tp == 0
+
+
+def apply_moe(p, x, cfg: ModelConfig, pc=None):
     """x: (B, S, d) -> (y, aux).  aux carries the load-balance statistics
     ``moe_aux_loss``, ``moe_dropped_frac`` and ``moe_max_load`` (0-dim fp32
-    tensors), as the reference's."""
+    tensors), as the reference's.  ``pc``: the partition constraints; with
+    a mesh, x holds this rank's rows (see the module docstring)."""
     m = cfg.moe
-    if m.impl == "a2a":
-        raise NotImplementedError(
-            "the all-to-all MoE dispatch (impl='a2a') needs a device mesh: "
-            "ROADMAP Queue 1, distributed training")
+    mesh = getattr(pc, "mesh", None)
+    if m.impl == "a2a" and mesh is not None and _a2a_fits(x, cfg, mesh):
+        return apply_moe_a2a(p, x, cfg, mesh)
+    _DISPATCHES["grouped"] += 1
     dt = x.dtype
     b, s, d = x.shape
     t = b * s
     e = m.num_experts
+    axes = pc.dp_axes if mesh is not None else ()
+    ranks = comm.group_size(mesh, axes)
 
     g = max(m.dispatch_groups, 1)
-    if t % g != 0 or (t // g) * m.top_k < 8:
+    if (t * ranks) % g != 0 or (t * ranks // g) * m.top_k < 8:
         g = 1
+    dp = None
+    if ranks > 1:
+        if g == 1:
+            dp = (mesh, axes)          # one group over every rank's tokens
+        elif g % ranks == 0:
+            g //= ranks                # this rank's whole groups
+        else:
+            raise NotImplementedError(
+                f"{g} dispatch groups over {ranks} data-parallel ranks")
     tg = t // g
-    cap = capacity(cfg, tg)
+    cap = capacity(cfg, tg * (ranks if dp else 1))
     xt = x.reshape(g, tg, d)
     rdt = torch.float32 if m.router_dtype == "float32" else dt
     logits = xt.to(rdt) @ p["router"].to(rdt)             # (G, T/G, E)
 
-    groups = [_dispatch_group(xt[i], logits[i], cfg, cap) for i in range(g)]
+    groups = [_dispatch_group(xt[i], logits[i], cfg, cap, dp)
+              for i in range(g)]
     # (E, G*C, d): every group's buffer of an expert through one product
     xe = torch.stack([gr[0] for gr in groups], dim=1).view(e, g * cap, d)
 
@@ -190,9 +258,133 @@ def apply_moe(p, x, cfg: ModelConfig):
     return y, aux
 
 
+def _cap8(n: int) -> int:
+    return max(8, ((n + 7) // 8) * 8)
+
+
 def apply_moe_a2a(p, x, cfg: ModelConfig, mesh):
-    """The reference's expert-parallel ragged all-to-all dispatch; it runs
-    over a device mesh, which the one-device port does not have yet."""
-    raise NotImplementedError(
-        "apply_moe_a2a needs a device mesh and torch.distributed: ROADMAP "
-        "Queue 1, distributed training")
+    """Expert-parallel dispatch with explicit all-to-alls over the "model"
+    axis (port of the reference's ``apply_moe_a2a``).
+
+    x: (B_loc, S, d), this rank's rows (one "data" coordinate's; the
+    "model" ranks of a coordinate hold the same rows).  Each "model" rank
+    dispatches its 1/tp slice of the local tokens, buckets them by the rank
+    that owns their expert (capacity ``cap_send`` a destination), sends
+    them with ``all_to_all_single``, runs its E/tp local experts (capacity
+    ``cap_loc`` an expert), sends the outputs back, combines them and
+    gathers the slices over "model".  The capacities are the reference's.
+    The router runs in fp32 as the reference's does here.  Shared experts
+    and the aux statistics (a routing pass over the rows, summed over the
+    "data" ranks; no dropped fraction, 0 as the reference reports) run
+    outside the exchange.
+
+    Gradients: the slicing, gathering and exchanges are autograd functions
+    (:mod:`repro_torch.parallel.comm`) under which each "model" rank ends
+    with the whole gradient of the one loss its coordinate computes: the
+    router's logits are made for every local token and sliced, the local
+    experts are sliced from the whole stacks.
+
+    Preconditions (raise): a mesh with no "pod" axis, num_experts and the
+    local token count divisible by the "model" size."""
+    if mesh is None:
+        raise ValueError("apply_moe_a2a needs a device mesh with a 'model' "
+                         "axis (apply_moe runs the grouped dispatch "
+                         "without one)")
+    if not _a2a_fits(x, cfg, mesh):
+        raise ValueError(f"a2a dispatch: mesh {comm.axis_sizes(mesh)} does "
+                         f"not fit {cfg.moe.num_experts} experts and "
+                         f"{x.shape[0] * x.shape[1]} tokens")
+    _DISPATCHES["a2a"] += 1
+    m = cfg.moe
+    dt = x.dtype
+    b, s, d = x.shape
+    dev = x.device
+    tp = comm.axis_sizes(mesh).get("model", 1)
+    e, k = m.num_experts, m.top_k
+    e_local = e // tp
+    t_loc = b * s
+    t_my = t_loc // tp                                   # this rank's slice
+    cap_send = _cap8(math.ceil(k * t_my * m.capacity_factor / tp))
+    cap_loc = capacity(cfg, t_loc)                       # per local expert
+
+    xt_all = x.reshape(t_loc, d)
+    xt = comm.to_shard(xt_all, mesh, "model")
+    logits = comm.to_shard(xt_all.float() @ p["router"].float(), mesh,
+                           "model")
+    gates, experts, _ = route_topk(logits, k)
+
+    # ---- bucket my tokens by destination rank ------------------------------
+    flat_e = experts.reshape(-1)                         # (t_my*k,)
+    dst = torch.div(flat_e, e_local, rounding_mode="floor")
+    flat_tok = torch.arange(t_my, device=dev).repeat_interleave(k)
+    order = torch.sort(dst, stable=True).indices
+    dst_s, tok_s, exp_s = dst[order], flat_tok[order], flat_e[order]
+    gate_s = gates.reshape(-1)[order]
+    counts = torch.bincount(dst, minlength=tp)
+    rank = torch.arange(t_my * k, device=dev) - \
+        (counts.cumsum(0) - counts)[dst_s]
+    keep = rank < cap_send
+    slot = torch.where(keep, dst_s * cap_send + rank,
+                       torch.full_like(rank, tp * cap_send))
+
+    send_x = xt.new_zeros((tp * cap_send + 1, d))
+    send_x[slot] = xt[tok_s] * keep[:, None].to(dt)
+    send_le = torch.full((tp * cap_send + 1,), e_local, dtype=torch.long,
+                         device=dev)
+    send_le[slot] = torch.where(keep, exp_s % e_local,
+                                torch.full_like(exp_s, e_local))
+    recv_x = comm.all_to_all(send_x[:-1], mesh, "model")
+    rle = comm.all_to_all(send_le[:-1], mesh, "model")  # e_local = padding
+
+    # ---- local expert compute ----------------------------------------------
+    order2 = torch.sort(rle, stable=True).indices
+    rle_s = rle[order2]
+    c2 = torch.bincount(rle, minlength=e_local + 1)[:e_local]
+    rank2 = torch.arange(tp * cap_send, device=dev) - \
+        (c2.cumsum(0) - c2)[rle_s.clamp_max(e_local - 1)]
+    keep2 = (rle_s < e_local) & (rank2 < cap_loc)
+    slot2 = torch.where(keep2, rle_s * cap_loc + rank2,
+                        torch.full_like(rank2, e_local * cap_loc))
+    xbuf = recv_x.new_zeros((e_local * cap_loc + 1, d))
+    xbuf[slot2] = recv_x[order2] * keep2[:, None].to(dt)
+    xe = xbuf[:-1].view(e_local, cap_loc, d)
+
+    wg, wu, wd = (comm.to_shard(p[w], mesh, "model").to(dt)
+                  for w in ("w_gate", "w_up", "w_down"))
+    h = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
+    ye = torch.bmm(h, wd)
+    del h
+
+    # ---- return path ---------------------------------------------------------
+    ybuf = torch.cat([ye.reshape(e_local * cap_loc, d), ye.new_zeros((1, d))])
+    y_recv = ye.new_zeros((tp * cap_send, d)).index_copy(0, order2,
+                                                         ybuf[slot2])
+    back = comm.all_to_all(y_recv, mesh, "model")
+    ybuf2 = torch.cat([back, back.new_zeros((1, d))])
+    y_sorted = ybuf2[slot] * (gate_s * keep.float())[:, None].to(dt)
+    y_my = xt.new_zeros((t_my, d)).index_add_(0, tok_s, y_sorted)
+    y = comm.from_shard(y_my, mesh, "model").view(b, s, d)
+
+    if m.num_shared_experts:
+        shared_cfg = dataclasses.replace(cfg, mlp_type="swiglu")
+        y = y + apply_mlp(p["shared"], x, shared_cfg)
+    return y, _a2a_aux(p, x, cfg, mesh)
+
+
+def _a2a_aux(p, x, cfg: ModelConfig, mesh) -> dict:
+    """The reference's aux statistics of the a2a path, from a routing pass
+    over every token of the global batch: the mean probabilities of this
+    rank's rows, averaged over the "data" ranks.  The aux loss is
+    e * sum(mean^2); its term here has that value, and the gradient of the
+    ranks' mean of terms is the gradient of the global loss (the global
+    mean enters as a constant beside this rank's own mean)."""
+    e = cfg.moe.num_experts
+    logits = x @ p["router"].to(x.dtype)
+    probs = torch.softmax(logits.float(), dim=-1)
+    mine = probs.reshape(-1, e).mean(dim=0)
+    mean = comm.all_reduce(mine.detach().clone(), mesh, ("data",), "mean")
+    aux = e * (mean * mean).sum() + \
+        e * (2 * mean * (mine - mine.detach())).sum()
+    return {"moe_aux_loss": aux,
+            "moe_dropped_frac": torch.zeros((), device=x.device),
+            "moe_max_load": mean.max() * e}

@@ -45,6 +45,7 @@ from repro_torch.models.params import (
 from repro_torch.models.ssm import (
     mamba2_block, mamba2_cache_specs, mamba2_specs, rwkv6_cache_specs,
     rwkv6_channel_mix, rwkv6_specs, rwkv6_time_mix)
+from repro_torch.parallel import comm
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -212,13 +213,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _attn_block(p, x, cfg, *, rope, mode, cache, pos, attn_impl="masked",
-                aux=None, cross_kv_cache=None, bidirectional=False):
+                aux=None, cross_kv_cache=None, bidirectional=False,
+                pc=None):
     """Pre-norm transformer block, its FFN an MLP or (with ``p["moe"]``)
     the MoE; returns (x, cache).  ``aux``: a dict the MoE statistics are
     added to (see :func:`forward`).  ``cross_kv_cache``: the encoder's K/V
     of this decoder layer, attended after the self-attention.
     ``bidirectional``: self-attention without the causal mask (an
-    encoder's)."""
+    encoder's).  ``pc``: the partition constraints, which the MoE reads.
+    """
     h = apply_norm(p["ln1"], x, cfg)
     if cfg.attention_type == "mla":
         y, cache = mla_attention(p["attn"], h, cfg, rope=rope, mode=mode,
@@ -233,7 +236,7 @@ def _attn_block(p, x, cfg, *, rope, mode, cache, pos, attn_impl="masked",
         x = x + cross_attention(p["cross"], h, cross_kv_cache, cfg)
     h = apply_norm(p["ln2"], x, cfg)
     if "moe" in p:
-        y, stats = apply_moe(p["moe"], h, cfg)
+        y, stats = apply_moe(p["moe"], h, cfg, pc=pc)
         if aux is not None:
             _combine_aux(aux, stats)
     else:
@@ -306,7 +309,7 @@ def _checkpointed(fn, remat: str):
 
 
 def _train_layers(layers, x, cfg, *, rope, attn_impl, remat, aux=None,
-                  cross=None, bidirectional=False):
+                  cross=None, bidirectional=False, pc=None):
     """Train-mode pass over stacked attention blocks, each checkpointed;
     the MoE statistics of each block come out of the checkpointed call and
     are combined into ``aux``.  ``cross``: per layer, the encoder's K/V of
@@ -316,7 +319,8 @@ def _train_layers(layers, x, cfg, *, rope, attn_impl, remat, aux=None,
         stats = {}
         x = _attn_block(lp, x, cfg, rope=rope, mode="train", cache=None,
                         pos=None, attn_impl=attn_impl, aux=stats,
-                        cross_kv_cache=ckv, bidirectional=bidirectional)[0]
+                        cross_kv_cache=ckv, bidirectional=bidirectional,
+                        pc=pc)[0]
         return x, stats
 
     run = _checkpointed(block, remat)
@@ -484,7 +488,7 @@ def _merge_patches(x, patches):
 
 def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
             pos=None, extras=None, attn_impl="masked", remat="none",
-            aux=None):
+            aux=None, pc=None):
     """Run the model.
 
     tokens: (B, S) int64.  decode: S is the number of new tokens (1).
@@ -505,6 +509,10 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
     reference's forward returns them (``moe_aux_loss`` and
     ``moe_dropped_frac`` summed over the MoE layers, ``moe_max_load`` their
     largest); untouched by models without MoE layers.
+    pc: partition constraints (:mod:`repro_torch.parallel.sharding`); with
+    a mesh, ``tokens`` are this rank's rows and the MoE layers dispatch
+    over the mesh (:mod:`repro_torch.models.moe`).  Its activation
+    constraints are the identity.
     Returns (logits, cache).
     """
     _check_supported(cfg)
@@ -539,7 +547,8 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
         for group in ("dense_layers", "moe_layers"):
             if group in params:
                 x = _train_layers(params[group], x, cfg, rope=rope,
-                                  attn_impl=attn_impl, remat=remat, aux=aux)
+                                  attn_impl=attn_impl, remat=remat, aux=aux,
+                                  pc=pc)
     else:
         for group, key in (("dense_layers", "dense"), ("moe_layers", "moe")):
             if group not in params:
@@ -548,13 +557,14 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
             for i in range(_depth(layers)):
                 lc = None if cache is None else _layer(cache[key], i)
                 x, _ = _attn_block(_layer(layers, i), x, cfg, rope=rope,
-                                   mode=mode, cache=lc, pos=pos, aux=aux)
+                                   mode=mode, cache=lc, pos=pos, aux=aux,
+                                   pc=pc)
 
     x = apply_norm(params["final_norm"], x, cfg)
     return lm_logits(params["embed"], x, cfg), cache
 
 
-def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl="masked",
+def loss_fn(params, cfg: ModelConfig, batch, *, pc=None, attn_impl="masked",
             remat="none"):
     """Next-token CE loss.  batch: {"tokens", "labels"} (B, S) int tensors
     on the params' device, and any extras (every other entry, e.g. a VLM's
@@ -563,14 +573,31 @@ def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl="masked",
     metrics): for a model with MoE layers the total adds ``0.01 *
     moe_aux_loss / num_layers`` to the loss and the metrics carry the MoE
     statistics beside ``loss``, as the reference's; otherwise the total is
-    the loss and the metrics ``{"loss": loss}``."""
+    the loss and the metrics ``{"loss": loss}``.
+
+    ``pc`` with a mesh whose data-parallel axes (``pc.dp_axes``) hold
+    several ranks: ``batch`` is this rank's rows, and the returned loss and
+    statistics are this rank's terms of the global batch's, whose mean over
+    those ranks is the reference's value on the global batch (and whose
+    gradients' mean is its gradient): the cross-entropy sums this rank's
+    masked terms over the global count of valid labels (a mean of the
+    ranks' own means would weigh a label by its rank's count), times the
+    number of ranks."""
     aux = {}
     extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
     logits, _ = forward(params, cfg, tokens=batch["tokens"], mode="train",
                         extras=extras, attn_impl=attn_impl, remat=remat,
-                        aux=aux)
+                        aux=aux, pc=pc)
     labels = batch["labels"]
-    loss = cross_entropy(logits, labels.clamp_min(0), cfg, mask=labels >= 0)
+    mask = labels >= 0
+    axes = pc.dp_axes if pc is not None else ()
+    if axes:
+        count = comm.all_reduce(mask.sum().float(), pc.mesh, axes)
+        loss = cross_entropy(logits, labels.clamp_min(0), cfg, mask=mask,
+                             denominator=count.clamp_min(1.0)
+                             / comm.group_size(pc.mesh, axes))
+    else:
+        loss = cross_entropy(logits, labels.clamp_min(0), cfg, mask=mask)
     if cfg.moe is None:
         return loss, {"loss": loss}
     total = loss + 0.01 * aux["moe_aux_loss"] / max(cfg.num_layers, 1)

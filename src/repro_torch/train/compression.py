@@ -1,0 +1,97 @@
+"""Gradient compression for the slow cross-pod exchange (port of
+``repro.train.compression``).
+
+Within a pod the data-parallel gradient mean is a plain reduce-scatter;
+across pods the gradients go as int8 with a per-row fp32 scale:
+
+    bytes on the slow link:  all-gather(int8 + per-row fp32 scale)
+                             ~= N * (P-1)/P bytes
+    vs. bf16 ring all-reduce ~= 2 * N * (P-1)/P * 2 bytes   (4x less)
+
+Quantisation is per row (the last dimension), symmetric, round to nearest:
+the error is at most scale/2 an element.  :func:`compressed_pmean` runs
+over a process group (``all_gather_into_tensor`` of the int8 rows and the
+scales, then the dequantised mean on each rank); the ``"bf16"`` method is a
+plain mean of bf16 gradients, any other method a plain fp32 mean.
+The int8 arithmetic is plain PyTorch: the reference's is jnp, not Pallas.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.models.params import tree_map
+from repro_torch.parallel import comm
+
+
+def quantize_int8(x: torch.Tensor):
+    """Symmetric per-row int8.  x: (..., d) -> (q int8, scale (..., 1)
+    fp32)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = amax.clamp_min(1e-12) / 127.0
+    q = torch.round(xf / scale).clamp_(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale
+
+
+def _rows(g: torch.Tensor) -> torch.Tensor:
+    """A leaf as rows of its last dimension (a 0-d or 1-d leaf: one row)."""
+    return g.reshape(1, -1) if g.ndim <= 1 else g.reshape(-1, g.shape[-1])
+
+
+def _gather(t: torch.Tensor, group) -> torch.Tensor:
+    """(ranks, *t.shape): ``t`` of every rank of the group, in rank order."""
+    n = dist.get_world_size(group)
+    out = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
+    dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+    return out.view((n,) + tuple(t.shape))
+
+
+def _compressed_pmean_leaf(g: torch.Tensor, group) -> torch.Tensor:
+    """int8 all-gather + the dequantised mean on every rank."""
+    q, scale = quantize_int8(_rows(g))
+    qs = _gather(q, group)                      # (P, rows, d) int8
+    ss = _gather(scale, group)                  # (P, rows, 1) fp32
+    mean = dequantize_int8(qs, ss).mean(dim=0)
+    return mean.reshape(g.shape).to(g.dtype)
+
+
+def compressed_pmean(grads, group, method: str = "int8"):
+    """Mean of a gradient tree over the ranks of ``group`` (every rank of
+    the group calls it)."""
+    if method in ("int8", "int8_ef"):
+        return tree_map(lambda g: _compressed_pmean_leaf(g, group), grads)
+    n = dist.get_world_size(group)
+
+    def mean(g, dt):
+        t = g.to(dt)
+        dist.all_reduce(t, group=group)
+        return t.div_(n).to(g.dtype)
+    if method == "bf16":
+        return tree_map(lambda g: mean(g, torch.bfloat16), grads)
+    return tree_map(lambda g: mean(g, g.dtype), grads)
+
+
+def cross_pod_sync(grads, mesh, method: str = "int8"):
+    """Compressed gradient mean over the ``"pod"`` axis; the identity with
+    no pod axis, a pod axis of size 1, or ``method == "none"`` (the
+    reference's ``use_pod_sync``)."""
+    if method in ("", "none") or not comm.live_axes(mesh, ("pod",)):
+        return grads
+    return compressed_pmean(grads, mesh.get_group("pod"), method)
+
+
+def apply_error_feedback(grads, residual):
+    """g' = g + residual (the caller keeps the post-quantisation error)."""
+    return {k: (apply_error_feedback(v, residual[k]) if isinstance(v, dict)
+                else v + residual[k].to(v.dtype)) for k, v in grads.items()}
+
+
+def quantization_error(x: torch.Tensor) -> torch.Tensor:
+    q, s = quantize_int8(_rows(x))
+    return dequantize_int8(q, s).reshape(x.shape) - x.float()

@@ -1,4 +1,4 @@
-"""Monitored training loop on one device (port of ``repro.train.loop``).
+"""Monitored training loop (port of ``repro.train.loop``).
 
 The loop is a *job* in the LMS sense, wired as the reference wires it:
 
@@ -26,8 +26,20 @@ reached over HTTP.  A stack with ``.poll_findings()`` (the remote one) is
 asked for new findings at each monitor interval, outside the timed step,
 so its findings halt the run as the in-process stack's callbacks do.
 Every post to a remote stack happens outside the timed step.  There is no
-``jit``: the step runs eagerly; meshes belong to the distributed slice and
-raise.
+``jit``: the step runs eagerly.
+
+With ``mesh`` every rank runs this loop (the data-parallel step of
+:mod:`repro_torch.train.step`): its host is ``hosts[rank % len(hosts)]`` (one
+a rank by default, as the reference's ``process_index``), its loader makes
+only its rows (``host_index`` / ``host_count`` over the data-parallel
+ranks), its params and optimizer state are its pieces, and its host agent
+posts its own points, the step constants a rank's share of the step
+(tokens and model flops over the world size).  The rank at the mesh's
+origin opens and closes the job (once); the others start posting after it
+opened and have posted everything before it closes.  A halt (a finding, a
+NaN loss) is agreed over the ranks each step, so all leave together.
+Checkpoints hold whole leaves, gathered and written by the origin rank, and
+a resume slices them under the mesh the job has now.
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.ckpt.checkpoint import CheckpointManager
@@ -47,9 +60,12 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.core.marker import calibrate
 from repro_torch.data.pipeline import (
     DataLoader, SyntheticTokenSource, make_batch_fn)
+from repro_torch.models.params import flatten, unflatten
 from repro_torch.models.transformer import init_model_params
+from repro_torch.parallel import comm
+from repro_torch.parallel.sharding import UNPORTED, shard_tree
 from repro_torch.train.step import (
-    batch_to_device, count_step_flops, make_train_step)
+    DP_AXES, batch_to_device, count_step_flops, make_train_step, shardings)
 
 # Published dense peaks by card name: FLOP/s (bf16 on the tensor cores) and
 # device-memory bytes/s.  NVIDIA's data sheet, SXM part at full power.
@@ -110,24 +126,27 @@ def counted_step_constants(flops: float, *, model_flops: float,
 def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
           shape: ShapeConfig, *, stack, hosts: Optional[list] = None,
           device=None, peak_flops: Optional[float] = None,
-          hbm_bw: Optional[float] = None, mesh=None,
+          hbm_bw: Optional[float] = None, mesh=None, pc=None,
           fail_at_step: Optional[int] = None,
           step_callback: Optional[Callable] = None,
           user: str = "user", job_id: Optional[str] = None,
           markers: bool = True) -> TrainResult:
     """Run (or resume) a monitored training job on one device (default
-    CUDA).  ``peak_flops``/``hbm_bw`` default to the card's published
-    peaks (:data:`DEVICE_PEAKS`)."""
-    if mesh is not None:
-        raise NotImplementedError("meshes belong to the distributed slice; "
-                                  "this loop runs on one device")
+    CUDA), or with ``mesh`` as one rank of a data-parallel job (every rank
+    calls it; see the module docstring).  ``peak_flops``/``hbm_bw`` default
+    to the card's published peaks (:data:`DEVICE_PEAKS`)."""
+    if mesh is not None and train_cfg.seq_parallel:
+        raise NotImplementedError(f"seq_parallel: {UNPORTED}")
     device = resolve_device(device)
     if peak_flops is None or hbm_bw is None:
         pf, bw = device_peaks(device)
         peak_flops = pf if peak_flops is None else peak_flops
         hbm_bw = bw if hbm_bw is None else hbm_bw
-    hosts = hosts or ["host0"]
-    host = hosts[0]
+    world = dist.get_world_size() if mesh is not None else 1
+    rank = dist.get_rank() if mesh is not None else 0
+    lead = not any(comm.coordinate(mesh).values())
+    hosts = hosts or [f"host{i}" for i in range(world)]
+    host = hosts[rank % len(hosts)]
     job_id = job_id or f"{model_cfg.name}-{int(time.time())}"
 
     # ---- data (deterministic, resumable) ---------------------------------
@@ -136,24 +155,35 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
                              extras_fn=_extras_fn(model_cfg, shape))
 
     # ---- params / resume ---------------------------------------------------
-    train_step, opt = make_train_step(model_cfg, train_cfg)
+    train_step, opt = make_train_step(model_cfg, train_cfg, pc=pc,
+                                      mesh=mesh)
+    sh = dict(zip(("params", "opt_state"),
+                  shardings(model_cfg, train_cfg, mesh))) \
+        if mesh is not None else None
     ckpt = CheckpointManager(train_cfg.ckpt_dir, keep=train_cfg.ckpt_keep) \
         if train_cfg.ckpt_dir else None
     resumed_from = None
     start_step = 0
     params = init_model_params(model_cfg, seed=train_cfg.seed, device=device)
-    opt_state = opt.init(params)
+    if sh:
+        params = shard_tree(params, sh["params"], mesh)
+    opt_state = opt.init(params, sh["params"] if sh else None)
     if ckpt and ckpt.latest_step() is not None:
         start_step, trees = ckpt.restore(
-            {"params": params, "opt_state": opt_state})
+            {"params": params, "opt_state": opt_state}, shardings=sh,
+            mesh=mesh)
         params, opt_state = trees["params"], trees["opt_state"]
         resumed_from = start_step
 
     loader = DataLoader(batch_fn, global_batch=shape.global_batch,
+                        host_index=comm.group_index(mesh, DP_AXES),
+                        host_count=comm.group_size(mesh, DP_AXES),
                         start_step=start_step)
 
     # ---- LMS wiring ----------------------------------------------------------
     tokens_per_step = shape.global_batch * shape.seq_len
+    if world > 1:
+        tokens_per_step /= world            # a rank's share of the step
     # 6 N T with N the parameters a token touches (MoE: its top-k experts),
     # as the reference's ``_active_params``
     model_flops = 6 * model_cfg.active_param_count() * tokens_per_step
@@ -176,8 +206,10 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
     steps_run = 0
     step = start_step
     try:
-        with stack.job(job_id, user=user, hosts=hosts,
-                       tags={"arch": model_cfg.name, "shape": shape.name}):
+        with (stack.job(job_id, user=user, hosts=hosts,
+                        tags={"arch": model_cfg.name, "shape": shape.name})
+              if lead else nullcontext()):
+            _barrier(world)             # the job is open before any post
             um.event("run_state", f"starting {model_cfg.name} at step "
                      f"{start_step}")
             # the device's peaks, where the stack's marker roofline reads
@@ -195,8 +227,8 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
                     # params and this batch (the reference reads them from
                     # the compiled step)
                     consts = counted_step_constants(
-                        count_step_flops(params, batch, model_cfg,
-                                         train_cfg),
+                        count_step_flops(_whole_meta(params, sh), batch,
+                                         model_cfg, train_cfg),
                         model_flops=model_flops,
                         tokens_per_step=tokens_per_step,
                         peak_flops=peak_flops, hbm_bw=hbm_bw)
@@ -235,6 +267,9 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
                 if math.isnan(loss):
                     um.event("run_state", f"NaN loss at step {step_idx}")
                     halted["reason"] = "nan_loss"
+                if world > 1 and _any_rank(halted["reason"] is not None,
+                                           mesh, device):
+                    halted["reason"] = halted["reason"] or "another rank"
 
                 last_loss = loss
                 steps_run += 1
@@ -248,7 +283,8 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
                           else nullcontext()):
                         ckpt.save(step, {"params": params,
                                          "opt_state": opt_state},
-                                  {"arch": model_cfg.name, "step": step})
+                                  {"arch": model_cfg.name, "step": step},
+                                  shardings=sh, mesh=mesh)
                     um.event("run_state", f"checkpoint at {step}")
                 if fail_at_step is not None and step >= fail_at_step:
                     um.event("run_state", f"injected failure at {step}")
@@ -260,6 +296,10 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
             # flush inside the job bracket so marker points are enriched
             # with the live job's tags (jobid/username) by the router
             um.flush()
+            flush = getattr(stack, "flush", None)
+            if flush is not None:
+                flush()
+            _barrier(world)             # every rank posted before the end
     finally:
         um.flush()
         loader.close()
@@ -268,6 +308,29 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
 
     return TrainResult(steps_run, step, last_loss, stack.findings(),
                        resumed_from)
+
+
+def _barrier(world: int) -> None:
+    if world > 1:
+        dist.barrier()
+
+
+def _any_rank(flag: bool, mesh, device) -> bool:
+    """Whether ``flag`` holds on any rank of the mesh."""
+    t = torch.tensor(float(flag), device=device)
+    return bool(comm.all_reduce(t, mesh, tuple(comm.axis_sizes(mesh)),
+                                "max"))
+
+
+def _whole_meta(params, sh):
+    """Meta tensors of the whole params (this rank's pieces' dtypes), for
+    the step's flop count."""
+    if not sh:
+        return params
+    fsh = flatten(sh["params"])
+    return unflatten({k: torch.empty(fsh[k].shape, dtype=v.dtype,
+                                     device="meta")
+                      for k, v in flatten(params).items()})
 
 
 def _extras_fn(cfg: ModelConfig, shape: ShapeConfig):

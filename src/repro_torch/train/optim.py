@@ -16,7 +16,16 @@ it (where the reference donates their buffers to the jitted step) and
 returns them.  Its arithmetic on each leaf runs in place too, so a leaf
 needs at most two temporaries of its size (deepseek-v2-236b's expert
 stacks are 5 GB each in fp32).  ``clip_by_global_norm`` scales the gradients in place.
-Sharding specs (``opt_state_specs``) wait for the distributed slice.
+
+Under a mesh (:mod:`repro_torch.train.step`) params, gradients and state
+are this rank's pieces, split as :func:`opt_state_specs` says (a moment as
+its param).  AdamW's arithmetic is elementwise.  Adafactor's factored
+means (``vr`` over a row, ``vc`` over a column, the row mean of ``vr``) and
+its update's RMS reduce over dimensions a mesh axis may split: ``update``
+then takes the leaves' ``shardings`` and the ``mesh`` and adds the pieces'
+sums over the ranks that hold the rest of each (the gathered gradient is
+never made).  ``global_norm`` and ``clip_by_global_norm`` take the same
+two to count every element once, however many ranks hold a copy.
 """
 
 from __future__ import annotations
@@ -28,13 +37,16 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import TrainConfig
-from repro_torch.models.params import flatten, tree_map, unflatten
+from repro_torch.models.params import (
+    ParamSpec, flatten, spec, tree_map, unflatten)
+from repro_torch.parallel import comm
 
 
 @dataclass(frozen=True)
 class Optimizer:
     """init(params)->state; update(grads, state, params, lr)->(params,
-    state), both updated in place."""
+    state), both updated in place.  Under a mesh both also take the
+    leaves' ``shardings`` (and ``update`` the ``mesh``)."""
 
     init: Callable
     update: Callable
@@ -50,17 +62,28 @@ def _f32(x) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, shardings=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32 (a 0-d tensor on
-    the leaves' device)."""
-    sq = [x.float().square().sum() for x in flatten(tree).values()]
-    return torch.stack(sq).sum().sqrt()
+    the leaves' device).  With ``shardings`` and ``mesh`` the leaves are
+    this rank's pieces: a piece counts on the ranks at coordinate 0 of
+    every axis that holds copies of it, and the sum is added over the
+    mesh."""
+    flat = flatten(tree)
+    if not comm.axis_sizes(mesh) or not shardings:
+        sq = [x.float().square().sum() for x in flat.values()]
+        return torch.stack(sq).sum().sqrt()
+    coord, fsh = comm.coordinate(mesh), flatten(shardings)
+    sq = [x.float().square().sum() for k, x in flat.items()
+          if all(coord[a] == 0 for a in fsh[k].replicated_axes)]
+    total = torch.stack(sq).sum() if sq else \
+        torch.zeros((), device=next(iter(flat.values())).device)
+    return comm.all_reduce(total, mesh, tuple(comm.axis_sizes(mesh))).sqrt()
 
 
-def clip_by_global_norm(tree, max_norm: float):
+def clip_by_global_norm(tree, max_norm: float, shardings=None, mesh=None):
     """Scale every leaf by min(1, max_norm / norm), in place; returns
     (tree, norm).  The scale stays on the device (no host sync)."""
-    norm = global_norm(tree)
+    norm = global_norm(tree, shardings, mesh)
     scale = (max_norm / norm.clamp_min(1e-9)).clamp_max(1.0)
     for x in flatten(tree).values():
         x.mul_(scale)
@@ -93,13 +116,13 @@ def _count(state) -> int:
 def adamw(cfg: TrainConfig) -> Optimizer:
     b1, b2, eps, wd = cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay
 
-    def init(params):
+    def init(params, shardings=None):
         def zeros(p):
             return torch.zeros_like(p, dtype=torch.float32)
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
                 "count": torch.zeros((), dtype=torch.int32)}
 
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, shardings=None, mesh=None):
         count = _count(state)
         c1 = float(1 - b1 ** _f32(count))
         c2 = float(1 - b2 ** _f32(count))
@@ -134,12 +157,15 @@ def adafactor(cfg: TrainConfig, momentum_dtype=torch.bfloat16) -> Optimizer:
     wd = cfg.weight_decay
     b1 = cfg.beta1                     # bf16 momentum (0 disables)
 
-    def init(params):
-        def one(p):
+    def init(params, shardings=None):
+        fsh = flatten(shardings) if shardings else {}
+
+        def one(path, p):
             dev = p.device
             m = torch.zeros_like(p, dtype=momentum_dtype) if b1 \
                 else torch.zeros((), dtype=torch.float32, device=dev)
-            if _factored(p.shape):
+            # factored by the whole leaf's shape, not the piece's
+            if _factored(fsh[path].shape if fsh else p.shape):
                 return {"vr": torch.zeros(p.shape[:-1], dtype=torch.float32,
                                           device=dev),
                         "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
@@ -147,23 +173,26 @@ def adafactor(cfg: TrainConfig, momentum_dtype=torch.bfloat16) -> Optimizer:
                         "m": m}
             return {"v": torch.zeros_like(p, dtype=torch.float32), "m": m}
         flat = flatten(params)
-        return {"s": unflatten({k: one(p) for k, p in flat.items()}),
+        return {"s": unflatten({k: one(k, p) for k, p in flat.items()}),
                 "count": torch.zeros((), dtype=torch.int32)}
 
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, shardings=None, mesh=None):
         count = _count(state)
         beta2_t = 1.0 - _f32(count) ** -0.8              # schedule
         beta2, rest = float(beta2_t), float(1.0 - beta2_t)
         fg = flatten(grads)
+        fsh = flatten(shardings) if shardings else {}
         for path, p in flatten(params).items():
             s = _leaf_state(state["s"], path)
             g = fg[path].float()
             g2 = g.square().add_(eps2)
+            axes = _Axes(fsh.get(path), mesh, p.ndim)
             if "vr" in s:
-                s["vr"].mul_(beta2).add_(g2.mean(dim=-1), alpha=rest)
-                s["vc"].mul_(beta2).add_(g2.mean(dim=-2), alpha=rest)
+                s["vr"].mul_(beta2).add_(axes.mean(g2, -1), alpha=rest)
+                s["vc"].mul_(beta2).add_(axes.mean(g2, -2), alpha=rest)
                 vr, vc = s["vr"], s["vc"]
-                denom = vr.mean(dim=-1, keepdim=True).clamp_min(eps2)
+                denom = axes.mean(vr, -1, leaf_dim=-2,
+                                  keepdim=True).clamp_min(eps2)
                 vhat = (vr[..., None] * vc[..., None, :]).div_(
                     denom[..., None])
                 upd = vhat.add_(eps2).rsqrt_().mul_(g)
@@ -172,7 +201,7 @@ def adafactor(cfg: TrainConfig, momentum_dtype=torch.bfloat16) -> Optimizer:
                 upd = (s["v"] + eps2).rsqrt_().mul_(g)
             del g2
             # update clipping by RMS (Shazeer & Stern eq. 6)
-            rms = torch.sqrt(upd.square().mean() + eps2)
+            rms = torch.sqrt(axes.mean_all(upd.square()) + eps2)
             upd.div_((rms / clip_thresh).clamp_min(1.0))
             if b1:
                 upd = s["m"].float().mul_(b1).add_(upd, alpha=1 - b1)
@@ -185,6 +214,39 @@ def adafactor(cfg: TrainConfig, momentum_dtype=torch.bfloat16) -> Optimizer:
         return params, state
 
     return Optimizer(init, update, "adafactor")
+
+
+class _Axes:
+    """Means over a leaf's dimensions when the leaf is a piece: the
+    piece's sum added over the live mesh axes that split the dimension,
+    divided by the whole dimension.  With nothing split, ``Tensor.mean``
+    itself (the one-device arithmetic, bit for bit)."""
+
+    def __init__(self, sharding, mesh, ndim: int):
+        self.sh, self.mesh, self.ndim = sharding, mesh, ndim
+
+    def _live(self, leaf_dims) -> tuple:
+        if self.sh is None:
+            return ()
+        return comm.live_axes(self.mesh, tuple(
+            a for d in leaf_dims for a in self.sh.dim_axes(d % self.ndim)))
+
+    def mean(self, x, dim: int, leaf_dim=None, keepdim: bool = False):
+        """x.mean(dim) where ``dim`` of x is the leaf's ``leaf_dim``
+        (default: the same index)."""
+        live = self._live((dim if leaf_dim is None else leaf_dim,))
+        if not live:
+            return x.mean(dim=dim, keepdim=keepdim)
+        n = x.shape[dim] * comm.group_size(self.mesh, live)
+        return comm.all_reduce(x.sum(dim=dim, keepdim=keepdim), self.mesh,
+                               live).div_(n)
+
+    def mean_all(self, x):
+        live = self._live(range(self.ndim))
+        if not live:
+            return x.mean()
+        n = x.numel() * comm.group_size(self.mesh, live)
+        return comm.all_reduce(x.sum(), self.mesh, live).div_(n)
 
 
 def _leaf_state(tree, path: str) -> dict:
@@ -200,3 +262,34 @@ def get_optimizer(cfg: TrainConfig) -> Optimizer:
     if cfg.optimizer == "adafactor":
         return adafactor(cfg)
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+
+
+# --------------------------------------------------------------------------
+# Spec-level optimizer state (for sharding the state as its params)
+# --------------------------------------------------------------------------
+
+
+def opt_state_specs(param_specs, cfg: TrainConfig):
+    """ParamSpec tree of the optimizer state: moments inherit their
+    param's axes; Adafactor's ``vr`` drops the last, ``vc`` the one
+    before."""
+    count = spec((), (), torch.int32, init="zeros")
+    if cfg.optimizer == "adamw":
+        def mom(s: ParamSpec) -> ParamSpec:
+            return spec(s.shape, s.axes, torch.float32, init="zeros")
+        return {"m": tree_map(mom, param_specs),
+                "v": tree_map(mom, param_specs), "count": count}
+
+    def one(s: ParamSpec):
+        m = spec(s.shape, s.axes, torch.bfloat16, init="zeros") \
+            if cfg.beta1 else spec((), (), torch.float32, init="zeros")
+        if _factored(s.shape):
+            return {"vr": spec(s.shape[:-1], s.axes[:-1], torch.float32,
+                               init="zeros"),
+                    "vc": spec(s.shape[:-2] + s.shape[-1:],
+                               s.axes[:-2] + s.axes[-1:], torch.float32,
+                               init="zeros"),
+                    "m": m}
+        return {"v": spec(s.shape, s.axes, torch.float32, init="zeros"),
+                "m": m}
+    return {"s": tree_map(one, param_specs), "count": count}

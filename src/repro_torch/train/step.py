@@ -1,4 +1,4 @@
-"""Train and eval steps on one device (port of ``repro.train.step``).
+"""Train and eval steps (port of ``repro.train.step``).
 
 ``make_train_step`` returns ``train_step(params, opt_state, batch, step)
 -> (params, opt_state, metrics)``:
@@ -16,8 +16,34 @@
 ``batch`` holds (B, S) integer tensors on the params' device, and any
 extras (split along the batch like the tokens).  Params are
 leaves that need no grad; the step takes gradients of detached views.
-Meshes and compressed gradient exchange (``train/compression.py``) belong
-to the distributed slice: a mesh raises.
+
+With ``mesh`` (a DeviceMesh over axes among "pod", "data", "model") the
+step is data-parallel with sharded storage, and computes the reference's
+step on the global batch:
+
+* params and optimizer state are this rank's pieces, split by
+  ``TRAIN_RULES`` (:func:`shardings`); the batch is this rank's rows of
+  the global batch, block ``i`` of the data-parallel ranks ("pod" x
+  "data", pod major: :func:`shard_batch`); ranks that differ only in their
+  "model" coordinate hold the same rows and compute the same loss
+  (tensor-parallel compute is not ported);
+* each leaf is gathered whole from the ranks that hold it, the port's
+  one-device gradient runs on the whole params (``loss_fn`` with ``pc``:
+  this rank's term of the global masked mean, the MoE dispatched over the
+  mesh), and each microbatch's metrics are reduced over the data-parallel
+  ranks (means; ``moe_max_load`` the largest);
+* the gradients, after the ``grad_sync_dtype`` cast, are averaged over
+  "data" by a reduce-scatter into this rank's piece (a chunk along the
+  dimensions "model" splits needs no exchange), then over "pod" through
+  :func:`~repro_torch.train.compression.compressed_pmean` when
+  ``grad_compression`` is set (per-row int8 of this rank's piece), else a
+  plain mean;
+* clipping and the norms count every element once
+  (:func:`~repro_torch.train.optim.global_norm`); the optimizer updates
+  the pieces in place.
+
+An axis of size 1 exchanges nothing and copies nothing: on one rank the
+step is the one-device step plus its (skipped) collectives.
 """
 
 from __future__ import annotations
@@ -29,15 +55,21 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models.params import flatten, unflatten
-from repro_torch.models.transformer import loss_fn
+from repro_torch.models.transformer import loss_fn, model_specs
+from repro_torch.parallel import comm
+from repro_torch.parallel.sharding import (
+    UNPORTED, PartitionConstraints, TRAIN_RULES, gather_tree,
+    shardings_for_specs)
+from repro_torch.train.compression import cross_pod_sync
 from repro_torch.train.optim import (clip_by_global_norm, get_optimizer,
-                                     global_norm, lr_schedule)
+                                     global_norm, lr_schedule,
+                                     opt_state_specs)
 
 
-def _value_and_grad(params, batch, model_cfg, train_cfg):
+def _value_and_grad(params, batch, model_cfg, train_cfg, pc=None):
     """(metrics, fp32 grads as a flat dict) of one (micro)batch."""
     flat = {k: v.detach().requires_grad_() for k, v in flatten(params).items()}
-    loss, metrics = loss_fn(unflatten(flat), model_cfg, batch,
+    loss, metrics = loss_fn(unflatten(flat), model_cfg, batch, pc=pc,
                             attn_impl=train_cfg.attn_impl,
                             remat=train_cfg.remat_policy)
     grads = torch.autograd.grad(loss, list(flat.values()))
@@ -45,8 +77,11 @@ def _value_and_grad(params, batch, model_cfg, train_cfg):
 
 
 def _grads_and_metrics(params, batch, model_cfg: ModelConfig,
-                       train_cfg: TrainConfig):
-    """Microbatched value-and-grad; returns (grads fp32 tree, metrics)."""
+                       train_cfg: TrainConfig, pc=None, reduce=None):
+    """Microbatched value-and-grad; returns (grads fp32 tree, metrics).
+    ``reduce``: applied to each microbatch's metrics (the data-parallel
+    reduction)."""
+    reduce = reduce or (lambda m: m)
     nm = train_cfg.num_microbatches
     sync_dt = getattr(torch, train_cfg.grad_sync_dtype)
 
@@ -55,9 +90,10 @@ def _grads_and_metrics(params, batch, model_cfg: ModelConfig,
             else g.to(sync_dt).float()
 
     if nm <= 1:
-        metrics, grads = _value_and_grad(params, batch, model_cfg, train_cfg)
+        metrics, grads = _value_and_grad(params, batch, model_cfg, train_cfg,
+                                         pc)
         return unflatten({k: sync_cast(g) for k, g in grads.items()}), \
-            metrics
+            reduce(metrics)
 
     rows = next(iter(batch.values())).shape[0]
     if rows % nm:
@@ -68,7 +104,8 @@ def _grads_and_metrics(params, batch, model_cfg: ModelConfig,
         # interleaved split, as the reference's (B, ...) -> (B/nm, nm, ...)
         mb = {k: v.view(rows // nm, nm, *v.shape[1:])[:, m]
               for k, v in batch.items()}
-        metrics, grads = _value_and_grad(params, mb, model_cfg, train_cfg)
+        metrics, grads = _value_and_grad(params, mb, model_cfg, train_cfg, pc)
+        metrics = reduce(metrics)
         if acc is None:
             acc = {k: torch.zeros_like(g, dtype=torch.float32)
                    for k, g in grads.items()}
@@ -101,19 +138,19 @@ def count_step_flops(params, batch, model_cfg: ModelConfig,
 
 
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, *,
-                    mesh=None):
+                    pc=None, mesh=None):
     """Returns (train_step, optimizer); train_step(params, opt_state, batch,
     step) -> (params, opt_state, metrics), updating params and opt_state in
-    place."""
+    place.  With ``mesh``: the data-parallel step of the module docstring
+    (``pc`` defaults to the train rules on ``mesh``)."""
     if mesh is not None:
-        raise NotImplementedError("meshes belong to the distributed slice; "
-                                  "this step runs on one device")
+        return _make_dist_step(model_cfg, train_cfg, pc, mesh)
     opt = get_optimizer(train_cfg)
     lr_fn = lr_schedule(train_cfg)
 
     def train_step(params, opt_state, batch, step):
         grads, metrics = _grads_and_metrics(params, batch, model_cfg,
-                                            train_cfg)
+                                            train_cfg, pc)
         if train_cfg.grad_clip_norm > 0:
             grads, gnorm = clip_by_global_norm(grads,
                                                train_cfg.grad_clip_norm)
@@ -125,6 +162,153 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, *,
         metrics = dict(metrics)
         metrics.update({"grad_norm": gnorm, "lr": lr,
                         "param_norm": global_norm(params)})
+        return params, opt_state, metrics
+
+    return train_step, opt
+
+
+# --------------------------------------------------------------------------
+# Data parallelism over a mesh
+# --------------------------------------------------------------------------
+
+DP_AXES = ("pod", "data")
+
+
+def shardings(model_cfg: ModelConfig, train_cfg: TrainConfig, mesh):
+    """(params, optimizer state) Sharding trees on ``mesh`` under
+    ``TRAIN_RULES``: a moment is split as its param."""
+    specs = model_specs(model_cfg)
+    return (shardings_for_specs(specs, TRAIN_RULES, mesh),
+            shardings_for_specs(opt_state_specs(specs, train_cfg),
+                                TRAIN_RULES, mesh))
+
+
+def shard_batch(batch: dict, mesh) -> dict:
+    """This rank's rows of every entry of a global batch: block i of the
+    data-parallel ranks, i = pod coordinate * data size + data
+    coordinate."""
+    rows = next(iter(batch.values())).shape[0]
+    n = comm.group_size(mesh, DP_AXES)
+    if rows % n:
+        raise ValueError(f"a global batch of {rows} rows does not split "
+                         f"over {n} data-parallel ranks")
+    k = rows // n
+    i = comm.group_index(mesh, DP_AXES)
+    return {key: v[i * k:(i + 1) * k] for key, v in batch.items()}
+
+
+def _reduce_metrics(metrics: dict, mesh, axes) -> dict:
+    """A microbatch's metrics over the data-parallel ranks: the mean of
+    the ranks' terms (the global values), ``moe_max_load`` the largest."""
+    if not axes:
+        return metrics
+    out = dict(metrics)
+    keys = [k for k in metrics if k != "moe_max_load"]
+    means = comm.all_reduce(torch.stack([metrics[k].float() for k in keys]),
+                            mesh, axes, "mean")
+    out.update(zip(keys, means.unbind()))
+    if "moe_max_load" in metrics:
+        out["moe_max_load"] = comm.all_reduce(
+            metrics["moe_max_load"].float().clone(), mesh, axes, "max")
+    return out
+
+
+def sync_grads(grads, param_shardings, mesh, method: str = "none"):
+    """Whole gradients of this rank's rows -> this rank's piece of their
+    mean over the data-parallel ranks: :func:`mean_over_data`, then
+    :func:`mean_over_pods`."""
+    return mean_over_pods(mean_over_data(grads, param_shardings, mesh),
+                          mesh, method)
+
+
+def mean_over_data(grads, param_shardings, mesh):
+    """Whole gradients -> this rank's piece of their mean over "data".
+    Ranks that differ only in "model" hold the same gradients, so the
+    dimensions "model" splits are cut locally; "data" reduce-scatters the
+    dimension it splits (or all-reduces a leaf it does not split)."""
+    fsh = flatten(param_shardings)
+    out = {}
+    for k, g in flatten(grads).items():
+        sh = fsh[k]
+        data_dim = None
+        for i in range(g.ndim):
+            live = comm.live_axes(mesh, sh.dim_axes(i))
+            if len(live) > 1:
+                raise NotImplementedError(
+                    f"{k}: dimension {i} split over {live}")
+            if live == ("data",):
+                data_dim = i
+            elif live:
+                g = comm.chunk(g, mesh, live[0], i)
+        if comm.live_axes(mesh, ("data",)):
+            n = comm.axis_sizes(mesh)["data"]
+            g = comm.all_reduce(g.contiguous(), mesh, ("data",)) \
+                if data_dim is None else \
+                comm.reduce_scatter(g, mesh, "data", data_dim)
+            g.div_(n)
+        out[k] = g
+    return unflatten(out)
+
+
+def mean_over_pods(pieces, mesh, method: str = "none"):
+    """The mean of gradient pieces over "pod": compressed by ``method``
+    (:func:`~repro_torch.train.compression.cross_pod_sync`) or, for
+    ``"none"``, a plain fp32 mean; the pieces themselves without a live
+    pod axis."""
+    if not comm.live_axes(mesh, ("pod",)):
+        return pieces
+    if method in ("", "none"):
+        return unflatten({k: comm.all_reduce(g.contiguous(), mesh, ("pod",),
+                                             "mean")
+                          for k, g in flatten(pieces).items()})
+    return cross_pod_sync(pieces, mesh, method)
+
+
+def _make_dist_step(model_cfg: ModelConfig, train_cfg: TrainConfig, pc,
+                    mesh):
+    if train_cfg.seq_parallel:
+        raise NotImplementedError(f"seq_parallel: {UNPORTED}")
+    if not hasattr(mesh, "mesh_dim_names"):
+        raise TypeError(f"mesh: a DeviceMesh, not {type(mesh).__name__}")
+    if train_cfg.grad_compression not in ("", "none", "int8", "int8_ef",
+                                          "bf16"):
+        raise ValueError(f"grad_compression "
+                         f"{train_cfg.grad_compression!r}")
+    pc = pc or PartitionConstraints(TRAIN_RULES, mesh)
+    opt = get_optimizer(train_cfg)
+    lr_fn = lr_schedule(train_cfg)
+    psh, _ = shardings(model_cfg, train_cfg, mesh)
+    axes = pc.dp_axes
+    nm = train_cfg.num_microbatches
+
+    def reduce(metrics):
+        return _reduce_metrics(metrics, mesh, axes)
+
+    def train_step(params, opt_state, batch, step):
+        rows = next(iter(batch.values())).shape[0]
+        if nm > 1 and rows % nm:
+            # rank r's rows m, m + nm, ... are then global microbatch m's
+            raise ValueError(
+                f"this rank's {rows} rows do not split into {nm} "
+                f"microbatches: the global batch over the data-parallel "
+                f"ranks must be a multiple of num_microbatches")
+        whole = gather_tree(params, psh, mesh)
+        grads, metrics = _grads_and_metrics(whole, batch, model_cfg,
+                                            train_cfg, pc, reduce)
+        del whole
+        grads = sync_grads(grads, psh, mesh, train_cfg.grad_compression)
+        if train_cfg.grad_clip_norm > 0:
+            grads, gnorm = clip_by_global_norm(
+                grads, train_cfg.grad_clip_norm, psh, mesh)
+        else:
+            gnorm = global_norm(grads, psh, mesh)
+        lr = lr_fn(step)
+        params, opt_state = opt.update(grads, opt_state, params, lr,
+                                       shardings=psh, mesh=mesh)
+        del grads
+        metrics = dict(metrics)
+        metrics.update({"grad_norm": gnorm, "lr": lr,
+                        "param_norm": global_norm(params, psh, mesh)})
         return params, opt_state, metrics
 
     return train_step, opt

@@ -1061,3 +1061,112 @@ def test_new_families_train_steps_on_card_match_cpu(cuda, rng, name):
     np.testing.assert_allclose(got[1, [0, 2]], want[1, [0, 2]], rtol=1e-4)
     np.testing.assert_allclose(got[1, 1], want[1, 1],
                                rtol=1e-3 if cfg.family == "ssm" else 1e-4)
+
+
+# -- the data-parallel path at world size 1 (NCCL) ----------------------------
+
+
+@pytest.fixture
+def nccl(cuda, tmp_path):
+    """A one-rank NCCL process group through a file store in the test's
+    directory."""
+    import torch.distributed as dist
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield cuda
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
+def test_dist_step_on_one_card_is_the_one_device_step(nccl, rng, optimizer):
+    """``make_train_step(mesh=make_mesh_for(1))`` on the card: its pieces
+    are the leaves themselves (no copy) and three steps (2 microbatches)
+    give the one-device step's numbers, the same bits."""
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.parallel.sharding import shard_tree
+    from repro_torch.train.step import shardings
+    cfg = _two_layer_lms_demo("float32")
+    tcfg = TrainConfig(optimizer=optimizer, warmup_steps=0,
+                       learning_rate=1e-3, num_microbatches=2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 4, 65)))
+    mesh = make_mesh_for(1)
+    out = {}
+    for name in ("one", "mesh"):
+        p = init_model_params(cfg, seed=0, device=nccl)
+        step_fn, opt = make_train_step(
+            cfg, tcfg, mesh=mesh if name == "mesh" else None)
+        psh = None
+        if name == "mesh":
+            psh = shardings(cfg, tcfg, mesh)[0]
+            pieces = shard_tree(p, psh, mesh)
+            assert all(a is b for a, b in zip(flatten(pieces).values(),
+                                              flatten(p).values()))
+        state = opt.init(p, psh)
+        out[name] = []
+        for i in range(3):
+            t = toks[i].to(nccl)
+            p, state, m = step_fn(p, state, {"tokens": t[:, :-1],
+                                             "labels": t[:, 1:]}, i)
+            out[name].append([float(m[k]) for k in
+                              ("loss", "grad_norm", "param_norm")])
+    assert out["mesh"] == out["one"]
+
+
+@pytest.mark.cuda
+def test_a2a_dispatch_on_one_card_matches_grouped(nccl, rng):
+    """The mixtral smoke MoE layer in fp32 through ``impl="a2a"`` on the
+    (1, 1) mesh (NCCL's all-to-all of one rank) against the grouped
+    dispatch: output and gradients within 1e-5 of the largest; the
+    dispatch counter says which ran."""
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import (
+        PartitionConstraints, TRAIN_RULES)
+    cfg = dataclasses.replace(get_config("mixtral-8x7b", smoke=True),
+                              dtype="float32")
+    cfg.moe = dataclasses.replace(cfg.moe, impl="a2a")
+    p = init_params(moe.moe_specs(cfg), seed=0, device=nccl)
+    x = torch.from_numpy(rng.standard_normal((2, 40, cfg.d_model)).astype(
+        np.float32)).to(nccl)
+    pc = PartitionConstraints(TRAIN_RULES, make_mesh_for(1))
+    out = {}
+    for name, kw in (("grouped", {}), ("a2a", {"pc": pc})):
+        leaves = {k: v.clone().requires_grad_()
+                  for k, v in flatten(p).items()}
+        moe.reset_dispatch_counts()
+        y, _ = moe.apply_moe(unflatten(leaves), x, cfg, **kw)
+        assert moe.dispatch_counts()[name] == 1
+        grads = torch.autograd.grad((y ** 2).sum(), list(leaves.values()))
+        out[name] = [y.detach()] + [g.detach() for g in grads]
+    for got, want in zip(out["a2a"], out["grouped"]):
+        scale = max(float(want.abs().max()), 1.0)
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_compressed_pmean_and_pipeline_on_one_card(nccl, rng):
+    """int8 ``compressed_pmean`` over the one-rank NCCL group is the
+    dequantised rows; ``pipeline_apply`` with one stage is the stage on the
+    whole batch."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.parallel.pipeline import pipeline_apply
+    from repro_torch.train.compression import (
+        compressed_pmean, dequantize_int8, quantize_int8)
+    g = torch.from_numpy(rng.standard_normal((6, 33)).astype(
+        np.float32)).to(nccl)
+    got = compressed_pmean({"g": g}, dist.new_group([0]), "int8")["g"]
+    assert torch.equal(got, dequantize_int8(*quantize_int8(g)))
+    ws = torch.from_numpy((rng.standard_normal((1, 16, 16)) * 0.3).astype(
+        np.float32)).to(nccl)
+    x = torch.from_numpy(rng.standard_normal((8, 16)).astype(
+        np.float32)).to(nccl)
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pipe",))
+    y = pipeline_apply(lambda w, xb: torch.tanh(xb @ w), ws, x, mesh=mesh,
+                       num_microbatches=4)
+    _close(y, torch.tanh(x @ ws[0]), 1e-6)

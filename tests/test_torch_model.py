@@ -465,7 +465,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"train/optim.py", "train/step.py", "train/loop.py",
             "ckpt/checkpoint.py", "data/pipeline.py", "compat.py",
             "launch/__init__.py", "launch/common.py", "launch/train.py",
-            "launch/serve.py"} <= scanned
+            "launch/serve.py", "launch/mesh.py", "parallel/__init__.py",
+            "parallel/sharding.py", "parallel/comm.py",
+            "parallel/pipeline.py", "train/compression.py"} <= scanned
     assert {f"core/{n}.py" for n in (
         "__init__", "line_protocol", "perf_groups", "usermetric", "marker",
         "host_agent", "httpd")} <= scanned
@@ -501,6 +503,8 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.data, repro_torch.compat\n"
             "import repro_torch.core, repro_torch.core.httpd\n"
             "import repro_torch.launch.train, repro_torch.launch.serve\n"
+            "import repro_torch.launch.mesh, repro_torch.parallel.pipeline\n"
+            "import repro_torch.train.compression\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "print(bad)\n"

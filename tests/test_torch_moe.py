@@ -159,14 +159,35 @@ def test_capacity_matches_jax():
         tmoe.capacity(full, 8) == 8
 
 
+@pytest.mark.parametrize("case", ["default", "drops"])
+def test_a2a_without_a_mesh_runs_the_grouped_dispatch(rng, case):
+    """``impl="a2a"`` without a mesh is the grouped dispatch, as the
+    reference's ``apply_moe`` falls back to it: same output and statistics
+    on the same params, and the dispatch counter says which ran."""
+    jc, tc = _cfgs(impl="a2a", **CASES[case])
+    pn = _numpy_params(jmoe.moe_specs(jc))
+    xn = rng.standard_normal((2, 40, tc.d_model)).astype(np.float32)
+    jy, jaux = jmoe.apply_moe(jax.tree.map(jnp.asarray, pn),
+                              jnp.asarray(xn), jc)
+    tmoe.reset_dispatch_counts()
+    ty, taux = tmoe.apply_moe(_to_torch(pn), torch.from_numpy(xn), tc)
+    assert tmoe.dispatch_counts() == {"grouped": 1, "a2a": 0}
+    want = _np(jy)
+    assert np.abs(_np(ty) - want).max() <= Y_TOL["float32"] * \
+        np.abs(want).max()
+    for k in ("moe_aux_loss", "moe_dropped_frac", "moe_max_load"):
+        np.testing.assert_allclose(float(taux[k]), float(jaux[k]),
+                                   rtol=1e-6, atol=1e-6)
+
+
 def test_unported_dispatch_raises():
+    """The all-to-all dispatch itself needs a mesh: without one it raises
+    (``apply_moe`` falls back before it gets there)."""
     _, tc = _cfgs(impl="a2a")
     p = _to_torch(jax.tree.map(np.asarray, jinit_params(
         jmoe.moe_specs(_cfgs()[0]), seed=0)))
     x = torch.zeros(1, 8, tc.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmoe.apply_moe(p, x, tc)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mesh"):
         tmoe.apply_moe_a2a(p, x, tc, mesh=None)
 
 

@@ -310,11 +310,14 @@ def test_unported_training_raises(model):
     with pytest.raises(ValueError, match="remat"):
         ttf.forward(_port_params(jp, tc), tc, tokens=toks, mode="train",
                     remat="some")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tstep.make_train_step(tc, tbase.TrainConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tloop.train(tc, tbase.TrainConfig(), TINY, stack=None, mesh=object(),
-                    device="cpu", **PEAKS)
+    # a mesh trains data-parallel (tests/test_torch_dist_step.py); sequence
+    # parallelism is not ported
+    with pytest.raises(NotImplementedError, match="seq_parallel"):
+        tstep.make_train_step(tc, tbase.TrainConfig(seq_parallel=True),
+                              mesh=object())
+    with pytest.raises(NotImplementedError, match="seq_parallel"):
+        tloop.train(tc, tbase.TrainConfig(seq_parallel=True), TINY,
+                    stack=None, mesh=object(), device="cpu", **PEAKS)
     with pytest.raises(ValueError, match="peak"):
         tloop.train(tc, tbase.TrainConfig(), TINY, stack=None, device="cpu")
 

@@ -1,0 +1,353 @@
+"""Rank programs of the port's multi-process tests on the CPU (gloo).
+
+:func:`launch` starts ``world`` processes, each running ``main()`` below with
+its rank; they meet through a file store under the test's own directory
+(never a fixed TCP port: the suite runs under pytest-xdist), each with one
+intra-op thread, and the world has a deadline of its own, so a hang fails
+the test instead of eating the suite's clock.  The test computes the JAX
+side in its own process and hands inputs to the ranks as numpy (``*.npz``
+and a JSON of options under the work directory); a rank writes its results
+to ``<case>_<rank>.npz``.  This module imports only torch, numpy and
+``repro_torch``: the ranks never load JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(os.path.dirname(HERE), "src")
+
+
+def launch(case: str, world: int, workdir: str, opts: dict,
+           timeout: float = 240.0) -> list:
+    """Run ``case`` on ``world`` ranks; returns each rank's outputs (a dict
+    of numpy arrays, rank order).  Raises with the ranks' stderr if one
+    fails or the world outlives ``timeout`` seconds."""
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, f"{case}.json"), "w") as f:
+        json.dump(opts, f)
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [SRC, HERE, os.environ.get("PYTHONPATH", "")]))
+    env.pop("CUDA_VISIBLE_DEVICES", None)
+    procs, logs = [], []
+    for rank in range(world):
+        log = open(os.path.join(workdir, f"{case}_{rank}.log"), "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", "import torch_dist_ranks as r; r.main()",
+             case, str(rank), str(world), workdir],
+            env=env, stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        hung = [p for p in procs if p.poll() is None]
+        for p in hung:
+            p.kill()
+        for p in hung:
+            p.wait(timeout=30)
+    text = []
+    for rank, log in enumerate(logs):
+        log.seek(0)
+        text.append(f"--- rank {rank} (rc {procs[rank].returncode}) ---\n"
+                    + log.read()[-3000:])
+        log.close()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"{case} on {world} ranks failed or hung "
+                             f"(deadline {timeout} s):\n" + "\n".join(text))
+    out = []
+    for rank in range(world):
+        with np.load(os.path.join(workdir, f"{case}_{rank}.npz")) as z:
+            out.append({k: z[k] for k in z.files})
+    return out
+
+
+def main() -> None:
+    case, rank, world, workdir = sys.argv[1], int(sys.argv[2]), \
+        int(sys.argv[3]), sys.argv[4]
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    with open(os.path.join(workdir, f"{case}.json")) as f:
+        opts = json.load(f)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(workdir, case)}.store",
+        rank=rank, world_size=world)
+    try:
+        out = CASES[case](rank, workdir, opts)
+        np.savez(os.path.join(workdir, f"{case}_{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+
+def _mesh(names, shape):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(names))
+
+
+def _config(run: dict):
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(run["model"], smoke=True),
+                              **run.get("cfg", {}))
+    if run.get("moe"):
+        cfg.moe = dataclasses.replace(cfg.moe, **run["moe"])
+    return cfg
+
+
+def _load(path: str) -> dict:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _flat(tree) -> dict:
+    from repro_torch.models.params import flatten
+    return {k: v.detach().float().numpy().copy()
+            for k, v in flatten(tree).items()}
+
+
+def _coord(mesh) -> np.ndarray:
+    return np.asarray(mesh.get_coordinate(), np.int64)
+
+
+# ---------------------------------------------------------------------------
+# cases
+# ---------------------------------------------------------------------------
+
+
+def case_collectives(rank: int, workdir: str, opts: dict) -> dict:
+    """compressed_pmean over 4 ranks, pipeline_apply over 4 stages."""
+    import torch
+    from repro_torch.parallel.pipeline import bubble_fraction, pipeline_apply
+    from repro_torch.train.compression import compressed_pmean
+    data = _load(os.path.join(workdir, "collectives.npz"))
+    pod = _mesh(("pod",), (4,))
+    x = torch.from_numpy(data["grads"][rank])
+    got = compressed_pmean({"g": x, "v": x[0, 0]}, pod.get_group("pod"),
+                           "int8")
+    plain = compressed_pmean({"g": x}, pod.get_group("pod"), "none")["g"]
+    bf16 = compressed_pmean({"g": x}, pod.get_group("pod"), "bf16")["g"]
+    pipe = _mesh(("pipe",), (4,))
+    ws = torch.from_numpy(data["ws"])
+    y = pipeline_apply(lambda w, xb: torch.tanh(xb @ w), ws,
+                       torch.from_numpy(data["x"]), mesh=pipe,
+                       num_microbatches=4)
+    y2 = pipeline_apply(lambda w, xb: torch.tanh(xb @ w), ws,
+                        torch.from_numpy(data["x"]), mesh=pipe,
+                        num_microbatches=2)
+    return {"pmean": got["g"].numpy(), "pmean_vec": got["v"].numpy(),
+            "mean": plain.numpy(), "bf16": bf16.numpy(), "pipe": y.numpy(),
+            "pipe2": y2.numpy(),
+            "bubble": np.float64(bubble_fraction(4, 4))}
+
+
+def _init_run(run: dict, workdir: str):
+    """(cfg, tcfg, mesh, psh, osh, params pieces, opt state, step fn)."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models.bridge import params_from_numpy
+    from repro_torch.parallel.sharding import shard_tree
+    from repro_torch.train import step as tstep
+    cfg = _config(run)
+    tcfg = TrainConfig(**run["tcfg"])
+    mesh = _mesh(run["names"], run["shape"])
+    psh, osh = tstep.shardings(cfg, tcfg, mesh)
+    whole = params_from_numpy(
+        _load(os.path.join(workdir, run["params"])), cfg, device="cpu")
+    params = shard_tree(whole, psh, mesh)
+    fn, opt = tstep.make_train_step(cfg, tcfg, mesh=mesh)
+    return cfg, tcfg, mesh, psh, osh, params, opt.init(params, psh), fn
+
+
+def _batches(workdir: str, name: str) -> list:
+    import torch
+    data = _load(os.path.join(workdir, name))
+    n = len([k for k in data if k.startswith("tokens")])
+    return [{"tokens": torch.from_numpy(data[f"tokens{i}"]).long(),
+             "labels": torch.from_numpy(data[f"labels{i}"]).long()}
+            for i in range(n)]
+
+
+METRICS = ("loss", "grad_norm", "param_norm", "lr", "moe_aux_loss",
+           "moe_dropped_frac", "moe_max_load")
+
+
+def _metrics_out(history: list) -> dict:
+    out = {}
+    for k in METRICS:
+        if k in history[0]:
+            out[f"m/{k}"] = np.asarray([float(m[k]) for m in history])
+    return out
+
+
+def _int8_gap(run, cfg, tcfg, mesh, psh, params, batch) -> dict:
+    """Step 0's gradient piece through the int8 pod exchange and through
+    the plain mean, and the quantisation bound of each element: the mean
+    over the pods of scale/2 of the row the element sits in."""
+    import torch
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.sharding import PartitionConstraints, \
+        TRAIN_RULES, gather_tree
+    from repro_torch.models.params import flatten
+    from repro_torch.train import step as tstep
+    from repro_torch.train.compression import _rows, quantize_int8
+    pc = PartitionConstraints(TRAIN_RULES, mesh)
+    grads, _ = tstep._grads_and_metrics(
+        gather_tree(params, psh, mesh), tstep.shard_batch(batch, mesh), cfg,
+        tcfg, pc)
+    per_pod = tstep.mean_over_data(grads, psh, mesh)
+    exact = tstep.mean_over_pods(per_pod, mesh, "none")
+    int8 = tstep.mean_over_pods(per_pod, mesh, "int8")
+    gap, slack = [], []
+    for k, g in flatten(int8).items():
+        _, scale = quantize_int8(_rows(flatten(per_pod)[k]))
+        bound = comm.all_reduce(scale.clone(), mesh, ("pod",), "mean") / 2
+        err = (g - flatten(exact)[k]).abs()
+        gap.append(float(err.max()))
+        slack.append(float((_rows(err) - bound).max()))
+    return {"int8_gap": np.asarray(gap), "int8_over_bound": np.asarray(slack)}
+
+
+def case_steps(rank: int, workdir: str, opts: dict) -> dict:
+    """Each run: the data-parallel step on its mesh from the same params
+    and global batches as the reference's single-device step; a run may
+    write a checkpoint of its pieces after its steps."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.train import step as tstep
+    out = {}
+    for run in opts["runs"]:
+        cfg, tcfg, mesh, psh, osh, params, state, fn = _init_run(run,
+                                                                 workdir)
+        batches = _batches(workdir, run["batches"])[:run["steps"]]
+        if tcfg.grad_compression == "int8":
+            out.update({f"{run['name']}/{k}": v for k, v in _int8_gap(
+                run, cfg, tcfg, mesh, psh, params, batches[0]).items()})
+        history = []
+        for i, batch in enumerate(batches):
+            params, state, m = fn(params, state,
+                                  tstep.shard_batch(batch, mesh), i)
+            history.append(m)
+        out.update({f"{run['name']}/{k}": v
+                    for k, v in _metrics_out(history).items()})
+        out.update({f"{run['name']}/p/{k}": v
+                    for k, v in _flat(params).items()})
+        out[f"{run['name']}/coord"] = _coord(mesh)
+        if run.get("ckpt"):
+            mgr = CheckpointManager(os.path.join(workdir, run["ckpt"]),
+                                    async_write=False)
+            mgr.save(len(batches), {"params": params, "opt_state": state},
+                     shardings={"params": psh, "opt_state": osh}, mesh=mesh)
+    return out
+
+
+def case_elastic(rank: int, workdir: str, opts: dict) -> dict:
+    """Restore a checkpoint written on 4 ranks onto this (smaller) mesh,
+    then take the next step."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.train import step as tstep
+    run = opts["run"]
+    cfg, tcfg, mesh, psh, osh, params, state, fn = _init_run(run, workdir)
+    mgr = CheckpointManager(os.path.join(workdir, run["ckpt"]))
+    step, trees = mgr.restore({"params": params, "opt_state": state},
+                              shardings={"params": psh, "opt_state": osh},
+                              mesh=mesh)
+    params, state = trees["params"], trees["opt_state"]
+    out = {"step": np.int64(step), "coord": _coord(mesh)}
+    out.update({f"restored/{k}": v for k, v in _flat(params).items()})
+    out.update({f"restored_m/{k}": v for k, v in _flat(state["m"]).items()})
+    batch = _batches(workdir, run["batches"])[step]
+    params, state, m = fn(params, state, tstep.shard_batch(batch, mesh),
+                          step)
+    out.update(_metrics_out([m]))
+    return out
+
+
+def case_loop(rank: int, workdir: str, opts: dict) -> dict:
+    """``train(..., mesh=)`` resuming from a step-0 checkpoint, reporting
+    to the test's stack over HTTP."""
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.core import RemoteStack
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.train.loop import train
+    cfg = _config(opts)
+    tcfg = TrainConfig(**opts["tcfg"])
+    mesh = make_mesh_for(device_type="cpu")
+    stack = RemoteStack(opts["url"])
+    losses = []
+    try:
+        r = train(cfg, tcfg, ShapeConfig(**opts["shape"]), stack=stack,
+                  mesh=mesh, device="cpu", job_id=opts["job_id"],
+                  step_callback=lambda s, m: losses.append(float(m["loss"])),
+                  **opts["peaks"])
+    finally:
+        stack.close()
+    return {"losses": np.asarray(losses), "resumed_from": np.int64(
+        r.resumed_from), "final_step": np.int64(r.final_step),
+        "mesh_shape": np.asarray(mesh.shape)}
+
+
+def case_moe(rank: int, workdir: str, opts: dict) -> dict:
+    """apply_moe_a2a and apply_moe(impl="a2a", pc) on a (2, 4) mesh: this
+    rank's rows out, and the gradients of sum(y^2) over the global batch
+    (this rank's rows' term, summed over "data")."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.params import flatten, unflatten
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.sharding import PartitionConstraints, \
+        TRAIN_RULES
+    from repro_torch.train.step import shard_batch
+    cfg = _config(opts)
+    data = _load(os.path.join(workdir, "moe.npz"))
+    mesh = _mesh(("data", "model"), (2, 4))
+    x = shard_batch({"x": torch.from_numpy(data["x"])}, mesh)["x"]
+    p = unflatten({k[2:]: torch.from_numpy(v) for k, v in data.items()
+                   if k.startswith("p/")})
+    out = {}
+    moe.reset_dispatch_counts()
+    leaves = {k: v.clone().requires_grad_() for k, v in flatten(p).items()}
+    y, aux = moe.apply_moe_a2a(unflatten(leaves), x, cfg, mesh)
+    grads = torch.autograd.grad((y.float() ** 2).sum(),
+                                list(leaves.values()))
+    for k, g in zip(leaves, grads):
+        out[f"grad/{k}"] = comm.all_reduce(g.clone(), mesh, ("data",)
+                                           ).numpy()
+    out["y"] = y.detach().numpy()
+    out["aux_loss"] = np.float64(float(aux["moe_aux_loss"]))
+    out["max_load"] = np.float64(float(aux["moe_max_load"]))
+    pc = PartitionConstraints(TRAIN_RULES, mesh)
+    y2, _ = moe.apply_moe(p, x, dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, impl="a2a")), pc=pc)
+    out["y_apply"] = y2.detach().numpy()
+    # with a "pod" axis the a2a dispatch does not apply: the grouped one
+    # over the pod x data ranks' rows
+    pods = _mesh(("pod", "data", "model"), (2, 2, 2))
+    xp = shard_batch({"x": torch.from_numpy(data["x"])}, pods)["x"]
+    y3, aux3 = moe.apply_moe(p, xp, dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, impl="a2a")),
+        pc=PartitionConstraints(TRAIN_RULES, pods))
+    out["y_pods"] = y3.detach().numpy()
+    out["pods_coord"] = _coord(pods)
+    out["pods_max_load"] = np.float64(float(aux3["moe_max_load"]))
+    counts = moe.dispatch_counts()
+    out["dispatches"] = np.asarray([counts["grouped"], counts["a2a"]])
+    return out
+
+
+CASES = {"collectives": case_collectives, "steps": case_steps,
+         "elastic": case_elastic, "loop": case_loop, "moe": case_moe}
