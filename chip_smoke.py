@@ -222,7 +222,25 @@ JAX package.  Phases, each reported on its own lines:
               batch: within the bf16 flash tolerance, and the stage's
               launches (flash and two RMSNorms a layer a microbatch).
               ``dist:`` JSON lines.
-7. the kernels line (JSON: every kernel with its launches summed over the
+7. analysis -- the step counts of ``launch.cost_analysis`` against the
+              card: (a) for each phase-4 cell, ``train()``'s own count of
+              its step (flops, bytes, predicted peak GB) and bound s =
+              max(flops / 989e12, bytes / 3.35e12) beside the measured step
+              time and ``max_memory_allocated``; a count whose bytes or
+              flops over the step time exceed RATE_LIMIT x the card's rate,
+              or a predicted peak PEAK_TOL or more from the measured one,
+              fails; (b) what phase 5's monitored train CLI posted: each
+              hpm point's ``hbm_bw_util`` in (0, RATE_LIMIT], its
+              ``mem_gb_per_s`` x step time equal to the ``train_step``
+              region's ``bytes`` a call (``hlo_bytes``), the region's
+              roofline fraction on the received calibration in (0,
+              RATE_LIMIT]; (c) phase 6's granite mesh step at world size 1
+              traced as the dry run traces a cell: 0 collective bytes;
+              (d) the dry run (``repro_torch.launch.dryrun``) on this
+              machine's CPU for DRY_CELLS: a line a cell (status, dominant
+              term, bound s, GB a rank, whether it fits 80 GB, seconds),
+              records under ``build/dryrun_torch/``.  ``analysis:`` lines.
+8. the kernels line (JSON: every kernel with its launches summed over the
    paths driven -- the nine served models, train granite, zamba2,
    mixtral, deepseek, qwen2-vl, rwkv6 and seamless, the train CLI and the
    serve CLI on lms-demo, the dist phase's granite steps, pipeline stage
@@ -277,9 +295,12 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.kernels import ssd  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import make_mesh_for  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    build_train_bundle, trace_bundle)
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.layers import (  # noqa: E402
     cross_entropy, embed_tokens, rope_table)
@@ -487,8 +508,16 @@ MONITOR_REQUESTS = 16
 # the client's cost: MONITOR_STEPS steps without checkpoints (a background
 # checkpoint write slows the steps it overlaps), monitored or not, in turns
 COST_RUNS = ("on", "off", "off", "on")
-# what the reference's TPU constants would put under a roofline
-TPU_PEAKS = (197e12, 819e9)
+# Analysis (phase 7): a count that puts a measured step above this times a
+# peak rate (bytes over the memory rate, flops over the bf16 peak) is wrong
+RATE_LIMIT = 1.05
+# the predicted peak (arguments + what the traced step holds at once +
+# kernel scratch) against phase 4's max_memory_allocated
+PEAK_TOL = 0.10
+# the dry run's cells on this machine: (arch, shape, multi-pod)
+DRY_CELLS = (("granite-3-8b", "train_4k", False),
+             ("granite-3-8b", "train_4k", True),
+             ("deepseek-v2-236b", "train_4k", False))
 
 
 def log(msg: str) -> None:
@@ -2277,6 +2306,7 @@ def train_run(model: str) -> dict:
               if cfg.moe is not None else {}),
            "launches": counts, "regions": sorted(st.um.regions)}
     log(f"train: {json.dumps(out)}")
+    out["step_analysis"] = result.step_analysis
     return out
 
 
@@ -2423,6 +2453,14 @@ def monitor_kernel_rows() -> dict:
     }
 
 
+def roofline_frac(tot: dict, peak_flops: float, peak_bw: float) -> float:
+    """A marker region's roofline fraction from its summed counters, as
+    the stack's ROOFLINE group derives it: achieved FLOP/s over
+    min(peak FLOP/s, memory rate x intensity)."""
+    return tot["flops"] / tot["time_s"] / min(
+        peak_flops, peak_bw * tot["flops"] / tot["bytes"])
+
+
 def roofline_check(url: str, rec: Receiver, peaks: tuple,
                    dev="cuda") -> dict:
     """``kernel:*`` marker regions at the serve CLI's shapes through a
@@ -2458,21 +2496,18 @@ def roofline_check(url: str, rec: Receiver, peaks: tuple,
         pts = rec.measurement("marker", region)
         tot = {k: sum(p.fields[k] for p in pts)
                for k in ("flops", "bytes", "time_s", "calls")}
-        achieved = tot["flops"] / tot["time_s"]
-        frac = achieved / min(pf, bw * tot["flops"] / tot["bytes"])
-        tpu = achieved / min(TPU_PEAKS[0],
-                             TPU_PEAKS[1] * tot["flops"] / tot["bytes"])
+        frac = roofline_frac(tot, pf, bw)
         if tot["calls"] != 20 or not 0 < frac <= 1.05:
             raise AssertionError(f"monitor: {region} {tot}, roofline "
                                  f"fraction {frac}")
-        out[region] = {"calls": tot["calls"], "roofline_frac": frac,
-                       "roofline_frac_on_tpu_constants": tpu}
+        out[region] = {"calls": tot["calls"], "roofline_frac": frac}
     return out
 
 
 def monitor_phase() -> tuple:
     """Drive both CLIs against a receiver and check what arrives; returns
-    (the summary, launches by path)."""
+    (the summary, launches by path, the train CLI's hpm, train_step and
+    calibration points' fields)."""
     cfg = get_config("lms-demo")
     rec = Receiver()
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
@@ -2526,7 +2561,13 @@ def monitor_phase() -> tuple:
         launches["serve-cli:lms-demo"] = ops.launch_counts()
         # (d) kernel regions on the card's roofline
         roofline = roofline_check(rec.url, rec,
-                                  device_peaks(torch.device("cuda")))
+                                  device_peaks(torch.device("cuda"))[:2])
+        # what the monitored train CLI posted, for the analysis phase
+        posted = {"hpm": [p.fields for p in rec.measurement("hpm")],
+                  "train_step": [p.fields for p in rec.measurement(
+                      "marker", "train_step")],
+                  "calib": [p.fields for p in rec.measurement(
+                      "marker", CALIB_REGION)]}
     finally:
         rec.close()
         shutil.rmtree(ckpt, ignore_errors=True)
@@ -2630,7 +2671,7 @@ def monitor_phase() -> tuple:
            "latency_s_p99": float(np.percentile(lat, 99)),
            "roofline": roofline, "launches": launches}
     log(f"monitor: {json.dumps(out)}")
-    return out, launches
+    return out, launches, posted
 
 
 # ---------------------------------------------------------------------------
@@ -2729,15 +2770,19 @@ def dist_steps(cfg, tcfg, batches, mesh, dev) -> dict:
             "launches": launches, "params": params}
 
 
+def dist_train_cfg() -> TrainConfig:
+    return TrainConfig(warmup_steps=0, total_steps=DIST_STEPS,
+                       learning_rate=1e-3, remat_policy="minimal",
+                       optimizer="adamw")
+
+
 def dist_train(dev="cuda", cfg=None, shape=None, phase4=None) -> tuple:
     """(a): the data-parallel step at world size 1 against the one-device
     step; returns (row, the mesh run's params, the mesh, the batches)."""
     cfg = cfg or dataclasses.replace(get_config(TRAIN_MODEL),
                                      num_layers=TRAIN_LAYERS_OF[TRAIN_MODEL])
     shape = shape or TRAIN_SHAPE
-    tcfg = TrainConfig(warmup_steps=0, total_steps=DIST_STEPS,
-                       learning_rate=1e-3, remat_policy="minimal",
-                       optimizer="adamw")
+    tcfg = dist_train_cfg()
     batches = dist_batches(cfg, shape, DIST_STEPS, dev)
     one = dist_steps(cfg, tcfg, batches, None, dev)
     del one["params"]
@@ -2954,6 +2999,137 @@ def dist_phase(dev: str = "cuda", backend: str = "nccl",
             "dist:pipeline": pipe, "dist:mixtral-a2a": a2a}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: analysis -- launch analysis' counts against the card
+# ---------------------------------------------------------------------------
+
+
+def analysis_cells(trained: dict) -> list:
+    """(a): each phase-4 cell's counted flops, bytes and predicted peak
+    (``train()``'s own analysis of its step) beside its measured step time
+    and peak; returns the failures."""
+    bad = []
+    for model, row in trained.items():
+        a = row["step_analysis"]
+        per, mem = a["per_device"], a["memory"]
+        step_s = row["step_s_median_2_6"]
+        flops_bound = per["flops"] / PEAK_FLOPS[torch.bfloat16]
+        bytes_bound = per["bytes"] / PEAK_BYTES
+        predicted = mem["peak_bytes"] / 1e9
+        measured = row["peak_memory_gb"]
+        cell = {"model": model, "flops": per["flops"], "bytes": per["bytes"],
+                "elementwise_flops": per["elementwise_flops"],
+                "operations": per["operations"],
+                "kernels": {k: v["calls"] for k, v in
+                            per["kernels"].items()},
+                "bound_s": max(flops_bound, bytes_bound),
+                "bound_by": "operations" if flops_bound >= bytes_bound
+                else "bytes",
+                "step_s": step_s,
+                "bound_frac_of_step": max(flops_bound, bytes_bound) / step_s,
+                "hbm_bw_util": bytes_bound / step_s,
+                "predicted_peak_gb": predicted, "measured_peak_gb": measured,
+                "peak_gap": (predicted - measured) / measured,
+                "memory": {k: v / 1e9 for k, v in mem.items()}}
+        log(f"analysis: train {json.dumps(cell)}")
+        if per["bytes"] / step_s > RATE_LIMIT * PEAK_BYTES or \
+                per["flops"] / step_s > RATE_LIMIT * \
+                PEAK_FLOPS[torch.bfloat16]:
+            bad.append(f"{model}: the count exceeds the card's rates")
+        if not abs(cell["peak_gap"]) <= PEAK_TOL:
+            bad.append(f"{model}: predicted peak {predicted:.3f} GB, "
+                       f"measured {measured:.3f} GB")
+    return bad
+
+
+def analysis_posted(posted: dict) -> dict:
+    """(b): what phase 5's monitored train CLI posted: ``mem_gb_per_s`` and
+    ``hbm_bw_util`` a step, the ``train_step`` region's ``bytes`` (the
+    step constant ``hlo_bytes``, which the hpm rate times the step time
+    gives back) and its roofline fraction on the received calibration."""
+    hpm, region = posted["hpm"], posted["train_step"]
+    calls = sum(p["calls"] for p in region)
+    per_call = sum(p["bytes"] for p in region) / calls
+    utils = [p["hbm_bw_util"] for p in hpm]
+    implied = [p["mem_gb_per_s"] * 1e9 * max(p["step_time_s"], 1e-9)
+               for p in hpm]
+    tot = {k: sum(p[k] for p in region) for k in ("flops", "bytes",
+                                                  "time_s")}
+    calib = posted["calib"][-1]
+    frac = roofline_frac(tot, calib["peak_flops"], calib["peak_bw"])
+    out = {"hpm_points": len(hpm), "train_step_calls": calls,
+           "hlo_bytes": per_call,
+           "hbm_bw_util_min": min(utils), "hbm_bw_util_max": max(utils),
+           "mem_gb_per_s_median": statistics.median(
+               p["mem_gb_per_s"] for p in hpm),
+           "train_step_roofline_frac": frac}
+    log(f"analysis: monitor {json.dumps(out)}")
+    if not hpm or not all(0 < u <= RATE_LIMIT for u in utils):
+        raise AssertionError(f"analysis: hbm_bw_util {utils}")
+    if not all(math.isclose(b, per_call, rel_tol=1e-9) for b in implied):
+        raise AssertionError("analysis: the hpm points' bytes are not the "
+                             "train_step region's")
+    if not 0 < frac <= RATE_LIMIT:
+        raise AssertionError(f"analysis: train_step roofline fraction "
+                             f"{frac}")
+    return out
+
+
+def analysis_mesh(phase4=None, dev: str = "cuda",
+                  backend: str = "nccl") -> dict:
+    """(c): phase 6's granite mesh step at world size 1, traced as the dry
+    run traces a cell (``launch.steps``): every axis has size 1, so no
+    collective byte is counted."""
+    cfg = dataclasses.replace(get_config(TRAIN_MODEL),
+                              num_layers=TRAIN_LAYERS_OF[TRAIN_MODEL])
+    with one_rank_world(backend):
+        mesh = make_mesh_for(1, device_type=dev)
+        a = trace_bundle(build_train_bundle(cfg, TRAIN_SHAPE,
+                                            dist_train_cfg(), mesh))
+    per = a["per_device"]
+    out = {"model": TRAIN_MODEL, "mesh": dict(zip(mesh.mesh_dim_names,
+                                                  mesh.shape)),
+           "collective_operand_bytes": per["collective_operand_bytes"],
+           "collective_wire_bytes": per["collective_wire_bytes"],
+           "flops": per["flops"], "bytes": per["bytes"],
+           "predicted_peak_gb": a["memory"]["peak_bytes"] / 1e9}
+    if phase4 is not None:
+        out["phase4_flops"] = phase4["step_analysis"]["per_device"]["flops"]
+    log(f"analysis: mesh {json.dumps(out)}")
+    if per["collective_operand_bytes"] or per["collective_wire_bytes"] or \
+            per["by_collective"]:
+        raise AssertionError("analysis: collectives counted on a one-rank "
+                             "mesh")
+    return out
+
+
+def analysis_dryrun(out_dir: str) -> list:
+    """(d): the dry run's DRY_CELLS on this machine's CPU (meta tensors, a
+    fake world of 256 or 512 ranks; the H100's data-sheet rates)."""
+    rows = []
+    for arch, shape, multi in DRY_CELLS:
+        r = dryrun.run_cell(arch, shape, multi, out_dir)
+        log(f"analysis: dryrun {dryrun.summary(r)}")
+        if r["status"] != "ok":
+            raise AssertionError(f"analysis: dry run {arch} {shape}: "
+                                 f"{r.get('error', r['status'])}")
+        rows.append(r)
+    return rows
+
+
+def analysis_phase(trained: dict, posted: dict) -> None:
+    """Phase 7: (a)-(d); every cell of (a) prints before a failure is
+    raised."""
+    bad = analysis_cells(trained)
+    analysis_posted(posted)
+    analysis_mesh(trained.get(TRAIN_MODEL))
+    t0 = time.monotonic()
+    analysis_dryrun(os.path.join(ROOT, "build", "dryrun_torch"))
+    log(f"analysis: dry run {time.monotonic() - t0:.2f} s")
+    if bad:
+        raise AssertionError("analysis: " + "; ".join(bad))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3014,7 +3190,8 @@ def main() -> int:
     # Phase 5: the monitored job over HTTP through the CLIs
     t0 = time.monotonic()
     rows.update(monitor_kernel_rows())
-    launches.update(monitor_phase()[1])
+    _, monitor_launches, posted = monitor_phase()
+    launches.update(monitor_launches)
     log(f"monitor: phase {time.monotonic() - t0:.2f} s")
 
     # Phase 6: the data-parallel path at world size 1 through NCCL
@@ -3024,7 +3201,12 @@ def main() -> int:
     rows.update({p: {} for p in dist_launches})      # no rows timed there
     log(f"dist: phase {time.monotonic() - t0:.2f} s")
 
-    # Phase 7: kernels line (launches summed over the paths; numbers at
+    # Phase 7: the step counts of launch analysis against the card
+    t0 = time.monotonic()
+    analysis_phase(trained, posted)
+    log(f"analysis: phase {time.monotonic() - t0:.2f} s")
+
+    # Phase 8: kernels line (launches summed over the paths; numbers at
     # zamba2-7b's prefill shapes, the RMSNorm backward's at granite's
     # training shape, the SSD backward's at zamba2's; per path the rows
     # each kernel was timed at), then the result

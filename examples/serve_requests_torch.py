@@ -39,7 +39,7 @@ def main(argv=None) -> int:
 
     cfg = get_config("lms-demo", smoke=args.smoke)
     device = resolve_device(args.device)
-    peak_flops, hbm_bw = resolve_peaks(args, device)
+    peak_flops, hbm_bw, _ = resolve_peaks(args, device)
     params = init_model_params(cfg, seed=0, device=device)
     stack = RemoteStack(args.lms_url)
     rng = np.random.default_rng(0)

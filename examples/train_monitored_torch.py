@@ -61,7 +61,7 @@ def main(argv=None) -> int:
                        learning_rate=6e-4, ckpt_dir=args.ckpt_dir,
                        ckpt_interval=20)
     device = resolve_device(args.device)
-    peak_flops, hbm_bw = resolve_peaks(args, device)
+    peak_flops, hbm_bw, ici_bw = resolve_peaks(args, device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     stack = RemoteStack(args.lms_url)
@@ -79,7 +79,7 @@ def main(argv=None) -> int:
 
     job_id = f"e2e-torch-{uuid.uuid4().hex[:8]}"
     kw = dict(stack=stack, device=device, peak_flops=peak_flops,
-              hbm_bw=hbm_bw, step_callback=cb)
+              hbm_bw=hbm_bw, ici_bw=ici_bw, step_callback=cb)
     try:
         try:
             r = train(cfg, tcfg, shape, fail_at_step=args.inject_failure,

@@ -19,10 +19,26 @@ from repro_torch.configs.base import (
     available_archs,
     get_config,
     reduce_for_smoke,
+    supports_shape,
 )
+
+# the reference's assigned pool, in its order (lms-demo is not in it)
+ASSIGNED_ARCHS = [
+    "seamless-m4t-large-v2",
+    "rwkv6-1.6b",
+    "deepseek-v2-236b",
+    "mixtral-8x7b",
+    "nemotron-4-340b",
+    "granite-3-8b",
+    "yi-34b",
+    "phi3-medium-14b",
+    "qwen2-vl-7b",
+    "zamba2-7b",
+]
 
 __all__ = [
     "ARCH_MODULES",
+    "ASSIGNED_ARCHS",
     "HybridConfig",
     "MLAConfig",
     "MoEConfig",
@@ -36,4 +52,5 @@ __all__ = [
     "available_archs",
     "get_config",
     "reduce_for_smoke",
+    "supports_shape",
 ]

@@ -170,6 +170,13 @@ class ModelConfig:
     def vocab_padded(self) -> int:
         return _round_up(self.vocab_size, self.vocab_pad_to)
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if the arch can decode at 500k context (assignment rule)."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window > 0
+
     def param_count(self) -> int:
         """Approximate parameter count (embedding + blocks), for 6ND math,
         term for term the reference's (so, as there, RWKV6's block count
@@ -282,6 +289,13 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+
+def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    """Assignment rule: long_500k only for sub-quadratic architectures."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False
+    return True
 
 
 # --------------------------------------------------------------------------

@@ -10,7 +10,9 @@ the CUDA cores.
 
 On a CPU tensor :func:`flash_attention` computes the plain version
 (:func:`repro_torch.kernels.ref.attention_ref`); on a CUDA tensor it launches
-the kernel or raises.  The kernel takes one head dim for q, k and v; a V
+the kernel or raises; on a meta tensor it returns the output's shape and
+computes nothing (``launch.cost_analysis`` counts the call by
+:func:`cost_estimate`).  The kernel takes one head dim for q, k and v; a V
 narrower than Q and K (MLA) is padded to it by
 :func:`repro_torch.kernels.ops.flash_attention_bshd`.
 """
@@ -75,6 +77,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
+        if q.device.type == "meta":
+            # shapes only (a step traced for its counts): the kernel's
+            # output, nothing computed or launched
+            return torch.empty_like(q)
         raise ValueError(f"unsupported device {q.device}")
     _check_instance(q)
     b, h, s, d = q.shape

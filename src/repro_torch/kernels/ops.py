@@ -6,9 +6,12 @@ hand the kernels transposed views (they take strides), so no copy is made
 on the card.
 
 Marker instrumentation: :func:`set_kernel_markers` installs any object with
-``.region(name, counters=)`` (e.g. ``repro.core``'s ``MarkerSession``), and
-every wrapper call becomes a ``kernel:<name>`` region seeded with the call's
-analytic flops/bytes.  ``torch.cuda.synchronize()`` runs inside the region
+``.region(name, counters=)`` (e.g. ``repro.core``'s ``MarkerSession``, or
+``launch.cost_analysis``'s step counter, which counts each call as one
+operation of these flops and bytes), and every wrapper call becomes a
+``kernel:<name>`` region seeded with the call's analytic flops/bytes; a
+session with ``.hold(nbytes)`` is also told the call's scratch (the SSD
+backward's states and partials).  ``torch.cuda.synchronize()`` runs inside the region
 so its wall time is the kernel's.  Calls made while a CUDA graph is being
 captured are not instrumented (a sync is illegal there); uninstrumented
 calls pay one ``None`` check.
@@ -61,10 +64,15 @@ def reset_launch_counts() -> None:
     _ssd.bwd_launches = 0
 
 
-def _region(name: str, t: torch.Tensor, costs_fn):
+def _region(name: str, t: torch.Tensor, costs_fn, held_fn=None):
+    """(session, its region) of one kernel call, or (None, a null context)
+    when nothing is installed.  ``held_fn``: the call's scratch bytes, told
+    to a session that counts memory (``.hold``) before the region opens."""
     m = _markers
     if m is None or (t.is_cuda and torch.cuda.is_current_stream_capturing()):
         return None, nullcontext()
+    if held_fn is not None and hasattr(m, "hold"):
+        m.hold(held_fn())
     return m, m.region(f"kernel:{name}", counters=costs_fn())
 
 
@@ -189,7 +197,9 @@ class SSDFunction(torch.autograd.Function):
             "ssd_scan_backward", x,
             lambda: _ssd.bwd_cost_estimate(
                 xt.shape, bt.shape[1], bt.shape[-1], x.element_size(),
-                init_state=init_state is not None))
+                init_state=init_state is not None),
+            lambda: _ssd.held_bytes(xt.shape, x.dtype, bt.shape[1],
+                                    bt.shape[-1]))
         with region:
             dx, da, db, dc, d_init = _ssd.ssd_scan_bwd(
                 xt, a.transpose(1, 2), bt, c.transpose(1, 2),

@@ -7,7 +7,8 @@ port owes it because the model calls the kernel where the reference computes
 the norm in jnp (:func:`rmsnorm_bwd`; ``ops.RMSNormFunction`` pairs the two
 for autograd).  On a CPU tensor each wrapper computes the plain version
 (:mod:`repro_torch.kernels.ref`); on a CUDA tensor it launches the kernel or
-raises.
+raises; on a meta tensor it returns the outputs' shapes and computes
+nothing.
 
 The kernels hold each row in registers between its reduction and its write,
 so a row is read once.  :func:`plan` picks how a row is spread over a slot
@@ -102,7 +103,7 @@ def rows(x):
 def _check(x, scale) -> int:
     """Shared argument checks; returns the dtype code for a CUDA ``x``
     (``-1`` for a CPU ``x``, which takes the plain version, or a meta
-    ``x``, whose plain version only carries shapes through a flop count)."""
+    ``x``, which takes the shapes only)."""
     d = x.shape[-1]
     if scale.dim() != 1 or scale.shape[0] != d:
         raise ValueError(f"scale {tuple(scale.shape)} does not match x "
@@ -228,6 +229,8 @@ def rmsnorm(x, scale, *, eps: float = 1e-5):
     global launches
     code = _check(x, scale)
     if code < 0:
+        if x.is_meta:               # shapes only: y as the kernel makes it
+            return x.new_empty(x.shape)
         return ref.rmsnorm_ref(x, scale, eps=eps)
     layout = rows(x)
     if layout is None:
@@ -260,6 +263,9 @@ def rmsnorm_bwd(x, scale, dy, *, eps: float = 1e-5):
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match x "
                          f"{tuple(x.shape)} {x.dtype}")
     if code < 0:
+        if x.is_meta:               # shapes only: dscale in fp32
+            return (x.new_empty(x.shape),
+                    x.new_empty((x.shape[-1],), dtype=torch.float32))
         return ref.rmsnorm_bwd_ref(x, scale, dy, eps=eps)
     lx, lg = rows(x), rows(dy)
     if lx is None or lg is None:

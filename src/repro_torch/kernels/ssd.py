@@ -342,6 +342,30 @@ def bwd_partials(dtype, heads: int, groups: int) -> int:
     return n
 
 
+NCB = 2                                   # heads a bf16 backward block
+
+
+def bwd_partials_of(dtype, heads: int, groups: int) -> int:
+    """:func:`bwd_partials` without the library (a meta tensor's count):
+    the C entry point's formula, one partial a head in fp32, one a block of
+    NCB heads of a group in bf16."""
+    if dtype == torch.float32:
+        return heads
+    return groups * -(-(heads // groups) // NCB)
+
+
+def held_bytes(x_shape, dtype, groups: int, state_n: int) -> int:
+    """The device memory a backward call holds beside its inputs and
+    outputs while it runs: the chunk-start states and the fp32 db/dc
+    partials (:func:`bwd_scratch`); in bf16 at zamba2's training shape
+    (8, 112, 2048, 64), 0.94 GB (its traffic, each written and read once,
+    is twice that)."""
+    bsz, h, l, _ = (int(v) for v in x_shape)
+    parts = bwd_partials_of(dtype, h, groups)
+    return bwd_scratch(x_shape, parts)["states"] + \
+        2 * bsz * parts * l * int(state_n) * 4
+
+
 def bwd_scratch(x_shape, parts: int) -> dict:
     """The backward kernels' scratch for x of ``x_shape`` and ``parts``
     db/dc partials a batch row (:func:`bwd_partials`): ``states``, the

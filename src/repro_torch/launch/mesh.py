@@ -11,6 +11,8 @@ the tests run).
 
 from __future__ import annotations
 
+import math
+from contextlib import contextmanager
 from typing import Optional
 
 import torch.distributed as dist
@@ -20,22 +22,42 @@ PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
                      True: ((2, 16, 16), ("pod", "data", "model"))}
 
 
+@contextmanager
+def fake_world(n: int, rank: int = 0):
+    """A "fake" process group of ``n`` ranks in which this process is
+    ``rank`` (``torch.testing``'s ``FakeStore``): meshes build on it and
+    collectives return at once, exchanging nothing, so a production mesh
+    can be laid out in one process without a card (the dry run).  The
+    group is global to the process: one world at a time, destroyed on
+    exit."""
+    # importing the module registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised; a fake "
+                           "world needs a process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: Optional[str] = None):
     """16 x 16 = 256 ranks a pod; 2 pods = 512 ranks with a leading "pod"
     axis (data parallelism spans pod x data, TP spans model).  Built only
-    on a world of that size: any other raises (the production layout on
-    one card is the dry run's business, ROADMAP Queue 1 item 5)."""
+    on a world of that size (:func:`fake_world` makes one without cards):
+    any other raises."""
     shape, names = PRODUCTION_SHAPES[multi_pod]
-    n = 1
-    for s in shape:
-        n *= s
+    n = math.prod(shape)
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world != n:
         raise ValueError(
             f"the production mesh {shape} needs {n} ranks, this world has "
-            f"{world}; laying it out without them is the dry run "
-            f"(ROADMAP Queue 1, item 5)")
+            f"{world}; to lay it out without them, run the dry run "
+            f"(python -m repro_torch.launch.dryrun), which builds it in "
+            f"fake_world({n})")
     return init_device_mesh(device_type or "cuda", shape,
                             mesh_dim_names=names)
 

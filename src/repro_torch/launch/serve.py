@@ -44,7 +44,7 @@ def main(argv=None) -> int:
 
     cfg = get_config(args.arch, smoke=args.smoke)
     device = resolve_device(args.device)
-    peak_flops, hbm_bw = resolve_peaks(args, device)
+    peak_flops, hbm_bw, _ = resolve_peaks(args, device)
     params = init_model_params(cfg, seed=0, device=device)
     if args.ckpt_dir:
         step, out = load_checkpoint(args.ckpt_dir, {"params": params})

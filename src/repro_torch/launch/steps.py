@@ -1,0 +1,354 @@
+"""Step bundles and abstract input specs (port of ``repro.launch.steps``).
+
+Everything here is spec-level: no allocation.  Input specs carry *logical
+axes* (the same ParamSpec mechanism as the model's weights), so one rule
+table gives every rank's piece of every input.  A :class:`StepBundle` is
+a cell's step function with the specs and shardings of its arguments;
+:func:`trace_bundle` stands in for the reference's ``lower_bundle`` plus
+``compile``: it runs the step once on meta tensors of this rank's pieces
+under :func:`~repro_torch.launch.cost_analysis.analyze_step` and returns
+its counts.
+
+What a mesh can do here is what the port's step can do:
+
+* the train bundle uses :func:`~repro_torch.train.step.make_train_step`
+  with the mesh: data parallelism with sharded storage, "model" ranks
+  gathering whole params and computing the same loss (tensor-parallel
+  compute is not ported);
+* serving takes no mesh in the port, so a prefill or decode bundle on a
+  mesh with an axis above 1 is ``unported`` (:data:`SERVE_UNPORTED`); on
+  a (1, 1) mesh, or with none, it traces.  The reference's decode
+  ``cache_update`` policy (an in-place write where the KV heads take the
+  "model" axis, a one-hot write where the cache's sequence does) chooses
+  between layouts of a sharded cache, which serving without a mesh does
+  not have: it has no counterpart until serving takes a mesh.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.launch import cost_analysis
+from repro_torch.models.params import (
+    ParamSpec, compute_dtype_for, flatten, fp32_leaves, spec, unflatten)
+from repro_torch.models.transformer import cache_specs, forward, model_specs
+from repro_torch.parallel import comm
+from repro_torch.parallel.sharding import (
+    PartitionConstraints, ShardingRules, rules_for, shardings_for_specs)
+from repro_torch.train.optim import opt_state_specs
+from repro_torch.train.step import make_train_step
+
+SERVE_UNPORTED = ("serving takes no mesh in the port (ROADMAP Queue 1: "
+                  "serving under a mesh), so a prefill or decode cell on a "
+                  "mesh with an axis above 1 is not traced")
+
+
+# --------------------------------------------------------------------------
+# Param / cache spec variants
+# --------------------------------------------------------------------------
+
+
+def serve_param_specs(cfg: ModelConfig, keep: tuple = ()):
+    """Serving weights in bf16 (fp32 master copies are a training
+    concern).  ``keep``: the last keys left in their dtype; the
+    reference's specs keep none, the port's served model keeps the leaves
+    it reads in fp32 (``models.params.fp32_leaves``: the norm scales its
+    RMSNorm kernel takes in fp32, the decays), as the bundles use."""
+    flat = flatten(model_specs(cfg))
+    out = {}
+    for path, s in flat.items():
+        dt = s.dtype
+        if s.dtype.is_floating_point:
+            dt = compute_dtype_for(path, s.dtype, torch.bfloat16, keep) \
+                if keep else torch.bfloat16
+        out[path] = ParamSpec(s.shape, s.axes, dt, s.init, s.scale, s.value)
+    return unflatten(out)
+
+
+# --------------------------------------------------------------------------
+# Input specs (ParamSpec trees with logical axes)
+# --------------------------------------------------------------------------
+
+
+def _extras_specs(cfg: ModelConfig, shape: ShapeConfig, *, decode: bool):
+    out = {}
+    if cfg.family == "vlm":
+        if not decode:
+            p = min(cfg.vlm_num_patches, max(shape.seq_len - 2, 1))
+            out["patches"] = spec((shape.global_batch, p, cfg.d_model),
+                                  ("batch", None, None), torch.bfloat16)
+        out["mrope_pos"] = spec(
+            (shape.global_batch, 1 if decode else shape.seq_len, 3),
+            ("batch", None, None), torch.int32)
+    if cfg.family == "encdec" and not decode:
+        out["src_frames"] = spec(
+            (shape.global_batch, cfg.encdec_source_len, cfg.d_model),
+            ("batch", None, None), torch.bfloat16)
+    return out
+
+
+def train_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    b, s = shape.global_batch, shape.seq_len
+    return {"tokens": spec((b, s), ("batch", "seq"), torch.int32),
+            "labels": spec((b, s), ("batch", "seq"), torch.int32),
+            **_extras_specs(cfg, shape, decode=False)}
+
+
+def prefill_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    b, s = shape.global_batch, shape.seq_len
+    return {"tokens": spec((b, s), ("batch", "seq"), torch.int32),
+            **_extras_specs(cfg, shape, decode=False)}
+
+
+def decode_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    b = shape.global_batch
+    return {"tokens": spec((b, 1), ("batch", None), torch.int32),
+            **_extras_specs(cfg, shape, decode=True)}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Stand-ins for every model input of the (arch x shape) cell, keyed
+    by step-function argument."""
+    if shape.kind == "train":
+        return train_input_specs(cfg, shape)
+    if shape.kind == "prefill":
+        return prefill_input_specs(cfg, shape)
+    return decode_input_specs(cfg, shape)
+
+
+# --------------------------------------------------------------------------
+# Bundles
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class StepBundle:
+    """A cell's step: ``fn(*args)`` with ``abstract_args`` the argument
+    spec trees (global shapes; an int stands for a host scalar) and
+    ``in_shardings`` their Sharding trees on ``mesh`` (None: whole).
+    ``status`` is ``"unported"`` (with ``reason``) for a cell the port's
+    step cannot run; ``fn`` is then None."""
+
+    fn: object
+    abstract_args: tuple
+    in_shardings: tuple
+    donate_argnums: tuple = ()
+    name: str = ""
+    kind: str = ""
+    mesh: object = None
+    status: str = "ok"
+    reason: str = ""
+    train_cfg: Optional[TrainConfig] = None
+    remake: object = None           # train: microbatches -> StepBundle
+
+
+def make_pc(rules: ShardingRules, mesh,
+            seq_parallel: bool = False) -> Optional[PartitionConstraints]:
+    """The partition constraints a step is built with (None without a
+    mesh).  The reference's ``enable`` switch of its activation
+    constraints has no counterpart: the port's are the identity."""
+    if mesh is None:
+        return None
+    return PartitionConstraints(rules, mesh, seq_parallel=seq_parallel)
+
+
+def _moe_localized(cfg: ModelConfig, mesh) -> ModelConfig:
+    """Locality-aware MoE dispatch, as the reference sets it: one dispatch
+    group per data-parallel shard, and the all-to-all dispatch where the
+    expert count divides the "model" axis on a single-pod mesh (a
+    DeviceMesh or a ``{axis: size}`` dict)."""
+    if cfg.moe is None:
+        return cfg
+    sizes = comm.axis_sizes(mesh)
+    dp = sizes.get("pod", 1) * sizes.get("data", 1)
+    tp = sizes.get("model", 1)
+    impl = "a2a" if ("pod" not in sizes
+                     and cfg.moe.num_experts % tp == 0) else "grouped"
+    return dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, dispatch_groups=dp,
+                                     impl=impl))
+
+
+def _shard(spec_tree, rules, mesh):
+    return None if mesh is None else shardings_for_specs(spec_tree, rules,
+                                                         mesh)
+
+
+def build_train_bundle(cfg: ModelConfig, shape: ShapeConfig,
+                       train_cfg: TrainConfig, mesh,
+                       rules: Optional[ShardingRules] = None) -> StepBundle:
+    rules = rules or rules_for("train")
+    lcfg = _moe_localized(cfg, mesh) if mesh is not None else cfg
+    pc = make_pc(rules, mesh, seq_parallel=train_cfg.seq_parallel)
+    pspecs = model_specs(lcfg)
+    ospecs = opt_state_specs(pspecs, train_cfg)
+    ispecs = train_input_specs(lcfg, shape)
+    step_fn, _ = make_train_step(lcfg, train_cfg, pc=pc, mesh=mesh)
+
+    def remake(nm: int) -> StepBundle:
+        return build_train_bundle(
+            cfg, shape, dataclasses.replace(train_cfg, num_microbatches=nm),
+            mesh, rules)
+    return StepBundle(
+        fn=step_fn, abstract_args=(pspecs, ospecs, ispecs, 0),
+        in_shardings=(_shard(pspecs, rules, mesh),
+                      _shard(ospecs, rules, mesh),
+                      _shard(ispecs, rules, mesh), None),
+        donate_argnums=(0, 1), name=f"train:{cfg.name}:{shape.name}",
+        kind="train", mesh=mesh, train_cfg=train_cfg, remake=remake)
+
+
+def _unported(kind: str, cfg: ModelConfig, shape: ShapeConfig, mesh):
+    return StepBundle(fn=None, abstract_args=(), in_shardings=(),
+                      name=f"{kind}:{cfg.name}:{shape.name}", kind=kind,
+                      mesh=mesh, status="unported", reason=SERVE_UNPORTED)
+
+
+def _serves(mesh) -> bool:
+    return not any(v > 1 for v in comm.axis_sizes(mesh).values())
+
+
+def build_prefill_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                         rules: Optional[ShardingRules] = None) -> StepBundle:
+    if not _serves(mesh):
+        return _unported("prefill", cfg, shape, mesh)
+    rules = rules or rules_for("serve")
+    pc = make_pc(rules, mesh)
+    pspecs = serve_param_specs(cfg, fp32_leaves(cfg))
+    cspecs = cache_specs(cfg, shape.global_batch, shape.seq_len)
+    ispecs = prefill_input_specs(cfg, shape)
+    extras = {k: v for k, v in ispecs.items() if k != "tokens"}
+
+    def prefill(params, tokens, cache, extras):
+        with torch.no_grad():
+            logits, cache = forward(params, cfg, tokens=tokens,
+                                    mode="prefill", cache=cache, pc=pc,
+                                    extras=extras)
+        return logits[:, -1], cache
+
+    return StepBundle(
+        fn=prefill, abstract_args=(pspecs, ispecs["tokens"], cspecs, extras),
+        in_shardings=(_shard(pspecs, rules, mesh),
+                      _shard(ispecs["tokens"], rules, mesh),
+                      _shard(cspecs, rules, mesh), _shard(extras, rules,
+                                                          mesh)),
+        donate_argnums=(2,), name=f"prefill:{cfg.name}:{shape.name}",
+        kind="prefill", mesh=mesh)
+
+
+def build_decode_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                        rules: Optional[ShardingRules] = None) -> StepBundle:
+    if not _serves(mesh):
+        return _unported("decode", cfg, shape, mesh)
+    rules = rules or rules_for("serve")
+    pc = make_pc(rules, mesh)
+    pspecs = serve_param_specs(cfg, fp32_leaves(cfg))
+    # decode against a full cache of seq_len, the new token in its last slot
+    cspecs = cache_specs(cfg, shape.global_batch, shape.seq_len)
+    ispecs = decode_input_specs(cfg, shape)
+    extras = {k: v for k, v in ispecs.items() if k != "tokens"}
+
+    def decode(params, cache, tokens, pos, extras):
+        with torch.no_grad():
+            logits, cache = forward(params, cfg, tokens=tokens,
+                                    mode="decode", cache=cache, pos=pos,
+                                    pc=pc, extras=extras)
+        return logits[:, -1], cache
+
+    return StepBundle(
+        fn=decode, abstract_args=(pspecs, cspecs, ispecs["tokens"],
+                                  shape.seq_len - 1, extras),
+        in_shardings=(_shard(pspecs, rules, mesh),
+                      _shard(cspecs, rules, mesh),
+                      _shard(ispecs["tokens"], rules, mesh), None,
+                      _shard(extras, rules, mesh)),
+        donate_argnums=(1,), name=f"decode:{cfg.name}:{shape.name}",
+        kind="decode", mesh=mesh)
+
+
+def build_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                 train_cfg: Optional[TrainConfig] = None,
+                 rules: Optional[ShardingRules] = None) -> StepBundle:
+    """The cell's bundle on ``mesh`` (a DeviceMesh, or None for one
+    device)."""
+    if shape.kind == "train":
+        return build_train_bundle(cfg, shape, train_cfg or TrainConfig(),
+                                  mesh, rules)
+    if shape.kind == "prefill":
+        return build_prefill_bundle(cfg, shape, mesh, rules)
+    return build_decode_bundle(cfg, shape, mesh, rules)
+
+
+# --------------------------------------------------------------------------
+# Tracing
+# --------------------------------------------------------------------------
+
+
+def _meta_leaf(s: ParamSpec, sh) -> torch.Tensor:
+    """This rank's piece of a spec: meta, integer inputs as int64 (as
+    ``train.step.batch_to_device`` makes the batch); a 0-d leaf (the
+    optimizer's step count, which the update reads on the host) a zero on
+    the CPU."""
+    if not s.shape:
+        return torch.zeros((), dtype=s.dtype)
+    shape = sh.local_shape() if sh is not None else s.shape
+    dtype = s.dtype if s.dtype.is_floating_point or \
+        s.dtype == torch.bool else torch.int64
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def rank_args(bundle: StepBundle) -> tuple:
+    """Meta tensors of this rank's pieces of the bundle's arguments."""
+    out = []
+    for specs, shs in zip(bundle.abstract_args, bundle.in_shardings):
+        if isinstance(specs, ParamSpec):
+            out.append(_meta_leaf(specs, shs))
+        elif isinstance(specs, dict):
+            out.append(_meta_tree(specs, shs))
+        else:
+            out.append(specs)
+    return tuple(out)
+
+
+def _meta_tree(specs, shs):
+    if isinstance(specs, dict):
+        return {k: _meta_tree(v, None if shs is None else shs[k])
+                for k, v in specs.items()}
+    return _meta_leaf(specs, shs)
+
+
+def trace_bundle(bundle: StepBundle, *, extrapolate_above: int = 3) -> dict:
+    """The bundle's step traced on this rank's meta pieces
+    (:func:`~repro_torch.launch.cost_analysis.analyze_step`): the
+    reference's ``analyze_hlo`` schema plus the memory block.
+
+    A train step of more than ``extrapolate_above`` microbatches is traced
+    at 2 and 3 microbatches of the same rows each and taken to its count by
+    :func:`~repro_torch.launch.cost_analysis.extrapolate` (its body runs
+    once a microbatch, as a scan's runs once a trip)."""
+    if bundle.status != "ok":
+        raise ValueError(f"{bundle.name}: {bundle.status} ({bundle.reason})")
+    n = math.prod(comm.axis_sizes(bundle.mesh).values())
+    if bundle.kind == "train":
+        nm = bundle.train_cfg.num_microbatches
+        if nm > extrapolate_above:
+            at = [_trace_train(bundle.remake(k), k, nm, n) for k in (2, 3)]
+            return cost_analysis.extrapolate(at[0], at[1], nm,
+                                             rank_args(bundle))
+    return cost_analysis.analyze_step(bundle.fn, rank_args(bundle),
+                                      num_partitions=n)
+
+
+def _trace_train(bundle: StepBundle, k: int, nm: int, n: int) -> dict:
+    """The train bundle at ``k`` microbatches on ``k / nm`` of its rows."""
+    params, opt_state, batch, step = rank_args(bundle)
+    rows = next(iter(batch.values())).shape[0]
+    cut = {key: v[:rows // nm * k] for key, v in batch.items()}
+    return cost_analysis.analyze_step(bundle.fn,
+                                      (params, opt_state, cut, step),
+                                      num_partitions=n)

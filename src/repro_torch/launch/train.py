@@ -7,8 +7,16 @@ over HTTP (a ``repro.core`` stack started with ``serve_http=True``):
 checkpoint auto-resume, failure injection (``--fail-at-step``), the loss
 every 10 steps, the findings the stack raised, what the client posted
 (requests, points, bytes, seconds, failed flushes) and the URL of the
-job's report on the stack.  Meshes, tensor parallelism and gradient compression
-belong to the distributed slice and have no flags here.
+job's report on the stack.
+
+Under ``torchrun`` with more than one rank (``WORLD_SIZE`` > 1) every rank
+runs this CLI: it joins the world (NCCL on the cards, gloo with ``--device
+cpu``), builds ``make_mesh_for(world, model=--tp)`` and trains
+data-parallel on it (``train(..., mesh=)``).  On one rank it builds no
+mesh and says so.  The reference's ``--grad-compression`` acts only across
+a "pod" axis, which ``make_mesh_for`` never builds, and its
+``--overlap-flags`` (its compiler's scheduler flags) has no counterpart:
+neither is a flag here (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -20,11 +28,15 @@ import sys
 import uuid
 from typing import Callable, Optional
 
+import torch
+import torch.distributed as dist
+
 from repro_torch import resolve_device
 from repro_torch.configs import ShapeConfig, TrainConfig, get_config
 from repro_torch.core import RemoteStack
 from repro_torch.launch.common import (
     add_stack_args, resolve_peaks)
+from repro_torch.launch.mesh import make_mesh_for
 from repro_torch.train.loop import train
 
 
@@ -45,6 +57,9 @@ def main(argv=None, *, step_callback: Optional[Callable] = None) -> int:
                     choices=["adamw", "adafactor"])
     ap.add_argument("--remat", default="none",
                     choices=["none", "minimal", "full"])
+    ap.add_argument("--tp", type=int, default=0,
+                    help="model-parallel axis size (0 = auto; a world of "
+                         "more than one rank only)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-interval", type=int, default=50)
     ap.add_argument("--no-monitor", action="store_true")
@@ -65,7 +80,25 @@ def main(argv=None, *, step_callback: Optional[Callable] = None) -> int:
         ckpt_dir=args.ckpt_dir, ckpt_interval=args.ckpt_interval,
         monitor=not args.no_monitor)
     device = resolve_device(args.device)
-    peak_flops, hbm_bw = resolve_peaks(args, device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    mesh = None
+    joined = False                      # this call joined the world
+    if world > 1:
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                             "0")))
+            torch.cuda.set_device(device)
+        if not dist.is_initialized():
+            dist.init_process_group(
+                "nccl" if device.type == "cuda" else "gloo")
+            joined = True
+        mesh = make_mesh_for(world, model=args.tp,
+                             device_type=device.type)
+        print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    else:
+        print("mesh: none (one rank; --tp acts on a world of more than "
+              "one)")
+    peak_flops, hbm_bw, ici_bw = resolve_peaks(args, device)
 
     stack = RemoteStack(args.lms_url)
     print(f"LMS HTTP endpoint: {stack.url}")
@@ -80,13 +113,19 @@ def main(argv=None, *, step_callback: Optional[Callable] = None) -> int:
             step_callback(step, metrics)
 
     job_id = f"{cfg.name}-{uuid.uuid4().hex[:8]}"
+    if mesh is not None:                # every rank posts under rank 0's id
+        ids = [job_id]
+        dist.broadcast_object_list(ids, src=0)
+        job_id = ids[0]
     try:
         result = train(cfg, tcfg, shape, stack=stack, device=device,
-                       peak_flops=peak_flops, hbm_bw=hbm_bw,
-                       fail_at_step=args.fail_at_step, step_callback=cb,
-                       user=args.user, job_id=job_id)
+                       peak_flops=peak_flops, hbm_bw=hbm_bw, ici_bw=ici_bw,
+                       mesh=mesh, fail_at_step=args.fail_at_step,
+                       step_callback=cb, user=args.user, job_id=job_id)
     finally:
         stack.close()
+        if joined:
+            dist.destroy_process_group()
     print(f"done: steps={result.steps_run} final_loss={result.last_loss:.4f}"
           f" resumed_from={result.resumed_from}")
     for f in result.findings:

@@ -115,6 +115,16 @@ def route_topk(router_logits: torch.Tensor, top_k: int):
     return gates, experts, probs
 
 
+def _bincount(idx, n: int):
+    """``torch.bincount(idx, minlength=n)`` for indices below ``n``: (n,)
+    counts.  On a meta tensor (a step traced for its counts) the shape
+    alone: bincount sizes its output from the data, which a meta tensor
+    does not have."""
+    if idx.device.type == "meta":
+        return idx.new_empty((n,))
+    return torch.bincount(idx, minlength=n)
+
+
 def _dispatch_group(xt, logits, cfg: ModelConfig, cap: int, dp=None):
     """One group's sort-based dispatch.  xt: (T, d); logits: (T, E).
     ``dp``: (mesh, data-parallel axes) when this group is this rank's part
@@ -136,12 +146,7 @@ def _dispatch_group(xt, logits, cfg: ModelConfig, cap: int, dp=None):
     e_sorted = flat_e[order]
     tok_sorted = flat_tok[order]
     g_sorted = flat_g[order]
-    if flat_e.device.type == "meta":
-        # bincount sizes its output from the data, which a meta tensor (a
-        # train step's flop count) does not have
-        counts = flat_e.new_empty((e,))
-    else:
-        counts = torch.bincount(flat_e, minlength=e)      # (E,)
+    counts = _bincount(flat_e, e)                         # (E,)
     starts = counts.cumsum(0) - counts
     rank = torch.arange(t * k, device=dev) - starts[e_sorted]
     if dp is None:
@@ -320,7 +325,7 @@ def apply_moe_a2a(p, x, cfg: ModelConfig, mesh):
     order = torch.sort(dst, stable=True).indices
     dst_s, tok_s, exp_s = dst[order], flat_tok[order], flat_e[order]
     gate_s = gates.reshape(-1)[order]
-    counts = torch.bincount(dst, minlength=tp)
+    counts = _bincount(dst, tp)
     rank = torch.arange(t_my * k, device=dev) - \
         (counts.cumsum(0) - counts)[dst_s]
     keep = rank < cap_send
@@ -339,7 +344,7 @@ def apply_moe_a2a(p, x, cfg: ModelConfig, mesh):
     # ---- local expert compute ----------------------------------------------
     order2 = torch.sort(rle, stable=True).indices
     rle_s = rle[order2]
-    c2 = torch.bincount(rle, minlength=e_local + 1)[:e_local]
+    c2 = _bincount(rle, e_local + 1)[:e_local]
     rank2 = torch.arange(tp * cap_send, device=dev) - \
         (c2.cumsum(0) - c2)[rle_s.clamp_max(e_local - 1)]
     keep2 = (rle_s < e_local) & (rank2 < cap_loc)

@@ -14,6 +14,17 @@ autograd functions (:func:`to_shard`, :func:`from_shard`,
 :func:`all_to_all`) keep the rule the distributed step relies on: ranks
 that differ only in their ``"model"`` coordinate compute one loss, and each
 holds that loss's whole gradient.
+
+Every collective of the port goes through this module, so a counter
+installed with :func:`set_counter` (``launch.cost_analysis``) is told of
+each one: its kind (the reference's names: ``"all-reduce"``,
+``"all-gather"``, ``"reduce-scatter"``, ``"all-to-all"``,
+``"collective-permute"``, and ``"broadcast"``), its operand's and output's
+bytes and its group's size.  A group of one rank reports nothing, since
+nothing crosses a wire there.  On a meta operand (a step traced for its
+counts) the exchange itself is skipped: there is nothing to send, and the
+outputs keep their shapes.  With no counter installed a helper pays one
+``None`` check.
 """
 
 from __future__ import annotations
@@ -65,12 +76,39 @@ def group_index(mesh, axes) -> int:
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
+_counter = None
+
+
+def set_counter(counter):
+    """Install (or clear, with ``None``) the object told of every
+    collective, ``counter.collective(kind, operand_bytes, output_bytes,
+    group_size)``; returns the previous one."""
+    global _counter
+    prev = _counter
+    _counter = counter
+    return prev
+
+
+def report(kind: str, operand: torch.Tensor, output_bytes: int,
+           n: int) -> bool:
+    """Tell the installed counter, if any, of one collective of ``n`` ranks
+    (none for one rank); returns whether the exchange is to be skipped (a
+    meta operand)."""
+    if _counter is not None and n > 1:
+        _counter.collective(kind, operand.numel() * operand.element_size(),
+                            output_bytes, n)
+    return operand.is_meta
+
 
 def all_reduce(t: torch.Tensor, mesh, axes, op: str = "sum"):
     """Reduce ``t`` in place over ``axes`` (``"sum"``, ``"mean"`` or
     ``"max"``); returns it."""
     live = live_axes(mesh, axes)
     for a in live:
+        if _counter is not None and report(
+                "all-reduce", t, t.numel() * t.element_size(),
+                axis_sizes(mesh)[a]):
+            continue
         dist.all_reduce(t, op=_OPS["sum" if op == "mean" else op],
                         group=mesh.get_group(a))
     if op == "mean" and live:
@@ -86,8 +124,57 @@ def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = 0):
         return t
     x = t.movedim(dim, 0).contiguous()
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-    dist.all_gather_into_tensor(out, x, group=mesh.get_group(axis))
+    if _counter is None or not report(
+            "all-gather", x, out.numel() * out.element_size(), n):
+        dist.all_gather_into_tensor(out, x, group=mesh.get_group(axis))
     return out.movedim(0, dim).contiguous()
+
+
+def gather_over_group(t: torch.Tensor, group) -> torch.Tensor:
+    """(ranks, *t.shape): ``t`` of every rank of a process group, in rank
+    order."""
+    n = dist.get_world_size(group)
+    x = t.contiguous()
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    if _counter is None or not report(
+            "all-gather", x, out.numel() * out.element_size(), n):
+        dist.all_gather_into_tensor(out, x, group=group)
+    return out.view((n,) + tuple(t.shape))
+
+
+def all_reduce_over_group(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` in place over the ranks of a process group; returns it."""
+    if _counter is None or not report(
+            "all-reduce", t, t.numel() * t.element_size(),
+            dist.get_world_size(group)):
+        dist.all_reduce(t, group=group)
+    return t
+
+
+def send_recv(send, dst: int, recv, src: int, group, n: int) -> None:
+    """Send ``send`` to global rank ``dst`` and receive into ``recv`` from
+    global rank ``src`` over ``group`` of ``n`` ranks (either may be
+    ``None``): a pipeline's neighbour hand-off, reported by its sender as
+    a ``"collective-permute"``."""
+    ops = []
+    if send is not None and (_counter is None or not report(
+            "collective-permute", send, send.numel() * send.element_size(),
+            n)):
+        ops.append(dist.P2POp(dist.isend, send.contiguous(), dst, group))
+    if recv is not None and (_counter is None or not recv.is_meta):
+        ops.append(dist.P2POp(dist.irecv, recv, src, group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+
+def broadcast(t: torch.Tensor, src: int, group, n: int) -> torch.Tensor:
+    """``t`` of global rank ``src`` on every rank of ``group`` (``n``
+    ranks), in place; returns it."""
+    if _counter is None or not report(
+            "broadcast", t, t.numel() * t.element_size(), n):
+        dist.broadcast(t, src=src, group=group)
+    return t
 
 
 def stack_over(t: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -109,8 +196,10 @@ def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int):
         return t
     x = t.movedim(dim, 0).contiguous()
     out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
-    dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
-                               group=mesh.get_group(axis))
+    if _counter is None or not report(
+            "reduce-scatter", x, out.numel() * out.element_size(), n):
+        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
+                                   group=mesh.get_group(axis))
     return out.movedim(0, dim)
 
 
@@ -157,19 +246,22 @@ class _AllToAll(torch.autograd.Function):
     the same exchange, which sends each chunk back where it came from."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _exchange(x, group)
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _exchange(x, mesh, axis)
 
     @staticmethod
     def backward(ctx, g):
-        return _exchange(g, ctx.group), None
+        return _exchange(g, ctx.mesh, ctx.axis), None, None
 
 
-def _exchange(x, group):
+def _exchange(x, mesh, axis: str):
     x = x.contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
+    if _counter is None or not report(
+            "all-to-all", x, out.numel() * out.element_size(),
+            axis_sizes(mesh).get(axis, 1)):
+        dist.all_to_all_single(out, x, group=mesh.get_group(axis))
     return out
 
 
@@ -192,5 +284,5 @@ def all_to_all(x, mesh, axis: str):
     gradients.  Runs on a one-rank axis too (the exchange is a copy), so
     the all-to-all dispatch takes its collective path on one card."""
     if x.requires_grad:
-        return _AllToAll.apply(x, mesh.get_group(axis))
-    return _exchange(x, mesh.get_group(axis))
+        return _AllToAll.apply(x, mesh, axis)
+    return _exchange(x, mesh, axis)

@@ -53,18 +53,15 @@ def pipeline_apply(stage_fn: Callable, stage_params, x: torch.Tensor, *,
             y = stage_fn(mine, xs[t] if s == 0 else state)
             if s == stages - 1:
                 outputs[t - s] = y
-        ops = []
-        if s < stages - 1 and 0 <= t - s < m:
-            ops.append(dist.P2POp(dist.isend, y.contiguous(), ranks[s + 1],
-                                  group))
+        send = y if s < stages - 1 and 0 <= t - s < m else None
+        recv = None
         if s > 0 and 0 <= t + 1 - s < m:
-            state = torch.empty_like(xs[0])
-            ops.append(dist.P2POp(dist.irecv, state, ranks[s - 1], group))
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
+            state = recv = torch.empty_like(xs[0])
+        if send is not None or recv is not None:
+            comm.send_recv(send, ranks[(s + 1) % stages], recv, ranks[s - 1],
+                           group, stages)
     if group is not None:
-        dist.broadcast(outputs, src=ranks[-1], group=group)
+        comm.broadcast(outputs, ranks[-1], group, stages)
     return outputs.reshape((b,) + tuple(x.shape[1:]))
 
 

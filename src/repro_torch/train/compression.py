@@ -44,19 +44,11 @@ def _rows(g: torch.Tensor) -> torch.Tensor:
     return g.reshape(1, -1) if g.ndim <= 1 else g.reshape(-1, g.shape[-1])
 
 
-def _gather(t: torch.Tensor, group) -> torch.Tensor:
-    """(ranks, *t.shape): ``t`` of every rank of the group, in rank order."""
-    n = dist.get_world_size(group)
-    out = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
-    dist.all_gather_into_tensor(out, t.contiguous(), group=group)
-    return out.view((n,) + tuple(t.shape))
-
-
 def _compressed_pmean_leaf(g: torch.Tensor, group) -> torch.Tensor:
     """int8 all-gather + the dequantised mean on every rank."""
     q, scale = quantize_int8(_rows(g))
-    qs = _gather(q, group)                      # (P, rows, d) int8
-    ss = _gather(scale, group)                  # (P, rows, 1) fp32
+    qs = comm.gather_over_group(q, group)       # (P, rows, d) int8
+    ss = comm.gather_over_group(scale, group)   # (P, rows, 1) fp32
     mean = dequantize_int8(qs, ss).mean(dim=0)
     return mean.reshape(g.shape).to(g.dtype)
 
@@ -69,8 +61,7 @@ def compressed_pmean(grads, group, method: str = "int8"):
     n = dist.get_world_size(group)
 
     def mean(g, dt):
-        t = g.to(dt)
-        dist.all_reduce(t, group=group)
+        t = comm.all_reduce_over_group(g.to(dt), group)
         return t.div_(n).to(g.dtype)
     if method == "bf16":
         return tree_map(lambda g: mean(g, torch.bfloat16), grads)

@@ -4,7 +4,9 @@ The loop is a *job* in the LMS sense, wired as the reference wires it:
 
 * the job bracket (``stack.job``) tags every metric of the run;
 * one host agent emits the HPM metrics each step from the step constants
-  (:func:`counted_step_constants`) and the step time;
+  (:func:`step_constants`: this rank's step counted once, before the first
+  step, by :func:`repro_torch.launch.cost_analysis.analyze_step`) and the
+  step time;
 * ``usermetric`` carries the ``train`` series (loss, grad norm, lr) and the
   ``run_state`` events (start, checkpoint, failure injected, halt, finish);
 * marker regions ``data_wait``, ``train_step`` and ``checkpoint``, and
@@ -60,16 +62,22 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.core.marker import calibrate
 from repro_torch.data.pipeline import (
     DataLoader, SyntheticTokenSource, make_batch_fn)
-from repro_torch.models.params import flatten, unflatten
+from repro_torch.launch.cost_analysis import analyze_step
 from repro_torch.models.transformer import init_model_params
 from repro_torch.parallel import comm
 from repro_torch.parallel.sharding import UNPORTED, shard_tree
 from repro_torch.train.step import (
-    DP_AXES, batch_to_device, count_step_flops, make_train_step, shardings)
+    DP_AXES, batch_to_device, make_train_step, shardings)
 
-# Published dense peaks by card name: FLOP/s (bf16 on the tensor cores) and
-# device-memory bytes/s.  NVIDIA's data sheet, SXM part at full power.
-DEVICE_PEAKS = {"H100": (989e12, 3.35e12)}
+# Published peaks by card name: FLOP/s (dense bf16 on the tensor cores),
+# device-memory bytes/s and interconnect bytes/s.  NVIDIA's data sheet, SXM
+# part at full power.  NVLink 4 gives an H100 SXM 900 GB/s, both directions
+# of its 18 links together; the interconnect rate here is one direction,
+# 450 GB/s, since the ICI group and the collective roofline term divide
+# the bytes one card sends (the wire bytes of the reference's formulas) by
+# it.  Between hosts a card's traffic goes through its network adapter, far
+# slower: over a multi-host mesh the collective term is a lower bound.
+DEVICE_PEAKS = {"H100": (989e12, 3.35e12, 450e9)}
 
 
 class InjectedFailure(RuntimeError):
@@ -83,50 +91,77 @@ class TrainResult:
     last_loss: float
     findings: list
     resumed_from: Optional[int]
+    # this rank's step as launch.cost_analysis counted it (the constants'
+    # source, with its memory block); None if no step ran
+    step_analysis: Optional[dict] = None
 
 
 def device_peaks(device: torch.device) -> tuple:
-    """(peak FLOP/s, memory bytes/s) of a known CUDA card; raises for any
-    other device (pass the peaks to :func:`train` instead)."""
+    """(peak FLOP/s, memory bytes/s, interconnect bytes/s) of a known CUDA
+    card; raises for any other device (pass the peaks to :func:`train`
+    instead)."""
+    peaks = _known_peaks(device)
+    if peaks is not None:
+        return peaks
+    what = repr(torch.cuda.get_device_name(device)) \
+        if device.type == "cuda" else f"device {device}"
+    raise ValueError(f"no published peaks for {what}; pass peak_flops and "
+                     f"hbm_bw")
+
+
+def _known_peaks(device: torch.device) -> Optional[tuple]:
+    """:data:`DEVICE_PEAKS` of a known card, else None."""
     if device.type == "cuda":
         name = torch.cuda.get_device_name(device)
         for key, peaks in DEVICE_PEAKS.items():
             if key in name:
                 return peaks
-        raise ValueError(f"no published peaks for {name!r}; pass "
-                         f"peak_flops and hbm_bw")
-    raise ValueError(f"no peaks for device {device}; pass peak_flops and "
-                     f"hbm_bw")
+    return None
 
 
-def counted_step_constants(flops: float, *, model_flops: float,
-                           tokens_per_step: float, peak_flops: float,
-                           hbm_bw: float) -> dict:
-    """HPM step constants of one step, for the host agent.
+def step_constants(analysis: dict, *, model_flops: float,
+                   tokens_per_step: float, peak_flops: float, hbm_bw: float,
+                   ici_bw: Optional[float] = None) -> dict:
+    """HPM step constants of one step, for the host agent, from
+    :func:`~repro_torch.launch.cost_analysis.analyze_step`'s count of this
+    rank's step (its pieces and its local batch through the same
+    ``train_step`` the loop times, the optimizer update included): the
+    counterpart of the reference's constants from the compiled step.
 
-    ``hlo_flops`` is what :func:`~repro_torch.train.step.count_step_flops`
-    counts for one step (forward, backward and the remat recomputes; matrix
-    products and attention, not elementwise work): the counterpart of the
-    reference's compiled-step cost analysis.  There is no
-    counterpart of its bytes (``hlo_bytes``) or collective bytes
-    (``collective_bytes``, ``wire_bytes``), so the MEM group's
-    ``mem_gb_per_s`` / ``hbm_bw_util``, the ICI group and the ``train_step``
-    region's roofline placement are absent; FLOPS (``gflops_per_s``,
-    ``hw_flops_util``, ``mfu``, ``useful_flop_ratio``) and GOODPUT are
-    derived.  The card's peaks ride along as the raw events ``PEAK_FLOPS``
-    and ``HBM_BW``, which the HPM group formulas read.  The roofline of
-    marker regions is the stack's query and sees no step constants: it
-    reads the peaks of the calibration point that :func:`train` records.
-    """
-    return {"hlo_flops": float(flops), "model_flops": float(model_flops),
-            "tokens_per_step": float(tokens_per_step),
-            "PEAK_FLOPS": float(peak_flops), "HBM_BW": float(hbm_bw)}
+    ``hlo_flops`` (the products and the kernels' cost models; elementwise
+    work is counted apart and not posted, as before) feeds FLOPS
+    (``gflops_per_s``, ``hw_flops_util``, ``mfu``, ``useful_flop_ratio``);
+    ``hlo_bytes`` (each operation's inputs read and outputs written once,
+    a kernel's call at its cost model) feeds MEM (``mem_gb_per_s``,
+    ``hbm_bw_util``); ``collective_bytes`` and ``wire_bytes`` (this rank's
+    collectives, operand bytes and the reference's wire formulas; 0 on one
+    device) feed ICI (``ici_gb_per_s``, ``ici_bw_util`` and the wire
+    pair); ``model_flops`` and ``tokens_per_step`` (this rank's share)
+    feed FLOPS and GOODPUT.  The card's peaks ride along as the raw events
+    ``PEAK_FLOPS``, ``HBM_BW`` and ``ICI_BW``, which the group formulas
+    read (``ICI_BW`` only when known: without it the two utilisations are
+    skipped).  The roofline of marker regions is the stack's query and
+    sees no step constants: it reads the peaks of the calibration point
+    that :func:`train` records, and the ``train_step`` region's ``flops``
+    and ``bytes`` counters, which :func:`train` seeds from these."""
+    per = analysis["per_device"]
+    out = {"hlo_flops": float(per["flops"]),
+           "hlo_bytes": float(per["bytes"]),
+           "collective_bytes": float(per["collective_operand_bytes"]),
+           "wire_bytes": float(per["collective_wire_bytes"]),
+           "model_flops": float(model_flops),
+           "tokens_per_step": float(tokens_per_step),
+           "PEAK_FLOPS": float(peak_flops), "HBM_BW": float(hbm_bw)}
+    if ici_bw is not None:
+        out["ICI_BW"] = float(ici_bw)
+    return out
 
 
 def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
           shape: ShapeConfig, *, stack, hosts: Optional[list] = None,
           device=None, peak_flops: Optional[float] = None,
-          hbm_bw: Optional[float] = None, mesh=None, pc=None,
+          hbm_bw: Optional[float] = None, ici_bw: Optional[float] = None,
+          mesh=None, pc=None,
           fail_at_step: Optional[int] = None,
           step_callback: Optional[Callable] = None,
           user: str = "user", job_id: Optional[str] = None,
@@ -134,14 +169,19 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
     """Run (or resume) a monitored training job on one device (default
     CUDA), or with ``mesh`` as one rank of a data-parallel job (every rank
     calls it; see the module docstring).  ``peak_flops``/``hbm_bw`` default
-    to the card's published peaks (:data:`DEVICE_PEAKS`)."""
+    to the card's published peaks (:data:`DEVICE_PEAKS`), and so does
+    ``ici_bw`` on a known card (elsewhere, unless given, the ICI group's
+    utilisations are not derived)."""
     if mesh is not None and train_cfg.seq_parallel:
         raise NotImplementedError(f"seq_parallel: {UNPORTED}")
     device = resolve_device(device)
-    if peak_flops is None or hbm_bw is None:
-        pf, bw = device_peaks(device)
+    known = device_peaks(device) if peak_flops is None or hbm_bw is None \
+        else _known_peaks(device)
+    if known is not None:
+        pf, bw, ici = known
         peak_flops = pf if peak_flops is None else peak_flops
         hbm_bw = bw if hbm_bw is None else hbm_bw
+        ici_bw = ici if ici_bw is None else ici_bw
     world = dist.get_world_size() if mesh is not None else 1
     rank = dist.get_rank() if mesh is not None else 0
     lead = not any(comm.coordinate(mesh).values())
@@ -205,6 +245,7 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
     last_loss = float("nan")
     steps_run = 0
     step = start_step
+    step_analysis = None
     try:
         with (stack.job(job_id, user=user, hosts=hosts,
                         tags={"arch": model_cfg.name, "shape": shape.name})
@@ -215,28 +256,29 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
             # the device's peaks, where the stack's marker roofline reads
             # them (flushed at once, inside the job bracket)
             calibrate(um, peak_flops, hbm_bw)
-            counted = False
             while step < train_cfg.total_steps:
                 step_idx, np_batch = next(loader)
                 data_wait = loader.wait_time_s
                 batch = batch_to_device(np_batch, device)
 
-                if not counted:
-                    # one-time, before the first step: the step constants
-                    # from a flop-counted pass over meta copies of the
-                    # params and this batch (the reference reads them from
-                    # the compiled step)
-                    consts = counted_step_constants(
-                        count_step_flops(_whole_meta(params, sh), batch,
-                                         model_cfg, train_cfg),
+                if step_analysis is None:
+                    # one-time, before the first step: this rank's step
+                    # (its pieces, its rows, the optimizer update) traced
+                    # on meta copies, which launch and exchange nothing
+                    # (the reference reads its constants from the
+                    # compiled step)
+                    step_analysis = analyze_step(
+                        train_step, (params, opt_state, batch, step_idx))
+                    consts = step_constants(
+                        step_analysis,
                         model_flops=model_flops,
                         tokens_per_step=tokens_per_step,
-                        peak_flops=peak_flops, hbm_bw=hbm_bw)
+                        peak_flops=peak_flops, hbm_bw=hbm_bw, ici_bw=ici_bw)
                     agent.set_step_constants(**consts)
-                    # static per-call work counter of the train_step region
-                    # (flops only: there is no bytes counterpart)
-                    step_counters = {"flops": consts["hlo_flops"]}
-                    counted = True
+                    # static per-call work counters seeding the train_step
+                    # region's roofline operands
+                    step_counters = {"flops": consts["hlo_flops"],
+                                     "bytes": consts["hlo_bytes"]}
 
                 if mk:
                     mk.record("data_wait", data_wait)
@@ -307,7 +349,7 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
             ckpt.wait()
 
     return TrainResult(steps_run, step, last_loss, stack.findings(),
-                       resumed_from)
+                       resumed_from, step_analysis)
 
 
 def _barrier(world: int) -> None:
@@ -320,17 +362,6 @@ def _any_rank(flag: bool, mesh, device) -> bool:
     t = torch.tensor(float(flag), device=device)
     return bool(comm.all_reduce(t, mesh, tuple(comm.axis_sizes(mesh)),
                                 "max"))
-
-
-def _whole_meta(params, sh):
-    """Meta tensors of the whole params (this rank's pieces' dtypes), for
-    the step's flop count."""
-    if not sh:
-        return params
-    fsh = flatten(sh["params"])
-    return unflatten({k: torch.empty(fsh[k].shape, dtype=v.dtype,
-                                     device="meta")
-                      for k, v in flatten(params).items()})
 
 
 def _extras_fn(cfg: ModelConfig, shape: ShapeConfig):

@@ -1170,3 +1170,56 @@ def test_compressed_pmean_and_pipeline_on_one_card(nccl, rng):
     y = pipeline_apply(lambda w, xb: torch.tanh(xb @ w), ws, x, mesh=mesh,
                        num_microbatches=4)
     _close(y, torch.tanh(x @ ws[0]), 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,h,g", [("bfloat16", 112, 1),
+                                       ("bfloat16", 21, 3),
+                                       ("float32", 112, 1)])
+def test_meta_partials_are_the_librarys(cuda, dtype, h, g):
+    """The counter's scratch formula (no library on a meta tensor) gives
+    the library's count of the backward's partials."""
+    dt = getattr(torch, dtype)
+    assert ssd.bwd_partials_of(dt, h, g) == ssd.bwd_partials(dt, h, g)
+
+
+@pytest.mark.cuda
+def test_analysis_bounds_and_predicts_a_granite_step(cuda):
+    """``launch.cost_analysis`` on one granite-width step (2 layers, 4 x
+    1024 tokens, AdamW, remat "minimal"): the bound from its counts (bytes
+    over 3.35 TB/s, flops over 989 TFLOP/s) does not exceed the measured
+    step, and its predicted peak (arguments, what the step holds at once)
+    lies within 10% of ``max_memory_allocated`` over the step, counted from
+    what was allocated before the arguments were made."""
+    import time
+    from repro_torch.launch.cost_analysis import analyze_step
+    cfg = dataclasses.replace(get_config("granite-3-8b"), num_layers=2)
+    tcfg = TrainConfig(remat_policy="minimal", warmup_steps=1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = init_model_params(cfg, seed=0, device=cuda)
+    step_fn, opt = make_train_step(cfg, tcfg)
+    state = opt.init(params)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    toks = torch.randint(1, cfg.vocab_size, (4, 1025), generator=g,
+                         device=cuda)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    a = analyze_step(step_fn, (params, state, batch, 0))
+    params, state, m = step_fn(params, state, batch, 0)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    params, state, m = step_fn(params, state, batch, 1)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    per = a["per_device"]
+    bound = max(per["flops"] / 989e12, per["bytes"] / 3.35e12)
+    assert 0 < bound <= step_s, (bound, step_s)
+    predicted = a["memory"]["peak_bytes"]
+    assert abs(predicted - measured) <= 0.10 * measured, (predicted,
+                                                          measured)

@@ -163,7 +163,7 @@ def test_constraints_are_the_identity_and_sequence_parallelism_raises():
 
 
 def test_production_mesh_needs_its_world():
-    with pytest.raises(ValueError, match="item 5"):
+    with pytest.raises(ValueError, match="repro_torch.launch.dryrun"):
         tmesh.make_production_mesh()
     with pytest.raises(ValueError, match="512"):
         tmesh.make_production_mesh(multi_pod=True)

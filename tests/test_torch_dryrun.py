@@ -1,0 +1,241 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) and its step bundles,
+on the CPU, against the reference.
+
+* ``default_train_cfg`` (data-parallel sizes 16 and 32), ``model_flops_for``
+  and ``supports_shape`` equal ``repro.launch.dryrun``'s for the 10
+  assigned archs x 4 shapes.
+* Bundles of all three kinds trace on a (1, 1) mesh for the 7 archs of the
+  reference's ``test_bundles_lower_and_compile``, at smoke size: flops and
+  bytes > 0, no collective bytes (every axis has size 1).
+* A train step of many microbatches traced at 2 and 3 and extrapolated
+  gives the counts of the same step traced whole.
+* ``run_cell`` on smoke configs at both production meshes (256 and 512
+  fake ranks) writes records that pass the reference's
+  ``test_dryrun_artifacts_schema`` checks; serving cells on a mesh are
+  ``unported`` with a reason, the quadratic archs' ``long_500k`` cells
+  ``skipped``; every record says it was counted with no device.
+
+A fake process group is global to its process, so everything that builds a
+mesh runs in a subprocess of its own (pytest-xdist workers must not share
+one).
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import ASSIGNED_ARCHS as J_ARCHS  # noqa: E402
+from repro.configs import SHAPES as J_SHAPES  # noqa: E402
+from repro.configs import get_config as jget_config  # noqa: E402
+
+
+def _import_reference_dryrun():
+    """``repro.launch.dryrun`` sets ``XLA_FLAGS`` to 512 host devices when
+    it is imported (for its own process); put the variable back, so the
+    tests that share this process keep one device."""
+    old = os.environ.get("XLA_FLAGS")
+    try:
+        from repro.launch import dryrun
+    finally:
+        if old is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = old
+    return dryrun
+
+
+jdry = _import_reference_dryrun()
+from repro_torch.configs import SHAPES, ShapeConfig, TrainConfig, \
+    get_config  # noqa: E402
+from repro_torch.launch import dryrun as tdry  # noqa: E402
+from repro_torch.launch import steps as tsteps  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BUNDLE_ARCHS = ["granite-3-8b", "mixtral-8x7b", "rwkv6-1.6b", "zamba2-7b",
+                "deepseek-v2-236b", "seamless-m4t-large-v2", "qwen2-vl-7b"]
+
+
+@pytest.mark.parametrize("dp", [16, 32])
+@pytest.mark.parametrize("arch", J_ARCHS)
+def test_production_defaults_match_the_reference(arch, dp):
+    jcfg, tcfg = jget_config(arch), get_config(arch)
+    for name in J_SHAPES:
+        want = jdry.default_train_cfg(jcfg, J_SHAPES[name], dp)
+        got = tdry.default_train_cfg(tcfg, SHAPES[name], dp)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), name
+        assert tdry.model_flops_for(tcfg, SHAPES[name]) == \
+            jdry.model_flops_for(jcfg, J_SHAPES[name])
+    assert dataclasses.asdict(tdry.default_train_cfg(tcfg)) == \
+        dataclasses.asdict(jdry.default_train_cfg(jcfg))
+
+
+def _run(code: str, *args, timeout: float = 600) -> None:
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(REPO, "src"))
+    r = subprocess.run([sys.executable, "-c", code, *args], env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+
+
+BUNDLES = """
+import json, sys
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+from repro_torch.launch.mesh import fake_world
+from repro_torch.launch.steps import build_bundle, trace_bundle
+shapes = [ShapeConfig("tiny", 32, 2, "train"),
+          ShapeConfig("tinyp", 32, 2, "prefill"),
+          ShapeConfig("tinyd", 32, 2, "decode")]
+out = {}
+with fake_world(1):
+    mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    for arch in sys.argv[2].split(","):
+        cfg = get_config(arch, smoke=True)
+        for shape in shapes:
+            b = build_bundle(cfg, shape, mesh,
+                             train_cfg=TrainConfig(num_microbatches=2))
+            r = trace_bundle(b)
+            out[f"{arch}/{shape.kind}"] = {
+                "status": b.status, "name": b.name,
+                "num_partitions": r["num_partitions"],
+                "device": r["device"], **r["per_device"],
+                **r["memory"]}
+json.dump(out, open(sys.argv[1], "w"))
+"""
+
+
+@pytest.fixture(scope="module")
+def traced(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("bundles") / "bundles.json")
+    _run(BUNDLES, path, ",".join(BUNDLE_ARCHS))
+    with open(path) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("arch", BUNDLE_ARCHS)
+def test_bundles_trace_on_a_one_rank_mesh(traced, arch):
+    kernels = set()
+    for kind in ("train", "prefill", "decode"):
+        r = traced[f"{arch}/{kind}"]
+        assert r["status"] == "ok" and r["name"].startswith(kind)
+        assert r["num_partitions"] == 1
+        assert r["device"] == "meta (no device)"
+        assert r["flops"] > 0 and r["bytes"] > 0
+        assert r["collective_operand_bytes"] == 0 == r["by_collective"].get(
+            "all-gather", 0)
+        assert r["peak_bytes"] >= r["argument_bytes"] > 0
+        kernels |= set(r["kernels"])
+    # every kernel this arch's paths run was counted as a call
+    if arch != "seamless-m4t-large-v2":        # LayerNorms only
+        assert "kernel:rmsnorm" in kernels
+        assert "kernel:rmsnorm_backward" in kernels
+    if arch != "rwkv6-1.6b":                   # no attention to prefill
+        assert "kernel:flash_attention" in kernels
+    if arch == "zamba2-7b":
+        assert {"kernel:ssd_scan", "kernel:ssd_scan_backward"} <= kernels
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "zamba2-7b"])
+def test_microbatches_extrapolate_to_the_whole_trace(arch):
+    cfg = get_config(arch, smoke=True)
+    shape = ShapeConfig("mb", seq_len=32, global_batch=6, kind="train")
+    bundle = tsteps.build_bundle(cfg, shape, None,
+                                 train_cfg=TrainConfig(num_microbatches=6))
+    whole = tsteps.trace_bundle(bundle, extrapolate_above=99)
+    ext = tsteps.trace_bundle(bundle)
+    assert ext["trip_counts"] == {"microbatches": 6, "traced": [2, 3]}
+    for k in ("flops", "bytes", "elementwise_flops", "transcendentals",
+              "operations"):
+        assert ext["per_device"][k] == pytest.approx(
+            whole["per_device"][k], rel=1e-12), k
+    for name, k in whole["per_device"]["kernels"].items():
+        assert ext["per_device"]["kernels"][name] == pytest.approx(k)
+    assert ext["memory"]["argument_bytes"] == whole["memory"][
+        "argument_bytes"]
+    assert ext["memory"]["peak_bytes"] == pytest.approx(
+        whole["memory"]["peak_bytes"], rel=0.01)
+
+
+def test_serving_on_a_mesh_is_unported():
+    cfg = get_config("granite-3-8b", smoke=True)
+    for kind in ("prefill", "decode"):
+        b = tsteps.build_bundle(cfg, ShapeConfig("s", 32, 32, kind),
+                                {"data": 16, "model": 16})
+        assert b.status == "unported" and "mesh" in b.reason
+        with pytest.raises(ValueError, match="unported"):
+            tsteps.trace_bundle(b)
+
+
+CELLS = """
+import sys
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.launch.mesh import fake_world
+out, archs = sys.argv[1], sys.argv[2].split(",")
+for multi, n in ((False, 256), (True, 512)):
+    with fake_world(n):
+        for arch in archs:
+            for shape in SHAPES:
+                run_cell(arch, shape, multi, out,
+                         cfg=get_config(arch, smoke=True))
+"""
+
+
+@pytest.fixture(scope="module")
+def records(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("dryrun"))
+    _run(CELLS, out, ",".join(J_ARCHS), timeout=900)
+    recs = {}
+    for mesh in ("pod16x16", "pod2x16x16"):
+        for name in os.listdir(os.path.join(out, mesh)):
+            with open(os.path.join(out, mesh, name)) as f:
+                r = json.load(f)
+            recs[(mesh, r["arch"], r["shape"])] = r
+    return recs
+
+
+@pytest.mark.parametrize("mesh", ["pod16x16", "pod2x16x16"])
+@pytest.mark.parametrize("arch", J_ARCHS)
+def test_dry_run_records_pass_the_reference_schema(records, mesh, arch):
+    chips = 512 if mesh == "pod2x16x16" else 256
+    for shape in SHAPES:
+        r = records[(mesh, arch, shape)]
+        assert r["mesh"] == mesh and r["device"] == "meta (no device)"
+        assert r["peaks"]["peak_flops"] == 989e12
+        assert r["status"] in ("ok", "skipped", "unported"), r.get("error")
+        if r["status"] != "ok":
+            assert r["reason"]
+            if r["status"] == "unported":
+                assert SHAPES[shape].kind != "train"
+            else:
+                assert shape == "long_500k"
+            continue
+        assert SHAPES[shape].kind == "train"
+        # the reference's test_dryrun_artifacts_schema checks
+        roof = r["roofline"]
+        for k in ("compute_s", "memory_s", "collective_s", "dominant",
+                  "model_flops", "hlo_flops", "useful_flop_ratio",
+                  "classification"):
+            assert k in roof, (shape, k)
+        assert roof["dominant"] in ("compute", "memory", "collective")
+        assert roof["classification"]["pattern"]
+        assert r["hlo_analysis"]["global"]["flops"] > 0
+        assert r["memory_per_device"]["temp_bytes"] >= 0
+        # the port's keys
+        assert roof["chips"] == r["hlo_analysis"]["num_partitions"] == chips
+        assert roof["bound_step_s"] == max(roof["compute_s"],
+                                           roof["memory_s"],
+                                           roof["collective_s"]) > 0
+        assert isinstance(r["fits_80gb"], bool)
+        assert r["hlo_analysis"]["per_device"]["collective_operand_bytes"] \
+            > 0                          # the data-parallel exchange
+    skipped = [s for s in SHAPES
+               if records[(mesh, arch, s)]["status"] == "skipped"]
+    assert skipped == ([] if get_config(arch).sub_quadratic
+                       else ["long_500k"])

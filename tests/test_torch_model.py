@@ -467,7 +467,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "launch/__init__.py", "launch/common.py", "launch/train.py",
             "launch/serve.py", "launch/mesh.py", "parallel/__init__.py",
             "parallel/sharding.py", "parallel/comm.py",
-            "parallel/pipeline.py", "train/compression.py"} <= scanned
+            "parallel/pipeline.py", "train/compression.py",
+            "launch/steps.py", "launch/cost_analysis.py",
+            "launch/dryrun.py", "core/analysis.py"} <= scanned
     assert {f"core/{n}.py" for n in (
         "__init__", "line_protocol", "perf_groups", "usermetric", "marker",
         "host_agent", "httpd")} <= scanned
@@ -505,6 +507,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.launch.train, repro_torch.launch.serve\n"
             "import repro_torch.launch.mesh, repro_torch.parallel.pipeline\n"
             "import repro_torch.train.compression\n"
+            "import repro_torch.launch.steps, repro_torch.launch.dryrun\n"
+            "import repro_torch.launch.cost_analysis\n"
+            "import repro_torch.core.analysis\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "print(bad)\n"

@@ -676,8 +676,10 @@ def test_train_loop_emits_metrics_mfu_and_markers(tmp_path):
             assert math.isclose(mfu, model_flops / t / PEAKS["peak_flops"],
                                 rel_tol=1e-9)
         assert all(u > 0 for u in hpm.values["hw_flops_util"])
-        # no bytes counterpart: the MEM group is absent
-        assert not db.select("hpm", ["hbm_bw_util"])
+        # the step's counted bytes: the MEM group is derived
+        mem = db.select("hpm", ["hbm_bw_util"])[0]
+        assert len(mem.values["hbm_bw_util"]) == 4
+        assert all(u > 0 for u in mem.values["hbm_bw_util"])
         regions = set(db.tag_values(MARKER_MEASUREMENT, "region"))
         assert {"train_step", "data_wait"} <= regions
         step_pts = db.select(MARKER_MEASUREMENT, ["flops", "calls"],

@@ -349,5 +349,84 @@ def case_moe(rank: int, workdir: str, opts: dict) -> dict:
     return out
 
 
+def case_analysis(rank: int, workdir: str, opts: dict) -> dict:
+    """Each run: one data-parallel step's collectives (or, with
+    ``"pipeline"``, one ``pipeline_apply``'s hand-offs and broadcast) as
+    ``launch.cost_analysis`` counts them on meta copies of this rank's
+    pieces and rows, and as the real step's ``comm`` calls report them (a
+    counter installed in ``comm`` while the step runs over gloo): operand
+    and wire bytes, and operand bytes by kind."""
+    import torch
+    from repro_torch.launch.cost_analysis import (COLLECTIVES, StepCounter,
+                                                  analyze_step)
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models.transformer import init_model_params
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.sharding import shard_tree
+    from repro_torch.train import step as tstep
+    out = {}
+    for run in opts["runs"]:
+        mesh = _mesh(run["names"], run["shape"])
+        g = torch.Generator().manual_seed(0)
+        if run.get("pipeline"):
+            from repro_torch.parallel.pipeline import pipeline_apply
+
+            def fn(ws, x):
+                return pipeline_apply(lambda w, xb: torch.tanh(xb @ w), ws,
+                                      x, mesh=mesh, num_microbatches=4)
+            args = (torch.randn(4, 8, 8, generator=g),
+                    torch.randn(8, 8, generator=g))
+        else:
+            cfg = _config(run)
+            tcfg = TrainConfig(**run["tcfg"])
+            psh, _ = tstep.shardings(cfg, tcfg, mesh)
+            params = shard_tree(init_model_params(cfg, seed=0, device="cpu"),
+                                psh, mesh)
+            fn, opt = tstep.make_train_step(cfg, tcfg, mesh=mesh)
+            state = opt.init(params, psh)
+            toks = torch.randint(1, cfg.vocab_size, (4, 17), generator=g)
+            batch = tstep.shard_batch({"tokens": toks[:, :-1],
+                                       "labels": toks[:, 1:]}, mesh)
+            args = (params, state, batch, 0)
+        counted = analyze_step(fn, args)["per_device"]
+        sent = StepCounter()
+        prev = comm.set_counter(sent)
+        try:
+            fn(*args)
+        finally:
+            comm.set_counter(prev)
+
+        def row(d):
+            return np.asarray([d.get(k, 0.0) for k in COLLECTIVES])
+        out[f"{run['name']}/counted"] = np.asarray(
+            [counted["collective_operand_bytes"],
+             counted["collective_wire_bytes"]])
+        out[f"{run['name']}/sent"] = np.asarray(
+            [sent.collective_operand_bytes, sent.collective_wire_bytes])
+        out[f"{run['name']}/counted_kinds"] = row(counted["by_collective"])
+        out[f"{run['name']}/sent_kinds"] = row(sent.by_collective)
+    return out
+
+
+def case_cli(rank: int, workdir: str, opts: dict) -> dict:
+    """The train CLI on every rank of the world (as ``torchrun`` starts
+    it: ``WORLD_SIZE`` set, the group already joined here), reporting to
+    the test's stack over HTTP."""
+    import contextlib
+    import io
+    from repro_torch.launch import train as train_cli
+    os.environ["WORLD_SIZE"] = str(opts["world"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = train_cli.main(opts["argv"])
+    text = out.getvalue()
+    mesh = [ln for ln in text.splitlines() if ln.startswith("mesh: ")]
+    job = [ln.split()[1] for ln in text.splitlines()
+           if ln.startswith("job: ")]
+    return {"rc": np.int64(rc), "mesh": np.asarray(mesh),
+            "job": np.asarray(job)}
+
+
 CASES = {"collectives": case_collectives, "steps": case_steps,
-         "elastic": case_elastic, "loop": case_loop, "moe": case_moe}
+         "elastic": case_elastic, "loop": case_loop, "moe": case_moe,
+         "analysis": case_analysis, "cli": case_cli}
