@@ -44,7 +44,10 @@ JAX package.  Phases, each reported on its own lines:
               ``RMSNORM_BWD_SHAPES``, timed parent, new, new, parent on this
               card (``rmsnorm-turns`` lines: device and back-to-back ms of
               each turn, ``F.rms_norm``'s device ms, the bound), the two
-              versions agreeing within the kernel check's tolerance.
+              versions agreeing within the kernel check's tolerance;
+              then the RMSNorm forward and backward at phase 6 (e)'s rows:
+              a rank's whole batch (8192, 4096) and its rows of the
+              sequence under sequence parallelism (4096, 4096).
 3. serve   -- nine models at full width, random weights from a seed,
               bf16, one after the other (each freed before the next), seven
               served by ServingEngine(max_batch=8): granite-3-8b (40 layers),
@@ -220,8 +223,21 @@ JAX package.  Phases, each reported on its own lines:
               over PIPE_MICROBATCHES microbatches of the batch (flash
               prefill attention, no grad) against the layers on the whole
               batch: within the bf16 flash tolerance, and the stage's
-              launches (flash and two RMSNorms a layer a microbatch).
-              ``dist:`` JSON lines.
+              launches (flash and two RMSNorms a layer a microbatch);
+              (e) tensor-parallel compute: granite-3-8b (TP_LAYERS of its
+              40 layers, full width, seq 2048 x batch 4) for DIST_STEPS
+              AdamW steps on a (1, 2) mesh of two processes of this script
+              sharing the card over gloo (NCCL refuses two ranks on one
+              device, so every exchange is staged through the host), once
+              without and once with ``seq_parallel``, against the
+              one-device step run first here on the same params and
+              batches: each rank's loss, grad norm and param norm within
+              TRAIN_TOL, its launches exactly ``train_launches``, its
+              ``max_memory_allocated`` within PEAK_TOL of
+              ``launch.cost_analysis``'s count of its step; the card's
+              compute mode first, then per run each rank's step times
+              (host-staged exchanges: not a speed of tensor parallelism)
+              and staged bytes.  ``dist:`` JSON lines.
 7. analysis -- the step counts of ``launch.cost_analysis`` against the
               card: (a) for each phase-4 cell, ``train()``'s own count of
               its step (flops, bytes, predicted peak GB) and bound s =
@@ -243,8 +259,9 @@ JAX package.  Phases, each reported on its own lines:
 8. the kernels line (JSON: every kernel with its launches summed over the
    paths driven -- the nine served models, train granite, zamba2,
    mixtral, deepseek, qwen2-vl, rwkv6 and seamless, the train CLI and the
-   serve CLI on lms-demo, the dist phase's granite steps, pipeline stage
-   and mixtral a2a run -- its numbers at
+   serve CLI on lms-demo, the dist phase's granite steps, pipeline stage,
+   mixtral a2a run and both tensor-parallel runs (their ranks' launches
+   summed) -- its numbers at
    one path's shapes (zamba2's prefill for flash, SSD and the forward
    RMSNorm; granite's training shape for the RMSNorm backward, zamba2's
    for the SSD backward), and per path its launches and the rows it was
@@ -298,6 +315,7 @@ from repro_torch.kernels import ssd  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.cost_analysis import analyze_step  # noqa: E402
 from repro_torch.launch.mesh import make_mesh_for  # noqa: E402
 from repro_torch.launch.steps import (  # noqa: E402
     build_train_bundle, trace_bundle)
@@ -309,6 +327,7 @@ from repro_torch.models.ssm import wkv6_chunked  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     _layer_plan, _train_layers, forward, init_cache, init_model_params,
     loss_fn, model_specs)
+from repro_torch.parallel import comm  # noqa: E402
 from repro_torch.parallel.pipeline import pipeline_apply  # noqa: E402
 from repro_torch.parallel.sharding import (  # noqa: E402
     TRAIN_RULES, PartitionConstraints, shard_tree)
@@ -1258,10 +1277,23 @@ def kernel_checks(plen: int, lplen: int) -> dict:
                 tag="deepseek-mla-prefill")
     check_flash(gen, 2, 8, 8, 300, qk, bf16, dv=dv, tag="mla-ragged")
     rmsnorm_vs_library(gen, plen)
+    # phase 6 (e)'s rows: a rank's whole batch, and its rows of the sequence
+    # under sequence parallelism (new for the RMSNorm kernels)
+    tp = {}
+    tp_d = get_config(TRAIN_MODEL).d_model
+    for sp in (False, True):
+        n = TP_SHAPE.global_batch * TP_SHAPE.seq_len // (
+            TP_MODEL_AXIS if sp else 1)
+        tag = "dist-tp-sp" if sp else "dist-tp"
+        tp[f"dist:tp{'-sp' if sp else ''}"] = {
+            "rmsnorm": check_rmsnorm(gen, n, tp_d, bf16, tag=tag),
+            "rmsnorm_backward": check_rmsnorm_bwd(gen, n, tp_d, bf16,
+                                                  tag=tag)}
     vcfg = get_config(VLM_MODEL)
     vlen = vlm_seq_len(VLM_GRID, VLM_TEXT)
     scfg = get_config(ENCDEC_MODEL)
     return {
+        **tp,
         ENCDEC_MODEL: {
             "flash_attention": check_flash(
                 gen, N_REQUESTS, scfg.num_heads, scfg.num_kv_heads, plen,
@@ -2692,6 +2724,14 @@ A2A_ROWS, A2A_SEQ = 2, 2048
 INT8_BOUND = 1.0 + 2 * 254 * 2.0 ** -24
 # (d) granite's 8 layers as one pipeline stage over the train batch
 PIPE_MICROBATCHES = 4
+# (e) tensor-parallel compute: granite-3-8b at full width, TP_LAYERS of its
+# 40 layers, on a (1, TP_MODEL_AXIS) mesh of that many processes sharing
+# the one card over gloo (NCCL refuses two ranks on one device), so every
+# exchange is staged through the host; the global batch is cut from phase
+# 4's 8 rows to 4 for it.  A world that outlives TP_DEADLINE_S fails.
+TP_LAYERS, TP_MODEL_AXIS, TP_DEADLINE_S = 4, 2, 300
+TP_SHAPE = ShapeConfig("tp_2k_b4", seq_len=2048, global_batch=4,
+                       kind="train")
 
 
 @contextmanager
@@ -2732,11 +2772,12 @@ def dist_batches(cfg, shape, steps: int, dev) -> list:
     return out
 
 
-def dist_steps(cfg, tcfg, batches, mesh, dev) -> dict:
+def dist_steps(cfg, tcfg, batches, mesh, dev, count: bool = False) -> dict:
     """``DIST_STEPS`` steps from the seed's params: one-device (``mesh``
     None) or through the mesh with the params and AdamW state stored as
     this rank's pieces.  Returns metrics, step times, peak GB, launches and
-    the final params."""
+    the final params; with ``count``, also ``launch.cost_analysis``'s
+    predicted peak GB of this rank's step (``counted_peak_gb``)."""
     sync = _sync(dev)
     params = init_model_params(cfg, seed=SEED, device=dev)
     step_fn, opt = make_train_step(cfg, tcfg, mesh=mesh)
@@ -2745,11 +2786,14 @@ def dist_steps(cfg, tcfg, batches, mesh, dev) -> dict:
         psh, _ = step_shardings(cfg, tcfg, mesh)
         pieces = shard_tree(params, psh, mesh)
         # one rank holds every leaf whole: its pieces are the leaves
-        if any(a is not b for a, b in zip(flatten(pieces).values(),
-                                          flatten(params).values())):
+        if mesh.size() == 1 and any(
+                a is not b for a, b in zip(flatten(pieces).values(),
+                                           flatten(params).values())):
             raise AssertionError("dist: a one-rank mesh copied a leaf")
         params = pieces
     state = opt.init(params, psh)
+    counted = analyze_step(step_fn, (params, state, batches[0], 0))[
+        "memory"]["peak_bytes"] / 1e9 if count else None
     if dev == "cuda":
         sync()
         torch.cuda.reset_peak_memory_stats()
@@ -2767,7 +2811,8 @@ def dist_steps(cfg, tcfg, batches, mesh, dev) -> dict:
         else None
     del state
     return {"metrics": metrics, "step_s": times, "peak_memory_gb": peak,
-            "launches": launches, "params": params}
+            "launches": launches, "params": params,
+            "counted_peak_gb": counted}
 
 
 def dist_train_cfg() -> TrainConfig:
@@ -2980,11 +3025,161 @@ def dist_a2a(dev="cuda", cfg=None, rows=A2A_ROWS, seq=A2A_SEQ) -> tuple:
     return row, launches
 
 
+def tp_cfg():
+    return dataclasses.replace(get_config(TRAIN_MODEL), num_layers=TP_LAYERS)
+
+
+def compute_mode() -> str:
+    """The card's compute mode, as ``nvidia-smi`` gives it (two processes
+    share the card only in the Default mode)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def tp_rank_main(argv: list) -> int:
+    """One rank of phase 6 (e), in a process of its own: ``--tp-rank R
+    --tp-world N --tp-dir DIR --tp-sp 0|1``.  Joins a gloo world through a
+    file store in DIR, runs ``dist_steps`` on ``make_mesh_for(N,
+    model=N)`` with the seed's params and batches (each exchange staged
+    through the host: gloo over CUDA tensors) and writes its row to
+    ``DIR/rank<R>.json``.  ``--tp-dev cpu`` rehearses it on the CPU."""
+    import torch.distributed as dist
+    args = dict(zip(argv[0::2], argv[1::2]))
+    rank, world = int(args["--tp-rank"]), int(args["--tp-world"])
+    workdir, sp = args["--tp-dir"], args["--tp-sp"] == "1"
+    dev = args.get("--tp-dev", "cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+        kbuild.load_library()              # built by the parent
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(workdir, "store"), world), rank=rank, world_size=world)
+    try:
+        mesh = make_mesh_for(world, model=world, device_type="cpu")
+        cfg = tp_cfg()
+        tcfg = dataclasses.replace(dist_train_cfg(), seq_parallel=sp)
+        batches = dist_batches(cfg, TP_SHAPE, DIST_STEPS, dev)
+        comm.reset_staged()
+        run = dist_steps(cfg, tcfg, batches, mesh, dev, count=True)
+        del run["params"]
+        run.update({"rank": rank, "coord": list(mesh.get_coordinate()),
+                    "staged": comm.staged()})
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump(run, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def tp_world(sp: bool, dev: str = "cuda",
+             world: int = TP_MODEL_AXIS) -> list:
+    """Phase 6 (e)'s ranks as ``world`` processes of this script sharing
+    the one card; returns each rank's row.  A world that outlives
+    TP_DEADLINE_S is killed, and fails the run."""
+    workdir = os.path.join(ROOT, "build", "tp_world")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+         "--tp-world", str(world), "--tp-dir", workdir,
+         "--tp-sp", str(int(sp)), "--tp-dev", dev]) for r in range(world)]
+    deadline = time.monotonic() + TP_DEADLINE_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    rcs = [p.returncode for p in procs]
+    if any(rc != 0 for rc in rcs):
+        raise AssertionError(f"dist: tp ranks exited {rcs} (deadline "
+                             f"{TP_DEADLINE_S} s)")
+    rows = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            rows.append(json.load(f))
+    shutil.rmtree(workdir, ignore_errors=True)
+    return rows
+
+
+def dist_tp(dev="cuda") -> dict:
+    """(e): granite-3-8b at TP_LAYERS layers on a (1, TP_MODEL_AXIS) mesh,
+    tensor-parallel compute, without and with sequence parallelism, as
+    that many processes on the one card over gloo, against the one-device
+    step run here first on the same params and batches: each rank's
+    loss, grad norm and param norm within TRAIN_TOL, its launches exactly
+    ``train_launches``, its ``max_memory_allocated`` within PEAK_TOL of
+    ``cost_analysis``'s count of its step.  Returns each path's launches
+    (summed over the ranks)."""
+    log(f"dist: tp compute mode {compute_mode()}")
+    cfg = tp_cfg()
+    tcfg = dist_train_cfg()
+    batches = dist_batches(cfg, TP_SHAPE, DIST_STEPS, dev)
+    one = dist_steps(cfg, tcfg, batches, None, dev)
+    del one["params"], batches
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    want = train_launches(cfg, DIST_STEPS)
+    out = {}
+    for sp in (False, True):
+        t0 = time.monotonic()
+        ranks = tp_world(sp, dev)
+        wall = time.monotonic() - t0
+        gaps = [[{k: abs(a[k] - b[k]) / abs(b[k]) for k in a}
+                 for a, b in zip(r["metrics"], one["metrics"])]
+                for r in ranks]
+        peaks = [(r["counted_peak_gb"], r["peak_memory_gb"]) for r in ranks]
+        path = "dist:tp-sp" if sp else "dist:tp"
+        row = {"model": TRAIN_MODEL, "layers": cfg.num_layers,
+               "mesh": {"data": 1, "model": TP_MODEL_AXIS},
+               "seq_parallel": sp, "seq_len": TP_SHAPE.seq_len,
+               "global_batch": TP_SHAPE.global_batch,
+               "rmsnorm_rows": TP_SHAPE.global_batch * TP_SHAPE.seq_len
+               // (TP_MODEL_AXIS if sp else 1),
+               "one_device_metrics": one["metrics"],
+               "rank_metrics": [r["metrics"] for r in ranks],
+               "relative_gaps": gaps,
+               "host_staged_step_s": [r["step_s"] for r in ranks],
+               "one_device_step_s": one["step_s"],
+               "staged": [r["staged"] for r in ranks],
+               "peak_gb_counted_measured": peaks,
+               "one_device_peak_gb": one["peak_memory_gb"],
+               "launches": [r["launches"] for r in ranks],
+               "world_wall_s": wall}
+        log(f"dist: tp {json.dumps(row)} (step times are of exchanges "
+            f"staged through the host over gloo, two processes sharing one "
+            f"card: not a speed of tensor parallelism; limits "
+            f"{json.dumps(TRAIN_TOL)}, peak {PEAK_TOL})")
+        if not all(math.isfinite(v) for r in ranks for m in r["metrics"]
+                   for v in m.values()) or \
+                not all(v <= TRAIN_TOL[k] for g in gaps for s_ in g
+                        for k, v in s_.items()):
+            raise AssertionError(f"{path}: a rank disagrees with the "
+                                 f"one-device step")
+        if any(r["launches"] != want for r in ranks):
+            raise AssertionError(f"{path}: launches "
+                                 f"{[r['launches'] for r in ranks]}, "
+                                 f"expected {want} a rank")
+        if not all(abs(c - m) <= PEAK_TOL * m for c, m in peaks):
+            raise AssertionError(f"{path}: counted peaks off the measured "
+                                 f"ones: {peaks}")
+        out[path] = {k: sum(r["launches"][k] for r in ranks) for k in want}
+    return out
+
+
 def dist_phase(dev: str = "cuda", backend: str = "nccl",
                phase4=None) -> dict:
-    """Phase 6: (a)-(d) in one one-rank world; returns each path's
-    launches.  ``phase4``: phase 4's ``train_run`` row of the same model,
-    whose step time and peak (of ``train()``) (a) reports beside its own."""
+    """Phase 6: (a)-(d) in one one-rank world, then (e) in worlds of
+    processes of their own; returns each path's launches.  ``phase4``:
+    phase 4's ``train_run`` row of the same model, whose step time and peak
+    (of ``train()``) (a) reports beside its own."""
     with one_rank_world(backend):
         row, params, mesh, batches = dist_train(dev, phase4=phase4)
         cfg = dataclasses.replace(get_config(TRAIN_MODEL),
@@ -2995,8 +3190,11 @@ def dist_phase(dev: str = "cuda", backend: str = "nccl",
         if dev == "cuda":
             torch.cuda.empty_cache()
         _, a2a = dist_a2a(dev)
+    t0 = time.monotonic()
+    tp = dist_tp(dev)
+    log(f"dist: tp phase {time.monotonic() - t0:.2f} s")
     return {f"dist:{TRAIN_MODEL}": row["launches"],
-            "dist:pipeline": pipe, "dist:mixtral-a2a": a2a}
+            "dist:pipeline": pipe, "dist:mixtral-a2a": a2a, **tp}
 
 
 # ---------------------------------------------------------------------------
@@ -3194,11 +3392,13 @@ def main() -> int:
     launches.update(monitor_launches)
     log(f"monitor: phase {time.monotonic() - t0:.2f} s")
 
-    # Phase 6: the data-parallel path at world size 1 through NCCL
+    # Phase 6: the data-parallel path at world size 1 through NCCL, then
+    # tensor-parallel compute on two ranks sharing the card over gloo
     t0 = time.monotonic()
     dist_launches = dist_phase(phase4=trained[TRAIN_MODEL])
     launches.update(dist_launches)
-    rows.update({p: {} for p in dist_launches})      # no rows timed there
+    # rows timed in phase 2 for (e)'s paths only
+    rows.update({p: {} for p in dist_launches if p not in rows})
     log(f"dist: phase {time.monotonic() - t0:.2f} s")
 
     # Phase 7: the step counts of launch analysis against the card
@@ -3237,4 +3437,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(tp_rank_main(sys.argv[1:]) if "--tp-rank" in sys.argv
+             else main())

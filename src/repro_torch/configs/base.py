@@ -307,9 +307,10 @@ def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> bool:
 class TrainConfig:
     """The reference's training settings, field for field.  The port reads
     no ``scan_unroll`` (its layers run in a Python loop); ``grad_compression``
-    acts only with a mesh that has a "pod" axis, and ``seq_parallel`` with a
-    mesh raises (not ported).  Every field is kept so a configuration passes
-    between the two packages unchanged."""
+    acts only with a mesh that has a "pod" axis, and ``seq_parallel`` only
+    with a live "model" axis, for the dense and GQA-MoE families (it raises
+    for the others).  Every field is kept so a configuration passes between
+    the two packages unchanged."""
     learning_rate: float = 3e-4
     weight_decay: float = 0.1
     beta1: float = 0.9

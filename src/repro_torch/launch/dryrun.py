@@ -15,7 +15,13 @@ For each cell the dry run:
 4. writes ``<out>/<mesh>/<arch>__<shape>.json`` with the reference's keys
    (``status``, ``memory_per_device``, ``hlo_analysis``, ``roofline``) and
    the port's: ``device``, ``peaks`` (the H100's data sheet, which the
-   roofline terms are reckoned against) and ``fits_80gb``.
+   roofline terms are reckoned against), ``fits_80gb``, and for a train
+   cell ``tp_compute``: ``"sharded"`` where the step computes
+   tensor-parallel under "model" (``sharding.tp_roles``: some leaf
+   ``"split"``), else ``"whole"``, with ``tp_whole_leaves``, the leaves
+   stored split over "model" that each rank still gathers and computes
+   whole (the MoE experts; every split leaf of a family tensor-parallel
+   compute does not cover).
 
 Serving takes no mesh in the port, so every prefill and decode cell on a
 production mesh is ``unported``; the ``long_500k`` cells of the quadratic
@@ -47,6 +53,9 @@ from repro_torch.launch import cost_analysis
 from repro_torch.launch.mesh import (PRODUCTION_SHAPES, fake_world,
                                      make_production_mesh)
 from repro_torch.launch.steps import build_bundle, trace_bundle
+from repro_torch.models.params import flatten
+from repro_torch.models.transformer import model_specs
+from repro_torch.parallel.sharding import TRAIN_RULES, binds_model, tp_roles
 from repro_torch.train.loop import DEVICE_PEAKS
 
 CARD = "H100"
@@ -104,6 +113,21 @@ def _mesh_name(multi_pod: bool) -> str:
     return "pod2x16x16" if multi_pod else "pod16x16"
 
 
+def tp_compute(cfg, mesh) -> dict:
+    """How a train cell's step computes under "model": ``tp_compute``
+    (``"sharded"`` or ``"whole"``) and ``tp_whole_leaves``, the leaves
+    stored split over "model" that every rank gathers and computes whole
+    (see the module docstring)."""
+    roles = tp_roles(cfg, TRAIN_RULES, mesh)
+    specs = flatten(model_specs(cfg))
+    return {"tp_compute": "sharded" if "split" in roles.values()
+            else "whole",
+            "tp_whole_leaves": sorted(
+                k for k, r in roles.items()
+                if r == "whole" and binds_model(specs[k], TRAIN_RULES,
+                                                mesh))}
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = OUT,
              skip_existing: bool = False, cfg=None) -> dict:
     """One cell's record, written to ``<out_dir>/<mesh>/<arch>__<shape>.
@@ -148,6 +172,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = OUT,
                         "optimizer": tcfg.optimizer,
                         "num_microbatches": tcfg.num_microbatches,
                         "remat_policy": tcfg.remat_policy}
+                    record.update(tp_compute(cfg, mesh))
                 _fill(record, trace_bundle(bundle), cfg, shape, arch,
                       shape_name, mesh_name, chips)
     except Exception as e:                                # noqa: BLE001
@@ -216,7 +241,7 @@ def summary(r: dict) -> str:
             f"{r['shape']:12s} dominant={roof.get('dominant', '-'):10s} "
             f"bound_s={roof.get('bound_step_s', float('nan')):.4g} "
             f"gb_per_rank={gb:.4g} fits_80gb={r.get('fits_80gb', '-')} "
-            f"t={r.get('time_s')}s")
+            f"tp={r.get('tp_compute', '-')} t={r.get('time_s')}s")
 
 
 def main(argv=None) -> int:

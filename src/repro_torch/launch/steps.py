@@ -12,9 +12,10 @@ its counts.
 What a mesh can do here is what the port's step can do:
 
 * the train bundle uses :func:`~repro_torch.train.step.make_train_step`
-  with the mesh: data parallelism with sharded storage, "model" ranks
-  gathering whole params and computing the same loss (tensor-parallel
-  compute is not ported);
+  with the mesh and the train config's ``seq_parallel``: data parallelism
+  with sharded storage, tensor-parallel compute under "model" for the
+  dense and GQA-MoE families (the other families' "model" ranks gather
+  whole params and compute the same loss);
 * serving takes no mesh in the port, so a prefill or decode bundle on a
   mesh with an axis above 1 is ``unported`` (:data:`SERVE_UNPORTED`); on
   a (1, 1) mesh, or with none, it traces.  The reference's decode
@@ -151,7 +152,8 @@ def make_pc(rules: ShardingRules, mesh,
             seq_parallel: bool = False) -> Optional[PartitionConstraints]:
     """The partition constraints a step is built with (None without a
     mesh).  The reference's ``enable`` switch of its activation
-    constraints has no counterpart: the port's are the identity."""
+    constraints has no counterpart: a rank's tensors are plain local
+    ones."""
     if mesh is None:
         return None
     return PartitionConstraints(rules, mesh, seq_parallel=seq_parallel)

@@ -11,9 +11,9 @@ job's report on the stack.
 
 Under ``torchrun`` with more than one rank (``WORLD_SIZE`` > 1) every rank
 runs this CLI: it joins the world (NCCL on the cards, gloo with ``--device
-cpu``), builds ``make_mesh_for(world, model=--tp)`` and trains
-data-parallel on it (``train(..., mesh=)``).  On one rank it builds no
-mesh and says so.  The reference's ``--grad-compression`` acts only across
+cpu``), builds ``make_mesh_for(world, model=--tp)`` and trains on it
+(``train(..., mesh=)``): data-parallel over "data", and tensor-parallel
+over "model" for the dense and GQA-MoE families.  On one rank it builds no mesh and says so.  The reference's ``--grad-compression`` acts only across
 a "pod" axis, which ``make_mesh_for`` never builds, and its
 ``--overlap-flags`` (its compiler's scheduler flags) has no counterpart:
 neither is a flag here (ROADMAP Queue 1).

@@ -278,9 +278,22 @@ def _cache_write(cache_arr, new, slot: int):
 ATTN_IMPLS = ("masked", "recursive", "flash")
 
 
+def _kv_heads_for(h0: int, n: int, group: int):
+    """The KV heads query heads ``h0 .. h0 + n - 1`` read (``group`` query
+    heads a KV head): (first, count, index), ``index`` None where the
+    heads read them in groups of equal size, else, per query head, its KV
+    head among the ``count`` (K and V are then expanded to one a query
+    head)."""
+    ids = [(h0 + j) // group for j in range(n)]
+    kv0, count = ids[0], ids[-1] - ids[0] + 1
+    if n % count == 0 and ids == [kv0 + j // (n // count) for j in range(n)]:
+        return kv0, count, None
+    return kv0, count, torch.tensor([i - kv0 for i in ids])
+
+
 def gqa_attention(p, x, cfg: ModelConfig, *, rope=None, mode="prefill",
                   cache=None, pos=None, attn_impl="masked",
-                  bidirectional=False):
+                  bidirectional=False, heads=None):
     """Full GQA attention block.
 
     mode: "train" | "prefill" | "decode".
@@ -293,14 +306,31 @@ def gqa_attention(p, x, cfg: ModelConfig, *, rope=None, mode="prefill",
     cache_len = min(max_len, window) under a sliding window (a ring when it
     equals the window).
     pos: number of tokens already in the cache (decode).
+    heads: (first, count), this rank's query heads under tensor-parallel
+    compute (train mode): ``wq`` and ``wo`` are its pieces of ``count``
+    heads, ``wk`` and ``wv`` its pieces of the KV heads where those split
+    too, else the whole leaves, of which only the KV heads its query heads
+    read are projected (the ``kv_heads`` fallback).  ``out`` is then this
+    rank's partial sum of the output projection.
     Returns (out, cache).
     """
     dt = x.dtype
     b, s, d = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    wk, wv, kv_index = p["wk"], p["wv"], None
+    if heads is not None:
+        h0, h = heads
+        if wk.shape[1] == kvh:
+            kv0, kvh, kv_index = _kv_heads_for(
+                h0, h, cfg.num_heads // cfg.num_kv_heads)
+            wk, wv = wk[:, kv0:kv0 + kvh], wv[:, kv0:kv0 + kvh]
+        else:
+            kvh = wk.shape[1]
     q = (x @ p["wq"].to(dt).reshape(d, h * hd)).view(b, s, h, hd)
-    k = (x @ p["wk"].to(dt).reshape(d, kvh * hd)).view(b, s, kvh, hd)
-    v = (x @ p["wv"].to(dt).reshape(d, kvh * hd)).view(b, s, kvh, hd)
+    k = (x @ wk.to(dt).reshape(d, kvh * hd)).view(b, s, kvh, hd)
+    v = (x @ wv.to(dt).reshape(d, kvh * hd)).view(b, s, kvh, hd)
+    if kv_index is not None:
+        k, v = k[:, :, kv_index.to(x.device)], v[:, :, kv_index.to(x.device)]
     if rope is not None:
         cos, sin = rope
         q = apply_rope(q, cos, sin)

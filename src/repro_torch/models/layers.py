@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.params import spec
+from repro_torch.parallel import comm
 
 # --------------------------------------------------------------------------
 # Norms
@@ -153,33 +154,73 @@ def embedding_specs(cfg: ModelConfig):
     return out
 
 
-def embed_tokens(p, tokens, cfg: ModelConfig):
-    # gather then cast: the same values as the reference's cast-then-gather
-    return p["embedding"][tokens].to(getattr(torch, cfg.dtype))
+def embed_tokens(p, tokens, cfg: ModelConfig, tp=None):
+    """(B, S) tokens -> (B, S, d) in the compute dtype.  ``tp`` (a
+    :class:`~repro_torch.parallel.sharding.TensorParallel` layout): the
+    rows in this pass's layout; where the embedding is this rank's piece
+    of the vocabulary, tokens outside its range read zero and the ranks'
+    rows are summed over "model"."""
+    dt = getattr(torch, cfg.dtype)
+    table = p["embedding"]
+    if tp is None:
+        # gather then cast: the same values as the reference's
+        # cast-then-gather
+        return table[tokens].to(dt)
+    if table.shape[0] == cfg.vocab_padded:
+        return tp.local(table[tokens].to(dt))
+    n = table.shape[0]
+    local = tokens - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)].masked_fill(~inside[..., None], 0)
+    return tp.reduce(rows.to(dt))
 
 
-def lm_logits(p, h, cfg: ModelConfig):
+def lm_logits(p, h, cfg: ModelConfig, tp=None):
+    """(B, S, vocab_padded) logits; with ``tp`` and the vocabulary split
+    over "model", this rank's (B, S, vocab_padded / tp) columns of them,
+    from the whole sequence."""
     if cfg.tie_embeddings:
         w = p["embedding"].to(h.dtype).T
     else:
         w = p["lm_head"].to(h.dtype)
+    if tp is not None:
+        h = tp.enter(h, w.shape[-1] != cfg.vocab_padded)
     return h @ w
 
 
 def cross_entropy(logits, targets, cfg: ModelConfig, mask=None,
-                  denominator=None):
+                  denominator=None, tp=None):
     """Mean CE over valid targets, in fp32; padded vocab entries are set
     to -1e9.  logits: (B, S, vocab_padded); targets: (B, S) int; mask:
     (B, S) or None (then every target counts).  ``denominator`` (with a
     mask): divide the masked sum by it in place of the valid count (the
-    data-parallel loss's global count)."""
+    data-parallel loss's global count).
+
+    ``tp`` with logits of this rank's columns of the vocabulary
+    (:func:`lm_logits`): vocabulary-parallel.  The padded entries are
+    masked in the shard that holds them; the row maximum (detached), the
+    sum of exponentials and the gold logit (read by the rank that holds the
+    target) are each reduced over "model", so every rank computes the
+    same loss."""
     lf = logits.float()
+    n = lf.shape[-1]
+    v0 = 0 if tp is None or n == cfg.vocab_padded else tp.rank * n
     if cfg.vocab_padded != cfg.vocab_size:
-        pad = torch.arange(cfg.vocab_padded, device=lf.device) >= \
-            cfg.vocab_size
+        pad = torch.arange(v0, v0 + n, device=lf.device) >= cfg.vocab_size
         lf = lf.masked_fill(pad, -1e9)
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+    if n == cfg.vocab_padded:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+    else:
+        m = comm.all_reduce(lf.detach().amax(dim=-1), tp.mesh, ("model",),
+                            "max")
+        lse = torch.log(comm.reduce_from_model(
+            torch.exp(lf - m[..., None]).sum(dim=-1), tp.mesh)) + m
+        local = targets.long() - v0
+        inside = (local >= 0) & (local < n)
+        gold = torch.gather(lf, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+        gold = comm.reduce_from_model(
+            torch.where(inside, gold, torch.zeros_like(gold)), tp.mesh)
     nll = lse - gold
     if mask is None:
         return nll.mean()

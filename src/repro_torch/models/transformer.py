@@ -13,6 +13,14 @@ loop walks the leading layer axes.  Caches are stacked over layers like the
 reference's and are written in place; under a sliding window each layer's
 KV cache holds ``min(max_len, window)`` slots.
 
+Train mode on a mesh with a live ``"model"`` axis computes tensor-parallel
+for the decoder-only GQA families (``pc.tensor_parallel``, see
+:mod:`repro_torch.parallel.sharding`): the vocabulary-parallel embedding,
+each block's attention over this rank's heads and its MLP over this rank's
+columns, each between the layout's regions, and vocabulary-sharded logits;
+under sequence parallelism the residual stream between blocks, and the
+norms on it, hold this rank's rows.
+
 Train mode rematerializes as the reference places ``jax.checkpoint``: each
 dense or MoE block, each Mamba2 block of a hybrid group and each trailing
 (``rem``) Mamba2 block, each RWKV6 block and each encoder and decoder block
@@ -91,6 +99,12 @@ def _attn_block_specs(cfg: ModelConfig, d_ff=None, moe_layer=False,
     return out
 
 
+def _dense_d_ff(cfg: ModelConfig):
+    """The MLP width of a MoE model's dense layers (None: ``cfg.d_ff``)."""
+    return cfg.moe.d_ff_dense if (cfg.moe is not None
+                                  and cfg.moe.d_ff_dense) else None
+
+
 def _layer_plan(cfg: ModelConfig) -> dict:
     """How many layers of each kind, as stacked groups."""
     if cfg.family == "ssm":                               # rwkv6
@@ -138,10 +152,8 @@ def model_specs(cfg: ModelConfig):
                                     cfg.hybrid.num_shared_blocks)
         return out
     if plan.get("dense"):
-        d_ff = cfg.moe.d_ff_dense if (cfg.moe is not None
-                                      and cfg.moe.d_ff_dense) else None
-        out["dense_layers"] = stack_specs(_attn_block_specs(cfg, d_ff=d_ff),
-                                          plan["dense"])
+        out["dense_layers"] = stack_specs(
+            _attn_block_specs(cfg, d_ff=_dense_d_ff(cfg)), plan["dense"])
     if plan.get("moe"):
         out["moe_layers"] = stack_specs(
             _attn_block_specs(cfg, moe_layer=True), plan["moe"])
@@ -214,33 +226,52 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def _attn_block(p, x, cfg, *, rope, mode, cache, pos, attn_impl="masked",
                 aux=None, cross_kv_cache=None, bidirectional=False,
-                pc=None):
+                pc=None, tp=None, d_ff=None):
     """Pre-norm transformer block, its FFN an MLP or (with ``p["moe"]``)
     the MoE; returns (x, cache).  ``aux``: a dict the MoE statistics are
     added to (see :func:`forward`).  ``cross_kv_cache``: the encoder's K/V
     of this decoder layer, attended after the self-attention.
     ``bidirectional``: self-attention without the causal mask (an
     encoder's).  ``pc``: the partition constraints, which the MoE reads.
-    """
+    ``tp``: the pass's tensor-parallel layout (train mode; ``d_ff`` the
+    MLP's width): each sublayer enters and leaves it, split (this rank's
+    heads or columns) where its leaves bind "model", else whole; the MoE
+    is whole, so it routes the whole sequence as without it."""
+    if tp is None:
+        def enter(h, split):
+            return h
+
+        def leave(y, split):
+            return y
+    else:
+        enter, leave = tp.enter, tp.leave
     h = apply_norm(p["ln1"], x, cfg)
     if cfg.attention_type == "mla":
         y, cache = mla_attention(p["attn"], h, cfg, rope=rope, mode=mode,
                                  cache=cache, pos=pos, attn_impl=attn_impl)
     else:
-        y, cache = gqa_attention(p["attn"], h, cfg, rope=rope, mode=mode,
-                                 cache=cache, pos=pos, attn_impl=attn_impl,
-                                 bidirectional=bidirectional)
+        split = tp is not None and tp.splits(attn_specs(cfg)["wq"])
+        n = cfg.num_heads // tp.size if split else 0
+        y, cache = gqa_attention(p["attn"], enter(h, split), cfg, rope=rope,
+                                 mode=mode, cache=cache, pos=pos,
+                                 attn_impl=attn_impl,
+                                 bidirectional=bidirectional,
+                                 heads=(tp.rank * n, n) if split else None)
+        y = leave(y, split)
     x = x + y
     if cross_kv_cache is not None:
         h = apply_norm(p["ln_cross"], x, cfg)
         x = x + cross_attention(p["cross"], h, cross_kv_cache, cfg)
     h = apply_norm(p["ln2"], x, cfg)
     if "moe" in p:
-        y, stats = apply_moe(p["moe"], h, cfg, pc=pc)
+        y, stats = apply_moe(p["moe"], enter(h, False), cfg, pc=pc)
+        y = leave(y, False)
         if aux is not None:
             _combine_aux(aux, stats)
     else:
-        y = apply_mlp(p["mlp"], h, cfg)
+        split = tp is not None and tp.splits(
+            mlp_specs(cfg, d_ff=d_ff)["w_up"])
+        y = leave(apply_mlp(p["mlp"], enter(h, split), cfg), split)
     return x + y, cache
 
 
@@ -309,18 +340,20 @@ def _checkpointed(fn, remat: str):
 
 
 def _train_layers(layers, x, cfg, *, rope, attn_impl, remat, aux=None,
-                  cross=None, bidirectional=False, pc=None):
+                  cross=None, bidirectional=False, pc=None, tp=None,
+                  d_ff=None):
     """Train-mode pass over stacked attention blocks, each checkpointed;
     the MoE statistics of each block come out of the checkpointed call and
     are combined into ``aux``.  ``cross``: per layer, the encoder's K/V of
     a decoder block (made outside the checkpoints, as the reference);
-    ``bidirectional``: an encoder's blocks."""
+    ``bidirectional``: an encoder's blocks; ``tp``, ``d_ff``: see
+    :func:`_attn_block`."""
     def block(lp, x, ckv):
         stats = {}
         x = _attn_block(lp, x, cfg, rope=rope, mode="train", cache=None,
                         pos=None, attn_impl=attn_impl, aux=stats,
                         cross_kv_cache=ckv, bidirectional=bidirectional,
-                        pc=pc)[0]
+                        pc=pc, tp=tp, d_ff=d_ff)[0]
         return x, stats
 
     run = _checkpointed(block, remat)
@@ -511,8 +544,11 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
     largest); untouched by models without MoE layers.
     pc: partition constraints (:mod:`repro_torch.parallel.sharding`); with
     a mesh, ``tokens`` are this rank's rows and the MoE layers dispatch
-    over the mesh (:mod:`repro_torch.models.moe`).  Its activation
-    constraints are the identity.
+    over the mesh (:mod:`repro_torch.models.moe`).  In train mode with a
+    live "model" axis the pass computes tensor-parallel
+    (``pc.tensor_parallel``): the params are then this rank's pieces of
+    the leaves that bind "model", and the logits, where the vocabulary
+    splits, this rank's columns of it (:func:`loss_fn` reduces them).
     Returns (logits, cache).
     """
     _check_supported(cfg)
@@ -526,7 +562,9 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
         positions = positions + pos
 
     extras = extras or {}
-    x = embed_tokens(params["embed"], tokens, cfg)
+    tp = pc.tensor_parallel(cfg, s) if pc is not None and mode == "train" \
+        else None
+    x = embed_tokens(params["embed"], tokens, cfg, tp=tp)
     if cfg.family == "vlm" and "patches" in extras:
         x = _merge_patches(x, extras["patches"])
     if cfg.family == "encdec":
@@ -548,7 +586,7 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
             if group in params:
                 x = _train_layers(params[group], x, cfg, rope=rope,
                                   attn_impl=attn_impl, remat=remat, aux=aux,
-                                  pc=pc)
+                                  pc=pc, tp=tp, d_ff=_dense_d_ff(cfg))
     else:
         for group, key in (("dense_layers", "dense"), ("moe_layers", "moe")):
             if group not in params:
@@ -561,7 +599,7 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
                                    pc=pc)
 
     x = apply_norm(params["final_norm"], x, cfg)
-    return lm_logits(params["embed"], x, cfg), cache
+    return lm_logits(params["embed"], x, cfg, tp=tp), cache
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, pc=None, attn_impl="masked",
@@ -582,7 +620,8 @@ def loss_fn(params, cfg: ModelConfig, batch, *, pc=None, attn_impl="masked",
     gradients' mean is its gradient): the cross-entropy sums this rank's
     masked terms over the global count of valid labels (a mean of the
     ranks' own means would weigh a label by its rank's count), times the
-    number of ranks."""
+    number of ranks.  Under tensor-parallel compute the cross-entropy is
+    vocabulary-parallel, and every "model" rank returns the same loss."""
     aux = {}
     extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
     logits, _ = forward(params, cfg, tokens=batch["tokens"], mode="train",
@@ -590,14 +629,16 @@ def loss_fn(params, cfg: ModelConfig, batch, *, pc=None, attn_impl="masked",
                         aux=aux, pc=pc)
     labels = batch["labels"]
     mask = labels >= 0
+    tp = pc.tensor_parallel(cfg, labels.shape[1]) if pc is not None else None
     axes = pc.dp_axes if pc is not None else ()
     if axes:
         count = comm.all_reduce(mask.sum().float(), pc.mesh, axes)
         loss = cross_entropy(logits, labels.clamp_min(0), cfg, mask=mask,
                              denominator=count.clamp_min(1.0)
-                             / comm.group_size(pc.mesh, axes))
+                             / comm.group_size(pc.mesh, axes), tp=tp)
     else:
-        loss = cross_entropy(logits, labels.clamp_min(0), cfg, mask=mask)
+        loss = cross_entropy(logits, labels.clamp_min(0), cfg, mask=mask,
+                             tp=tp)
     if cfg.moe is None:
         return loss, {"loss": loss}
     total = loss + 0.01 * aux["moe_aux_loss"] / max(cfg.num_layers, 1)

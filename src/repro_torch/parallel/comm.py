@@ -23,8 +23,25 @@ each one: its kind (the reference's names: ``"all-reduce"``,
 bytes and its group's size.  A group of one rank reports nothing, since
 nothing crosses a wire there.  On a meta operand (a step traced for its
 counts) the exchange itself is skipped: there is nothing to send, and the
-outputs keep their shapes.  With no counter installed a helper pays one
-``None`` check.
+outputs keep their shapes.
+
+Tensor-parallel compute (Megatron-style) adds the four region operations,
+autograd functions over ``"model"``: :func:`copy_to_model` (identity
+forward, all-reduce backward) before a column-parallel product,
+:func:`reduce_from_model` (all-reduce forward, identity backward) after a
+row-parallel one, and their sequence-parallel forms :func:`gather_seq`
+(all-gather along the sequence forward, reduce-scatter backward) and
+:func:`scatter_seq` (reduce-scatter forward, all-gather backward).  With
+them the rule above still holds: ranks that differ only in ``"model"``
+compute one loss, and each holds that loss's whole gradient of the
+activations (under sequence parallelism, of its own rows of the residual
+stream).
+
+**Host staging.**  gloo's CUDA support is partial, so a collective over a
+gloo group with an operand on a CUDA device copies its operand to the
+host, exchanges there and copies the result back (:func:`_run`); the bytes
+it moves each way are counted (:func:`staged`).  Under NCCL, or on CPU
+tensors, nothing is staged.
 """
 
 from __future__ import annotations
@@ -100,17 +117,60 @@ def report(kind: str, operand: torch.Tensor, output_bytes: int,
     return operand.is_meta
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+# collectives staged through the host, and the bytes they moved between
+# the device and the host (both ways), since the last reset
+_STAGED = {"collectives": 0, "bytes": 0}
+
+
+def staged() -> dict:
+    """Collectives staged through the host (a gloo group with CUDA
+    operands) and the bytes they copied, since the last reset."""
+    return dict(_STAGED)
+
+
+def reset_staged() -> None:
+    for k in _STAGED:
+        _STAGED[k] = 0
+
+
+def _run(fn, group, out: torch.Tensor, inp=None, **kw) -> None:
+    """``fn(out, inp, group=group)`` (or ``fn(out, group=group)`` in place
+    when ``inp`` is None), staged through the host where the group is gloo
+    and the operand on a CUDA device (gloo's CUDA support is partial): the
+    operand is copied to the host, exchanged there and the result copied
+    back."""
+    if not (out.is_cuda and dist.get_backend(group) == "gloo"):
+        if inp is None:
+            fn(out, group=group, **kw)
+        else:
+            fn(out, inp, group=group, **kw)
+        return
+    host = out.cpu()
+    if inp is None:
+        fn(host, group=group, **kw)
+        moved = 2 * _nbytes(out)
+    else:
+        host_in = inp.cpu()
+        fn(host, host_in, group=group, **kw)
+        moved = _nbytes(inp) + _nbytes(out)
+    out.copy_(host)
+    _STAGED["collectives"] += 1
+    _STAGED["bytes"] += moved
+
+
 def all_reduce(t: torch.Tensor, mesh, axes, op: str = "sum"):
     """Reduce ``t`` in place over ``axes`` (``"sum"``, ``"mean"`` or
     ``"max"``); returns it."""
     live = live_axes(mesh, axes)
     for a in live:
-        if _counter is not None and report(
-                "all-reduce", t, t.numel() * t.element_size(),
-                axis_sizes(mesh)[a]):
+        if report("all-reduce", t, _nbytes(t), axis_sizes(mesh)[a]):
             continue
-        dist.all_reduce(t, op=_OPS["sum" if op == "mean" else op],
-                        group=mesh.get_group(a))
+        _run(dist.all_reduce, mesh.get_group(a), t,
+             op=_OPS["sum" if op == "mean" else op])
     if op == "mean" and live:
         t.div_(group_size(mesh, live))
     return t
@@ -124,9 +184,8 @@ def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = 0):
         return t
     x = t.movedim(dim, 0).contiguous()
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-    if _counter is None or not report(
-            "all-gather", x, out.numel() * out.element_size(), n):
-        dist.all_gather_into_tensor(out, x, group=mesh.get_group(axis))
+    if not report("all-gather", x, _nbytes(out), n):
+        _run(dist.all_gather_into_tensor, mesh.get_group(axis), out, x)
     return out.movedim(0, dim).contiguous()
 
 
@@ -136,18 +195,15 @@ def gather_over_group(t: torch.Tensor, group) -> torch.Tensor:
     n = dist.get_world_size(group)
     x = t.contiguous()
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-    if _counter is None or not report(
-            "all-gather", x, out.numel() * out.element_size(), n):
-        dist.all_gather_into_tensor(out, x, group=group)
+    if not report("all-gather", x, _nbytes(out), n):
+        _run(dist.all_gather_into_tensor, group, out, x)
     return out.view((n,) + tuple(t.shape))
 
 
 def all_reduce_over_group(t: torch.Tensor, group) -> torch.Tensor:
     """Sum ``t`` in place over the ranks of a process group; returns it."""
-    if _counter is None or not report(
-            "all-reduce", t, t.numel() * t.element_size(),
-            dist.get_world_size(group)):
-        dist.all_reduce(t, group=group)
+    if not report("all-reduce", t, _nbytes(t), dist.get_world_size(group)):
+        _run(dist.all_reduce, group, t)
     return t
 
 
@@ -157,11 +213,10 @@ def send_recv(send, dst: int, recv, src: int, group, n: int) -> None:
     ``None``): a pipeline's neighbour hand-off, reported by its sender as
     a ``"collective-permute"``."""
     ops = []
-    if send is not None and (_counter is None or not report(
-            "collective-permute", send, send.numel() * send.element_size(),
-            n)):
+    if send is not None and not report("collective-permute", send,
+                                       _nbytes(send), n):
         ops.append(dist.P2POp(dist.isend, send.contiguous(), dst, group))
-    if recv is not None and (_counter is None or not recv.is_meta):
+    if recv is not None and not recv.is_meta:
         ops.append(dist.P2POp(dist.irecv, recv, src, group))
     if ops:
         for req in dist.batch_isend_irecv(ops):
@@ -171,9 +226,8 @@ def send_recv(send, dst: int, recv, src: int, group, n: int) -> None:
 def broadcast(t: torch.Tensor, src: int, group, n: int) -> torch.Tensor:
     """``t`` of global rank ``src`` on every rank of ``group`` (``n``
     ranks), in place; returns it."""
-    if _counter is None or not report(
-            "broadcast", t, t.numel() * t.element_size(), n):
-        dist.broadcast(t, src=src, group=group)
+    if not report("broadcast", t, _nbytes(t), n):
+        _run(dist.broadcast, group, t, src=src)
     return t
 
 
@@ -196,10 +250,9 @@ def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int):
         return t
     x = t.movedim(dim, 0).contiguous()
     out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
-    if _counter is None or not report(
-            "reduce-scatter", x, out.numel() * out.element_size(), n):
-        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
-                                   group=mesh.get_group(axis))
+    if not report("reduce-scatter", x, _nbytes(out), n):
+        _run(dist.reduce_scatter_tensor, mesh.get_group(axis), out, x,
+             op=dist.ReduceOp.SUM)
     return out.movedim(0, dim)
 
 
@@ -258,10 +311,9 @@ class _AllToAll(torch.autograd.Function):
 def _exchange(x, mesh, axis: str):
     x = x.contiguous()
     out = torch.empty_like(x)
-    if _counter is None or not report(
-            "all-to-all", x, out.numel() * out.element_size(),
-            axis_sizes(mesh).get(axis, 1)):
-        dist.all_to_all_single(out, x, group=mesh.get_group(axis))
+    if not report("all-to-all", x, _nbytes(out),
+                  axis_sizes(mesh).get(axis, 1)):
+        _run(dist.all_to_all_single, mesh.get_group(axis), out, x)
     return out
 
 
@@ -286,3 +338,94 @@ def all_to_all(x, mesh, axis: str):
     if x.requires_grad:
         return _AllToAll.apply(x, mesh, axis)
     return _exchange(x, mesh, axis)
+
+
+# --------------------------------------------------------------------------
+# Tensor-parallel regions over "model"
+# --------------------------------------------------------------------------
+
+MODEL = "model"
+SEQ_DIM = 1                     # (B, S, ...) activations
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Forward: the identity (each model rank feeds its column-parallel
+    piece); backward: the pieces' gradients summed over "model"."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.mesh, (MODEL,)), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Forward: the row-parallel partial sums summed over "model";
+    backward: the identity (every rank holds the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce(x.contiguous().clone(), mesh, (MODEL,))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """Forward: this rank's rows of the sequence gathered over "model";
+    backward: the gradient summed over "model", this rank keeping its
+    rows (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return all_gather(x, mesh, MODEL, SEQ_DIM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.mesh, MODEL, SEQ_DIM).contiguous(), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Forward: the partial sums summed over "model", this rank keeping
+    its rows of the sequence (a reduce-scatter); backward: the rows'
+    gradients gathered."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return reduce_scatter(x, mesh, MODEL, SEQ_DIM).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.mesh, MODEL, SEQ_DIM), None
+
+
+def _model_live(mesh) -> bool:
+    return axis_sizes(mesh).get(MODEL, 1) > 1
+
+
+def copy_to_model(x, mesh):
+    """Before a column-parallel product (see :class:`_CopyToModel`)."""
+    return _CopyToModel.apply(x, mesh) if _model_live(mesh) else x
+
+
+def reduce_from_model(x, mesh):
+    """After a row-parallel product (see :class:`_ReduceFromModel`)."""
+    return _ReduceFromModel.apply(x, mesh) if _model_live(mesh) else x
+
+
+def gather_seq(x, mesh):
+    """(B, S / tp, ...) rows -> (B, S, ...) before a column-parallel
+    product under sequence parallelism (see :class:`_GatherSeq`)."""
+    return _GatherSeq.apply(x, mesh) if _model_live(mesh) else x
+
+
+def scatter_seq(x, mesh):
+    """(B, S, ...) partial sums -> this rank's (B, S / tp, ...) rows of
+    their sum after a row-parallel product (see :class:`_ScatterSeq`)."""
+    return _ScatterSeq.apply(x, mesh) if _model_live(mesh) else x

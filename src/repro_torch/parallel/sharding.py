@@ -16,12 +16,21 @@ each dimension it owns (the first of several mesh axes major, as a JAX
 :func:`gather_tree` move a tree between whole leaves and this rank's shards.
 
 :class:`PartitionConstraints` carries the rules and the mesh to the model
-as its ``pc`` argument.  Its activation methods are the identity: under
-data parallelism each rank runs the whole model on its own rows, with
-plain local tensors that have no layout to constrain.  Tensor-parallel
-compute (Megatron-style sharded products under ``"model"``) and sequence
-parallelism are not ported (ROADMAP Queue 1, item 4's remainder): asking
-for sequence parallelism raises.
+as its ``pc`` argument.  Under data parallelism each rank runs the model on
+its own rows, with plain local tensors that have no layout to constrain.
+On a mesh with a live ``"model"`` axis the decoder-only GQA families
+(``dense`` and the GQA MoE, :func:`tp_covers`) compute tensor-parallel in
+train mode: :meth:`PartitionConstraints.tensor_parallel` gives the pass its
+:class:`TensorParallel` layout, whose regions
+(:mod:`repro_torch.parallel.comm`) each block enters and leaves.  A leaf
+whose logical axes bind ``"model"`` is computed as this rank's piece
+(column-parallel query heads and MLP columns, row-parallel outputs, the
+vocabulary); with ``seq_parallel`` the residual stream between blocks
+holds this rank's rows of the sequence, where the sequence divides by the
+``"model"`` size (the reference's ``tokens`` fallback otherwise).
+:func:`tp_roles` says, leaf by leaf, how the step gathers it and syncs
+its gradient.  Sequence parallelism on another family raises (ROADMAP
+Queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -34,8 +43,9 @@ import torch
 from repro_torch.models.params import ParamSpec, flatten, tree_map, unflatten
 from repro_torch.parallel import comm
 
-UNPORTED = ("tensor-parallel compute and sequence parallelism are not "
-            "ported: ROADMAP Queue 1, item 4 (what stays out)")
+UNPORTED = ("tensor-parallel compute and sequence parallelism are ported "
+            "for the dense and GQA-MoE families only: ROADMAP Queue 1, "
+            "item 6")
 
 
 def _flatten_mesh_axes(entry) -> tuple:
@@ -188,14 +198,17 @@ def shard_leaf(full: torch.Tensor, sh: Sharding, mesh) -> torch.Tensor:
     return full[sh.slices(comm.coordinate(mesh))].clone()
 
 
-def gather_leaf(piece: torch.Tensor, sh: Sharding, mesh) -> torch.Tensor:
+def gather_leaf(piece: torch.Tensor, sh: Sharding, mesh,
+                skip: tuple = ()) -> torch.Tensor:
     """The whole leaf from the pieces of the ranks that hold it: each split
     dimension gathered over its axes, the innermost axis first (the leaf
-    itself where nothing splits it)."""
+    itself where nothing splits it).  Axes in ``skip`` are not gathered:
+    the result is then this rank's piece over them."""
     out = piece
     for i in range(len(sh.shape)):
         for a in reversed(sh.dim_axes(i)):
-            out = comm.all_gather(out, mesh, a, i)
+            if a not in skip:
+                out = comm.all_gather(out, mesh, a, i)
     return out
 
 
@@ -219,6 +232,133 @@ def gather_tree(tree, shardings, mesh):
 
 
 # --------------------------------------------------------------------------
+# Tensor-parallel compute
+# --------------------------------------------------------------------------
+
+ROLES = ("split", "whole", "partial")
+
+
+def tp_covers(cfg) -> bool:
+    """Whether the model computes tensor-parallel under a live "model"
+    axis: the decoder-only GQA families (``dense``, and ``moe`` with GQA
+    attention).  MLA, Mamba2, RWKV6, the encoder-decoder and the VLM keep
+    every leaf whole (ROADMAP Queue 1, item 6)."""
+    return cfg.family in ("dense", "moe") and cfg.attention_type == "gqa"
+
+
+def binds_model(s: ParamSpec, rules: ShardingRules, mesh) -> bool:
+    """Whether ``logical_to_pspec`` binds a live "model" axis to one of the
+    leaf's dimensions."""
+    if comm.axis_sizes(mesh).get("model", 1) == 1:
+        return False
+    return "model" in (a for e in logical_to_pspec(s.axes, s.shape, rules,
+                                                   mesh)
+                       for a in _flatten_mesh_axes(e))
+
+
+def _leaf_role(key: str, s: ParamSpec, specs: dict, rules, mesh,
+               seq_parallel: bool) -> str:
+    name = key.rsplit("/", 2)
+    parent, leaf = (name[-2], name[-1]) if len(name) > 1 else ("", key)
+    if parent == "attn":
+        heads = binds_model(specs[key.rsplit("/", 1)[0] + "/wq"], rules,
+                            mesh)
+        if leaf in ("wq", "wo"):
+            return "split" if heads else "whole"
+        if binds_model(s, rules, mesh):
+            return "split"
+        # the reference's kv_heads fallback: each rank projects the KV
+        # heads its query heads read from the replicated leaf
+        return "partial" if heads else "whole"
+    if parent in ("mlp", "embed"):
+        return "split" if binds_model(s, rules, mesh) else "whole"
+    if parent in ("ln1", "ln2", "final_norm"):
+        # under sequence parallelism a norm sees this rank's rows only
+        return "partial" if seq_parallel else "whole"
+    return "whole"
+
+
+def tp_roles(cfg, rules: ShardingRules, mesh,
+             seq_parallel: bool = False) -> dict:
+    """{flat key: role} of every leaf of ``model_specs(cfg)`` under
+    tensor-parallel compute on ``mesh`` (``seq_parallel``: whether this
+    pass runs sequence-parallel, i.e. asked for and the sequence divides
+    by the "model" size):
+
+    * ``"split"``: ``logical_to_pspec`` binds "model" to one of its
+      dimensions; the rank computes with its piece (gathered over the
+      other axes only), and its gradient is already that piece's;
+    * ``"whole"``: gathered whole and computed whole, as without tensor
+      parallelism; its gradient is the same on every "model" rank, which
+      keeps its chunk locally (the MoE experts and router; attention whose
+      ``heads`` fell back to replication; every leaf of a family
+      :func:`tp_covers` does not cover, and every leaf without a live
+      "model" axis);
+    * ``"partial"``: replicated over "model", but each rank uses part of
+      it (``wk`` / ``wv`` under the ``kv_heads`` fallback) or sees part of
+      the rows (a norm's scale and bias under sequence parallelism); its
+      gradient is summed over "model" before the data-parallel mean."""
+    from repro_torch.models.transformer import model_specs
+    specs = flatten(model_specs(cfg))
+    if not (tp_covers(cfg) and comm.axis_sizes(mesh).get("model", 1) > 1):
+        return {k: "whole" for k in specs}
+    return {k: _leaf_role(k, s, specs, rules, mesh, seq_parallel)
+            for k, s in specs.items()}
+
+
+@dataclass(frozen=True)
+class TensorParallel:
+    """One train-mode pass's layout over "model": ``size`` ranks, this
+    one at ``rank``; ``sp``: the residual stream between blocks holds this
+    rank's ``S / size`` rows of the sequence.
+
+    A block's sublayer runs between :meth:`enter` and :meth:`leave`: a
+    split one (its leaves bind "model") on this rank's heads or columns,
+    its row-parallel output summed over "model"; a whole one on the whole
+    sequence, as without tensor parallelism."""
+
+    mesh: object
+    rules: ShardingRules
+    size: int
+    rank: int
+    sp: bool
+
+    def splits(self, s: ParamSpec) -> bool:
+        return binds_model(s, self.rules, self.mesh)
+
+    def whole(self, x):
+        """This rank's rows -> the whole sequence (backward: this rank's
+        rows of the gradient every rank holds whole)."""
+        if not self.sp:
+            return x
+        return comm.from_shard(x, self.mesh, "model", comm.SEQ_DIM)
+
+    def local(self, x):
+        """The whole sequence -> this rank's rows (backward: the rows'
+        gradients gathered)."""
+        if not self.sp:
+            return x
+        return comm.to_shard(x, self.mesh, "model", comm.SEQ_DIM)
+
+    def reduce(self, y):
+        """Partial sums over "model" -> their sum in this pass's layout."""
+        return comm.scatter_seq(y, self.mesh) if self.sp else \
+            comm.reduce_from_model(y, self.mesh)
+
+    def enter(self, h, split: bool):
+        """A sublayer's input in this pass's layout -> the whole sequence
+        its products read."""
+        if not split:
+            return self.whole(h)
+        return comm.gather_seq(h, self.mesh) if self.sp else \
+            comm.copy_to_model(h, self.mesh)
+
+    def leave(self, y, split: bool):
+        """A sublayer's output -> this pass's layout."""
+        return self.reduce(y) if split else self.local(y)
+
+
+# --------------------------------------------------------------------------
 # Activation partition constraints
 # --------------------------------------------------------------------------
 
@@ -226,17 +366,43 @@ def gather_tree(tree, shardings, mesh):
 class PartitionConstraints:
     """The rules and the mesh handed to models as ``pc``.
 
-    The activation methods (``act``, ``tokens``, ``heads``, ...) are the
-    identity (see the module docstring).  Models read the mesh from here:
-    the MoE layer for its dispatch, the loss for its data-parallel
-    normalisation (:attr:`dp_axes`)."""
+    Models read the mesh from here: the MoE layer for its dispatch, the
+    loss for its data-parallel normalisation (:attr:`dp_axes`), a train
+    pass its tensor-parallel layout (:meth:`tensor_parallel`).  Of the
+    activation methods, ``tokens`` and ``tokens_sp`` take a whole (B, S, d)
+    sequence to this rank's layout (its rows under sequence parallelism);
+    the others are the identity: a rank's tensors are plain local ones."""
 
     def __init__(self, rules: ShardingRules, mesh=None,
                  seq_parallel: bool = False):
-        if seq_parallel:
-            raise NotImplementedError(f"sequence parallelism: {UNPORTED}")
         self.rules = rules
         self.mesh = mesh
+        self.seq_parallel = seq_parallel
+
+    @property
+    def model_size(self) -> int:
+        return comm.axis_sizes(self.mesh).get("model", 1)
+
+    def sp_for(self, s: int) -> bool:
+        """Whether a pass over ``s`` tokens runs sequence-parallel: asked
+        for, a live "model" axis, and ``s`` divisible by its size (the
+        reference's ``tokens`` fallback)."""
+        tp = self.model_size
+        return self.seq_parallel and tp > 1 and s % tp == 0
+
+    def tensor_parallel(self, cfg, s: int) -> Optional[TensorParallel]:
+        """A train pass's layout over ``s`` tokens; None where the model
+        computes whole (no live "model" axis).  Sequence parallelism on a
+        family :func:`tp_covers` does not cover raises."""
+        if self.seq_parallel and not tp_covers(cfg):
+            raise NotImplementedError(
+                f"seq_parallel for family {cfg.family!r} with "
+                f"{cfg.attention_type} attention: {UNPORTED}")
+        if self.model_size == 1 or not tp_covers(cfg):
+            return None
+        return TensorParallel(self.mesh, self.rules, self.model_size,
+                              comm.coordinate(self.mesh)["model"],
+                              self.sp_for(s))
 
     @property
     def dp_axes(self) -> tuple:
@@ -250,10 +416,16 @@ class PartitionConstraints:
         return x
 
     def tokens(self, x):                       # (B, S, d)
+        """The whole sequence -> this rank's layout: its rows where the
+        pass runs sequence-parallel (:meth:`sp_for`), else ``x``."""
+        if x.ndim == 3 and self.sp_for(x.shape[1]):
+            return self.tokens_sp(x)
         return x
 
     def tokens_sp(self, x):
-        raise NotImplementedError(f"sequence-parallel regions: {UNPORTED}")
+        """The whole sequence -> this rank's rows (a sequence-parallel
+        region; backward: the rows' gradients gathered)."""
+        return comm.to_shard(x, self.mesh, "model", comm.SEQ_DIM)
 
     def heads(self, x):                        # (B, S, H, D)
         return x

@@ -25,17 +25,22 @@ step on the global batch:
   ``TRAIN_RULES`` (:func:`shardings`); the batch is this rank's rows of
   the global batch, block ``i`` of the data-parallel ranks ("pod" x
   "data", pod major: :func:`shard_batch`); ranks that differ only in their
-  "model" coordinate hold the same rows and compute the same loss
-  (tensor-parallel compute is not ported);
-* each leaf is gathered whole from the ranks that hold it, the port's
-  one-device gradient runs on the whole params (``loss_fn`` with ``pc``:
-  this rank's term of the global masked mean, the MoE dispatched over the
-  mesh), and each microbatch's metrics are reduced over the data-parallel
-  ranks (means; ``moe_max_load`` the largest);
-* the gradients, after the ``grad_sync_dtype`` cast, are averaged over
-  "data" by a reduce-scatter into this rank's piece (a chunk along the
-  dimensions "model" splits needs no exchange), then over "pod" through
-  :func:`~repro_torch.train.compression.compressed_pmean` when
+  "model" coordinate hold the same rows and compute the same loss;
+* each leaf is gathered by its role (``sharding.tp_roles``, for this
+  batch's sequence length): a ``"split"`` one over the axes but "model"
+  only (the tensor-parallel pass computes with this rank's piece), the
+  others whole; the port's gradient runs on them (``loss_fn`` with
+  ``pc``: this rank's term of the global masked mean, the MoE dispatched
+  over the mesh, tensor-parallel where "model" is live and the family is
+  covered, sequence-parallel with ``seq_parallel``), and each
+  microbatch's metrics are reduced over the data-parallel ranks (means;
+  ``moe_max_load`` the largest);
+* the gradients, after the ``grad_sync_dtype`` cast, are synced by role:
+  a ``"partial"`` one first summed over "model"; then averaged over
+  "data" by a reduce-scatter into this rank's piece (a ``"whole"``
+  gradient is the same on every "model" rank and is cut to its chunk
+  locally; a ``"split"`` one is that chunk already), then over "pod"
+  through :func:`~repro_torch.train.compression.compressed_pmean` when
   ``grad_compression`` is set (per-row int8 of this rank's piece), else a
   plain mean;
 * clipping and the norms count every element once
@@ -58,8 +63,8 @@ from repro_torch.models.params import flatten, unflatten
 from repro_torch.models.transformer import loss_fn, model_specs
 from repro_torch.parallel import comm
 from repro_torch.parallel.sharding import (
-    UNPORTED, PartitionConstraints, TRAIN_RULES, gather_tree,
-    shardings_for_specs)
+    UNPORTED, PartitionConstraints, TRAIN_RULES, gather_leaf,
+    shardings_for_specs, tp_covers, tp_roles)
 from repro_torch.train.compression import cross_pod_sync
 from repro_torch.train.optim import (clip_by_global_norm, get_optimizer,
                                      global_norm, lr_schedule,
@@ -213,23 +218,30 @@ def _reduce_metrics(metrics: dict, mesh, axes) -> dict:
     return out
 
 
-def sync_grads(grads, param_shardings, mesh, method: str = "none"):
-    """Whole gradients of this rank's rows -> this rank's piece of their
-    mean over the data-parallel ranks: :func:`mean_over_data`, then
+def sync_grads(grads, param_shardings, mesh, method: str = "none",
+               roles=None):
+    """Gradients of this rank's rows -> this rank's piece of their mean
+    over the data-parallel ranks: :func:`mean_over_data`, then
     :func:`mean_over_pods`."""
-    return mean_over_pods(mean_over_data(grads, param_shardings, mesh),
-                          mesh, method)
+    return mean_over_pods(mean_over_data(grads, param_shardings, mesh,
+                                         roles), mesh, method)
 
 
-def mean_over_data(grads, param_shardings, mesh):
-    """Whole gradients -> this rank's piece of their mean over "data".
-    Ranks that differ only in "model" hold the same gradients, so the
-    dimensions "model" splits are cut locally; "data" reduce-scatters the
+def mean_over_data(grads, param_shardings, mesh, roles=None):
+    """Gradients -> this rank's piece of their mean over "data", by
+    ``roles`` (``sharding.tp_roles``; None: every leaf ``"whole"``).  A
+    ``"partial"`` gradient is first summed over "model".  Ranks that
+    differ only in "model" then hold the same ``"whole"`` gradients, so
+    the dimensions "model" splits are cut locally (a ``"split"`` gradient
+    is this rank's piece of them already); "data" reduce-scatters the
     dimension it splits (or all-reduces a leaf it does not split)."""
     fsh = flatten(param_shardings)
     out = {}
     for k, g in flatten(grads).items():
         sh = fsh[k]
+        role = roles[k] if roles is not None else "whole"
+        if role == "partial":
+            g = comm.all_reduce(g.contiguous(), mesh, ("model",))
         data_dim = None
         for i in range(g.ndim):
             live = comm.live_axes(mesh, sh.dim_axes(i))
@@ -238,7 +250,7 @@ def mean_over_data(grads, param_shardings, mesh):
                     f"{k}: dimension {i} split over {live}")
             if live == ("data",):
                 data_dim = i
-            elif live:
+            elif live and role != "split":
                 g = comm.chunk(g, mesh, live[0], i)
         if comm.live_axes(mesh, ("data",)):
             n = comm.axis_sizes(mesh)["data"]
@@ -264,17 +276,30 @@ def mean_over_pods(pieces, mesh, method: str = "none"):
     return cross_pod_sync(pieces, mesh, method)
 
 
+def gather_for_compute(params, param_shardings, mesh, roles) -> dict:
+    """This rank's pieces -> the leaves its pass computes with: a
+    ``"split"`` leaf gathered over every axis but "model" (this rank's
+    piece of it), any other whole."""
+    fsh = flatten(param_shardings)
+    return unflatten({
+        k: gather_leaf(v, fsh[k], mesh,
+                       ("model",) if roles[k] == "split" else ())
+        for k, v in flatten(params).items()})
+
+
 def _make_dist_step(model_cfg: ModelConfig, train_cfg: TrainConfig, pc,
                     mesh):
-    if train_cfg.seq_parallel:
-        raise NotImplementedError(f"seq_parallel: {UNPORTED}")
+    if train_cfg.seq_parallel and not tp_covers(model_cfg):
+        raise NotImplementedError(f"seq_parallel for family "
+                                  f"{model_cfg.family!r}: {UNPORTED}")
     if not hasattr(mesh, "mesh_dim_names"):
         raise TypeError(f"mesh: a DeviceMesh, not {type(mesh).__name__}")
     if train_cfg.grad_compression not in ("", "none", "int8", "int8_ef",
                                           "bf16"):
         raise ValueError(f"grad_compression "
                          f"{train_cfg.grad_compression!r}")
-    pc = pc or PartitionConstraints(TRAIN_RULES, mesh)
+    pc = pc or PartitionConstraints(TRAIN_RULES, mesh,
+                                    seq_parallel=train_cfg.seq_parallel)
     opt = get_optimizer(train_cfg)
     lr_fn = lr_schedule(train_cfg)
     psh, _ = shardings(model_cfg, train_cfg, mesh)
@@ -292,11 +317,14 @@ def _make_dist_step(model_cfg: ModelConfig, train_cfg: TrainConfig, pc,
                 f"this rank's {rows} rows do not split into {nm} "
                 f"microbatches: the global batch over the data-parallel "
                 f"ranks must be a multiple of num_microbatches")
-        whole = gather_tree(params, psh, mesh)
-        grads, metrics = _grads_and_metrics(whole, batch, model_cfg,
+        roles = tp_roles(model_cfg, pc.rules, mesh, pc.sp_for(
+            batch["tokens"].shape[1]))
+        local = gather_for_compute(params, psh, mesh, roles)
+        grads, metrics = _grads_and_metrics(local, batch, model_cfg,
                                             train_cfg, pc, reduce)
-        del whole
-        grads = sync_grads(grads, psh, mesh, train_cfg.grad_compression)
+        del local
+        grads = sync_grads(grads, psh, mesh, train_cfg.grad_compression,
+                           roles)
         if train_cfg.grad_clip_norm > 0:
             grads, gnorm = clip_by_global_norm(
                 grads, train_cfg.grad_clip_norm, psh, mesh)

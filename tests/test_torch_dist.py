@@ -150,15 +150,31 @@ def test_pieces_tile_every_leaf(mesh):
 
 
 def test_constraints_are_the_identity_and_sequence_parallelism_raises():
+    """Without sequence parallelism the activation constraints are the
+    identity; with it a pass runs sequence-parallel only where the
+    sequence divides by the "model" size (the reference's ``tokens``
+    fallback), and only for the families tensor-parallel compute covers:
+    the others raise."""
     pc = tsh.PartitionConstraints(tsh.TRAIN_RULES, {"data": 2, "model": 2})
     x = torch.zeros(2, 4, 8)
     assert pc.tokens(x) is x and pc.act(x, "batch", None, None) is x
     with pytest.raises(ValueError):
         pc.act(x, "batch")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        tsh.PartitionConstraints(tsh.TRAIN_RULES, None, seq_parallel=True)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        pc.tokens_sp(x)
+    assert not pc.sp_for(4)
+    sp = tsh.PartitionConstraints(tsh.TRAIN_RULES, {"data": 2, "model": 2},
+                                  seq_parallel=True)
+    assert sp.sp_for(4) and not sp.sp_for(3)
+    odd = torch.zeros(2, 3, 8)
+    assert sp.tokens(odd) is odd
+    # one "model" rank: nothing to split, whatever the flag
+    one = tsh.PartitionConstraints(tsh.TRAIN_RULES, {"data": 2, "model": 1},
+                                   seq_parallel=True)
+    assert not one.sp_for(4) and one.tokens(x) is x
+    assert one.tensor_parallel(get_config("granite-3-8b"), 4) is None
+    for arch in ("zamba2-7b", "deepseek-v2-236b", "rwkv6-1.6b",
+                 "seamless-m4t-large-v2", "qwen2-vl-7b"):
+        with pytest.raises(NotImplementedError, match="Queue 1"):
+            sp.tensor_parallel(get_config(arch), 4)
     assert tsh.NullConstraints().mesh is None
 
 

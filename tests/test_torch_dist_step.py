@@ -95,16 +95,16 @@ def _cfgs(model, cfg, moe):
     return jc, tc
 
 
-def _batches(vocab, seed, n=STEPS + 1):
-    """Global batches; labels masked unevenly: rows 0-1 80%, row 2 wholly,
-    the rest 10%."""
+def _batches(vocab, seed, n=STEPS + 1, s=S):
+    """Global batches of ``s`` tokens a row; labels masked unevenly: rows
+    0-1 80%, row 2 wholly, the rest 10%."""
     rng = np.random.default_rng(seed)
     out = {}
     frac = np.array([0.8, 0.8, 1.0] + [0.1] * (B - 3))[:, None]
     for i in range(n):
-        toks = rng.integers(1, vocab, size=(B, S + 1))
+        toks = rng.integers(1, vocab, size=(B, s + 1))
         labels = toks[:, 1:].copy()
-        labels[rng.random((B, S)) < frac] = -1
+        labels[rng.random((B, s)) < frac] = -1
         out[f"tokens{i}"] = toks[:, :-1].astype(np.int32)
         out[f"labels{i}"] = labels.astype(np.int32)
     return out

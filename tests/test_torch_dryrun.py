@@ -55,6 +55,7 @@ from repro_torch.configs import SHAPES, ShapeConfig, TrainConfig, \
     get_config  # noqa: E402
 from repro_torch.launch import dryrun as tdry  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
+from repro_torch.parallel import sharding as tsh  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUNDLE_ARCHS = ["granite-3-8b", "mixtral-8x7b", "rwkv6-1.6b", "zamba2-7b",
@@ -235,6 +236,12 @@ def test_dry_run_records_pass_the_reference_schema(records, mesh, arch):
         assert isinstance(r["fits_80gb"], bool)
         assert r["hlo_analysis"]["per_device"]["collective_operand_bytes"] \
             > 0                          # the data-parallel exchange
+        # tensor-parallel compute: the dense and GQA-MoE families shard
+        # under "model" (the smoke configs' MLP and vocabulary split 16
+        # ways), the others compute every leaf whole
+        assert r["tp_compute"] == ("sharded" if tsh.tp_covers(
+            get_config(arch)) else "whole"), (shape, r["tp_compute"])
+        assert isinstance(r["tp_whole_leaves"], list)
     skipped = [s for s in SHAPES
                if records[(mesh, arch, s)]["status"] == "skipped"]
     assert skipped == ([] if get_config(arch).sub_quadratic

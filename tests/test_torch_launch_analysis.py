@@ -510,6 +510,9 @@ DIST_RUNS = [
     {"name": "granite-dp2-tp2", "model": "granite-3-8b",
      "names": ["data", "model"], "shape": [2, 2],
      "tcfg": {"num_microbatches": 2, "warmup_steps": 1}},
+    {"name": "granite-dp2-tp2-sp", "model": "granite-3-8b",
+     "names": ["data", "model"], "shape": [2, 2],
+     "tcfg": {"seq_parallel": True, "warmup_steps": 1}},
     {"name": "mixtral-a2a", "model": "mixtral-8x7b",
      "names": ["data", "model"], "shape": [2, 2],
      "moe": {"impl": "a2a"}, "tcfg": {"optimizer": "adafactor"}},

@@ -310,14 +310,21 @@ def test_unported_training_raises(model):
     with pytest.raises(ValueError, match="remat"):
         ttf.forward(_port_params(jp, tc), tc, tokens=toks, mode="train",
                     remat="some")
-    # a mesh trains data-parallel (tests/test_torch_dist_step.py); sequence
-    # parallelism is not ported
+    # a mesh trains data-parallel (tests/test_torch_dist_step.py), and
+    # tensor- and sequence-parallel for the dense and GQA-MoE families
+    # (tests/test_torch_tp.py); sequence parallelism is not ported for the
+    # other families
+    hybrid = get_config("zamba2-7b", smoke=True)
     with pytest.raises(NotImplementedError, match="seq_parallel"):
-        tstep.make_train_step(tc, tbase.TrainConfig(seq_parallel=True),
+        tstep.make_train_step(hybrid, tbase.TrainConfig(seq_parallel=True),
                               mesh=object())
     with pytest.raises(NotImplementedError, match="seq_parallel"):
-        tloop.train(tc, tbase.TrainConfig(seq_parallel=True), TINY,
+        tloop.train(hybrid, tbase.TrainConfig(seq_parallel=True), TINY,
                     stack=None, mesh=object(), device="cpu", **PEAKS)
+    # a covered family takes it: the next check is the mesh's type
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        tstep.make_train_step(tc, tbase.TrainConfig(seq_parallel=True),
+                              mesh=object())
     with pytest.raises(ValueError, match="peak"):
         tloop.train(tc, tbase.TrainConfig(), TINY, stack=None, device="cpu")
 

@@ -13,6 +13,7 @@ to ``<case>_<rank>.npz``.  This module imports only torch, numpy and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -223,10 +224,43 @@ def _int8_gap(run, cfg, tcfg, mesh, psh, params, batch) -> dict:
     return {"int8_gap": np.asarray(gap), "int8_over_bound": np.asarray(slack)}
 
 
+@contextlib.contextmanager
+def _probe(out: dict, name: str):
+    """Records, while the step runs, the shape of every leaf its pass
+    computes with and every dimension ``comm.all_gather`` gathers over
+    "model" (its first call of each only)."""
+    from repro_torch.models.params import flatten
+    from repro_torch.parallel import comm
+    from repro_torch.train import step as tstep
+    grads_and_metrics, all_gather = tstep._grads_and_metrics, \
+        comm.all_gather
+    dims = []
+
+    def record_leaves(params, *a, **kw):
+        for k, v in flatten(params).items():
+            out.setdefault(f"{name}/local/{k}", np.asarray(v.shape))
+        return grads_and_metrics(params, *a, **kw)
+
+    def record_gather(t, mesh, axis, dim=0):
+        if axis == "model":
+            dims.append(dim)
+        return all_gather(t, mesh, axis, dim)
+    tstep._grads_and_metrics, comm.all_gather = record_leaves, record_gather
+    try:
+        yield
+    finally:
+        tstep._grads_and_metrics, comm.all_gather = grads_and_metrics, \
+            all_gather
+        out[f"{name}/model_gather_dims"] = np.asarray(sorted(set(dims)),
+                                                      np.int64)
+
+
 def case_steps(rank: int, workdir: str, opts: dict) -> dict:
     """Each run: the data-parallel step on its mesh from the same params
     and global batches as the reference's single-device step; a run may
-    write a checkpoint of its pieces after its steps."""
+    write a checkpoint of its pieces after its steps, and ``probe`` its
+    computed leaves' shapes and the dimensions it gathers over "model"
+    (:func:`_probe`)."""
     from repro_torch.ckpt.checkpoint import CheckpointManager
     from repro_torch.train import step as tstep
     out = {}
@@ -239,8 +273,10 @@ def case_steps(rank: int, workdir: str, opts: dict) -> dict:
                 run, cfg, tcfg, mesh, psh, params, batches[0]).items()})
         history = []
         for i, batch in enumerate(batches):
-            params, state, m = fn(params, state,
-                                  tstep.shard_batch(batch, mesh), i)
+            with _probe(out, run["name"]) if run.get("probe") \
+                    else contextlib.nullcontext():
+                params, state, m = fn(params, state,
+                                      tstep.shard_batch(batch, mesh), i)
             history.append(m)
         out.update({f"{run['name']}/{k}": v
                     for k, v in _metrics_out(history).items()})
@@ -427,6 +463,81 @@ def case_cli(rank: int, workdir: str, opts: dict) -> dict:
             "job": np.asarray(job)}
 
 
+def _regions(workdir: str) -> dict:
+    """The four tensor-parallel region operations on a (1, 2) mesh: each
+    one's output and its input's gradient under this rank's upstream
+    weights ``w[rank]`` (``reduce_from_model``: ``w[0]`` on both ranks, the
+    one loss it assumes); then on meta operands (shapes only)."""
+    import torch
+    from repro_torch.parallel import comm
+    data = _load(os.path.join(workdir, "regions.npz"))
+    mesh = _mesh(("data", "model"), (1, 2))
+    r = int(_coord(mesh)[1])
+    w = torch.from_numpy(data["w"])
+    x_all, parts = torch.from_numpy(data["x"]), torch.from_numpy(
+        data["parts"])
+    half = x_all.shape[1] // 2
+    mine = slice(r * half, (r + 1) * half)
+    out = {}
+    for name, fn, x, up in (
+            ("copy", comm.copy_to_model, x_all, w[r]),
+            ("reduce", comm.reduce_from_model, parts[r], w[0]),
+            ("gather", comm.gather_seq, x_all[:, mine], w[r]),
+            ("scatter", comm.scatter_seq, parts[r], w[r][:, mine])):
+        x = x.clone().requires_grad_()
+        y = fn(x, mesh)
+        (y * up).sum().backward()
+        out[f"{name}/y"] = y.detach().numpy()
+        out[f"{name}/dx"] = x.grad.numpy()
+        meta = fn(torch.empty(x.shape, device="meta"), mesh)
+        out[f"{name}/meta_shape"] = np.asarray(meta.shape)
+    return out
+
+
+def _vocab_ce(workdir: str, opts: dict) -> dict:
+    """The vocabulary-parallel cross-entropy of this rank's columns of the
+    logits on a (1, 2) mesh: the loss and its columns' gradient, with the
+    mask and the denominator given, with the mask alone, and with
+    neither."""
+    import torch
+    from repro_torch.models.layers import cross_entropy
+    from repro_torch.parallel.sharding import PartitionConstraints, \
+        TRAIN_RULES
+    data = _load(os.path.join(workdir, "ce.npz"))
+    cfg = _config(opts)
+    mesh = _mesh(("data", "model"), (1, 2))
+    logits = torch.from_numpy(data["logits"])
+    tp = PartitionConstraints(TRAIN_RULES, mesh).tensor_parallel(
+        cfg, logits.shape[1])
+    n = logits.shape[-1] // tp.size
+    targets = torch.from_numpy(data["targets"]).long()
+    mask = torch.from_numpy(data["mask"])
+    out = {"rank": np.int64(tp.rank)}
+    for name, kw in (("den", {"mask": mask, "denominator": torch.tensor(
+            float(data["denominator"]))}), ("mask", {"mask": mask}),
+            ("none", {})):
+        local = logits[..., tp.rank * n:(tp.rank + 1) * n].clone() \
+            .requires_grad_()
+        loss = cross_entropy(local, targets, cfg, tp=tp, **kw)
+        out[f"{name}/loss"] = np.float64(float(loss))
+        out[f"{name}/grad"] = torch.autograd.grad(loss, local)[0].numpy()
+    return out
+
+
+def case_tp(rank: int, workdir: str, opts: dict) -> dict:
+    """Tensor-parallel compute: the region operations and the
+    vocabulary-parallel cross-entropy (with ``regions`` / ``ce``, on a
+    world of 2), then the step runs of :func:`case_steps`."""
+    out = {}
+    if opts.get("regions"):
+        out.update(_regions(workdir))
+    if opts.get("ce"):
+        out.update({f"ce/{k}": v for k, v in _vocab_ce(
+            workdir, opts["ce"]).items()})
+    out.update(case_steps(rank, workdir, opts))
+    return out
+
+
 CASES = {"collectives": case_collectives, "steps": case_steps,
          "elastic": case_elastic, "loop": case_loop, "moe": case_moe,
-         "analysis": case_analysis, "cli": case_cli}
+         "analysis": case_analysis, "cli": case_cli, "tp": case_tp}
