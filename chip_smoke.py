@@ -37,17 +37,12 @@ JAX package.  Phases, each reported on its own lines:
               the share of the bound on the device time; then the bf16
               rmsnorm kernel against ``F.rms_norm`` at the served and the
               narrow shapes, medians of interleaved timings
-              (``rmsnorm-interleaved``); then the turns: the previous
-              RMSNorm kernels (``ParentRMSNorm``, built from
-              ``csrc/parent/rmsnorm.cu`` into ``build/rmsnorm_parent/``)
-              and the current ones at every shape of ``RMSNORM_FWD_SHAPES`` and
-              ``RMSNORM_BWD_SHAPES``, timed parent, new, new, parent on this
-              card (``rmsnorm-turns`` lines: device and back-to-back ms of
-              each turn, ``F.rms_norm``'s device ms, the bound), the two
-              versions agreeing within the kernel check's tolerance;
-              then the RMSNorm forward and backward at phase 6 (e)'s rows:
-              a rank's whole batch (8192, 4096) and its rows of the
-              sequence under sequence parallelism (4096, 4096).
+              (``rmsnorm-interleaved``); then the RMSNorm forward and
+              backward at phase 6 (e)'s rows: a rank's whole batch (8192,
+              4096) and its rows of the sequence under sequence
+              parallelism (4096, 4096), bf16 (granite) and fp32
+              (mixtral), and qwen2-vl's rows under sequence parallelism
+              (4096, 3584), fp32.
 3. serve   -- nine models at full width, random weights from a seed,
               bf16, one after the other (each freed before the next), seven
               served by ServingEngine(max_batch=8): granite-3-8b (40 layers),
@@ -224,20 +219,29 @@ JAX package.  Phases, each reported on its own lines:
               prefill attention, no grad) against the layers on the whole
               batch: within the bf16 flash tolerance, and the stage's
               launches (flash and two RMSNorms a layer a microbatch);
-              (e) tensor-parallel compute: granite-3-8b (TP_LAYERS of its
-              40 layers, full width, seq 2048 x batch 4) for DIST_STEPS
-              AdamW steps on a (1, 2) mesh of two processes of this script
+              (e) tensor-parallel compute, the runs of TP_CASES (full
+              width, seq 2048 x batch 4, DIST_STEPS steps): granite-3-8b
+              (4 of its 40 layers, AdamW) without and with
+              ``seq_parallel``; mixtral-8x7b (2 of 32 layers, fp32,
+              Adafactor) with its experts split over "model", then with
+              every expert's hidden columns split
+              (``TRAIN_RULES.with_overrides(experts=None)``) and
+              ``seq_parallel``; qwen2-vl-7b (4 of 28 layers, AdamW, the
+              loop's stub patches and positions) with ``seq_parallel``,
+              in fp32 and in bf16 (held at step 0 and on step 0's
+              gradients, TRAIN_TOL["grads"]; steps 1-2 logged).
+              Each run is a (1, 2) mesh of two processes of this script
               sharing the card over gloo (NCCL refuses two ranks on one
-              device, so every exchange is staged through the host), once
-              without and once with ``seq_parallel``, against the
-              one-device step run first here on the same params and
-              batches: each rank's loss, grad norm and param norm within
-              TRAIN_TOL, its launches exactly ``train_launches``, its
-              ``max_memory_allocated`` within PEAK_TOL of
-              ``launch.cost_analysis``'s count of its step; the card's
-              compute mode first, then per run each rank's step times
-              (host-staged exchanges: not a speed of tensor parallelism)
-              and staged bytes.  ``dist:`` JSON lines.
+              device, so every exchange is staged through the host),
+              against its case's one-device step run first here on the
+              same params and batches: each rank's loss, grad norm and
+              param norm within TRAIN_TOL, its launches exactly
+              ``train_launches``, its ``max_memory_allocated`` within
+              PEAK_TOL of ``launch.cost_analysis``'s count of its step, a
+              MoE run's ranks dispatching alike; the card's compute mode
+              first, then per run each rank's step times (host-staged
+              exchanges: not a speed of tensor parallelism), staged bytes
+              and the world's wall seconds.  ``dist:`` JSON lines.
 7. analysis -- the step counts of ``launch.cost_analysis`` against the
               card: (a) for each phase-4 cell, ``train()``'s own count of
               its step (flops, bytes, predicted peak GB) and bound s =
@@ -260,8 +264,8 @@ JAX package.  Phases, each reported on its own lines:
    paths driven -- the nine served models, train granite, zamba2,
    mixtral, deepseek, qwen2-vl, rwkv6 and seamless, the train CLI and the
    serve CLI on lms-demo, the dist phase's granite steps, pipeline stage,
-   mixtral a2a run and both tensor-parallel runs (their ranks' launches
-   summed) -- its numbers at
+   mixtral a2a run and the five tensor-parallel runs (their ranks'
+   launches summed) -- its numbers at
    one path's shapes (zamba2's prefill for flash, SSD and the forward
    RMSNorm; granite's training shape for the RMSNorm backward, zamba2's
    for the SSD backward), and per path its launches and the rows it was
@@ -272,7 +276,6 @@ Any failure raises, so the script exits non-zero and prints no last line.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import io
 import json
@@ -287,6 +290,7 @@ import tempfile
 import threading
 import time
 from contextlib import contextmanager, nullcontext, redirect_stdout
+from typing import NamedTuple, Optional
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -330,15 +334,15 @@ from repro_torch.models.transformer import (  # noqa: E402
 from repro_torch.parallel import comm  # noqa: E402
 from repro_torch.parallel.pipeline import pipeline_apply  # noqa: E402
 from repro_torch.parallel.sharding import (  # noqa: E402
-    TRAIN_RULES, PartitionConstraints, shard_tree)
+    TRAIN_RULES, PartitionConstraints, shard_tree, shardings_for_specs)
 from repro_torch.serve.engine import (  # noqa: E402
     ServingEngine, make_serve_fns)
 from repro_torch.train.compression import (  # noqa: E402
     compressed_pmean, quantize_int8)
 from repro_torch.train.loop import (  # noqa: E402
-    InjectedFailure, device_peaks, train)
+    InjectedFailure, device_peaks, stub_extras, train)
 from repro_torch.train.step import (  # noqa: E402
-    batch_to_device, make_train_step)
+    batch_to_device, make_grads_fn, make_train_step)
 from repro_torch.train.step import shardings as step_shardings  # noqa: E402
 from torch.distributed.device_mesh import init_device_mesh  # noqa: E402
 
@@ -400,10 +404,10 @@ KERNEL_NAMES = ("flash_wgmma_kernel", "flash_f32_kernel", "rmsnorm_kernel",
 # bf16 instances that issue wgmma: a spill or a missing instance fails
 WGMMA_INSTANCES = tuple(f"flash_wgmma_kernel<{d}>" for d in fa.HEAD_DIMS) + \
     ("ssd_wgmma_kernel", "ssd_bwd_states_kernel", "ssd_bwd_wgmma_kernel")
-# RMSNorm rows timed by the turns phase (``rmsnorm_turns``) and by
-# ``profile_rmsnorm.py``, bf16: (rows, d) of the forward -- MLA's kv_norm
-# at prefill and in training, the lms-demo CLIs (train, serve prefill and
-# decode), decode rows, MLA's q_norm, rwkv6's final norm, the served
+# RMSNorm rows timed by ``profile_rmsnorm.py``, bf16: (rows, d) of the
+# forward -- MLA's kv_norm at prefill and in training, the lms-demo CLIs
+# (train, serve prefill and decode), decode rows, MLA's q_norm, rwkv6's
+# final norm, the served
 # prefills (zamba2, granite, phi3 / deepseek, zamba2's gated norm) and
 # granite's training shape -- and of the backward (the lms-demo train CLI,
 # deepseek's three training widths, a ragged row, rwkv6, zamba2 / qwen2-vl
@@ -477,7 +481,7 @@ ENCDEC_CHECK_LAYERS, ENCDEC_CHECK_FRAMES = 4, 512
 # (2 of 60), Adafactor, batch 2: parameters, gradients and Adafactor state
 # take ~54 GB, and one fp32 score tensor of its 128 heads at 2048^2 (the
 # masked attention) is 2.1 GB a row.  qwen2-vl-7b: 4 of its 28 layers, AdamW,
-# with the loop's stub extras (patches and positions, ``_extras_fn``).
+# with the loop's stub extras (patches and positions, ``stub_extras``).
 # rwkv6-1.6b: all 24 layers, AdamW (1.6B parameters, 26 GB of params,
 # grads and moments).  seamless-m4t-large-v2: all 24 + 24 layers, AdamW,
 # batch 4: its fp32 logits over the padded vocabulary of 258,048 are 16.9
@@ -994,123 +998,6 @@ def rmsnorm_vs_library(gen, plen: int, rounds: int = 11) -> list:
     return rows
 
 
-PARENT_RMSNORM = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc",
-                              "parent", "rmsnorm.cu")
-
-
-class ParentRMSNorm:
-    """The previous RMSNorm kernels (the two-pass forward, the backward
-    with its per-element shared-memory sums), built with the port's flags
-    from the copy kept beside the current source (``csrc/parent/rmsnorm.cu``)
-    into ``build/rmsnorm_parent/``, and called as their wrapper called them:
-    contiguous rows, the backward's scratch of min(row slots, 4 x SMs) rows
-    and dscale allocated apart."""
-
-    def __init__(self):
-        out = kbuild.BUILD_ROOT.parent / "rmsnorm_parent"
-        out.mkdir(parents=True, exist_ok=True)
-        lib = out / "librmsnorm_parent.so"
-        subprocess.run([kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-shared",
-                        PARENT_RMSNORM, "-o", str(lib)], check=True,
-                       capture_output=True, text=True)
-        self.lib = ctypes.CDLL(str(lib))
-        p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_float)
-        self.lib.repro_rmsnorm.argtypes = [p, p, p, i, ll, i, f, p]
-        self.lib.repro_rmsnorm_bwd.argtypes = [p, p, p, p, p, p, i, ll, i, f,
-                                               i, p]
-        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
-
-    def rmsnorm(self, x, scale, eps=1e-5):
-        y = torch.empty_like(x)
-        d = x.shape[-1]
-        kbuild.check(self.lib.repro_rmsnorm(
-            x.data_ptr(), scale.data_ptr(), y.data_ptr(),
-            rms.DTYPE_CODES[x.dtype], x.numel() // d, d, eps,
-            torch.cuda.current_stream().cuda_stream), "parent rmsnorm")
-        return y
-
-    def rmsnorm_bwd(self, x, scale, dy, eps=1e-5):
-        d = x.shape[-1]
-        n = x.numel() // d
-        blocks = max(1, min(-(-n // (8 if d <= 1024 else 1)), 4 * self.sms))
-        dx = torch.empty_like(x)
-        dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
-        partial = torch.empty((blocks, d), dtype=torch.float32,
-                              device=x.device)
-        kbuild.check(self.lib.repro_rmsnorm_bwd(
-            x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            partial.data_ptr(), dscale.data_ptr(), rms.DTYPE_CODES[x.dtype],
-            n, d, eps, blocks, torch.cuda.current_stream().cuda_stream),
-            "parent rmsnorm_bwd")
-        return dx, dscale
-
-
-def rmsnorm_turns(fwd_shapes=RMSNORM_FWD_SHAPES,
-                  bwd_shapes=RMSNORM_BWD_SHAPES) -> list:
-    """The parent's RMSNorm kernels and the new ones in turns on this card
-    (parent, new, new, parent), bf16, at every row of the two tables: the
-    kernels' device time (``device_ms``) and back-to-back ms of each turn,
-    ``F.rms_norm``'s device time (its autograd backward for the backward
-    rows) and the bytes bound, with each version's share of it on its mean
-    device time.  The two versions must agree within the kernel check's
-    tolerance (dscale at fp32's, relative to its terms' magnitudes)."""
-    parent = ParentRMSNorm()
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    bf16, eps = torch.bfloat16, 1e-5
-    out = []
-    for kind, shapes in (("forward", fwd_shapes), ("backward", bwd_shapes)):
-        for n, d in shapes:
-            x = torch.randn((n, d), generator=gen, device="cuda", dtype=bf16)
-            dy = torch.randn((n, d), generator=gen, device="cuda", dtype=bf16)
-            scale = 1.0 + 0.1 * torch.randn((d,), generator=gen,
-                                            device="cuda")
-            if kind == "forward":
-                fns = {"parent": lambda: parent.rmsnorm(x, scale, eps),
-                       "new": lambda: rms.rmsnorm(x, scale, eps=eps)}
-                compare("rmsnorm", fns["new"](), fns["parent"](), bf16,
-                        what="new vs parent")
-                lib = {"library": lambda: F.rms_norm(x, (d,), scale.to(bf16),
-                                                     eps)}
-                costs = rms.cost_estimate(x.shape, 2)
-            else:
-                fns = {"parent": lambda: parent.rmsnorm_bwd(x, scale, dy,
-                                                            eps),
-                       "new": lambda: rms.rmsnorm_bwd(x, scale, dy, eps=eps)}
-                (ndx, nds), (pdx, pds) = fns["new"](), fns["parent"]()
-                compare("rmsnorm_backward", ndx, pdx, bf16,
-                        what="new vs parent")
-                compare("rmsnorm_dscale", nds, pds, bf16,
-                        dscale_magnitude(x, dy, eps), what="new vs parent")
-                xl = x.detach().clone().requires_grad_()
-                wl = scale.to(bf16).requires_grad_()
-                yl = F.rms_norm(xl, (d,), wl, eps)
-                lib = {"library": lambda: torch.autograd.grad(
-                    yl, (xl, wl), dy, retain_graph=True)}
-                costs = rms.bwd_cost_estimate(x.shape, 2)
-            turns = {"parent": [], "new": []}
-            ms = {"parent": [], "new": []}
-            for order in (("parent", "new"), ("new", "parent")):
-                dev = device_ms({k: fns[k] for k in order})
-                for k in order:
-                    turns[k].append(dev[k][0])
-                    ms[k].append(time_ms(fns[k], iters=50))
-            bound_ms, _ = bound(costs, torch.float32)
-            row = {"kind": kind, "shape": [n, d], "bound_ms": bound_ms,
-                   "library_device_ms": device_ms(lib)["library"][0]}
-            for k in ("parent", "new"):
-                row[f"{k}_device_ms"] = turns[k]
-                row[f"{k}_ms"] = ms[k]
-                row[f"{k}_frac_of_bound"] = bound_ms / statistics.fmean(
-                    turns[k])
-            row["new_over_parent"] = statistics.fmean(turns["new"]) / \
-                statistics.fmean(turns["parent"])
-            log(f"rmsnorm-turns: {json.dumps(row)}")
-            out.append(row)
-            del x, dy, fns, lib
-    return out
-
-
 def check_ssd(gen, b, l, h, g, dtype, *, decay=0.1, init=True, tag=""):
     """Times the kernel as the served path calls it: model-layout (B, L, H,
     P) x through ``ops.ssd_chunked_kernel``, with b/c strided slices of one
@@ -1277,18 +1164,18 @@ def kernel_checks(plen: int, lplen: int) -> dict:
                 tag="deepseek-mla-prefill")
     check_flash(gen, 2, 8, 8, 300, qk, bf16, dv=dv, tag="mla-ragged")
     rmsnorm_vs_library(gen, plen)
-    # phase 6 (e)'s rows: a rank's whole batch, and its rows of the sequence
-    # under sequence parallelism (new for the RMSNorm kernels)
+    # phase 6 (e)'s rows, a run's own: a rank's whole batch, or its rows of
+    # the sequence under sequence parallelism, in the run's dtype
     tp = {}
-    tp_d = get_config(TRAIN_MODEL).d_model
-    for sp in (False, True):
-        n = TP_SHAPE.global_batch * TP_SHAPE.seq_len // (
-            TP_MODEL_AXIS if sp else 1)
-        tag = "dist-tp-sp" if sp else "dist-tp"
-        tp[f"dist:tp{'-sp' if sp else ''}"] = {
-            "rmsnorm": check_rmsnorm(gen, n, tp_d, bf16, tag=tag),
-            "rmsnorm_backward": check_rmsnorm_bwd(gen, n, tp_d, bf16,
-                                                  tag=tag)}
+    for case in TP_CASES.values():
+        tp_d = get_config(case.model).d_model
+        dt = getattr(torch, case.dtype) if case.dtype else bf16
+        for path, sp, _ in case.runs:
+            n, tag = tp_rows(sp), path.replace(":", "-")
+            tp[path] = {
+                "rmsnorm": check_rmsnorm(gen, n, tp_d, dt, tag=tag),
+                "rmsnorm_backward": check_rmsnorm_bwd(gen, n, tp_d, dt,
+                                                      tag=tag)}
     vcfg = get_config(VLM_MODEL)
     vlen = vlm_seq_len(VLM_GRID, VLM_TEXT)
     scfg = get_config(ENCDEC_MODEL)
@@ -2724,14 +2611,55 @@ A2A_ROWS, A2A_SEQ = 2, 2048
 INT8_BOUND = 1.0 + 2 * 254 * 2.0 ** -24
 # (d) granite's 8 layers as one pipeline stage over the train batch
 PIPE_MICROBATCHES = 4
-# (e) tensor-parallel compute: granite-3-8b at full width, TP_LAYERS of its
-# 40 layers, on a (1, TP_MODEL_AXIS) mesh of that many processes sharing
-# the one card over gloo (NCCL refuses two ranks on one device), so every
-# exchange is staged through the host; the global batch is cut from phase
-# 4's 8 rows to 4 for it.  A world that outlives TP_DEADLINE_S fails.
-TP_LAYERS, TP_MODEL_AXIS, TP_DEADLINE_S = 4, 2, 300
+# (e) tensor-parallel compute: each model of TP_CASES at full width and the
+# layers given there, on a (1, TP_MODEL_AXIS) mesh of that many processes
+# sharing the one card over gloo (NCCL refuses two ranks on one device), so
+# every exchange is staged through the host; the global batch is cut from
+# phase 4's 8 rows to 4 for it.  A world that outlives TP_DEADLINE_S fails.
+TP_MODEL_AXIS, TP_DEADLINE_S = 2, 300
 TP_SHAPE = ShapeConfig("tp_2k_b4", seq_len=2048, global_batch=4,
                        kind="train")
+
+
+class TpCase(NamedTuple):
+    """A model of phase 6 (e): its config cut to ``layers`` (in ``dtype``;
+    None: the config's), trained by ``optimizer`` for DIST_STEPS steps;
+    ``runs`` are (path, seq_parallel, overrides of TRAIN_RULES the step
+    stores and computes with), each a world of its own against the case's
+    one-device step.  Each step's loss, grad norm and param norm are held
+    at TRAIN_TOL; with ``step0``, only step 0's (the later ones logged),
+    and step 0's gradients too (the largest relative L2 gap over the
+    leaves, TRAIN_TOL["grads"])."""
+    model: str
+    layers: int
+    dtype: Optional[str]
+    optimizer: str
+    runs: tuple
+    step0: bool = False
+
+
+# granite-3-8b: 4 of 40 layers, without and with sequence parallelism.
+# mixtral-8x7b: 2 of 32 layers in fp32 (in bf16 the top-k flips near-tied
+# experts, so MoE parity is held in fp32), Adafactor; its 8 experts split 4
+# a rank (TRAIN_RULES), then every expert's hidden columns split (the
+# binding of the reference's pod16x16, where 8 experts do not divide 16)
+# with sequence parallelism.  qwen2-vl-7b: 4 of 28 layers with the loop's
+# stub patches and positions, sequence parallelism (28 heads on 2 split),
+# in fp32, and in its own bf16, held at step 0 and on step 0's gradients:
+# past step 0 the bf16 world has missed TRAIN_TOL (grad norm 1.7e-2 and
+# 6.9e-2 at steps 1 and 2 on an H100, where the one-device grad norm jumps
+# 79 -> 1094), a gap ``tp_bf16_witness.py`` sets beside bf16's own.
+TP_CASES = {
+    "granite": TpCase(TRAIN_MODEL, 4, None, "adamw", (
+        ("dist:tp", False, {}), ("dist:tp-sp", True, {}))),
+    "mixtral": TpCase("mixtral-8x7b", 2, "float32", "adafactor", (
+        ("dist:tp-mixtral-experts", False, {}),
+        ("dist:tp-mixtral-hidden-sp", True, {"experts": None}))),
+    "qwen2-vl": TpCase(VLM_MODEL, 4, "float32", "adamw", (
+        ("dist:tp-qwen2-vl-sp", True, {}),)),
+    "qwen2-vl-bf16": TpCase(VLM_MODEL, 4, None, "adamw", (
+        ("dist:tp-qwen2-vl-bf16-sp", True, {}),), step0=True),
+}
 
 
 @contextmanager
@@ -2763,27 +2691,38 @@ def _sync(dev):
 
 
 def dist_batches(cfg, shape, steps: int, dev) -> list:
+    """The seed's batches, with the loop's stub extras where the model
+    takes some (a VLM's patches and positions)."""
     source = SyntheticTokenSource(cfg.vocab_size, seed=SEED)
+    extras = stub_extras(cfg, shape)
     out = []
     for step in range(steps):
         t = source.batch(step, shape.global_batch, shape.seq_len)
-        out.append(batch_to_device({"tokens": t[:, :-1],
-                                    "labels": t[:, 1:]}, dev))
+        batch = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+        if extras is not None:
+            batch.update(extras(step, shape.global_batch))
+        out.append(batch_to_device(batch, dev))
     return out
 
 
-def dist_steps(cfg, tcfg, batches, mesh, dev, count: bool = False) -> dict:
-    """``DIST_STEPS`` steps from the seed's params: one-device (``mesh``
-    None) or through the mesh with the params and AdamW state stored as
-    this rank's pieces.  Returns metrics, step times, peak GB, launches and
-    the final params; with ``count``, also ``launch.cost_analysis``'s
-    predicted peak GB of this rank's step (``counted_peak_gb``)."""
+def dist_steps(cfg, tcfg, batches, mesh, dev, count: bool = False,
+               rules=TRAIN_RULES, grads: bool = False) -> dict:
+    """A step a batch from the seed's params: one-device (``mesh`` None)
+    or through the mesh with the params and optimizer state stored as
+    this rank's pieces under ``rules``, which the step also computes
+    with.  Returns metrics, step times, peak GB, launches and the final
+    params; with ``count``, also ``launch.cost_analysis``'s predicted peak
+    GB of this rank's step (``counted_peak_gb``); with ``grads``, also the
+    first batch's gradients before the steps, on the host (``grads``: this
+    rank's pieces on a mesh), which the peak and launches leave out."""
     sync = _sync(dev)
     params = init_model_params(cfg, seed=SEED, device=dev)
-    step_fn, opt = make_train_step(cfg, tcfg, mesh=mesh)
+    pc = None if mesh is None else PartitionConstraints(
+        rules, mesh, seq_parallel=tcfg.seq_parallel)
+    step_fn, opt = make_train_step(cfg, tcfg, mesh=mesh, pc=pc)
     psh = None
     if mesh is not None:
-        psh, _ = step_shardings(cfg, tcfg, mesh)
+        psh, _ = step_shardings(cfg, tcfg, mesh, pc)
         pieces = shard_tree(params, psh, mesh)
         # one rank holds every leaf whole: its pieces are the leaves
         if mesh.size() == 1 and any(
@@ -2792,6 +2731,11 @@ def dist_steps(cfg, tcfg, batches, mesh, dev, count: bool = False) -> dict:
             raise AssertionError("dist: a one-rank mesh copied a leaf")
         params = pieces
     state = opt.init(params, psh)
+    grads0 = None
+    if grads:
+        g, _ = make_grads_fn(cfg, tcfg, pc=pc, mesh=mesh)(params, batches[0])
+        grads0 = {k: v.cpu() for k, v in flatten(g).items()}
+        del g
     counted = analyze_step(step_fn, (params, state, batches[0], 0))[
         "memory"]["peak_bytes"] / 1e9 if count else None
     if dev == "cuda":
@@ -2812,7 +2756,7 @@ def dist_steps(cfg, tcfg, batches, mesh, dev, count: bool = False) -> dict:
     del state
     return {"metrics": metrics, "step_s": times, "peak_memory_gb": peak,
             "launches": launches, "params": params,
-            "counted_peak_gb": counted}
+            "counted_peak_gb": counted, "grads": grads0}
 
 
 def dist_train_cfg() -> TrainConfig:
@@ -3025,8 +2969,14 @@ def dist_a2a(dev="cuda", cfg=None, rows=A2A_ROWS, seq=A2A_SEQ) -> tuple:
     return row, launches
 
 
-def tp_cfg():
-    return dataclasses.replace(get_config(TRAIN_MODEL), num_layers=TP_LAYERS)
+def tp_cfg(case: TpCase):
+    cfg = dataclasses.replace(get_config(case.model), num_layers=case.layers)
+    return dataclasses.replace(cfg, dtype=case.dtype) if case.dtype else cfg
+
+
+def tp_train_cfg(case: TpCase, sp: bool = False) -> TrainConfig:
+    return dataclasses.replace(dist_train_cfg(), optimizer=case.optimizer,
+                               seq_parallel=sp)
 
 
 def compute_mode() -> str:
@@ -3040,15 +2990,19 @@ def compute_mode() -> str:
 
 def tp_rank_main(argv: list) -> int:
     """One rank of phase 6 (e), in a process of its own: ``--tp-rank R
-    --tp-world N --tp-dir DIR --tp-sp 0|1``.  Joins a gloo world through a
-    file store in DIR, runs ``dist_steps`` on ``make_mesh_for(N,
-    model=N)`` with the seed's params and batches (each exchange staged
-    through the host: gloo over CUDA tensors) and writes its row to
-    ``DIR/rank<R>.json``.  ``--tp-dev cpu`` rehearses it on the CPU."""
+    --tp-world N --tp-dir DIR --tp-case C --tp-run I`` (run I of
+    ``TP_CASES[C]``).  Joins a gloo world through a file store in DIR, runs
+    ``dist_steps`` on ``make_mesh_for(N, model=N)`` with the seed's params
+    and batches under the run's rules (each exchange staged through the
+    host: gloo over CUDA tensors) and writes its row to
+    ``DIR/rank<R>.json`` (and, for a ``step0`` case, its
+    pieces of step 0's to ``DIR/grads<R>.pt``).  ``--tp-dev cpu``
+    rehearses it on the CPU."""
     import torch.distributed as dist
     args = dict(zip(argv[0::2], argv[1::2]))
     rank, world = int(args["--tp-rank"]), int(args["--tp-world"])
-    workdir, sp = args["--tp-dir"], args["--tp-sp"] == "1"
+    workdir, case = args["--tp-dir"], TP_CASES[args["--tp-case"]]
+    _, sp, overrides = case.runs[int(args["--tp-run"])]
     dev = args.get("--tp-dev", "cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3059,14 +3013,22 @@ def tp_rank_main(argv: list) -> int:
         os.path.join(workdir, "store"), world), rank=rank, world_size=world)
     try:
         mesh = make_mesh_for(world, model=world, device_type="cpu")
-        cfg = tp_cfg()
-        tcfg = dataclasses.replace(dist_train_cfg(), seq_parallel=sp)
+        cfg = tp_cfg(case)
         batches = dist_batches(cfg, TP_SHAPE, DIST_STEPS, dev)
         comm.reset_staged()
-        run = dist_steps(cfg, tcfg, batches, mesh, dev, count=True)
+        moe.reset_dispatch_counts()
+        run = dist_steps(cfg, tp_train_cfg(case, sp), batches, mesh, dev,
+                         count=True,
+                         rules=TRAIN_RULES.with_overrides(**overrides),
+                         grads=case.step0)
         del run["params"]
+        grads = run.pop("grads")
+        if grads is not None:
+            torch.save(grads, os.path.join(workdir, f"grads{rank}.pt"))
+        del grads
         run.update({"rank": rank, "coord": list(mesh.get_coordinate()),
-                    "staged": comm.staged()})
+                    "staged": comm.staged(),
+                    "dispatches": moe.dispatch_counts()})
         with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
             json.dump(run, f)
     finally:
@@ -3074,18 +3036,21 @@ def tp_rank_main(argv: list) -> int:
     return 0
 
 
-def tp_world(sp: bool, dev: str = "cuda",
-             world: int = TP_MODEL_AXIS) -> list:
-    """Phase 6 (e)'s ranks as ``world`` processes of this script sharing
-    the one card; returns each rank's row.  A world that outlives
-    TP_DEADLINE_S is killed, and fails the run."""
+def tp_world(name: str, run: int, dev: str = "cuda",
+             world: int = TP_MODEL_AXIS, grads=None) -> list:
+    """Run ``run`` of ``TP_CASES[name]`` as ``world`` processes of this
+    script sharing the one card; returns each rank's row.  A world that
+    outlives TP_DEADLINE_S is killed, and fails the run.  ``grads``:
+    {name: whole gradients of the first batch on the host}, each of which
+    the ranks' pieces of theirs are set against (a row's ``grads_gap``:
+    {name: the largest relative L2 gap over the leaves})."""
     workdir = os.path.join(ROOT, "build", "tp_world")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
-         "--tp-world", str(world), "--tp-dir", workdir,
-         "--tp-sp", str(int(sp)), "--tp-dev", dev]) for r in range(world)]
+         "--tp-world", str(world), "--tp-dir", workdir, "--tp-case", name,
+         "--tp-run", str(run), "--tp-dev", dev]) for r in range(world)]
     deadline = time.monotonic() + TP_DEADLINE_S
     try:
         for p in procs:
@@ -3099,78 +3064,148 @@ def tp_world(sp: bool, dev: str = "cuda",
                 p.wait(timeout=30)
     rcs = [p.returncode for p in procs]
     if any(rc != 0 for rc in rcs):
-        raise AssertionError(f"dist: tp ranks exited {rcs} (deadline "
-                             f"{TP_DEADLINE_S} s)")
+        raise AssertionError(f"dist: tp ranks of {name} exited {rcs} "
+                             f"(deadline {TP_DEADLINE_S} s)")
     rows = []
     for r in range(world):
         with open(os.path.join(workdir, f"rank{r}.json")) as f:
             rows.append(json.load(f))
+    if grads:
+        case = TP_CASES[name]
+        rules = TRAIN_RULES.with_overrides(**case.runs[run][2])
+        gap = grads_gaps(grads, [
+            (dict(zip(("data", "model"), row["coord"])),
+             os.path.join(workdir, f"grads{r}.pt"))
+            for r, row in enumerate(rows)], flatten(shardings_for_specs(
+                model_specs(tp_cfg(case)), rules,
+                {"data": 1, "model": world})))
+        for row in rows:
+            row["grads_gap"] = gap
     shutil.rmtree(workdir, ignore_errors=True)
     return rows
 
 
-def dist_tp(dev="cuda") -> dict:
-    """(e): granite-3-8b at TP_LAYERS layers on a (1, TP_MODEL_AXIS) mesh,
-    tensor-parallel compute, without and with sequence parallelism, as
-    that many processes on the one card over gloo, against the one-device
-    step run here first on the same params and batches: each rank's
-    loss, grad norm and param norm within TRAIN_TOL, its launches exactly
-    ``train_launches``, its ``max_memory_allocated`` within PEAK_TOL of
-    ``cost_analysis``'s count of its step.  Returns each path's launches
-    (summed over the ranks)."""
-    log(f"dist: tp compute mode {compute_mode()}")
-    cfg = tp_cfg()
-    tcfg = dist_train_cfg()
-    batches = dist_batches(cfg, TP_SHAPE, DIST_STEPS, dev)
-    one = dist_steps(cfg, tcfg, batches, None, dev)
-    del one["params"], batches
-    if dev == "cuda":
-        torch.cuda.empty_cache()
-    want = train_launches(cfg, DIST_STEPS)
+def grads_gaps(wants: dict, ranks: list, shardings: dict) -> dict:
+    """{name: the largest ||g - g_want|| / ||g_want|| over the leaves} for
+    each of ``wants`` ({name: whole gradients on the host}), each leaf's g
+    put together from the ranks' pieces: ``ranks`` holds (mesh coordinate,
+    path of the rank's pieces); a piece that two ranks hold counts once."""
+    num = {n: {} for n in wants}
+    seen = {}
+    for coord, path in ranks:
+        pieces = torch.load(path)
+        for k, g in pieces.items():
+            where = shardings[k].slices(coord)
+            if repr(where) in seen.setdefault(k, set()):
+                continue
+            seen[k].add(repr(where))
+            for n, want in wants.items():
+                num[n][k] = num[n].get(k, 0.0) + float(
+                    torch.linalg.vector_norm(g - want[k][where],
+                                             dtype=torch.float64)) ** 2
+        del pieces
     out = {}
-    for sp in (False, True):
+    for n, want in wants.items():
+        gaps = []
+        for k, g in want.items():
+            norm = float(torch.linalg.vector_norm(
+                g, dtype=torch.float64)) ** 2
+            gaps.append(math.sqrt(num[n][k] / norm) if norm else
+                        (0.0 if num[n][k] == 0 else math.inf))
+        out[n] = max(gaps)
+    return out
+
+
+def tp_rows(sp: bool) -> int:
+    """RMSNorm rows a rank of a TP_SHAPE run normalises at once."""
+    return TP_SHAPE.global_batch * TP_SHAPE.seq_len // (
+        TP_MODEL_AXIS if sp else 1)
+
+
+def dist_tp(dev="cuda") -> dict:
+    """(e): each run of TP_CASES on a (1, TP_MODEL_AXIS) mesh,
+    tensor-parallel compute, as that many processes on the one card over
+    gloo, against its case's one-device step run here first on the same
+    params and batches: each rank's loss, grad norm and param norm within
+    TRAIN_TOL (for a ``step0`` case, step 0's, and its gradients within
+    TRAIN_TOL["grads"]), its launches exactly ``train_launches``, its
+    ``max_memory_allocated`` within PEAK_TOL of ``cost_analysis``'s count
+    of its step; a MoE run's ranks dispatched as often as each other and
+    by the grouped dispatch.  Logs one ``dist: tp`` line a run (with its
+    world's wall seconds) and returns each run's launches (summed over the
+    ranks), keyed by its path."""
+    log(f"dist: tp compute mode {compute_mode()}")
+    out = {}
+    for name, case in TP_CASES.items():
+        cfg = tp_cfg(case)
+        batches = dist_batches(cfg, TP_SHAPE, DIST_STEPS, dev)
         t0 = time.monotonic()
-        ranks = tp_world(sp, dev)
-        wall = time.monotonic() - t0
-        gaps = [[{k: abs(a[k] - b[k]) / abs(b[k]) for k in a}
-                 for a, b in zip(r["metrics"], one["metrics"])]
-                for r in ranks]
-        peaks = [(r["counted_peak_gb"], r["peak_memory_gb"]) for r in ranks]
-        path = "dist:tp-sp" if sp else "dist:tp"
-        row = {"model": TRAIN_MODEL, "layers": cfg.num_layers,
-               "mesh": {"data": 1, "model": TP_MODEL_AXIS},
-               "seq_parallel": sp, "seq_len": TP_SHAPE.seq_len,
-               "global_batch": TP_SHAPE.global_batch,
-               "rmsnorm_rows": TP_SHAPE.global_batch * TP_SHAPE.seq_len
-               // (TP_MODEL_AXIS if sp else 1),
-               "one_device_metrics": one["metrics"],
-               "rank_metrics": [r["metrics"] for r in ranks],
-               "relative_gaps": gaps,
-               "host_staged_step_s": [r["step_s"] for r in ranks],
-               "one_device_step_s": one["step_s"],
-               "staged": [r["staged"] for r in ranks],
-               "peak_gb_counted_measured": peaks,
-               "one_device_peak_gb": one["peak_memory_gb"],
-               "launches": [r["launches"] for r in ranks],
-               "world_wall_s": wall}
-        log(f"dist: tp {json.dumps(row)} (step times are of exchanges "
-            f"staged through the host over gloo, two processes sharing one "
-            f"card: not a speed of tensor parallelism; limits "
-            f"{json.dumps(TRAIN_TOL)}, peak {PEAK_TOL})")
-        if not all(math.isfinite(v) for r in ranks for m in r["metrics"]
-                   for v in m.values()) or \
-                not all(v <= TRAIN_TOL[k] for g in gaps for s_ in g
-                        for k, v in s_.items()):
-            raise AssertionError(f"{path}: a rank disagrees with the "
-                                 f"one-device step")
-        if any(r["launches"] != want for r in ranks):
-            raise AssertionError(f"{path}: launches "
-                                 f"{[r['launches'] for r in ranks]}, "
-                                 f"expected {want} a rank")
-        if not all(abs(c - m) <= PEAK_TOL * m for c, m in peaks):
-            raise AssertionError(f"{path}: counted peaks off the measured "
-                                 f"ones: {peaks}")
-        out[path] = {k: sum(r["launches"][k] for r in ranks) for k in want}
+        one = dist_steps(cfg, tp_train_cfg(case), batches, None, dev,
+                         grads=case.step0)
+        one_wall = time.monotonic() - t0
+        del one["params"], batches
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        want = train_launches(cfg, DIST_STEPS)
+        for i, (path, sp, overrides) in enumerate(case.runs):
+            t0 = time.monotonic()
+            ranks = tp_world(name, i, dev, grads=case.step0 and {
+                "one_device": one["grads"]})
+            wall = time.monotonic() - t0
+            gaps = [[{k: abs(a[k] - b[k]) / abs(b[k]) for k in a}
+                     for a, b in zip(r["metrics"], one["metrics"])]
+                    for r in ranks]
+            held = 1 if case.step0 else DIST_STEPS
+            if case.step0:
+                for g in gaps:
+                    g[0]["grads"] = ranks[0]["grads_gap"]["one_device"]
+            peaks = [(r["counted_peak_gb"], r["peak_memory_gb"])
+                     for r in ranks]
+            row = {"case": name, "model": case.model,
+                   "layers": cfg.num_layers, "dtype": cfg.dtype,
+                   "optimizer": case.optimizer,
+                   "mesh": {"data": 1, "model": TP_MODEL_AXIS},
+                   "rules": overrides, "seq_parallel": sp,
+                   "seq_len": TP_SHAPE.seq_len,
+                   "global_batch": TP_SHAPE.global_batch,
+                   "held_steps": held,
+                   "rmsnorm_rows": tp_rows(sp),
+                   "one_device_metrics": one["metrics"],
+                   "rank_metrics": [r["metrics"] for r in ranks],
+                   "relative_gaps": gaps,
+                   "host_staged_step_s": [r["step_s"] for r in ranks],
+                   "one_device_step_s": one["step_s"],
+                   "staged": [r["staged"] for r in ranks],
+                   "dispatches": [r["dispatches"] for r in ranks],
+                   "peak_gb_counted_measured": peaks,
+                   "one_device_peak_gb": one["peak_memory_gb"],
+                   "launches": [r["launches"] for r in ranks],
+                   "one_device_wall_s": one_wall, "world_wall_s": wall}
+            log(f"dist: tp {json.dumps(row)} (step times are of exchanges "
+                f"staged through the host over gloo, two processes sharing "
+                f"one card: not a speed of tensor parallelism; limits "
+                f"{json.dumps(TRAIN_TOL)}, peak {PEAK_TOL})")
+            if not all(math.isfinite(v) for r in ranks
+                       for m in r["metrics"] for v in m.values()) or \
+                    not all(v <= TRAIN_TOL[k] for g in gaps
+                            for s_ in g[:held] for k, v in s_.items()):
+                raise AssertionError(f"{path}: a rank disagrees with the "
+                                     f"one-device step")
+            if any(r["launches"] != want for r in ranks):
+                raise AssertionError(f"{path}: launches "
+                                     f"{[r['launches'] for r in ranks]}, "
+                                     f"expected {want} a rank")
+            if not all(abs(c - m) <= PEAK_TOL * m for c, m in peaks):
+                raise AssertionError(f"{path}: counted peaks off the "
+                                     f"measured ones: {peaks}")
+            if cfg.moe is not None and any(
+                    r["dispatches"] != ranks[0]["dispatches"]
+                    or not r["dispatches"]["grouped"] for r in ranks):
+                raise AssertionError(f"{path}: dispatches "
+                                     f"{[r['dispatches'] for r in ranks]}")
+            out[path] = {k: sum(r["launches"][k] for r in ranks)
+                         for k in want}
+        del one
     return out
 
 
@@ -3355,9 +3390,6 @@ def main() -> int:
     rows = kernel_checks(plen, lplen)
     log(f"kernels: all checks within tolerance "
         f"({time.monotonic() - t0:.2f} s)")
-    t0 = time.monotonic()
-    rmsnorm_turns()
-    log(f"turns: phase {time.monotonic() - t0:.2f} s")
 
     # Phase 3: serve, one model after the other; the VLM and the
     # encoder-decoder last, through make_serve_fns

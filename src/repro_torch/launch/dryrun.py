@@ -20,8 +20,8 @@ For each cell the dry run:
    tensor-parallel under "model" (``sharding.tp_roles``: some leaf
    ``"split"``), else ``"whole"``, with ``tp_whole_leaves``, the leaves
    stored split over "model" that each rank still gathers and computes
-   whole (the MoE experts; every split leaf of a family tensor-parallel
-   compute does not cover).
+   whole (a MoE router whose experts bind "model"; every split leaf of a
+   family tensor-parallel compute does not cover).
 
 Serving takes no mesh in the port, so every prefill and decode cell on a
 production mesh is ``unported``; the ``long_500k`` cells of the quadratic

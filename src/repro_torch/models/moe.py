@@ -45,6 +45,27 @@ dispatch over the ``"model"`` axis, when the mesh meets its preconditions
 (no ``"pod"`` axis, ``num_experts`` and the local token count divisible by
 the ``"model"`` size), and otherwise the grouped dispatch, as the
 reference does; :func:`dispatch_counts` records which ran.
+
+Under tensor-parallel compute (``tp``, train mode with a live "model"
+axis) the expert stacks are this rank's pieces where the binding splits
+them (``sharding.tp_roles``): its ``E / tp`` experts, or, where the
+experts do not divide, every expert's ``d_ff / tp`` hidden columns.
+Routing reads the whole sequence (``tp.whole``: the same rows, logits,
+routes, capacity and statistics on every "model" rank, the router whole);
+the dispatch fills the buffer from ``tp.enter(x, True)`` with this rank's
+experts' triples only (or every expert's, for the hidden columns); the
+combine is then this rank's partial sum, which leaves through
+``tp.leave(y, True)``.  Gradients: the routing path's gradient of x is the
+same on every rank and goes back through ``tp.whole`` (this rank's rows of
+it, no sum); the dispatch path's is a partial sum, summed by ``enter``'s
+backward; the combine's gradient of a gate is a partial sum too (this
+rank's experts or columns), so the gates pass ``comm.copy_to_model``,
+whose backward sums them over "model" before they reach the router.  The
+all-to-all dispatch takes this rank's experts as they are stored where
+they are split on ``experts`` (it runs on the whole sequence and returns
+it whole); with the hidden columns split it falls back to the grouped
+dispatch.  Shared experts follow the MLP's rule: split columns add to the
+partial sum, whole ones run on the whole sequence.
 """
 
 from __future__ import annotations
@@ -125,14 +146,18 @@ def _bincount(idx, n: int):
     return torch.bincount(idx, minlength=n)
 
 
-def _dispatch_group(xt, logits, cfg: ModelConfig, cap: int, dp=None):
+def _dispatch_group(xt, logits, cfg: ModelConfig, cap: int, dp=None,
+                    owned=None):
     """One group's sort-based dispatch.  xt: (T, d); logits: (T, E).
     ``dp``: (mesh, data-parallel axes) when this group is this rank's part
     of a group spread over those ranks (the counts of every rank are
     gathered and the ranks within an expert continue from the earlier
-    ranks'); ``cap`` is then the global group's capacity.
+    ranks'); ``cap`` is then the global group's capacity.  ``owned``:
+    (first, count), the experts whose buffer rows this rank fills (every
+    expert's triples are ranked and counted alike; the others land, zeroed,
+    in the dummy row); None: all.
 
-    Returns (xe (E, C, d), combine state, stats)."""
+    Returns (xe (count, C, d), combine state, stats)."""
     m = cfg.moe
     t, d = xt.shape
     e, k = m.num_experts, m.top_k
@@ -161,13 +186,17 @@ def _dispatch_group(xt, logits, cfg: ModelConfig, cap: int, dp=None):
         counts_all = every.sum(0)
         n = max(t * k * every.shape[0], 1)
         dropped = (counts_all - counts_all.clamp_max(cap)).sum().float() / n
-    # dropped triples all land, zeroed, in the dummy row e * cap
-    buf_idx = torch.where(keep, e_sorted * cap + rank,
-                          torch.full_like(rank, e * cap))
+    e0, n_e = owned or (0, e)
+    if n_e != e:
+        keep = keep & (e_sorted >= e0) & (e_sorted < e0 + n_e)
+    # dropped triples (and other ranks' experts') all land, zeroed, in the
+    # dummy row n_e * cap
+    buf_idx = torch.where(keep, (e_sorted - e0) * cap + rank,
+                          torch.full_like(rank, n_e * cap))
 
-    xbuf = xt.new_zeros((e * cap + 1, d))
+    xbuf = xt.new_zeros((n_e * cap + 1, d))
     xbuf[buf_idx] = xt[tok_sorted] * keep[:, None].to(xt.dtype)
-    xe = xbuf[:e * cap].view(e, cap, d)
+    xe = xbuf[:n_e * cap].view(n_e, cap, d)
 
     frac_tokens = counts_all.float() / n
     stats = {
@@ -199,20 +228,64 @@ def _a2a_fits(x, cfg: ModelConfig, mesh) -> bool:
         (x.shape[0] * x.shape[1]) % tp == 0
 
 
-def apply_moe(p, x, cfg: ModelConfig, pc=None):
+def apply_moe(p, x, cfg: ModelConfig, pc=None, tp=None):
     """x: (B, S, d) -> (y, aux).  aux carries the load-balance statistics
     ``moe_aux_loss``, ``moe_dropped_frac`` and ``moe_max_load`` (0-dim fp32
     tensors), as the reference's.  ``pc``: the partition constraints; with
-    a mesh, x holds this rank's rows (see the module docstring)."""
+    a mesh, x holds this rank's rows (see the module docstring).  ``tp``:
+    the pass's tensor-parallel layout; x and y are then in its layout and
+    the expert stacks this rank's pieces where the binding splits them."""
     m = cfg.moe
     mesh = getattr(pc, "mesh", None)
-    if m.impl == "a2a" and mesh is not None and _a2a_fits(x, cfg, mesh):
-        return apply_moe_a2a(p, x, cfg, mesh)
+    specs = moe_specs(cfg) if tp is not None else None
+    dim = tp.split_dim(specs["w_gate"]) if tp is not None else None
+    split = dim is not None
+    xr = x if tp is None else tp.whole(x)       # routing: every rank alike
+    if m.impl == "a2a" and mesh is not None and dim in (None, 0) and \
+            _a2a_fits(xr, cfg, mesh):
+        y, aux = apply_moe_a2a(p, xr, cfg, mesh, local=split, shared=False)
+        partial, whole = None, y
+    else:
+        xd = tp.enter(x, True) if split else xr  # dispatch: partial grads
+        owned = None
+        if dim == 0:
+            n_e = p["w_gate"].shape[0]
+            owned = (tp.rank * n_e, n_e)
+        y, aux = _apply_grouped(p, xr, xd, cfg, pc, owned,
+                                tp if split else None)
+        partial, whole = (y, None) if split else (None, y)
+    if m.num_shared_experts:
+        shared_cfg = dataclasses.replace(cfg, mlp_type="swiglu")
+        if tp is not None and tp.splits(specs["shared"]["w_up"]):
+            xs = xd if partial is not None else tp.enter(x, True)
+            ys = apply_mlp(p["shared"], xs, shared_cfg)
+            partial = ys if partial is None else partial + ys
+        else:
+            ys = apply_mlp(p["shared"], xr, shared_cfg)
+            whole = ys if whole is None else whole + ys
+    if tp is None:
+        return whole, aux
+    out = None if whole is None else tp.local(whole)
+    if partial is not None:
+        red = tp.leave(partial, True)
+        out = red if out is None else red + out
+    return out, aux
+
+
+def _apply_grouped(p, xr, xd, cfg: ModelConfig, pc, owned, tp):
+    """The grouped dispatch: routes from ``xr``'s rows, fills the buffer
+    from ``xd``'s (the same rows; the same tensor without tensor
+    parallelism), runs the experts of ``p`` (``owned``: (first, count)
+    of this rank's, None: all) and combines.  ``tp`` (the stacks split):
+    the gates pass ``comm.copy_to_model``, and y is this rank's partial
+    sum.  Returns (y (B, S, d), aux) without shared experts."""
     _DISPATCHES["grouped"] += 1
-    dt = x.dtype
-    b, s, d = x.shape
+    m = cfg.moe
+    mesh = getattr(pc, "mesh", None)
+    dt = xr.dtype
+    b, s, d = xr.shape
     t = b * s
-    e = m.num_experts
+    e = m.num_experts if owned is None else owned[1]
     axes = pc.dp_axes if mesh is not None else ()
     ranks = comm.group_size(mesh, axes)
 
@@ -230,11 +303,11 @@ def apply_moe(p, x, cfg: ModelConfig, pc=None):
                 f"{g} dispatch groups over {ranks} data-parallel ranks")
     tg = t // g
     cap = capacity(cfg, tg * (ranks if dp else 1))
-    xt = x.reshape(g, tg, d)
+    xt = xd.reshape(g, tg, d)
     rdt = torch.float32 if m.router_dtype == "float32" else dt
-    logits = xt.to(rdt) @ p["router"].to(rdt)             # (G, T/G, E)
+    logits = xr.reshape(g, tg, d).to(rdt) @ p["router"].to(rdt)
 
-    groups = [_dispatch_group(xt[i], logits[i], cfg, cap, dp)
+    groups = [_dispatch_group(xt[i], logits[i], cfg, cap, dp, owned)
               for i in range(g)]
     # (E, G*C, d): every group's buffer of an expert through one product
     xe = torch.stack([gr[0] for gr in groups], dim=1).view(e, g * cap, d)
@@ -246,12 +319,12 @@ def apply_moe(p, x, cfg: ModelConfig, pc=None):
     del h
 
     # ---- combine ----------------------------------------------------------
+    if tp is not None:
+        # a gate's gradient here is this rank's share: summed over "model"
+        groups = [(xe_, (idx, tok, comm.copy_to_model(gts, tp.mesh)), st)
+                  for xe_, (idx, tok, gts), st in groups]
     y = torch.cat([_combine_group(ye[:, i], groups[i][1], tg)
                    for i in range(g)]).view(b, s, d)
-
-    if m.num_shared_experts:
-        shared_cfg = dataclasses.replace(cfg, mlp_type="swiglu")
-        y = y + apply_mlp(p["shared"], x, shared_cfg)
 
     stats = [gr[2] for gr in groups]
     aux = {"moe_aux_loss": torch.stack([st["aux_loss"]
@@ -267,7 +340,8 @@ def _cap8(n: int) -> int:
     return max(8, ((n + 7) // 8) * 8)
 
 
-def apply_moe_a2a(p, x, cfg: ModelConfig, mesh):
+def apply_moe_a2a(p, x, cfg: ModelConfig, mesh, local: bool = False,
+                  shared: bool = True):
     """Expert-parallel dispatch with explicit all-to-alls over the "model"
     axis (port of the reference's ``apply_moe_a2a``).
 
@@ -287,7 +361,11 @@ def apply_moe_a2a(p, x, cfg: ModelConfig, mesh):
     (:mod:`repro_torch.parallel.comm`) under which each "model" rank ends
     with the whole gradient of the one loss its coordinate computes: the
     router's logits are made for every local token and sliced, the local
-    experts are sliced from the whole stacks.
+    experts are sliced from the whole stacks.  ``local``: the stacks are
+    this rank's experts already (tensor-parallel compute), used as they
+    are, so their gradient is this rank's piece.  ``shared``: whether the
+    shared experts are added here (the tensor-parallel caller adds them by
+    their own binding).
 
     Preconditions (raise): a mesh with no "pod" axis, num_experts and the
     local token count divisible by the "model" size."""
@@ -354,8 +432,8 @@ def apply_moe_a2a(p, x, cfg: ModelConfig, mesh):
     xbuf[slot2] = recv_x[order2] * keep2[:, None].to(dt)
     xe = xbuf[:-1].view(e_local, cap_loc, d)
 
-    wg, wu, wd = (comm.to_shard(p[w], mesh, "model").to(dt)
-                  for w in ("w_gate", "w_up", "w_down"))
+    wg, wu, wd = ((p[w] if local else comm.to_shard(p[w], mesh, "model"))
+                  .to(dt) for w in ("w_gate", "w_up", "w_down"))
     h = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
     ye = torch.bmm(h, wd)
     del h
@@ -370,7 +448,7 @@ def apply_moe_a2a(p, x, cfg: ModelConfig, mesh):
     y_my = xt.new_zeros((t_my, d)).index_add_(0, tok_s, y_sorted)
     y = comm.from_shard(y_my, mesh, "model").view(b, s, d)
 
-    if m.num_shared_experts:
+    if shared and m.num_shared_experts:
         shared_cfg = dataclasses.replace(cfg, mlp_type="swiglu")
         y = y + apply_mlp(p["shared"], x, shared_cfg)
     return y, _a2a_aux(p, x, cfg, mesh)

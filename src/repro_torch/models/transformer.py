@@ -14,12 +14,13 @@ reference's and are written in place; under a sliding window each layer's
 KV cache holds ``min(max_len, window)`` slots.
 
 Train mode on a mesh with a live ``"model"`` axis computes tensor-parallel
-for the decoder-only GQA families (``pc.tensor_parallel``, see
+for the GQA decoders, the VLM's included (``pc.tensor_parallel``, see
 :mod:`repro_torch.parallel.sharding`): the vocabulary-parallel embedding,
 each block's attention over this rank's heads and its MLP over this rank's
-columns, each between the layout's regions, and vocabulary-sharded logits;
-under sequence parallelism the residual stream between blocks, and the
-norms on it, hold this rank's rows.
+columns (the MoE over its experts or their columns), each between the
+layout's regions, and vocabulary-sharded logits; under sequence
+parallelism the residual stream between blocks, and the norms on it, hold
+this rank's rows (a VLM rank merges the patches that fall in them).
 
 Train mode rematerializes as the reference places ``jax.checkpoint``: each
 dense or MoE block, each Mamba2 block of a hybrid group and each trailing
@@ -236,7 +237,8 @@ def _attn_block(p, x, cfg, *, rope, mode, cache, pos, attn_impl="masked",
     ``tp``: the pass's tensor-parallel layout (train mode; ``d_ff`` the
     MLP's width): each sublayer enters and leaves it, split (this rank's
     heads or columns) where its leaves bind "model", else whole; the MoE
-    is whole, so it routes the whole sequence as without it."""
+    takes the layout itself (its experts or their columns split, its
+    routing whole: :func:`~repro_torch.models.moe.apply_moe`)."""
     if tp is None:
         def enter(h, split):
             return h
@@ -264,8 +266,7 @@ def _attn_block(p, x, cfg, *, rope, mode, cache, pos, attn_impl="masked",
         x = x + cross_attention(p["cross"], h, cross_kv_cache, cfg)
     h = apply_norm(p["ln2"], x, cfg)
     if "moe" in p:
-        y, stats = apply_moe(p["moe"], enter(h, False), cfg, pc=pc)
-        y = leave(y, False)
+        y, stats = apply_moe(p["moe"], h, cfg, pc=pc, tp=tp)
         if aux is not None:
             _combine_aux(aux, stats)
     else:
@@ -508,15 +509,22 @@ def _rope_for(cfg: ModelConfig, positions, extras):
     return rope_table(positions, hd, cfg.rope_theta)
 
 
-def _merge_patches(x, patches):
+def _merge_patches(x, patches, start: int = 0, total=None):
     """The VLM's patch embeddings (B, P, d) in place of tokens 1 .. P, as
-    the reference merges them (cast to x's dtype)."""
+    the reference merges them (cast to x's dtype).  ``x`` holds the rows
+    ``start`` .. ``start + x.shape[1]`` of a sequence of ``total`` tokens
+    (default: all of it), so a sequence-parallel rank merges the patches
+    that fall in its rows."""
+    total = x.shape[1] if total is None else total
     p_len = patches.shape[1]
-    if p_len > x.shape[1] - 1:
+    if p_len > total - 1:
         raise ValueError(f"{p_len} patches do not fit after the first of "
-                         f"{x.shape[1]} tokens")
-    return torch.cat([x[:, :1], patches.to(x.dtype), x[:, 1 + p_len:]],
-                     dim=1)
+                         f"{total} tokens")
+    lo, hi = max(1, start), min(1 + p_len, start + x.shape[1])
+    if lo >= hi:
+        return x
+    return torch.cat([x[:, :lo - start], patches[:, lo - 1:hi - 1].to(x.dtype),
+                      x[:, hi - start:]], dim=1)
 
 
 def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
@@ -566,7 +574,9 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
         else None
     x = embed_tokens(params["embed"], tokens, cfg, tp=tp)
     if cfg.family == "vlm" and "patches" in extras:
-        x = _merge_patches(x, extras["patches"])
+        # under sequence parallelism x holds this rank's rows
+        x = _merge_patches(x, extras["patches"],
+                           tp.rank * x.shape[1] if tp and tp.sp else 0, s)
     if cfg.family == "encdec":
         x = x + _sinusoidal(positions, cfg.d_model).to(x.dtype)
     rope = _rope_for(cfg, positions, extras)

@@ -18,19 +18,20 @@ each dimension it owns (the first of several mesh axes major, as a JAX
 :class:`PartitionConstraints` carries the rules and the mesh to the model
 as its ``pc`` argument.  Under data parallelism each rank runs the model on
 its own rows, with plain local tensors that have no layout to constrain.
-On a mesh with a live ``"model"`` axis the decoder-only GQA families
-(``dense`` and the GQA MoE, :func:`tp_covers`) compute tensor-parallel in
-train mode: :meth:`PartitionConstraints.tensor_parallel` gives the pass its
-:class:`TensorParallel` layout, whose regions
+On a mesh with a live ``"model"`` axis the GQA decoders (``dense``, the
+GQA MoE and the VLM's text stack, :func:`tp_covers`) compute
+tensor-parallel in train mode: :meth:`PartitionConstraints.tensor_parallel`
+gives the pass its :class:`TensorParallel` layout, whose regions
 (:mod:`repro_torch.parallel.comm`) each block enters and leaves.  A leaf
 whose logical axes bind ``"model"`` is computed as this rank's piece
 (column-parallel query heads and MLP columns, row-parallel outputs, the
-vocabulary); with ``seq_parallel`` the residual stream between blocks
+vocabulary, the MoE's experts or, where the experts do not divide, their
+hidden columns); with ``seq_parallel`` the residual stream between blocks
 holds this rank's rows of the sequence, where the sequence divides by the
 ``"model"`` size (the reference's ``tokens`` fallback otherwise).
 :func:`tp_roles` says, leaf by leaf, how the step gathers it and syncs
 its gradient.  Sequence parallelism on another family raises (ROADMAP
-Queue 1, item 6).
+Queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -44,8 +45,9 @@ from repro_torch.models.params import ParamSpec, flatten, tree_map, unflatten
 from repro_torch.parallel import comm
 
 UNPORTED = ("tensor-parallel compute and sequence parallelism are ported "
-            "for the dense and GQA-MoE families only: ROADMAP Queue 1, "
-            "item 6")
+            "for the dense, GQA-MoE and VLM families only (MLA, Mamba2, "
+            "RWKV6 and the encoder-decoder keep every leaf whole): ROADMAP "
+            "Queue 1, item 3")
 
 
 def _flatten_mesh_axes(entry) -> tuple:
@@ -240,10 +242,11 @@ ROLES = ("split", "whole", "partial")
 
 def tp_covers(cfg) -> bool:
     """Whether the model computes tensor-parallel under a live "model"
-    axis: the decoder-only GQA families (``dense``, and ``moe`` with GQA
-    attention).  MLA, Mamba2, RWKV6, the encoder-decoder and the VLM keep
-    every leaf whole (ROADMAP Queue 1, item 6)."""
-    return cfg.family in ("dense", "moe") and cfg.attention_type == "gqa"
+    axis: the GQA decoders (``dense``, ``moe`` with GQA attention, and the
+    ``vlm`` text stack).  MLA, Mamba2, RWKV6 and the encoder-decoder keep
+    every leaf whole (ROADMAP Queue 1, item 3)."""
+    return cfg.family in ("dense", "moe", "vlm") and \
+        cfg.attention_type == "gqa"
 
 
 def binds_model(s: ParamSpec, rules: ShardingRules, mesh) -> bool:
@@ -270,7 +273,15 @@ def _leaf_role(key: str, s: ParamSpec, specs: dict, rules, mesh,
         # the reference's kv_heads fallback: each rank projects the KV
         # heads its query heads read from the replicated leaf
         return "partial" if heads else "whole"
-    if parent in ("mlp", "embed"):
+    if parent == "moe":
+        # the expert stacks are this rank's experts, or (where the experts
+        # do not divide) their hidden columns, as the binding says; the
+        # router stays whole: every "model" rank routes every token alike
+        if leaf == "router":
+            return "whole"
+        return "split" if binds_model(s, rules, mesh) else "whole"
+    if parent in ("mlp", "embed") or (parent == "shared"
+                                      and key.split("/")[-3] == "moe"):
         return "split" if binds_model(s, rules, mesh) else "whole"
     if parent in ("ln1", "ln2", "final_norm"):
         # under sequence parallelism a norm sees this rank's rows only
@@ -287,11 +298,15 @@ def tp_roles(cfg, rules: ShardingRules, mesh,
 
     * ``"split"``: ``logical_to_pspec`` binds "model" to one of its
       dimensions; the rank computes with its piece (gathered over the
-      other axes only), and its gradient is already that piece's;
+      other axes only), and its gradient is already that piece's (the
+      MoE's expert stacks on their ``experts`` or, where those do not
+      divide, their ``mlp`` dimension; its shared experts as an MLP);
     * ``"whole"``: gathered whole and computed whole, as without tensor
       parallelism; its gradient is the same on every "model" rank, which
-      keeps its chunk locally (the MoE experts and router; attention whose
-      ``heads`` fell back to replication; every leaf of a family
+      keeps its chunk locally (the MoE router, even where its ``experts``
+      dimension binds "model": routing is a softmax over every expert;
+      attention whose ``heads`` fell back to replication; an expert stack
+      neither of whose dimensions divides; every leaf of a family
       :func:`tp_covers` does not cover, and every leaf without a live
       "model" axis);
     * ``"partial"``: replicated over "model", but each rank uses part of
@@ -323,8 +338,14 @@ class TensorParallel:
     rank: int
     sp: bool
 
+    def split_dim(self, s: ParamSpec) -> Optional[int]:
+        """The dimension of ``s`` bound to "model" (None: none is)."""
+        spec = logical_to_pspec(s.axes, s.shape, self.rules, self.mesh)
+        return next((i for i, e in enumerate(spec)
+                     if "model" in _flatten_mesh_axes(e)), None)
+
     def splits(self, s: ParamSpec) -> bool:
-        return binds_model(s, self.rules, self.mesh)
+        return self.split_dim(s) is not None
 
     def whole(self, x):
         """This rank's rows -> the whole sequence (backward: this rank's

@@ -194,13 +194,13 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
     # ---- data (deterministic, resumable) ---------------------------------
     source = SyntheticTokenSource(model_cfg.vocab_size, seed=train_cfg.seed)
     batch_fn = make_batch_fn(source, model_cfg, shape,
-                             extras_fn=_extras_fn(model_cfg, shape))
+                             extras_fn=stub_extras(model_cfg, shape))
 
     # ---- params / resume ---------------------------------------------------
     train_step, opt = make_train_step(model_cfg, train_cfg, pc=pc,
                                       mesh=mesh)
     sh = dict(zip(("params", "opt_state"),
-                  shardings(model_cfg, train_cfg, mesh))) \
+                  shardings(model_cfg, train_cfg, mesh, pc))) \
         if mesh is not None else None
     ckpt = CheckpointManager(train_cfg.ckpt_dir, keep=train_cfg.ckpt_keep) \
         if train_cfg.ckpt_dir else None
@@ -366,7 +366,7 @@ def _any_rank(flag: bool, mesh, device) -> bool:
                                 "max"))
 
 
-def _extras_fn(cfg: ModelConfig, shape: ShapeConfig):
+def stub_extras(cfg: ModelConfig, shape: ShapeConfig):
     """The reference's stub modality inputs of a batch, or None: a VLM's
     ``patches`` (zeros, fp32; the ViT frontend is a stub) at the first
     ``min(vlm_num_patches, S - 2)`` positions after BOS, and ``mrope_pos``

@@ -21,8 +21,9 @@ With ``mesh`` (a DeviceMesh over axes among "pod", "data", "model") the
 step is data-parallel with sharded storage, and computes the reference's
 step on the global batch:
 
-* params and optimizer state are this rank's pieces, split by
-  ``TRAIN_RULES`` (:func:`shardings`); the batch is this rank's rows of
+* params and optimizer state are this rank's pieces, split by the
+  rules the pass computes with (``pc.rules``, by default ``TRAIN_RULES``:
+  :func:`shardings`); the batch is this rank's rows of
   the global batch, block ``i`` of the data-parallel ranks ("pod" x
   "data", pod major: :func:`shard_batch`); ranks that differ only in their
   "model" coordinate hold the same rows and compute the same loss;
@@ -152,10 +153,10 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, *,
         return _make_dist_step(model_cfg, train_cfg, pc, mesh)
     opt = get_optimizer(train_cfg)
     lr_fn = lr_schedule(train_cfg)
+    grads_fn = make_grads_fn(model_cfg, train_cfg, pc=pc)
 
     def train_step(params, opt_state, batch, step):
-        grads, metrics = _grads_and_metrics(params, batch, model_cfg,
-                                            train_cfg, pc)
+        grads, metrics = grads_fn(params, batch)
         if train_cfg.grad_clip_norm > 0:
             grads, gnorm = clip_by_global_norm(grads,
                                                train_cfg.grad_clip_norm)
@@ -179,13 +180,16 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, *,
 DP_AXES = ("pod", "data")
 
 
-def shardings(model_cfg: ModelConfig, train_cfg: TrainConfig, mesh):
-    """(params, optimizer state) Sharding trees on ``mesh`` under
-    ``TRAIN_RULES``: a moment is split as its param."""
+def shardings(model_cfg: ModelConfig, train_cfg: TrainConfig, mesh,
+              pc: Optional[PartitionConstraints] = None):
+    """(params, optimizer state) Sharding trees on ``mesh`` under the
+    rules of ``pc``, the constraints the step is built with (None: its
+    default, ``TRAIN_RULES``): a moment is split as its param."""
+    rules = pc.rules if pc is not None else TRAIN_RULES
     specs = model_specs(model_cfg)
-    return (shardings_for_specs(specs, TRAIN_RULES, mesh),
+    return (shardings_for_specs(specs, rules, mesh),
             shardings_for_specs(opt_state_specs(specs, train_cfg),
-                                TRAIN_RULES, mesh))
+                                rules, mesh))
 
 
 def shard_batch(batch: dict, mesh) -> dict:
@@ -287,8 +291,17 @@ def gather_for_compute(params, param_shardings, mesh, roles) -> dict:
         for k, v in flatten(params).items()})
 
 
-def _make_dist_step(model_cfg: ModelConfig, train_cfg: TrainConfig, pc,
-                    mesh):
+def make_grads_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, *,
+                  pc=None, mesh=None):
+    """grads_fn(params, batch) -> (grads, metrics): the gradients the
+    train step of the same arguments clips and applies, and its metrics
+    before the norms.  With ``mesh``: this rank's pieces of the global
+    batch's mean gradient, from this rank's pieces of the params and rows
+    of the batch, gathered and synced by role as the module docstring
+    says."""
+    if mesh is None:
+        return lambda params, batch: _grads_and_metrics(
+            params, batch, model_cfg, train_cfg, pc)
     if train_cfg.seq_parallel and not tp_covers(model_cfg):
         raise NotImplementedError(f"seq_parallel for family "
                                   f"{model_cfg.family!r}: {UNPORTED}")
@@ -298,18 +311,14 @@ def _make_dist_step(model_cfg: ModelConfig, train_cfg: TrainConfig, pc,
                                           "bf16"):
         raise ValueError(f"grad_compression "
                          f"{train_cfg.grad_compression!r}")
-    pc = pc or PartitionConstraints(TRAIN_RULES, mesh,
-                                    seq_parallel=train_cfg.seq_parallel)
-    opt = get_optimizer(train_cfg)
-    lr_fn = lr_schedule(train_cfg)
-    psh, _ = shardings(model_cfg, train_cfg, mesh)
-    axes = pc.dp_axes
+    pc = pc or _default_pc(train_cfg, mesh)
+    psh, _ = shardings(model_cfg, train_cfg, mesh, pc)
     nm = train_cfg.num_microbatches
 
     def reduce(metrics):
-        return _reduce_metrics(metrics, mesh, axes)
+        return _reduce_metrics(metrics, mesh, pc.dp_axes)
 
-    def train_step(params, opt_state, batch, step):
+    def grads_fn(params, batch):
         rows = next(iter(batch.values())).shape[0]
         if nm > 1 and rows % nm:
             # rank r's rows m, m + nm, ... are then global microbatch m's
@@ -323,8 +332,27 @@ def _make_dist_step(model_cfg: ModelConfig, train_cfg: TrainConfig, pc,
         grads, metrics = _grads_and_metrics(local, batch, model_cfg,
                                             train_cfg, pc, reduce)
         del local
-        grads = sync_grads(grads, psh, mesh, train_cfg.grad_compression,
-                           roles)
+        return sync_grads(grads, psh, mesh, train_cfg.grad_compression,
+                          roles), metrics
+
+    return grads_fn
+
+
+def _default_pc(train_cfg: TrainConfig, mesh) -> PartitionConstraints:
+    return PartitionConstraints(TRAIN_RULES, mesh,
+                                seq_parallel=train_cfg.seq_parallel)
+
+
+def _make_dist_step(model_cfg: ModelConfig, train_cfg: TrainConfig, pc,
+                    mesh):
+    pc = pc or _default_pc(train_cfg, mesh)
+    grads_fn = make_grads_fn(model_cfg, train_cfg, pc=pc, mesh=mesh)
+    opt = get_optimizer(train_cfg)
+    lr_fn = lr_schedule(train_cfg)
+    psh, _ = shardings(model_cfg, train_cfg, mesh, pc)
+
+    def train_step(params, opt_state, batch, step):
+        grads, metrics = grads_fn(params, batch)
         if train_cfg.grad_clip_norm > 0:
             grads, gnorm = clip_by_global_norm(
                 grads, train_cfg.grad_clip_norm, psh, mesh)

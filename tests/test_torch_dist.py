@@ -153,8 +153,8 @@ def test_constraints_are_the_identity_and_sequence_parallelism_raises():
     """Without sequence parallelism the activation constraints are the
     identity; with it a pass runs sequence-parallel only where the
     sequence divides by the "model" size (the reference's ``tokens``
-    fallback), and only for the families tensor-parallel compute covers:
-    the others raise."""
+    fallback), and only for the families tensor-parallel compute covers
+    (the VLM's among them): the others raise."""
     pc = tsh.PartitionConstraints(tsh.TRAIN_RULES, {"data": 2, "model": 2})
     x = torch.zeros(2, 4, 8)
     assert pc.tokens(x) is x and pc.act(x, "batch", None, None) is x
@@ -172,9 +172,11 @@ def test_constraints_are_the_identity_and_sequence_parallelism_raises():
     assert not one.sp_for(4) and one.tokens(x) is x
     assert one.tensor_parallel(get_config("granite-3-8b"), 4) is None
     for arch in ("zamba2-7b", "deepseek-v2-236b", "rwkv6-1.6b",
-                 "seamless-m4t-large-v2", "qwen2-vl-7b"):
+                 "seamless-m4t-large-v2"):
         with pytest.raises(NotImplementedError, match="Queue 1"):
             sp.tensor_parallel(get_config(arch), 4)
+    # the VLM's text stack is covered
+    assert tsh.tp_covers(get_config("qwen2-vl-7b"))
     assert tsh.NullConstraints().mesh is None
 
 

