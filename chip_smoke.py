@@ -42,7 +42,9 @@ JAX package.  Phases, each reported on its own lines:
               4096) and its rows of the sequence under sequence
               parallelism (4096, 4096), bf16 (granite) and fp32
               (mixtral), and qwen2-vl's rows under sequence parallelism
-              (4096, 3584), fp32.
+              (4096, 3584), fp32; then flash and the RMSNorm forward at a
+              rank's shapes of each phase 6 (f) world (its rows, its query
+              heads and the KV heads they read), bf16.
 3. serve   -- nine models at full width, random weights from a seed,
               bf16, one after the other (each freed before the next), seven
               served by ServingEngine(max_batch=8): granite-3-8b (40 layers),
@@ -241,7 +243,24 @@ JAX package.  Phases, each reported on its own lines:
               MoE run's ranks dispatching alike; the card's compute mode
               first, then per run each rank's step times (host-staged
               exchanges: not a speed of tensor parallelism), staged bytes
-              and the world's wall seconds.  ``dist:`` JSON lines.
+              and the world's wall seconds;
+              (f) serving on a mesh, the worlds of SERVE_WORLDS: each
+              model's batch through the one-device ``make_serve_fns``
+              first (greedy, SERVE_NEW positions), then through
+              ``make_serve_fns(cfg, pc=)`` on two processes sharing the
+              card over gloo, each rank with its pieces of the params,
+              rows and cache, fed the one-device greedy tokens: granite-3-8b
+              (40 layers, KV heads split), granite (8 layers, the cache's
+              slots split: ``kv_heads`` unbound), mixtral-8x7b (4 of 32
+              layers, experts split, the long prompts and the ring cache),
+              qwen2-vl-7b (28 layers, stub image, M-RoPE in decode) on
+              (1, 2), granite (8 layers) on (2, 1) (rows only, the
+              params whole on each rank).  Every
+              position's logits within MODEL_TOL of the one-device ones
+              (relative to the largest), the greedy tokens that agree
+              logged, launches a rank exactly ``expected_launches``, each
+              rank's ``max_memory_allocated`` within PEAK_TOL of the count
+              of its calls.  ``dist:`` JSON lines.
 7. analysis -- the step counts of ``launch.cost_analysis`` against the
               card: (a) for each phase-4 cell, ``train()``'s own count of
               its step (flops, bytes, predicted peak GB) and bound s =
@@ -264,8 +283,8 @@ JAX package.  Phases, each reported on its own lines:
    paths driven -- the nine served models, train granite, zamba2,
    mixtral, deepseek, qwen2-vl, rwkv6 and seamless, the train CLI and the
    serve CLI on lms-demo, the dist phase's granite steps, pipeline stage,
-   mixtral a2a run and the five tensor-parallel runs (their ranks'
-   launches summed) -- its numbers at
+   mixtral a2a run, the six tensor-parallel runs and the five serving
+   worlds (their ranks' launches summed) -- its numbers at
    one path's shapes (zamba2's prefill for flash, SSD and the forward
    RMSNorm; granite's training shape for the RMSNorm backward, zamba2's
    for the SSD backward), and per path its launches and the rows it was
@@ -1176,6 +1195,15 @@ def kernel_checks(plen: int, lplen: int) -> dict:
                 "rmsnorm": check_rmsnorm(gen, n, tp_d, dt, tag=tag),
                 "rmsnorm_backward": check_rmsnorm_bwd(gen, n, tp_d, dt,
                                                       tag=tag)}
+    # phase 6 (f)'s rows: a rank's rows of the batch and its query heads
+    for name, world in SERVE_WORLDS.items():
+        (b, h, kv, s, d), n, width = serve_rank_rows(world)
+        tag = f"dist-serve-{name}"
+        tp[f"dist:serve-{name}"] = {
+            "flash_attention": check_flash(
+                gen, b, h, kv, s, d, bf16, tag=tag,
+                window=get_config(world.model).sliding_window),
+            "rmsnorm": check_rmsnorm(gen, n, width, bf16, tag=tag)}
     vcfg = get_config(VLM_MODEL)
     vlen = vlm_seq_len(VLM_GRID, VLM_TEXT)
     scfg = get_config(ENCDEC_MODEL)
@@ -1631,19 +1659,24 @@ def serve_vlm(name: str = VLM_MODEL) -> dict:
     return out
 
 
-def encdec_inputs(cfg, prompts, frames: int, dtype, dev) -> tuple:
-    """(tokens (B, S), extras) of the encoder-decoder workload on ``dev``:
-    the prompts right-aligned and BOS-padded to the longest, as the engine
-    aligns them, and ``src_frames`` (B, frames, d) from N(0, 0.02^2)
-    seeded by SEED, in ``dtype``."""
+def right_aligned(prompts, dev) -> torch.Tensor:
+    """(B, S) tokens on ``dev``: the prompts right-aligned and BOS-padded
+    to the longest, as the engine aligns them."""
     plen = max(len(p) for p in prompts)
     toks = np.zeros((len(prompts), plen), np.int64)
     for i, p in enumerate(prompts):
         toks[i, plen - len(p):] = p
+    return torch.from_numpy(toks).to(dev)
+
+
+def encdec_inputs(cfg, prompts, frames: int, dtype, dev) -> tuple:
+    """(tokens (B, S), extras) of the encoder-decoder workload on ``dev``:
+    the prompts right-aligned (:func:`right_aligned`) and ``src_frames``
+    (B, frames, d) from N(0, 0.02^2) seeded by SEED, in ``dtype``."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     src = 0.02 * torch.randn((len(prompts), frames, cfg.d_model),
                              generator=gen, device=dev)
-    return torch.from_numpy(toks).to(dev), {"src_frames": src.to(dtype)}
+    return right_aligned(prompts, dev), {"src_frames": src.to(dtype)}
 
 
 def serve_encdec(name: str = ENCDEC_MODEL) -> dict:
@@ -2662,6 +2695,55 @@ TP_CASES = {
 }
 
 
+# (f) serving on a mesh: each world of SERVE_WORLDS serves one batch
+# through make_serve_fns(cfg, pc=) on a (data, model) mesh of that many
+# processes sharing the card over gloo, as (e)'s do: prefill, then
+# SERVE_NEW - 1 decode steps teacher-forced with the one-device run's
+# greedy tokens (a near tie cannot make the runs part); every step's last
+# logits (gathered over "model") within MODEL_TOL of the one-device
+# make_serve_fns' on the same params, relative to the largest logit.  A
+# world that outlives SERVE_DEADLINE_S fails.
+SERVE_NEW, SERVE_DEADLINE_S = 32, 300
+
+
+class ServeWorld(NamedTuple):
+    """A world of phase 6 (f): ``model`` cut to ``layers`` (None: all),
+    served on a (data, model) ``mesh`` under ``SERVE_RULES`` with
+    ``rules`` overridden, on ``workload``'s batch ("short": phase 3's 8
+    prompts, right-aligned to 910 tokens; "long": mixtral's 4 of 4685-5731
+    tokens; "vlm": qwen2-vl's 8 rows of an image and text) in a cache of
+    ``max_len`` (None: the workload's)."""
+    model: str
+    layers: Optional[int]
+    mesh: tuple
+    rules: dict
+    workload: str
+    max_len: Optional[int] = None
+
+
+# granite-3-8b at full width and depth: its 8 KV heads split 4 a rank
+# (layout "heads", the reference's "dus"); granite at 8 layers with the KV
+# heads unbound (layout "seq", as on pod16x16, where 8 KV heads do not
+# divide 16): a cache of 1840 slots, 920 a rank, so the prompt's 910
+# tokens and the first decode steps land on rank 0 and the later ones on
+# rank 1; mixtral-8x7b at 4 of 32 layers, its experts split 4 a rank, the
+# long prompts past the 4096-token window (the ring cache); qwen2-vl-7b at
+# 28 layers with the stub image and M-RoPE positions continued in decode;
+# granite at 8 layers on (2, 1): the rows split 4 a rank, nothing over
+# "model", the params whole on each rank (``embed`` unbound: gathered over
+# "data" in each call and staged through the host, even 1 layer's 1.2 GB a
+# call made the decode 45 s on an H100; the CPU tests hold the gathers).
+SERVE_WORLDS = {
+    "granite": ServeWorld(TRAIN_MODEL, None, (1, 2), {}, "short"),
+    "granite-seq": ServeWorld(TRAIN_MODEL, 8, (1, 2), {"kv_heads": None},
+                              "short", 1840),
+    "mixtral": ServeWorld("mixtral-8x7b", 4, (1, 2), {}, "long"),
+    "qwen2-vl": ServeWorld(VLM_MODEL, None, (1, 2), {}, "vlm"),
+    "granite-rows": ServeWorld(TRAIN_MODEL, 8, (2, 1), {"embed": None},
+                               "short"),
+}
+
+
 @contextmanager
 def one_rank_world(backend: str = "nccl"):
     """A one-rank process group through a file store under build/ (no
@@ -3209,6 +3291,299 @@ def dist_tp(dev="cuda") -> dict:
     return out
 
 
+def serve_world_cfg(world: ServeWorld, smoke: bool = False):
+    """The world's config at its depth (``smoke``: the smoke config, for a
+    rehearsal on the CPU)."""
+    cfg = get_config(world.model, smoke=smoke)
+    if world.layers is not None and not smoke:
+        cfg = dataclasses.replace(cfg, num_layers=world.layers)
+    return cfg
+
+
+def serve_world_inputs(world: ServeWorld, cfg, dev, smoke: bool = False):
+    """(tokens (B, S), prefill extras, max_len, decode extras of step k) of
+    the world's workload on ``dev``; prompts right-aligned and BOS-padded
+    to the longest, as the engine aligns them.  ``smoke``: a few short
+    rows of the same kind (the long one past the smoke window of 16)."""
+    if world.workload == "vlm":
+        rows, grid, text, max_len = (4, 2, 8, 32) if smoke else \
+            (VLM_ROWS, VLM_GRID, VLM_TEXT, VLM_MAX_LEN)
+        toks, extras = vlm_inputs(cfg, rows, grid, text, getattr(
+            torch, cfg.dtype), dev)
+        nxt = int(extras["mrope_pos"].max()) + 1
+        return toks, extras, max_len, lambda k: {"mrope_pos": torch.full(
+            (rows, 1, 3), nxt + k, dtype=torch.long, device=dev)}
+    if smoke:
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+                   for n in ((20, 17, 9, 13) if world.workload == "long"
+                             else (12, 7, 10, 5))]
+        max_len = 48
+    else:
+        prompts = smoke_prompts(cfg, world.workload)
+        max_len = MAX_LEN if world.workload == "short" else LONG_MAX_LEN
+    if world.max_len is not None and not smoke:
+        max_len = world.max_len
+    return right_aligned(prompts, dev), {}, max_len, lambda k: None
+
+
+def serve_one_device(world: ServeWorld, dev="cuda", smoke=False) -> dict:
+    """The world's batch through the one-device ``make_serve_fns`` on the
+    seed's params: greedy, each step's last logits (SERVE_NEW, B, V) on
+    the host in fp32, the tokens fed back (B, SERVE_NEW - 1), the peak and
+    the seconds; the weights are freed on return."""
+    cfg = serve_world_cfg(world, smoke)
+    params = init_model_params(cfg, seed=SEED, device=dev,
+                               compute_dtype=getattr(torch, cfg.dtype))
+    toks, extras, max_len, dec = serve_world_inputs(world, cfg, dev, smoke)
+    prefill, decode = make_serve_fns(cfg)
+    sync = _sync(dev)
+    if dev == "cuda":
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+    logits, fed = [], []
+    with torch.inference_mode():
+        t0 = time.monotonic()
+        cache = init_cache(cfg, toks.shape[0], max_len, device=dev)
+        last, cache = prefill(params, toks, cache, extras)
+        logits.append(last.float().cpu())
+        for k in range(SERVE_NEW - 1):
+            nxt = torch.argmax(last, dim=-1)
+            fed.append(nxt.cpu())
+            last, cache = decode(params, cache, nxt[:, None],
+                                 toks.shape[1] + k, dec(k))
+            logits.append(last.float().cpu())
+        sync()
+        wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" \
+        else None
+    del params, cache
+    return {"logits": torch.stack(logits), "fed": torch.stack(fed, dim=1),
+            "peak_memory_gb": peak, "wall_s": wall}
+
+
+def serve_rank_main(argv: list) -> int:
+    """One rank of phase 6 (f), in a process of its own: ``--serve-rank R
+    --serve-world N --serve-dir DIR --serve-case C`` (``SERVE_WORLDS[C]``;
+    ``--serve-dev cpu --serve-smoke 1`` rehearse it on the CPU at smoke
+    size).  Joins a gloo world through a file store in DIR, makes the
+    seed's params and keeps its pieces under the world's rules, allocates
+    its cache piece, takes its rows of the batch and serves it through
+    ``make_serve_fns(cfg, pc=)``, fed the one-device run's tokens
+    (``DIR/fed.pt``); writes its row (launches, peak, the count's peak,
+    seconds, staged exchanges) to ``DIR/rank<R>.json`` and each step's
+    logits gathered over "model" (its rows, fp32) to ``DIR/logits<R>.pt``."""
+    import torch.distributed as dist
+    from repro_torch.parallel.sharding import SERVE_RULES
+    from repro_torch.serve.engine import (gather_logits, init_cache_piece,
+                                          serve_shardings)
+    from repro_torch.train.step import rows_for
+    args = dict(zip(argv[0::2], argv[1::2]))
+    rank, world_size = int(args["--serve-rank"]), int(args["--serve-world"])
+    workdir, world = args["--serve-dir"], SERVE_WORLDS[args["--serve-case"]]
+    dev = args.get("--serve-dev", "cuda")
+    smoke = args.get("--serve-smoke", "0") == "1"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+        kbuild.load_library()              # built by the parent
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(workdir, "store"), world_size), rank=rank,
+        world_size=world_size)
+    try:
+        mesh = make_mesh_for(world_size, model=world.mesh[1],
+                             device_type="cpu")
+        cfg = serve_world_cfg(world, smoke)
+        toks, extras, max_len, dec = serve_world_inputs(world, cfg, dev,
+                                                        smoke)
+        pc = PartitionConstraints(SERVE_RULES.with_overrides(**world.rules),
+                                  mesh, batch=toks.shape[0], max_len=max_len)
+        psh, _ = serve_shardings(cfg, pc)
+        pieces = shard_tree(init_model_params(
+            cfg, seed=SEED, device=dev,
+            compute_dtype=getattr(torch, cfg.dtype)), psh, mesh)
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        fed = torch.load(os.path.join(workdir, "fed.pt")).to(dev)
+        rows = rows_for({"i": torch.arange(toks.shape[0])}, pc)["i"]
+        mine = rows_for({"tokens": toks, "fed": fed, **extras}, pc)
+        toks, fed = mine.pop("tokens"), mine.pop("fed")
+        extras = mine
+        cache = init_cache_piece(cfg, pc, device=dev)
+        prefill, decode = make_serve_fns(cfg, pc=pc)
+
+        def dec_rows(k):
+            ex = dec(k)
+            return None if ex is None else rows_for(ex, pc)
+        # the count of this rank's calls, on meta copies of its arguments
+        counted = max(
+            analyze_step(prefill, (pieces, toks, cache, extras))[
+                "memory"]["peak_bytes"],
+            analyze_step(decode, (pieces, cache, fed[:, :1], toks.shape[1],
+                                  dec_rows(0)))["memory"]["peak_bytes"])
+        sync = _sync(dev)
+        if dev == "cuda":
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        comm.reset_staged()
+        logits = []
+        t0 = time.monotonic()
+        last, cache = prefill(pieces, toks, cache, extras)
+        logits.append(gather_logits(cfg, last, pc).float().cpu())
+        prefill_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        for k in range(SERVE_NEW - 1):
+            last, cache = decode(pieces, cache, fed[:, k:k + 1],
+                                 toks.shape[1] + k, dec_rows(k))
+            logits.append(gather_logits(cfg, last, pc).float().cpu())
+        decode_s = time.monotonic() - t0
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" \
+            else None
+        torch.save(torch.stack(logits), os.path.join(workdir,
+                                                     f"logits{rank}.pt"))
+        row = {"rank": rank, "coord": list(mesh.get_coordinate()),
+               "rows": rows.tolist(), "launches": launches,
+               "peak_memory_gb": peak, "counted_peak_gb": counted / 1e9,
+               "prefill_s": prefill_s, "decode_s": decode_s,
+               "staged": comm.staged(),
+               "cache_gb": sum(t.numel() * t.element_size() for t in
+                               flatten(cache).values()) / 1e9,
+               "params_gb": sum(t.numel() * t.element_size() for t in
+                                flatten(pieces).values()) / 1e9}
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump(row, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def serve_world(name: str, fed, dev: str = "cuda",
+                smoke: bool = False) -> list:
+    """``SERVE_WORLDS[name]`` as processes of this script sharing the one
+    card, fed ``fed``; returns each rank's row with its logits
+    (``"logits"``: (SERVE_NEW, its rows, V)).  A world that outlives
+    SERVE_DEADLINE_S is killed, and fails the run."""
+    world = SERVE_WORLDS[name]
+    n = world.mesh[0] * world.mesh[1]
+    workdir = os.path.join(ROOT, "build", "serve_world")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    torch.save(fed, os.path.join(workdir, "fed.pt"))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--serve-rank", str(r),
+         "--serve-world", str(n), "--serve-dir", workdir, "--serve-case",
+         name, "--serve-dev", dev, "--serve-smoke", "1" if smoke else "0"])
+        for r in range(n)]
+    deadline = time.monotonic() + SERVE_DEADLINE_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    rcs = [p.returncode for p in procs]
+    if any(rc != 0 for rc in rcs):
+        raise AssertionError(f"dist: serve ranks of {name} exited {rcs} "
+                             f"(deadline {SERVE_DEADLINE_S} s)")
+    rows = []
+    for r in range(n):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            row = json.load(f)
+        row["logits"] = torch.load(os.path.join(workdir, f"logits{r}.pt"))
+        rows.append(row)
+    shutil.rmtree(workdir, ignore_errors=True)
+    return rows
+
+
+def serve_rank_rows(world: ServeWorld, smoke: bool = False) -> tuple:
+    """(flash (B, H, KV, S, D), RMSNorm prefill rows, d) of a rank of the
+    world: its rows of the batch, its query heads and the KV heads they
+    read, as ``gqa_attention`` hands them to the kernel."""
+    cfg = serve_world_cfg(world, smoke)
+    toks, _, _, _ = serve_world_inputs(world, cfg, "cpu", smoke)
+    b, s = toks.shape
+    dp, tp = world.mesh
+    rows = b // dp if b % dp == 0 else b
+    h = cfg.num_heads // tp if cfg.num_heads % tp == 0 else cfg.num_heads
+    kv = max(1, h * cfg.num_kv_heads // cfg.num_heads)
+    return (rows, h, kv, s, cfg.head_dim), rows * s, cfg.d_model
+
+
+def dist_serve(dev="cuda", smoke: bool = False) -> dict:
+    """(f): each world of SERVE_WORLDS against its one-device run (made
+    here first, then freed): every rank's logits at each of the SERVE_NEW
+    positions within MODEL_TOL of the one-device ones, relative to the
+    largest logit (the greedy tokens that agree are logged); its launches
+    exactly ``expected_launches`` of one prefill and SERVE_NEW forwards;
+    its ``max_memory_allocated`` within PEAK_TOL of ``cost_analysis``'s
+    count of its calls.  Logs one ``dist: serve`` line a world and returns
+    each world's launches (summed over the ranks), keyed by its path."""
+    out = {}
+    for name, world in SERVE_WORLDS.items():
+        cfg = serve_world_cfg(world, smoke)
+        t0 = time.monotonic()
+        one = serve_one_device(world, dev, smoke)
+        one_wall = time.monotonic() - t0
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        ranks = serve_world(name, one["fed"], dev, smoke)
+        wall = time.monotonic() - t0
+        want_l = expected_launches(cfg, 1, SERVE_NEW)
+        gaps, agree = [], []
+        for r in ranks:
+            got, want = r.pop("logits"), one["logits"][:, r["rows"]]
+            gaps.append(max(float((g - w).abs().max() / w.abs().max())
+                            for g, w in zip(got, want)))
+            agree.append(int((got.argmax(-1) == want.argmax(-1)).sum()))
+        peaks = [(r["counted_peak_gb"], r["peak_memory_gb"]) for r in ranks]
+        path = f"dist:serve-{name}"
+        row = {"world": name, "model": world.model,
+               "layers": cfg.num_layers, "dtype": cfg.dtype,
+               "mesh": dict(zip(("data", "model"), world.mesh)),
+               "rules": world.rules, "rows": [r["rows"] for r in ranks],
+               "positions": SERVE_NEW,
+               "largest_relative_gap": gaps,
+               "greedy_agree": agree,
+               "greedy_of": [SERVE_NEW * len(r["rows"]) for r in ranks],
+               "prefill_s": [r["prefill_s"] for r in ranks],
+               "decode_s": [r["decode_s"] for r in ranks],
+               "one_device_wall_s": one["wall_s"],
+               "staged": [r["staged"] for r in ranks],
+               "cache_gb": [r["cache_gb"] for r in ranks],
+               "params_gb": [r["params_gb"] for r in ranks],
+               "peak_gb_counted_measured": peaks,
+               "one_device_peak_gb": one["peak_memory_gb"],
+               "launches": [r["launches"] for r in ranks],
+               "one_device_run_s": one_wall, "world_wall_s": wall}
+        log(f"dist: serve {json.dumps(row)} (seconds are of exchanges "
+            f"staged through the host over gloo, two processes sharing "
+            f"one card: not a speed of serving on a mesh; limits "
+            f"{MODEL_TOL}, peak {PEAK_TOL})")
+        if not all(g <= MODEL_TOL for g in gaps):
+            raise AssertionError(f"{path}: a rank's logits disagree with "
+                                 f"the one-device run: {gaps}")
+        if dev == "cuda":
+            if any(r["launches"] != want_l for r in ranks):
+                raise AssertionError(
+                    f"{path}: launches {[r['launches'] for r in ranks]}, "
+                    f"expected {want_l} a rank")
+            if not all(abs(c - m) <= PEAK_TOL * m for c, m in peaks):
+                raise AssertionError(f"{path}: counted peaks off the "
+                                     f"measured ones: {peaks}")
+        out[path] = {k: sum(r["launches"][k] for r in ranks)
+                     for k in want_l}
+        del one
+    return out
+
+
 def dist_phase(dev: str = "cuda", backend: str = "nccl",
                phase4=None) -> dict:
     """Phase 6: (a)-(d) in one one-rank world, then (e) in worlds of
@@ -3228,8 +3603,11 @@ def dist_phase(dev: str = "cuda", backend: str = "nccl",
     t0 = time.monotonic()
     tp = dist_tp(dev)
     log(f"dist: tp phase {time.monotonic() - t0:.2f} s")
+    t0 = time.monotonic()
+    served = dist_serve(dev)
+    log(f"dist: serve phase {time.monotonic() - t0:.2f} s")
     return {f"dist:{TRAIN_MODEL}": row["launches"],
-            "dist:pipeline": pipe, "dist:mixtral-a2a": a2a, **tp}
+            "dist:pipeline": pipe, "dist:mixtral-a2a": a2a, **tp, **served}
 
 
 # ---------------------------------------------------------------------------
@@ -3470,4 +3848,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(tp_rank_main(sys.argv[1:]) if "--tp-rank" in sys.argv
-             else main())
+             else serve_rank_main(sys.argv[1:])
+             if "--serve-rank" in sys.argv else main())

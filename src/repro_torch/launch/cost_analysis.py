@@ -26,7 +26,11 @@ this rank's program:
   ``bytes``: there is no fusion to model;
 * ``collective_operand_bytes``, ``collective_wire_bytes`` and
   ``by_collective``, as :mod:`repro_torch.parallel.comm` reports each
-  collective (the reference's operand and wire formulas, :func:`wire_bytes`);
+  collective (the reference's operand and wire formulas, :func:`wire_bytes`),
+  and ``by_purpose``, the operand bytes by what the exchange is for
+  (``comm.purpose``: the params' gathers, the row-parallel and vocabulary
+  sums over "model", a serving pass's query gather and partial merge over
+  a cache split by its slots; ``"other"``);
 * nothing for the host's own scalars: an operation on CPU tensors alone
   (the learning-rate schedule, the optimizer's step count) is not the
   device's work;
@@ -209,6 +213,7 @@ class StepCounter(TorchDispatchMode):
         self.collective_operand_bytes = 0.0
         self.collective_wire_bytes = 0.0
         self.by_collective: dict = {}
+        self.by_purpose: dict = {}
         self.kernels: dict = {}
         self.ops = 0
         self.live = 0                   # bytes of device storages alive
@@ -271,12 +276,14 @@ class StepCounter(TorchDispatchMode):
         self._held += _alloc(int(nbytes))
 
     def collective(self, kind: str, operand_bytes: int, output_bytes: int,
-                   group: int) -> None:
+                   group: int, purpose: Optional[str] = None) -> None:
         wire = wire_bytes(kind, operand_bytes, output_bytes, group)
         self.collective_operand_bytes += operand_bytes
         self.collective_wire_bytes += wire
         self.by_collective[kind] = self.by_collective.get(kind, 0.0) \
             + operand_bytes
+        key = purpose or "other"
+        self.by_purpose[key] = self.by_purpose.get(key, 0.0) + operand_bytes
         # the exchange reads its operand and writes its output on the card
         self.bytes += operand_bytes + output_bytes
 
@@ -405,6 +412,7 @@ class StepCounter(TorchDispatchMode):
                 "collective_operand_bytes": self.collective_operand_bytes,
                 "collective_wire_bytes": self.collective_wire_bytes,
                 "by_collective": dict(self.by_collective),
+                "by_purpose": dict(self.by_purpose),
                 "kernels": {k: dict(v) for k, v in self.kernels.items()},
                 "operations": self.ops}
 
@@ -472,10 +480,9 @@ def extrapolate(at2: dict, at3: dict, n: int, args=None) -> dict:
         return a + (n - 2) * (b - a)
     p2, p3 = at2["per_device"], at3["per_device"]
     per = {k: lin(p2[k], p3[k]) for k in _LINEAR}
-    per["by_collective"] = {
-        k: lin(p2["by_collective"].get(k, 0.0), p3["by_collective"].get(
-            k, 0.0)) for k in set(p2["by_collective"]) |
-        set(p3["by_collective"])}
+    for key in ("by_collective", "by_purpose"):
+        per[key] = {k: lin(p2[key].get(k, 0.0), p3[key].get(k, 0.0))
+                    for k in set(p2[key]) | set(p3[key])}
     per["kernels"] = {
         k: {f: lin(p2["kernels"].get(k, {}).get(f, 0),
                    p3["kernels"][k][f]) for f in ("calls", "flops",

@@ -23,8 +23,13 @@ For each cell the dry run:
    whole (a MoE router whose experts bind "model"; every split leaf of a
    family tensor-parallel compute does not cover).
 
-Serving takes no mesh in the port, so every prefill and decode cell on a
-production mesh is ``unported``; the ``long_500k`` cells of the quadratic
+A prefill or decode cell serves on the mesh (``make_serve_fns`` with the
+mesh, ``SERVE_RULES``) and its record adds ``serve``: the cache layout
+(``"heads"``, ``"seq"`` or ``"whole"``), whether the rows split or are
+replicated and how many a rank takes, ``tp_compute``, the reference's
+decode ``cache_update`` (``"dus"`` / ``"onehot"``), a rank's params and
+cache bytes and the collectives' bytes by purpose; ``fits_note`` says why
+a cell over 80 GB does not fit.  The ``long_500k`` cells of the quadratic
 archs are ``skipped`` with the reference's reason.
 
 Usage::
@@ -55,7 +60,8 @@ from repro_torch.launch.mesh import (PRODUCTION_SHAPES, fake_world,
 from repro_torch.launch.steps import build_bundle, trace_bundle
 from repro_torch.models.params import flatten
 from repro_torch.models.transformer import model_specs
-from repro_torch.parallel.sharding import TRAIN_RULES, binds_model, tp_roles
+from repro_torch.parallel.sharding import (TRAIN_RULES, binds_model,
+                                          tp_covers, tp_roles)
 from repro_torch.train.loop import DEVICE_PEAKS
 
 CARD = "H100"
@@ -173,8 +179,18 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = OUT,
                         "num_microbatches": tcfg.num_microbatches,
                         "remat_policy": tcfg.remat_policy}
                     record.update(tp_compute(cfg, mesh))
-                _fill(record, trace_bundle(bundle), cfg, shape, arch,
-                      shape_name, mesh_name, chips)
+                hlo = trace_bundle(bundle)
+                _fill(record, hlo, cfg, shape, arch, shape_name, mesh_name,
+                      chips)
+                if bundle.serve is not None:
+                    record["serve"] = {
+                        **bundle.serve,
+                        "params_bytes": hlo["memory"]["params_bytes"],
+                        "cache_bytes": hlo["memory"]["cache_bytes"],
+                        "collective_bytes_by_purpose":
+                            hlo["per_device"]["by_purpose"]}
+                if not record["fits_80gb"]:
+                    record["fits_note"] = _fits_note(cfg, bundle)
     except Exception as e:                                # noqa: BLE001
         record["status"] = "error"
         record["error"] = f"{type(e).__name__}: {e}"
@@ -182,6 +198,22 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = OUT,
     record["time_s"] = round(time.monotonic() - t0, 1)
     _write(path, record)
     return record
+
+
+def _fits_note(cfg, bundle) -> str:
+    """Why a cell's count is over 80 GB a rank, as far as the layout says."""
+    if not tp_covers(cfg):
+        return (f"family {cfg.family!r} with {cfg.attention_type} attention "
+                f"computes whole on every \"model\" rank (tensor-parallel "
+                f"compute covers the dense, GQA-MoE and VLM families): each "
+                f"rank gathers every param whole and keeps its cache whole "
+                f"over \"model\"")
+    if bundle.kind == "train":
+        return ("the count's peak: params, gradients, optimizer state and "
+                "activations of a rank's microbatch, its \"model\" pieces "
+                "gathered over \"data\" for the whole step")
+    return ("the count's peak: a rank's gathered params, its cache piece "
+            "and its activations")
 
 
 @contextmanager
@@ -233,15 +265,18 @@ def _write(path: str, record: dict):
 
 def summary(r: dict) -> str:
     """One line of a record: status, dominant term, bound s, GB a rank,
-    whether it fits, the cell's seconds."""
+    whether it fits, how "model" computes, the cache layout, the cell's
+    seconds."""
     roof = r.get("roofline", {})
     mem = r.get("memory_per_device", {})
+    serve = r.get("serve", {})
     gb = mem.get("peak_bytes", 0) / 1e9 if mem else float("nan")
     return (f"[{r['status']:8s}] {r['mesh']:10s} {r['arch']:24s} "
             f"{r['shape']:12s} dominant={roof.get('dominant', '-'):10s} "
             f"bound_s={roof.get('bound_step_s', float('nan')):.4g} "
             f"gb_per_rank={gb:.4g} fits_80gb={r.get('fits_80gb', '-')} "
-            f"tp={r.get('tp_compute', '-')} t={r.get('time_s')}s")
+            f"tp={r.get('tp_compute', serve.get('tp_compute', '-'))} "
+            f"cache={serve.get('cache_layout', '-')} t={r.get('time_s')}s")
 
 
 def main(argv=None) -> int:

@@ -9,20 +9,25 @@ a cell's step function with the specs and shardings of its arguments;
 under :func:`~repro_torch.launch.cost_analysis.analyze_step` and returns
 its counts.
 
-What a mesh can do here is what the port's step can do:
+What a mesh can do here is what the port's steps can do:
 
 * the train bundle uses :func:`~repro_torch.train.step.make_train_step`
   with the mesh and the train config's ``seq_parallel``: data parallelism
   with sharded storage, tensor-parallel compute under "model" for the
   dense and GQA-MoE families (the other families' "model" ranks gather
   whole params and compute the same loss);
-* serving takes no mesh in the port, so a prefill or decode bundle on a
-  mesh with an axis above 1 is ``unported`` (:data:`SERVE_UNPORTED`); on
-  a (1, 1) mesh, or with none, it traces.  The reference's decode
-  ``cache_update`` policy (an in-place write where the KV heads take the
-  "model" axis, a one-hot write where the cache's sequence does) chooses
-  between layouts of a sharded cache, which serving without a mesh does
-  not have: it has no counterpart until serving takes a mesh.
+* the prefill and decode bundles use
+  :func:`~repro_torch.serve.engine.make_serve_fns` with the mesh
+  (``SERVE_RULES``, the cell's global batch and cache length): each rank
+  takes its pieces of the params (gathered for compute by role inside the
+  call), its rows of the batch where they divide over ("pod", "data")
+  (all of them where they do not: ``long_500k``'s one row) and its piece
+  of the cache, laid out as ``sharding.cache_shardings`` binds it.  A
+  decode bundle records the reference's ``cache_update`` choice
+  (:func:`reference_cache_update`: ``"dus"`` where the KV heads take
+  "model", ``"onehot"`` where the cache's slots do) beside the port's
+  layout (``sharding.kv_cache_layout``); both bundles record the layout
+  and whether the rows split (``StepBundle.serve``).
 """
 
 from __future__ import annotations
@@ -37,16 +42,14 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.launch import cost_analysis
 from repro_torch.models.params import (
     ParamSpec, compute_dtype_for, flatten, fp32_leaves, spec, unflatten)
-from repro_torch.models.transformer import cache_specs, forward, model_specs
+from repro_torch.models.transformer import cache_specs, model_specs
 from repro_torch.parallel import comm
 from repro_torch.parallel.sharding import (
-    PartitionConstraints, ShardingRules, rules_for, shardings_for_specs)
+    PartitionConstraints, ShardingRules, cache_shardings, kv_cache_layout,
+    rules_for, shardings_for_specs, tp_covers)
+from repro_torch.serve.engine import make_serve_fns
 from repro_torch.train.optim import opt_state_specs
 from repro_torch.train.step import make_train_step
-
-SERVE_UNPORTED = ("serving takes no mesh in the port (ROADMAP Queue 1: "
-                  "serving under a mesh), so a prefill or decode cell on a "
-                  "mesh with an axis above 1 is not traced")
 
 
 # --------------------------------------------------------------------------
@@ -133,7 +136,9 @@ class StepBundle:
     spec trees (global shapes; an int stands for a host scalar) and
     ``in_shardings`` their Sharding trees on ``mesh`` (None: whole).
     ``status`` is ``"unported"`` (with ``reason``) for a cell the port's
-    step cannot run; ``fn`` is then None."""
+    step cannot run; ``fn`` is then None.  ``serve``: a prefill or decode
+    bundle's layout (``cache_layout``, ``rows``, ``tp_compute`` and, for
+    decode, the reference's ``cache_update``)."""
 
     fn: object
     abstract_args: tuple
@@ -146,17 +151,32 @@ class StepBundle:
     reason: str = ""
     train_cfg: Optional[TrainConfig] = None
     remake: object = None           # train: microbatches -> StepBundle
+    serve: Optional[dict] = None
 
 
-def make_pc(rules: ShardingRules, mesh,
-            seq_parallel: bool = False) -> Optional[PartitionConstraints]:
+def make_pc(rules: ShardingRules, mesh, seq_parallel: bool = False,
+            batch: Optional[int] = None,
+            max_len: Optional[int] = None) -> Optional[PartitionConstraints]:
     """The partition constraints a step is built with (None without a
-    mesh).  The reference's ``enable`` switch of its activation
+    mesh; ``batch``, ``max_len``: a serving cell's global rows and cache
+    length).  The reference's ``enable`` switch of its activation
     constraints has no counterpart: a rank's tensors are plain local
     ones."""
     if mesh is None:
         return None
-    return PartitionConstraints(rules, mesh, seq_parallel=seq_parallel)
+    return PartitionConstraints(rules, mesh, seq_parallel=seq_parallel,
+                                batch=batch, max_len=max_len)
+
+
+def reference_cache_update(cfg: ModelConfig, mesh) -> str:
+    """The reference decode bundle's cache write: ``"dus"`` (in place)
+    where the KV heads take "model" (or there is none), ``"onehot"`` where
+    they do not divide and the cache's slots carry it; MLA's latent cache
+    counts as not split by heads (``repro.launch.steps``)."""
+    tp = comm.axis_sizes(mesh).get("model", 1)
+    kv_sharded = (cfg.attention_type != "mla"
+                  and cfg.num_kv_heads % tp == 0 and cfg.num_kv_heads >= tp)
+    return "dus" if kv_sharded or tp == 1 else "onehot"
 
 
 def _moe_localized(cfg: ModelConfig, mesh) -> ModelConfig:
@@ -205,72 +225,63 @@ def build_train_bundle(cfg: ModelConfig, shape: ShapeConfig,
         kind="train", mesh=mesh, train_cfg=train_cfg, remake=remake)
 
 
-def _unported(kind: str, cfg: ModelConfig, shape: ShapeConfig, mesh):
-    return StepBundle(fn=None, abstract_args=(), in_shardings=(),
-                      name=f"{kind}:{cfg.name}:{shape.name}", kind=kind,
-                      mesh=mesh, status="unported", reason=SERVE_UNPORTED)
-
-
-def _serves(mesh) -> bool:
-    return not any(v > 1 for v in comm.axis_sizes(mesh).values())
+def _serve_bundle(kind: str, cfg: ModelConfig, shape: ShapeConfig, mesh,
+                  rules: Optional[ShardingRules]) -> StepBundle:
+    """A prefill or decode bundle: ``make_serve_fns(cfg, pc=)`` on the
+    cell's mesh (the MoE localised as the train bundle's), bf16 serving
+    weights and a cache of ``shape.seq_len`` (decode writes its new token
+    in the last slot)."""
+    rules = rules or rules_for("serve")
+    lcfg = _moe_localized(cfg, mesh) if mesh is not None else cfg
+    b, s = shape.global_batch, shape.seq_len
+    pc = make_pc(rules, mesh, batch=b, max_len=s)
+    pspecs = serve_param_specs(lcfg, fp32_leaves(lcfg))
+    cspecs = cache_specs(lcfg, b, s)
+    ispecs = (prefill_input_specs if kind == "prefill"
+              else decode_input_specs)(lcfg, shape)
+    extras = {k: v for k, v in ispecs.items() if k != "tokens"}
+    prefill, decode = make_serve_fns(lcfg, pc=pc)
+    serve = None
+    if mesh is not None:
+        sharded = tp_covers(lcfg) and pc.model_size > 1
+        serve = {"cache_layout": kv_cache_layout(lcfg, rules, mesh, s),
+                 "rows": "split" if pc.rows_split else "replicated",
+                 "rows_per_rank": pc.local_rows,
+                 "tp_compute": "sharded" if sharded else "whole"}
+        if kind == "decode":
+            serve["cache_update"] = reference_cache_update(lcfg, mesh)
+    csh = None if mesh is None else cache_shardings(lcfg, rules, mesh, b, s)
+    if kind == "prefill":
+        def fn(params, tokens, cache, extras):
+            with torch.no_grad():
+                return prefill(params, tokens, cache, extras)
+        args = (pspecs, ispecs["tokens"], cspecs, extras)
+        shards = (_shard(pspecs, rules, mesh),
+                  _shard(ispecs["tokens"], rules, mesh), csh,
+                  _shard(extras, rules, mesh))
+        donate = (2,)
+    else:
+        def fn(params, cache, tokens, pos, extras):
+            with torch.no_grad():
+                return decode(params, cache, tokens, pos, extras)
+        args = (pspecs, cspecs, ispecs["tokens"], s - 1, extras)
+        shards = (_shard(pspecs, rules, mesh), csh,
+                  _shard(ispecs["tokens"], rules, mesh), None,
+                  _shard(extras, rules, mesh))
+        donate = (1,)
+    return StepBundle(fn=fn, abstract_args=args, in_shardings=shards,
+                      donate_argnums=donate, name=f"{kind}:{cfg.name}:"
+                      f"{shape.name}", kind=kind, mesh=mesh, serve=serve)
 
 
 def build_prefill_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh,
                          rules: Optional[ShardingRules] = None) -> StepBundle:
-    if not _serves(mesh):
-        return _unported("prefill", cfg, shape, mesh)
-    rules = rules or rules_for("serve")
-    pc = make_pc(rules, mesh)
-    pspecs = serve_param_specs(cfg, fp32_leaves(cfg))
-    cspecs = cache_specs(cfg, shape.global_batch, shape.seq_len)
-    ispecs = prefill_input_specs(cfg, shape)
-    extras = {k: v for k, v in ispecs.items() if k != "tokens"}
-
-    def prefill(params, tokens, cache, extras):
-        with torch.no_grad():
-            logits, cache = forward(params, cfg, tokens=tokens,
-                                    mode="prefill", cache=cache, pc=pc,
-                                    extras=extras)
-        return logits[:, -1], cache
-
-    return StepBundle(
-        fn=prefill, abstract_args=(pspecs, ispecs["tokens"], cspecs, extras),
-        in_shardings=(_shard(pspecs, rules, mesh),
-                      _shard(ispecs["tokens"], rules, mesh),
-                      _shard(cspecs, rules, mesh), _shard(extras, rules,
-                                                          mesh)),
-        donate_argnums=(2,), name=f"prefill:{cfg.name}:{shape.name}",
-        kind="prefill", mesh=mesh)
+    return _serve_bundle("prefill", cfg, shape, mesh, rules)
 
 
 def build_decode_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh,
                         rules: Optional[ShardingRules] = None) -> StepBundle:
-    if not _serves(mesh):
-        return _unported("decode", cfg, shape, mesh)
-    rules = rules or rules_for("serve")
-    pc = make_pc(rules, mesh)
-    pspecs = serve_param_specs(cfg, fp32_leaves(cfg))
-    # decode against a full cache of seq_len, the new token in its last slot
-    cspecs = cache_specs(cfg, shape.global_batch, shape.seq_len)
-    ispecs = decode_input_specs(cfg, shape)
-    extras = {k: v for k, v in ispecs.items() if k != "tokens"}
-
-    def decode(params, cache, tokens, pos, extras):
-        with torch.no_grad():
-            logits, cache = forward(params, cfg, tokens=tokens,
-                                    mode="decode", cache=cache, pos=pos,
-                                    pc=pc, extras=extras)
-        return logits[:, -1], cache
-
-    return StepBundle(
-        fn=decode, abstract_args=(pspecs, cspecs, ispecs["tokens"],
-                                  shape.seq_len - 1, extras),
-        in_shardings=(_shard(pspecs, rules, mesh),
-                      _shard(cspecs, rules, mesh),
-                      _shard(ispecs["tokens"], rules, mesh), None,
-                      _shard(extras, rules, mesh)),
-        donate_argnums=(1,), name=f"decode:{cfg.name}:{shape.name}",
-        kind="decode", mesh=mesh)
+    return _serve_bundle("decode", cfg, shape, mesh, rules)
 
 
 def build_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh,
@@ -332,7 +343,9 @@ def trace_bundle(bundle: StepBundle, *, extrapolate_above: int = 3) -> dict:
     A train step of more than ``extrapolate_above`` microbatches is traced
     at 2 and 3 microbatches of the same rows each and taken to its count by
     :func:`~repro_torch.launch.cost_analysis.extrapolate` (its body runs
-    once a microbatch, as a scan's runs once a trip)."""
+    once a microbatch, as a scan's runs once a trip).  A prefill or decode
+    record's memory block adds ``params_bytes`` and ``cache_bytes``, this
+    rank's pieces of each."""
     if bundle.status != "ok":
         raise ValueError(f"{bundle.name}: {bundle.status} ({bundle.reason})")
     n = math.prod(comm.axis_sizes(bundle.mesh).values())
@@ -342,8 +355,15 @@ def trace_bundle(bundle: StepBundle, *, extrapolate_above: int = 3) -> dict:
             at = [_trace_train(bundle.remake(k), k, nm, n) for k in (2, 3)]
             return cost_analysis.extrapolate(at[0], at[1], nm,
                                              rank_args(bundle))
-    return cost_analysis.analyze_step(bundle.fn, rank_args(bundle),
-                                      num_partitions=n)
+    args = rank_args(bundle)
+    out = cost_analysis.analyze_step(bundle.fn, args, num_partitions=n)
+    if bundle.kind != "train":
+        # a rank's pieces of the params and of the cache, apart
+        cache = args[2] if bundle.kind == "prefill" else args[1]
+        out["memory"]["params_bytes"] = cost_analysis.argument_bytes(
+            args[0])
+        out["memory"]["cache_bytes"] = cost_analysis.argument_bytes(cache)
+    return out
 
 
 def _trace_train(bundle: StepBundle, k: int, nm: int, n: int) -> dict:

@@ -24,6 +24,17 @@
   rebuilds each slot's absolute position (:func:`_ring_slots`), so the
   causal, window and ``kp >= 0`` masks stay exact.
 
+* **on a mesh** (prefill and decode under tensor-parallel compute,
+  :func:`gqa_attention`'s ``heads``): a rank projects its query heads and
+  either its own KV heads, which its cache piece holds (the reference's
+  in-place ``"dus"`` write), or every KV head, of which its cache piece
+  holds a slice of the slots (``seq_split``): prefill writes the slots the
+  rank holds, ring slots included; decode's new token is written by the
+  rank that holds its slot (the reference's ``"onehot"`` write is local
+  too), the queries are gathered over "model", each rank computes every
+  head's partial (m, l, acc) over its slots with the one-device masks, and
+  the partials are gathered and merged (:func:`_decode_seq_split`).
+
 * **MLA** (DeepSeek-V2, :func:`mla_attention`) caches the normalized
   latent ``ckv`` (``kv_lora_rank`` wide) and the shared rotated ``krope``
   (``qk_rope_head_dim``) instead of per-head K/V.  Train and prefill
@@ -55,6 +66,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_norm, apply_rope
 from repro_torch.models.params import spec
+from repro_torch.parallel import comm
 
 NEG_INF = -2.0 ** 30   # large-but-finite; keeps softmax NaN-free on empty rows
 
@@ -201,8 +213,21 @@ def merge_partial(parts):
 
 
 def _partial_full(q, k, v, *, causal, q_offset, k_offset, softcap=0.0):
-    """Un-normalized attention stats (m, l, acc) of q against a k/v slice;
-    fp32 scores, probabilities cast to q's dtype for the PV product."""
+    """Un-normalized attention stats (m, l, acc) of q against a k/v slice
+    (:func:`_partial_stats`), causal at the given offsets."""
+    bias = None
+    if causal:
+        q_pos = q_offset + torch.arange(q.shape[1], device=q.device)
+        k_pos = k_offset + torch.arange(k.shape[1], device=q.device)
+        bias = _mask_bias(q_pos, k_pos, causal=True, window=0)
+    return _partial_stats(q, k, v, bias, softcap)
+
+
+def _partial_stats(q, k, v, bias=None, softcap=0.0):
+    """(m, l, acc) of q against a k/v slice: fp32 scores plus the additive
+    ``bias`` (None: none), probabilities cast to q's dtype for the PV
+    product.  A slice with every key masked gives m = NEG_INF, which
+    :func:`merge_partial` weighs by 0 beside any valid one."""
     b, sq, h, dd = q.shape
     kvh = k.shape[2]
     qg = _group(q, kvh).float()
@@ -210,10 +235,8 @@ def _partial_full(q, k, v, *, causal, q_offset, k_offset, softcap=0.0):
     vv = v.transpose(1, 2)
     s = _softcap(torch.einsum("bkgqd,bksd->bkgqs", qg, kk)
                  * (1.0 / math.sqrt(dd)), softcap)
-    if causal:
-        q_pos = q_offset + torch.arange(sq, device=q.device)
-        k_pos = k_offset + torch.arange(k.shape[1], device=q.device)
-        s = s + _mask_bias(q_pos, k_pos, causal=True, window=0)
+    if bias is not None:
+        s = s + bias
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
@@ -293,7 +316,7 @@ def _kv_heads_for(h0: int, n: int, group: int):
 
 def gqa_attention(p, x, cfg: ModelConfig, *, rope=None, mode="prefill",
                   cache=None, pos=None, attn_impl="masked",
-                  bidirectional=False, heads=None):
+                  bidirectional=False, heads=None, seq_split=None):
     """Full GQA attention block.
 
     mode: "train" | "prefill" | "decode".
@@ -307,30 +330,37 @@ def gqa_attention(p, x, cfg: ModelConfig, *, rope=None, mode="prefill",
     equals the window).
     pos: number of tokens already in the cache (decode).
     heads: (first, count), this rank's query heads under tensor-parallel
-    compute (train mode): ``wq`` and ``wo`` are its pieces of ``count``
-    heads, ``wk`` and ``wv`` its pieces of the KV heads where those split
-    too, else the whole leaves, of which only the KV heads its query heads
-    read are projected (the ``kv_heads`` fallback).  ``out`` is then this
-    rank's partial sum of the output projection.
+    compute: ``wq`` and ``wo`` are its pieces of ``count`` heads, ``wk``
+    and ``wv`` its pieces of the KV heads where those split too (the
+    cache then holds its KV heads), else the whole leaves, of which only
+    the KV heads its query heads read are projected (the ``kv_heads``
+    fallback), and, where there is a cache, every KV head, which that
+    cache holds.  ``out`` is then this rank's partial sum of the output
+    projection.
+    seq_split: (mesh, rank, size) where the cache holds this rank's
+    ``1 / size`` of the slots of every KV head (serving's ``"seq"``
+    layout, :func:`_decode_seq_split`); prefill writes the slots this rank
+    holds.
     Returns (out, cache).
     """
     dt = x.dtype
     b, s, d = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    wk, wv, kv_index = p["wk"], p["wv"], None
+    wk, wv, sel = p["wk"], p["wv"], None
     if heads is not None:
         h0, h = heads
         if wk.shape[1] == kvh:
-            kv0, kvh, kv_index = _kv_heads_for(
-                h0, h, cfg.num_heads // cfg.num_kv_heads)
-            wk, wv = wk[:, kv0:kv0 + kvh], wv[:, kv0:kv0 + kvh]
+            sel = _kv_heads_for(h0, h, cfg.num_heads // cfg.num_kv_heads)
+            if cache is None:
+                # only the KV heads this rank's query heads read
+                kv0, kvh, idx = sel
+                wk, wv = wk[:, kv0:kv0 + kvh], wv[:, kv0:kv0 + kvh]
+                sel = (0, kvh, idx)
         else:
             kvh = wk.shape[1]
     q = (x @ p["wq"].to(dt).reshape(d, h * hd)).view(b, s, h, hd)
     k = (x @ wk.to(dt).reshape(d, kvh * hd)).view(b, s, kvh, hd)
     v = (x @ wv.to(dt).reshape(d, kvh * hd)).view(b, s, kvh, hd)
-    if kv_index is not None:
-        k, v = k[:, :, kv_index.to(x.device)], v[:, :, kv_index.to(x.device)]
     if rope is not None:
         cos, sin = rope
         q = apply_rope(q, cos, sin)
@@ -340,6 +370,7 @@ def gqa_attention(p, x, cfg: ModelConfig, *, rope=None, mode="prefill",
     cap = cfg.attn_logit_softcap
     causal = not bidirectional
     if mode == "train":
+        k, v = _read_heads(k, sel), _read_heads(v, sel)
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} (one of {ATTN_IMPLS})")
         if attn_impl == "flash" and not cap:
@@ -359,35 +390,38 @@ def gqa_attention(p, x, cfg: ModelConfig, *, rope=None, mode="prefill",
             out = full_attention(q, k, v, causal=causal, window=window,
                                  softcap=cap)
     elif mode == "prefill":
+        ka, va = _read_heads(k, sel), _read_heads(v, sel)
         if cap:
             # the reference's prefill path; its kernel takes no cap
-            out = chunked_attention(q, k, v, causal=causal, window=window,
+            out = chunked_attention(q, ka, va, causal=causal, window=window,
                                     softcap=cap)
         else:
-            out = ops.flash_attention_bshd(q, k, v, causal=causal,
+            out = ops.flash_attention_bshd(q, ka, va, causal=causal,
                                            window=window)
+        del ka, va
         if cache is not None:
             # prefill attends to the unrounded k/v; the cache keeps its dtype
-            if window and window < s:
-                _ring_fill(cache["k"], k, window)
-                _ring_fill(cache["v"], v, window)
-            else:
-                cache["k"][:, :s] = k.to(cache["k"].dtype)
-                cache["v"][:, :s] = v.to(cache["v"].dtype)
+            lo = 0 if seq_split is None else \
+                seq_split[1] * cache["k"].shape[1]
+            for key, new in (("k", k), ("v", v)):
+                _prefill_write(cache[key], new, window, lo)
     elif mode == "decode":
         if cache is None or pos is None:
             raise ValueError("decode needs a cache and pos")
-        if window and cache["k"].shape[1] == window:
+        if seq_split is not None:
+            out = _decode_seq_split(q, k, v, cache, pos, window, cap,
+                                    seq_split, heads)
+        elif window and cache["k"].shape[1] == window:
             slot = pos % window
-            ck = _cache_write(cache["k"], k, slot)
-            cv = _cache_write(cache["v"], v, slot)
+            ck = _read_heads(_cache_write(cache["k"], k, slot), sel)
+            cv = _read_heads(_cache_write(cache["v"], v, slot), sel)
             out = full_attention(q, ck.to(dt), cv.to(dt), causal=True,
                                  window=window, q_offset=pos, softcap=cap,
                                  k_pos=_ring_slots(pos + 1, window,
                                                    q.device))
         else:
-            ck = _cache_write(cache["k"], k, pos)
-            cv = _cache_write(cache["v"], v, pos)
+            ck = _read_heads(_cache_write(cache["k"], k, pos), sel)
+            cv = _read_heads(_cache_write(cache["v"], v, pos), sel)
             out = full_attention(q, ck.to(dt), cv.to(dt), causal=False,
                                  window=window, kv_valid=pos + 1,
                                  q_offset=pos, softcap=cap)
@@ -397,6 +431,90 @@ def gqa_attention(p, x, cfg: ModelConfig, *, rope=None, mode="prefill",
 
     y = out.reshape(b, s, h * hd) @ p["wo"].to(dt).reshape(h * hd, d)
     return y, cache
+
+
+def _read_heads(t, sel):
+    """The KV heads (dim 2) that this rank's query heads read: ``sel`` =
+    (first, count, index) from :func:`_kv_heads_for` (``index``: each query
+    head's KV head among them, K and V then expanded to one a query head);
+    ``t`` itself for None."""
+    if sel is None:
+        return t
+    kv0, count, idx = sel
+    if kv0 != 0 or count != t.shape[2]:
+        t = t[:, :, kv0:kv0 + count]
+    return t if idx is None else t[:, :, idx.to(t.device)]
+
+
+def _prefill_write(arr, new, window: int, lo: int = 0) -> None:
+    """Prefill's cache write, in place, of the global slots ``lo ..
+    lo + arr.shape[1]`` of a cache: position p in slot p,
+    or, where a window shorter than the prompt makes the cache a ring,
+    slot p mod window for the last ``window`` positions."""
+    s = new.shape[1]
+    m = arr.shape[1]
+    if window and window < s:
+        if lo == 0 and m == window:
+            _ring_fill(arr, new, window)
+            return
+        # the slots' positions after s tokens, all written (p >= s - window)
+        slots = _ring_slots(s, window, new.device)[lo:lo + m]
+        arr.copy_(new[:, slots].to(arr.dtype))
+        return
+    hi = min(lo + m, s)
+    if hi > lo:
+        arr[:, :hi - lo] = new[:, lo:hi].to(arr.dtype)
+
+
+def _decode_seq_split(q, k, v, cache, pos: int, window: int, cap: float,
+                      split, heads):
+    """Decode over a cache that holds this rank's slots of every KV head
+    (``split`` = (mesh, rank, size); ``k``, ``v`` (B, 1, KV, D) every KV
+    head of the new token): the rank holding the new token's slot writes
+    it (the reference's ``"onehot"`` write is local there too); the
+    queries (B, 1, H, D) are gathered over "model" (``heads``: this rank's
+    (first, count); None where every rank computes every head); each rank
+    computes the partial (m, l, acc) of every query head over its slots,
+    with the masks of the one-device decode (the slots' absolute positions,
+    the ring's included); the partials are gathered over "model" and
+    merged (:func:`_merge_over_model`), and the rank keeps its heads."""
+    mesh, rank, size = split
+    dt = q.dtype
+    n = cache["k"].shape[1]
+    lo = rank * n
+    ring = bool(window) and n * size == window
+    slot = pos % window if ring else pos
+    if lo <= slot < lo + n:
+        _cache_write(cache["k"], k, slot - lo)
+        _cache_write(cache["v"], v, slot - lo)
+    if ring:
+        k_pos = _ring_slots(pos + 1, window, q.device)[lo:lo + n]
+    else:
+        k_pos = lo + torch.arange(n, device=q.device)
+    with comm.purpose("query_gather"):
+        q_all = q if heads is None else comm.all_gather(q.contiguous(),
+                                                        mesh, "model", 2)
+    q_pos = pos + torch.arange(q.shape[1], device=q.device)
+    part = _partial_stats(q_all, cache["k"].to(dt), cache["v"].to(dt),
+                          _mask_bias(q_pos, k_pos, causal=ring,
+                                     window=window,
+                                     kv_valid=None if ring else pos + 1),
+                          cap)
+    m, l, acc = _merge_over_model(part, mesh)
+    out = _ungroup((acc / l.clamp_min(1e-30)[..., None]).to(dt))
+    if heads is None:
+        return out
+    return out[:, :, heads[0]:heads[0] + heads[1]]
+
+
+def _merge_over_model(part, mesh):
+    """Every "model" rank's partial (m, l, acc), gathered and merged
+    (:func:`merge_partial`)."""
+    with comm.purpose("partial_merge"):
+        m, l, acc = (comm.all_gather(t.contiguous()[None], mesh, "model", 0)
+                     for t in part)
+    return merge_partial(list(zip(m.unbind(0), l.unbind(0),
+                                  acc.unbind(0))))
 
 
 def cross_attention(p, x, kv_cache, cfg: ModelConfig):

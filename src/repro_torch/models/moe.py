@@ -46,8 +46,8 @@ dispatch over the ``"model"`` axis, when the mesh meets its preconditions
 the ``"model"`` size), and otherwise the grouped dispatch, as the
 reference does; :func:`dispatch_counts` records which ran.
 
-Under tensor-parallel compute (``tp``, train mode with a live "model"
-axis) the expert stacks are this rank's pieces where the binding splits
+Under tensor-parallel compute (``tp``, a live "model" axis; a serving
+pass takes the same layout, its rows whole over "model") the expert stacks are this rank's pieces where the binding splits
 them (``sharding.tp_roles``): its ``E / tp`` experts, or, where the
 experts do not divide, every expert's ``d_ff / tp`` hidden columns.
 Routing reads the whole sequence (``tp.whole``: the same rows, logits,

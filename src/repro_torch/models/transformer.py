@@ -13,14 +13,17 @@ loop walks the leading layer axes.  Caches are stacked over layers like the
 reference's and are written in place; under a sliding window each layer's
 KV cache holds ``min(max_len, window)`` slots.
 
-Train mode on a mesh with a live ``"model"`` axis computes tensor-parallel
-for the GQA decoders, the VLM's included (``pc.tensor_parallel``, see
-:mod:`repro_torch.parallel.sharding`): the vocabulary-parallel embedding,
-each block's attention over this rank's heads and its MLP over this rank's
-columns (the MoE over its experts or their columns), each between the
-layout's regions, and vocabulary-sharded logits; under sequence
-parallelism the residual stream between blocks, and the norms on it, hold
-this rank's rows (a VLM rank merges the patches that fall in them).
+A pass on a mesh with a live ``"model"`` axis (train, prefill or decode)
+computes tensor-parallel for the GQA decoders, the VLM's included
+(``pc.tensor_parallel``, see :mod:`repro_torch.parallel.sharding`); serving
+writes its cache piece as the binding lays it out (a rank's KV heads, or
+its slots of every KV head).  Each pass runs the vocabulary-parallel
+embedding, each block's attention over this rank's heads and its MLP over
+this rank's columns (the MoE over its experts or their columns), each
+between the layout's regions, and vocabulary-sharded logits; under sequence
+parallelism (train mode) the residual stream between blocks, and the norms
+on it, hold this rank's rows (a VLM rank merges the patches that fall in
+them).
 
 Train mode rematerializes as the reference places ``jax.checkpoint``: each
 dense or MoE block, each Mamba2 block of a hybrid group and each trailing
@@ -234,11 +237,12 @@ def _attn_block(p, x, cfg, *, rope, mode, cache, pos, attn_impl="masked",
     of this decoder layer, attended after the self-attention.
     ``bidirectional``: self-attention without the causal mask (an
     encoder's).  ``pc``: the partition constraints, which the MoE reads.
-    ``tp``: the pass's tensor-parallel layout (train mode; ``d_ff`` the
-    MLP's width): each sublayer enters and leaves it, split (this rank's
-    heads or columns) where its leaves bind "model", else whole; the MoE
-    takes the layout itself (its experts or their columns split, its
-    routing whole: :func:`~repro_torch.models.moe.apply_moe`)."""
+    ``tp``: the pass's tensor-parallel layout (``d_ff`` the MLP's
+    width): each sublayer enters and leaves it, split (this rank's heads or
+    columns) where its leaves bind "model", else whole; the MoE takes the
+    layout itself (its experts or their columns split, its routing whole:
+    :func:`~repro_torch.models.moe.apply_moe`); attention's cache lies as
+    ``tp.cache`` says (``"seq"``: this rank's slots of every KV head)."""
     if tp is None:
         def enter(h, split):
             return h
@@ -254,11 +258,13 @@ def _attn_block(p, x, cfg, *, rope, mode, cache, pos, attn_impl="masked",
     else:
         split = tp is not None and tp.splits(attn_specs(cfg)["wq"])
         n = cfg.num_heads // tp.size if split else 0
-        y, cache = gqa_attention(p["attn"], enter(h, split), cfg, rope=rope,
-                                 mode=mode, cache=cache, pos=pos,
-                                 attn_impl=attn_impl,
-                                 bidirectional=bidirectional,
-                                 heads=(tp.rank * n, n) if split else None)
+        y, cache = gqa_attention(
+            p["attn"], enter(h, split), cfg, rope=rope, mode=mode,
+            cache=cache, pos=pos, attn_impl=attn_impl,
+            bidirectional=bidirectional,
+            heads=(tp.rank * n, n) if split else None,
+            seq_split=(tp.mesh, tp.rank, tp.size)
+            if tp is not None and tp.cache == "seq" else None)
         y = leave(y, split)
     x = x + y
     if cross_kv_cache is not None:
@@ -552,11 +558,14 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
     largest); untouched by models without MoE layers.
     pc: partition constraints (:mod:`repro_torch.parallel.sharding`); with
     a mesh, ``tokens`` are this rank's rows and the MoE layers dispatch
-    over the mesh (:mod:`repro_torch.models.moe`).  In train mode with a
-    live "model" axis the pass computes tensor-parallel
+    over the mesh (:mod:`repro_torch.models.moe`).  With a live "model"
+    axis the pass computes tensor-parallel in every mode
     (``pc.tensor_parallel``): the params are then this rank's pieces of
-    the leaves that bind "model", and the logits, where the vocabulary
-    splits, this rank's columns of it (:func:`loss_fn` reduces them).
+    the leaves that bind "model", the cache (prefill, decode) this rank's
+    piece under ``pc``'s binding (``sharding.cache_shardings``), and the
+    logits, where the vocabulary splits, this rank's columns of it
+    (:func:`loss_fn` reduces them; ``serve.engine.gather_logits`` gathers
+    them).
     Returns (logits, cache).
     """
     _check_supported(cfg)
@@ -570,8 +579,7 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
         positions = positions + pos
 
     extras = extras or {}
-    tp = pc.tensor_parallel(cfg, s) if pc is not None and mode == "train" \
-        else None
+    tp = pc.tensor_parallel(cfg, s, mode) if pc is not None else None
     x = embed_tokens(params["embed"], tokens, cfg, tp=tp)
     if cfg.family == "vlm" and "patches" in extras:
         # under sequence parallelism x holds this rank's rows
@@ -606,7 +614,7 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
                 lc = None if cache is None else _layer(cache[key], i)
                 x, _ = _attn_block(_layer(layers, i), x, cfg, rope=rope,
                                    mode=mode, cache=lc, pos=pos, aux=aux,
-                                   pc=pc)
+                                   pc=pc, tp=tp, d_ff=_dense_d_ff(cfg))
 
     x = apply_norm(params["final_norm"], x, cfg)
     return lm_logits(params["embed"], x, cfg, tp=tp), cache

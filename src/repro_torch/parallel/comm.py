@@ -47,6 +47,7 @@ tensors, nothing is staged.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 
 import torch
 import torch.distributed as dist
@@ -94,26 +95,41 @@ def group_index(mesh, axes) -> int:
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 _counter = None
+_PURPOSES: list = []
 
 
 def set_counter(counter):
     """Install (or clear, with ``None``) the object told of every
     collective, ``counter.collective(kind, operand_bytes, output_bytes,
-    group_size)``; returns the previous one."""
+    group_size, purpose)``; returns the previous one."""
     global _counter
     prev = _counter
     _counter = counter
     return prev
 
 
+@contextmanager
+def purpose(name: str):
+    """The collectives reported inside are told to the counter as
+    ``name``'s (the innermost name wins): ``"param_gather"``,
+    ``"model_sum"`` (row-parallel and vocabulary sums), and serving's
+    ``"query_gather"`` and ``"partial_merge"``."""
+    _PURPOSES.append(name)
+    try:
+        yield
+    finally:
+        _PURPOSES.pop()
+
+
 def report(kind: str, operand: torch.Tensor, output_bytes: int,
            n: int) -> bool:
     """Tell the installed counter, if any, of one collective of ``n`` ranks
-    (none for one rank); returns whether the exchange is to be skipped (a
-    meta operand)."""
+    (none for one rank), with its :func:`purpose` (None outside one);
+    returns whether the exchange is to be skipped (a meta operand)."""
     if _counter is not None and n > 1:
         _counter.collective(kind, operand.numel() * operand.element_size(),
-                            output_bytes, n)
+                            output_bytes, n,
+                            _PURPOSES[-1] if _PURPOSES else None)
     return operand.is_meta
 
 
@@ -416,7 +432,10 @@ def copy_to_model(x, mesh):
 
 def reduce_from_model(x, mesh):
     """After a row-parallel product (see :class:`_ReduceFromModel`)."""
-    return _ReduceFromModel.apply(x, mesh) if _model_live(mesh) else x
+    if not _model_live(mesh):
+        return x
+    with purpose("model_sum"):
+        return _ReduceFromModel.apply(x, mesh)
 
 
 def gather_seq(x, mesh):

@@ -20,7 +20,7 @@ as its ``pc`` argument.  Under data parallelism each rank runs the model on
 its own rows, with plain local tensors that have no layout to constrain.
 On a mesh with a live ``"model"`` axis the GQA decoders (``dense``, the
 GQA MoE and the VLM's text stack, :func:`tp_covers`) compute
-tensor-parallel in train mode: :meth:`PartitionConstraints.tensor_parallel`
+tensor-parallel in every mode: :meth:`PartitionConstraints.tensor_parallel`
 gives the pass its :class:`TensorParallel` layout, whose regions
 (:mod:`repro_torch.parallel.comm`) each block enters and leaves.  A leaf
 whose logical axes bind ``"model"`` is computed as this rank's piece
@@ -31,7 +31,19 @@ holds this rank's rows of the sequence, where the sequence divides by the
 ``"model"`` size (the reference's ``tokens`` fallback otherwise).
 :func:`tp_roles` says, leaf by leaf, how the step gathers it and syncs
 its gradient.  Sequence parallelism on another family raises (ROADMAP
-Queue 1, item 3).
+Queue 1, item 2).
+
+Serving on a mesh takes the same layout in prefill and decode (no sequence
+parallelism: ``SERVE_RULES`` leaves ``seq`` unbound).  A serving
+:class:`PartitionConstraints` also carries the pass's global ``batch`` and
+cache length ``max_len``: the rows split over ("pod", "data") where the
+binding divides them, else every data-parallel rank takes them all
+(:attr:`PartitionConstraints.rows_split`); the KV cache lies as
+:func:`cache_shardings` binds it, its ``kv_heads`` on "model" where they
+divide (``"heads"``), else its ``cache_seq`` (``"seq"``: a rank holds
+``1 / tp`` of the slots of every KV head), and whole over "model" for the
+families tensor-parallel compute does not cover
+(:func:`kv_cache_layout`).
 """
 
 from __future__ import annotations
@@ -47,7 +59,7 @@ from repro_torch.parallel import comm
 UNPORTED = ("tensor-parallel compute and sequence parallelism are ported "
             "for the dense, GQA-MoE and VLM families only (MLA, Mamba2, "
             "RWKV6 and the encoder-decoder keep every leaf whole): ROADMAP "
-            "Queue 1, item 3")
+            "Queue 1, item 2")
 
 
 def _flatten_mesh_axes(entry) -> tuple:
@@ -244,7 +256,7 @@ def tp_covers(cfg) -> bool:
     """Whether the model computes tensor-parallel under a live "model"
     axis: the GQA decoders (``dense``, ``moe`` with GQA attention, and the
     ``vlm`` text stack).  MLA, Mamba2, RWKV6 and the encoder-decoder keep
-    every leaf whole (ROADMAP Queue 1, item 3)."""
+    every leaf whole (ROADMAP Queue 1, item 2)."""
     return cfg.family in ("dense", "moe", "vlm") and \
         cfg.attention_type == "gqa"
 
@@ -321,11 +333,70 @@ def tp_roles(cfg, rules: ShardingRules, mesh,
             for k, s in specs.items()}
 
 
+# --------------------------------------------------------------------------
+# The serving cache over a mesh
+# --------------------------------------------------------------------------
+
+
+def without_axis(rules: ShardingRules, axis: str) -> ShardingRules:
+    """``rules`` with ``axis`` taken out of every entry."""
+    out = {}
+    for k, e in rules.rules.items():
+        left = tuple(a for a in _flatten_mesh_axes(e) if a != axis)
+        out[k] = None if not left else (left[0] if isinstance(e, str)
+                                         else left)
+    return ShardingRules(out)
+
+
+def cache_rules(cfg, rules: ShardingRules) -> ShardingRules:
+    """The rules a serving cache is stored under: ``rules`` with ``embed``
+    unbound (an RWKV6 token shift's width stays whole: the reference
+    stores it split over "data" where the rows leave that axis free, a
+    layout no rank computes with), and for a family :func:`tp_covers` does
+    not cover without "model" too (its "model" ranks compute whole, so
+    their caches stay whole over it)."""
+    rules = rules.with_overrides(embed=None)
+    return rules if tp_covers(cfg) else without_axis(rules, "model")
+
+
+def cache_shardings(cfg, rules: ShardingRules, mesh, batch: int,
+                    max_len: int):
+    """A Sharding tree of ``cache_specs(cfg, batch, max_len)`` on ``mesh``
+    (:func:`cache_rules`): what each rank allocates."""
+    from repro_torch.models.transformer import cache_specs
+    return shardings_for_specs(cache_specs(cfg, batch, max_len),
+                               cache_rules(cfg, rules), mesh)
+
+
+def kv_cache_layout(cfg, rules: ShardingRules, mesh, max_len: int) -> str:
+    """How a decoder's attention cache of ``max_len`` lies over "model":
+    ``"heads"`` where its ``kv_heads`` take "model" (each rank projects
+    and caches its own KV heads: the reference's in-place ``"dus"`` write),
+    ``"seq"`` where its ``cache_seq`` does (a rank holds ``1 / tp`` of the
+    slots of every KV head: the reference's ``"onehot"`` write, which only
+    the rank holding the slot makes), ``"whole"`` where neither does (no
+    live "model" axis, a family :func:`tp_covers` does not cover, or
+    dimensions that do not divide)."""
+    if comm.axis_sizes(mesh).get("model", 1) == 1 or not tp_covers(cfg):
+        return "whole"
+    from repro_torch.models.transformer import cache_specs
+    kv = next(s for k, s in flatten(cache_specs(cfg, 1, max_len)).items()
+              if k.endswith("/k"))
+    spec = logical_to_pspec(kv.axes, kv.shape, rules, mesh)
+    for i, name in ((kv.axes.index("kv_heads"), "heads"),
+                    (kv.axes.index("cache_seq"), "seq")):
+        if i < len(spec) and "model" in _flatten_mesh_axes(spec[i]):
+            return name
+    return "whole"
+
+
 @dataclass(frozen=True)
 class TensorParallel:
-    """One train-mode pass's layout over "model": ``size`` ranks, this
-    one at ``rank``; ``sp``: the residual stream between blocks holds this
-    rank's ``S / size`` rows of the sequence.
+    """One pass's layout over "model": ``size`` ranks, this one at
+    ``rank``; ``sp``: the residual stream between blocks holds this rank's
+    ``S / size`` rows of the sequence (train mode only); ``cache``: how
+    the KV cache a prefill or decode pass writes lies over "model"
+    (:func:`kv_cache_layout`; None in train mode).
 
     A block's sublayer runs between :meth:`enter` and :meth:`leave`: a
     split one (its leaves bind "model") on this rank's heads or columns,
@@ -337,6 +408,7 @@ class TensorParallel:
     size: int
     rank: int
     sp: bool
+    cache: Optional[str] = None
 
     def split_dim(self, s: ParamSpec) -> Optional[int]:
         """The dimension of ``s`` bound to "model" (None: none is)."""
@@ -388,17 +460,48 @@ class PartitionConstraints:
     """The rules and the mesh handed to models as ``pc``.
 
     Models read the mesh from here: the MoE layer for its dispatch, the
-    loss for its data-parallel normalisation (:attr:`dp_axes`), a train
-    pass its tensor-parallel layout (:meth:`tensor_parallel`).  Of the
-    activation methods, ``tokens`` and ``tokens_sp`` take a whole (B, S, d)
-    sequence to this rank's layout (its rows under sequence parallelism);
-    the others are the identity: a rank's tensors are plain local ones."""
+    loss for its data-parallel normalisation (:attr:`dp_axes`), a pass its
+    tensor-parallel layout (:meth:`tensor_parallel`).  Of the activation
+    methods, ``tokens`` and ``tokens_sp`` take a whole (B, S, d) sequence
+    to this rank's layout (its rows under sequence parallelism); the others
+    are the identity: a rank's tensors are plain local ones.
+
+    ``batch`` and ``max_len`` (serving): the pass's global rows and its
+    cache's global length.  A rank's tensors hold its pieces, so these are
+    what says how the global ones were cut: the rows by the binding of
+    ``"batch"`` at ``batch`` (:attr:`rows_split`), the cache by
+    :func:`cache_shardings`.  A train step leaves both None: its rows
+    always split (``train.step.shard_batch``)."""
 
     def __init__(self, rules: ShardingRules, mesh=None,
-                 seq_parallel: bool = False):
+                 seq_parallel: bool = False, batch: Optional[int] = None,
+                 max_len: Optional[int] = None):
         self.rules = rules
         self.mesh = mesh
         self.seq_parallel = seq_parallel
+        self.batch = batch
+        self.max_len = max_len
+
+    @property
+    def rows_split(self) -> bool:
+        """Whether ranks that differ in ("pod", "data") hold different rows:
+        always for a train step (``batch`` None); for a serving pass where
+        the binding splits ``batch`` rows over them, as the reference's
+        ``batch`` rule does where they divide (else it replicates them)."""
+        if self.batch is None or not comm.live_axes(self.mesh,
+                                                    ("pod", "data")):
+            return True
+        return bool(logical_to_pspec(("batch",), (self.batch,), self.rules,
+                                     self.mesh))
+
+    @property
+    def local_rows(self) -> Optional[int]:
+        """This rank's rows of a serving pass (None without ``batch``)."""
+        if self.batch is None:
+            return None
+        if not self.rows_split:
+            return self.batch
+        return self.batch // comm.group_size(self.mesh, ("pod", "data"))
 
     @property
     def model_size(self) -> int:
@@ -411,24 +514,38 @@ class PartitionConstraints:
         tp = self.model_size
         return self.seq_parallel and tp > 1 and s % tp == 0
 
-    def tensor_parallel(self, cfg, s: int) -> Optional[TensorParallel]:
-        """A train pass's layout over ``s`` tokens; None where the model
-        computes whole (no live "model" axis).  Sequence parallelism on a
-        family :func:`tp_covers` does not cover raises."""
+    def tensor_parallel(self, cfg, s: int,
+                        mode: str = "train") -> Optional[TensorParallel]:
+        """A pass's layout over ``s`` tokens in ``mode``; None where the
+        model computes whole (no live "model" axis, or a family
+        :func:`tp_covers` does not cover).  Sequence parallelism on such a
+        family raises; a prefill or decode pass runs without it, its cache
+        laid out by :func:`kv_cache_layout` (which needs ``max_len``)."""
         if self.seq_parallel and not tp_covers(cfg):
             raise NotImplementedError(
                 f"seq_parallel for family {cfg.family!r} with "
                 f"{cfg.attention_type} attention: {UNPORTED}")
         if self.model_size == 1 or not tp_covers(cfg):
             return None
+        cache = None
+        if mode != "train":
+            if self.max_len is None:
+                raise ValueError("a prefill or decode pass on a live "
+                                 "\"model\" axis needs pc.max_len, the "
+                                 "cache's global length")
+            cache = kv_cache_layout(cfg, self.rules, self.mesh,
+                                    self.max_len)
         return TensorParallel(self.mesh, self.rules, self.model_size,
                               comm.coordinate(self.mesh)["model"],
-                              self.sp_for(s))
+                              mode == "train" and self.sp_for(s), cache)
 
     @property
     def dp_axes(self) -> tuple:
         """The data-parallel axes ``("pod", "data")`` this mesh has with a
-        size above 1: ranks that differ on them hold different rows."""
+        size above 1 over which ranks hold different rows (none where a
+        serving pass's rows are replicated: :attr:`rows_split`)."""
+        if not self.rows_split:
+            return ()
         return comm.live_axes(self.mesh, ("pod", "data"))
 
     def act(self, x, *logical_axes):

@@ -9,6 +9,12 @@ tags=)`` (and optionally ``.markers``); ``markers`` has ``.region(name,
 counters=)`` returning a context manager with ``.add(**counters)``, and
 ``.record(name, seconds, counters=)`` — ``repro.core``'s ``UserMetric`` and
 ``MarkerSession`` fit, but the port does not import them.
+
+:func:`make_serve_fns` also serves on a mesh (``pc``): each rank passes
+its pieces of the params, rows and cache (:func:`serve_shardings`,
+:func:`init_cache_piece`, ``train.step.rows_for``) and gets its logits
+columns back (:func:`gather_logits`).  The engine stays mesh-free, as the
+reference's is.
 """
 
 from __future__ import annotations
@@ -23,10 +29,16 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import forward, init_cache
+from repro_torch.models.params import flatten, unflatten
+from repro_torch.models.transformer import (
+    cache_specs, forward, init_cache, model_specs)
+from repro_torch.parallel import comm
+from repro_torch.parallel.sharding import (
+    cache_shardings, shardings_for_specs, tp_roles)
+from repro_torch.train.step import gather_for_compute
 
 
-def make_serve_fns(cfg: ModelConfig):
+def make_serve_fns(cfg: ModelConfig, *, pc=None):
     """Returns (prefill_fn, decode_fn).
 
     prefill(params, tokens, cache, extras=None) -> (last_logits, cache)
@@ -38,19 +50,119 @@ def make_serve_fns(cfg: ModelConfig):
     functions take them: :class:`ServingEngine` calls them without, as the
     reference's engine does, so a VLM and an encoder-decoder are served
     through them and not the engine.
+
+    ``pc`` (a :class:`~repro_torch.parallel.sharding.PartitionConstraints`
+    with the pass's global ``batch`` and cache length ``max_len``) on a
+    mesh with an axis above 1: each rank passes its pieces, as
+    :func:`serve_shardings` cuts them: the params stored under
+    ``pc.rules`` (``SERVE_RULES``), its rows of the batch and its extras
+    (``train.step.rows_for``) and its piece of the cache, which it
+    allocates alone.  Each call gathers the params for compute by role
+    (``sharding.tp_roles``: a ``"split"`` leaf over every axis but
+    "model"), under ``no_grad``, and returns this rank's last-position
+    logits (its columns of the vocabulary where that splits:
+    :func:`gather_logits`) and its cache piece, written in place.  A
+    piece whose shape is not its binding's raises ``ValueError``.
     """
+    if pc is None or not comm.live_axes(pc.mesh, tuple(comm.axis_sizes(
+            pc.mesh))):
+        def prefill(params, tokens, cache, extras=None):
+            logits, cache = forward(params, cfg, tokens=tokens,
+                                    mode="prefill", cache=cache,
+                                    extras=extras, pc=pc)
+            return _last(logits), cache
+
+        def decode(params, cache, tokens, pos, extras=None):
+            logits, cache = forward(params, cfg, tokens=tokens,
+                                    mode="decode", cache=cache, pos=pos,
+                                    extras=extras, pc=pc)
+            return logits[:, -1], cache
+
+        return prefill, decode
+
+    if pc.batch is None or pc.max_len is None:
+        raise ValueError("serving on a mesh needs pc.batch and pc.max_len, "
+                         "the pass's global rows and cache length")
+    psh, csh = serve_shardings(cfg, pc)
+    roles = tp_roles(cfg, pc.rules, pc.mesh)
+
+    def local(params, cache, tokens):
+        _check_pieces("params", params, psh)
+        _check_pieces("cache", cache, csh)
+        if tokens.shape[0] != pc.local_rows:
+            raise ValueError(f"tokens: {tokens.shape[0]} rows, this rank's "
+                             f"piece of {pc.batch} has {pc.local_rows}")
+        return gather_for_compute(params, psh, pc.mesh, roles)
 
     def prefill(params, tokens, cache, extras=None):
-        logits, cache = forward(params, cfg, tokens=tokens, mode="prefill",
-                                cache=cache, extras=extras)
-        return logits[:, -1], cache
+        with torch.no_grad():
+            logits, cache = forward(local(params, cache, tokens), cfg,
+                                    tokens=tokens, mode="prefill",
+                                    cache=cache, extras=extras, pc=pc)
+        return _last(logits), cache
 
     def decode(params, cache, tokens, pos, extras=None):
-        logits, cache = forward(params, cfg, tokens=tokens, mode="decode",
-                                cache=cache, pos=pos, extras=extras)
+        with torch.no_grad():
+            logits, cache = forward(local(params, cache, tokens), cfg,
+                                    tokens=tokens, mode="decode",
+                                    cache=cache, pos=pos, extras=extras,
+                                    pc=pc)
         return logits[:, -1], cache
 
     return prefill, decode
+
+
+def _last(logits):
+    """The last position's logits (B, V) in storage of their own: a view
+    of the prompt's (B, S, V) logits would keep all of them alive while
+    decode runs."""
+    return logits[:, -1].clone()
+
+
+def serve_shardings(cfg: ModelConfig, pc) -> tuple:
+    """(params, cache) Sharding trees of a serving pass on ``pc``'s mesh:
+    the params as ``pc.rules`` store them, the cache of ``pc.batch`` rows
+    and ``pc.max_len`` slots as ``sharding.cache_shardings`` lays it out
+    (``.local_shape()`` is what a rank allocates, ``.slices(coord)`` the
+    global slice it holds)."""
+    return (shardings_for_specs(model_specs(cfg), pc.rules, pc.mesh),
+            cache_shardings(cfg, pc.rules, pc.mesh, pc.batch, pc.max_len))
+
+
+def init_cache_piece(cfg: ModelConfig, pc, dtype=torch.bfloat16,
+                     device=None):
+    """This rank's zero piece of the serving cache of ``pc.batch`` rows and
+    ``pc.max_len`` slots: each leaf at its binding's local shape
+    (:func:`serve_shardings`), in :func:`init_cache`'s dtypes."""
+    specs = flatten(cache_specs(cfg, pc.batch, pc.max_len, dtype))
+    shards = flatten(serve_shardings(cfg, pc)[1])
+    device = resolve_device(device)
+    return unflatten({k: torch.zeros(shards[k].local_shape(), dtype=s.dtype,
+                                     device=device)
+                      for k, s in specs.items()})
+
+
+def _check_pieces(what: str, tree, shardings) -> None:
+    want = flatten(shardings)
+    got = flatten(tree)
+    if set(got) != set(want):
+        raise ValueError(f"{what}: leaves {sorted(set(got) ^ set(want))} "
+                         f"differ from the binding's")
+    for k, t in got.items():
+        if tuple(t.shape) != want[k].local_shape():
+            raise ValueError(f"{what} piece {k}: shape {tuple(t.shape)}, "
+                             f"its binding's {want[k].local_shape()}")
+
+
+def gather_logits(cfg: ModelConfig, logits, pc=None):
+    """(B, vocab_padded) logits from a rank's (B, vocab_padded / tp)
+    columns (what the serving functions return where the vocabulary
+    splits over "model"), gathered over "model"; ``logits`` themselves
+    where they are whole."""
+    if pc is None or logits.shape[-1] == cfg.vocab_padded:
+        return logits
+    return comm.all_gather(logits.contiguous(), pc.mesh, "model",
+                           logits.ndim - 1)
 
 
 @dataclass

@@ -206,6 +206,16 @@ def shard_batch(batch: dict, mesh) -> dict:
     return {key: v[i * k:(i + 1) * k] for key, v in batch.items()}
 
 
+def rows_for(batch: dict, pc: PartitionConstraints) -> dict:
+    """This rank's rows of every entry of a global serving batch under
+    ``pc``: :func:`shard_batch`'s block where the binding splits the rows
+    (``pc.rows_split``), else all of them (the binding replicates a batch
+    that does not divide over the data-parallel ranks)."""
+    if not pc.rows_split:
+        return dict(batch)
+    return shard_batch(batch, pc.mesh)
+
+
 def _reduce_metrics(metrics: dict, mesh, axes) -> dict:
     """A microbatch's metrics over the data-parallel ranks: the mean of
     the ranks' terms (the global values), ``moe_max_load`` the largest."""
@@ -285,10 +295,11 @@ def gather_for_compute(params, param_shardings, mesh, roles) -> dict:
     ``"split"`` leaf gathered over every axis but "model" (this rank's
     piece of it), any other whole."""
     fsh = flatten(param_shardings)
-    return unflatten({
-        k: gather_leaf(v, fsh[k], mesh,
-                       ("model",) if roles[k] == "split" else ())
-        for k, v in flatten(params).items()})
+    with comm.purpose("param_gather"):
+        return unflatten({
+            k: gather_leaf(v, fsh[k], mesh,
+                           ("model",) if roles[k] == "split" else ())
+            for k, v in flatten(params).items()})
 
 
 def make_grads_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, *,

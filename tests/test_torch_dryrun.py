@@ -12,8 +12,12 @@ on the CPU, against the reference.
 * ``run_cell`` on smoke configs at both production meshes (256 and 512
   fake ranks) writes records that pass the reference's
   ``test_dryrun_artifacts_schema`` checks; serving cells on a mesh are
-  ``unported`` with a reason, the quadratic archs' ``long_500k`` cells
-  ``skipped``; every record says it was counted with no device.
+  ``ok`` with their cache layout, rows and the reference's decode write,
+  the quadratic archs' ``long_500k`` cells ``skipped``; every record says
+  it was counted with no device.
+* The prefill and decode bundles of the smoke granite trace on both
+  production meshes (256 and 512 fake ranks), their collectives counted
+  by purpose.
 
 A fake process group is global to its process, so everything that builds a
 mesh runs in a subprocess of its own (pytest-xdist workers must not share
@@ -163,14 +167,70 @@ def test_microbatches_extrapolate_to_the_whole_trace(arch):
         whole["memory"]["peak_bytes"], rel=0.01)
 
 
-def test_serving_on_a_mesh_is_unported():
+SERVE_MESHES = """
+import json, sys
+from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.launch.mesh import fake_world, make_production_mesh
+from repro_torch.launch.steps import build_bundle, trace_bundle
+cfg = get_config("granite-3-8b", smoke=True)
+out = {}
+for multi, n in ((False, 256), (True, 512)):
+    with fake_world(n):
+        mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
+        for kind, rows in (("prefill", 32), ("decode", 128), ("decode", 1)):
+            b = build_bundle(cfg, ShapeConfig("s", 64, rows, kind), mesh)
+            r = trace_bundle(b)
+            out[f"{n}/{kind}/{rows}"] = {
+                "status": b.status, "serve": b.serve,
+                "by_purpose": r["per_device"]["by_purpose"],
+                "kernels": r["per_device"]["kernels"],
+                "cache_bytes": r["memory"]["cache_bytes"],
+                "params_bytes": r["memory"]["params_bytes"]}
+json.dump(out, open(sys.argv[1], "w"))
+"""
+
+
+def test_serving_bundles_trace_on_both_production_meshes(tmp_path):
+    """The smoke granite (one KV head) served on 256 and 512 fake ranks:
+    the cache's slots take "model" (the reference's ``"onehot"`` write),
+    32 and 128 rows split over the data-parallel ranks and one row is
+    replicated; prefill gathers the params and sums row-parallel outputs,
+    decode also merges the partials of its slots; a rank holds a 16th of
+    the cache's slots of its rows."""
+    path = str(tmp_path / "serve.json")
+    _run(SERVE_MESHES, path)
+    with open(path) as f:
+        out = json.load(f)
     cfg = get_config("granite-3-8b", smoke=True)
-    for kind in ("prefill", "decode"):
-        b = tsteps.build_bundle(cfg, ShapeConfig("s", 32, 32, kind),
-                                {"data": 16, "model": 16})
-        assert b.status == "unported" and "mesh" in b.reason
-        with pytest.raises(ValueError, match="unported"):
-            tsteps.trace_bundle(b)
+    for n in (256, 512):
+        dp = n // 16
+        for kind, rows in (("prefill", 32), ("decode", 128), ("decode", 1)):
+            r = out[f"{n}/{kind}/{rows}"]
+            assert r["status"] == "ok"
+            serve = r["serve"]
+            assert serve["cache_layout"] == "seq"
+            assert serve["tp_compute"] == "sharded"
+            split = rows % dp == 0
+            assert serve["rows"] == ("split" if split else "replicated")
+            local = rows // dp if split else rows
+            assert serve["rows_per_rank"] == local
+            # (k, v) x layers x (local rows, 64 / 16 slots, 1 head, D) bf16
+            assert r["cache_bytes"] >= 2 * cfg.num_layers * local * 4 * \
+                cfg.head_dim * 2
+            assert r["params_bytes"] > 0
+            purposes = r["by_purpose"]
+            assert purposes["param_gather"] > 0
+            assert purposes["model_sum"] > 0
+            # its 4 query heads do not divide 16: every rank computes them
+            # all, so no query is gathered
+            assert "query_gather" not in purposes
+            if kind == "decode":
+                assert serve["cache_update"] == "onehot"
+                assert purposes["partial_merge"] > 0
+            else:
+                assert "partial_merge" not in purposes
+                assert r["kernels"]["kernel:flash_attention"]["calls"] == \
+                    cfg.num_layers
 
 
 CELLS = """
@@ -209,15 +269,11 @@ def test_dry_run_records_pass_the_reference_schema(records, mesh, arch):
         r = records[(mesh, arch, shape)]
         assert r["mesh"] == mesh and r["device"] == "meta (no device)"
         assert r["peaks"]["peak_flops"] == 989e12
-        assert r["status"] in ("ok", "skipped", "unported"), r.get("error")
+        assert r["status"] in ("ok", "skipped"), r.get("error")
         if r["status"] != "ok":
             assert r["reason"]
-            if r["status"] == "unported":
-                assert SHAPES[shape].kind != "train"
-            else:
-                assert shape == "long_500k"
+            assert shape == "long_500k"
             continue
-        assert SHAPES[shape].kind == "train"
         # the reference's test_dryrun_artifacts_schema checks
         roof = r["roofline"]
         for k in ("compute_s", "memory_s", "collective_s", "dominant",
@@ -234,14 +290,31 @@ def test_dry_run_records_pass_the_reference_schema(records, mesh, arch):
                                            roof["memory_s"],
                                            roof["collective_s"]) > 0
         assert isinstance(r["fits_80gb"], bool)
+        assert r["fits_80gb"] or r["fits_note"]
         assert r["hlo_analysis"]["per_device"]["collective_operand_bytes"] \
-            > 0                          # the data-parallel exchange
+            > 0        # the data-parallel exchange, the params' gathers
         # tensor-parallel compute: the dense and GQA-MoE families shard
         # under "model" (the smoke configs' MLP and vocabulary split 16
         # ways), the others compute every leaf whole
-        assert r["tp_compute"] == ("sharded" if tsh.tp_covers(
-            get_config(arch)) else "whole"), (shape, r["tp_compute"])
-        assert isinstance(r["tp_whole_leaves"], list)
+        covered = tsh.tp_covers(get_config(arch))
+        if SHAPES[shape].kind == "train":
+            assert r["tp_compute"] == ("sharded" if covered else "whole"), \
+                (shape, r["tp_compute"])
+            assert isinstance(r["tp_whole_leaves"], list)
+            assert "serve" not in r
+            continue
+        # serving: the cache layout, the rows, the reference's decode
+        # write; the smoke configs' KV heads (one, or 4 for the others)
+        # never divide 16, so a covered family's cache splits its slots
+        serve = r["serve"]
+        assert serve["tp_compute"] == ("sharded" if covered else "whole")
+        assert serve["cache_layout"] == ("seq" if covered else "whole")
+        assert serve["rows"] == ("replicated" if shape == "long_500k"
+                                 else "split")
+        assert serve["cache_bytes"] > 0 and serve["params_bytes"] > 0
+        assert serve["collective_bytes_by_purpose"]["param_gather"] > 0
+        if SHAPES[shape].kind == "decode":
+            assert serve["cache_update"] == "onehot"
     skipped = [s for s in SHAPES
                if records[(mesh, arch, s)]["status"] == "skipped"]
     assert skipped == ([] if get_config(arch).sub_quadratic

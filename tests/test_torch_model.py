@@ -451,7 +451,8 @@ def _port_files():
              ("chip_smoke.py", "profile_serve.py", "profile_ssd.py",
               "profile_train.py", "profile_moe_counts.py", "train_faults.py",
               "tp_bf16_witness.py", "examples/train_monitored_torch.py",
-              "examples/serve_requests_torch.py")]
+              "examples/serve_requests_torch.py",
+              "tests/torch_dist_ranks.py")]
     for d, _, names in os.walk(root):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return files
@@ -480,6 +481,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "configs/seamless_m4t_large_v2.py"} <= scanned
     assert {os.path.join("..", "..", "examples", n) for n in (
         "train_monitored_torch.py", "serve_requests_torch.py")} <= scanned
+    # the serving layer on a mesh, and the rank programs of the gloo tests
+    assert {"serve/engine.py", "models/attention.py",
+            os.path.join("..", "..", "tests", "torch_dist_ranks.py")} <= \
+        scanned
     bad = []
     for path in files:
         with open(path) as f:

@@ -313,10 +313,21 @@ class _NoGateSum:
 
 @contextlib.contextmanager
 def _mutated(kind):
-    """The step with a planted fault (``"gate_sum"``: :class:`_NoGateSum`),
-    or as it is (None)."""
+    """The step with a planted fault (``"gate_sum"``: :class:`_NoGateSum`;
+    ``"no_merge"``: decode over a cache split by its slots merges no
+    partials, so each rank attends to its own slots only), or as it is
+    (None)."""
     if kind is None:
         yield
+        return
+    if kind == "no_merge":
+        from repro_torch.models import attention
+        merge = attention._merge_over_model
+        attention._merge_over_model = lambda part, mesh: part
+        try:
+            yield
+        finally:
+            attention._merge_over_model = merge
         return
     if kind != "gate_sum":
         raise ValueError(kind)
@@ -618,6 +629,62 @@ def case_tp(rank: int, workdir: str, opts: dict) -> dict:
     return out
 
 
+def case_serve(rank: int, workdir: str, opts: dict) -> dict:
+    """Each run: ``make_serve_fns(cfg, pc=)`` on its mesh under its rules,
+    from this rank's pieces of the same params (whole ones in
+    ``<ref>_params.npz``) and its rows of the same prompts
+    (``<ref>_inputs.npz``: ``tokens`` (B, S), the teacher-forced decode
+    tokens ``steps`` (B, n), a VLM's ``patches``, ``mrope_pos`` and decode
+    positions ``dec_mrope`` (B, n, 3)): one prefill and n decode steps.
+    Writes each step's last logits gathered over "model" (this rank's
+    rows), the rows it held, its coordinate and its cache piece."""
+    import torch
+    from repro_torch.models.bridge import params_from_numpy
+    from repro_torch.parallel.sharding import (
+        SERVE_RULES, PartitionConstraints, shard_tree)
+    from repro_torch.serve.engine import (
+        gather_logits, init_cache_piece, make_serve_fns, serve_shardings)
+    from repro_torch.train.step import rows_for
+    out = {}
+    for run in opts["runs"]:
+        name = run["name"]
+        cfg = _config(run)
+        mesh = _mesh(run["names"], run["shape"])
+        inputs = _load(os.path.join(workdir, run["inputs"]))
+        b, s = inputs["tokens"].shape
+        pc = PartitionConstraints(
+            SERVE_RULES.with_overrides(**run.get("rules", {})), mesh,
+            batch=b, max_len=run["max_len"])
+        psh, _ = serve_shardings(cfg, pc)
+        params = shard_tree(params_from_numpy(
+            _load(os.path.join(workdir, run["params"])), cfg, device="cpu"),
+            psh, mesh)
+        rows = rows_for({"i": torch.arange(b)}, pc)["i"]
+        take = {k: torch.from_numpy(v)[rows] for k, v in inputs.items()}
+        for k in ("tokens", "steps", "mrope_pos", "dec_mrope"):
+            if k in take:
+                take[k] = take[k].long()
+        cache = init_cache_piece(cfg, pc, dtype=torch.float32, device="cpu")
+        prefill, decode = make_serve_fns(cfg, pc=pc)
+        extras = {k: take[k] for k in ("patches", "mrope_pos") if k in take}
+        logits = []
+        with _mutated(run.get("mutate")):
+            last, cache = prefill(params, take["tokens"], cache, extras)
+            logits.append(gather_logits(cfg, last, pc))
+            for i in range(take["steps"].shape[1]):
+                ex = ({"mrope_pos": take["dec_mrope"][:, i:i + 1]}
+                      if "dec_mrope" in take else None)
+                last, cache = decode(params, cache,
+                                     take["steps"][:, i:i + 1], s + i, ex)
+                logits.append(gather_logits(cfg, last, pc))
+        out[f"{name}/logits"] = torch.stack(logits).numpy()
+        out[f"{name}/rows"] = rows.numpy()
+        out[f"{name}/coord"] = _coord(mesh)
+        out.update({f"{name}/c/{k}": v for k, v in _flat(cache).items()})
+    return out
+
+
 CASES = {"collectives": case_collectives, "steps": case_steps,
          "elastic": case_elastic, "loop": case_loop, "moe": case_moe,
-         "analysis": case_analysis, "cli": case_cli, "tp": case_tp}
+         "analysis": case_analysis, "cli": case_cli, "tp": case_tp,
+         "serve": case_serve}
