@@ -231,19 +231,25 @@ JAX package.  Phases, each reported on its own lines:
               ``seq_parallel``; qwen2-vl-7b (4 of 28 layers, AdamW, the
               loop's stub patches and positions) with ``seq_parallel``,
               in fp32 and in bf16 (held at step 0 and on step 0's
-              gradients, TRAIN_TOL["grads"]; steps 1-2 logged).
-              Each run is a (1, 2) mesh of two processes of this script
-              sharing the card over gloo (NCCL refuses two ranks on one
-              device, so every exchange is staged through the host),
+              gradients, TRAIN_TOL["grads"]; steps 1-2 logged); then FSDP:
+              granite-3-8b (2 of its 40 layers, its own bf16, AdamW) on a
+              (2, 1) mesh, 2 rows a rank in 2 microbatches, each layer
+              gathered over "data" in its call and its gradient
+              reduce-scattered in the backward, its peak within
+              FSDP_PEAK_TOL of its count.
+              Each run is a (data, model) mesh of two processes of this
+              script sharing the card over gloo (NCCL refuses two ranks on
+              one device, so every exchange is staged through the host),
               against its case's one-device step run first here on the
               same params and batches: each rank's loss, grad norm and
               param norm within TRAIN_TOL, its launches exactly
-              ``train_launches``, its ``max_memory_allocated`` within
-              PEAK_TOL of ``launch.cost_analysis``'s count of its step, a
-              MoE run's ranks dispatching alike; the card's compute mode
-              first, then per run each rank's step times (host-staged
-              exchanges: not a speed of tensor parallelism), staged bytes
-              and the world's wall seconds;
+              ``train_launches``, its ``max_memory_allocated`` within the
+              case's tolerance (PEAK_TOL) of ``launch.cost_analysis``'s
+              count of its step, a MoE run's ranks dispatching alike; the
+              card's compute mode first, then per run each rank's step
+              times (host-staged exchanges: not a speed of tensor
+              parallelism or FSDP), staged bytes (by purpose) and the
+              world's wall seconds;
               (f) serving on a mesh, the worlds of SERVE_WORLDS: each
               model's batch through the one-device ``make_serve_fns``
               first (greedy, SERVE_NEW positions), then through
@@ -361,7 +367,7 @@ from repro_torch.train.compression import (  # noqa: E402
 from repro_torch.train.loop import (  # noqa: E402
     InjectedFailure, device_peaks, stub_extras, train)
 from repro_torch.train.step import (  # noqa: E402
-    batch_to_device, make_grads_fn, make_train_step)
+    batch_to_device, make_grads_fn, make_train_step, shard_batch)
 from repro_torch.train.step import shardings as step_shardings  # noqa: E402
 from torch.distributed.device_mesh import init_device_mesh  # noqa: E402
 
@@ -1190,7 +1196,7 @@ def kernel_checks(plen: int, lplen: int) -> dict:
         tp_d = get_config(case.model).d_model
         dt = getattr(torch, case.dtype) if case.dtype else bf16
         for path, sp, _ in case.runs:
-            n, tag = tp_rows(sp), path.replace(":", "-")
+            n, tag = tp_rows(case, sp), path.replace(":", "-")
             tp[path] = {
                 "rmsnorm": check_rmsnorm(gen, n, tp_d, dt, tag=tag),
                 "rmsnorm_backward": check_rmsnorm_bwd(gen, n, tp_d, dt,
@@ -2644,31 +2650,40 @@ A2A_ROWS, A2A_SEQ = 2, 2048
 INT8_BOUND = 1.0 + 2 * 254 * 2.0 ** -24
 # (d) granite's 8 layers as one pipeline stage over the train batch
 PIPE_MICROBATCHES = 4
-# (e) tensor-parallel compute: each model of TP_CASES at full width and the
-# layers given there, on a (1, TP_MODEL_AXIS) mesh of that many processes
-# sharing the one card over gloo (NCCL refuses two ranks on one device), so
-# every exchange is staged through the host; the global batch is cut from
-# phase 4's 8 rows to 4 for it.  A world that outlives TP_DEADLINE_S fails.
+# (e) tensor-parallel compute and FSDP: each model of TP_CASES at full
+# width and the layers given there, on its (data, model) mesh of that many
+# processes sharing the one card over gloo (NCCL refuses two ranks on one
+# device), so every exchange is staged through the host; the global batch is
+# cut from phase 4's 8 rows to 4 for it.  A world that outlives
+# TP_DEADLINE_S fails.
 TP_MODEL_AXIS, TP_DEADLINE_S = 2, 300
 TP_SHAPE = ShapeConfig("tp_2k_b4", seq_len=2048, global_batch=4,
                        kind="train")
+# a rank's counted peak against its max_memory_allocated: the FSDP world's
+# limit (the tensor-parallel worlds keep PEAK_TOL)
+FSDP_PEAK_TOL = 0.02
 
 
 class TpCase(NamedTuple):
     """A model of phase 6 (e): its config cut to ``layers`` (in ``dtype``;
-    None: the config's), trained by ``optimizer`` for DIST_STEPS steps;
-    ``runs`` are (path, seq_parallel, overrides of TRAIN_RULES the step
-    stores and computes with), each a world of its own against the case's
-    one-device step.  Each step's loss, grad norm and param norm are held
-    at TRAIN_TOL; with ``step0``, only step 0's (the later ones logged),
-    and step 0's gradients too (the largest relative L2 gap over the
-    leaves, TRAIN_TOL["grads"])."""
+    None: the config's), trained by ``optimizer`` for DIST_STEPS steps of
+    ``microbatches`` each under remat "minimal", on a (data, model)
+    ``mesh``; ``runs`` are (path, seq_parallel, overrides of TRAIN_RULES
+    the step stores and computes with), each a world of its own against the
+    case's one-device step.  Each step's loss, grad norm and param norm are
+    held at TRAIN_TOL; with ``step0``, only step 0's (the later ones
+    logged), and step 0's gradients too (the largest relative L2 gap over
+    the leaves, TRAIN_TOL["grads"]).  A rank's counted peak is held within
+    ``peak_tol`` of its ``max_memory_allocated``."""
     model: str
     layers: int
     dtype: Optional[str]
     optimizer: str
     runs: tuple
     step0: bool = False
+    mesh: tuple = (1, TP_MODEL_AXIS)
+    microbatches: int = 1
+    peak_tol: float = PEAK_TOL
 
 
 # granite-3-8b: 4 of 40 layers, without and with sequence parallelism.
@@ -2682,6 +2697,10 @@ class TpCase(NamedTuple):
 # past step 0 the bf16 world has missed TRAIN_TOL (grad norm 1.7e-2 and
 # 6.9e-2 at steps 1 and 2 on an H100, where the one-device grad norm jumps
 # 79 -> 1094), a gap ``tp_bf16_witness.py`` sets beside bf16's own.
+# granite-fsdp: 2 of 40 layers in its own bf16 on (data 2, model 1), 2 rows
+# a rank in 2 microbatches: every leaf but the norms split over "data",
+# gathered layer by layer in the pass, its gradient reduce-scattered in the
+# backward.
 TP_CASES = {
     "granite": TpCase(TRAIN_MODEL, 4, None, "adamw", (
         ("dist:tp", False, {}), ("dist:tp-sp", True, {}))),
@@ -2692,6 +2711,9 @@ TP_CASES = {
         ("dist:tp-qwen2-vl-sp", True, {}),)),
     "qwen2-vl-bf16": TpCase(VLM_MODEL, 4, None, "adamw", (
         ("dist:tp-qwen2-vl-bf16-sp", True, {}),), step0=True),
+    "granite-fsdp": TpCase(TRAIN_MODEL, 2, None, "adamw", (
+        ("dist:fsdp", False, {}),), mesh=(2, 1), microbatches=2,
+        peak_tol=FSDP_PEAK_TOL),
 }
 
 
@@ -2812,6 +2834,8 @@ def dist_steps(cfg, tcfg, batches, mesh, dev, count: bool = False,
                                            flatten(params).values())):
             raise AssertionError("dist: a one-rank mesh copied a leaf")
         params = pieces
+        # this rank's rows of each global batch
+        batches = [shard_batch(b, mesh) for b in batches]
     state = opt.init(params, psh)
     grads0 = None
     if grads:
@@ -2943,7 +2967,8 @@ def dist_pipeline(params, cfg, batch, dev="cuda") -> tuple:
         rope = rope_table(pos, cfg.head_dim, cfg.rope_theta)
 
         def stage_fn(p, xb):
-            return _train_layers(unflatten(p), xb, cfg, rope=rope,
+            return _train_layers(unflatten(p), xb, cfg,
+                                 prefix="dense_layers", rope=rope,
                                  attn_impl="flash", remat="none")
         want = stage_fn(flatten(layers), x)
         ops.reset_launch_counts()
@@ -3058,7 +3083,8 @@ def tp_cfg(case: TpCase):
 
 def tp_train_cfg(case: TpCase, sp: bool = False) -> TrainConfig:
     return dataclasses.replace(dist_train_cfg(), optimizer=case.optimizer,
-                               seq_parallel=sp)
+                               seq_parallel=sp,
+                               num_microbatches=case.microbatches)
 
 
 def compute_mode() -> str:
@@ -3074,9 +3100,9 @@ def tp_rank_main(argv: list) -> int:
     """One rank of phase 6 (e), in a process of its own: ``--tp-rank R
     --tp-world N --tp-dir DIR --tp-case C --tp-run I`` (run I of
     ``TP_CASES[C]``).  Joins a gloo world through a file store in DIR, runs
-    ``dist_steps`` on ``make_mesh_for(N, model=N)`` with the seed's params
-    and batches under the run's rules (each exchange staged through the
-    host: gloo over CUDA tensors) and writes its row to
+    ``dist_steps`` on the case's mesh (``make_mesh_for``) with the seed's
+    params and batches under the run's rules (each exchange staged through
+    the host: gloo over CUDA tensors) and writes its row to
     ``DIR/rank<R>.json`` (and, for a ``step0`` case, its
     pieces of step 0's to ``DIR/grads<R>.pt``).  ``--tp-dev cpu``
     rehearses it on the CPU."""
@@ -3094,7 +3120,7 @@ def tp_rank_main(argv: list) -> int:
     dist.init_process_group("gloo", store=dist.FileStore(
         os.path.join(workdir, "store"), world), rank=rank, world_size=world)
     try:
-        mesh = make_mesh_for(world, model=world, device_type="cpu")
+        mesh = make_mesh_for(world, model=case.mesh[1], device_type="cpu")
         cfg = tp_cfg(case)
         batches = dist_batches(cfg, TP_SHAPE, DIST_STEPS, dev)
         comm.reset_staged()
@@ -3110,6 +3136,7 @@ def tp_rank_main(argv: list) -> int:
         del grads
         run.update({"rank": rank, "coord": list(mesh.get_coordinate()),
                     "staged": comm.staged(),
+                    "staged_by_purpose": comm.staged_by_purpose(),
                     "dispatches": moe.dispatch_counts()})
         with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
             json.dump(run, f)
@@ -3118,17 +3145,18 @@ def tp_rank_main(argv: list) -> int:
     return 0
 
 
-def tp_world(name: str, run: int, dev: str = "cuda",
-             world: int = TP_MODEL_AXIS, grads=None) -> list:
-    """Run ``run`` of ``TP_CASES[name]`` as ``world`` processes of this
-    script sharing the one card; returns each rank's row.  A world that
-    outlives TP_DEADLINE_S is killed, and fails the run.  ``grads``:
+def tp_world(name: str, run: int, dev: str = "cuda", grads=None) -> list:
+    """Run ``run`` of ``TP_CASES[name]`` as processes of this script
+    sharing the one card, one a rank of the case's mesh; returns each
+    rank's row.  A world that outlives TP_DEADLINE_S is killed, and fails
+    the run.  ``grads``:
     {name: whole gradients of the first batch on the host}, each of which
     the ranks' pieces of theirs are set against (a row's ``grads_gap``:
     {name: the largest relative L2 gap over the leaves})."""
     workdir = os.path.join(ROOT, "build", "tp_world")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
+    world = math.prod(TP_CASES[name].mesh)
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
          "--tp-world", str(world), "--tp-dir", workdir, "--tp-case", name,
@@ -3160,7 +3188,7 @@ def tp_world(name: str, run: int, dev: str = "cuda",
              os.path.join(workdir, f"grads{r}.pt"))
             for r, row in enumerate(rows)], flatten(shardings_for_specs(
                 model_specs(tp_cfg(case)), rules,
-                {"data": 1, "model": world})))
+                dict(zip(("data", "model"), case.mesh)))))
         for row in rows:
             row["grads_gap"] = gap
     shutil.rmtree(workdir, ignore_errors=True)
@@ -3198,24 +3226,27 @@ def grads_gaps(wants: dict, ranks: list, shardings: dict) -> dict:
     return out
 
 
-def tp_rows(sp: bool) -> int:
-    """RMSNorm rows a rank of a TP_SHAPE run normalises at once."""
+def tp_rows(case: TpCase, sp: bool) -> int:
+    """RMSNorm rows a rank of a TP_SHAPE run normalises at once: its rows
+    of a microbatch, its rows of the sequence under SP."""
+    data, model = case.mesh
     return TP_SHAPE.global_batch * TP_SHAPE.seq_len // (
-        TP_MODEL_AXIS if sp else 1)
+        data * case.microbatches * (model if sp else 1))
 
 
 def dist_tp(dev="cuda") -> dict:
-    """(e): each run of TP_CASES on a (1, TP_MODEL_AXIS) mesh,
-    tensor-parallel compute, as that many processes on the one card over
-    gloo, against its case's one-device step run here first on the same
-    params and batches: each rank's loss, grad norm and param norm within
-    TRAIN_TOL (for a ``step0`` case, step 0's, and its gradients within
-    TRAIN_TOL["grads"]), its launches exactly ``train_launches``, its
-    ``max_memory_allocated`` within PEAK_TOL of ``cost_analysis``'s count
-    of its step; a MoE run's ranks dispatched as often as each other and
-    by the grouped dispatch.  Logs one ``dist: tp`` line a run (with its
-    world's wall seconds) and returns each run's launches (summed over the
-    ranks), keyed by its path."""
+    """(e): each run of TP_CASES on its case's mesh (tensor-parallel
+    compute on (1, TP_MODEL_AXIS), FSDP on (2, 1)), as that many processes
+    on the one card over gloo, against its case's one-device step run here
+    first on the same params and batches: each rank's loss, grad norm and
+    param norm within TRAIN_TOL (for a ``step0`` case, step 0's, and its
+    gradients within TRAIN_TOL["grads"]), its launches exactly
+    ``train_launches``, its ``max_memory_allocated`` within the case's
+    ``peak_tol`` of ``cost_analysis``'s count of its step; a MoE run's
+    ranks dispatched as often as each other and by the grouped dispatch.
+    Logs one ``dist: tp`` line a run (with its world's wall seconds and
+    the bytes staged by purpose) and returns each run's launches (summed
+    over the ranks), keyed by its path."""
     log(f"dist: tp compute mode {compute_mode()}")
     out = {}
     for name, case in TP_CASES.items():
@@ -3228,7 +3259,7 @@ def dist_tp(dev="cuda") -> dict:
         del one["params"], batches
         if dev == "cuda":
             torch.cuda.empty_cache()
-        want = train_launches(cfg, DIST_STEPS)
+        want = train_launches(cfg, DIST_STEPS * case.microbatches)
         for i, (path, sp, overrides) in enumerate(case.runs):
             t0 = time.monotonic()
             ranks = tp_world(name, i, dev, grads=case.step0 and {
@@ -3246,18 +3277,21 @@ def dist_tp(dev="cuda") -> dict:
             row = {"case": name, "model": case.model,
                    "layers": cfg.num_layers, "dtype": cfg.dtype,
                    "optimizer": case.optimizer,
-                   "mesh": {"data": 1, "model": TP_MODEL_AXIS},
+                   "mesh": dict(zip(("data", "model"), case.mesh)),
                    "rules": overrides, "seq_parallel": sp,
                    "seq_len": TP_SHAPE.seq_len,
                    "global_batch": TP_SHAPE.global_batch,
+                   "microbatches": case.microbatches,
                    "held_steps": held,
-                   "rmsnorm_rows": tp_rows(sp),
+                   "rmsnorm_rows": tp_rows(case, sp),
                    "one_device_metrics": one["metrics"],
                    "rank_metrics": [r["metrics"] for r in ranks],
                    "relative_gaps": gaps,
                    "host_staged_step_s": [r["step_s"] for r in ranks],
                    "one_device_step_s": one["step_s"],
                    "staged": [r["staged"] for r in ranks],
+                   "staged_by_purpose": [r["staged_by_purpose"]
+                                         for r in ranks],
                    "dispatches": [r["dispatches"] for r in ranks],
                    "peak_gb_counted_measured": peaks,
                    "one_device_peak_gb": one["peak_memory_gb"],
@@ -3265,8 +3299,8 @@ def dist_tp(dev="cuda") -> dict:
                    "one_device_wall_s": one_wall, "world_wall_s": wall}
             log(f"dist: tp {json.dumps(row)} (step times are of exchanges "
                 f"staged through the host over gloo, two processes sharing "
-                f"one card: not a speed of tensor parallelism; limits "
-                f"{json.dumps(TRAIN_TOL)}, peak {PEAK_TOL})")
+                f"one card: not a speed of tensor parallelism or FSDP; "
+                f"limits {json.dumps(TRAIN_TOL)}, peak {case.peak_tol})")
             if not all(math.isfinite(v) for r in ranks
                        for m in r["metrics"] for v in m.values()) or \
                     not all(v <= TRAIN_TOL[k] for g in gaps
@@ -3277,7 +3311,7 @@ def dist_tp(dev="cuda") -> dict:
                 raise AssertionError(f"{path}: launches "
                                      f"{[r['launches'] for r in ranks]}, "
                                      f"expected {want} a rank")
-            if not all(abs(c - m) <= PEAK_TOL * m for c, m in peaks):
+            if not all(abs(c - m) <= case.peak_tol * m for c, m in peaks):
                 raise AssertionError(f"{path}: counted peaks off the "
                                      f"measured ones: {peaks}")
             if cfg.moe is not None and any(

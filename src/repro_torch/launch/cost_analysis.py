@@ -28,9 +28,10 @@ this rank's program:
   ``by_collective``, as :mod:`repro_torch.parallel.comm` reports each
   collective (the reference's operand and wire formulas, :func:`wire_bytes`),
   and ``by_purpose``, the operand bytes by what the exchange is for
-  (``comm.purpose``: the params' gathers, the row-parallel and vocabulary
-  sums over "model", a serving pass's query gather and partial merge over
-  a cache split by its slots; ``"other"``);
+  (``comm.purpose``: the params' gathers, their gradients' syncs
+  (``"grad_scatter"``), the row-parallel and vocabulary sums over "model",
+  a serving pass's query gather and partial merge over a cache split by
+  its slots; ``"other"``);
 * nothing for the host's own scalars: an operation on CPU tensors alone
   (the learning-rate schedule, the optimizer's step count) is not the
   device's work;

@@ -206,14 +206,19 @@ def _fits_note(cfg, bundle) -> str:
         return (f"family {cfg.family!r} with {cfg.attention_type} attention "
                 f"computes whole on every \"model\" rank (tensor-parallel "
                 f"compute covers the dense, GQA-MoE and VLM families): each "
-                f"rank gathers every param whole and keeps its cache whole "
-                f"over \"model\"")
+                f"rank gathers each layer's params whole, one layer at a "
+                f"time, its activations are whole over \"model\", and so is "
+                f"its cache")
     if bundle.kind == "train":
-        return ("the count's peak: params, gradients, optimizer state and "
-                "activations of a rank's microbatch, its \"model\" pieces "
-                "gathered over \"data\" for the whole step")
-    return ("the count's peak: a rank's gathered params, its cache piece "
-            "and its activations")
+        return ("the count's peak: a rank's pieces of the params, optimizer "
+                "state, gradient accumulator and a microbatch's gradients, "
+                "one layer's leaves gathered at a time (the leaves outside "
+                "the checkpoints for the whole pass: the embedding, a "
+                "hybrid's shared blocks at each use, an enc-dec's cross "
+                "K/V projections) and a microbatch's activations")
+    return ("the count's peak: a rank's pieces of the params with one "
+            "layer's gathered at a time, its cache piece and its "
+            "activations")
 
 
 @contextmanager

@@ -13,14 +13,15 @@ What a mesh can do here is what the port's steps can do:
 
 * the train bundle uses :func:`~repro_torch.train.step.make_train_step`
   with the mesh and the train config's ``seq_parallel``: data parallelism
-  with sharded storage, tensor-parallel compute under "model" for the
-  dense and GQA-MoE families (the other families' "model" ranks gather
-  whole params and compute the same loss);
+  with sharded storage, each layer's params gathered inside its call,
+  tensor-parallel compute under "model" for the dense and GQA-MoE
+  families (the other families' "model" ranks gather whole layers and
+  compute the same loss);
 * the prefill and decode bundles use
   :func:`~repro_torch.serve.engine.make_serve_fns` with the mesh
   (``SERVE_RULES``, the cell's global batch and cache length): each rank
-  takes its pieces of the params (gathered for compute by role inside the
-  call), its rows of the batch where they divide over ("pod", "data")
+  takes its pieces of the params (gathered for compute by role one layer
+  at a time inside the call), its rows of the batch where they divide over ("pod", "data")
   (all of them where they do not: ``long_500k``'s one row) and its piece
   of the cache, laid out as ``sharding.cache_shardings`` binds it.  A
   decode bundle records the reference's ``cache_update`` choice

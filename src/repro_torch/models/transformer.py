@@ -25,6 +25,15 @@ parallelism (train mode) the residual stream between blocks, and the norms
 on it, hold this rank's rows (a VLM rank merges the patches that fall in
 them).
 
+A pass handed this rank's stored pieces of the params (``pc.pieces``: the
+train step and the serve fns on a mesh) gathers each layer's leaves inside
+that layer's call (``sharding.gathered``; in train mode inside the
+checkpointed function, so the backward's recompute gathers them again and
+the gathered leaves are not saved), and the leaves outside the layer stacks
+(the embedding, once for both its uses; the final norms) once a pass; a
+hybrid's shared attention blocks and an enc-dec's cross K/V projections,
+used outside the checkpoints, are gathered where they are used.
+
 Train mode rematerializes as the reference places ``jax.checkpoint``: each
 dense or MoE block, each Mamba2 block of a hybrid group and each trailing
 (``rem``) Mamba2 block, each RWKV6 block and each encoder and decoder block
@@ -58,6 +67,7 @@ from repro_torch.models.ssm import (
     mamba2_block, mamba2_cache_specs, mamba2_specs, rwkv6_cache_specs,
     rwkv6_channel_mix, rwkv6_specs, rwkv6_time_mix)
 from repro_torch.parallel import comm
+from repro_torch.parallel.sharding import gathered
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -346,17 +356,21 @@ def _checkpointed(fn, remat: str):
     return partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
-def _train_layers(layers, x, cfg, *, rope, attn_impl, remat, aux=None,
-                  cross=None, bidirectional=False, pc=None, tp=None,
-                  d_ff=None):
-    """Train-mode pass over stacked attention blocks, each checkpointed;
-    the MoE statistics of each block come out of the checkpointed call and
-    are combined into ``aux``.  ``cross``: per layer, the encoder's K/V of
-    a decoder block (made outside the checkpoints, as the reference);
+def _train_layers(layers, x, cfg, *, prefix, rope, attn_impl, remat,
+                  aux=None, cross=None, bidirectional=False, pc=None,
+                  tp=None, d_ff=None):
+    """Train-mode pass over stacked attention blocks (the params' subtree
+    ``prefix``), each checkpointed, each gathering its layer's leaves
+    inside its call (``sharding.gathered``: where ``pc`` says the pass
+    holds pieces; the recompute gathers them again); the MoE statistics of
+    each block come out of the checkpointed call and are combined into
+    ``aux``.  ``cross``: per layer, the encoder's K/V of a decoder block
+    (made outside the checkpoints, as the reference);
     ``bidirectional``: an encoder's blocks; ``tp``, ``d_ff``: see
     :func:`_attn_block`."""
     def block(lp, x, ckv):
         stats = {}
+        lp = gathered(lp, prefix, pc, 1)
         x = _attn_block(lp, x, cfg, rope=rope, mode="train", cache=None,
                         pos=None, attn_impl=attn_impl, aux=stats,
                         cross_kv_cache=ckv, bidirectional=bidirectional,
@@ -378,24 +392,31 @@ def _depth(tree) -> int:
 
 
 def _hybrid_forward(params, x, cfg, *, rope, mode, cache, pos,
-                    attn_impl="masked", remat="none"):
+                    attn_impl="masked", remat="none", pc=None):
     """Mamba2 groups, each followed by a shared attention block (weights
-    ``group % num_shared_blocks``), then the ``rem`` Mamba2 blocks."""
+    ``group % num_shared_blocks``), then the ``rem`` Mamba2 blocks.  Each
+    block gathers its layer's leaves in its call (``sharding.gathered``);
+    a shared block, outside the checkpoints as in the reference, gathers
+    its weights at each use, kept for the backward by autograd."""
     nsb = cfg.hybrid.num_shared_blocks
+
+    def shared(gi):
+        return gathered(_layer(params["shared"], gi % nsb), "shared", pc, 1)
+
     if mode == "train":
-        def mamba(lp, x):
+        def mamba(prefix, stacked, lp, x):
+            lp = gathered(lp, prefix, pc, stacked)
             return _mamba_block(lp, x, cfg, mode="train", cache=None)[0]
         run = _checkpointed(mamba, remat)
         if "groups" in params:
-            shared = _unstack(params["shared"])
             for gi, gp in enumerate(_unstack(params["groups"])):
                 for lp in _unstack(gp):
-                    x = run(lp, x)
-                x, _ = _attn_block(shared[gi % nsb], x, cfg, rope=rope,
+                    x = run("groups", 2, lp, x)
+                x, _ = _attn_block(shared(gi), x, cfg, rope=rope,
                                    mode="train", cache=None, pos=None,
                                    attn_impl=attn_impl)
         for lp in _unstack(params["rem"]) if "rem" in params else []:
-            x = run(lp, x)
+            x = run("rem", 1, lp, x)
         return x
     if "groups" in params:
         for gi in range(_depth(params["groups"])):
@@ -403,34 +424,37 @@ def _hybrid_forward(params, x, cfg, *, rope, mode, cache, pos,
             gc = None if cache is None else _layer(cache["groups"], gi)
             for li in range(_depth(gp)):
                 x, _ = _mamba_block(
-                    _layer(gp, li), x, cfg, mode=mode,
-                    cache=None if gc is None else _layer(gc, li))
+                    gathered(_layer(gp, li), "groups", pc, 2), x, cfg,
+                    mode=mode, cache=None if gc is None else _layer(gc, li))
             x, _ = _attn_block(
-                _layer(params["shared"], gi % nsb), x, cfg, rope=rope,
-                mode=mode, pos=pos,
+                shared(gi), x, cfg, rope=rope, mode=mode, pos=pos,
                 cache=None if cache is None else _layer(cache["shared_attn"],
                                                         gi))
     if "rem" in params:
         for li in range(_depth(params["rem"])):
             x, _ = _mamba_block(
-                _layer(params["rem"], li), x, cfg, mode=mode,
+                gathered(_layer(params["rem"], li), "rem", pc, 1), x, cfg,
+                mode=mode,
                 cache=None if cache is None else _layer(cache["rem"], li))
     return x
 
 
-def _rwkv_forward(params, x, cfg, *, mode, cache, remat="none"):
-    """The RWKV6 blocks in order; in train mode each checkpointed under the
+def _rwkv_forward(params, x, cfg, *, mode, cache, remat="none", pc=None):
+    """The RWKV6 blocks in order, each gathering its layer's leaves in its
+    call (``sharding.gathered``); in train mode each checkpointed under the
     policy, in prefill and decode each writing its cache layer in place."""
+    def block(lp, x, mode, cache):
+        return _rwkv_block(gathered(lp, "layers", pc, 1), x, cfg, mode=mode,
+                           cache=cache)[0]
+
     if mode == "train":
-        run = _checkpointed(
-            lambda lp, x: _rwkv_block(lp, x, cfg, mode="train",
-                                      cache=None)[0], remat)
+        run = _checkpointed(block, remat)
         for lp in _unstack(params["layers"]):
-            x = run(lp, x)
+            x = run(lp, x, "train", None)
         return x
     for i in range(_depth(params["layers"])):
-        x, _ = _rwkv_block(_layer(params["layers"], i), x, cfg, mode=mode,
-                           cache=None if cache is None else _layer(cache, i))
+        x = block(_layer(params["layers"], i), x, mode,
+                  None if cache is None else _layer(cache, i))
     return x
 
 
@@ -444,7 +468,7 @@ def _sinusoidal(positions, d: int):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def encode(params, cfg: ModelConfig, src_frames, remat="none"):
+def encode(params, cfg: ModelConfig, src_frames, remat="none", pc=None):
     """The encoder over the (stub) frame embeddings (B, S_src, d), cast to
     the compute dtype, with sinusoidal positions: bidirectional masked
     attention in every block (``mode="train"``, as the reference runs it,
@@ -453,20 +477,36 @@ def encode(params, cfg: ModelConfig, src_frames, remat="none"):
     x = src_frames.to(getattr(torch, cfg.dtype))
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
     x = x + _sinusoidal(pos, cfg.d_model).to(x.dtype)
-    x = _train_layers(params["encoder"]["layers"], x, cfg, rope=None,
-                      attn_impl="masked", remat=remat, bidirectional=True)
-    return apply_norm(params["encoder"]["final_norm"], x, cfg)
+    x = _train_layers(params["encoder"]["layers"], x, cfg,
+                      prefix="encoder/layers", rope=None, attn_impl="masked",
+                      remat=remat, bidirectional=True, pc=pc)
+    return apply_norm(gathered(params["encoder"]["final_norm"],
+                               "encoder/final_norm", pc), x, cfg)
 
 
-def encdec_cross_caches(params, cfg: ModelConfig, enc_out) -> list:
+# the decoder leaves only the cross K/V read (encdec_cross_caches)
+_CROSS_KV = ("wk", "wv")
+
+
+def encdec_cross_caches(params, cfg: ModelConfig, enc_out, pc=None) -> list:
     """Per decoder layer, the cross K/V of the encoder's output in its
-    dtype: [{"k", "v"} (B, S_src, KV, D)] (the reference stacks them)."""
-    return [cross_kv(lp["cross"], enc_out, cfg)
-            for lp in _unstack(params["dec_layers"])]
+    dtype: [{"k", "v"} (B, S_src, KV, D)] (the reference stacks them).
+    Made outside the checkpoints, so each layer's ``wk`` / ``wv``, gathered
+    here (``sharding.gathered``), are kept for the backward by autograd."""
+    cross = params["dec_layers"]["cross"]
+    return [cross_kv(gathered(lp, "dec_layers/cross", pc, 1), enc_out, cfg)
+            for lp in _unstack({k: cross[k] for k in _CROSS_KV})]
+
+
+def _decoder_blocks(params) -> dict:
+    """The decoder layers' leaves its blocks read: all but the cross K/V
+    projections."""
+    return unflatten({k: v for k, v in flatten(params["dec_layers"]).items()
+                      if k not in {f"cross/{n}" for n in _CROSS_KV}})
 
 
 def _encdec_forward(params, x, cfg, *, mode, cache, pos, extras,
-                    attn_impl="masked", remat="none"):
+                    attn_impl="masked", remat="none", pc=None):
     """Train and prefill encode ``extras["src_frames"]`` and make the cross
     K/V (prefill also writes them into ``cache["cross"]``, in bf16 as the
     reference's prefill casts them); decode reads them from the cache.
@@ -477,18 +517,20 @@ def _encdec_forward(params, x, cfg, *, mode, cache, pos, extras,
             raise KeyError("src_frames: an encoder-decoder needs its "
                            "(B, S_src, d) source frames in extras")
         enc = encode(params, cfg, extras["src_frames"],
-                     remat=remat if mode == "train" else "none")
-        cross = encdec_cross_caches(params, cfg, enc)
+                     remat=remat if mode == "train" else "none", pc=pc)
+        cross = encdec_cross_caches(params, cfg, enc, pc)
         del enc
     else:
         cross = [_layer(cache["cross"], i)
                  for i in range(_depth(params["dec_layers"]))]
+    dec = _decoder_blocks(params)
     if mode == "train":
-        return _train_layers(params["dec_layers"], x, cfg, rope=None,
-                             attn_impl=attn_impl, remat=remat, cross=cross)
-    for i in range(_depth(params["dec_layers"])):
-        x, _ = _attn_block(_layer(params["dec_layers"], i), x, cfg,
-                           rope=None, mode=mode, pos=pos,
+        return _train_layers(dec, x, cfg, prefix="dec_layers", rope=None,
+                             attn_impl=attn_impl, remat=remat, cross=cross,
+                             pc=pc)
+    for i in range(_depth(dec)):
+        x, _ = _attn_block(gathered(_layer(dec, i), "dec_layers", pc, 1), x,
+                           cfg, rope=None, mode=mode, pos=pos,
                            cache=None if cache is None
                            else _layer(cache["self"], i),
                            cross_kv_cache=cross[i])
@@ -580,7 +622,10 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
 
     extras = extras or {}
     tp = pc.tensor_parallel(cfg, s, mode) if pc is not None else None
-    x = embed_tokens(params["embed"], tokens, cfg, tp=tp)
+    # the leaves outside the layer stacks: gathered once a pass (a tied
+    # embedding once, read twice)
+    embed = gathered(params["embed"], "embed", pc)
+    x = embed_tokens(embed, tokens, cfg, tp=tp)
     if cfg.family == "vlm" and "patches" in extras:
         # under sequence parallelism x holds this rank's rows
         x = _merge_patches(x, extras["patches"],
@@ -591,20 +636,22 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
 
     if cfg.family == "ssm":
         x = _rwkv_forward(params, x, cfg, mode=mode, cache=cache,
-                          remat=remat)
+                          remat=remat, pc=pc)
     elif cfg.family == "encdec":
         x = _encdec_forward(params, x, cfg, mode=mode, cache=cache, pos=pos,
-                            extras=extras, attn_impl=attn_impl, remat=remat)
+                            extras=extras, attn_impl=attn_impl, remat=remat,
+                            pc=pc)
     elif cfg.family == "hybrid":
         x = _hybrid_forward(params, x, cfg, rope=rope, mode=mode,
                             cache=cache, pos=pos, attn_impl=attn_impl,
-                            remat=remat)
+                            remat=remat, pc=pc)
     elif mode == "train":
         for group in ("dense_layers", "moe_layers"):
             if group in params:
-                x = _train_layers(params[group], x, cfg, rope=rope,
-                                  attn_impl=attn_impl, remat=remat, aux=aux,
-                                  pc=pc, tp=tp, d_ff=_dense_d_ff(cfg))
+                x = _train_layers(params[group], x, cfg, prefix=group,
+                                  rope=rope, attn_impl=attn_impl,
+                                  remat=remat, aux=aux, pc=pc, tp=tp,
+                                  d_ff=_dense_d_ff(cfg))
     else:
         for group, key in (("dense_layers", "dense"), ("moe_layers", "moe")):
             if group not in params:
@@ -612,12 +659,13 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
             layers = params[group]
             for i in range(_depth(layers)):
                 lc = None if cache is None else _layer(cache[key], i)
-                x, _ = _attn_block(_layer(layers, i), x, cfg, rope=rope,
-                                   mode=mode, cache=lc, pos=pos, aux=aux,
-                                   pc=pc, tp=tp, d_ff=_dense_d_ff(cfg))
+                x, _ = _attn_block(gathered(_layer(layers, i), group, pc, 1),
+                                   x, cfg, rope=rope, mode=mode, cache=lc,
+                                   pos=pos, aux=aux, pc=pc, tp=tp,
+                                   d_ff=_dense_d_ff(cfg))
 
-    x = apply_norm(params["final_norm"], x, cfg)
-    return lm_logits(params["embed"], x, cfg, tp=tp), cache
+    x = apply_norm(gathered(params["final_norm"], "final_norm", pc), x, cfg)
+    return lm_logits(embed, x, cfg, tp=tp), cache
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, pc=None, attn_impl="masked",

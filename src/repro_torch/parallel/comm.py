@@ -37,11 +37,18 @@ compute one loss, and each holds that loss's whole gradient of the
 activations (under sequence parallelism, of its own rows of the residual
 stream).
 
+FSDP adds one more, :func:`gather_piece`: a param's stored piece gathered
+into the leaf a pass computes with (forward), this rank's piece of its
+gradient's mean over "data" (backward, :func:`grad_piece`), so a pass that
+gathers each layer inside the layer's call holds one layer gathered at a
+time and its gradients come back as pieces.
+
 **Host staging.**  gloo's CUDA support is partial, so a collective over a
 gloo group with an operand on a CUDA device copies its operand to the
 host, exchanges there and copies the result back (:func:`_run`); the bytes
-it moves each way are counted (:func:`staged`).  Under NCCL, or on CPU
-tensors, nothing is staged.
+it moves each way are counted (:func:`staged`, and by purpose
+:func:`staged_by_purpose`).  Under NCCL, or on CPU tensors, nothing is
+staged.
 """
 
 from __future__ import annotations
@@ -111,9 +118,10 @@ def set_counter(counter):
 @contextmanager
 def purpose(name: str):
     """The collectives reported inside are told to the counter as
-    ``name``'s (the innermost name wins): ``"param_gather"``,
-    ``"model_sum"`` (row-parallel and vocabulary sums), and serving's
-    ``"query_gather"`` and ``"partial_merge"``."""
+    ``name``'s (the innermost name wins): ``"param_gather"`` and
+    ``"grad_scatter"`` (a param's gather and its gradient's sync,
+    :func:`gather_piece`), ``"model_sum"`` (row-parallel and vocabulary
+    sums), and serving's ``"query_gather"`` and ``"partial_merge"``."""
     _PURPOSES.append(name)
     try:
         yield
@@ -138,8 +146,10 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 # collectives staged through the host, and the bytes they moved between
-# the device and the host (both ways), since the last reset
+# the device and the host (both ways), since the last reset; and the same
+# by purpose
 _STAGED = {"collectives": 0, "bytes": 0}
+_STAGED_BY: dict = {}
 
 
 def staged() -> dict:
@@ -148,9 +158,16 @@ def staged() -> dict:
     return dict(_STAGED)
 
 
+def staged_by_purpose() -> dict:
+    """{purpose (:func:`purpose`; ``"other"`` outside one): {"collectives",
+    "bytes"}} of what :func:`staged` counts."""
+    return {k: dict(v) for k, v in _STAGED_BY.items()}
+
+
 def reset_staged() -> None:
     for k in _STAGED:
         _STAGED[k] = 0
+    _STAGED_BY.clear()
 
 
 def _run(fn, group, out: torch.Tensor, inp=None, **kw) -> None:
@@ -165,17 +182,22 @@ def _run(fn, group, out: torch.Tensor, inp=None, **kw) -> None:
         else:
             fn(out, inp, group=group, **kw)
         return
-    host = out.cpu()
     if inp is None:
+        host = out.cpu()
         fn(host, group=group, **kw)
         moved = 2 * _nbytes(out)
     else:
+        # the output is only written: a host buffer, not a copy of it
+        host = torch.empty_like(out, device="cpu")
         host_in = inp.cpu()
         fn(host, host_in, group=group, **kw)
         moved = _nbytes(inp) + _nbytes(out)
     out.copy_(host)
-    _STAGED["collectives"] += 1
-    _STAGED["bytes"] += moved
+    by = _STAGED_BY.setdefault(_PURPOSES[-1] if _PURPOSES else "other",
+                               {"collectives": 0, "bytes": 0})
+    for counts in (_STAGED, by):
+        counts["collectives"] += 1
+        counts["bytes"] += moved
 
 
 def all_reduce(t: torch.Tensor, mesh, axes, op: str = "sum"):
@@ -354,6 +376,98 @@ def all_to_all(x, mesh, axis: str):
     if x.requires_grad:
         return _AllToAll.apply(x, mesh, axis)
     return _exchange(x, mesh, axis)
+
+
+# --------------------------------------------------------------------------
+# A param's piece, gathered for compute (FSDP)
+# --------------------------------------------------------------------------
+
+
+def gather_dims(piece: torch.Tensor, sh, mesh, skip: tuple = ()):
+    """The leaf from the pieces of the ranks that hold it: each dimension
+    gathered over the axes ``sh`` (a ``sharding.Sharding``) splits it
+    over, the innermost axis first (``piece`` itself where nothing is
+    gathered).  Axes in ``skip`` are not gathered: the result is then this
+    rank's piece over them."""
+    out = piece
+    for i in range(len(sh.shape)):
+        for a in reversed(sh.dim_axes(i)):
+            if a not in skip:
+                out = all_gather(out, mesh, a, i)
+    return out
+
+
+def grad_piece(g: torch.Tensor, sh, mesh, role: str) -> torch.Tensor:
+    """A gradient of the leaf a rank computed with (``role``, as
+    ``sharding.tp_roles`` says) -> this rank's piece of its mean over
+    "data", for a leaf stored as ``sh`` says.  A ``"partial"`` gradient is
+    first summed over "model".  Ranks that differ only in "model" then
+    hold the same ``"whole"`` gradient, so the dimensions "model" splits
+    are cut locally (a ``"split"`` gradient is this rank's piece of them
+    already); "data" reduce-scatters the dimension it splits (or
+    all-reduces a leaf it does not split), then divides by its size.
+    Never writes into ``g``."""
+    if role == "partial" and live_axes(mesh, (MODEL,)):
+        g = all_reduce(g.clone(memory_format=torch.contiguous_format), mesh,
+                       (MODEL,))
+    data_dim = None
+    for i in range(g.ndim):
+        live = live_axes(mesh, sh.dim_axes(i))
+        if len(live) > 1:
+            raise NotImplementedError(f"dimension {i} of a {sh.shape} leaf "
+                                      f"split over {live}")
+        if live == ("data",):
+            data_dim = i
+        elif live and role != "split":
+            g = chunk(g, mesh, live[0], i)
+    if not live_axes(mesh, ("data",)):
+        return g
+    if data_dim is None:
+        g = all_reduce(g.clone(memory_format=torch.contiguous_format), mesh,
+                       ("data",))
+    else:
+        g = reduce_scatter(g, mesh, "data", data_dim)
+    return g.div_(axis_sizes(mesh)["data"])
+
+
+class _GatherPiece(torch.autograd.Function):
+    """Forward: the leaf a rank computes with, from its stored piece
+    (:func:`gather_dims`, a ``"split"`` leaf not over "model"); backward:
+    this rank's piece of the gradient's mean over "data"
+    (:func:`grad_piece`), in fp32 and returned in the piece's dtype."""
+
+    @staticmethod
+    def forward(ctx, piece, sh, mesh, role):
+        ctx.sh, ctx.mesh, ctx.role, ctx.dtype = sh, mesh, role, piece.dtype
+        with purpose("param_gather"):
+            out = gather_dims(piece, sh, mesh,
+                              (MODEL,) if role == "split" else ())
+        return piece.view_as(piece) if out is piece else out
+
+    @staticmethod
+    def backward(ctx, g):
+        with purpose("grad_scatter"):
+            g = grad_piece(g.float(), ctx.sh, ctx.mesh, ctx.role)
+        return g.to(ctx.dtype), None, None, None
+
+
+def gather_piece(piece: torch.Tensor, sh, mesh, role: str) -> torch.Tensor:
+    """This rank's stored piece of a param (``sh``: its
+    ``sharding.Sharding``) -> the leaf its pass computes with, as
+    ``role`` says (``sharding.tp_roles``: a ``"split"`` leaf gathered over
+    every axis but "model", any other whole), with the gradient of
+    :class:`_GatherPiece`: each call's backward syncs its own gradient
+    over "data" (``"grad_scatter"``), so a pass that gathers a layer's
+    leaves inside the layer's call holds one layer gathered at a time, and
+    its gradients come back as pieces.  A leaf no live axis splits (a
+    norm's scale) goes through it too: its gather is the identity and its
+    backward an all-reduce over "data", one a call (not one a step).
+    Where nothing crosses a live axis (every axis of a one-rank mesh) it
+    returns ``piece`` itself."""
+    crosses = live_axes(mesh, ("data",)) or any(
+        a != MODEL or role != "split" for a in live_axes(mesh, sh.axes)) or \
+        (role == "partial" and live_axes(mesh, (MODEL,)))
+    return _GatherPiece.apply(piece, sh, mesh, role) if crosses else piece
 
 
 # --------------------------------------------------------------------------

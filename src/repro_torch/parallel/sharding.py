@@ -16,7 +16,11 @@ each dimension it owns (the first of several mesh axes major, as a JAX
 :func:`gather_tree` move a tree between whole leaves and this rank's shards.
 
 :class:`PartitionConstraints` carries the rules and the mesh to the model
-as its ``pc`` argument.  Under data parallelism each rank runs the model on
+as its ``pc`` argument, and, where a pass is handed this rank's stored
+pieces of the params, their :class:`Pieces`: the shardings and roles by
+which the pass gathers each layer's leaves inside that layer's call
+(:func:`gathered`), as the reference's scan body gathers its FSDP pieces
+under XLA.  Under data parallelism each rank runs the model on
 its own rows, with plain local tensors that have no layout to constrain.
 On a mesh with a live ``"model"`` axis the GQA decoders (``dense``, the
 GQA MoE and the VLM's text stack, :func:`tp_covers`) compute
@@ -48,6 +52,7 @@ families tensor-parallel compute does not cover
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -180,6 +185,16 @@ class Sharding:
             out.append(d // n)
         return tuple(out)
 
+    def layer(self, stacked: int = 1) -> "Sharding":
+        """The Sharding of one layer of a leaf whose ``stacked`` leading
+        dimensions stack layers (never split: ``"layers": None``), so a
+        layer's piece is a row of the stacked piece."""
+        if any(self.dim_axes(i) for i in range(stacked)):
+            raise ValueError(f"a {self.shape} leaf split over its stacked "
+                             f"dimensions: {self.spec}")
+        return Sharding(self.spec[stacked:], self.shape[stacked:],
+                        self.sizes)
+
     def slices(self, coord: dict) -> tuple:
         """The slice of each dimension held at mesh coordinate ``coord``."""
         sizes = dict(self.sizes)
@@ -212,20 +227,6 @@ def shard_leaf(full: torch.Tensor, sh: Sharding, mesh) -> torch.Tensor:
     return full[sh.slices(comm.coordinate(mesh))].clone()
 
 
-def gather_leaf(piece: torch.Tensor, sh: Sharding, mesh,
-                skip: tuple = ()) -> torch.Tensor:
-    """The whole leaf from the pieces of the ranks that hold it: each split
-    dimension gathered over its axes, the innermost axis first (the leaf
-    itself where nothing splits it).  Axes in ``skip`` are not gathered:
-    the result is then this rank's piece over them."""
-    out = piece
-    for i in range(len(sh.shape)):
-        for a in reversed(sh.dim_axes(i)):
-            if a not in skip:
-                out = comm.all_gather(out, mesh, a, i)
-    return out
-
-
 def _pairs(tree, shardings) -> dict:
     sh = flatten(shardings)
     return {k: (v, sh[k]) for k, v in flatten(tree).items()}
@@ -241,7 +242,7 @@ def shard_tree(tree, shardings, mesh):
 def gather_tree(tree, shardings, mesh):
     """This rank's pieces -> whole leaves (a collective: every rank of the
     mesh calls it)."""
-    return unflatten({k: gather_leaf(v, s, mesh)
+    return unflatten({k: comm.gather_dims(v, s, mesh)
                       for k, (v, s) in _pairs(tree, shardings).items()})
 
 
@@ -452,6 +453,41 @@ class TensorParallel:
 
 
 # --------------------------------------------------------------------------
+# A pass on pieces (FSDP)
+# --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Pieces:
+    """What a pass on a mesh was handed: this rank's stored pieces of the
+    params, each as its Sharding in ``shardings`` says, computed with as
+    its role in ``roles`` says (both flat-keyed, :func:`tp_roles`).  The
+    pass gathers each layer's leaves inside that layer's call and the
+    leaves outside the layer stacks once a pass, each through
+    ``comm.gather_piece``, whose backward returns this rank's piece of the
+    gradient's mean over "data"."""
+
+    shardings: dict
+    roles: dict
+    mesh: object
+
+    def gather(self, tree, prefix: str, stacked: int = 0):
+        """The leaves the pass computes with from ``tree``, pieces of the
+        subtree ``prefix`` (of one layer of it where ``stacked`` leading
+        layer dimensions were indexed away)."""
+        return unflatten({k: comm.gather_piece(
+            v, self.shardings[f"{prefix}/{k}"].layer(stacked), self.mesh,
+            self.roles[f"{prefix}/{k}"]) for k, v in flatten(tree).items()})
+
+
+def gathered(tree, prefix: str, pc, stacked: int = 0):
+    """``pc.pieces.gather(...)`` (:class:`Pieces`) where the pass was handed
+    pieces, else ``tree`` (the leaves the pass computes with already)."""
+    plan = getattr(pc, "pieces", None)
+    return tree if plan is None else plan.gather(tree, prefix, stacked)
+
+
+# --------------------------------------------------------------------------
 # Activation partition constraints
 # --------------------------------------------------------------------------
 
@@ -471,7 +507,12 @@ class PartitionConstraints:
     what says how the global ones were cut: the rows by the binding of
     ``"batch"`` at ``batch`` (:attr:`rows_split`), the cache by
     :func:`cache_shardings`.  A train step leaves both None: its rows
-    always split (``train.step.shard_batch``)."""
+    always split (``train.step.shard_batch``).
+
+    ``pieces`` (:class:`Pieces`, set by :meth:`with_pieces`: the train
+    step's ``make_grads_fn`` and ``serve.engine.make_serve_fns`` do): the
+    params the pass receives are this rank's stored pieces, gathered layer
+    by layer in the pass; None: they are the leaves it computes with."""
 
     def __init__(self, rules: ShardingRules, mesh=None,
                  seq_parallel: bool = False, batch: Optional[int] = None,
@@ -481,6 +522,15 @@ class PartitionConstraints:
         self.seq_parallel = seq_parallel
         self.batch = batch
         self.max_len = max_len
+        self.pieces: Optional[Pieces] = None
+
+    def with_pieces(self, shardings, roles: dict) -> "PartitionConstraints":
+        """These constraints for a pass handed this rank's pieces of the
+        params, stored as the Sharding tree ``shardings`` says and computed
+        with by ``roles`` (:func:`tp_roles`)."""
+        out = copy.copy(self)
+        out.pieces = Pieces(flatten(shardings), dict(roles), self.mesh)
+        return out
 
     @property
     def rows_split(self) -> bool:

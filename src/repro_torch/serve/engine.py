@@ -13,8 +13,9 @@ counters=)`` returning a context manager with ``.add(**counters)``, and
 :func:`make_serve_fns` also serves on a mesh (``pc``): each rank passes
 its pieces of the params, rows and cache (:func:`serve_shardings`,
 :func:`init_cache_piece`, ``train.step.rows_for``) and gets its logits
-columns back (:func:`gather_logits`).  The engine stays mesh-free, as the
-reference's is.
+columns back (:func:`gather_logits`); the pass gathers each layer's
+params inside the layer's call, so one layer's are live at a time.  The
+engine stays mesh-free, as the reference's is.
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ from repro_torch.models.transformer import (
 from repro_torch.parallel import comm
 from repro_torch.parallel.sharding import (
     cache_shardings, shardings_for_specs, tp_roles)
-from repro_torch.train.step import gather_for_compute
 
 
 def make_serve_fns(cfg: ModelConfig, *, pc=None):
@@ -57,10 +57,12 @@ def make_serve_fns(cfg: ModelConfig, *, pc=None):
     :func:`serve_shardings` cuts them: the params stored under
     ``pc.rules`` (``SERVE_RULES``), its rows of the batch and its extras
     (``train.step.rows_for``) and its piece of the cache, which it
-    allocates alone.  Each call gathers the params for compute by role
-    (``sharding.tp_roles``: a ``"split"`` leaf over every axis but
-    "model"), under ``no_grad``, and returns this rank's last-position
-    logits (its columns of the vocabulary where that splits:
+    allocates alone.  Each call runs under ``no_grad`` on the pieces
+    (``pc.with_pieces``): each layer's params are gathered for compute by
+    role inside the layer's loop step and freed after it (a ``"split"``
+    leaf over every axis but "model": ``sharding.tp_roles``), the
+    embedding and final norm once a call; it returns this rank's
+    last-position logits (its columns of the vocabulary where that splits:
     :func:`gather_logits`) and its cache piece, written in place.  A
     piece whose shape is not its binding's raises ``ValueError``.
     """
@@ -84,29 +86,29 @@ def make_serve_fns(cfg: ModelConfig, *, pc=None):
         raise ValueError("serving on a mesh needs pc.batch and pc.max_len, "
                          "the pass's global rows and cache length")
     psh, csh = serve_shardings(cfg, pc)
-    roles = tp_roles(cfg, pc.rules, pc.mesh)
+    lpc = pc.with_pieces(psh, tp_roles(cfg, pc.rules, pc.mesh))
 
-    def local(params, cache, tokens):
+    def check(params, cache, tokens):
         _check_pieces("params", params, psh)
         _check_pieces("cache", cache, csh)
         if tokens.shape[0] != pc.local_rows:
             raise ValueError(f"tokens: {tokens.shape[0]} rows, this rank's "
                              f"piece of {pc.batch} has {pc.local_rows}")
-        return gather_for_compute(params, psh, pc.mesh, roles)
 
     def prefill(params, tokens, cache, extras=None):
+        check(params, cache, tokens)
         with torch.no_grad():
-            logits, cache = forward(local(params, cache, tokens), cfg,
-                                    tokens=tokens, mode="prefill",
-                                    cache=cache, extras=extras, pc=pc)
+            logits, cache = forward(params, cfg, tokens=tokens,
+                                    mode="prefill", cache=cache,
+                                    extras=extras, pc=lpc)
         return _last(logits), cache
 
     def decode(params, cache, tokens, pos, extras=None):
+        check(params, cache, tokens)
         with torch.no_grad():
-            logits, cache = forward(local(params, cache, tokens), cfg,
-                                    tokens=tokens, mode="decode",
-                                    cache=cache, pos=pos, extras=extras,
-                                    pc=pc)
+            logits, cache = forward(params, cfg, tokens=tokens,
+                                    mode="decode", cache=cache, pos=pos,
+                                    extras=extras, pc=lpc)
         return logits[:, -1], cache
 
     return prefill, decode

@@ -6,8 +6,8 @@
 * microbatched gradient accumulation (``num_microbatches``) with the
   reference's interleaved split (microbatch m takes rows m, m + nm, ...)
   and fp32 accumulators;
-* the ``grad_sync_dtype`` cast of the gradients before they would be
-  reduced across data-parallel replicas (one device has no reduction, but
+* the ``grad_sync_dtype`` cast of the accumulated gradients, where the
+  reference's ``_sync_cast`` applies it (one device has no reduction, but
   the rounding is kept so the numbers match the reference);
 * global-norm clipping, the learning-rate schedule and the optimizer
   update (AdamW / Adafactor), in place (see :mod:`repro_torch.train.optim`);
@@ -27,21 +27,32 @@ step on the global batch:
   the global batch, block ``i`` of the data-parallel ranks ("pod" x
   "data", pod major: :func:`shard_batch`); ranks that differ only in their
   "model" coordinate hold the same rows and compute the same loss;
-* each leaf is gathered by its role (``sharding.tp_roles``, for this
-  batch's sequence length): a ``"split"`` one over the axes but "model"
-  only (the tensor-parallel pass computes with this rank's piece), the
-  others whole; the port's gradient runs on them (``loss_fn`` with
-  ``pc``: this rank's term of the global masked mean, the MoE dispatched
-  over the mesh, tensor-parallel where "model" is live and the family is
-  covered, sequence-parallel with ``seq_parallel``), and each
-  microbatch's metrics are reduced over the data-parallel ranks (means;
-  ``moe_max_load`` the largest);
-* the gradients, after the ``grad_sync_dtype`` cast, are synced by role:
-  a ``"partial"`` one first summed over "model"; then averaged over
-  "data" by a reduce-scatter into this rank's piece (a ``"whole"``
-  gradient is the same on every "model" rank and is cut to its chunk
-  locally; a ``"split"`` one is that chunk already), then over "pod"
-  through :func:`~repro_torch.train.compression.compressed_pmean` when
+* the pass is handed this rank's pieces (``pc.with_pieces``: their
+  shardings and roles, ``sharding.tp_roles`` for this batch's sequence
+  length) and gathers each layer's leaves inside that layer's call, the
+  leaves outside the layer stacks once a pass, as the reference's scan
+  body does under XLA: a ``"split"`` leaf over the axes but "model" only
+  (the tensor-parallel pass computes with this rank's piece), the others
+  whole (``comm.gather_piece``); under remat ``"minimal"`` or ``"full"``
+  the backward's recompute gathers a layer again, so one layer's gathered
+  leaves are live at a time (the leaves outside the checkpoints are kept
+  for the backward: the embedding, a hybrid's shared attention blocks at
+  each use, an encoder-decoder's cross K/V projections);
+* the port's gradient runs on them (``loss_fn`` with ``pc``: this rank's
+  term of the global masked mean, the MoE dispatched over the mesh,
+  tensor-parallel where "model" is live and the family is covered,
+  sequence-parallel with ``seq_parallel``), and each microbatch's metrics
+  are reduced over the data-parallel ranks (means; ``moe_max_load`` the
+  largest);
+* each gather's backward syncs its gradient by role as autograd reaches
+  it (``comm.grad_piece``, reported as ``"grad_scatter"``): a
+  ``"partial"`` one first summed over "model"; then averaged over "data"
+  by a reduce-scatter into this rank's piece (a ``"whole"`` gradient is
+  the same on every "model" rank and is cut to its chunk locally; a
+  ``"split"`` one is that chunk already), so the microbatches accumulate
+  pieces; after the ``grad_sync_dtype`` cast of the accumulated pieces,
+  the one exchange left is over "pod", through
+  :func:`~repro_torch.train.compression.compressed_pmean` when
   ``grad_compression`` is set (per-row int8 of this rank's piece), else a
   plain mean;
 * clipping and the norms count every element once
@@ -64,8 +75,8 @@ from repro_torch.models.params import flatten, unflatten
 from repro_torch.models.transformer import loss_fn, model_specs
 from repro_torch.parallel import comm
 from repro_torch.parallel.sharding import (
-    UNPORTED, PartitionConstraints, TRAIN_RULES, gather_leaf,
-    shardings_for_specs, tp_covers, tp_roles)
+    UNPORTED, PartitionConstraints, TRAIN_RULES, shardings_for_specs,
+    tp_covers, tp_roles)
 from repro_torch.train.compression import cross_pod_sync
 from repro_torch.train.optim import (clip_by_global_norm, get_optimizer,
                                      global_norm, lr_schedule,
@@ -232,48 +243,16 @@ def _reduce_metrics(metrics: dict, mesh, axes) -> dict:
     return out
 
 
-def sync_grads(grads, param_shardings, mesh, method: str = "none",
-               roles=None):
-    """Gradients of this rank's rows -> this rank's piece of their mean
-    over the data-parallel ranks: :func:`mean_over_data`, then
-    :func:`mean_over_pods`."""
-    return mean_over_pods(mean_over_data(grads, param_shardings, mesh,
-                                         roles), mesh, method)
-
-
 def mean_over_data(grads, param_shardings, mesh, roles=None):
-    """Gradients -> this rank's piece of their mean over "data", by
-    ``roles`` (``sharding.tp_roles``; None: every leaf ``"whole"``).  A
-    ``"partial"`` gradient is first summed over "model".  Ranks that
-    differ only in "model" then hold the same ``"whole"`` gradients, so
-    the dimensions "model" splits are cut locally (a ``"split"`` gradient
-    is this rank's piece of them already); "data" reduce-scatters the
-    dimension it splits (or all-reduces a leaf it does not split)."""
+    """Gradients of the leaves a rank computed with, whole over "data" ->
+    this rank's pieces of their mean over "data", by ``roles``
+    (``sharding.tp_roles``; None: every leaf ``"whole"``): each leaf
+    through ``comm.grad_piece``, the sync each layer's gather makes in the
+    step's backward."""
     fsh = flatten(param_shardings)
-    out = {}
-    for k, g in flatten(grads).items():
-        sh = fsh[k]
-        role = roles[k] if roles is not None else "whole"
-        if role == "partial":
-            g = comm.all_reduce(g.contiguous(), mesh, ("model",))
-        data_dim = None
-        for i in range(g.ndim):
-            live = comm.live_axes(mesh, sh.dim_axes(i))
-            if len(live) > 1:
-                raise NotImplementedError(
-                    f"{k}: dimension {i} split over {live}")
-            if live == ("data",):
-                data_dim = i
-            elif live and role != "split":
-                g = comm.chunk(g, mesh, live[0], i)
-        if comm.live_axes(mesh, ("data",)):
-            n = comm.axis_sizes(mesh)["data"]
-            g = comm.all_reduce(g.contiguous(), mesh, ("data",)) \
-                if data_dim is None else \
-                comm.reduce_scatter(g, mesh, "data", data_dim)
-            g.div_(n)
-        out[k] = g
-    return unflatten(out)
+    return unflatten({k: comm.grad_piece(
+        g, fsh[k], mesh, roles[k] if roles is not None else "whole")
+        for k, g in flatten(grads).items()})
 
 
 def mean_over_pods(pieces, mesh, method: str = "none"):
@@ -290,26 +269,14 @@ def mean_over_pods(pieces, mesh, method: str = "none"):
     return cross_pod_sync(pieces, mesh, method)
 
 
-def gather_for_compute(params, param_shardings, mesh, roles) -> dict:
-    """This rank's pieces -> the leaves its pass computes with: a
-    ``"split"`` leaf gathered over every axis but "model" (this rank's
-    piece of it), any other whole."""
-    fsh = flatten(param_shardings)
-    with comm.purpose("param_gather"):
-        return unflatten({
-            k: gather_leaf(v, fsh[k], mesh,
-                           ("model",) if roles[k] == "split" else ())
-            for k, v in flatten(params).items()})
-
-
 def make_grads_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, *,
                   pc=None, mesh=None):
     """grads_fn(params, batch) -> (grads, metrics): the gradients the
     train step of the same arguments clips and applies, and its metrics
     before the norms.  With ``mesh``: this rank's pieces of the global
     batch's mean gradient, from this rank's pieces of the params and rows
-    of the batch, gathered and synced by role as the module docstring
-    says."""
+    of the batch, which the pass gathers layer by layer and whose
+    gradients its backward syncs by role, as the module docstring says."""
     if mesh is None:
         return lambda params, batch: _grads_and_metrics(
             params, batch, model_cfg, train_cfg, pc)
@@ -339,12 +306,11 @@ def make_grads_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, *,
                 f"ranks must be a multiple of num_microbatches")
         roles = tp_roles(model_cfg, pc.rules, mesh, pc.sp_for(
             batch["tokens"].shape[1]))
-        local = gather_for_compute(params, psh, mesh, roles)
-        grads, metrics = _grads_and_metrics(local, batch, model_cfg,
-                                            train_cfg, pc, reduce)
-        del local
-        return sync_grads(grads, psh, mesh, train_cfg.grad_compression,
-                          roles), metrics
+        grads, metrics = _grads_and_metrics(
+            params, batch, model_cfg, train_cfg, pc.with_pieces(psh, roles),
+            reduce)
+        return mean_over_pods(grads, mesh, train_cfg.grad_compression), \
+            metrics
 
     return grads_fn
 

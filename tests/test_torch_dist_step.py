@@ -12,7 +12,9 @@ smoke model in fp32, on:
   with capacity factor 0.5, so the dispatch drops triples, which the ranks
   must rank over the global batch as the reference does;
 * (2, 2) data x model: lms-demo with Adafactor and 2 microbatches (its
-  factored means over split dimensions), mixtral with AdamW;
+  factored means over split dimensions) under remat ``"minimal"``,
+  ``"none"`` (every gathered leaf saved for the backward) and ``"full"``,
+  mixtral with AdamW;
 * (2, 2) pod x data with ``grad_compression="int8"``: AdamW.
 
 Tolerances: the loss, grad norm, param norm and lr of every step, the MoE
@@ -74,6 +76,12 @@ RUNS = {
     "lms-data4": ("lms-demo", NARROW, {}, DATA4, dict(optimizer="adamw")),
     "lms-dm22": ("lms-demo", NARROW, {}, DM22,
                  dict(optimizer="adafactor", num_microbatches=2)),
+    "lms-dm22-remat-none": ("lms-demo", NARROW, {}, DM22,
+                            dict(optimizer="adafactor", num_microbatches=2,
+                                 remat_policy="none")),
+    "lms-dm22-remat-full": ("lms-demo", NARROW, {}, DM22,
+                            dict(optimizer="adafactor", num_microbatches=2,
+                                 remat_policy="full")),
     "lms-pd22": ("lms-demo", NARROW, {}, PD22,
                  dict(optimizer="adamw", grad_compression="int8")),
     "mix-data4": ("mixtral-8x7b", {"dtype": "float32"},
@@ -115,17 +123,23 @@ def _flat_np(tree) -> dict:
             for k, v in flatten(jax.tree.map(np.asarray, tree)).items()}
 
 
+def _keys(batches) -> list:
+    """The entries of each step's batch (``tokens``, ``labels`` and any
+    extras) in ``_batches``' ``<key><step>`` naming."""
+    return sorted({k.rstrip("0123456789") for k in batches})
+
+
 def _reference(jc, tcfg: dict, pn, batches, steps):
-    """The reference's single-device step on the global batches: the
-    metrics of each step and the params after each step."""
-    jcfg = jbase.TrainConfig(**BASE, **tcfg)
+    """The reference's single-device step on the global batches (with
+    their extras): the metrics of each step and the params after each
+    step."""
+    jcfg = jbase.TrainConfig(**{**BASE, **tcfg})
     fn = jax.jit(jstep.make_train_step(jc, jcfg)[0])
     params = jax.tree.map(jnp.asarray, pn)
     state = joptim.get_optimizer(jcfg).init(params)
     metrics, trail = [], []
     for i in range(steps):
-        batch = {"tokens": jnp.asarray(batches[f"tokens{i}"]),
-                 "labels": jnp.asarray(batches[f"labels{i}"])}
+        batch = {k: jnp.asarray(batches[f"{k}{i}"]) for k in _keys(batches)}
         params, state, m = fn(params, state, batch, i)
         metrics.append({k: float(v) for k, v in m.items()})
         trail.append(_flat_np(params))
@@ -193,7 +207,9 @@ def _check_pieces(out, name, cfg, names, shape, want_leaves, tol=STEP_TOL,
     return n
 
 
-@pytest.mark.parametrize("name", ["lms-data4", "lms-dm22", "mix-data4",
+@pytest.mark.parametrize("name", ["lms-data4", "lms-dm22",
+                                  "lms-dm22-remat-none",
+                                  "lms-dm22-remat-full", "mix-data4",
                                   "mix-dm22"])
 def test_dist_step_matches_the_reference(world, name):
     model, _, moe, (names, shape), _ = RUNS[name]

@@ -18,6 +18,18 @@ on the CPU, against the reference.
 * The prefill and decode bundles of the smoke granite trace on both
   production meshes (256 and 512 fake ranks), their collectives counted
   by purpose.
+* Per-layer gathers on a (4, 1) fake mesh: a narrow dense model whose
+  weights outweigh its activations, at 2 and 3 layers; one more layer
+  grows the train step's counted peak (remat ``"minimal"`` and
+  ``"full"``, 2 microbatches) and the prefill's by less than that layer's
+  gathered leaves, as a step holds one layer gathered at a time (a step
+  that gathers every leaf for the whole step grows by 2.5 to 4 times
+  them: the gathered copy, its gradient and the accumulator); the
+  gradients' syncs are counted as ``"grad_scatter"``.  On a (1, 1) mesh the
+  step is the one-device step: the same bits after two steps, and the same
+  counted bytes and peak (no copy of a leaf).  On the (4, 1) mesh a step
+  of 6 microbatches extrapolated from 2 and 3 reads the peak and the
+  collective bytes of its whole trace.
 
 A fake process group is global to its process, so everything that builds a
 mesh runs in a subprocess of its own (pytest-xdist workers must not share
@@ -319,3 +331,142 @@ def test_dry_run_records_pass_the_reference_schema(records, mesh, arch):
                if records[(mesh, arch, s)]["status"] == "skipped"]
     assert skipped == ([] if get_config(arch).sub_quadratic
                        else ["long_500k"])
+
+
+LAYER_GROWTH = """
+import dataclasses, json, math, sys
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+from repro_torch.launch.mesh import fake_world
+from repro_torch.launch.steps import build_bundle, trace_bundle
+from repro_torch.models.params import flatten
+out = {}
+narrow = dict(d_model=256, num_heads=4, num_kv_heads=2, head_dim=64,
+              d_ff=1024)
+with fake_world(4):
+    mesh = init_device_mesh("cpu", (4, 1), mesh_dim_names=("data", "model"))
+    for n in (2, 3):
+        cfg = dataclasses.replace(get_config("lms-demo", smoke=True),
+                                  num_layers=n, **narrow)
+        cells = [(f"train/{remat}", ShapeConfig("t", 16, 8, "train"),
+                  TrainConfig(optimizer="adafactor", beta1=0.0,
+                              remat_policy=remat, num_microbatches=2))
+                 for remat in ("minimal", "full")]
+        cells.append(("prefill", ShapeConfig("p", 16, 8, "prefill"), None))
+        for name, shape, tcfg in cells:
+            b = build_bundle(cfg, shape, mesh, train_cfg=tcfg)
+            r = trace_bundle(b)
+            layer = sum(math.prod(s.shape[1:]) * s.dtype.itemsize
+                        for k, s in flatten(b.abstract_args[0]).items()
+                        if k.startswith("dense_layers/"))
+            out[f"{name}/{n}"] = {
+                "peak": r["memory"]["peak_bytes"], "layer": layer,
+                "by_purpose": r["per_device"]["by_purpose"]}
+    # 6 microbatches of a rank's 6 rows, traced whole and extrapolated
+    b = build_bundle(cfg, ShapeConfig("t6", 16, 24, "train"), mesh,
+                     train_cfg=TrainConfig(num_microbatches=6))
+    for name, above in (("whole", 99), ("extrapolated", 3)):
+        r = trace_bundle(b, extrapolate_above=above)
+        out[f"mb6/{name}"] = {k: r["memory"][k] for k in (
+            "peak_bytes", "argument_bytes")}
+        out[f"mb6/{name}"]["collective_operand_bytes"] = r["per_device"][
+            "collective_operand_bytes"]
+json.dump(out, open(sys.argv[1], "w"))
+"""
+
+
+@pytest.fixture(scope="module")
+def layer_growth(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("growth") / "growth.json")
+    _run(LAYER_GROWTH, path)
+    with open(path) as f:
+        return json.load(f)
+
+
+def test_one_more_layer_adds_less_than_its_gathered_leaves(layer_growth):
+    out = layer_growth
+    for name in ("train/minimal", "train/full", "prefill"):
+        two, three = out[f"{name}/2"], out[f"{name}/3"]
+        assert three["layer"] == two["layer"] > 0
+        growth = three["peak"] - two["peak"]
+        assert 0 < growth < three["layer"], (name, growth, three["layer"])
+        purposes = three["by_purpose"]
+        assert purposes["param_gather"] > 0
+        if name.startswith("train"):
+            # the loss's label count, the metrics and the norms are left
+            assert purposes["grad_scatter"] > 100 * purposes["other"]
+        else:
+            assert set(purposes) == {"param_gather"}
+
+
+def test_microbatches_extrapolate_on_a_mesh(layer_growth):
+    """With the gradient accumulator a piece, a step of 6 microbatches
+    traced at 2 and 3 and extrapolated reads the whole trace's peak and
+    its collective bytes (each microbatch gathers and syncs anew)."""
+    whole, ext = layer_growth["mb6/whole"], layer_growth["mb6/extrapolated"]
+    assert ext["argument_bytes"] == whole["argument_bytes"]
+    assert ext["peak_bytes"] == pytest.approx(whole["peak_bytes"], rel=0.01)
+    assert ext["collective_operand_bytes"] == pytest.approx(
+        whole["collective_operand_bytes"], rel=1e-9)
+
+
+ONE_RANK = """
+import json, sys, torch
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import TrainConfig, get_config
+from repro_torch.launch.cost_analysis import analyze_step
+from repro_torch.launch.mesh import fake_world
+from repro_torch.models.params import flatten
+from repro_torch.models.transformer import init_model_params
+from repro_torch.parallel import comm
+from repro_torch.parallel.sharding import shard_tree, tp_roles
+from repro_torch.train import step as tstep
+cfg = get_config("lms-demo", smoke=True)
+tcfg = TrainConfig(num_microbatches=2, remat_policy="minimal",
+                   warmup_steps=1, learning_rate=3e-3)
+g = torch.Generator().manual_seed(0)
+toks = torch.randint(1, cfg.vocab_size, (2, 4, 17), generator=g)
+batches = [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in toks]
+out = {}
+with fake_world(1):
+    mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    runs = {}
+    for name, m in (("one", None), ("mesh", mesh)):
+        params = init_model_params(cfg, seed=0, device="cpu")
+        fn, opt = tstep.make_train_step(cfg, tcfg, mesh=m)
+        psh = None
+        if m is not None:
+            psh, _ = tstep.shardings(cfg, tcfg, m)
+            pieces = shard_tree(params, psh, m)
+            roles = tp_roles(cfg, tstep.TRAIN_RULES, m)
+            out["no_copy"] = all(
+                comm.gather_piece(v, sh, m, roles[k]) is v is flatten(
+                    params)[k] for (k, v), sh in zip(
+                        flatten(pieces).items(), flatten(psh).values()))
+            params = pieces
+        state = opt.init(params, psh)
+        counted = analyze_step(fn, (params, state, batches[0], 0))
+        out[name] = {k: counted["memory"][k] for k in ("peak_bytes",
+                                                         "temp_bytes")}
+        out[name]["bytes"] = counted["per_device"]["bytes"]
+        metrics = []
+        for i, b in enumerate(batches):
+            params, state, mt = fn(params, state, b, i)
+            metrics.append({k: float(v) for k, v in mt.items()})
+        runs[name] = params
+        out[name]["metrics"] = metrics
+    out["bit_equal"] = all(torch.equal(a, b) for a, b in zip(
+        flatten(runs["one"]).values(), flatten(runs["mesh"]).values()))
+json.dump(out, open(sys.argv[1], "w"))
+"""
+
+
+def test_a_one_rank_mesh_step_is_the_one_device_step(tmp_path):
+    path = str(tmp_path / "one.json")
+    _run(ONE_RANK, path)
+    with open(path) as f:
+        out = json.load(f)
+    assert out["no_copy"] and out["bit_equal"]
+    assert out["mesh"]["metrics"] == out["one"]["metrics"]
+    for k in ("peak_bytes", "temp_bytes", "bytes"):
+        assert out["mesh"][k] == out["one"][k], k

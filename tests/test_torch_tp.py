@@ -31,7 +31,11 @@ JAX package, over gloo ranks on the CPU.
   element in 1000 a leaf may), for lms-demo
   narrow (4 heads, 2 KV heads, padded vocabulary) on (1, 2) and (1, 2)
   with ``seq_parallel`` and with ``seq_parallel`` on a sequence of 15 (the
-  fallback to the layout without it), on 2 ranks; and on 4 ranks, on
+  fallback to the layout without it), the narrow hybrid (zamba2 smoke in
+  fp32: 2 groups of 2 Mamba2 blocks, each group followed by the one shared
+  attention block, and a trailing block) and the enc-dec smoke (seamless,
+  fp32, with ``src_frames``) on (2, 1), where every leaf is gathered over
+  "data" layer by layer, on 2 ranks; and on 4 ranks, on
   (2, 2), (2, 2) with ``seq_parallel`` (Adafactor, 2 microbatches), (1, 4)
   (its 2 KV heads fall back to replication: ``wk`` / ``wv`` partial) and
   (1, 4) with 6 heads (its heads fall back: attention whole); nemotron
@@ -42,7 +46,12 @@ JAX package, over gloo ranks on the CPU.
   and no leaf but the MoE router is gathered over "model" (every other
   gather over it is an activation's, along the sequence).  The MoE and
   VLM runs of their own are in ``test_torch_tp_moe.py``.
+* A param's piece gathered for compute (``comm.gather_piece``) on 4 ranks,
+  (2, 2), in each role: the leaf it returns and its backward, which is
+  ``train.step.mean_over_data`` of the upstream gradient exactly.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -68,12 +77,13 @@ from repro_torch.train import step as tstep  # noqa: E402
 from test_torch_dist import _jmesh  # noqa: E402
 from test_torch_dist_step import (  # noqa: E402
     BASE, NARROW, STEP_TOL, _batches, _cfgs, _check_metrics, _check_pieces,
-    _flat_np, _reference)
+    _flat_np, _keys, _reference)
 from test_torch_moe import _numpy_params  # noqa: E402
 
 CE_TOL = 1e-6
 STEPS = 3
 M12 = (("data", "model"), (1, 2))
+M21 = (("data", "model"), (2, 1))
 M22 = (("data", "model"), (2, 2))
 M14 = (("data", "model"), (1, 4))
 ADAMW = dict(optimizer="adamw")
@@ -86,7 +96,12 @@ REFS = {
     "lms-h6": ("lms-demo", dict(NARROW, num_heads=6), 16),
     "nemo": ("nemotron-4-340b", {"dtype": "float32"}, 16),
     "mix": ("mixtral-8x7b", {"dtype": "float32"}, 16),
+    "hyb": ("zamba2-7b", {"dtype": "float32", "num_layers": 5}, 16),
+    "encdec": ("seamless-m4t-large-v2", {"dtype": "float32"}, 16),
 }
+# the hybrid's layout: 2 groups of 2 Mamba2 blocks, each group followed by
+# the one shared attention block, then a trailing (rem) block
+HYBRID = {"attn_every": 2, "num_shared_blocks": 1}
 # name: (reference, mesh, train config, ranks)
 RUNS = {
     "lms-m12": ("lms", M12, ADAMW, 2),
@@ -99,6 +114,8 @@ RUNS = {
     "lms-m14-h6": ("lms-h6", M14, ADAMW, 4),
     "nemo-m22-sp": ("nemo", M22, dict(ADAMW, **SP), 4),
     "mix-m22-sp": ("mix", M22, dict(ADAMW, **SP), 4),
+    "hyb-m21": ("hyb", M21, ADAMW, 2),
+    "encdec-m21": ("encdec", M21, ADAMW, 2),
 }
 PROBED = ("lms-m22", "lms-m14-kv", "lms-m22-sp", "mix-m22-sp")
 B = 8
@@ -111,8 +128,8 @@ def _one_device(tc, tcfg: dict, pn, batches) -> dict:
     fn, opt = tstep.make_train_step(tc, TrainConfig(**BASE, **tcfg))
     state = opt.init(params)
     for i in range(STEPS):
-        batch = {k: torch.from_numpy(batches[f"{k}{i}"]).long()
-                 for k in ("tokens", "labels")}
+        batch = tstep.batch_to_device(
+            {k: batches[f"{k}{i}"] for k in _keys(batches)}, "cpu")
         params, state, _ = fn(params, state, batch, i)
     return {k: v.detach().numpy() for k, v in flatten(params).items()}
 
@@ -123,9 +140,17 @@ def world(tmp_path_factory):
     cfgs, inputs = {}, {}
     for i, (ref, (model, cfg, s)) in enumerate(REFS.items()):
         jc, tc = _cfgs(model, cfg, {})
+        if ref == "hyb":
+            jc.hybrid = dataclasses.replace(jc.hybrid, **HYBRID)
+            tc.hybrid = dataclasses.replace(tc.hybrid, **HYBRID)
         pn = _numpy_params(jmodel_specs(jc))
         np.savez(d / f"{ref}_params.npz", **_flat_np(pn))
         batches = _batches(tc.vocab_size, 10 + i, STEPS, s)
+        if tc.family == "encdec":
+            rng = np.random.default_rng(40 + i)
+            batches.update({f"src_frames{j}": rng.standard_normal(
+                (B, tc.encdec_source_len, tc.d_model)).astype(np.float32)
+                for j in range(STEPS)})
         np.savez(d / f"{ref}_batches.npz", **batches)
         cfgs[ref] = tc
         inputs[ref] = (jc, pn, batches)
@@ -134,6 +159,7 @@ def world(tmp_path_factory):
         model, cfg, _ = REFS[ref]
         runs[ranks].append({
             "name": name, "model": model, "cfg": cfg, "moe": {},
+            "hybrid": HYBRID if ref == "hyb" else {},
             "names": names, "shape": shape, "tcfg": {**BASE, **tcfg},
             "steps": STEPS, "params": f"{ref}_params.npz",
             "batches": f"{ref}_batches.npz", "probe": name in PROBED})
@@ -152,11 +178,15 @@ def world(tmp_path_factory):
     mask = rng.random((3, 5)) < np.array([0.9, 0.2, 0.6])[:, None]
     np.savez(d / "ce.npz", logits=logits, targets=targets, mask=mask,
              denominator=np.float64(11.0))
+    np.savez(d / "grad_piece.npz",
+             w=rng.standard_normal((8, 6)).astype(np.float32),
+             up=rng.standard_normal((4, 8, 6)).astype(np.float32))
 
     two = torch_dist_ranks.launch("tp", 2, str(d), {
         "runs": runs[2], "regions": True,
         "ce": {"model": "lms-demo", "cfg": ce_cfg}})
-    four = torch_dist_ranks.launch("tp", 4, str(d), {"runs": runs[4]})
+    four = torch_dist_ranks.launch("tp", 4, str(d), {"runs": runs[4],
+                                                      "grad_piece": True})
     # the references, while nothing else runs
     want = {ref: _reference(jc, ADAMW, pn, b, STEPS)
             for ref, (jc, pn, b) in inputs.items()}
@@ -170,6 +200,7 @@ def world(tmp_path_factory):
             one[name] = _one_device(cfgs[ref], plain, pn, b)
     return {"out": {2: two, 4: four}, "want": want, "one": one, "cfgs": cfgs,
             "regions": dict(np.load(d / "regions.npz")),
+            "grad_piece": dict(np.load(d / "grad_piece.npz")),
             "ce": (jce, logits, targets, mask)}
 
 
@@ -299,6 +330,36 @@ def test_vocab_parallel_cross_entropy_matches_the_reference(world):
                                        grad[..., r * n:(r + 1) * n],
                                        rtol=CE_TOL, atol=CE_TOL,
                                        err_msg=name)
+
+
+# -- a param's piece gathered for compute, and its gradient synced ---------
+
+
+def test_a_gathered_piece_syncs_its_gradient_as_mean_over_data(world):
+    """On (2, 2), for a leaf split over "data" (rows) and "model"
+    (columns) in each role: ``comm.gather_piece`` returns the leaf whole
+    (``"split"``: this rank's columns), and its backward is
+    ``mean_over_data`` of the upstream gradient, and by hand: the mean
+    over "data" of this rank's rows of it, summed over "model" first for
+    ``"partial"``, its columns cut locally for ``"whole"``."""
+    w, up = world["grad_piece"]["w"], world["grad_piece"]["up"]
+    ranks = world["out"][4]
+    coords = [tuple(o["gp/coord"].tolist()) for o in ranks]
+    for out, (d, m) in zip(ranks, coords):
+        rows, cols = slice(4 * d, 4 * d + 4), slice(3 * m, 3 * m + 3)
+        for role in tsh.ROLES:
+            y = out[f"gp/{role}/y"]
+            np.testing.assert_array_equal(
+                y, w[:, cols] if role == "split" else w, err_msg=role)
+            got = out[f"gp/{role}/grad"]
+            np.testing.assert_array_equal(
+                got, out[f"gp/{role}/mean_over_data"], err_msg=role)
+            summed = [q for q, c in enumerate(coords)
+                      if role == "partial" or c[1] == m]
+            want = sum(up[q][:, :y.shape[1]] for q in summed) / 2
+            np.testing.assert_allclose(
+                got, want[rows] if role == "split" else want[rows, cols],
+                rtol=1e-6, atol=1e-6, err_msg=role)
 
 
 # -- the mesh step against the reference's single-device step ---------------

@@ -110,6 +110,8 @@ def _config(run: dict):
                               **run.get("cfg", {}))
     if run.get("moe"):
         cfg.moe = dataclasses.replace(cfg.moe, **run["moe"])
+    if run.get("hybrid"):
+        cfg.hybrid = dataclasses.replace(cfg.hybrid, **run["hybrid"])
     return cfg
 
 
@@ -239,18 +241,18 @@ def _int8_gap(run, cfg, tcfg, mesh, psh, params, batch) -> dict:
 @contextlib.contextmanager
 def _probe(out: dict, name: str):
     """Records, while the step runs, the shape of every leaf its pass
-    computes with, every dimension ``comm.all_gather`` gathers over
-    "model" outside the leaves' gathers (its first call of each only), and
-    the whole shape of every leaf ``gather_leaf`` gathers over "model"
-    (``model_leaf_gathers``, one row a leaf, none: shape (0, 0)), and how
-    many tokens the MoE routes picked each expert (``expert_counts``, over
-    every routing call of the step)."""
+    computes with (as ``sharding.Pieces.gather``, the pass's one gather
+    site, returns it, its stacked layer dimensions put back), every
+    dimension ``comm.all_gather`` gathers over "model" outside the leaves'
+    gathers (its first call of each only), and the whole shape of every
+    leaf gathered over "model" (``model_leaf_gathers``, one row a leaf,
+    none: shape (0, 0)), and how many tokens the MoE routes picked each
+    expert (``expert_counts``, over every routing call of the step)."""
     from repro_torch.models import moe
     from repro_torch.models.params import flatten
     from repro_torch.parallel import comm
-    from repro_torch.train import step as tstep
-    grads_and_metrics, all_gather, gather_leaf, route_topk = \
-        tstep._grads_and_metrics, comm.all_gather, tstep.gather_leaf, \
+    from repro_torch.parallel.sharding import Pieces
+    pieces_gather, all_gather, route_topk = Pieces.gather, comm.all_gather, \
         moe.route_topk
     dims, leaves, in_leaf, counts = [], set(), [], []
 
@@ -260,33 +262,33 @@ def _probe(out: dict, name: str):
                                   minlength=logits.shape[-1]))
         return gates, experts, probs
 
-    def record_leaves(params, *a, **kw):
-        for k, v in flatten(params).items():
-            out.setdefault(f"{name}/local/{k}", np.asarray(v.shape))
-        return grads_and_metrics(params, *a, **kw)
-
     def record_gather(t, mesh, axis, dim=0):
         if axis == "model" and not in_leaf:
             dims.append(dim)
         return all_gather(t, mesh, axis, dim)
 
-    def record_leaf_gather(piece, sh, mesh, skip=()):
-        if "model" in comm.live_axes(mesh, sh.axes) and "model" not in skip:
-            leaves.add(tuple(sh.shape))
+    def record_pieces(plan, tree, prefix, stacked=0):
         in_leaf.append(1)
         try:
-            return gather_leaf(piece, sh, mesh, skip)
+            got = pieces_gather(plan, tree, prefix, stacked)
         finally:
             in_leaf.pop()
-    tstep._grads_and_metrics, comm.all_gather, tstep.gather_leaf, \
-        moe.route_topk = record_leaves, record_gather, record_leaf_gather, \
-        record_routes
+        for k, v in flatten(got).items():
+            key = f"{prefix}/{k}"
+            sh = plan.shardings[key]
+            out.setdefault(f"{name}/local/{key}", np.asarray(
+                tuple(sh.shape[:stacked]) + tuple(v.shape)))
+            if plan.roles[key] != "split" and \
+                    "model" in comm.live_axes(plan.mesh, sh.axes):
+                leaves.add(tuple(sh.shape))
+        return got
+    Pieces.gather, comm.all_gather, moe.route_topk = record_pieces, \
+        record_gather, record_routes
     try:
         yield
     finally:
-        tstep._grads_and_metrics, comm.all_gather, tstep.gather_leaf, \
-            moe.route_topk = grads_and_metrics, all_gather, gather_leaf, \
-            route_topk
+        Pieces.gather, comm.all_gather, moe.route_topk = pieces_gather, \
+            all_gather, route_topk
         if counts:
             key = f"{name}/expert_counts"
             out[key] = out.get(key, 0) + np.sum(counts, axis=0)
@@ -615,16 +617,48 @@ def _vocab_ce(workdir: str, opts: dict) -> dict:
     return out
 
 
+def _grad_piece(workdir: str) -> dict:
+    """``comm.gather_piece`` on a (2, 2) mesh for a leaf split over "data"
+    (dim 0) and "model" (dim 1), once in each role: the leaf it returns
+    from this rank's piece, and its backward under this rank's upstream
+    gradient ``up[rank]`` (cut to the returned leaf's shape) beside
+    ``mean_over_data`` of that same gradient."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.sharding import ROLES, Sharding, shard_leaf
+    from repro_torch.train.step import mean_over_data
+    data = _load(os.path.join(workdir, "grad_piece.npz"))
+    mesh = _mesh(("data", "model"), (2, 2))
+    w = torch.from_numpy(data["w"])
+    sh = Sharding(("data", "model"), tuple(w.shape),
+                  (("data", 2), ("model", 2)))
+    out = {"coord": _coord(mesh)}
+    for role in ROLES:
+        piece = shard_leaf(w, sh, mesh).requires_grad_()
+        y = comm.gather_piece(piece, sh, mesh, role)
+        up = torch.from_numpy(data["up"][dist.get_rank()])[:, :y.shape[1]]
+        (y * up).sum().backward()
+        out[f"{role}/y"] = y.detach().numpy()
+        out[f"{role}/grad"] = piece.grad.numpy()
+        out[f"{role}/mean_over_data"] = mean_over_data(
+            {"w": up}, {"w": sh}, mesh, {"w": role})["w"].numpy()
+    return out
+
+
 def case_tp(rank: int, workdir: str, opts: dict) -> dict:
     """Tensor-parallel compute: the region operations and the
     vocabulary-parallel cross-entropy (with ``regions`` / ``ce``, on a
-    world of 2), then the step runs of :func:`case_steps`."""
+    world of 2), the gather of a piece in each role (with ``grad_piece``,
+    on a world of 4), then the step runs of :func:`case_steps`."""
     out = {}
     if opts.get("regions"):
         out.update(_regions(workdir))
     if opts.get("ce"):
         out.update({f"ce/{k}": v for k, v in _vocab_ce(
             workdir, opts["ce"]).items()})
+    if opts.get("grad_piece"):
+        out.update({f"gp/{k}": v for k, v in _grad_piece(workdir).items()})
     out.update(case_steps(rank, workdir, opts))
     return out
 
