@@ -231,37 +231,50 @@ JAX package.  Phases, each reported on its own lines:
               ``seq_parallel``; qwen2-vl-7b (4 of 28 layers, AdamW, the
               loop's stub patches and positions) with ``seq_parallel``,
               in fp32 and in bf16 (held at step 0 and on step 0's
-              gradients, TRAIN_TOL["grads"]; steps 1-2 logged); then FSDP:
+              gradients, TRAIN_TOL["grads"]; steps 1-2 logged);
+              deepseek-v2-236b (its dense layer and one MoE layer, fp32,
+              Adafactor, at DEEPSEEK_TP_SHAPE) with ``seq_parallel``: MLA's
+              heads, the experts, the dense and shared MLPs split;
+              seamless-m4t-large-v2 (4 + 4 layers, fp32, AdamW, the stub
+              frames) with ``seq_parallel`` over its tokens and frames;
+              then FSDP:
               granite-3-8b (2 of its 40 layers, its own bf16, AdamW) on a
               (2, 1) mesh, 2 rows a rank in 2 microbatches, each layer
               gathered over "data" in its call and its gradient
               reduce-scattered in the backward, its peak within
               FSDP_PEAK_TOL of its count.
-              Each run is a (data, model) mesh of two processes of this
-              script sharing the card over gloo (NCCL refuses two ranks on
-              one device, so every exchange is staged through the host),
-              against its case's one-device step run first here on the
-              same params and batches: each rank's loss, grad norm and
-              param norm within TRAIN_TOL, its launches exactly
-              ``train_launches``, its ``max_memory_allocated`` within the
+              The runs of one (data, model) mesh run in turn in one world
+              of two processes of this script sharing the card over gloo
+              (NCCL refuses two ranks on one device, so every exchange is
+              staged through the host), each against its case's one-device
+              step run first here on the same params and batches: each
+              rank's loss, grad norm and param norm within TRAIN_TOL, its
+              launches exactly ``train_launches``, its
+              ``max_memory_allocated`` within the
               case's tolerance (PEAK_TOL) of ``launch.cost_analysis``'s
               count of its step, a MoE run's ranks dispatching alike; the
               card's compute mode first, then per run each rank's step
               times (host-staged exchanges: not a speed of tensor
-              parallelism or FSDP), staged bytes (by purpose) and the
+              parallelism or FSDP) and staged bytes (by purpose), and each
               world's wall seconds;
               (f) serving on a mesh, the worlds of SERVE_WORLDS: each
               model's batch through the one-device ``make_serve_fns``
               first (greedy, SERVE_NEW positions), then through
               ``make_serve_fns(cfg, pc=)`` on two processes sharing the
-              card over gloo, each rank with its pieces of the params,
+              card over gloo (one pair a mesh, serving its worlds in
+              turn), each rank with its pieces of the params,
               rows and cache, fed the one-device greedy tokens: granite-3-8b
               (40 layers, KV heads split), granite (8 layers, the cache's
               slots split: ``kv_heads`` unbound), mixtral-8x7b (4 of 32
               layers, experts split, the long prompts and the ring cache),
-              qwen2-vl-7b (28 layers, stub image, M-RoPE in decode) on
-              (1, 2), granite (8 layers) on (2, 1) (rows only, the
-              params whole on each rank).  Every
+              qwen2-vl-7b (28 layers, stub image, M-RoPE in decode),
+              deepseek-v2-236b (4 of 60 layers, MLA's heads and the
+              experts split, its latent cache split by slot, 920 of 1840
+              a rank), seamless-m4t-large-v2 (24 + 24 layers, its self and
+              cross caches split over the KV heads) on (1, 2), granite (8
+              layers) on (2, 1) (rows only, the params whole on each
+              rank).  Each rank makes its pieces one leaf at a time (two
+              ranks share the card).  Every
               position's logits within MODEL_TOL of the one-device ones
               (relative to the largest), the greedy tokens that agree
               logged, launches a rank exactly ``expected_launches``, each
@@ -289,8 +302,8 @@ JAX package.  Phases, each reported on its own lines:
    paths driven -- the nine served models, train granite, zamba2,
    mixtral, deepseek, qwen2-vl, rwkv6 and seamless, the train CLI and the
    serve CLI on lms-demo, the dist phase's granite steps, pipeline stage,
-   mixtral a2a run, the six tensor-parallel runs and the five serving
-   worlds (their ranks' launches summed) -- its numbers at
+   mixtral a2a run, the nine tensor-parallel and FSDP runs and the seven
+   serving worlds (their ranks' launches summed) -- its numbers at
    one path's shapes (zamba2's prefill for flash, SSD and the forward
    RMSNorm; granite's training shape for the RMSNorm backward, zamba2's
    for the SSD backward), and per path its launches and the rows it was
@@ -302,6 +315,7 @@ Any failure raises, so the script exits non-zero and prints no last line.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -351,7 +365,8 @@ from repro_torch.launch.steps import (  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.layers import (  # noqa: E402
     cross_entropy, embed_tokens, rope_table)
-from repro_torch.models.params import flatten, unflatten  # noqa: E402
+from repro_torch.models.params import (  # noqa: E402
+    flatten, fp32_leaves, init_params, unflatten)
 from repro_torch.models.ssm import wkv6_chunked  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     _layer_plan, _train_layers, forward, init_cache, init_model_params,
@@ -359,7 +374,8 @@ from repro_torch.models.transformer import (  # noqa: E402
 from repro_torch.parallel import comm  # noqa: E402
 from repro_torch.parallel.pipeline import pipeline_apply  # noqa: E402
 from repro_torch.parallel.sharding import (  # noqa: E402
-    TRAIN_RULES, PartitionConstraints, shard_tree, shardings_for_specs)
+    TRAIN_RULES, PartitionConstraints, shard_leaf, shard_tree,
+    shardings_for_specs)
 from repro_torch.serve.engine import (  # noqa: E402
     ServingEngine, make_serve_fns)
 from repro_torch.train.compression import (  # noqa: E402
@@ -1191,25 +1207,32 @@ def kernel_checks(plen: int, lplen: int) -> dict:
     rmsnorm_vs_library(gen, plen)
     # phase 6 (e)'s rows, a run's own: a rank's whole batch, or its rows of
     # the sequence under sequence parallelism, in the run's dtype
+    # (MLA's latent norms on every row of the entered sequence; an
+    # encoder-decoder's LayerNorms launch no kernel)
     tp = {}
     for case in TP_CASES.values():
-        tp_d = get_config(case.model).d_model
+        ccfg = get_config(case.model)
         dt = getattr(torch, case.dtype) if case.dtype else bf16
         for path, sp, _ in case.runs:
-            n, tag = tp_rows(case, sp), path.replace(":", "-")
-            tp[path] = {
-                "rmsnorm": check_rmsnorm(gen, n, tp_d, dt, tag=tag),
-                "rmsnorm_backward": check_rmsnorm_bwd(gen, n, tp_d, dt,
-                                                      tag=tag)}
+            tag = path.replace(":", "-")
+            tp[path] = {}
+            for key, n, width, ld in norm_rows(ccfg, tp_rows(case, sp),
+                                               tp_rows(case, False)):
+                tp[path][key] = check_rmsnorm(gen, n, width, dt, ld=ld,
+                                              tag=tag)
+                tp[path][f"{key}_backward"] = check_rmsnorm_bwd(
+                    gen, n, width, dt, ld=ld, tag=tag)
     # phase 6 (f)'s rows: a rank's rows of the batch and its query heads
     for name, world in SERVE_WORLDS.items():
-        (b, h, kv, s, d), n, width = serve_rank_rows(world)
+        (b, h, kv, s, d, dv), norms = serve_rank_rows(world)
         tag = f"dist-serve-{name}"
         tp[f"dist:serve-{name}"] = {
             "flash_attention": check_flash(
-                gen, b, h, kv, s, d, bf16, tag=tag,
-                window=get_config(world.model).sliding_window),
-            "rmsnorm": check_rmsnorm(gen, n, width, bf16, tag=tag)}
+                gen, b, h, kv, s, d, bf16, dv=dv, tag=tag,
+                window=get_config(world.model).sliding_window)}
+        for key, n, width, ld in norms:
+            tp[f"dist:serve-{name}"][key] = check_rmsnorm(
+                gen, n, width, bf16, ld=ld, tag=tag)
     vcfg = get_config(VLM_MODEL)
     vlen = vlm_seq_len(VLM_GRID, VLM_TEXT)
     scfg = get_config(ENCDEC_MODEL)
@@ -2654,21 +2677,31 @@ PIPE_MICROBATCHES = 4
 # width and the layers given there, on its (data, model) mesh of that many
 # processes sharing the one card over gloo (NCCL refuses two ranks on one
 # device), so every exchange is staged through the host; the global batch is
-# cut from phase 4's 8 rows to 4 for it.  A world that outlives
-# TP_DEADLINE_S fails.
+# cut from phase 4's 8 rows to 4 for it.  The runs that share a mesh run
+# in one world, one after the other; a run whose rows are not all written
+# TP_DEADLINE_S after the previous run's (or the world's start) fails it.
 TP_MODEL_AXIS, TP_DEADLINE_S = 2, 300
 TP_SHAPE = ShapeConfig("tp_2k_b4", seq_len=2048, global_batch=4,
                        kind="train")
 # a rank's counted peak against its max_memory_allocated: the FSDP world's
 # limit (the tensor-parallel worlds keep PEAK_TOL)
 FSDP_PEAK_TOL = 0.02
+# deepseek's world in fp32: one masked score tensor of its 128 heads is
+# 2.1 GB a row at 2048 tokens (its 64 heads a rank half that), and its two
+# layers' params, gradients and Adafactor state ~43 GB on one device; the
+# largest of (2048 x 4), (2048 x 2) and (1024 x 4) whose one-device step
+# ``world_count.py`` counts within 75 GB, the two ranks' together too
+DEEPSEEK_TP_SHAPE = ShapeConfig("tp_2k_b2", seq_len=2048, global_batch=2,
+                                kind="train")
 
 
 class TpCase(NamedTuple):
-    """A model of phase 6 (e): its config cut to ``layers`` (in ``dtype``;
-    None: the config's), trained by ``optimizer`` for DIST_STEPS steps of
-    ``microbatches`` each under remat "minimal", on a (data, model)
-    ``mesh``; ``runs`` are (path, seq_parallel, overrides of TRAIN_RULES
+    """A model of phase 6 (e): its config cut to ``layers`` (an
+    encoder-decoder's encoder and decoder both; in ``dtype``; None: the
+    config's), trained by ``optimizer`` for DIST_STEPS steps of
+    ``shape`` in ``microbatches`` each under remat "minimal", on a (data,
+    model) ``mesh``; ``runs`` are (path, seq_parallel, overrides of
+    TRAIN_RULES
     the step stores and computes with), each a world of its own against the
     case's one-device step.  Each step's loss, grad norm and param norm are
     held at TRAIN_TOL; with ``step0``, only step 0's (the later ones
@@ -2684,9 +2717,13 @@ class TpCase(NamedTuple):
     mesh: tuple = (1, TP_MODEL_AXIS)
     microbatches: int = 1
     peak_tol: float = PEAK_TOL
+    shape: ShapeConfig = TP_SHAPE
 
 
-# granite-3-8b: 4 of 40 layers, without and with sequence parallelism.
+# granite-3-8b: 4 of 40 layers, without and with sequence parallelism
+# (at 2 layers in bf16 it missed TRAIN_TOL's loss at step 1 on an H100,
+# 1.93e-3 of 1e-3, after the one-device loss jumped 11.2 -> 17.9: bf16
+# rounding of TP's kind).
 # mixtral-8x7b: 2 of 32 layers in fp32 (in bf16 the top-k flips near-tied
 # experts, so MoE parity is held in fp32), Adafactor; its 8 experts split 4
 # a rank (TRAIN_RULES), then every expert's hidden columns split (the
@@ -2700,7 +2737,15 @@ class TpCase(NamedTuple):
 # granite-fsdp: 2 of 40 layers in its own bf16 on (data 2, model 1), 2 rows
 # a rank in 2 microbatches: every leaf but the norms split over "data",
 # gathered layer by layer in the pass, its gradient reduce-scattered in the
-# backward.
+# backward.  deepseek-v2-236b: its dense layer 0 and one MoE layer (2 of
+# 60) in fp32 (MoE parity is held in fp32), Adafactor, sequence
+# parallelism: MLA's 128 heads 64 a rank, its latent projections and norms
+# whole on each rank, 80 experts a rank, the dense layer's columns and the
+# shared experts' split; at DEEPSEEK_TP_SHAPE (see there).
+# seamless-m4t-large-v2: 4 encoder and 4 decoder layers in fp32, AdamW,
+# the loop's stub frames (4096 a row), sequence parallelism over the
+# tokens and the frames (both divide 2): 8 heads and 8 KV heads a rank in
+# the encoder, the decoder and the cross-attention, the MLP's columns.
 TP_CASES = {
     "granite": TpCase(TRAIN_MODEL, 4, None, "adamw", (
         ("dist:tp", False, {}), ("dist:tp-sp", True, {}))),
@@ -2714,6 +2759,10 @@ TP_CASES = {
     "granite-fsdp": TpCase(TRAIN_MODEL, 2, None, "adamw", (
         ("dist:fsdp", False, {}),), mesh=(2, 1), microbatches=2,
         peak_tol=FSDP_PEAK_TOL),
+    "deepseek": TpCase("deepseek-v2-236b", 2, "float32", "adafactor", (
+        ("dist:tp-deepseek-sp", True, {}),), shape=DEEPSEEK_TP_SHAPE),
+    "seamless": TpCase(ENCDEC_MODEL, 4, "float32", "adamw", (
+        ("dist:tp-seamless-sp", True, {}),)),
 }
 
 
@@ -2723,18 +2772,21 @@ TP_CASES = {
 # SERVE_NEW - 1 decode steps teacher-forced with the one-device run's
 # greedy tokens (a near tie cannot make the runs part); every step's last
 # logits (gathered over "model") within MODEL_TOL of the one-device
-# make_serve_fns' on the same params, relative to the largest logit.  A
-# world that outlives SERVE_DEADLINE_S fails.
+# make_serve_fns' on the same params, relative to the largest logit.  The
+# worlds that share a mesh run in one world of processes, one after the
+# other, each given SERVE_DEADLINE_S as (e)'s runs are given theirs.
 SERVE_NEW, SERVE_DEADLINE_S = 32, 300
 
 
 class ServeWorld(NamedTuple):
-    """A world of phase 6 (f): ``model`` cut to ``layers`` (None: all),
-    served on a (data, model) ``mesh`` under ``SERVE_RULES`` with
-    ``rules`` overridden, on ``workload``'s batch ("short": phase 3's 8
-    prompts, right-aligned to 910 tokens; "long": mixtral's 4 of 4685-5731
-    tokens; "vlm": qwen2-vl's 8 rows of an image and text) in a cache of
-    ``max_len`` (None: the workload's)."""
+    """A world of phase 6 (f): ``model`` cut to ``layers`` (None: all; an
+    encoder-decoder's encoder and decoder both), served on a (data, model)
+    ``mesh`` under ``SERVE_RULES`` with ``rules`` overridden, on
+    ``workload``'s batch ("short": phase 3's 8 prompts, right-aligned to
+    910 tokens; "long": mixtral's 4 of 4685-5731 tokens; "vlm": qwen2-vl's
+    8 rows of an image and text; "encdec": the short prompts over phase
+    3's source frames) in a cache of ``max_len`` (None: the
+    workload's)."""
     model: str
     layers: Optional[int]
     mesh: tuple
@@ -2748,13 +2800,20 @@ class ServeWorld(NamedTuple):
 # heads unbound (layout "seq", as on pod16x16, where 8 KV heads do not
 # divide 16): a cache of 1840 slots, 920 a rank, so the prompt's 910
 # tokens and the first decode steps land on rank 0 and the later ones on
-# rank 1; mixtral-8x7b at 4 of 32 layers, its experts split 4 a rank, the
-# long prompts past the 4096-token window (the ring cache); qwen2-vl-7b at
-# 28 layers with the stub image and M-RoPE positions continued in decode;
-# granite at 8 layers on (2, 1): the rows split 4 a rank, nothing over
-# "model", the params whole on each rank (``embed`` unbound: gathered over
-# "data" in each call and staged through the host, even 1 layer's 1.2 GB a
-# call made the decode 45 s on an H100; the CPU tests hold the gathers).
+# rank 1; mixtral-8x7b at 4 of 32 layers, its experts split 4 a rank,
+# the long prompts past the 4096-token window (the ring cache);
+# qwen2-vl-7b at 28 layers with the stub image and M-RoPE positions
+# continued in decode; granite at 8 layers on (2, 1): the rows split 4 a
+# rank, nothing over "model", the params whole on each rank (``embed``
+# unbound: gathered over "data" in each call and staged through the host,
+# even 1 layer's 1.2 GB a call made the decode 45 s on an H100; the CPU
+# tests hold the gathers).
+# deepseek-v2-236b at 4 of 60 layers (its dense layer and 3 MoE layers):
+# 64 heads and 80 experts a rank, its latent cache (no head dimension)
+# split by slot, 1840 slots, 920 a rank, as granite-seq's, so decode
+# crosses from rank 0's slots to rank 1's; seamless-m4t-large-v2 at full
+# depth (24 + 24): 8 heads and 8 KV heads a rank, its self and cross
+# caches split over the KV heads.
 SERVE_WORLDS = {
     "granite": ServeWorld(TRAIN_MODEL, None, (1, 2), {}, "short"),
     "granite-seq": ServeWorld(TRAIN_MODEL, 8, (1, 2), {"kv_heads": None},
@@ -2763,6 +2822,9 @@ SERVE_WORLDS = {
     "qwen2-vl": ServeWorld(VLM_MODEL, None, (1, 2), {}, "vlm"),
     "granite-rows": ServeWorld(TRAIN_MODEL, 8, (2, 1), {"embed": None},
                                "short"),
+    "deepseek-seq": ServeWorld("deepseek-v2-236b", 4, (1, 2), {}, "short",
+                               1840),
+    "seamless": ServeWorld(ENCDEC_MODEL, None, (1, 2), {}, "encdec"),
 }
 
 
@@ -2820,20 +2882,24 @@ def dist_steps(cfg, tcfg, batches, mesh, dev, count: bool = False,
     first batch's gradients before the steps, on the host (``grads``: this
     rank's pieces on a mesh), which the peak and launches leave out."""
     sync = _sync(dev)
-    params = init_model_params(cfg, seed=SEED, device=dev)
     pc = None if mesh is None else PartitionConstraints(
         rules, mesh, seq_parallel=tcfg.seq_parallel)
     step_fn, opt = make_train_step(cfg, tcfg, mesh=mesh, pc=pc)
     psh = None
     if mesh is not None:
         psh, _ = step_shardings(cfg, tcfg, mesh, pc)
+    if mesh is not None and mesh.size() > 1:
+        params = init_pieces(cfg, psh, mesh, dev)
+    else:
+        params = init_model_params(cfg, seed=SEED, device=dev)
+    if mesh is not None and mesh.size() == 1:
         pieces = shard_tree(params, psh, mesh)
         # one rank holds every leaf whole: its pieces are the leaves
-        if mesh.size() == 1 and any(
-                a is not b for a, b in zip(flatten(pieces).values(),
-                                           flatten(params).values())):
+        if any(a is not b for a, b in zip(flatten(pieces).values(),
+                                          flatten(params).values())):
             raise AssertionError("dist: a one-rank mesh copied a leaf")
         params = pieces
+    if mesh is not None:
         # this rank's rows of each global batch
         batches = [shard_batch(b, mesh) for b in batches]
     state = opt.init(params, psh)
@@ -3078,7 +3144,19 @@ def dist_a2a(dev="cuda", cfg=None, rows=A2A_ROWS, seq=A2A_SEQ) -> tuple:
 
 def tp_cfg(case: TpCase):
     cfg = dataclasses.replace(get_config(case.model), num_layers=case.layers)
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, num_encoder_layers=case.layers)
     return dataclasses.replace(cfg, dtype=case.dtype) if case.dtype else cfg
+
+
+def init_pieces(cfg, shardings, mesh, dev, compute_dtype=None):
+    """The seed's params (``init_model_params``' leaves) made one leaf at a
+    time and cut to this rank's pieces under ``shardings`` at once, so a
+    rank never holds the model whole (two ranks share the one card)."""
+    specs, sh = flatten(model_specs(cfg)), flatten(shardings)
+    return unflatten({k: shard_leaf(flatten(init_params(
+        unflatten({k: s}), SEED, device=dev, compute_dtype=compute_dtype,
+        keep=fp32_leaves(cfg)))[k], sh[k], mesh) for k, s in specs.items()})
 
 
 def tp_train_cfg(case: TpCase, sp: bool = False) -> TrainConfig:
@@ -3096,103 +3174,181 @@ def compute_mode() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def tp_rank_main(argv: list) -> int:
-    """One rank of phase 6 (e), in a process of its own: ``--tp-rank R
-    --tp-world N --tp-dir DIR --tp-case C --tp-run I`` (run I of
-    ``TP_CASES[C]``).  Joins a gloo world through a file store in DIR, runs
-    ``dist_steps`` on the case's mesh (``make_mesh_for``) with the seed's
-    params and batches under the run's rules (each exchange staged through
-    the host: gloo over CUDA tensors) and writes its row to
-    ``DIR/rank<R>.json`` (and, for a ``step0`` case, its
-    pieces of step 0's to ``DIR/grads<R>.pt``).  ``--tp-dev cpu``
-    rehearses it on the CPU."""
+def join_world(kind: str, args: dict, model: int, dev: str):
+    """A rank of a phase-6 world joins it: its device and the parent's
+    kernels, then a gloo process group through the file store in its work
+    directory and the (data, model) mesh of ``model`` ranks over
+    "model"; returns (rank, mesh)."""
     import torch.distributed as dist
-    args = dict(zip(argv[0::2], argv[1::2]))
-    rank, world = int(args["--tp-rank"]), int(args["--tp-world"])
-    workdir, case = args["--tp-dir"], TP_CASES[args["--tp-case"]]
-    _, sp, overrides = case.runs[int(args["--tp-run"])]
-    dev = args.get("--tp-dev", "cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    rank, n = int(args[f"--{kind}-rank"]), int(args[f"--{kind}-world"])
     if dev == "cuda":
         torch.cuda.set_device(0)
         kbuild.load_library()              # built by the parent
     dist.init_process_group("gloo", store=dist.FileStore(
-        os.path.join(workdir, "store"), world), rank=rank, world_size=world)
+        os.path.join(args[f"--{kind}-dir"], "store"), n), rank=rank,
+        world_size=n)
+    return rank, make_mesh_for(n, model=model, device_type="cpu")
+
+
+def free_device(dev: str) -> None:
+    """What a finished run of a world left behind goes before the next
+    (the next one's peak is held to its own count)."""
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+
+def tp_rank_run(name: str, i: int, mesh, rank: int, workdir: str, k: int,
+                dev: str) -> dict:
+    """Run ``i`` of ``TP_CASES[name]``, the ``k``-th of its world, on this
+    rank: ``dist_steps`` with the seed's params and batches under the run's
+    rules (each exchange staged through the host: gloo over CUDA tensors);
+    for a ``step0`` case its pieces of step 0's gradients go to
+    ``DIR/grads<R>_<K>.pt``.  Returns its row."""
+    case = TP_CASES[name]
+    _, sp, overrides = case.runs[i]
+    cfg = tp_cfg(case)
+    batches = dist_batches(cfg, case.shape, DIST_STEPS, dev)
+    comm.reset_staged()
+    moe.reset_dispatch_counts()
+    run = dist_steps(cfg, tp_train_cfg(case, sp), batches, mesh, dev,
+                     count=True, rules=TRAIN_RULES.with_overrides(**overrides),
+                     grads=case.step0)
+    del run["params"]
+    grads = run.pop("grads")
+    if grads is not None:
+        torch.save(grads, os.path.join(workdir, f"grads{rank}_{k}.pt"))
+    run.update({"rank": rank, "coord": list(mesh.get_coordinate()),
+                "staged": comm.staged(),
+                "staged_by_purpose": comm.staged_by_purpose(),
+                "dispatches": moe.dispatch_counts()})
+    return run
+
+
+def tp_rank_main(argv: list) -> int:
+    """One rank of phase 6 (e), in a process of its own: ``--tp-rank R
+    --tp-world N --tp-dir DIR --tp-runs C:I,...`` (runs I of
+    ``TP_CASES[C]``, all on one mesh).  Joins the gloo world
+    (:func:`join_world`), then runs each in turn (:func:`tp_rank_run`),
+    writes its row to ``DIR/rank<R>_<K>.json`` (K: its place in the list)
+    and frees all it made before the next.  ``--tp-dev cpu`` rehearses it
+    on the CPU."""
+    import torch.distributed as dist
+    args = dict(zip(argv[0::2], argv[1::2]))
+    runs = [(c, int(i)) for c, i in (r.split(":") for r in
+                                      args["--tp-runs"].split(","))]
+    dev = args.get("--tp-dev", "cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, mesh = join_world("tp", args, TP_CASES[runs[0][0]].mesh[1], dev)
     try:
-        mesh = make_mesh_for(world, model=case.mesh[1], device_type="cpu")
-        cfg = tp_cfg(case)
-        batches = dist_batches(cfg, TP_SHAPE, DIST_STEPS, dev)
-        comm.reset_staged()
-        moe.reset_dispatch_counts()
-        run = dist_steps(cfg, tp_train_cfg(case, sp), batches, mesh, dev,
-                         count=True,
-                         rules=TRAIN_RULES.with_overrides(**overrides),
-                         grads=case.step0)
-        del run["params"]
-        grads = run.pop("grads")
-        if grads is not None:
-            torch.save(grads, os.path.join(workdir, f"grads{rank}.pt"))
-        del grads
-        run.update({"rank": rank, "coord": list(mesh.get_coordinate()),
-                    "staged": comm.staged(),
-                    "staged_by_purpose": comm.staged_by_purpose(),
-                    "dispatches": moe.dispatch_counts()})
-        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
-            json.dump(run, f)
+        for k, (name, i) in enumerate(runs):
+            row = tp_rank_run(name, i, mesh, rank, args["--tp-dir"], k, dev)
+            with open(os.path.join(args["--tp-dir"], f"rank{rank}_{k}.json"),
+                      "w") as f:
+                json.dump(row, f)
+            del row
+            free_device(dev)
     finally:
         dist.destroy_process_group()
     return 0
 
 
-def tp_world(name: str, run: int, dev: str = "cuda", grads=None) -> list:
-    """Run ``run`` of ``TP_CASES[name]`` as processes of this script
-    sharing the one card, one a rank of the case's mesh; returns each
-    rank's row.  A world that outlives TP_DEADLINE_S is killed, and fails
-    the run.  ``grads``:
-    {name: whole gradients of the first batch on the host}, each of which
-    the ranks' pieces of theirs are set against (a row's ``grads_gap``:
-    {name: the largest relative L2 gap over the leaves})."""
-    workdir = os.path.join(ROOT, "build", "tp_world")
-    shutil.rmtree(workdir, ignore_errors=True)
-    os.makedirs(workdir)
-    world = math.prod(TP_CASES[name].mesh)
+def run_world(kind: str, n: int, workdir: str, extra: list, keys: list,
+              deadline_s: float) -> None:
+    """Starts ``n`` processes of this script as the ranks of a phase-6
+    world (``--<kind>-rank R --<kind>-world n --<kind>-dir workdir`` and
+    ``extra``), then waits for each run's rows (:func:`wait_rows`, for
+    each of ``keys`` in turn) up to ``deadline_s`` after the previous
+    run's, and for the ranks' end up to ``deadline_s`` after the last; a
+    run that outlives its deadline, or a rank that fails, kills the rest
+    and fails the world."""
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
-         "--tp-world", str(world), "--tp-dir", workdir, "--tp-case", name,
-         "--tp-run", str(run), "--tp-dev", dev]) for r in range(world)]
-    deadline = time.monotonic() + TP_DEADLINE_S
+        [sys.executable, os.path.abspath(__file__), f"--{kind}-rank", str(r),
+         f"--{kind}-world", str(n), f"--{kind}-dir", workdir, *extra])
+        for r in range(n)]
+    why = None
     try:
-        for p in procs:
-            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+        for key in keys:
+            why = wait_rows(procs, workdir, key, deadline_s)
+            if why is not None:
+                break
+        else:
+            deadline = time.monotonic() + deadline_s
+            for p in procs:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
     except subprocess.TimeoutExpired:
-        pass
+        why = f"the ranks' end past {deadline_s} s"
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait(timeout=30)
     rcs = [p.returncode for p in procs]
-    if any(rc != 0 for rc in rcs):
-        raise AssertionError(f"dist: tp ranks of {name} exited {rcs} "
-                             f"(deadline {TP_DEADLINE_S} s)")
+    if why is not None or any(rc != 0 for rc in rcs):
+        raise AssertionError(f"dist: {kind} ranks of {extra} exited {rcs}"
+                             f" ({why or 'a rank failed'})")
+
+
+def wait_rows(procs: list, workdir: str, key, deadline_s: float):
+    """Waits for every rank's row of the run ``key``
+    (``rank<R>_<key>.json``, written when the rank ends the run); returns
+    None once they are all there, else why they are not: a rank failed,
+    every rank ended, or ``deadline_s`` passed."""
+    deadline = time.monotonic() + deadline_s
+    while not all(os.path.exists(os.path.join(workdir, f"rank{r}_{key}.json"))
+                  for r in range(len(procs))):
+        rcs = [p.poll() for p in procs]
+        if any(rc not in (None, 0) for rc in rcs) or None not in rcs:
+            return f"a rank ended before run {key}'s rows"
+        if time.monotonic() > deadline:
+            return f"run {key}'s rows past {deadline_s} s"
+        time.sleep(0.5)
+    return None
+
+
+def read_rows(workdir: str, n: int, key) -> list:
+    """Each rank's row of the run ``key`` (``rank<R>_<key>.json``)."""
     rows = []
-    for r in range(world):
-        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+    for r in range(n):
+        with open(os.path.join(workdir, f"rank{r}_{key}.json")) as f:
             rows.append(json.load(f))
-    if grads:
-        case = TP_CASES[name]
-        rules = TRAIN_RULES.with_overrides(**case.runs[run][2])
-        gap = grads_gaps(grads, [
-            (dict(zip(("data", "model"), row["coord"])),
-             os.path.join(workdir, f"grads{r}.pt"))
-            for r, row in enumerate(rows)], flatten(shardings_for_specs(
-                model_specs(tp_cfg(case)), rules,
-                dict(zip(("data", "model"), case.mesh)))))
-        for row in rows:
-            row["grads_gap"] = gap
-    shutil.rmtree(workdir, ignore_errors=True)
     return rows
+
+
+def tp_world(runs: list, dev: str = "cuda", grads=None) -> list:
+    """``runs`` ([(case, run index)], all on one mesh) in turn as one world
+    of processes of this script sharing the one card, one a rank of the
+    mesh (:func:`tp_rank_main`), each run given TP_DEADLINE_S; returns
+    each run's rank rows.  ``grads``: {case: {name: whole gradients of the
+    first batch on the host}}, each of which that case's ranks' pieces of
+    theirs are set against (a row's ``grads_gap``: {name: the largest
+    relative L2 gap over the leaves})."""
+    workdir = os.path.join(ROOT, "build", "tp_world")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    mesh = TP_CASES[runs[0][0]].mesh
+    n = math.prod(mesh)
+    run_world("tp", n, workdir, [
+        "--tp-runs", ",".join(f"{c}:{i}" for c, i in runs),
+        "--tp-dev", dev], list(range(len(runs))), TP_DEADLINE_S)
+    out = []
+    for k, (name, i) in enumerate(runs):
+        rows = read_rows(workdir, n, k)
+        if grads and name in grads:
+            case = TP_CASES[name]
+            rules = TRAIN_RULES.with_overrides(**case.runs[i][2])
+            gap = grads_gaps(grads[name], [
+                (dict(zip(("data", "model"), row["coord"])),
+                 os.path.join(workdir, f"grads{r}_{k}.pt"))
+                for r, row in enumerate(rows)], flatten(shardings_for_specs(
+                    model_specs(tp_cfg(case)), rules,
+                    dict(zip(("data", "model"), mesh)))))
+            for row in rows:
+                row["grads_gap"] = gap
+        out.append(rows)
+    shutil.rmtree(workdir, ignore_errors=True)
+    return out
 
 
 def grads_gaps(wants: dict, ranks: list, shardings: dict) -> dict:
@@ -3227,110 +3383,150 @@ def grads_gaps(wants: dict, ranks: list, shardings: dict) -> dict:
 
 
 def tp_rows(case: TpCase, sp: bool) -> int:
-    """RMSNorm rows a rank of a TP_SHAPE run normalises at once: its rows
-    of a microbatch, its rows of the sequence under SP."""
+    """RMSNorm rows a rank of a run normalises at once: its rows of a
+    microbatch of the case's shape, its rows of the sequence under SP."""
     data, model = case.mesh
-    return TP_SHAPE.global_batch * TP_SHAPE.seq_len // (
+    return case.shape.global_batch * case.shape.seq_len // (
         data * case.microbatches * (model if sp else 1))
 
 
+def norm_rows(cfg, rows: int, entered: int) -> list:
+    """(row key, rows, width, row stride or None) of each RMSNorm a rank
+    launches (none where the norms are LayerNorms): the block and final
+    norms on its ``rows``, and MLA's ``q_norm`` and ``kv_norm`` (the latent
+    read in place from the ``wkv_a`` output) on the ``entered`` rows of the
+    sequence its attention reads."""
+    if cfg.norm_type == "layernorm":
+        return []
+    out = [("rmsnorm", rows, cfg.d_model, None)]
+    if cfg.attention_type == "mla":
+        a = cfg.mla
+        out += [("rmsnorm_q_norm", entered, a.q_lora_rank, None),
+                ("rmsnorm_kv_norm", entered, a.kv_lora_rank,
+                 a.kv_lora_rank + a.qk_rope_head_dim)]
+    return out
+
+
 def dist_tp(dev="cuda") -> dict:
-    """(e): each run of TP_CASES on its case's mesh (tensor-parallel
-    compute on (1, TP_MODEL_AXIS), FSDP on (2, 1)), as that many processes
-    on the one card over gloo, against its case's one-device step run here
-    first on the same params and batches: each rank's loss, grad norm and
-    param norm within TRAIN_TOL (for a ``step0`` case, step 0's, and its
-    gradients within TRAIN_TOL["grads"]), its launches exactly
-    ``train_launches``, its ``max_memory_allocated`` within the case's
-    ``peak_tol`` of ``cost_analysis``'s count of its step; a MoE run's
-    ranks dispatched as often as each other and by the grouped dispatch.
-    Logs one ``dist: tp`` line a run (with its world's wall seconds and
-    the bytes staged by purpose) and returns each run's launches (summed
-    over the ranks), keyed by its path."""
+    """(e): each case's one-device step first, then each run of TP_CASES on
+    its case's mesh (tensor-parallel compute on (1, TP_MODEL_AXIS), FSDP
+    on (2, 1)), the runs of one mesh in turn in one world of that many
+    processes on the one card over gloo (:func:`tp_world`), each against
+    its case's one-device step on the same params and batches
+    (:func:`tp_run_row`).  Logs a ``dist: tp world`` line a world (its
+    wall seconds) and returns each run's launches (summed over the ranks),
+    keyed by its path."""
     log(f"dist: tp compute mode {compute_mode()}")
-    out = {}
+    ones, worlds = {}, {}
     for name, case in TP_CASES.items():
         cfg = tp_cfg(case)
-        batches = dist_batches(cfg, TP_SHAPE, DIST_STEPS, dev)
+        batches = dist_batches(cfg, case.shape, DIST_STEPS, dev)
         t0 = time.monotonic()
-        one = dist_steps(cfg, tp_train_cfg(case), batches, None, dev,
-                         grads=case.step0)
-        one_wall = time.monotonic() - t0
-        del one["params"], batches
-        if dev == "cuda":
-            torch.cuda.empty_cache()
-        want = train_launches(cfg, DIST_STEPS * case.microbatches)
-        for i, (path, sp, overrides) in enumerate(case.runs):
-            t0 = time.monotonic()
-            ranks = tp_world(name, i, dev, grads=case.step0 and {
-                "one_device": one["grads"]})
-            wall = time.monotonic() - t0
-            gaps = [[{k: abs(a[k] - b[k]) / abs(b[k]) for k in a}
-                     for a, b in zip(r["metrics"], one["metrics"])]
-                    for r in ranks]
-            held = 1 if case.step0 else DIST_STEPS
-            if case.step0:
-                for g in gaps:
-                    g[0]["grads"] = ranks[0]["grads_gap"]["one_device"]
-            peaks = [(r["counted_peak_gb"], r["peak_memory_gb"])
-                     for r in ranks]
-            row = {"case": name, "model": case.model,
-                   "layers": cfg.num_layers, "dtype": cfg.dtype,
-                   "optimizer": case.optimizer,
-                   "mesh": dict(zip(("data", "model"), case.mesh)),
-                   "rules": overrides, "seq_parallel": sp,
-                   "seq_len": TP_SHAPE.seq_len,
-                   "global_batch": TP_SHAPE.global_batch,
-                   "microbatches": case.microbatches,
-                   "held_steps": held,
-                   "rmsnorm_rows": tp_rows(case, sp),
-                   "one_device_metrics": one["metrics"],
-                   "rank_metrics": [r["metrics"] for r in ranks],
-                   "relative_gaps": gaps,
-                   "host_staged_step_s": [r["step_s"] for r in ranks],
-                   "one_device_step_s": one["step_s"],
-                   "staged": [r["staged"] for r in ranks],
-                   "staged_by_purpose": [r["staged_by_purpose"]
-                                         for r in ranks],
-                   "dispatches": [r["dispatches"] for r in ranks],
-                   "peak_gb_counted_measured": peaks,
-                   "one_device_peak_gb": one["peak_memory_gb"],
-                   "launches": [r["launches"] for r in ranks],
-                   "one_device_wall_s": one_wall, "world_wall_s": wall}
-            log(f"dist: tp {json.dumps(row)} (step times are of exchanges "
-                f"staged through the host over gloo, two processes sharing "
-                f"one card: not a speed of tensor parallelism or FSDP; "
-                f"limits {json.dumps(TRAIN_TOL)}, peak {case.peak_tol})")
-            if not all(math.isfinite(v) for r in ranks
-                       for m in r["metrics"] for v in m.values()) or \
-                    not all(v <= TRAIN_TOL[k] for g in gaps
-                            for s_ in g[:held] for k, v in s_.items()):
-                raise AssertionError(f"{path}: a rank disagrees with the "
-                                     f"one-device step")
-            if any(r["launches"] != want for r in ranks):
-                raise AssertionError(f"{path}: launches "
-                                     f"{[r['launches'] for r in ranks]}, "
-                                     f"expected {want} a rank")
-            if not all(abs(c - m) <= case.peak_tol * m for c, m in peaks):
-                raise AssertionError(f"{path}: counted peaks off the "
-                                     f"measured ones: {peaks}")
-            if cfg.moe is not None and any(
-                    r["dispatches"] != ranks[0]["dispatches"]
-                    or not r["dispatches"]["grouped"] for r in ranks):
-                raise AssertionError(f"{path}: dispatches "
-                                     f"{[r['dispatches'] for r in ranks]}")
-            out[path] = {k: sum(r["launches"][k] for r in ranks)
-                         for k in want}
-        del one
+        ones[name] = dist_steps(cfg, tp_train_cfg(case), batches, None, dev,
+                                grads=case.step0)
+        ones[name]["wall_s"] = time.monotonic() - t0
+        del ones[name]["params"], batches
+        free_device(dev)
+        for i in range(len(case.runs)):
+            worlds.setdefault(case.mesh, []).append((name, i))
+    out = {}
+    for mesh, runs in worlds.items():
+        t0 = time.monotonic()
+        results = tp_world(runs, dev, grads={
+            name: {"one_device": ones[name]["grads"]} for name, _ in runs
+            if TP_CASES[name].step0})
+        log(f"dist: tp world " + json.dumps({
+            "mesh": mesh, "runs": runs, "wall_s": time.monotonic() - t0}))
+        for (name, i), ranks in zip(runs, results):
+            out[TP_CASES[name].runs[i][0]] = tp_run_row(name, i, ranks,
+                                                        ones[name])
     return out
+
+
+def tp_run_row(name: str, i: int, ranks: list, one: dict) -> dict:
+    """Run ``i`` of ``TP_CASES[name]`` held to its case's one-device step
+    ``one``: each rank's loss, grad norm and param norm within TRAIN_TOL
+    (for a ``step0`` case, step 0's, and its gradients within
+    TRAIN_TOL["grads"]), its launches exactly ``train_launches``, its
+    ``max_memory_allocated`` within the case's ``peak_tol`` of
+    ``cost_analysis``'s count of its step; a MoE run's ranks dispatched as
+    often as each other and by the grouped dispatch.  Logs one ``dist:
+    tp`` line (with the bytes staged by purpose and the ranks' step
+    seconds) and returns its launches, summed over the ranks."""
+    case = TP_CASES[name]
+    path, sp, overrides = case.runs[i]
+    cfg = tp_cfg(case)
+    want = train_launches(cfg, DIST_STEPS * case.microbatches)
+    gaps = [[{k: abs(a[k] - b[k]) / abs(b[k]) for k in a}
+             for a, b in zip(r["metrics"], one["metrics"])] for r in ranks]
+    held = 1 if case.step0 else DIST_STEPS
+    if case.step0:
+        for g in gaps:
+            g[0]["grads"] = ranks[0]["grads_gap"]["one_device"]
+    peaks = [(r["counted_peak_gb"], r["peak_memory_gb"]) for r in ranks]
+    row = {"case": name, "model": case.model,
+           "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "optimizer": case.optimizer,
+           "mesh": dict(zip(("data", "model"), case.mesh)),
+           "rules": overrides, "seq_parallel": sp,
+           "seq_len": case.shape.seq_len,
+           "global_batch": case.shape.global_batch,
+           "microbatches": case.microbatches,
+           **({"encoder_layers": cfg.num_encoder_layers,
+               "source_frames": cfg.encdec_source_len}
+              if cfg.family == "encdec" else {}),
+           "held_steps": held,
+           "rmsnorm_rows": tp_rows(case, sp),
+           "one_device_metrics": one["metrics"],
+           "rank_metrics": [r["metrics"] for r in ranks],
+           "relative_gaps": gaps,
+           "host_staged_step_s": [r["step_s"] for r in ranks],
+           "one_device_step_s": one["step_s"],
+           "staged": [r["staged"] for r in ranks],
+           "staged_by_purpose": [r["staged_by_purpose"] for r in ranks],
+           "dispatches": [r["dispatches"] for r in ranks],
+           "peak_gb_counted_measured": peaks,
+           "one_device_peak_gb": one["peak_memory_gb"],
+           "launches": [r["launches"] for r in ranks],
+           "one_device_wall_s": one["wall_s"]}
+    log(f"dist: tp {json.dumps(row)} (step times are of exchanges "
+        f"staged through the host over gloo, two processes sharing "
+        f"one card: not a speed of tensor parallelism or FSDP; "
+        f"limits {json.dumps(TRAIN_TOL)}, peak {case.peak_tol})")
+    if not all(math.isfinite(v) for r in ranks
+               for m in r["metrics"] for v in m.values()) or \
+            not all(v <= TRAIN_TOL[k] for g in gaps
+                    for s_ in g[:held] for k, v in s_.items()):
+        raise AssertionError(f"{path}: a rank disagrees with the "
+                             f"one-device step")
+    if any(r["launches"] != want for r in ranks):
+        raise AssertionError(f"{path}: launches "
+                             f"{[r['launches'] for r in ranks]}, "
+                             f"expected {want} a rank")
+    if not all(abs(c - m) <= case.peak_tol * m for c, m in peaks):
+        raise AssertionError(f"{path}: counted peaks off the "
+                             f"measured ones: {peaks}")
+    if cfg.moe is not None and any(
+            r["dispatches"] != ranks[0]["dispatches"]
+            or not r["dispatches"]["grouped"] for r in ranks):
+        raise AssertionError(f"{path}: dispatches "
+                             f"{[r['dispatches'] for r in ranks]}")
+    return {k: sum(r["launches"][k] for r in ranks) for k in want}
 
 
 def serve_world_cfg(world: ServeWorld, smoke: bool = False):
     """The world's config at its depth (``smoke``: the smoke config, for a
-    rehearsal on the CPU)."""
+    rehearsal on the CPU, in fp32 for MLA: the deepseek smoke model's own
+    bf16 noise, one device against itself in fp32, is 5.3% of its largest
+    logit, the size of MODEL_TOL)."""
     cfg = get_config(world.model, smoke=smoke)
-    if world.layers is not None and not smoke:
+    if smoke:
+        return dataclasses.replace(cfg, dtype="float32") \
+            if cfg.attention_type == "mla" else cfg
+    if world.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=world.layers)
+        if cfg.family == "encdec":
+            cfg = dataclasses.replace(cfg, num_encoder_layers=world.layers)
     return cfg
 
 
@@ -3354,10 +3550,15 @@ def serve_world_inputs(world: ServeWorld, cfg, dev, smoke: bool = False):
                              else (12, 7, 10, 5))]
         max_len = 48
     else:
-        prompts = smoke_prompts(cfg, world.workload)
-        max_len = MAX_LEN if world.workload == "short" else LONG_MAX_LEN
+        prompts = smoke_prompts(cfg, "long" if world.workload == "long"
+                                else "short")
+        max_len = LONG_MAX_LEN if world.workload == "long" else MAX_LEN
     if world.max_len is not None and not smoke:
         max_len = world.max_len
+    if world.workload == "encdec":
+        toks, extras = encdec_inputs(cfg, prompts, cfg.encdec_source_len,
+                                     getattr(torch, cfg.dtype), dev)
+        return toks, extras, max_len, lambda k: None
     return right_aligned(prompts, dev), {}, max_len, lambda k: None
 
 
@@ -3396,150 +3597,142 @@ def serve_one_device(world: ServeWorld, dev="cuda", smoke=False) -> dict:
             "peak_memory_gb": peak, "wall_s": wall}
 
 
-def serve_rank_main(argv: list) -> int:
-    """One rank of phase 6 (f), in a process of its own: ``--serve-rank R
-    --serve-world N --serve-dir DIR --serve-case C`` (``SERVE_WORLDS[C]``;
-    ``--serve-dev cpu --serve-smoke 1`` rehearse it on the CPU at smoke
-    size).  Joins a gloo world through a file store in DIR, makes the
-    seed's params and keeps its pieces under the world's rules, allocates
-    its cache piece, takes its rows of the batch and serves it through
+def serve_rank_world(name: str, mesh, rank: int, workdir: str, dev: str,
+                     smoke: bool) -> dict:
+    """``SERVE_WORLDS[name]`` on this rank: makes the seed's params and
+    keeps its pieces under the world's rules, allocates its cache piece,
+    takes its rows of the batch and serves it through
     ``make_serve_fns(cfg, pc=)``, fed the one-device run's tokens
-    (``DIR/fed.pt``); writes its row (launches, peak, the count's peak,
-    seconds, staged exchanges) to ``DIR/rank<R>.json`` and each step's
-    logits gathered over "model" (its rows, fp32) to ``DIR/logits<R>.pt``."""
-    import torch.distributed as dist
+    (``DIR/fed_<name>.pt``); writes each step's logits gathered over
+    "model" (its rows, fp32) to ``DIR/logits<R>_<name>.pt`` and returns its
+    row (launches, peak, the count's peak, seconds, staged exchanges)."""
     from repro_torch.parallel.sharding import SERVE_RULES
     from repro_torch.serve.engine import (gather_logits, init_cache_piece,
                                           serve_shardings)
     from repro_torch.train.step import rows_for
+    world = SERVE_WORLDS[name]
+    cfg = serve_world_cfg(world, smoke)
+    toks, extras, max_len, dec = serve_world_inputs(world, cfg, dev, smoke)
+    pc = PartitionConstraints(SERVE_RULES.with_overrides(**world.rules),
+                              mesh, batch=toks.shape[0], max_len=max_len)
+    psh, _ = serve_shardings(cfg, pc)
+    pieces = init_pieces(cfg, psh, mesh, dev,
+                         compute_dtype=getattr(torch, cfg.dtype))
+    free_device(dev)
+    fed = torch.load(os.path.join(workdir, f"fed_{name}.pt")).to(dev)
+    rows = rows_for({"i": torch.arange(toks.shape[0])}, pc)["i"]
+    mine = rows_for({"tokens": toks, "fed": fed, **extras}, pc)
+    toks, fed = mine.pop("tokens"), mine.pop("fed")
+    extras = mine
+    cache = init_cache_piece(cfg, pc, device=dev)
+    prefill, decode = make_serve_fns(cfg, pc=pc)
+
+    def dec_rows(k):
+        ex = dec(k)
+        return None if ex is None else rows_for(ex, pc)
+    # the count of this rank's calls, on meta copies of its arguments
+    counted = max(
+        analyze_step(prefill, (pieces, toks, cache, extras))[
+            "memory"]["peak_bytes"],
+        analyze_step(decode, (pieces, cache, fed[:, :1], toks.shape[1],
+                              dec_rows(0)))["memory"]["peak_bytes"])
+    sync = _sync(dev)
+    if dev == "cuda":
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    comm.reset_staged()
+    logits = []
+    t0 = time.monotonic()
+    last, cache = prefill(pieces, toks, cache, extras)
+    logits.append(gather_logits(cfg, last, pc).float().cpu())
+    prefill_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    for k in range(SERVE_NEW - 1):
+        last, cache = decode(pieces, cache, fed[:, k:k + 1],
+                             toks.shape[1] + k, dec_rows(k))
+        logits.append(gather_logits(cfg, last, pc).float().cpu())
+    decode_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" \
+        else None
+    torch.save(torch.stack(logits),
+               os.path.join(workdir, f"logits{rank}_{name}.pt"))
+    return {"rank": rank, "coord": list(mesh.get_coordinate()),
+            "rows": rows.tolist(), "launches": ops.launch_counts(),
+            "peak_memory_gb": peak, "counted_peak_gb": counted / 1e9,
+            "prefill_s": prefill_s, "decode_s": decode_s,
+            "staged": comm.staged(),
+            "cache_gb": sum(t.numel() * t.element_size() for t in
+                            flatten(cache).values()) / 1e9,
+            "params_gb": sum(t.numel() * t.element_size() for t in
+                             flatten(pieces).values()) / 1e9}
+
+
+def serve_rank_main(argv: list) -> int:
+    """One rank of phase 6 (f), in a process of its own: ``--serve-rank R
+    --serve-world N --serve-dir DIR --serve-cases C,...``
+    (``SERVE_WORLDS[C]``, all on one mesh; ``--serve-dev cpu
+    --serve-smoke 1`` rehearse it on the CPU at smoke size).  Joins the
+    gloo world (:func:`join_world`), then serves each in turn
+    (:func:`serve_rank_world`), writes its row to
+    ``DIR/rank<R>_<C>.json`` and frees all it made before the next."""
+    import torch.distributed as dist
     args = dict(zip(argv[0::2], argv[1::2]))
-    rank, world_size = int(args["--serve-rank"]), int(args["--serve-world"])
-    workdir, world = args["--serve-dir"], SERVE_WORLDS[args["--serve-case"]]
+    names = args["--serve-cases"].split(",")
     dev = args.get("--serve-dev", "cuda")
     smoke = args.get("--serve-smoke", "0") == "1"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if dev == "cuda":
-        torch.cuda.set_device(0)
-        kbuild.load_library()              # built by the parent
-    dist.init_process_group("gloo", store=dist.FileStore(
-        os.path.join(workdir, "store"), world_size), rank=rank,
-        world_size=world_size)
+    rank, mesh = join_world("serve", args, SERVE_WORLDS[names[0]].mesh[1],
+                            dev)
     try:
-        mesh = make_mesh_for(world_size, model=world.mesh[1],
-                             device_type="cpu")
-        cfg = serve_world_cfg(world, smoke)
-        toks, extras, max_len, dec = serve_world_inputs(world, cfg, dev,
-                                                        smoke)
-        pc = PartitionConstraints(SERVE_RULES.with_overrides(**world.rules),
-                                  mesh, batch=toks.shape[0], max_len=max_len)
-        psh, _ = serve_shardings(cfg, pc)
-        pieces = shard_tree(init_model_params(
-            cfg, seed=SEED, device=dev,
-            compute_dtype=getattr(torch, cfg.dtype)), psh, mesh)
-        if dev == "cuda":
-            torch.cuda.empty_cache()
-        fed = torch.load(os.path.join(workdir, "fed.pt")).to(dev)
-        rows = rows_for({"i": torch.arange(toks.shape[0])}, pc)["i"]
-        mine = rows_for({"tokens": toks, "fed": fed, **extras}, pc)
-        toks, fed = mine.pop("tokens"), mine.pop("fed")
-        extras = mine
-        cache = init_cache_piece(cfg, pc, device=dev)
-        prefill, decode = make_serve_fns(cfg, pc=pc)
-
-        def dec_rows(k):
-            ex = dec(k)
-            return None if ex is None else rows_for(ex, pc)
-        # the count of this rank's calls, on meta copies of its arguments
-        counted = max(
-            analyze_step(prefill, (pieces, toks, cache, extras))[
-                "memory"]["peak_bytes"],
-            analyze_step(decode, (pieces, cache, fed[:, :1], toks.shape[1],
-                                  dec_rows(0)))["memory"]["peak_bytes"])
-        sync = _sync(dev)
-        if dev == "cuda":
-            sync()
-            torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        comm.reset_staged()
-        logits = []
-        t0 = time.monotonic()
-        last, cache = prefill(pieces, toks, cache, extras)
-        logits.append(gather_logits(cfg, last, pc).float().cpu())
-        prefill_s = time.monotonic() - t0
-        t0 = time.monotonic()
-        for k in range(SERVE_NEW - 1):
-            last, cache = decode(pieces, cache, fed[:, k:k + 1],
-                                 toks.shape[1] + k, dec_rows(k))
-            logits.append(gather_logits(cfg, last, pc).float().cpu())
-        decode_s = time.monotonic() - t0
-        launches = ops.launch_counts()
-        peak = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" \
-            else None
-        torch.save(torch.stack(logits), os.path.join(workdir,
-                                                     f"logits{rank}.pt"))
-        row = {"rank": rank, "coord": list(mesh.get_coordinate()),
-               "rows": rows.tolist(), "launches": launches,
-               "peak_memory_gb": peak, "counted_peak_gb": counted / 1e9,
-               "prefill_s": prefill_s, "decode_s": decode_s,
-               "staged": comm.staged(),
-               "cache_gb": sum(t.numel() * t.element_size() for t in
-                               flatten(cache).values()) / 1e9,
-               "params_gb": sum(t.numel() * t.element_size() for t in
-                                flatten(pieces).values()) / 1e9}
-        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
-            json.dump(row, f)
+        for name in names:
+            row = serve_rank_world(name, mesh, rank, args["--serve-dir"],
+                                   dev, smoke)
+            with open(os.path.join(args["--serve-dir"],
+                                   f"rank{rank}_{name}.json"), "w") as f:
+                json.dump(row, f)
+            del row
+            free_device(dev)
     finally:
         dist.destroy_process_group()
     return 0
 
 
-def serve_world(name: str, fed, dev: str = "cuda",
-                smoke: bool = False) -> list:
-    """``SERVE_WORLDS[name]`` as processes of this script sharing the one
-    card, fed ``fed``; returns each rank's row with its logits
-    (``"logits"``: (SERVE_NEW, its rows, V)).  A world that outlives
-    SERVE_DEADLINE_S is killed, and fails the run."""
-    world = SERVE_WORLDS[name]
-    n = world.mesh[0] * world.mesh[1]
+def serve_world(names: list, feds: dict, dev: str = "cuda",
+                smoke: bool = False) -> tuple:
+    """``SERVE_WORLDS[name]`` for each of ``names`` (all on one mesh) in
+    turn as one world of processes of this script sharing the one card
+    (:func:`serve_rank_main`), fed ``feds[name]``, each given
+    SERVE_DEADLINE_S; returns each world's rank rows, each with its logits
+    (``"logits"``: (SERVE_NEW, its rows, V))."""
+    mesh = SERVE_WORLDS[names[0]].mesh
+    n = mesh[0] * mesh[1]
     workdir = os.path.join(ROOT, "build", "serve_world")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
-    torch.save(fed, os.path.join(workdir, "fed.pt"))
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--serve-rank", str(r),
-         "--serve-world", str(n), "--serve-dir", workdir, "--serve-case",
-         name, "--serve-dev", dev, "--serve-smoke", "1" if smoke else "0"])
-        for r in range(n)]
-    deadline = time.monotonic() + SERVE_DEADLINE_S
-    try:
-        for p in procs:
-            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait(timeout=30)
-    rcs = [p.returncode for p in procs]
-    if any(rc != 0 for rc in rcs):
-        raise AssertionError(f"dist: serve ranks of {name} exited {rcs} "
-                             f"(deadline {SERVE_DEADLINE_S} s)")
-    rows = []
-    for r in range(n):
-        with open(os.path.join(workdir, f"rank{r}.json")) as f:
-            row = json.load(f)
-        row["logits"] = torch.load(os.path.join(workdir, f"logits{r}.pt"))
-        rows.append(row)
+    for name in names:
+        torch.save(feds[name], os.path.join(workdir, f"fed_{name}.pt"))
+    run_world("serve", n, workdir, [
+        "--serve-cases", ",".join(names), "--serve-dev", dev,
+        "--serve-smoke", "1" if smoke else "0"], names, SERVE_DEADLINE_S)
+    out = []
+    for name in names:
+        rows = read_rows(workdir, n, name)
+        for r, row in enumerate(rows):
+            row["logits"] = torch.load(
+                os.path.join(workdir, f"logits{r}_{name}.pt"))
+        out.append(rows)
     shutil.rmtree(workdir, ignore_errors=True)
-    return rows
+    return out
 
 
 def serve_rank_rows(world: ServeWorld, smoke: bool = False) -> tuple:
-    """(flash (B, H, KV, S, D), RMSNorm prefill rows, d) of a rank of the
+    """(flash (B, H, KV, S, D, Dv), RMSNorm prefill rows) of a rank of the
     world: its rows of the batch, its query heads and the KV heads they
-    read, as ``gqa_attention`` hands them to the kernel."""
+    read, as ``gqa_attention`` hands them to the kernel (MLA: its heads of
+    the decompressed K and V, V narrower); the norms as :func:`norm_rows`
+    lists them (the whole prompt: no sequence parallelism in serving)."""
     cfg = serve_world_cfg(world, smoke)
     toks, _, _, _ = serve_world_inputs(world, cfg, "cpu", smoke)
     b, s = toks.shape
@@ -3547,75 +3740,98 @@ def serve_rank_rows(world: ServeWorld, smoke: bool = False) -> tuple:
     rows = b // dp if b % dp == 0 else b
     h = cfg.num_heads // tp if cfg.num_heads % tp == 0 else cfg.num_heads
     kv = max(1, h * cfg.num_kv_heads // cfg.num_heads)
-    return (rows, h, kv, s, cfg.head_dim), rows * s, cfg.d_model
+    d, dv = cfg.head_dim, None
+    if cfg.attention_type == "mla":
+        d = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+        dv = cfg.mla.v_head_dim
+    return (rows, h, kv, s, d, dv), norm_rows(cfg, rows * s, rows * s)
 
 
 def dist_serve(dev="cuda", smoke: bool = False) -> dict:
-    """(f): each world of SERVE_WORLDS against its one-device run (made
-    here first, then freed): every rank's logits at each of the SERVE_NEW
-    positions within MODEL_TOL of the one-device ones, relative to the
-    largest logit (the greedy tokens that agree are logged); its launches
-    exactly ``expected_launches`` of one prefill and SERVE_NEW forwards;
-    its ``max_memory_allocated`` within PEAK_TOL of ``cost_analysis``'s
-    count of its calls.  Logs one ``dist: serve`` line a world and returns
-    each world's launches (summed over the ranks), keyed by its path."""
-    out = {}
+    """(f): each world's batch through the one-device ``make_serve_fns``
+    first (:func:`serve_one_device`, its weights freed), then the worlds of
+    SERVE_WORLDS, those of one mesh in turn in one world of processes
+    (:func:`serve_world`), each held to its one-device run
+    (:func:`serve_world_row`).  Logs a ``dist: serve world`` line a world
+    of processes (its wall seconds) and returns each world's
+    launches (summed over the ranks), keyed by its path."""
+    ones, worlds = {}, {}
     for name, world in SERVE_WORLDS.items():
-        cfg = serve_world_cfg(world, smoke)
         t0 = time.monotonic()
-        one = serve_one_device(world, dev, smoke)
-        one_wall = time.monotonic() - t0
-        if dev == "cuda":
-            torch.cuda.empty_cache()
+        ones[name] = serve_one_device(world, dev, smoke)
+        ones[name]["run_s"] = time.monotonic() - t0
+        free_device(dev)
+        worlds.setdefault(world.mesh, []).append(name)
+    out = {}
+    for mesh, names in worlds.items():
         t0 = time.monotonic()
-        ranks = serve_world(name, one["fed"], dev, smoke)
-        wall = time.monotonic() - t0
-        want_l = expected_launches(cfg, 1, SERVE_NEW)
-        gaps, agree = [], []
-        for r in ranks:
-            got, want = r.pop("logits"), one["logits"][:, r["rows"]]
-            gaps.append(max(float((g - w).abs().max() / w.abs().max())
-                            for g, w in zip(got, want)))
-            agree.append(int((got.argmax(-1) == want.argmax(-1)).sum()))
-        peaks = [(r["counted_peak_gb"], r["peak_memory_gb"]) for r in ranks]
-        path = f"dist:serve-{name}"
-        row = {"world": name, "model": world.model,
-               "layers": cfg.num_layers, "dtype": cfg.dtype,
-               "mesh": dict(zip(("data", "model"), world.mesh)),
-               "rules": world.rules, "rows": [r["rows"] for r in ranks],
-               "positions": SERVE_NEW,
-               "largest_relative_gap": gaps,
-               "greedy_agree": agree,
-               "greedy_of": [SERVE_NEW * len(r["rows"]) for r in ranks],
-               "prefill_s": [r["prefill_s"] for r in ranks],
-               "decode_s": [r["decode_s"] for r in ranks],
-               "one_device_wall_s": one["wall_s"],
-               "staged": [r["staged"] for r in ranks],
-               "cache_gb": [r["cache_gb"] for r in ranks],
-               "params_gb": [r["params_gb"] for r in ranks],
-               "peak_gb_counted_measured": peaks,
-               "one_device_peak_gb": one["peak_memory_gb"],
-               "launches": [r["launches"] for r in ranks],
-               "one_device_run_s": one_wall, "world_wall_s": wall}
-        log(f"dist: serve {json.dumps(row)} (seconds are of exchanges "
-            f"staged through the host over gloo, two processes sharing "
-            f"one card: not a speed of serving on a mesh; limits "
-            f"{MODEL_TOL}, peak {PEAK_TOL})")
-        if not all(g <= MODEL_TOL for g in gaps):
-            raise AssertionError(f"{path}: a rank's logits disagree with "
-                                 f"the one-device run: {gaps}")
-        if dev == "cuda":
-            if any(r["launches"] != want_l for r in ranks):
-                raise AssertionError(
-                    f"{path}: launches {[r['launches'] for r in ranks]}, "
-                    f"expected {want_l} a rank")
-            if not all(abs(c - m) <= PEAK_TOL * m for c, m in peaks):
-                raise AssertionError(f"{path}: counted peaks off the "
-                                     f"measured ones: {peaks}")
-        out[path] = {k: sum(r["launches"][k] for r in ranks)
-                     for k in want_l}
-        del one
+        results = serve_world(
+            names, {n: ones[n]["fed"] for n in names}, dev, smoke)
+        log("dist: serve world " + json.dumps({
+            "mesh": mesh, "worlds": names,
+            "wall_s": time.monotonic() - t0}))
+        for name, ranks in zip(names, results):
+            out[f"dist:serve-{name}"] = serve_world_row(name, ranks,
+                                                        ones[name], dev,
+                                                        smoke)
     return out
+
+
+def serve_world_row(name: str, ranks: list, one: dict, dev: str,
+                    smoke: bool) -> dict:
+    """``SERVE_WORLDS[name]``'s ranks held to its one-device run ``one``:
+    every rank's logits at each of the SERVE_NEW positions within
+    MODEL_TOL of the one-device ones, relative to the largest logit (the
+    greedy tokens that agree are logged); on the card its launches exactly
+    ``expected_launches`` of one prefill and SERVE_NEW forwards and its
+    ``max_memory_allocated`` within PEAK_TOL of ``cost_analysis``'s count
+    of its calls.  Logs one ``dist: serve`` line and returns its launches,
+    summed over the ranks."""
+    world = SERVE_WORLDS[name]
+    cfg = serve_world_cfg(world, smoke)
+    want_l = expected_launches(cfg, 1, SERVE_NEW)
+    gaps, agree = [], []
+    for r in ranks:
+        got, want = r.pop("logits"), one["logits"][:, r["rows"]]
+        gaps.append(max(float((g - w).abs().max() / w.abs().max())
+                        for g, w in zip(got, want)))
+        agree.append(int((got.argmax(-1) == want.argmax(-1)).sum()))
+    peaks = [(r["counted_peak_gb"], r["peak_memory_gb"]) for r in ranks]
+    path = f"dist:serve-{name}"
+    row = {"world": name, "model": world.model,
+           "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "mesh": dict(zip(("data", "model"), world.mesh)),
+           "rules": world.rules, "rows": [r["rows"] for r in ranks],
+           "positions": SERVE_NEW,
+           "largest_relative_gap": gaps,
+           "greedy_agree": agree,
+           "greedy_of": [SERVE_NEW * len(r["rows"]) for r in ranks],
+           "prefill_s": [r["prefill_s"] for r in ranks],
+           "decode_s": [r["decode_s"] for r in ranks],
+           "one_device_wall_s": one["wall_s"],
+           "staged": [r["staged"] for r in ranks],
+           "cache_gb": [r["cache_gb"] for r in ranks],
+           "params_gb": [r["params_gb"] for r in ranks],
+           "peak_gb_counted_measured": peaks,
+           "one_device_peak_gb": one["peak_memory_gb"],
+           "launches": [r["launches"] for r in ranks],
+           "one_device_run_s": one["run_s"]}
+    log(f"dist: serve {json.dumps(row)} (seconds are of exchanges "
+        f"staged through the host over gloo, two processes sharing "
+        f"one card: not a speed of serving on a mesh; limits "
+        f"{MODEL_TOL}, peak {PEAK_TOL})")
+    if not all(g <= MODEL_TOL for g in gaps):
+        raise AssertionError(f"{path}: a rank's logits disagree with "
+                             f"the one-device run: {gaps}")
+    if dev == "cuda":
+        if any(r["launches"] != want_l for r in ranks):
+            raise AssertionError(
+                f"{path}: launches {[r['launches'] for r in ranks]}, "
+                f"expected {want_l} a rank")
+        if not all(abs(c - m) <= PEAK_TOL * m for c, m in peaks):
+            raise AssertionError(f"{path}: counted peaks off the "
+                                 f"measured ones: {peaks}")
+    return {k: sum(r["launches"][k] for r in ranks) for k in want_l}
 
 
 def dist_phase(dev: str = "cuda", backend: str = "nccl",

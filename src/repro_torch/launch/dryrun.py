@@ -21,7 +21,8 @@ For each cell the dry run:
    ``"split"``), else ``"whole"``, with ``tp_whole_leaves``, the leaves
    stored split over "model" that each rank still gathers and computes
    whole (a MoE router whose experts bind "model"; every split leaf of a
-   family tensor-parallel compute does not cover).
+   family tensor-parallel compute does not cover: the Mamba2 hybrid and
+   RWKV6).
 
 A prefill or decode cell serves on the mesh (``make_serve_fns`` with the
 mesh, ``SERVE_RULES``) and its record adds ``serve``: the cache layout
@@ -203,22 +204,23 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = OUT,
 def _fits_note(cfg, bundle) -> str:
     """Why a cell's count is over 80 GB a rank, as far as the layout says."""
     if not tp_covers(cfg):
-        return (f"family {cfg.family!r} with {cfg.attention_type} attention "
-                f"computes whole on every \"model\" rank (tensor-parallel "
-                f"compute covers the dense, GQA-MoE and VLM families): each "
-                f"rank gathers each layer's params whole, one layer at a "
-                f"time, its activations are whole over \"model\", and so is "
-                f"its cache")
+        return (f"family {cfg.family!r} computes whole on every \"model\" "
+                f"rank (tensor-parallel compute covers every family but the "
+                f"Mamba2 hybrid and RWKV6): each rank gathers each layer's "
+                f"params whole, one layer at a time, its activations are "
+                f"whole over \"model\", and so is its cache")
     if bundle.kind == "train":
         return ("the count's peak: a rank's pieces of the params, optimizer "
                 "state, gradient accumulator and a microbatch's gradients, "
-                "one layer's leaves gathered at a time (the leaves outside "
-                "the checkpoints for the whole pass: the embedding, a "
-                "hybrid's shared blocks at each use, an enc-dec's cross "
-                "K/V projections) and a microbatch's activations")
+                "one layer's leaves gathered at a time (a split leaf as its "
+                "\"model\" piece; the leaves outside the checkpoints for "
+                "the whole pass: the embedding, an enc-dec's cross K/V "
+                "projections) and a microbatch's activations, split over "
+                "\"model\" by heads, columns and experts (MLA's latent "
+                "projections whole)")
     return ("the count's peak: a rank's pieces of the params with one "
-            "layer's gathered at a time, its cache piece and its "
-            "activations")
+            "layer's gathered at a time, its cache piece (its KV heads, or "
+            "its slots: MLA's latent) and its activations")
 
 
 @contextmanager

@@ -33,7 +33,13 @@
   rank that holds its slot (the reference's ``"onehot"`` write is local
   too), the queries are gathered over "model", each rank computes every
   head's partial (m, l, acc) over its slots with the one-device masks, and
-  the partials are gathered and merged (:func:`_decode_seq_split`).
+  the partials are gathered and merged (:func:`_decode_seq_split`).  MLA
+  (:func:`mla_attention`'s ``heads``) splits its heads alike, with its
+  latent projections and norms whole on every rank; its latent cache has no
+  head dimension, so on a mesh it is whole or split by its slots, whose
+  decode merges the partials in the latent space
+  (:func:`_mla_decode_seq_split`).  A cross-attention takes this rank's
+  query heads and its KV heads of the encoder's K/V.
 
 * **MLA** (DeepSeek-V2, :func:`mla_attention`) caches the normalized
   latent ``ckv`` (``kv_lora_rank`` wide) and the shared rotated ``krope``
@@ -491,20 +497,37 @@ def _decode_seq_split(q, k, v, cache, pos: int, window: int, cap: float,
         k_pos = _ring_slots(pos + 1, window, q.device)[lo:lo + n]
     else:
         k_pos = lo + torch.arange(n, device=q.device)
-    with comm.purpose("query_gather"):
-        q_all = q if heads is None else comm.all_gather(q.contiguous(),
-                                                        mesh, "model", 2)
     q_pos = pos + torch.arange(q.shape[1], device=q.device)
-    part = _partial_stats(q_all, cache["k"].to(dt), cache["v"].to(dt),
+    part = _partial_stats(_all_heads(q, mesh, heads), cache["k"].to(dt),
+                          cache["v"].to(dt),
                           _mask_bias(q_pos, k_pos, causal=ring,
                                      window=window,
                                      kv_valid=None if ring else pos + 1),
                           cap)
+    return _merged_heads(part, mesh, heads, dt)
+
+
+def _merged_heads(part, mesh, heads, dt):
+    """The grouped partials (m, l, acc) of every query head merged over
+    "model" (:func:`_merge_over_model`) and normalised: this rank's heads
+    of the output (B, Sq, H, D) in ``dt``."""
     m, l, acc = _merge_over_model(part, mesh)
-    out = _ungroup((acc / l.clamp_min(1e-30)[..., None]).to(dt))
+    return _own_heads(_ungroup((acc / l.clamp_min(1e-30)[..., None]).to(dt)),
+                      heads)
+
+
+def _all_heads(t, mesh, heads):
+    """Every "model" rank's heads (dim 2) of ``t`` gathered (``heads``
+    None: ``t`` holds every head already)."""
     if heads is None:
-        return out
-    return out[:, :, heads[0]:heads[0] + heads[1]]
+        return t
+    with comm.purpose("query_gather"):
+        return comm.all_gather(t.contiguous(), mesh, "model", 2)
+
+
+def _own_heads(out, heads):
+    """This rank's heads (dim 2) of an output over every head."""
+    return out if heads is None else out[:, :, heads[0]:heads[0] + heads[1]]
 
 
 def _merge_over_model(part, mesh):
@@ -517,32 +540,54 @@ def _merge_over_model(part, mesh):
                                   acc.unbind(0))))
 
 
-def cross_attention(p, x, kv_cache, cfg: ModelConfig):
+def cross_attention(p, x, kv_cache, cfg: ModelConfig, heads=None,
+                    seq_split=None):
     """A decoder's cross-attention over the encoder's K/V (``cross_kv``;
     (B, S_src, KV, D), cast to x's dtype): plain non-causal
-    :func:`full_attention` with no cap, as the reference's."""
+    :func:`full_attention` with no cap, as the reference's.  ``heads``:
+    (first, count), this rank's query heads under tensor-parallel compute
+    (``wq`` and ``wo`` its pieces, ``out`` this rank's partial sum of the
+    output projection); the K/V hold this rank's KV heads where those
+    split (``wk`` pieces), else every KV head, of which it reads those its
+    query heads read.  ``seq_split``: (mesh, rank, size) where the K/V (a
+    decode's cross cache) hold this rank's source frames of every KV head:
+    the queries are gathered over "model", each rank's partial (m, l, acc)
+    over its frames merged (:func:`_merge_over_model`)."""
     dt = x.dtype
     b, s, d = x.shape
-    h, hd = cfg.num_heads, cfg.head_dim
+    h, hd = cfg.num_heads if heads is None else heads[1], cfg.head_dim
     q = (x @ p["wq"].to(dt).reshape(d, h * hd)).view(b, s, h, hd)
-    out = full_attention(q, kv_cache["k"].to(dt), kv_cache["v"].to(dt),
-                         causal=False, window=0)
+    k, v = kv_cache["k"].to(dt), kv_cache["v"].to(dt)
+    if seq_split is not None:
+        mesh = seq_split[0]
+        out = _merged_heads(_partial_stats(_all_heads(q, mesh, heads), k, v),
+                            mesh, heads, dt)
+    else:
+        # K/V of every KV head: the ones this rank's query heads read
+        sel = None if heads is None or k.shape[2] != cfg.num_kv_heads \
+            else _kv_heads_for(heads[0], heads[1],
+                               cfg.num_heads // cfg.num_kv_heads)
+        out = full_attention(q, _read_heads(k, sel), _read_heads(v, sel),
+                             causal=False, window=0)
     return out.reshape(b, s, h * hd) @ p["wo"].to(dt).reshape(h * hd, d)
 
 
 def cross_kv(p, enc_out, cfg: ModelConfig):
     """The cross-attention K/V of one decoder layer from the encoder's
-    output (B, S_src, d), in its dtype: {"k", "v"} (B, S_src, KV, D)."""
+    output (B, S_src, d), in its dtype: {"k", "v"} (B, S_src, KV, D), KV
+    the heads of ``wk`` (this rank's piece of them under tensor-parallel
+    compute where the KV heads split)."""
     dt = enc_out.dtype
     b, s, d = enc_out.shape
-    kvh, hd = cfg.num_kv_heads, cfg.head_dim
+    kvh, hd = p["wk"].shape[1], cfg.head_dim
     k = (enc_out @ p["wk"].to(dt).reshape(d, kvh * hd)).view(b, s, kvh, hd)
     v = (enc_out @ p["wv"].to(dt).reshape(d, kvh * hd)).view(b, s, kvh, hd)
     return {"k": k, "v": v}
 
 
 def mla_attention(p, x, cfg: ModelConfig, *, rope, mode="prefill",
-                  cache=None, pos=None, attn_impl="masked"):
+                  cache=None, pos=None, attn_impl="masked", heads=None,
+                  seq_split=None):
     """Multi-head Latent Attention (DeepSeek-V2).
 
     mode: "train" | "prefill" | "decode".
@@ -553,6 +598,14 @@ def mla_attention(p, x, cfg: ModelConfig, *, rope, mode="prefill",
     cache: {"ckv" (B, max_len, kv_lora_rank), "krope" (B, max_len,
     qk_rope_head_dim)}, written in place.
     pos: number of tokens already in the cache (decode).
+    heads: (first, count), this rank's heads under tensor-parallel
+    compute: ``wq_b``, ``wkv_b`` and ``wo`` are its pieces of ``count``
+    heads; ``wq_a``, ``wkv_a`` and the two latent norms run whole on the
+    entered input (every rank writes the same latent cache); ``out`` is
+    then this rank's partial sum of the output projection.
+    seq_split: (mesh, rank, size) where the cache holds this rank's
+    ``1 / size`` of the slots (serving's ``"seq"`` layout): prefill writes
+    the slots it holds, decode runs :func:`_mla_decode_seq_split`.
     Returns (out, cache).
 
     Decode attends in the latent space: q_eff = q_nope w_k (per head, into
@@ -564,7 +617,7 @@ def mla_attention(p, x, cfg: ModelConfig, *, rope, mode="prefill",
     a = cfg.mla
     dt = x.dtype
     b, s, d = x.shape
-    h = cfg.num_heads
+    h = cfg.num_heads if heads is None else heads[1]
     nope, rdim, r = a.qk_nope_head_dim, a.qk_rope_head_dim, a.kv_lora_rank
     cos, sin = rope
 
@@ -598,25 +651,24 @@ def mla_attention(p, x, cfg: ModelConfig, *, rope, mode="prefill",
         else:
             out = ops.flash_attention_bshd(qq, k, v, causal=True)
             if cache is not None:
-                cache["ckv"][:, :s] = c_kv.to(cache["ckv"].dtype)
-                cache["krope"][:, :s] = k_rope.to(cache["krope"].dtype)
+                lo = 0 if seq_split is None else \
+                    seq_split[1] * cache["ckv"].shape[1]
+                _prefill_write(cache["ckv"], c_kv, 0, lo)
+                _prefill_write(cache["krope"], k_rope, 0, lo)
     elif mode == "decode":
         if cache is None or pos is None:
             raise ValueError("decode needs a cache and pos")
-        ckv = _cache_write(cache["ckv"], c_kv, pos).to(dt)
-        krope = _cache_write(cache["krope"], k_rope, pos).to(dt)
         q_eff = torch.einsum("bshk,rhk->bshr", q_nope, w_k)
-        # bf16 products are exact in fp32: the reference's fp32-accumulated
-        # scores
-        scores = (torch.einsum("bshr,btr->bhst", q_eff.float(), ckv.float())
-                  + torch.einsum("bshk,btk->bhst", q_rope.float(),
-                                 krope.float())) / math.sqrt(nope + rdim)
-        scores = scores + _mask_bias(
-            pos + torch.arange(s, device=x.device),
-            torch.arange(ckv.shape[1], device=x.device), causal=False,
-            window=0, kv_valid=pos + 1)
-        probs = torch.softmax(scores, dim=-1).to(dt)
-        o_lat = torch.einsum("bhst,btr->bshr", probs, ckv)
+        if seq_split is not None:
+            o_lat = _mla_decode_seq_split(q_eff, q_rope, c_kv, k_rope, cache,
+                                          pos, nope + rdim, seq_split, heads)
+        else:
+            ckv = _cache_write(cache["ckv"], c_kv, pos).to(dt)
+            krope = _cache_write(cache["krope"], k_rope, pos).to(dt)
+            probs = torch.softmax(_mla_scores(q_eff, q_rope, ckv, krope,
+                                              nope + rdim, pos, 0),
+                                  dim=-1).to(dt)
+            o_lat = torch.einsum("bhst,btr->bshr", probs, ckv)
         out = torch.einsum("bshr,rhk->bshk", o_lat, w_v)
     else:
         raise ValueError(f"mode {mode!r} is not one of train | prefill | "
@@ -625,3 +677,50 @@ def mla_attention(p, x, cfg: ModelConfig, *, rope, mode="prefill",
     y = out.reshape(b, s, h * a.v_head_dim) @ \
         p["wo"].to(dt).reshape(h * a.v_head_dim, d)
     return y, cache
+
+
+def _mla_scores(q_eff, q_rope, ckv, krope, qk: int, pos: int, lo: int):
+    """MLA decode's scores (B, H, S, T) in fp32 of the queries at ``pos``
+    .. against the latent slots ``lo`` .. ``lo + T - 1``: (q_eff ckv^T +
+    q_rope krope^T) / sqrt(qk), the slots past the last query masked (bf16
+    products are exact in fp32: the reference's fp32-accumulated
+    scores)."""
+    scores = (torch.einsum("bshr,btr->bhst", q_eff.float(), ckv.float())
+              + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                             krope.float())) / math.sqrt(qk)
+    return scores + _mask_bias(
+        pos + torch.arange(q_eff.shape[1], device=ckv.device),
+        lo + torch.arange(ckv.shape[1], device=ckv.device), causal=False,
+        window=0, kv_valid=pos + 1)
+
+
+def _mla_decode_seq_split(q_eff, q_rope, c_kv, k_rope, cache, pos: int,
+                          qk: int, split, heads):
+    """MLA's absorbed decode over a latent cache that holds this rank's
+    slots (``split`` = (mesh, rank, size)), as :func:`_decode_seq_split`
+    for GQA: the rank holding the new token's slot writes ``c_kv`` /
+    ``k_rope``; ``q_eff`` (B, 1, H, r) and ``q_rope`` are gathered over
+    "model" (``heads``: this rank's (first, count); None where every rank
+    computes every head); each rank computes every head's partial (m, l,
+    acc) over its slots in the latent space (acc (B, H, 1, r)), masked on
+    the slots' absolute positions; the partials are merged
+    (:func:`_merge_over_model`) and the rank keeps its heads' latent
+    output (B, 1, h, r), which ``w_v`` and the row-parallel ``wo`` take."""
+    mesh, rank, _ = split
+    dt = q_eff.dtype
+    n = cache["ckv"].shape[1]
+    lo = rank * n
+    if lo <= pos < lo + n:
+        _cache_write(cache["ckv"], c_kv, pos - lo)
+        _cache_write(cache["krope"], k_rope, pos - lo)
+    ckv, krope = cache["ckv"].to(dt), cache["krope"].to(dt)
+    scores = _mla_scores(_all_heads(q_eff, mesh, heads),
+                         _all_heads(q_rope, mesh, heads), ckv, krope, qk,
+                         pos, lo)
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - m[..., None])
+    part = (m, p.sum(dim=-1),
+            torch.einsum("bhst,btr->bhsr", p.to(dt), ckv).float())
+    m, l, acc = _merge_over_model(part, mesh)
+    return _own_heads(
+        (acc / l.clamp_min(1e-30)[..., None]).to(dt).transpose(1, 2), heads)

@@ -14,16 +14,20 @@ reference's and are written in place; under a sliding window each layer's
 KV cache holds ``min(max_len, window)`` slots.
 
 A pass on a mesh with a live ``"model"`` axis (train, prefill or decode)
-computes tensor-parallel for the GQA decoders, the VLM's included
-(``pc.tensor_parallel``, see :mod:`repro_torch.parallel.sharding`); serving
+computes tensor-parallel for every family with attention blocks (GQA or
+MLA decoders, the VLM's and the encoder-decoder's included;
+``pc.tensor_parallel``, see :mod:`repro_torch.parallel.sharding`); serving
 writes its cache piece as the binding lays it out (a rank's KV heads, or
-its slots of every KV head).  Each pass runs the vocabulary-parallel
-embedding, each block's attention over this rank's heads and its MLP over
-this rank's columns (the MoE over its experts or their columns), each
-between the layout's regions, and vocabulary-sharded logits; under sequence
+its slots of every KV head or of MLA's latent).  Each pass runs the
+vocabulary-parallel embedding, each block's attention (and
+cross-attention) over this rank's heads and its MLP over this rank's
+columns (the MoE over its experts or their columns), each between the
+layout's regions, and vocabulary-sharded logits; under sequence
 parallelism (train mode) the residual stream between blocks, and the norms
 on it, hold this rank's rows (a VLM rank merges the patches that fall in
-them).
+them; an encoder-decoder's sinusoidal positions, of the tokens and of the
+encoder's frames, are its rows'; its cross K/V read the encoder's whole
+output).
 
 A pass handed this rank's stored pieces of the params (``pc.pieces``: the
 train step and the serve fns on a mesh) gathers each layer's leaves inside
@@ -261,25 +265,26 @@ def _attn_block(p, x, cfg, *, rope, mode, cache, pos, attn_impl="masked",
             return y
     else:
         enter, leave = tp.enter, tp.leave
-    h = apply_norm(p["ln1"], x, cfg)
+    split, heads = _heads_of(cfg, tp)
+    seq_split = (tp.mesh, tp.rank, tp.size) \
+        if tp is not None and tp.cache == "seq" else None
+    h = enter(apply_norm(p["ln1"], x, cfg), split)
     if cfg.attention_type == "mla":
         y, cache = mla_attention(p["attn"], h, cfg, rope=rope, mode=mode,
-                                 cache=cache, pos=pos, attn_impl=attn_impl)
+                                 cache=cache, pos=pos, attn_impl=attn_impl,
+                                 heads=heads, seq_split=seq_split)
     else:
-        split = tp is not None and tp.splits(attn_specs(cfg)["wq"])
-        n = cfg.num_heads // tp.size if split else 0
         y, cache = gqa_attention(
-            p["attn"], enter(h, split), cfg, rope=rope, mode=mode,
-            cache=cache, pos=pos, attn_impl=attn_impl,
-            bidirectional=bidirectional,
-            heads=(tp.rank * n, n) if split else None,
-            seq_split=(tp.mesh, tp.rank, tp.size)
-            if tp is not None and tp.cache == "seq" else None)
-        y = leave(y, split)
-    x = x + y
+            p["attn"], h, cfg, rope=rope, mode=mode, cache=cache, pos=pos,
+            attn_impl=attn_impl, bidirectional=bidirectional, heads=heads,
+            seq_split=seq_split)
+    x = x + leave(y, split)
     if cross_kv_cache is not None:
-        h = apply_norm(p["ln_cross"], x, cfg)
-        x = x + cross_attention(p["cross"], h, cross_kv_cache, cfg)
+        h = enter(apply_norm(p["ln_cross"], x, cfg), split)
+        x = x + leave(cross_attention(
+            p["cross"], h, cross_kv_cache, cfg, heads=heads,
+            seq_split=(tp.mesh, tp.rank, tp.size) if tp is not None
+            and mode == "decode" and tp.cross == "seq" else None), split)
     h = apply_norm(p["ln2"], x, cfg)
     if "moe" in p:
         y, stats = apply_moe(p["moe"], h, cfg, pc=pc, tp=tp)
@@ -290,6 +295,21 @@ def _attn_block(p, x, cfg, *, rope, mode, cache, pos, attn_impl="masked",
             mlp_specs(cfg, d_ff=d_ff)["w_up"])
         y = leave(apply_mlp(p["mlp"], enter(h, split), cfg), split)
     return x + y, cache
+
+
+def _heads_of(cfg: ModelConfig, tp) -> tuple:
+    """(split, heads) of an attention sublayer under the layout ``tp``:
+    whether its query heads bind "model" (``wq``, or MLA's ``wq_b``; a
+    cross-attention's alike), and this rank's (first, count) of them
+    (None where they do not split)."""
+    if tp is None:
+        return False, None
+    q = mla_specs(cfg)["wq_b"] if cfg.attention_type == "mla" \
+        else attn_specs(cfg)["wq"]
+    if not tp.splits(q):
+        return False, None
+    n = cfg.num_heads // tp.size
+    return True, (tp.rank * n, n)
 
 
 def _combine_aux(acc: dict, stats: dict) -> None:
@@ -468,18 +488,36 @@ def _sinusoidal(positions, d: int):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def encode(params, cfg: ModelConfig, src_frames, remat="none", pc=None):
+def _row_positions(positions, rows: int, tp):
+    """The positions (..., S) of the rows a pass's activations hold: all
+    of them, or under sequence parallelism this rank's ``rows``, which
+    start at ``tp.rank * rows``."""
+    if tp is None or not tp.sp:
+        return positions
+    lo = tp.rank * rows
+    return positions[..., lo:lo + rows]
+
+
+def encode(params, cfg: ModelConfig, src_frames, remat="none", pc=None,
+           tp=None):
     """The encoder over the (stub) frame embeddings (B, S_src, d), cast to
     the compute dtype, with sinusoidal positions: bidirectional masked
     attention in every block (``mode="train"``, as the reference runs it,
     whether serving or training; checkpointed under ``remat``), then its
-    final norm.  Returns (B, S_src, d)."""
+    final norm.  ``tp``: the pass's tensor-parallel layout (see
+    :func:`_attn_block`); under sequence parallelism the encoder holds
+    this rank's rows of the frames, at their own positions, as the
+    reference's ``pc.tokens`` splits them.  Returns (B, S_src, d), or this
+    rank's rows of it."""
     x = src_frames.to(getattr(torch, cfg.dtype))
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
-    x = x + _sinusoidal(pos, cfg.d_model).to(x.dtype)
+    if tp is not None:
+        x = tp.local(x)
+    x = x + _sinusoidal(_row_positions(pos, x.shape[1], tp),
+                        cfg.d_model).to(x.dtype)
     x = _train_layers(params["encoder"]["layers"], x, cfg,
                       prefix="encoder/layers", rope=None, attn_impl="masked",
-                      remat=remat, bidirectional=True, pc=pc)
+                      remat=remat, bidirectional=True, pc=pc, tp=tp)
     return apply_norm(gathered(params["encoder"]["final_norm"],
                                "encoder/final_norm", pc), x, cfg)
 
@@ -488,11 +526,19 @@ def encode(params, cfg: ModelConfig, src_frames, remat="none", pc=None):
 _CROSS_KV = ("wk", "wv")
 
 
-def encdec_cross_caches(params, cfg: ModelConfig, enc_out, pc=None) -> list:
+def encdec_cross_caches(params, cfg: ModelConfig, enc_out, pc=None,
+                        tp=None) -> list:
     """Per decoder layer, the cross K/V of the encoder's output in its
     dtype: [{"k", "v"} (B, S_src, KV, D)] (the reference stacks them).
     Made outside the checkpoints, so each layer's ``wk`` / ``wv``, gathered
-    here (``sharding.gathered``), are kept for the backward by autograd."""
+    here (``sharding.gathered``), are kept for the backward by autograd.
+    ``tp``: the K/V of this rank's KV heads (or, where those do not split,
+    of every KV head) from the encoder's whole output, which the layout
+    enters as a split sublayer's input (gathered under sequence
+    parallelism; its gradient summed over "model": each rank's heads read
+    all of it)."""
+    if tp is not None:
+        enc_out = tp.enter(enc_out, _heads_of(cfg, tp)[0])
     cross = params["dec_layers"]["cross"]
     return [cross_kv(gathered(lp, "dec_layers/cross", pc, 1), enc_out, cfg)
             for lp in _unstack({k: cross[k] for k in _CROSS_KV})]
@@ -506,19 +552,22 @@ def _decoder_blocks(params) -> dict:
 
 
 def _encdec_forward(params, x, cfg, *, mode, cache, pos, extras,
-                    attn_impl="masked", remat="none", pc=None):
+                    attn_impl="masked", remat="none", pc=None, tp=None):
     """Train and prefill encode ``extras["src_frames"]`` and make the cross
     K/V (prefill also writes them into ``cache["cross"]``, in bf16 as the
     reference's prefill casts them); decode reads them from the cache.
     Then the decoder blocks: self-attention (its cache in ``cache["self"]``)
-    and cross-attention."""
+    and cross-attention.  ``tp``: the pass's layout, for the encoder, the
+    cross K/V and the decoder alike (a rank's cache pieces hold its KV
+    heads)."""
     if mode in ("train", "prefill"):
         if "src_frames" not in extras:
             raise KeyError("src_frames: an encoder-decoder needs its "
                            "(B, S_src, d) source frames in extras")
         enc = encode(params, cfg, extras["src_frames"],
-                     remat=remat if mode == "train" else "none", pc=pc)
-        cross = encdec_cross_caches(params, cfg, enc, pc)
+                     remat=remat if mode == "train" else "none", pc=pc,
+                     tp=tp)
+        cross = encdec_cross_caches(params, cfg, enc, pc, tp)
         del enc
     else:
         cross = [_layer(cache["cross"], i)
@@ -527,16 +576,20 @@ def _encdec_forward(params, x, cfg, *, mode, cache, pos, extras,
     if mode == "train":
         return _train_layers(dec, x, cfg, prefix="dec_layers", rope=None,
                              attn_impl=attn_impl, remat=remat, cross=cross,
-                             pc=pc)
+                             pc=pc, tp=tp)
     for i in range(_depth(dec)):
         x, _ = _attn_block(gathered(_layer(dec, i), "dec_layers", pc, 1), x,
                            cfg, rope=None, mode=mode, pos=pos,
                            cache=None if cache is None
                            else _layer(cache["self"], i),
-                           cross_kv_cache=cross[i])
+                           cross_kv_cache=cross[i], tp=tp)
         if mode == "prefill" and cache is not None:
             for key in ("k", "v"):
-                cache["cross"][key][i].copy_(cross[i][key])
+                piece = cache["cross"][key][i]
+                # a "seq" piece holds this rank's frames
+                lo = tp.rank * piece.shape[1] if tp is not None and \
+                    tp.cross == "seq" else 0
+                piece.copy_(cross[i][key][:, lo:lo + piece.shape[1]])
     return x
 
 
@@ -573,6 +626,14 @@ def _merge_patches(x, patches, start: int = 0, total=None):
         return x
     return torch.cat([x[:, :lo - start], patches[:, lo - 1:hi - 1].to(x.dtype),
                       x[:, hi - start:]], dim=1)
+
+
+def _src_len(cfg: ModelConfig, extras: dict):
+    """An encoder-decoder pass's source frames (None: not one, or none
+    given: decode)."""
+    if cfg.family != "encdec" or "src_frames" not in extras:
+        return None
+    return extras["src_frames"].shape[1]
 
 
 def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
@@ -621,7 +682,8 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
         positions = positions + pos
 
     extras = extras or {}
-    tp = pc.tensor_parallel(cfg, s, mode) if pc is not None else None
+    tp = pc.tensor_parallel(cfg, s, mode, _src_len(cfg, extras)) \
+        if pc is not None else None
     # the leaves outside the layer stacks: gathered once a pass (a tied
     # embedding once, read twice)
     embed = gathered(params["embed"], "embed", pc)
@@ -631,7 +693,9 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
         x = _merge_patches(x, extras["patches"],
                            tp.rank * x.shape[1] if tp and tp.sp else 0, s)
     if cfg.family == "encdec":
-        x = x + _sinusoidal(positions, cfg.d_model).to(x.dtype)
+        # under sequence parallelism x holds this rank's rows
+        x = x + _sinusoidal(_row_positions(positions, x.shape[1], tp),
+                            cfg.d_model).to(x.dtype)
     rope = _rope_for(cfg, positions, extras)
 
     if cfg.family == "ssm":
@@ -640,7 +704,7 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
     elif cfg.family == "encdec":
         x = _encdec_forward(params, x, cfg, mode=mode, cache=cache, pos=pos,
                             extras=extras, attn_impl=attn_impl, remat=remat,
-                            pc=pc)
+                            pc=pc, tp=tp)
     elif cfg.family == "hybrid":
         x = _hybrid_forward(params, x, cfg, rope=rope, mode=mode,
                             cache=cache, pos=pos, attn_impl=attn_impl,
@@ -695,7 +759,8 @@ def loss_fn(params, cfg: ModelConfig, batch, *, pc=None, attn_impl="masked",
                         aux=aux, pc=pc)
     labels = batch["labels"]
     mask = labels >= 0
-    tp = pc.tensor_parallel(cfg, labels.shape[1]) if pc is not None else None
+    tp = pc.tensor_parallel(cfg, labels.shape[1], "train",
+                            _src_len(cfg, extras)) if pc is not None else None
     axes = pc.dp_axes if pc is not None else ()
     if axes:
         count = comm.all_reduce(mask.sum().float(), pc.mesh, axes)

@@ -22,20 +22,23 @@ which the pass gathers each layer's leaves inside that layer's call
 (:func:`gathered`), as the reference's scan body gathers its FSDP pieces
 under XLA.  Under data parallelism each rank runs the model on
 its own rows, with plain local tensors that have no layout to constrain.
-On a mesh with a live ``"model"`` axis the GQA decoders (``dense``, the
-GQA MoE and the VLM's text stack, :func:`tp_covers`) compute
-tensor-parallel in every mode: :meth:`PartitionConstraints.tensor_parallel`
-gives the pass its :class:`TensorParallel` layout, whose regions
+On a mesh with a live ``"model"`` axis the attention families (the
+dense, MoE and VLM decoders with GQA or MLA attention, and the
+encoder-decoder: :func:`tp_covers`) compute tensor-parallel in every mode:
+:meth:`PartitionConstraints.tensor_parallel` gives the pass its
+:class:`TensorParallel` layout, whose regions
 (:mod:`repro_torch.parallel.comm`) each block enters and leaves.  A leaf
 whose logical axes bind ``"model"`` is computed as this rank's piece
-(column-parallel query heads and MLP columns, row-parallel outputs, the
-vocabulary, the MoE's experts or, where the experts do not divide, their
-hidden columns); with ``seq_parallel`` the residual stream between blocks
-holds this rank's rows of the sequence, where the sequence divides by the
+(column-parallel query heads, MLA's ``wq_b`` / ``wkv_b`` heads and MLP
+columns, row-parallel outputs, the vocabulary, the MoE's experts or, where
+the experts do not divide, their hidden columns); with ``seq_parallel`` the
+residual stream between blocks holds this rank's rows of the sequence (and
+an encoder's of the source frames), where the sequence divides by the
 ``"model"`` size (the reference's ``tokens`` fallback otherwise).
 :func:`tp_roles` says, leaf by leaf, how the step gathers it and syncs
-its gradient.  Sequence parallelism on another family raises (ROADMAP
-Queue 1, item 2).
+its gradient.  The two recurrent families (the Mamba2 hybrid and RWKV6)
+compute whole, and sequence parallelism on them raises (ROADMAP Queue 1,
+item 2).
 
 Serving on a mesh takes the same layout in prefill and decode (no sequence
 parallelism: ``SERVE_RULES`` leaves ``seq`` unbound).  A serving
@@ -44,9 +47,10 @@ cache length ``max_len``: the rows split over ("pod", "data") where the
 binding divides them, else every data-parallel rank takes them all
 (:attr:`PartitionConstraints.rows_split`); the KV cache lies as
 :func:`cache_shardings` binds it, its ``kv_heads`` on "model" where they
-divide (``"heads"``), else its ``cache_seq`` (``"seq"``: a rank holds
-``1 / tp`` of the slots of every KV head), and whole over "model" for the
-families tensor-parallel compute does not cover
+divide (``"heads"``; an encoder-decoder's cross K/V too), else its
+``cache_seq`` (``"seq"``: a rank holds ``1 / tp`` of the slots of every KV
+head, or of MLA's latent ``ckv`` / ``krope``), and whole over "model" for
+the families tensor-parallel compute does not cover
 (:func:`kv_cache_layout`).
 """
 
@@ -62,9 +66,8 @@ from repro_torch.models.params import ParamSpec, flatten, tree_map, unflatten
 from repro_torch.parallel import comm
 
 UNPORTED = ("tensor-parallel compute and sequence parallelism are ported "
-            "for the dense, GQA-MoE and VLM families only (MLA, Mamba2, "
-            "RWKV6 and the encoder-decoder keep every leaf whole): ROADMAP "
-            "Queue 1, item 2")
+            "for the attention families only (the Mamba2 hybrid and RWKV6 "
+            "keep every leaf whole): ROADMAP Queue 1, item 2")
 
 
 def _flatten_mesh_axes(entry) -> tuple:
@@ -255,11 +258,10 @@ ROLES = ("split", "whole", "partial")
 
 def tp_covers(cfg) -> bool:
     """Whether the model computes tensor-parallel under a live "model"
-    axis: the GQA decoders (``dense``, ``moe`` with GQA attention, and the
-    ``vlm`` text stack).  MLA, Mamba2, RWKV6 and the encoder-decoder keep
-    every leaf whole (ROADMAP Queue 1, item 2)."""
-    return cfg.family in ("dense", "moe", "vlm") and \
-        cfg.attention_type == "gqa"
+    axis: every family but the two recurrent ones (``dense``, ``moe`` and
+    ``vlm`` with GQA or MLA attention, and the ``encdec``).  The Mamba2
+    hybrid and RWKV6 keep every leaf whole (ROADMAP Queue 1, item 2)."""
+    return cfg.family not in ("hybrid", "ssm")
 
 
 def binds_model(s: ParamSpec, rules: ShardingRules, mesh) -> bool:
@@ -272,15 +274,24 @@ def binds_model(s: ParamSpec, rules: ShardingRules, mesh) -> bool:
                        for a in _flatten_mesh_axes(e))
 
 
+# MLA's leaves that every rank computes whole on the entered input, for its
+# own heads only (``q_lora`` / ``kv_lora``, never bound)
+_MLA_LATENT = ("wq_a", "q_norm", "wkv_a", "kv_norm")
+
+
 def _leaf_role(key: str, s: ParamSpec, specs: dict, rules, mesh,
                seq_parallel: bool) -> str:
     name = key.rsplit("/", 2)
     parent, leaf = (name[-2], name[-1]) if len(name) > 1 else ("", key)
-    if parent == "attn":
-        heads = binds_model(specs[key.rsplit("/", 1)[0] + "/wq"], rules,
-                            mesh)
-        if leaf in ("wq", "wo"):
+    if parent in ("attn", "cross"):
+        block = key.rsplit("/", 1)[0]
+        mla = f"{block}/wq_b" in specs
+        heads = binds_model(specs[f"{block}/{'wq_b' if mla else 'wq'}"],
+                            rules, mesh)
+        if leaf in ("wq", "wo", "wq_b", "wkv_b"):
             return "split" if heads else "whole"
+        if leaf in _MLA_LATENT:
+            return "partial" if heads else "whole"
         if binds_model(s, rules, mesh):
             return "split"
         # the reference's kv_heads fallback: each rank projects the KV
@@ -296,7 +307,7 @@ def _leaf_role(key: str, s: ParamSpec, specs: dict, rules, mesh,
     if parent in ("mlp", "embed") or (parent == "shared"
                                       and key.split("/")[-3] == "moe"):
         return "split" if binds_model(s, rules, mesh) else "whole"
-    if parent in ("ln1", "ln2", "final_norm"):
+    if parent in ("ln1", "ln2", "ln_cross", "final_norm"):
         # under sequence parallelism a norm sees this rank's rows only
         return "partial" if seq_parallel else "whole"
     return "whole"
@@ -313,7 +324,9 @@ def tp_roles(cfg, rules: ShardingRules, mesh,
       dimensions; the rank computes with its piece (gathered over the
       other axes only), and its gradient is already that piece's (the
       MoE's expert stacks on their ``experts`` or, where those do not
-      divide, their ``mlp`` dimension; its shared experts as an MLP);
+      divide, their ``mlp`` dimension; its shared experts as an MLP; MLA's
+      ``wq_b``, ``wkv_b`` and ``wo`` on their heads; a cross-attention's
+      leaves as a self-attention's);
     * ``"whole"``: gathered whole and computed whole, as without tensor
       parallelism; its gradient is the same on every "model" rank, which
       keeps its chunk locally (the MoE router, even where its ``experts``
@@ -323,9 +336,12 @@ def tp_roles(cfg, rules: ShardingRules, mesh,
       :func:`tp_covers` does not cover, and every leaf without a live
       "model" axis);
     * ``"partial"``: replicated over "model", but each rank uses part of
-      it (``wk`` / ``wv`` under the ``kv_heads`` fallback) or sees part of
-      the rows (a norm's scale and bias under sequence parallelism); its
-      gradient is summed over "model" before the data-parallel mean."""
+      it (``wk`` / ``wv`` under the ``kv_heads`` fallback), computes it
+      whole for its own heads only (MLA's ``wq_a``, ``q_norm``, ``wkv_a``
+      and ``kv_norm`` where the heads split) or sees part of the rows (a
+      norm's scale and bias under sequence parallelism, ``ln_cross`` and
+      an encoder's included); its gradient is summed over "model" before
+      the data-parallel mean."""
     from repro_torch.models.transformer import model_specs
     specs = flatten(model_specs(cfg))
     if not (tp_covers(cfg) and comm.axis_sizes(mesh).get("model", 1) > 1):
@@ -369,23 +385,28 @@ def cache_shardings(cfg, rules: ShardingRules, mesh, batch: int,
                                cache_rules(cfg, rules), mesh)
 
 
-def kv_cache_layout(cfg, rules: ShardingRules, mesh, max_len: int) -> str:
+def kv_cache_layout(cfg, rules: ShardingRules, mesh, max_len: int,
+                    cross: bool = False) -> str:
     """How a decoder's attention cache of ``max_len`` lies over "model":
     ``"heads"`` where its ``kv_heads`` take "model" (each rank projects
     and caches its own KV heads: the reference's in-place ``"dus"`` write),
     ``"seq"`` where its ``cache_seq`` does (a rank holds ``1 / tp`` of the
-    slots of every KV head: the reference's ``"onehot"`` write, which only
+    slots of every KV head, or of MLA's latent ``ckv`` and ``krope``, which
+    have no head dimension: the reference's ``"onehot"`` write, which only
     the rank holding the slot makes), ``"whole"`` where neither does (no
     live "model" axis, a family :func:`tp_covers` does not cover, or
-    dimensions that do not divide)."""
+    dimensions that do not divide).  ``cross``: an encoder-decoder's
+    cross K/V cache in place of its self cache (its ``cache_seq`` is the
+    source frames)."""
     if comm.axis_sizes(mesh).get("model", 1) == 1 or not tp_covers(cfg):
         return "whole"
     from repro_torch.models.transformer import cache_specs
     kv = next(s for k, s in flatten(cache_specs(cfg, 1, max_len)).items()
-              if k.endswith("/k"))
+              if k.endswith(("/k", "/ckv"))
+              and k.startswith("cross/") == cross)
     spec = logical_to_pspec(kv.axes, kv.shape, rules, mesh)
-    for i, name in ((kv.axes.index("kv_heads"), "heads"),
-                    (kv.axes.index("cache_seq"), "seq")):
+    for logical, name in (("kv_heads", "heads"), ("cache_seq", "seq")):
+        i = kv.axes.index(logical) if logical in kv.axes else len(spec)
         if i < len(spec) and "model" in _flatten_mesh_axes(spec[i]):
             return name
     return "whole"
@@ -397,7 +418,8 @@ class TensorParallel:
     ``rank``; ``sp``: the residual stream between blocks holds this rank's
     ``S / size`` rows of the sequence (train mode only); ``cache``: how
     the KV cache a prefill or decode pass writes lies over "model"
-    (:func:`kv_cache_layout`; None in train mode).
+    (:func:`kv_cache_layout`; None in train mode), ``cross`` how an
+    encoder-decoder's cross K/V cache does.
 
     A block's sublayer runs between :meth:`enter` and :meth:`leave`: a
     split one (its leaves bind "model") on this rank's heads or columns,
@@ -410,6 +432,7 @@ class TensorParallel:
     rank: int
     sp: bool
     cache: Optional[str] = None
+    cross: Optional[str] = None
 
     def split_dim(self, s: ParamSpec) -> Optional[int]:
         """The dimension of ``s`` bound to "model" (None: none is)."""
@@ -564,20 +587,30 @@ class PartitionConstraints:
         tp = self.model_size
         return self.seq_parallel and tp > 1 and s % tp == 0
 
-    def tensor_parallel(self, cfg, s: int,
-                        mode: str = "train") -> Optional[TensorParallel]:
-        """A pass's layout over ``s`` tokens in ``mode``; None where the
-        model computes whole (no live "model" axis, or a family
-        :func:`tp_covers` does not cover).  Sequence parallelism on such a
-        family raises; a prefill or decode pass runs without it, its cache
-        laid out by :func:`kv_cache_layout` (which needs ``max_len``)."""
+    def sp_pass(self, cfg, s: int, s_src: Optional[int] = None) -> bool:
+        """Whether a train pass over ``s`` tokens runs sequence-parallel
+        (:meth:`sp_for`); an encoder-decoder's only where its ``s_src``
+        source frames divide too, so one layout holds for the whole pass
+        (its encoder's rows and its decoder's)."""
+        return self.sp_for(s) and (cfg.family != "encdec" or s_src is None
+                                   or self.sp_for(s_src))
+
+    def tensor_parallel(self, cfg, s: int, mode: str = "train",
+                        s_src: Optional[int] = None
+                        ) -> Optional[TensorParallel]:
+        """A pass's layout over ``s`` tokens (an encoder-decoder's over
+        ``s_src`` source frames besides: :meth:`sp_pass`) in ``mode``;
+        None where the model computes whole (no live "model" axis, or a
+        family :func:`tp_covers` does not cover).  Sequence parallelism on
+        such a family raises; a prefill or decode pass runs without it, its
+        cache laid out by :func:`kv_cache_layout` (which needs
+        ``max_len``)."""
         if self.seq_parallel and not tp_covers(cfg):
             raise NotImplementedError(
-                f"seq_parallel for family {cfg.family!r} with "
-                f"{cfg.attention_type} attention: {UNPORTED}")
+                f"seq_parallel for family {cfg.family!r}: {UNPORTED}")
         if self.model_size == 1 or not tp_covers(cfg):
             return None
-        cache = None
+        cache = cross = None
         if mode != "train":
             if self.max_len is None:
                 raise ValueError("a prefill or decode pass on a live "
@@ -585,9 +618,13 @@ class PartitionConstraints:
                                  "cache's global length")
             cache = kv_cache_layout(cfg, self.rules, self.mesh,
                                     self.max_len)
+            if cfg.family == "encdec":
+                cross = kv_cache_layout(cfg, self.rules, self.mesh,
+                                        self.max_len, cross=True)
         return TensorParallel(self.mesh, self.rules, self.model_size,
                               comm.coordinate(self.mesh)["model"],
-                              mode == "train" and self.sp_for(s), cache)
+                              mode == "train" and self.sp_pass(cfg, s, s_src),
+                              cache, cross)
 
     @property
     def dp_axes(self) -> tuple:

@@ -304,8 +304,10 @@ def make_grads_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, *,
                 f"this rank's {rows} rows do not split into {nm} "
                 f"microbatches: the global batch over the data-parallel "
                 f"ranks must be a multiple of num_microbatches")
-        roles = tp_roles(model_cfg, pc.rules, mesh, pc.sp_for(
-            batch["tokens"].shape[1]))
+        src = batch.get("src_frames")
+        roles = tp_roles(model_cfg, pc.rules, mesh, pc.sp_pass(
+            model_cfg, batch["tokens"].shape[1],
+            None if src is None else src.shape[1]))
         grads, metrics = _grads_and_metrics(
             params, batch, model_cfg, train_cfg, pc.with_pieces(psh, roles),
             reduce)

@@ -153,8 +153,10 @@ def test_constraints_are_the_identity_and_sequence_parallelism_raises():
     """Without sequence parallelism the activation constraints are the
     identity; with it a pass runs sequence-parallel only where the
     sequence divides by the "model" size (the reference's ``tokens``
-    fallback), and only for the families tensor-parallel compute covers
-    (the VLM's among them): the others raise."""
+    fallback; an encoder-decoder's only where its source frames divide
+    too), and only for the families tensor-parallel compute covers (the
+    VLM, MLA and the encoder-decoder among them): the recurrent ones
+    raise."""
     pc = tsh.PartitionConstraints(tsh.TRAIN_RULES, {"data": 2, "model": 2})
     x = torch.zeros(2, 4, 8)
     assert pc.tokens(x) is x and pc.act(x, "batch", None, None) is x
@@ -171,12 +173,15 @@ def test_constraints_are_the_identity_and_sequence_parallelism_raises():
                                    seq_parallel=True)
     assert not one.sp_for(4) and one.tokens(x) is x
     assert one.tensor_parallel(get_config("granite-3-8b"), 4) is None
-    for arch in ("zamba2-7b", "deepseek-v2-236b", "rwkv6-1.6b",
-                 "seamless-m4t-large-v2"):
+    for arch in ("zamba2-7b", "rwkv6-1.6b"):
         with pytest.raises(NotImplementedError, match="Queue 1"):
             sp.tensor_parallel(get_config(arch), 4)
-    # the VLM's text stack is covered
-    assert tsh.tp_covers(get_config("qwen2-vl-7b"))
+    # the VLM's text stack, MLA and the encoder-decoder are covered
+    for arch in ("qwen2-vl-7b", "deepseek-v2-236b", "seamless-m4t-large-v2"):
+        assert tsh.tp_covers(get_config(arch))
+    enc = get_config("seamless-m4t-large-v2")
+    assert sp.sp_pass(enc, 4, 8) and not sp.sp_pass(enc, 4, 3)
+    assert sp.sp_pass(get_config("deepseek-v2-236b"), 4, 3)
     assert tsh.NullConstraints().mesh is None
 
 

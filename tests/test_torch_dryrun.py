@@ -305,9 +305,9 @@ def test_dry_run_records_pass_the_reference_schema(records, mesh, arch):
         assert r["fits_80gb"] or r["fits_note"]
         assert r["hlo_analysis"]["per_device"]["collective_operand_bytes"] \
             > 0        # the data-parallel exchange, the params' gathers
-        # tensor-parallel compute: the dense and GQA-MoE families shard
-        # under "model" (the smoke configs' MLP and vocabulary split 16
-        # ways), the others compute every leaf whole
+        # tensor-parallel compute: the attention families shard under
+        # "model" (the smoke configs' MLP and vocabulary split 16 ways),
+        # the recurrent ones (hybrid, RWKV6) compute every leaf whole
         covered = tsh.tp_covers(get_config(arch))
         if SHAPES[shape].kind == "train":
             assert r["tp_compute"] == ("sharded" if covered else "whole"), \
@@ -318,6 +318,7 @@ def test_dry_run_records_pass_the_reference_schema(records, mesh, arch):
         # serving: the cache layout, the rows, the reference's decode
         # write; the smoke configs' KV heads (one, or 4 for the others)
         # never divide 16, so a covered family's cache splits its slots
+        # (MLA's latent has no head dimension to split)
         serve = r["serve"]
         assert serve["tp_compute"] == ("sharded" if covered else "whole")
         assert serve["cache_layout"] == ("seq" if covered else "whole")

@@ -25,8 +25,18 @@ cache's slice under the binding (``CACHE_TOL``).  The runs:
   every expert's hidden columns split;
 * qwen2-vl's smoke model with patches over tokens 1-8 and grid M-RoPE
   positions, continued in decode;
-* deepseek-v2 (MLA) and zamba2 (Mamba2 hybrid) on (1, 2): computed whole
-  on both "model" ranks, their caches whole over it.
+* deepseek-v2 (MLA, 4 heads, 2 a rank, its experts split) on (1, 2): its
+  latent cache (``ckv``, ``krope``; no head dimension) split by slot, 12 a
+  rank: the prompt of 11 fills rank 0's slots, decode writes position 11
+  there and 12-16 on rank 1; on (1, 4): 6 slots a rank, the prompt on
+  ranks 0-1, decode crossing from rank 1 to rank 2;
+* seamless (the enc-dec, 32 source frames) on (1, 2): its self and cross
+  caches split over its 4 KV heads (layout ``"heads"``); and with
+  ``kv_heads`` unbound (``SERVE_RULES.with_overrides(kv_heads=None)``):
+  both caches split by slot, the cross K/V by source frame (decode merges
+  each rank's partials over its frames);
+* zamba2 (Mamba2 hybrid) on (1, 2): computed whole on both "model" ranks,
+  its cache whole over it.
 
 Besides: the (1, 4) dense run against the reference's own decode bundle
 (``repro.launch.steps.build_decode_bundle``, its ``"onehot"`` write),
@@ -76,13 +86,14 @@ M14 = (("data", "model"), (1, 4))
 M22 = (("data", "model"), (2, 2))
 M21 = (("data", "model"), (2, 1))
 # the served batches: (model, cfg overrides, rows, prompt length, max_len,
-# decode steps, VLM extras)
+# decode steps, VLM extras); an encoder-decoder's get source frames
 REFS = {
     "dense": ("lms-demo", FP32, 4, 12, 24, 6, False),
     "dense1": ("lms-demo", FP32, 1, 12, 24, 6, False),
     "mix": ("mixtral-8x7b", FP32, 4, 20, 32, 6, False),
     "vlm": ("qwen2-vl-7b", FP32, 4, 16, 24, 5, True),
-    "mla": ("deepseek-v2-236b", FP32, 4, 12, 24, 5, False),
+    "mla": ("deepseek-v2-236b", FP32, 4, 11, 24, 6, False),
+    "encdec": ("seamless-m4t-large-v2", FP32, 4, 12, 24, 5, False),
     "hybrid": ("zamba2-7b", FP32, 4, 12, 24, 5, False),
 }
 # name: (batch, mesh, rule overrides, layout, mutation)
@@ -94,7 +105,10 @@ RUNS = {
     "mix-m12": ("mix", M12, {}, "seq", None),
     "mix-hidden-m12": ("mix", M12, {"experts": None}, "seq", None),
     "vlm-m12": ("vlm", M12, {}, "seq", None),
-    "mla-m12": ("mla", M12, {}, "whole", None),
+    "mla-m12": ("mla", M12, {}, "seq", None),
+    "mla-m14": ("mla", M14, {}, "seq", None),
+    "encdec-m12": ("encdec", M12, {}, "heads", None),
+    "encdec-kv-m12": ("encdec", M12, {"kv_heads": None}, "seq", None),
     "hybrid-m12": ("hybrid", M12, {}, "whole", None),
     "dense-m14-no-merge": ("dense", M14, {}, "seq", "no_merge"),
 }
@@ -112,6 +126,9 @@ def _inputs(tc, ref, seed) -> dict:
     _, _, b, s, _, n, vlm = REFS[ref]
     rng = np.random.default_rng(seed)
     out = {"tokens": rng.integers(1, tc.vocab_size, (b, s)).astype(np.int32)}
+    if tc.family == "encdec":
+        out["src_frames"] = rng.standard_normal(
+            (b, tc.encdec_source_len, tc.d_model)).astype(np.float32)
     if vlm:
         text = s - 1 - tc.vlm_num_patches
         out["patches"] = (0.5 * rng.standard_normal(
@@ -136,8 +153,8 @@ def _greedy_reference(jc, pn, inputs, max_len, steps):
     the final cache (flat)."""
     prefill, decode = (jax.jit(f) for f in jmake_serve_fns(jc))
     b, s = inputs["tokens"].shape
-    extras = {k: jnp.asarray(inputs[k]) for k in ("patches", "mrope_pos")
-              if k in inputs}
+    extras = {k: jnp.asarray(inputs[k])
+              for k in ("patches", "mrope_pos", "src_frames") if k in inputs}
     params = jax.tree.map(jnp.asarray, pn)
     cache = jinit_cache(jc, b, max_len, dtype=jnp.float32)
     last, cache = prefill(params, jnp.asarray(inputs["tokens"]), cache,
@@ -159,8 +176,8 @@ def _one_device(tc, pn, inputs, max_len, fed):
     prefill, decode = make_serve_fns(tc)
     toks = torch.from_numpy(inputs["tokens"]).long()
     b, s = toks.shape
-    extras = {k: torch.from_numpy(inputs[k]) for k in ("patches",)
-              if k in inputs}
+    extras = {k: torch.from_numpy(inputs[k])
+              for k in ("patches", "src_frames") if k in inputs}
     if "mrope_pos" in inputs:
         extras["mrope_pos"] = torch.from_numpy(inputs["mrope_pos"]).long()
     cache = init_cache(tc, b, max_len, dtype=torch.float32, device="cpu")
@@ -173,7 +190,7 @@ def _one_device(tc, pn, inputs, max_len, fed):
                                  torch.from_numpy(fed[:, i:i + 1]).long(),
                                  s + i, ex or None)
             logits.append(last.numpy().copy())
-    return np.stack(logits), {k: v.numpy().copy()
+    return np.stack(logits), {k: v.float().numpy().copy()
                               for k, v in flatten(cache).items()}
 
 
@@ -311,12 +328,18 @@ def test_cache_pieces_are_the_one_device_slices(world, name):
             piece = cache[k][sh.slices(coord)]
             assert np.allclose(got, piece, rtol=CACHE_TOL,
                                atol=CACHE_TOL), k
+    n = shape[names.index("model")]
     if layout == "seq":
-        n = shape[names.index("model")]
-        k = next(k for k in shards if k.endswith("/k"))
-        # (layers, B, slots, KV, D): the slots split over "model"
+        k = next(k for k in shards if k.endswith(("/k", "/ckv")))
+        # (layers, B, slots, ...): the slots split over "model"
         assert shards[k].dim_axes(2) == ("model",)
         assert shards[k].local_shape()[2] * n == shards[k].shape[2]
+    if tc.family == "encdec":
+        # the cross K/V (layers, B, frames, KV, D) lie as the self cache
+        cross = shards["cross/k"]
+        dim = 3 if layout == "heads" else 2
+        assert cross.dim_axes(dim) == ("model",)
+        assert cross.local_shape()[dim] * n == cross.shape[dim]
 
 
 def test_dense_rows_and_ranks_cover_the_batch(world):
@@ -400,14 +423,21 @@ def _reference_update(cfg, mesh) -> str:
 def test_cache_layouts_follow_the_reference_policy(arch):
     """On both production meshes: where the reference writes in place
     ("dus") a covered family's cache splits its KV heads; where it writes
-    one-hot ("onehot") the cache's slots take "model"; the families
-    tensor-parallel compute does not cover keep their caches whole over
-    "model"; the rows of decode_32k (128) split 8 a rank, long_500k's one
-    row is replicated."""
+    one-hot ("onehot") the cache's slots take "model" (deepseek's latent,
+    which has no head dimension, included; seamless's 16 KV heads split);
+    the families tensor-parallel compute does not cover (the recurrent
+    hybrid and RWKV6) keep their caches whole over "model"; the rows of
+    decode_32k (128) split 8 a rank, long_500k's one row is
+    replicated."""
     cfg = get_config(arch)
     for mesh in ({"data": 16, "model": 16},
                  {"pod": 2, "data": 16, "model": 16}):
         layout = tsh.kv_cache_layout(cfg, tsh.SERVE_RULES, mesh, 32768)
+        assert tsh.tp_covers(cfg) == (cfg.family not in ("hybrid", "ssm"))
+        if arch == "deepseek-v2-236b":
+            assert layout == "seq"
+        if arch == "seamless-m4t-large-v2":
+            assert layout == "heads"
         if not tsh.tp_covers(cfg):
             assert layout == "whole"
             for s in flatten(tsh.cache_shardings(

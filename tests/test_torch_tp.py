@@ -2,13 +2,16 @@
 JAX package, over gloo ranks on the CPU.
 
 * ``tp_roles`` (``repro_torch.parallel.sharding``) for every shipped
-  config on (16, 16) and (2, 16, 16): a leaf of a covered family (dense,
-  GQA MoE, VLM) is ``"split"`` exactly where the reference's
+  config on (16, 16) and (2, 16, 16): a leaf of a covered family (every
+  family with attention blocks: dense, MoE and VLM with GQA or MLA, the
+  enc-dec) is ``"split"`` exactly where the reference's
   ``logical_to_pspec`` binds "model", the MoE router excepted (always
   ``"whole"``); granite's ``wk`` / ``wv`` are
   ``"partial"`` (8 KV heads on 16), yi's ``wq`` / ``wo`` ``"whole"`` (56
   heads on 16), norms ``"partial"`` only under sequence parallelism, and
-  every leaf of the other families ``"whole"``.
+  every leaf of the recurrent families (the Mamba2 hybrid, RWKV6)
+  ``"whole"``.  MLA and the enc-dec under a mesh are in
+  ``test_torch_tp_mla_encdec.py``.
 * Two ranks (``torch_dist_ranks``, case ``tp``): the four region
   operations' outputs and gradients against their definitions (exact:
   sums of two fp32 terms), and on meta operands their shapes; the
@@ -236,7 +239,8 @@ def test_tp_roles_agree_with_the_reference_binding(mesh):
                     assert binds, (arch, k)
                 else:
                     assert not binds, (arch, k, role)
-                if k.split("/")[-2] in ("ln1", "ln2", "final_norm") and \
+                if k.split("/")[-2] in ("ln1", "ln2", "ln_cross",
+                                        "final_norm") and \
                         tsh.tp_covers(cfg):
                     assert role == ("partial" if sp else "whole"), (arch, k)
 

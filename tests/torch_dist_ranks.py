@@ -314,13 +314,62 @@ class _NoGateSum:
 
 
 @contextlib.contextmanager
+def _patched(module, name: str, value):
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def _no_partial_sum(leaf: str):
+    """``Pieces.gather`` treating the ``"partial"`` leaves named ``leaf``
+    as ``"whole"``: their gradients are cut to this rank's chunk without
+    the sum over "model"."""
+    import dataclasses as dc
+    from repro_torch.parallel.sharding import Pieces
+    gather = Pieces.gather
+
+    def mutant(plan, tree, prefix, stacked=0):
+        roles = {k: "whole" if k.endswith(f"/{leaf}") and r == "partial"
+                 else r for k, r in plan.roles.items()}
+        return gather(dc.replace(plan, roles=roles), tree, prefix, stacked)
+    return _patched(Pieces, "gather", mutant)
+
+
+def _no_offset(total: int):
+    """``transformer._row_positions`` giving a sequence-parallel rank the
+    first rows' positions of a sequence of ``total`` (the encoder's frames
+    or the decoder's tokens, by their length)."""
+    from repro_torch.models import transformer
+    rows_of = transformer._row_positions
+
+    def mutant(positions, rows, tp):
+        if positions.shape[-1] == total:
+            return positions[..., :rows]
+        return rows_of(positions, rows, tp)
+    return _patched(transformer, "_row_positions", mutant)
+
+
+@contextlib.contextmanager
 def _mutated(kind):
     """The step with a planted fault (``"gate_sum"``: :class:`_NoGateSum`;
     ``"no_merge"``: decode over a cache split by its slots merges no
-    partials, so each rank attends to its own slots only), or as it is
-    (None)."""
+    partials, so each rank attends to its own slots only;
+    ``"no_partial_sum:<leaf>"``: the gradient of the ``"partial"`` leaves
+    named ``<leaf>`` not summed over "model"; ``"no_offset:<S>"``: the
+    sinusoidal positions of a sequence of S not offset to a
+    sequence-parallel rank's rows), or as it is (None)."""
     if kind is None:
         yield
+        return
+    if ":" in kind:
+        what, arg = kind.split(":")
+        mutant = {"no_partial_sum": lambda: _no_partial_sum(arg),
+                  "no_offset": lambda: _no_offset(int(arg))}[what]()
+        with mutant:
+            yield
         return
     if kind == "no_merge":
         from repro_torch.models import attention
@@ -669,7 +718,8 @@ def case_serve(rank: int, workdir: str, opts: dict) -> dict:
     ``<ref>_params.npz``) and its rows of the same prompts
     (``<ref>_inputs.npz``: ``tokens`` (B, S), the teacher-forced decode
     tokens ``steps`` (B, n), a VLM's ``patches``, ``mrope_pos`` and decode
-    positions ``dec_mrope`` (B, n, 3)): one prefill and n decode steps.
+    positions ``dec_mrope`` (B, n, 3), an encoder-decoder's
+    ``src_frames``): one prefill and n decode steps.
     Writes each step's last logits gathered over "model" (this rank's
     rows), the rows it held, its coordinate and its cache piece."""
     import torch
@@ -700,7 +750,8 @@ def case_serve(rank: int, workdir: str, opts: dict) -> dict:
                 take[k] = take[k].long()
         cache = init_cache_piece(cfg, pc, dtype=torch.float32, device="cpu")
         prefill, decode = make_serve_fns(cfg, pc=pc)
-        extras = {k: take[k] for k in ("patches", "mrope_pos") if k in take}
+        extras = {k: take[k] for k in ("patches", "mrope_pos", "src_frames")
+                  if k in take}
         logits = []
         with _mutated(run.get("mutate")):
             last, cache = prefill(params, take["tokens"], cache, extras)
@@ -711,7 +762,7 @@ def case_serve(rank: int, workdir: str, opts: dict) -> dict:
                 last, cache = decode(params, cache,
                                      take["steps"][:, i:i + 1], s + i, ex)
                 logits.append(gather_logits(cfg, last, pc))
-        out[f"{name}/logits"] = torch.stack(logits).numpy()
+        out[f"{name}/logits"] = torch.stack(logits).float().numpy()
         out[f"{name}/rows"] = rows.numpy()
         out[f"{name}/coord"] = _coord(mesh)
         out.update({f"{name}/c/{k}": v for k, v in _flat(cache).items()})

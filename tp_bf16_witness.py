@@ -11,8 +11,9 @@ Four runs on the same params and batches:
 * ``bf16``: the one-device step in the config's bf16, through the kernels;
 * ``bf16-plain``: the same with the plain versions swapped in (another
   rounding of the same function on one device);
-* ``bf16-tp``: ``chip_smoke.py``'s ``qwen2-vl-bf16`` world, two processes
-  sharing the card over gloo with sequence parallelism (rank 0's row);
+* ``bf16-tp``: ``chip_smoke.py``'s ``qwen2-vl-bf16`` run, in a world of
+  its own of two processes sharing the card over gloo with sequence
+  parallelism (rank 0's row);
 * ``bf16-split``: the one-device bf16 step with a perturbation of the
   world's kind (:class:`SplitRowParallel`): each row-parallel product
   (attention's ``wo``, the MLP's ``w_down``) computed as two half-K
@@ -171,8 +172,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     cs.SEED = SEEDS[0]
     t0 = time.monotonic()
-    ranks = cs.tp_world(CASE, 0, "cuda", grads={
-        k: runs[f"{k}@0"]["grads"] for k in ("bf16", "fp32")})
+    (ranks,) = cs.tp_world([(CASE, 0)], "cuda", grads={CASE: {
+        k: runs[f"{k}@0"]["grads"] for k in ("bf16", "fp32")}})
     runs["bf16-tp@0"] = {"metrics": ranks[0]["metrics"]}
     pairs = {"bf16-tp vs bf16": ("bf16-tp@0", "bf16@0"),
              "bf16-plain vs bf16": ("bf16-plain@0", "bf16@0"),
