@@ -42,9 +42,19 @@ JAX package.  Phases, each reported on its own lines:
               4096) and its rows of the sequence under sequence
               parallelism (4096, 4096), bf16 (granite) and fp32
               (mixtral), and qwen2-vl's rows under sequence parallelism
-              (4096, 3584), fp32; then flash and the RMSNorm forward at a
-              rank's shapes of each phase 6 (f) world (its rows, its query
-              heads and the KV heads they read), bf16.
+              (4096, 3584), fp32; zamba2's world: the gated norm's
+              statistic-from-outside kernels (a rank's 3584 of 7168
+              columns, the other half's sums added through ``reduce``)
+              forward and backward against the plain norm of whole rows,
+              at (8192, 3584) fp32 and (16384, 3584) bf16, with
+              ``F.rms_norm`` on the same rows beside them (no library
+              call takes an outside statistic), and the SSD scan and its
+              backward at 56 heads, fp32 (4, 2048) and bf16 (8, 2048);
+              then flash (none for RWKV6), the SSD scan (zamba2, 56
+              heads) and the RMSNorm forward at a rank's shapes of each
+              phase 6 (f) world (its rows, its query heads and the KV
+              heads they read; zamba2's statistic mode at its prefill
+              rows and a decode batch), bf16.
 3. serve   -- nine models at full width, random weights from a seed,
               bf16, one after the other (each freed before the next), seven
               served by ServingEngine(max_batch=8): granite-3-8b (40 layers),
@@ -237,7 +247,14 @@ JAX package.  Phases, each reported on its own lines:
               heads, the experts, the dense and shared MLPs split;
               seamless-m4t-large-v2 (4 + 4 layers, fp32, AdamW, the stub
               frames) with ``seq_parallel`` over its tokens and frames;
-              then FSDP:
+              zamba2-7b (13 of 81 layers: 2 groups and a trailing layer,
+              fp32, AdamW) with ``seq_parallel``: 56 SSM heads a rank
+              from its ``[z_r | x_r | BC_r | dt_r]`` piece of in_proj, B
+              and C gathered, the gated norm through the
+              statistic-from-outside kernels, the shared blocks' heads
+              and MLP columns split; rwkv6-1.6b (24 layers, fp32, AdamW)
+              with ``seq_parallel``: 16 heads a rank, the channel mix's
+              columns split; then FSDP:
               granite-3-8b (2 of its 40 layers, its own bf16, AdamW) on a
               (2, 1) mesh, 2 rows a rank in 2 microbatches, each layer
               gathered over "data" in its call and its gradient
@@ -271,9 +288,13 @@ JAX package.  Phases, each reported on its own lines:
               deepseek-v2-236b (4 of 60 layers, MLA's heads and the
               experts split, its latent cache split by slot, 920 of 1840
               a rank), seamless-m4t-large-v2 (24 + 24 layers, its self and
-              cross caches split over the KV heads) on (1, 2), granite (8
-              layers) on (2, 1) (rows only, the params whole on each
-              rank).  Each rank makes its pieces one leaf at a time (two
+              cross caches split over the KV heads), zamba2-7b (13 of 81
+              layers: 56 SSM heads a rank, its conv cache as its parts'
+              chunks, its SSM state and its shared blocks' 16 KV heads a
+              rank), rwkv6-1.6b (8 of 24 layers: 16 heads a rank, its WKV
+              state split by heads, its token shifts whole) on (1, 2),
+              granite (8 layers) on (2, 1) (rows only, the params whole
+              on each rank).  Each rank makes its pieces one leaf at a time (two
               ranks share the card).  Every
               position's logits within MODEL_TOL of the one-device ones
               (relative to the largest), the greedy tokens that agree
@@ -302,12 +323,14 @@ JAX package.  Phases, each reported on its own lines:
    paths driven -- the nine served models, train granite, zamba2,
    mixtral, deepseek, qwen2-vl, rwkv6 and seamless, the train CLI and the
    serve CLI on lms-demo, the dist phase's granite steps, pipeline stage,
-   mixtral a2a run, the nine tensor-parallel and FSDP runs and the seven
+   mixtral a2a run, the eleven tensor-parallel and FSDP runs and the nine
    serving worlds (their ranks' launches summed) -- its numbers at
    one path's shapes (zamba2's prefill for flash, SSD and the forward
    RMSNorm; granite's training shape for the RMSNorm backward, zamba2's
-   for the SSD backward), and per path its launches and the rows it was
-   timed at), then the last line ``{"ok": true, "device": {...}}``.
+   for the SSD backward; a rank's rows of zamba2's TP world for the
+   statistic-from-outside mode), and per path its launches and the rows
+   it was timed at), then the last line ``{"ok": true, "device":
+   {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no last line.
 """
@@ -374,8 +397,8 @@ from repro_torch.models.transformer import (  # noqa: E402
 from repro_torch.parallel import comm  # noqa: E402
 from repro_torch.parallel.pipeline import pipeline_apply  # noqa: E402
 from repro_torch.parallel.sharding import (  # noqa: E402
-    TRAIN_RULES, PartitionConstraints, shard_leaf, shard_tree,
-    shardings_for_specs)
+    TRAIN_RULES, PartitionConstraints, binds_model, recurrent_splits,
+    shard_leaf, shard_tree, shardings_for_specs)
 from repro_torch.serve.engine import (  # noqa: E402
     ServingEngine, make_serve_fns)
 from repro_torch.train.compression import (  # noqa: E402
@@ -400,6 +423,11 @@ TOL = {"flash_attention": {torch.bfloat16: 2e-2, torch.float32: 2e-5},
        # dscale: an fp32 sum over the rows in the kernel and the plain
        # version alike, whatever x's dtype, so fp32's tolerance in both
        "rmsnorm_dscale": {torch.bfloat16: 1e-5, torch.float32: 1e-5},
+       # the statistic from outside: the same fp32 arithmetic as the fused
+       # kernels' (two partial sums added where theirs is one)
+       "rmsnorm_split": {torch.bfloat16: 2e-2, torch.float32: 1e-5},
+       "rmsnorm_split_backward": {torch.bfloat16: 2e-2,
+                                  torch.float32: 1e-5},
        "ssd_scan": {torch.bfloat16: 2e-2, torch.float32: 2e-3},
        # dx, da, db, dc, d_init: fp32 sums in the kernel and the plain
        # version alike, from the same (bf16) inputs (the bf16 kernel's
@@ -430,6 +458,12 @@ SOURCES = {
     # the gradient of the same Pallas kernel, which has none of its own
     "rmsnorm_backward": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                          "src/repro/kernels/rmsnorm.py:21"),
+    # the same Pallas kernel on a row split over "model", its statistic
+    # summed over the ranks (Mamba2's gated norm under tensor parallelism)
+    "rmsnorm_split": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                      "src/repro/kernels/rmsnorm.py:21"),
+    "rmsnorm_split_backward": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                               "src/repro/kernels/rmsnorm.py:21"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd.cu",
                  "src/repro/kernels/ssd.py:26"),
     # the gradient of the SSD Pallas kernel, which has none of its own
@@ -439,6 +473,8 @@ SOURCES = {
 # kernel entry points in csrc/, as ptxas names their instances
 KERNEL_NAMES = ("flash_wgmma_kernel", "flash_f32_kernel", "rmsnorm_kernel",
                 "rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel",
+                "rmsnorm_rowsum_kernel", "rmsnorm_apply_kernel",
+                "rmsnorm_apply_bwd_kernel",
                 "ssd_wgmma_kernel", "ssd_f32_kernel", "ssd_bwd_states_kernel",
                 "ssd_bwd_wgmma_kernel", "ssd_bwd_kernel",
                 "ssd_bwd_group_sum_kernel")
@@ -1008,6 +1044,85 @@ def check_rmsnorm_bwd(gen, n, d, dtype, *, tag="", ld=None):
     return row
 
 
+def check_rmsnorm_split(gen, n, d, dtype, *, tag=""):
+    """The statistic-from-outside kernels, forward and backward, on rank
+    0's ``d`` columns of rows of ``2 * d`` (two "model" ranks): x read as
+    the first half of each row (a row stride of 2d), ``reduce`` adding the
+    other half's fp32 partial sums (the plain version's), against the
+    plain norm of the whole rows cut to those columns (forward: y; backward:
+    dx and dscale, dscale held as ``check_rmsnorm_bwd`` holds it).  Times
+    each with an identity ``reduce`` (the kernels alone) beside the plain
+    version's, with ``F.rms_norm`` on the same (n, d) rows as a yardstick
+    (no library call normalises by an outside statistic: ``library_ms``
+    null).  Returns the forward's and the backward's rows."""
+    full = torch.randn((n, 2 * d), generator=gen, device="cuda", dtype=dtype)
+    dy_full = torch.randn((n, 2 * d), generator=gen, device="cuda",
+                          dtype=dtype)
+    scale_full = 1.0 + 0.1 * torch.randn((2 * d,), generator=gen,
+                                         device="cuda")
+    eps = 1e-5
+    x, dy, scale = full[:, :d], dy_full[:, :d], scale_full[:d]
+    other = full[:, d:].float()
+    other_ss = other.square().sum(-1)
+    other_dot = (other * dy_full[:, d:].float() * scale_full[d:]).sum(-1)
+    y, ss = rms.rmsnorm_split(x, scale, width=2 * d,
+                              reduce=lambda t: t + other_ss, eps=eps)
+    want_y = ref.rmsnorm_ref(full, scale_full, eps=eps)[:, :d]
+    y_err = compare("rmsnorm_split", y, want_y, dtype)
+    dx, dscale = rms.rmsnorm_split_bwd(x, scale, dy, ss, width=2 * d,
+                                       reduce=lambda t: t + other_dot,
+                                       eps=eps)
+    want_dx, want_ds = ref.rmsnorm_bwd_ref(full, scale_full, dy_full,
+                                           eps=eps)
+    dx_err = compare("rmsnorm_split_backward", dx, want_dx[:, :d], dtype)
+    ds_mag = dscale_magnitude(full, dy_full, eps)[:d]
+    ds_err = compare("rmsnorm_dscale", dscale, want_ds[:d], dtype, ds_mag)
+    del want_y, want_dx, want_ds, other, ds_mag
+    same = ss.clone()
+
+    def ident(t):
+        return t
+    scale_x = scale.to(dtype)
+    xc = x.contiguous()
+    rows = []
+    for name, err, fns, costs, iters in (
+            ("rmsnorm_split", y_err, {
+                "kernel": lambda: rms.rmsnorm_split(
+                    x, scale, width=2 * d, reduce=ident, eps=eps),
+                "plain": lambda: ref.rmsnorm_split_ref(
+                    x, scale, width=2 * d, reduce=ident, eps=eps),
+                "yardstick": lambda: F.rms_norm(xc, (d,), scale_x, eps)},
+             rms.split_cost_estimate(x.shape, x.element_size()), 50),
+            ("rmsnorm_split_backward", max(dx_err, ds_err), {
+                "kernel": lambda: rms.rmsnorm_split_bwd(
+                    x, scale, dy, same, width=2 * d, reduce=ident, eps=eps),
+                "plain": lambda: ref.rmsnorm_split_bwd_ref(
+                    x, scale, dy, same, width=2 * d, reduce=ident,
+                    eps=eps)},
+             rms.split_bwd_cost_estimate(x.shape, x.element_size()), 20)):
+        ms = {k: time_ms(fn, iters=iters if k != "plain" else 5)
+              for k, fn in fns.items()}
+        dev = device_ms({"kernel": fns["kernel"]})
+        bound_ms, bound_by = bound(costs, torch.float32)
+        row = {"name": name, "shape": [n, d], "width": 2 * d,
+               "dtype": str(dtype).replace("torch.", ""),
+               "max_abs_err": err, "tol": TOL[name][dtype],
+               "ms": ms["kernel"], "device_ms": dev["kernel"][0],
+               "kernels_a_call": dev["kernel"][1], "plain_ms": ms["plain"],
+               "library_ms": None, "bound_ms": bound_ms,
+               "bound_by": bound_by,
+               "frac_of_bound": bound_ms / dev["kernel"][0],
+               "gbps": costs["bytes"] / dev["kernel"][0] / 1e6}
+        if "yardstick" in ms:
+            row["f_rms_norm_ms"] = ms["yardstick"]
+        if name == "rmsnorm_split_backward":
+            row.update({"dx_err": dx_err, "dscale_err": ds_err,
+                        "dscale_tol": TOL["rmsnorm_dscale"][dtype]})
+        log(f"kernel-check {tag}: {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
 def rmsnorm_vs_library(gen, plen: int, rounds: int = 11) -> list:
     """The bf16 rmsnorm kernel against ``F.rms_norm`` (weight in x's dtype)
     at the served shapes: prefill (granite, zamba2, zamba2's gated norm),
@@ -1217,22 +1332,68 @@ def kernel_checks(plen: int, lplen: int) -> dict:
             tag = path.replace(":", "-")
             tp[path] = {}
             for key, n, width, ld in norm_rows(ccfg, tp_rows(case, sp),
-                                               tp_rows(case, False)):
+                                               tp_rows(case, False),
+                                               case.mesh[1]):
+                if key == "rmsnorm_split":
+                    tp[path][key], tp[path][f"{key}_backward"] = \
+                        check_rmsnorm_split(gen, n, width, dt, tag=tag)
+                    continue
                 tp[path][key] = check_rmsnorm(gen, n, width, dt, ld=ld,
                                               tag=tag)
                 tp[path][f"{key}_backward"] = check_rmsnorm_bwd(
                     gen, n, width, dt, ld=ld, tag=tag)
+            if ccfg.family == "hybrid":
+                # the SSD kernels at a rank's heads: the world's own fp32
+                # rows, and bf16 at phase 4's training shape; the statistic
+                # from outside at phase 4's rows in bf16
+                heads = ccfg.ssm.num_heads(ccfg.d_model) // case.mesh[1]
+                b, l = case.shape.global_batch, case.shape.seq_len
+                tp[path]["ssd_scan"] = check_ssd(gen, b, l, heads, 1, dt,
+                                                 init=False, tag=tag)
+                tp[path]["ssd_scan_backward"] = check_ssd_bwd(
+                    gen, b, l, heads, 1, dt, tag=tag)
+                b, l = TRAIN_SHAPE.global_batch, TRAIN_SHAPE.seq_len
+                tp[path]["ssd_scan_bf16"] = check_ssd(
+                    gen, b, l, heads, 1, bf16, init=False, tag=tag)
+                tp[path]["ssd_scan_backward_bf16"] = check_ssd_bwd(
+                    gen, b, l, heads, 1, bf16, tag=tag)
+                (tp[path]["rmsnorm_split_bf16"],
+                 tp[path]["rmsnorm_split_backward_bf16"]) = \
+                    check_rmsnorm_split(
+                        gen, b * l, ccfg.ssm.d_inner(ccfg.d_model)
+                        // case.mesh[1], bf16, tag=tag)
     # phase 6 (f)'s rows: a rank's rows of the batch and its query heads
     for name, world in SERVE_WORLDS.items():
         (b, h, kv, s, d, dv), norms = serve_rank_rows(world)
         tag = f"dist-serve-{name}"
-        tp[f"dist:serve-{name}"] = {
-            "flash_attention": check_flash(
-                gen, b, h, kv, s, d, bf16, dv=dv, tag=tag,
-                window=get_config(world.model).sliding_window)}
-        for key, n, width, ld in norms:
-            tp[f"dist:serve-{name}"][key] = check_rmsnorm(
-                gen, n, width, bf16, ld=ld, tag=tag)
+        wcfg = serve_world_cfg(world)
+        dt = getattr(torch, wcfg.dtype)
+        path = f"dist:serve-{name}"
+        tp[path] = {}
+        # the world's own dtype, and for an fp32 hybrid world its rank
+        # shapes in bf16 too (a bf16 deployment's)
+        for sfx, kdt in (("", dt), ("_bf16", bf16)):
+            if sfx and (dt == bf16 or wcfg.family != "hybrid"):
+                continue
+            if wcfg.family != "ssm":          # RWKV6 runs no attention
+                tp[path]["flash_attention" + sfx] = check_flash(
+                    gen, b, h, kv, s, d, kdt, dv=dv, tag=tag,
+                    window=wcfg.sliding_window)
+            if wcfg.family == "hybrid":
+                tp[path]["ssd_scan" + sfx] = check_ssd(
+                    gen, b, s,
+                    wcfg.ssm.num_heads(wcfg.d_model) // world.mesh[1], 1,
+                    kdt, tag=tag)
+            for key, n, width, ld in norms:
+                if key != "rmsnorm_split":
+                    tp[path][key + sfx] = check_rmsnorm(gen, n, width, kdt,
+                                                        ld=ld, tag=tag)
+                    continue
+                tp[path][key + sfx] = check_rmsnorm_split(
+                    gen, n, width, kdt, tag=tag)[0]
+                # decode: one row a sequence
+                tp[path][f"{key}_decode{sfx}"] = check_rmsnorm_split(
+                    gen, b, width, kdt, tag=f"{tag}-decode")[0]
     vcfg = get_config(VLM_MODEL)
     vlen = vlm_seq_len(VLM_GRID, VLM_TEXT)
     scfg = get_config(ENCDEC_MODEL)
@@ -1428,7 +1589,24 @@ def block_norms(cfg) -> int:
     return 4 if cfg.attention_type == "mla" else 2
 
 
-def expected_launches(cfg, n_batches: int, n_forwards: int) -> dict:
+def no_launches() -> dict:
+    """Every kernel's count at 0 (``ops.launch_counts``' keys)."""
+    return dict.fromkeys(ops.launch_counts(), 0)
+
+
+def split_gated_norms(cfg, model: int) -> bool:
+    """Whether a hybrid's Mamba2 layers run on a rank's heads on a
+    "model" axis of ``model`` ranks, so their gated norms take the
+    statistic from outside (``rmsnorm_split``) instead of ``rmsnorm``."""
+    if cfg.family != "hybrid" or model == 1:
+        return False
+    sizes = {"data": 1, "model": model}
+    return recurrent_splits(cfg, lambda s: binds_model(
+        s, TRAIN_RULES, sizes))["mamba2"]
+
+
+def expected_launches(cfg, n_batches: int, n_forwards: int,
+                      model: int = 1) -> dict:
     """Kernel launches of serving: each prefill batch runs flash once per
     attention layer and the SSD scan once per Mamba2 layer; every forward
     (prefill or decode step) runs rmsnorm once per norm (none where the
@@ -1436,20 +1614,25 @@ def expected_launches(cfg, n_batches: int, n_forwards: int) -> dict:
     included).  RWKV6 runs neither flash nor SSD, and its one RMSNorm is
     the final norm; an encoder-decoder's flash calls are its decoder's
     self-attention (the encoder and the cross-attention run the plain
-    masked attention, as the reference)."""
+    masked attention, as the reference).  ``model``: the "model" ranks
+    a serving world splits over (a hybrid's gated norms then run split:
+    :func:`split_gated_norms`)."""
+    out = no_launches()
     if cfg.family == "hybrid":
         groups = cfg.num_layers // cfg.hybrid.attn_every
         norms = 2 * cfg.num_layers + 2 * groups + 1
-        return {"flash_attention": groups * n_batches,
-                "rmsnorm": norms * n_forwards, "rmsnorm_backward": 0,
-                "ssd_scan": cfg.num_layers * n_batches,
-                "ssd_scan_backward": 0}
+        gated = cfg.num_layers if split_gated_norms(cfg, model) else 0
+        out.update({"flash_attention": groups * n_batches,
+                    "rmsnorm": (norms - gated) * n_forwards,
+                    "rmsnorm_split": gated * n_forwards,
+                    "ssd_scan": cfg.num_layers * n_batches})
+        return out
     norms = block_norms(cfg) * cfg.num_layers + (
         cfg.norm_type != "layernorm")
     attention_layers = 0 if cfg.family == "ssm" else cfg.num_layers
-    return {"flash_attention": attention_layers * n_batches,
-            "rmsnorm": norms * n_forwards, "rmsnorm_backward": 0,
-            "ssd_scan": 0, "ssd_scan_backward": 0}
+    out.update({"flash_attention": attention_layers * n_batches,
+                "rmsnorm": norms * n_forwards})
+    return out
 
 
 def serve(name: str) -> dict:
@@ -2087,7 +2270,7 @@ def parity_models() -> dict:
                     "mixtral-8x7b"], dtype="float32"), "adafactor")}
 
 
-def train_launches(cfg, passes: int) -> dict:
+def train_launches(cfg, passes: int, model: int = 1) -> dict:
     """Kernel launches of ``passes`` train passes under remat "minimal"
     (forward, the re-run of each checkpointed block, backward; the step's
     flop count runs on meta tensors and launches nothing): an RMSNorm a
@@ -2096,20 +2279,27 @@ def train_launches(cfg, passes: int) -> dict:
     scan a Mamba2 layer, again in its re-run, and a backward; no flash
     (train attention is the masked one).  RWKV6's one RMSNorm, the final
     norm, sits outside the checkpointed blocks; an encoder-decoder's norms
-    are LayerNorms."""
+    are LayerNorms.  ``model``: the "model" ranks of a tensor-parallel
+    world (a hybrid's gated norms then run split, forward and re-run,
+    with their own backward: :func:`split_gated_norms`)."""
     n = cfg.num_layers
+    out = no_launches()
     if cfg.family == "hybrid":
         groups = n // cfg.hybrid.attn_every
         norms = 2 * n + 2 * groups + 1     # ln and gated norm a Mamba2 block
-        return {"flash_attention": 0, "rmsnorm": passes * (norms + 2 * n),
-                "rmsnorm_backward": passes * norms,
-                "ssd_scan": passes * 2 * n, "ssd_scan_backward": passes * n}
+        gated = n if split_gated_norms(cfg, model) else 0
+        out.update({"rmsnorm": passes * (norms + 2 * n - 2 * gated),
+                    "rmsnorm_backward": passes * (norms - gated),
+                    "rmsnorm_split": passes * 2 * gated,
+                    "rmsnorm_split_backward": passes * gated,
+                    "ssd_scan": passes * 2 * n,
+                    "ssd_scan_backward": passes * n})
+        return out
     per_block = block_norms(cfg)            # ln1, ln2 (+ MLA's 2)
     norms = per_block * n + (cfg.norm_type != "layernorm")   # + the final
-    return {"flash_attention": 0,
-            "rmsnorm": passes * (norms + per_block * n),
-            "rmsnorm_backward": passes * norms, "ssd_scan": 0,
-            "ssd_scan_backward": 0}
+    out.update({"rmsnorm": passes * (norms + per_block * n),
+                "rmsnorm_backward": passes * norms})
+    return out
 
 
 def parity_run(swap=nullcontext, steps: int = PARITY_STEPS, cfg=None,
@@ -2557,9 +2747,8 @@ def monitor_phase() -> tuple:
     n_monitored = len(steps)
     norms = 2 * cfg.num_layers + 1
     want = {"train-cli:lms-demo": {
-        "flash_attention": 0, "rmsnorm": norms * n_monitored,
-        "rmsnorm_backward": norms * n_monitored, "ssd_scan": 0,
-        "ssd_scan_backward": 0}}
+        **no_launches(), "rmsnorm": norms * n_monitored,
+        "rmsnorm_backward": norms * n_monitored}}
     batches = math.ceil(MONITOR_REQUESTS / 4)       # the CLI's --max-batch
     want["serve-cli:lms-demo"] = expected_launches(cfg, batches,
                                                    batches * 16)
@@ -2746,6 +2935,19 @@ class TpCase(NamedTuple):
 # the loop's stub frames (4096 a row), sequence parallelism over the
 # tokens and the frames (both divide 2): 8 heads and 8 KV heads a rank in
 # the encoder, the decoder and the cross-attention, the MLP's columns.
+# zamba2-7b: 13 of its 81 Mamba2 layers (2 groups of 6, so both shared
+# weight sets, and 1 trailing layer) in fp32, AdamW, sequence parallelism:
+# 56 SSM heads a rank ([z_r | x_r | BC_r | dt_r] of in_proj, B and C
+# gathered), the gated norm's statistic summed over "model", the shared
+# blocks' 16 heads and 16 KV heads a rank and their MLP columns.
+# rwkv6-1.6b: all 24 layers in fp32, AdamW, sequence parallelism: 16 heads
+# a rank in the time mix, the channel mix's 3584 hidden and 1024 output
+# columns a rank (at 2 rows of 2048, not 4, its step-2 grad norm missed
+# TRAIN_TOL, 2.7e-2, after the one-device loss jumped 11.6 -> 22.9 at
+# step 1: fp32 rounding amplified; an H100).  Both depths are the most
+# whose one-device step ``world_count.py`` counts within 75 GB (PERF.md
+# section 4).
+ZAMBA2_TP_LAYERS, RWKV6_TP_LAYERS = 13, 24
 TP_CASES = {
     "granite": TpCase(TRAIN_MODEL, 4, None, "adamw", (
         ("dist:tp", False, {}), ("dist:tp-sp", True, {}))),
@@ -2763,6 +2965,10 @@ TP_CASES = {
         ("dist:tp-deepseek-sp", True, {}),), shape=DEEPSEEK_TP_SHAPE),
     "seamless": TpCase(ENCDEC_MODEL, 4, "float32", "adamw", (
         ("dist:tp-seamless-sp", True, {}),)),
+    "zamba2": TpCase("zamba2-7b", ZAMBA2_TP_LAYERS, "float32", "adamw", (
+        ("dist:tp-zamba2-sp", True, {}),)),
+    "rwkv6": TpCase("rwkv6-1.6b", RWKV6_TP_LAYERS, "float32", "adamw", (
+        ("dist:tp-rwkv6-sp", True, {}),)),
 }
 
 
@@ -2786,13 +2992,14 @@ class ServeWorld(NamedTuple):
     910 tokens; "long": mixtral's 4 of 4685-5731 tokens; "vlm": qwen2-vl's
     8 rows of an image and text; "encdec": the short prompts over phase
     3's source frames) in a cache of ``max_len`` (None: the
-    workload's)."""
+    workload's), in ``dtype`` (None: the config's)."""
     model: str
     layers: Optional[int]
     mesh: tuple
     rules: dict
     workload: str
     max_len: Optional[int] = None
+    dtype: Optional[str] = None
 
 
 # granite-3-8b at full width and depth: its 8 KV heads split 4 a rank
@@ -2813,7 +3020,17 @@ class ServeWorld(NamedTuple):
 # split by slot, 1840 slots, 920 a rank, as granite-seq's, so decode
 # crosses from rank 0's slots to rank 1's; seamless-m4t-large-v2 at full
 # depth (24 + 24): 8 heads and 8 KV heads a rank, its self and cross
-# caches split over the KV heads.
+# caches split over the KV heads.  zamba2-7b at 13 of 81 layers: 56 SSM
+# heads a rank (its conv cache as its parts' chunks, its SSM state by
+# heads), the shared blocks' 16 KV heads a rank (layout "heads");
+# rwkv6-1.6b at 8 of 24 layers: 16 heads a rank (the WKV state by heads,
+# the token shifts whole), the channel mix's columns split.  Both in fp32,
+# as phase 3 checks these models: in bf16 their random-weight models' own
+# rounding reaches MODEL_TOL (zamba2 at 13 layers, one device in bf16
+# against fp32: 5.5e-2 of its largest prefill logit), and the ranks' other
+# summation order in bf16 lay 9.5e-2 (zamba2, 13 layers), 7.5e-2 (7) and
+# 8.4e-2 (rwkv6, 8) from the one-device bf16 run, 2.0e-5 in fp32 (an
+# H100, PERF.md section 6).
 SERVE_WORLDS = {
     "granite": ServeWorld(TRAIN_MODEL, None, (1, 2), {}, "short"),
     "granite-seq": ServeWorld(TRAIN_MODEL, 8, (1, 2), {"kv_heads": None},
@@ -2825,6 +3042,10 @@ SERVE_WORLDS = {
     "deepseek-seq": ServeWorld("deepseek-v2-236b", 4, (1, 2), {}, "short",
                                1840),
     "seamless": ServeWorld(ENCDEC_MODEL, None, (1, 2), {}, "encdec"),
+    "zamba2": ServeWorld("zamba2-7b", 13, (1, 2), {}, "short",
+                         dtype="float32"),
+    "rwkv6": ServeWorld("rwkv6-1.6b", 8, (1, 2), {}, "short",
+                        dtype="float32"),
 }
 
 
@@ -3110,8 +3331,7 @@ def dist_a2a(dev="cuda", cfg=None, rows=A2A_ROWS, seq=A2A_SEQ) -> tuple:
                              f"{grouped['dispatches']}")
     # one forward and backward, no remat: two norms a layer and the final
     norms = 2 * cfg.num_layers + 1
-    want = {"flash_attention": 0, "rmsnorm": norms,
-            "rmsnorm_backward": norms, "ssd_scan": 0, "ssd_scan_backward": 0}
+    want = {**no_launches(), "rmsnorm": norms, "rmsnorm_backward": norms}
     if a2a["launches"] != want:
         raise AssertionError(f"dist: a2a launches {a2a['launches']}, "
                              f"expected {want}")
@@ -3361,14 +3581,16 @@ def grads_gaps(wants: dict, ranks: list, shardings: dict) -> dict:
     for coord, path in ranks:
         pieces = torch.load(path)
         for k, g in pieces.items():
-            where = shardings[k].slices(coord)
-            if repr(where) in seen.setdefault(k, set()):
+            # the piece's place: its coordinate on the axes that split it
+            where = tuple(coord.get(a, 0) for a in shardings[k].axes)
+            if where in seen.setdefault(k, set()):
                 continue
-            seen[k].add(repr(where))
+            seen[k].add(where)
             for n, want in wants.items():
                 num[n][k] = num[n].get(k, 0.0) + float(
-                    torch.linalg.vector_norm(g - want[k][where],
-                                             dtype=torch.float64)) ** 2
+                    torch.linalg.vector_norm(
+                        g - shardings[k].cut(want[k], coord),
+                        dtype=torch.float64)) ** 2
         del pieces
     out = {}
     for n, want in wants.items():
@@ -3390,15 +3612,20 @@ def tp_rows(case: TpCase, sp: bool) -> int:
         data * case.microbatches * (model if sp else 1))
 
 
-def norm_rows(cfg, rows: int, entered: int) -> list:
+def norm_rows(cfg, rows: int, entered: int, model: int = 1) -> list:
     """(row key, rows, width, row stride or None) of each RMSNorm a rank
     launches (none where the norms are LayerNorms): the block and final
     norms on its ``rows``, and MLA's ``q_norm`` and ``kv_norm`` (the latent
     read in place from the ``wkv_a`` output) on the ``entered`` rows of the
-    sequence its attention reads."""
+    sequence its attention reads; a hybrid's gated norms on ``model``
+    ranks (:func:`split_gated_norms`): ``rmsnorm_split`` on the entered
+    rows, at the rank's d_inner / model columns."""
     if cfg.norm_type == "layernorm":
         return []
     out = [("rmsnorm", rows, cfg.d_model, None)]
+    if split_gated_norms(cfg, model):
+        out.append(("rmsnorm_split", entered,
+                    cfg.ssm.d_inner(cfg.d_model) // model, None))
     if cfg.attention_type == "mla":
         a = cfg.mla
         out += [("rmsnorm_q_norm", entered, a.q_lora_rank, None),
@@ -3456,7 +3683,8 @@ def tp_run_row(name: str, i: int, ranks: list, one: dict) -> dict:
     case = TP_CASES[name]
     path, sp, overrides = case.runs[i]
     cfg = tp_cfg(case)
-    want = train_launches(cfg, DIST_STEPS * case.microbatches)
+    want = train_launches(cfg, DIST_STEPS * case.microbatches,
+                          case.mesh[1])
     gaps = [[{k: abs(a[k] - b[k]) / abs(b[k]) for k in a}
              for a, b in zip(r["metrics"], one["metrics"])] for r in ranks]
     held = 1 if case.step0 else DIST_STEPS
@@ -3520,6 +3748,8 @@ def serve_world_cfg(world: ServeWorld, smoke: bool = False):
     bf16 noise, one device against itself in fp32, is 5.3% of its largest
     logit, the size of MODEL_TOL)."""
     cfg = get_config(world.model, smoke=smoke)
+    if world.dtype:
+        cfg = dataclasses.replace(cfg, dtype=world.dtype)
     if smoke:
         return dataclasses.replace(cfg, dtype="float32") \
             if cfg.attention_type == "mla" else cfg
@@ -3744,7 +3974,7 @@ def serve_rank_rows(world: ServeWorld, smoke: bool = False) -> tuple:
     if cfg.attention_type == "mla":
         d = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
         dv = cfg.mla.v_head_dim
-    return (rows, h, kv, s, d, dv), norm_rows(cfg, rows * s, rows * s)
+    return (rows, h, kv, s, d, dv), norm_rows(cfg, rows * s, rows * s, tp)
 
 
 def dist_serve(dev="cuda", smoke: bool = False) -> dict:
@@ -3789,7 +4019,7 @@ def serve_world_row(name: str, ranks: list, one: dict, dev: str,
     summed over the ranks."""
     world = SERVE_WORLDS[name]
     cfg = serve_world_cfg(world, smoke)
-    want_l = expected_launches(cfg, 1, SERVE_NEW)
+    want_l = expected_launches(cfg, 1, SERVE_NEW, world.mesh[1])
     gaps, agree = [], []
     for r in ranks:
         got, want = r.pop("logits"), one["logits"][:, r["rows"]]
@@ -4068,10 +4298,13 @@ def main() -> int:
 
     # Phase 8: kernels line (launches summed over the paths; numbers at
     # zamba2-7b's prefill shapes, the RMSNorm backward's at granite's
-    # training shape, the SSD backward's at zamba2's; per path the rows
-    # each kernel was timed at), then the result
+    # training shape, the SSD backward's at zamba2's, the statistic-from-
+    # outside mode's at a rank's rows of zamba2's TP world; per path the
+    # rows each kernel was timed at), then the result
     main_rows = {"rmsnorm_backward": f"train:{TRAIN_MODEL}",
-                 "ssd_scan_backward": "train:zamba2-7b"}
+                 "ssd_scan_backward": "train:zamba2-7b",
+                 "rmsnorm_split": "dist:tp-zamba2-sp",
+                 "rmsnorm_split_backward": "dist:tp-zamba2-sp"}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[main_rows.get(name, "zamba2-7b")][name]

@@ -139,9 +139,9 @@ def load_checkpoint(ckpt_dir: str, templates: dict,
 
     templates: {"params": tree, ...}; each leaf gives the loaded array's
     shape, dtype and device.  ``shardings``: {group: Sharding tree} on
-    ``mesh``; a sharded group's leaves are this rank's slices of the whole
-    arrays (the templates are the pieces).  Returns (step, {"params": tree,
-    ...})."""
+    ``mesh``; a sharded group's leaves are this rank's pieces of the whole
+    arrays (``Sharding.cut``; the templates are the pieces).  Returns
+    (step, {"params": tree, ...})."""
     step = step if step is not None else latest_step(ckpt_dir)
     coord = comm.coordinate(mesh)
     out = {}
@@ -158,7 +158,7 @@ def load_checkpoint(ckpt_dir: str, templates: dict,
                 if tuple(arr.shape) != fsh[key].shape:
                     raise ValueError(f"{key}: shape {arr.shape}, the mesh's "
                                      f"leaf is {fsh[key].shape}")
-                arr = arr[fsh[key].slices(coord)]
+                arr = fsh[key].cut(arr, coord)
             tree[key] = from_numpy(arr, like)
         out[group] = unflatten(tree)
     return step, out

@@ -65,6 +65,35 @@ SIGNATURES = {
         _I,                             # blocks (rows of the scratch)
         _P,                             # stream
     ],
+    "repro_rmsnorm_rowsum": [
+        _P, _L,                         # x, its row stride (elements)
+        _P, _L,                         # dy (or null), its row stride
+        _P, _P,                         # scale, out: fp32 row sums
+        _I,                             # dtype code
+        _L, _I,                         # rows, d
+        _I,                             # blocks
+        _P,                             # stream
+    ],
+    "repro_rmsnorm_apply": [
+        _P, _L,                         # x, its row stride (elements)
+        _P, _P, _P,                     # scale, ss (reduced row sums), y
+        _I,                             # dtype code
+        _L, _I, _I, _F,                 # rows, d, the whole row's width, eps
+        _I,                             # row blocks
+        _P,                             # stream
+    ],
+    "repro_rmsnorm_apply_bwd": [
+        _P, _L,                         # x, its row stride (elements)
+        _P,                             # scale
+        _P, _L,                         # dy, its row stride
+        _P, _P,                         # ss, dot (reduced row sums)
+        _P,                             # dx
+        _P, _P,                         # partial scratch, dscale
+        _I,                             # dtype code
+        _L, _I, _I, _F,                 # rows, d, the whole row's width, eps
+        _I,                             # row blocks (rows of the scratch)
+        _P,                             # stream
+    ],
     "repro_rmsnorm_blocks_per_sm": [
         _I, _I,                         # backward?, dtype code
         _I, _I, _I, _I,                 # plan: VPT, tpr, slots; d

@@ -47,6 +47,23 @@
 // column by column, in a fixed order, with each thread's loads in flight
 // together and blocks narrow enough to fill the card: no atomics, the same
 // bits on every run.
+//
+// The statistic from outside (`repro_rmsnorm_rowsum`, `repro_rmsnorm_apply`,
+// `repro_rmsnorm_apply_bwd`): a row whose columns are split over ranks
+// (Mamba2's gated norm over d_inner under tensor parallelism, each rank
+// holding its heads' columns) is normalised by the mean square of the
+// whole row.  The forward is two kernels with an all-reduce of one fp32 a
+// row between them, made by the caller: `rmsnorm_rowsum_kernel` writes
+// each row's fp32 sum of squares over this rank's columns (a warp a row),
+// `rmsnorm_apply_kernel` normalises by the reduced sum over the whole
+// width.  The backward likewise: the row sums of x * dy * scale, the
+// all-reduce, then `rmsnorm_apply_bwd_kernel` writes dx from the saved
+// forward sums and the reduced dots, and its block's dscale sums as a row
+// of the scratch that `rmsnorm_dscale_kernel` adds up (dscale is this
+// rank's columns: no exchange).  Both apply kernels are a 2-D grid of
+// column tiles (a thread a 16-byte vector, loads of a warp contiguous in
+// one row) by row chunks walked with a stride; a simple design, bound by
+// bytes like the fused kernels but reading x twice.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -356,6 +373,107 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// out[row] = the fp32 sum over this row's d columns of x^2 (dy null) or
+// of x * dy * scale; a warp a row, the grid's warps walking the rows.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    rmsnorm_rowsum_kernel(const T* __restrict__ x, long long ldx,
+                          const T* __restrict__ dy, long long ldg,
+                          const float* __restrict__ scale,
+                          float* __restrict__ out, long long n, int d) {
+  constexpr int N = Pack<T>::N;
+  const int lane = threadIdx.x % 32, wpb = blockDim.x / 32;
+  const int nv = d / N;
+  const long long step = (long long)gridDim.x * wpb;
+  for (long long row = (long long)blockIdx.x * wpb + threadIdx.x / 32;
+       row < n; row += step) {
+    const T* xr = x + row * ldx;
+    float acc = 0.f;
+    for (int v = lane; v < nv; v += 32) {
+      float f[N];
+      Pack<T>::unpack(__ldg(reinterpret_cast<const uint4*>(xr + v * N)), f);
+      if (dy != nullptr) {
+        float g[N], s[N];
+        Pack<T>::unpack(
+            __ldg(reinterpret_cast<const uint4*>(dy + row * ldg + v * N)), g);
+        load_scale<N>(scale + v * N, s);
+#pragma unroll
+        for (int e = 0; e < N; ++e) acc = fmaf(f[e], g[e] * s[e], acc);
+      } else {
+#pragma unroll
+        for (int e = 0; e < N; ++e) acc = fmaf(f[e], f[e], acc);
+      }
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) out[row] = acc;
+  }
+}
+
+// y = x * rsqrt(ss[row] / width + eps) * scale.  Block: blockDim.x vectors
+// of a row; grid (column tiles, row chunks): block (i, j) walks rows j,
+// j + gridDim.y, ...
+template <typename T>
+__global__ void __launch_bounds__(256)
+    rmsnorm_apply_kernel(const T* __restrict__ x, long long ldx,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ ss, T* __restrict__ y,
+                         long long n, int d, float width, float eps) {
+  constexpr int N = Pack<T>::N;
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= d / N) return;
+  float s[N];
+  load_scale<N>(scale + v * N, s);
+  for (long long row = blockIdx.y; row < n; row += gridDim.y) {
+    const float r = rsqrtf(__ldg(ss + row) / width + eps);
+    float f[N];
+    Pack<T>::unpack(
+        __ldg(reinterpret_cast<const uint4*>(x + row * ldx + v * N)), f);
+#pragma unroll
+    for (int e = 0; e < N; ++e) f[e] = f[e] * r * s[e];
+    *reinterpret_cast<uint4*>(y + row * d + v * N) = Pack<T>::pack(f);
+  }
+}
+
+// dx = r * dy * scale - x * r^3 * dot[row] / width with r from ss[row];
+// the block's dscale sums (of dy * x * r over its rows) as row blockIdx.y
+// of the scratch `partial` (gridDim.y x d).  The grid of
+// rmsnorm_apply_kernel.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    rmsnorm_apply_bwd_kernel(const T* __restrict__ x, long long ldx,
+                             const float* __restrict__ scale,
+                             const T* __restrict__ dy, long long ldg,
+                             const float* __restrict__ ss,
+                             const float* __restrict__ dot,
+                             T* __restrict__ dx, float* __restrict__ partial,
+                             long long n, int d, float width, float eps) {
+  constexpr int N = Pack<T>::N;
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= d / N) return;
+  float s[N], acc[N];
+  load_scale<N>(scale + v * N, s);
+#pragma unroll
+  for (int e = 0; e < N; ++e) acc[e] = 0.f;
+  for (long long row = blockIdx.y; row < n; row += gridDim.y) {
+    const float r = rsqrtf(__ldg(ss + row) / width + eps);
+    const float k = r * r * r * (__ldg(dot + row) / width);
+    float f[N], g[N], o[N];
+    Pack<T>::unpack(
+        __ldg(reinterpret_cast<const uint4*>(x + row * ldx + v * N)), f);
+    Pack<T>::unpack(
+        __ldg(reinterpret_cast<const uint4*>(dy + row * ldg + v * N)), g);
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      o[e] = r * (g[e] * s[e]) - f[e] * k;
+      acc[e] = fmaf(g[e] * f[e], r, acc[e]);
+    }
+    *reinterpret_cast<uint4*>(dx + row * d + v * N) = Pack<T>::pack(o);
+  }
+  float* out = partial + (long long)blockIdx.y * d + v * N;
+#pragma unroll
+  for (int e = 0; e < N; ++e) out[e] = acc[e];
+}
+
 template <typename T, bool WALK>
 const void* fwd_kernel(int vpt) {
   switch (vpt) {
@@ -409,6 +527,21 @@ bool bad_layout(int dtype, int d, long long ld1, long long ld2,
     return true;
   return (long long)tpr * vpt * vec < d;
 }
+
+// The statistic-from-outside kernels' layout (else kBadLayout): 16-byte
+// aligned rows (the pointers in ptrs), d and the row strides multiples of a
+// vector, row strides >= d.
+bool bad_rows(int dtype, int d, long long ld1, long long ld2,
+              const void* const* ptrs, int nptrs) {
+  const int vec = dtype == 0 ? 4 : 8;
+  if (d % vec || ld1 % vec || ld2 % vec || ld1 < d || ld2 < d) return true;
+  for (int i = 0; i < nptrs; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return true;
+  return false;
+}
+
+constexpr int kApplyThreads = 128;      // vectors of a row a block
+constexpr int kRowsumThreads = 256;     // 8 warps, a row each
 
 size_t bwd_smem(int d, int slots) {
   return slots > 1 ? size_t(slots) * d * sizeof(float) : 0;
@@ -499,4 +632,111 @@ extern "C" int repro_rmsnorm_blocks_per_sm(int backward, int dtype, int vpt,
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
                                                         tpr * slots, smem);
   return int(err);
+}
+
+// Row sums of this rank's columns: out[row] (fp32) = sum of x^2 over the
+// row's d columns where dy is null, else of x * dy * scale.  x and dy n
+// rows of d, ldx and ldg elements apart.  Returns a cudaError_t, or -1 for
+// a layout the kernel does not take.
+extern "C" int repro_rmsnorm_rowsum(const void* x, long long ldx,
+                                    const void* dy, long long ldg,
+                                    const void* scale, void* out, int dtype,
+                                    long long n, int d, int blocks,
+                                    void* stream) {
+  if (n <= 0 || d <= 0 || blocks < 1 || (dtype != 0 && dtype != 1))
+    return int(cudaErrorInvalidValue);
+  const void* ptrs[] = {x, scale, dy};
+  if (bad_rows(dtype, d, ldx, dy != nullptr ? ldg : d, ptrs,
+               dy != nullptr ? 3 : 2))
+    return kBadLayout;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    rmsnorm_rowsum_kernel<float><<<blocks, kRowsumThreads, 0, st>>>(
+        static_cast<const float*>(x), ldx, static_cast<const float*>(dy),
+        ldg, static_cast<const float*>(scale), static_cast<float*>(out), n,
+        d);
+  else
+    rmsnorm_rowsum_kernel<__nv_bfloat16><<<blocks, kRowsumThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), ldx,
+        static_cast<const __nv_bfloat16*>(dy), ldg,
+        static_cast<const float*>(scale), static_cast<float*>(out), n, d);
+  return int(cudaGetLastError());
+}
+
+// y (n, d) contiguous = x * rsqrt(ss / width + eps) * scale, ss the
+// reduced fp32 sums of squares (n,) over the whole row of width columns;
+// row_blocks the grid's row chunks.
+extern "C" int repro_rmsnorm_apply(const void* x, long long ldx,
+                                   const void* scale, const void* ss,
+                                   void* y, int dtype, long long n, int d,
+                                   int width, float eps, int row_blocks,
+                                   void* stream) {
+  if (n <= 0 || d <= 0 || width < d || row_blocks < 1 ||
+      (dtype != 0 && dtype != 1))
+    return int(cudaErrorInvalidValue);
+  const void* ptrs[] = {x, scale, y};
+  if (bad_rows(dtype, d, ldx, d, ptrs, 3)) return kBadLayout;
+  const int nv = d / (dtype == 0 ? 4 : 8);
+  const dim3 grid((nv + kApplyThreads - 1) / kApplyThreads,
+                  unsigned(row_blocks));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float w = float(width);
+  if (dtype == 0)
+    rmsnorm_apply_kernel<float><<<grid, kApplyThreads, 0, st>>>(
+        static_cast<const float*>(x), ldx, static_cast<const float*>(scale),
+        static_cast<const float*>(ss), static_cast<float*>(y), n, d, w, eps);
+  else
+    rmsnorm_apply_kernel<__nv_bfloat16><<<grid, kApplyThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), ldx,
+        static_cast<const float*>(scale), static_cast<const float*>(ss),
+        static_cast<__nv_bfloat16*>(y), n, d, w, eps);
+  return int(cudaGetLastError());
+}
+
+// The backward of repro_rmsnorm_apply: dx (n, d) contiguous from x, dy,
+// the forward's reduced sums of squares ss and the reduced row dots
+// (repro_rmsnorm_rowsum with dy, then the caller's all-reduce); dscale
+// (d,) fp32 through partial, a (row_blocks, d) fp32 scratch.  Two
+// launches: the apply and the dscale sum.
+extern "C" int repro_rmsnorm_apply_bwd(const void* x, long long ldx,
+                                       const void* scale, const void* dy,
+                                       long long ldg, const void* ss,
+                                       const void* dot, void* dx,
+                                       void* partial, void* dscale,
+                                       int dtype, long long n, int d,
+                                       int width, float eps, int row_blocks,
+                                       void* stream) {
+  if (n <= 0 || d <= 0 || width < d || row_blocks < 1 ||
+      (dtype != 0 && dtype != 1))
+    return int(cudaErrorInvalidValue);
+  const void* ptrs[] = {x, scale, dy, dx};
+  if (bad_rows(dtype, d, ldx, ldg, ptrs, 4)) return kBadLayout;
+  const int nv = d / (dtype == 0 ? 4 : 8);
+  const dim3 grid((nv + kApplyThreads - 1) / kApplyThreads,
+                  unsigned(row_blocks));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float w = float(width);
+  if (dtype == 0)
+    rmsnorm_apply_bwd_kernel<float><<<grid, kApplyThreads, 0, st>>>(
+        static_cast<const float*>(x), ldx, static_cast<const float*>(scale),
+        static_cast<const float*>(dy), ldg, static_cast<const float*>(ss),
+        static_cast<const float*>(dot), static_cast<float*>(dx),
+        static_cast<float*>(partial), n, d, w, eps);
+  else
+    rmsnorm_apply_bwd_kernel<__nv_bfloat16><<<grid, kApplyThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), ldx,
+        static_cast<const float*>(scale),
+        static_cast<const __nv_bfloat16*>(dy), ldg,
+        static_cast<const float*>(ss), static_cast<const float*>(dot),
+        static_cast<__nv_bfloat16*>(dx), static_cast<float*>(partial), n, d,
+        w, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  const int cols = d >= 32 * 128 ? 32 : d >= 16 * 128 ? 16 : 8;
+  rmsnorm_dscale_kernel<<<dim3(unsigned((d + cols - 1) / cols)),
+                          dim3(unsigned(cols), unsigned(kMaxThreads / cols)),
+                          0, st>>>(static_cast<const float*>(partial),
+                                   static_cast<float*>(dscale), row_blocks,
+                                   d);
+  return int(cudaGetLastError());
 }

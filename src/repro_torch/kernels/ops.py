@@ -21,7 +21,12 @@ Gradients: :func:`fused_rmsnorm` under grad goes through
 backward is the RMSNorm backward kernel (a ``kernel:rmsnorm_backward``
 region); :func:`ssd_chunked_kernel` under grad through
 :class:`SSDFunction`, forward the SSD scan kernel, backward the SSD
-backward kernel (``kernel:ssd_scan_backward``).  The Pallas kernels have no
+backward kernel (``kernel:ssd_scan_backward``);
+:func:`fused_rmsnorm_split` (a row split over "model": the statistic summed
+over the ranks) under grad through :class:`RMSNormSplitFunction`, the
+statistic-from-outside kernels forward and backward
+(``kernel:rmsnorm_split``, ``kernel:rmsnorm_split_backward``).  The Pallas
+kernels have no
 backward: the reference differentiates its jnp forms where the port calls
 these kernels.  The flash wrapper has none (train-mode flash is
 forward-only in both packages).
@@ -52,14 +57,18 @@ def set_kernel_markers(session):
 def launch_counts() -> dict:
     """Kernel launches per kernel since the last reset."""
     return {"flash_attention": _fa.launches, "rmsnorm": _rms.launches,
-            "rmsnorm_backward": _rms.bwd_launches, "ssd_scan": _ssd.launches,
-            "ssd_scan_backward": _ssd.bwd_launches}
+            "rmsnorm_backward": _rms.bwd_launches,
+            "rmsnorm_split": _rms.split_launches,
+            "rmsnorm_split_backward": _rms.split_bwd_launches,
+            "ssd_scan": _ssd.launches, "ssd_scan_backward": _ssd.bwd_launches}
 
 
 def reset_launch_counts() -> None:
     _fa.launches = 0
     _rms.launches = 0
     _rms.bwd_launches = 0
+    _rms.split_launches = 0
+    _rms.split_bwd_launches = 0
     _ssd.launches = 0
     _ssd.bwd_launches = 0
 
@@ -155,6 +164,73 @@ def fused_rmsnorm(x, scale, *, eps: float = 1e-5):
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return RMSNormFunction.apply(x, scale, eps)
     return _rmsnorm(x, scale, eps)
+
+
+def _model_sum(mesh):
+    """The ``reduce`` of the statistic-from-outside kernels: an all-reduce
+    over "model", reported as ``"norm_stat"``."""
+    from repro_torch.parallel import comm
+
+    def reduce(t):
+        with comm.purpose("norm_stat"):
+            return comm.all_reduce(t, mesh, (comm.MODEL,))
+    return reduce
+
+
+def _rmsnorm_split(x, scale, eps: float, width: int, mesh):
+    m, region = _region(
+        "rmsnorm_split", x,
+        lambda: _rms.split_cost_estimate(x.shape, x.element_size()))
+    with region:
+        y, ss = _rms.rmsnorm_split(x, scale, width=width,
+                                   reduce=_model_sum(mesh), eps=eps)
+        if m is not None:
+            _sync(y)
+    return y, ss
+
+
+class RMSNormSplitFunction(torch.autograd.Function):
+    """RMSNorm of rows whose ``width`` columns are split over "model" (this
+    rank's are x's), with the statistic summed over the ranks: forward and
+    backward the statistic-from-outside kernels (their plain versions on
+    the CPU), each with its all-reduce of one fp32 a row between its two
+    kernels.  One Function, so a checkpoint's recompute repeats the same
+    collectives in the same order on every rank.  Saves x, scale and the
+    forward's reduced sums."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps, width, mesh):
+        y, ss = _rmsnorm_split(x, scale, eps, width, mesh)
+        ctx.save_for_backward(x, scale, ss)
+        ctx.eps, ctx.width, ctx.mesh = eps, width, mesh
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, ss = ctx.saved_tensors
+        if dy.dtype != x.dtype or (dy.is_cuda and _rms.rows(dy) is None):
+            dy = dy.to(x.dtype).contiguous()
+        m, region = _region(
+            "rmsnorm_split_backward", x,
+            lambda: _rms.split_bwd_cost_estimate(x.shape, x.element_size()))
+        with region:
+            dx, dscale = _rms.rmsnorm_split_bwd(
+                x, scale, dy, ss, width=ctx.width,
+                reduce=_model_sum(ctx.mesh), eps=ctx.eps)
+            if m is not None:
+                _sync(dx)
+        return dx, dscale, None, None, None
+
+
+def fused_rmsnorm_split(x, scale, *, width: int, mesh, eps: float = 1e-5):
+    """RMSNorm over rows of ``width`` columns of which ``x`` (..., d)
+    holds this rank's d, the rest on the other ranks of ``mesh``'s
+    "model" axis (``scale``: this rank's d), normalised by the whole row's
+    mean square.  Under grad through :class:`RMSNormSplitFunction`;
+    otherwise one direct call of the forward."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RMSNormSplitFunction.apply(x, scale, eps, width, mesh)
+    return _rmsnorm_split(x, scale, eps, width, mesh)[0]
 
 
 def _ssd_scan(x, a, b, c, init_state):

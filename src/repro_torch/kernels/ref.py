@@ -61,6 +61,34 @@ def rmsnorm_bwd_ref(x, scale, dy, *, eps: float = 1e-5):
     return dx.to(x.dtype), dscale
 
 
+def rmsnorm_split_ref(x, scale, *, width: int, reduce, eps: float = 1e-5):
+    """:func:`rmsnorm_ref` of rows of which x holds d of ``width`` columns:
+    the fp32 sums of squares over x's columns, ``reduce``d to the whole
+    row's, then the norm by their mean over ``width``.  Returns (y in x's
+    dtype, the reduced sums (n,) fp32)."""
+    xf = x.float()
+    ss = reduce(xf.square().sum(dim=-1).reshape(-1).contiguous())
+    r = torch.rsqrt(ss.reshape(x.shape[:-1])[..., None] / width + eps)
+    return (xf * r * scale.float()).to(x.dtype), ss
+
+
+def rmsnorm_split_bwd_ref(x, scale, dy, ss, *, width: int, reduce,
+                          eps: float = 1e-5):
+    """Gradient of :func:`rmsnorm_split_ref` from its reduced sums ``ss``:
+    with g = dy * scale, the row dots of x and g ``reduce``d to the whole
+    row's, dx = r g - x r^3 dot / width and dscale = sum over rows of
+    dy x r.  Returns (dx in x's dtype, dscale (d,) fp32)."""
+    d = x.shape[-1]
+    xf, dyf = x.float(), dy.float()
+    g = dyf * scale.float()
+    dot = reduce((xf * g).sum(dim=-1).reshape(-1).contiguous())
+    shape = x.shape[:-1] + (1,)
+    r = torch.rsqrt(ss.reshape(shape) / width + eps)
+    dx = r * g - xf * r.pow(3) * dot.reshape(shape) / width
+    dscale = (dyf * xf * r).reshape(-1, d).sum(dim=0)
+    return dx.to(x.dtype), dscale
+
+
 def ssd_ref(x, a, b, c, init_state=None):
     """Sequential SSD recurrence (the definitional form).
 

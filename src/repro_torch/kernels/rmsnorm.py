@@ -21,6 +21,14 @@ into a scratch that a second kernel adds up in a fixed order.  x (and dy)
 may be strided rows (:func:`rows`: MLA's latent is the first 512 columns of
 576-wide rows); y and dx are contiguous.
 
+The statistic from outside (:func:`rmsnorm_split`, :func:`rmsnorm_split_bwd`):
+rows whose columns are split over ranks are normalised by the mean square of
+the whole row (``width`` columns): a kernel writes each row's fp32 sum over
+this rank's columns, the caller's ``reduce`` (an all-reduce over "model")
+makes it the whole row's, and a second kernel applies it; the backward
+alike, with the row dots of x and dy * scale.  Each wrapper call counts one
+launch of its own (:data:`split_launches`, :data:`split_bwd_launches`).
+
 The CUDA path is kept short on the host, since a decode step calls it once
 per norm on a few rows: the C entry points are resolved once, a plan and
 its grid cap are cached by shape class, and the stream is read raw
@@ -49,6 +57,8 @@ WALK_VECTORS = 256                       # forward: wider rows get a slot each
 
 launches = 0                              # forward kernel launches since reset
 bwd_launches = 0                          # backward launches since reset
+split_launches = 0                        # statistic-from-outside forwards
+split_bwd_launches = 0                    # and backwards, since reset
 
 _entry = {}                               # C entry point by name
 _plans = {}                               # (vpt, tpr, slots, grid cap) by key
@@ -198,6 +208,16 @@ def grid_blocks(n: int, slots: int, cap: int) -> int:
     return max(1, min(-(-n // slots), cap))
 
 
+def _sms(x) -> int:
+    """The SMs of ``x``'s card (cached)."""
+    dev = x.get_device()
+    sms = _sm_count.get(dev)
+    if sms is None:
+        sms = _sm_count[dev] = \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms
+
+
 def _plan_for(x, code: int, n: int, d: int, backward: bool) -> tuple:
     """The cached (VPT, tpr, slots, grid cap) of a launch."""
     dev = x.get_device()
@@ -213,12 +233,8 @@ def _plan_for(x, code: int, n: int, d: int, backward: bool) -> tuple:
         if per_sm.value < 1:
             raise RuntimeError(f"rmsnorm plan {(vpt, tpr, slots)} at d={d} "
                                f"fits no block on an SM")
-        sms = _sm_count.get(dev)
-        if sms is None:
-            sms = _sm_count[dev] = \
-                torch.cuda.get_device_properties(dev).multi_processor_count
-        cap = sms * per_sm.value if walks(d, x.element_size(),
-                                          backward) else 1 << 30
+        cap = _sms(x) * per_sm.value if walks(d, x.element_size(),
+                                              backward) else 1 << 30
         p = _plans[key] = (vpt, tpr, slots, cap)
     return p
 
@@ -290,6 +306,121 @@ def rmsnorm_bwd(x, scale, dy, *, eps: float = 1e-5):
     return dx, dscale
 
 
+ROWSUM_WARPS = 8                          # rows a row-sum block (csrc)
+APPLY_VECTORS = 128                       # vectors of a row an apply block
+APPLY_BLOCKS_PER_SM = 8                   # the apply grid's blocks an SM
+
+
+def _split_grid(x, n: int, d: int) -> tuple:
+    """(row-sum blocks, apply row blocks) of a statistic-from-outside call:
+    the row sums' warps walk the rows, capped at the blocks that fill the
+    card; the apply grid's column tiles times its row blocks fill it
+    APPLY_BLOCKS_PER_SM times over, no more row blocks than rows."""
+    sms = _sms(x)
+    tiles = -(-(d * x.element_size() // 16) // APPLY_VECTORS)
+    rowsum = max(1, min(-(-n // ROWSUM_WARPS), sms * 8))
+    apply = max(1, min(n, -(-sms * APPLY_BLOCKS_PER_SM // tiles)))
+    return rowsum, apply
+
+
+def _split_rows(x, dy=None) -> tuple:
+    """(code, n, ldx, ldg) of a statistic-from-outside call on the card."""
+    lx = rows(x)
+    lg = rows(dy) if dy is not None else lx
+    if lx is None or lg is None:
+        raise _layout_error(x if lx is None else dy)
+    return lx[0], lx[1], lg[1]
+
+
+def rmsnorm_split(x, scale, *, width: int, reduce, eps: float = 1e-5):
+    """RMSNorm of rows of which ``x`` (..., d) holds d of ``width``
+    columns (the rest on other ranks), by the mean square of the whole
+    row: the kernel's fp32 sum of squares over x's columns a row,
+    ``reduce`` (a function summing an (n,) fp32 tensor over the ranks
+    holding the row's other columns, in place or not; returns the sum)
+    between the two kernels.  scale: (d,) fp32, this rank's columns.
+    Returns (y contiguous in x's dtype, the reduced sums (n,) fp32), the
+    sums for :func:`rmsnorm_split_bwd`."""
+    global split_launches
+    code = _check(x, scale)
+    d = x.shape[-1]
+    if code < 0:
+        if x.is_meta:            # shapes only; the exchange is counted
+            ss = reduce(x.new_empty((x.numel() // max(d, 1),),
+                                    dtype=torch.float32))
+            return x.new_empty(x.shape), ss
+        return ref.rmsnorm_split_ref(x, scale, width=width, reduce=reduce,
+                                     eps=eps)
+    n, ld, _ = _split_rows(x)
+    y = x.new_empty(x.shape)
+    ss = torch.empty((n,), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return y, reduce(ss)
+    stream = current_raw_stream(x.get_device())
+    blocks, row_blocks = _split_grid(x, n, d)
+    err = _fn("repro_rmsnorm_rowsum")(
+        x.data_ptr(), ld, None, 0, scale.data_ptr(), ss.data_ptr(), code, n,
+        d, blocks, stream)
+    if err:
+        _raise(err, x, "rmsnorm_rowsum")
+    ss = reduce(ss)
+    err = _fn("repro_rmsnorm_apply")(
+        x.data_ptr(), ld, scale.data_ptr(), ss.data_ptr(), y.data_ptr(),
+        code, n, d, width, eps, row_blocks, stream)
+    if err:
+        _raise(err, x, "rmsnorm_apply")
+    split_launches += 1
+    return y, ss
+
+
+def rmsnorm_split_bwd(x, scale, dy, ss, *, width: int, reduce,
+                      eps: float = 1e-5):
+    """Gradient of :func:`rmsnorm_split` at ``x`` for ``dy`` (x's shape
+    and dtype), from its reduced sums of squares ``ss``: the kernel's fp32
+    row dots of x with dy * scale over x's columns, ``reduce`` between,
+    then dx and dscale (this rank's columns: no exchange).  Returns (dx in
+    x's dtype, contiguous; dscale (d,) fp32)."""
+    global split_bwd_launches
+    code = _check(x, scale)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    d = x.shape[-1]
+    if code < 0:
+        if x.is_meta:
+            reduce(x.new_empty((x.numel() // max(d, 1),),
+                               dtype=torch.float32))
+            return (x.new_empty(x.shape),
+                    x.new_empty((d,), dtype=torch.float32))
+        return ref.rmsnorm_split_bwd_ref(x, scale, dy, ss, width=width,
+                                         reduce=reduce, eps=eps)
+    n, ldx, ldg = _split_rows(x, dy)
+    dx = x.new_empty(x.shape)
+    dot = torch.empty((n,), dtype=torch.float32, device=x.device)
+    if n == 0:
+        reduce(dot)
+        return dx, torch.zeros((d,), dtype=torch.float32, device=x.device)
+    stream = current_raw_stream(x.get_device())
+    blocks, row_blocks = _split_grid(x, n, d)
+    err = _fn("repro_rmsnorm_rowsum")(
+        x.data_ptr(), ldx, dy.data_ptr(), ldg, scale.data_ptr(),
+        dot.data_ptr(), code, n, d, blocks, stream)
+    if err:
+        _raise(err, x, "rmsnorm_rowsum")
+    dot = reduce(dot)
+    buf = torch.empty(((row_blocks + 1) * d,), dtype=torch.float32,
+                      device=x.device)
+    dscale, partial = buf[:d], buf[d:]
+    err = _fn("repro_rmsnorm_apply_bwd")(
+        x.data_ptr(), ldx, scale.data_ptr(), dy.data_ptr(), ldg,
+        ss.data_ptr(), dot.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+        dscale.data_ptr(), code, n, d, width, eps, row_blocks, stream)
+    if err:
+        _raise(err, x, "rmsnorm_apply_bwd")
+    split_bwd_launches += 1
+    return dx, dscale
+
+
 def cost_estimate(x_shape, itemsize: int) -> dict:
     """Per-call ``{flops, bytes}``: ~4 fp32 ops per element (square,
     accumulate, rsqrt-scale, gain) against one read and one write of x plus
@@ -314,3 +445,26 @@ def bwd_cost_estimate(x_shape, itemsize: int) -> dict:
     d = int(x_shape[-1])
     return {"flops": 10.0 * numel,
             "bytes": float(3 * numel * itemsize + 8 * d)}
+
+
+def split_cost_estimate(x_shape, itemsize: int) -> dict:
+    """``{flops, bytes}`` of :func:`rmsnorm_split` as a function: the
+    forward's (:func:`cost_estimate`) and the fp32 row sums written (the
+    second read of x is the design's, not the function's)."""
+    out = cost_estimate(x_shape, itemsize)
+    rows_ = 1
+    for dim in x_shape[:-1]:
+        rows_ *= int(dim)
+    out["bytes"] += 4.0 * rows_
+    return out
+
+
+def split_bwd_cost_estimate(x_shape, itemsize: int) -> dict:
+    """``{flops, bytes}`` of :func:`rmsnorm_split_bwd` as a function: the
+    backward's (:func:`bwd_cost_estimate`) and the fp32 row sums read."""
+    out = bwd_cost_estimate(x_shape, itemsize)
+    rows_ = 1
+    for dim in x_shape[:-1]:
+        rows_ *= int(dim)
+    out["bytes"] += 4.0 * rows_
+    return out

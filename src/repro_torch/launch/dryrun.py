@@ -20,9 +20,8 @@ For each cell the dry run:
    tensor-parallel under "model" (``sharding.tp_roles``: some leaf
    ``"split"``), else ``"whole"``, with ``tp_whole_leaves``, the leaves
    stored split over "model" that each rank still gathers and computes
-   whole (a MoE router whose experts bind "model"; every split leaf of a
-   family tensor-parallel compute does not cover: the Mamba2 hybrid and
-   RWKV6).
+   whole (a MoE router whose experts bind "model"; a recurrent mixer's
+   leaves where its heads or parts do not divide).
 
 A prefill or decode cell serves on the mesh (``make_serve_fns`` with the
 mesh, ``SERVE_RULES``) and its record adds ``serve``: the cache layout
@@ -62,7 +61,7 @@ from repro_torch.launch.steps import build_bundle, trace_bundle
 from repro_torch.models.params import flatten
 from repro_torch.models.transformer import model_specs
 from repro_torch.parallel.sharding import (TRAIN_RULES, binds_model,
-                                          tp_covers, tp_roles)
+                                          tp_roles)
 from repro_torch.train.loop import DEVICE_PEAKS
 
 CARD = "H100"
@@ -203,12 +202,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = OUT,
 
 def _fits_note(cfg, bundle) -> str:
     """Why a cell's count is over 80 GB a rank, as far as the layout says."""
-    if not tp_covers(cfg):
-        return (f"family {cfg.family!r} computes whole on every \"model\" "
-                f"rank (tensor-parallel compute covers every family but the "
-                f"Mamba2 hybrid and RWKV6): each rank gathers each layer's "
-                f"params whole, one layer at a time, its activations are "
-                f"whole over \"model\", and so is its cache")
     if bundle.kind == "train":
         return ("the count's peak: a rank's pieces of the params, optimizer "
                 "state, gradient accumulator and a microbatch's gradients, "

@@ -47,7 +47,7 @@ from repro_torch.models.transformer import cache_specs, model_specs
 from repro_torch.parallel import comm
 from repro_torch.parallel.sharding import (
     PartitionConstraints, ShardingRules, cache_shardings, kv_cache_layout,
-    rules_for, shardings_for_specs, tp_covers)
+    rules_for, shardings_for_specs)
 from repro_torch.serve.engine import make_serve_fns
 from repro_torch.train.optim import opt_state_specs
 from repro_torch.train.step import make_train_step
@@ -71,7 +71,7 @@ def serve_param_specs(cfg: ModelConfig, keep: tuple = ()):
         if s.dtype.is_floating_point:
             dt = compute_dtype_for(path, s.dtype, torch.bfloat16, keep) \
                 if keep else torch.bfloat16
-        out[path] = ParamSpec(s.shape, s.axes, dt, s.init, s.scale, s.value)
+        out[path] = dataclasses.replace(s, dtype=dt)
     return unflatten(out)
 
 
@@ -244,7 +244,7 @@ def _serve_bundle(kind: str, cfg: ModelConfig, shape: ShapeConfig, mesh,
     prefill, decode = make_serve_fns(lcfg, pc=pc)
     serve = None
     if mesh is not None:
-        sharded = tp_covers(lcfg) and pc.model_size > 1
+        sharded = pc.model_size > 1
         serve = {"cache_layout": kv_cache_layout(lcfg, rules, mesh, s),
                  "rows": "split" if pc.rows_split else "replicated",
                  "rows_per_rank": pc.local_rows,

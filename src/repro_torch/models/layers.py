@@ -46,12 +46,20 @@ def apply_norm(p, x, cfg: ModelConfig, eps: Optional[float] = None):
     return y.to(x.dtype)
 
 
-def rmsnorm_gated(scale, x, gate, eps: float = 1e-5):
+def rmsnorm_gated(scale, x, gate, eps: float = 1e-5, tp=None,
+                  width: Optional[int] = None):
     """Mamba2-style gated RMSNorm: norm(x * silu(gate)) * scale.
 
     The gate product is taken in x's dtype, as the reference does; the norm
-    is the fused RMSNorm with the fp32 ``scale``."""
+    is the fused RMSNorm with the fp32 ``scale``.  ``tp`` (a
+    :class:`~repro_torch.parallel.sharding.TensorParallel` layout) with
+    ``width`` above x's last dimension: x holds this rank's columns of rows
+    of ``width`` (its heads' of d_inner), normalised by the whole row's
+    mean square, summed over "model" (``ops.fused_rmsnorm_split``)."""
     x = x * F.silu(gate.float()).to(x.dtype)
+    if tp is not None and width is not None and width != x.shape[-1]:
+        return ops.fused_rmsnorm_split(x, scale, width=width, mesh=tp.mesh,
+                                       eps=eps)
     return ops.fused_rmsnorm(x, scale, eps=eps)
 
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import math
 import zlib
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Optional
 
 import torch
@@ -51,16 +51,25 @@ class ParamSpec:
     init: str = "normal"            # normal | zeros | ones | constant
     scale: Optional[float] = None   # stddev override for "normal"
     value: float = 0.0              # for "constant"
+    # the widths of the concatenated parts of the last dimension (Mamba2's
+    # in_proj: z, x, B and C, dt); a mesh axis that splits the dimension
+    # splits each part (``parallel.sharding.Sharding.cut``); () for a plain
+    # dimension
+    segments: tuple = ()
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
             raise ValueError(
                 f"shape {self.shape} and axes {self.axes} rank mismatch")
+        if self.segments and sum(self.segments) != self.shape[-1]:
+            raise ValueError(f"segments {self.segments} do not add up to "
+                             f"the last dimension of {self.shape}")
 
 
 def spec(shape, axes, dtype=torch.float32, init="normal", scale=None,
-         value=0.0) -> ParamSpec:
-    return ParamSpec(tuple(shape), tuple(axes), dtype, init, scale, value)
+         value=0.0, segments=()) -> ParamSpec:
+    return ParamSpec(tuple(shape), tuple(axes), dtype, init, scale, value,
+                     tuple(segments))
 
 
 def tree_map(fn, tree):
@@ -97,8 +106,8 @@ def unflatten(flat: dict) -> dict:
 def stack_specs(tree, n: int, axis_name: str = "layers"):
     """Prepend a stacked-layer dimension to every spec in a tree."""
     return tree_map(
-        lambda s: ParamSpec((n,) + s.shape, (axis_name,) + s.axes, s.dtype,
-                            s.init, s.scale, s.value), tree)
+        lambda s: replace(s, shape=(n,) + s.shape,
+                          axes=(axis_name,) + s.axes), tree)
 
 
 def _fan_in(shape) -> int:

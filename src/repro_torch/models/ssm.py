@@ -15,6 +15,17 @@ steps the recurrence token by token.  Its chunk shrinks to gcd(L, chunk)
 when the chunk does not divide L, as the reference's does, so the two
 compute the same sums.
 
+Under tensor parallelism (a ``tp`` layout, :mod:`repro_torch.parallel.sharding`)
+each mixer runs on this rank's heads: Mamba2 on its narrow ``in_proj``
+piece ``[z_r | x_r | BC_r | dt_r]`` (its conv on ``[x_r | BC_r]``, then B
+and C gathered over "model", the SSD scan on its heads, the gated norm with
+its statistic summed over "model", a row-parallel ``out_proj``); RWKV6's
+time mix on its heads (the token shift and the ddlerp whole, on the entered
+input; ``w0`` and ``decay_w2`` cut to its channels), its channel mix on its
+hidden and output columns (the row-parallel value's partial sums
+reduce-scattered over columns, gated by its column-split receptance, then
+gathered, or exchanged for a rank's rows under sequence parallelism).  The caller enters and leaves the layout around each mixer.
+
 Numerical-safety invariant, as in the reference: the decays are
 exponentials of differences of cumulative log-decays with the larger index
 first, so no ``exp`` sees a positive argument.
@@ -31,6 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rmsnorm_gated
 from repro_torch.models.params import spec
+from repro_torch.parallel import comm
 
 
 def mamba2_specs(cfg: ModelConfig):
@@ -41,10 +53,14 @@ def mamba2_specs(cfg: ModelConfig):
     gn = s.n_groups * s.state_dim
     conv_dim = di + 2 * gn
     return {
-        # in_proj -> [z (di), x (di), B (gn), C (gn), dt (nh)]
-        "in_proj": spec((d, 2 * di + 2 * gn + nh), ("embed", "inner")),
-        "conv_w": spec((s.conv_width, conv_dim), (None, "inner"), scale=0.5),
-        "conv_b": spec((conv_dim,), ("inner",), init="zeros"),
+        # in_proj -> [z (di), x (di), B (gn), C (gn), dt (nh)]; a rank's
+        # piece is the same chunk of each part: [z_r | x_r | BC_r | dt_r]
+        "in_proj": spec((d, 2 * di + 2 * gn + nh), ("embed", "inner"),
+                        segments=(di, di, 2 * gn, nh)),
+        "conv_w": spec((s.conv_width, conv_dim), (None, "inner"), scale=0.5,
+                       segments=(di, 2 * gn)),
+        "conv_b": spec((conv_dim,), ("inner",), init="zeros",
+                       segments=(di, 2 * gn)),
         "dt_bias": spec((nh,), ("ssm_heads",), init="zeros"),
         "A_log": spec((nh,), ("ssm_heads",), init="constant", value=0.0),
         "D": spec((nh,), ("ssm_heads",), init="ones"),
@@ -78,13 +94,15 @@ def mamba2_cache_specs(cfg: ModelConfig, batch: int,
     di = s.d_inner(cfg.d_model)
     conv_dim = di + 2 * s.n_groups * s.state_dim
     return {"conv": spec((batch, s.conv_width - 1, conv_dim),
-                         ("batch", None, "inner"), conv_dtype, init="zeros"),
+                         ("batch", None, "inner"), conv_dtype, init="zeros",
+                         segments=(di, conv_dim - di)),
             "ssm": spec((batch, s.num_heads(cfg.d_model), s.head_dim,
                          s.state_dim), ("batch", "ssm_heads", None, None),
                         torch.float32, init="zeros")}
 
 
-def mamba2_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None):
+def mamba2_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
+                 tp=None):
     """Mamba2 mixer.  x: (B, L, d) -> (y, cache).
 
     train: the chunked scan from zeros with zero conv history, no cache.
@@ -92,6 +110,12 @@ def mamba2_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None):
     is no cache) and zero conv history; writes the conv tail and the final
     state into the cache.  decode: the recurrent update of the cached
     state, one step per token, written back in place.
+
+    ``tp``: this rank's heads of ``tp.size`` (the params and cache are its
+    pieces: ``in_proj`` ``[z_r | x_r | BC_r | dt_r]``, the conv ``[x_r |
+    BC_r]``; one B / C group, read by every head:
+    ``sharding.recurrent_splits``); y is then this rank's partial sums of
+    the row-parallel ``out_proj``, which the caller reduces.
     """
     s = cfg.ssm
     dt_ = x.dtype
@@ -100,11 +124,13 @@ def mamba2_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None):
     nh = s.num_heads(d)
     g, n = s.n_groups, s.state_dim
     gn = g * n
+    ranks = tp.size if tp is not None else 1
+    di_l, nh_l, bc_l = di // ranks, nh // ranks, 2 * gn // ranks
 
     zxbcdt = x @ p["in_proj"].to(dt_)
-    z = zxbcdt[..., :di]
-    xbc = zxbcdt[..., di:di + di + 2 * gn]
-    dt_raw = zxbcdt[..., -nh:]
+    z = zxbcdt[..., :di_l]
+    xbc = zxbcdt[..., di_l:2 * di_l + bc_l]
+    dt_raw = zxbcdt[..., -nh_l:]
 
     if mode == "decode":
         if cache is None:
@@ -119,17 +145,22 @@ def mamba2_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None):
     else:
         raise ValueError(f"mode {mode!r} (train | prefill | decode)")
 
-    xin = xbc[..., :di]
-    b_mat = xbc[..., di:di + gn].reshape(bsz, l, g, n)
-    c_mat = xbc[..., di + gn:].reshape(bsz, l, g, n)
+    xin = xbc[..., :di_l]
+    bc = xbc[..., di_l:]
+    if tp is not None:
+        # every head reads B and C: each rank's use is a partial sum of
+        # their gradient
+        bc = comm.gather_shared_columns(bc, tp.mesh)
+    b_mat = bc[..., :gn].reshape(bsz, l, g, n)
+    c_mat = bc[..., gn:].reshape(bsz, l, g, n)
 
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())      # (B,L,H)
     a_neg = -torch.exp(p["A_log"].float())                      # (H,) < 0
-    xh = xin.reshape(bsz, l, nh, s.head_dim)
+    xh = xin.reshape(bsz, l, nh_l, s.head_dim)
 
     if mode == "decode":
         # recurrent: h' = exp(dt*A) h + (dt * B) x ; y = C . h'
-        hpg = nh // g
+        hpg = nh_l // g
         bh = b_mat.float().repeat_interleave(hpg, dim=2)        # (B,L,H,N)
         ch = c_mat.float().repeat_interleave(hpg, dim=2)
         ssm = cache["ssm"]                                      # (B,H,P,N)
@@ -152,8 +183,9 @@ def mamba2_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None):
         cache["ssm"].copy_(new_state)
 
     y = y + xh * p["D"].to(dt_)[None, None, :, None]
-    y = y.reshape(bsz, l, di)
-    y = rmsnorm_gated(p["norm_scale"], y, z, eps=cfg.norm_eps)
+    y = y.reshape(bsz, l, di_l)
+    y = rmsnorm_gated(p["norm_scale"], y, z, eps=cfg.norm_eps, tp=tp,
+                      width=di)
     return y @ p["out_proj"].to(dt_), cache
 
 
@@ -329,19 +361,28 @@ def _rwkv_groupnorm(x, scale, bias, nh, eps=64e-5):
 
 
 def rwkv6_time_mix(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
-                   chunk: int = 32):
+                   chunk: int = 32, tp=None):
     """RWKV6 time mix.  x: (B, L, d) -> (y, cache).
 
     train: the chunked recurrence from a zero state and a zero shift.
     prefill: from the cache's state and shift (zeros without a cache);
     writes the last token and the final state into the cache.  decode: the
     recurrence token by token from the cached state, written back in
-    place."""
+    place.
+
+    ``tp``: this rank's heads of ``tp.size``, on the whole sequence ``x``
+    (the token shift must see every row): ``wr`` / ``wk`` / ``wv`` /
+    ``wg`` / ``bonus_u`` / ``ln_x_*`` and the WKV state are its pieces,
+    ``w0`` and ``decay_w2`` whole, cut here to its channels; y is its
+    partial sums of the row-parallel ``wo``, which the caller reduces."""
     r_cfg = cfg.rwkv
     dt_ = x.dtype
     bsz, l, d = x.shape
-    nh = d // r_cfg.head_dim
     hd = r_cfg.head_dim
+    ranks = tp.size if tp is not None else 1
+    dl = d // ranks                                    # this rank's channels
+    lo = tp.rank * dl if tp is not None else 0
+    nh = dl // hd
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r} (train | prefill | decode)")
     if mode == "decode" and cache is None:
@@ -363,8 +404,9 @@ def rwkv6_time_mix(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
     v = (xv @ p["wv"].to(dt_)).reshape(bsz, l, nh, hd)
     g = F.silu(xg @ p["wg"].to(dt_))
 
-    w_raw = p["w0"].float() + \
-        torch.tanh(xw @ p["decay_w1"].to(dt_)).float() @ p["decay_w2"].float()
+    w_raw = p["w0"][lo:lo + dl].float() + \
+        torch.tanh(xw @ p["decay_w1"].to(dt_)).float() @ \
+        p["decay_w2"][:, lo:lo + dl].float()
     logw = -torch.exp(torch.clamp(w_raw, -20.0, 10.0))     # <= 0
     logw = logw.reshape(bsz, l, nh, hd)
     u = p["bonus_u"].float()
@@ -386,16 +428,24 @@ def rwkv6_time_mix(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
         cache["shift_tm"].copy_(x[:, -1])
         cache["wkv"].copy_(s)
 
-    y = _rwkv_groupnorm(y.reshape(bsz, l, d).float(), p["ln_x_scale"],
+    y = _rwkv_groupnorm(y.reshape(bsz, l, dl).float(), p["ln_x_scale"],
                         p["ln_x_bias"], nh)
     y = (y * g.float()).to(dt_)
     return y @ p["wo"].to(dt_), cache
 
 
 def rwkv6_channel_mix(p, x, cfg: ModelConfig, *, mode="prefill",
-                      cache=None):
+                      cache=None, tp=None):
     """RWKV6 channel mix (relu^2 key, sigmoid receptance); with a cache,
-    from its shift, and the last token written back in place."""
+    from its shift, and the last token written back in place.
+
+    ``tp``: on this rank's columns of ``tp.size``, from the whole sequence
+    ``x``: ``cm_wk``'s hidden columns, the row-parallel ``cm_wv``'s partial
+    sums reduce-scattered to this rank's output columns, gated by its
+    columns of the receptance (``cm_wr``), then returned in the pass's
+    layout: gathered whole on every rank (its gradient is whole on every
+    rank too, so the gather's backward keeps this rank's columns), or
+    under sequence parallelism exchanged for this rank's rows."""
     dt_ = x.dtype
     last = cache["shift_cm"] if cache is not None else None
     sx = _token_shift(x, last) - x
@@ -403,7 +453,12 @@ def rwkv6_channel_mix(p, x, cfg: ModelConfig, *, mode="prefill",
     xr = x + sx * p["cm_mu_r"].to(dt_)
     k = torch.relu(xk @ p["cm_wk"].to(dt_)).square()
     v = k @ p["cm_wv"].to(dt_)
+    if tp is not None:
+        v = comm.scatter_columns(v, tp.mesh)
     out = torch.sigmoid(xr @ p["cm_wr"].to(dt_)) * v
+    if tp is not None:
+        out = comm.columns_to_rows(out, tp.mesh) if tp.sp else \
+            comm.gather_columns(out, tp.mesh)
     if cache is not None:
         cache["shift_cm"].copy_(x[:, -1])
     return out, cache

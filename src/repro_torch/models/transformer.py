@@ -14,15 +14,16 @@ reference's and are written in place; under a sliding window each layer's
 KV cache holds ``min(max_len, window)`` slots.
 
 A pass on a mesh with a live ``"model"`` axis (train, prefill or decode)
-computes tensor-parallel for every family with attention blocks (GQA or
-MLA decoders, the VLM's and the encoder-decoder's included;
-``pc.tensor_parallel``, see :mod:`repro_torch.parallel.sharding`); serving
-writes its cache piece as the binding lays it out (a rank's KV heads, or
-its slots of every KV head or of MLA's latent).  Each pass runs the
-vocabulary-parallel embedding, each block's attention (and
+computes tensor-parallel for every family (``pc.tensor_parallel``, see
+:mod:`repro_torch.parallel.sharding`); serving writes its cache piece as
+the binding lays it out (a rank's KV heads, or its slots of every KV head
+or of MLA's latent; a rank's heads of Mamba2's and RWKV6's states).  Each
+pass runs the vocabulary-parallel embedding, each block's attention (and
 cross-attention) over this rank's heads and its MLP over this rank's
-columns (the MoE over its experts or their columns), each between the
-layout's regions, and vocabulary-sharded logits; under sequence
+columns (the MoE over its experts or their columns; a Mamba2 block and
+RWKV6's time mix over this rank's heads, its channel mix over its
+columns: :mod:`repro_torch.models.ssm`), each between the layout's
+regions, and vocabulary-sharded logits; under sequence
 parallelism (train mode) the residual stream between blocks, and the norms
 on it, hold this rank's rows (a VLM rank merges the patches that fall in
 them; an encoder-decoder's sinusoidal positions, of the tokens and of the
@@ -71,7 +72,7 @@ from repro_torch.models.ssm import (
     mamba2_block, mamba2_cache_specs, mamba2_specs, rwkv6_cache_specs,
     rwkv6_channel_mix, rwkv6_specs, rwkv6_time_mix)
 from repro_torch.parallel import comm
-from repro_torch.parallel.sharding import gathered
+from repro_torch.parallel.sharding import gathered, recurrent_splits
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -257,14 +258,7 @@ def _attn_block(p, x, cfg, *, rope, mode, cache, pos, attn_impl="masked",
     layout itself (its experts or their columns split, its routing whole:
     :func:`~repro_torch.models.moe.apply_moe`); attention's cache lies as
     ``tp.cache`` says (``"seq"``: this rank's slots of every KV head)."""
-    if tp is None:
-        def enter(h, split):
-            return h
-
-        def leave(y, split):
-            return y
-    else:
-        enter, leave = tp.enter, tp.leave
+    enter, leave = _regions(tp)
     split, heads = _heads_of(cfg, tp)
     seq_split = (tp.mesh, tp.rank, tp.size) \
         if tp is not None and tp.cache == "seq" else None
@@ -324,26 +318,50 @@ def _combine_aux(acc: dict, stats: dict) -> None:
                                         stats["moe_max_load"])
 
 
-def _rwkv_block(p, x, cfg, *, mode, cache):
+def _regions(tp):
+    """(enter, leave) of a sublayer under the layout ``tp`` (the identity
+    without one)."""
+    if tp is None:
+        return (lambda h, split: h), (lambda y, split: y)
+    return tp.enter, tp.leave
+
+
+def _rwkv_block(p, x, cfg, *, mode, cache, tp=None):
     """RWKV6 block: LayerNorm -> time mix, LayerNorm -> channel mix, each
-    residual; returns (x, cache)."""
+    residual; returns (x, cache).  ``tp``: each mixer between the layout's
+    regions, on the whole sequence (the token shift reads the row before),
+    split where :func:`~repro_torch.parallel.sharding.recurrent_splits`
+    says: the time mix's partial sums reduced on leaving; a split channel
+    mix returns its output in the pass's layout itself."""
+    enter, leave = _regions(tp)
+    splits = recurrent_splits(cfg, tp.splits) if tp is not None else {}
+    tm, cm = splits.get("time_mix", False), splits.get("channel_mix", False)
     ln_tm = {"scale": p["ln_tm_scale"], "bias": p["ln_tm_bias"]}
     ln_cm = {"scale": p["ln_cm_scale"], "bias": p["ln_cm_bias"]}
     lcfg = dataclasses.replace(cfg, norm_type="layernorm")
-    y, cache = rwkv6_time_mix(p, apply_norm(ln_tm, x, lcfg), cfg, mode=mode,
-                              cache=cache)
-    x = x + y
-    y, cache = rwkv6_channel_mix(p, apply_norm(ln_cm, x, lcfg), cfg,
-                                 mode=mode, cache=cache)
+    y, cache = rwkv6_time_mix(p, enter(apply_norm(ln_tm, x, lcfg), tm), cfg,
+                              mode=mode, cache=cache, tp=tp if tm else None)
+    x = x + leave(y, tm)
+    y, cache = rwkv6_channel_mix(p, enter(apply_norm(ln_cm, x, lcfg), cm),
+                                 cfg, mode=mode, cache=cache,
+                                 tp=tp if cm else None)
+    if not cm:
+        y = leave(y, False)        # computed whole: this pass's rows of it
     return x + y, cache
 
 
-def _mamba_block(p, x, cfg, *, mode, cache):
-    """Pre-norm Mamba2 block; returns (x, cache)."""
-    h = apply_norm(p["ln"], x, cfg)
+def _mamba_block(p, x, cfg, *, mode, cache, tp=None):
+    """Pre-norm Mamba2 block; returns (x, cache).  ``tp``: the mixer
+    between the layout's regions, on this rank's heads where ``in_proj``'s
+    parts split (:func:`~repro_torch.parallel.sharding.recurrent_splits`),
+    its row-parallel output reduced on leaving."""
+    enter, leave = _regions(tp)
+    split = tp is not None and recurrent_splits(cfg, tp.splits)["mamba2"]
+    h = enter(apply_norm(p["ln"], x, cfg), split)
     y, cache = mamba2_block({k: v for k, v in p.items() if k != "ln"}, h,
-                            cfg, mode=mode, cache=cache)
-    return x + y, cache
+                            cfg, mode=mode, cache=cache,
+                            tp=tp if split else None)
+    return x + leave(y, split), cache
 
 
 def _layer(tree, i: int):
@@ -412,12 +430,14 @@ def _depth(tree) -> int:
 
 
 def _hybrid_forward(params, x, cfg, *, rope, mode, cache, pos,
-                    attn_impl="masked", remat="none", pc=None):
+                    attn_impl="masked", remat="none", pc=None, tp=None):
     """Mamba2 groups, each followed by a shared attention block (weights
     ``group % num_shared_blocks``), then the ``rem`` Mamba2 blocks.  Each
     block gathers its layer's leaves in its call (``sharding.gathered``);
     a shared block, outside the checkpoints as in the reference, gathers
-    its weights at each use, kept for the backward by autograd."""
+    its weights at each use, kept for the backward by autograd.  ``tp``:
+    the pass's layout, for the Mamba2 blocks and the shared blocks alike
+    (a shared block's cache piece holds this rank's KV heads)."""
     nsb = cfg.hybrid.num_shared_blocks
 
     def shared(gi):
@@ -426,7 +446,8 @@ def _hybrid_forward(params, x, cfg, *, rope, mode, cache, pos,
     if mode == "train":
         def mamba(prefix, stacked, lp, x):
             lp = gathered(lp, prefix, pc, stacked)
-            return _mamba_block(lp, x, cfg, mode="train", cache=None)[0]
+            return _mamba_block(lp, x, cfg, mode="train", cache=None,
+                                tp=tp)[0]
         run = _checkpointed(mamba, remat)
         if "groups" in params:
             for gi, gp in enumerate(_unstack(params["groups"])):
@@ -434,7 +455,7 @@ def _hybrid_forward(params, x, cfg, *, rope, mode, cache, pos,
                     x = run("groups", 2, lp, x)
                 x, _ = _attn_block(shared(gi), x, cfg, rope=rope,
                                    mode="train", cache=None, pos=None,
-                                   attn_impl=attn_impl)
+                                   attn_impl=attn_impl, pc=pc, tp=tp)
         for lp in _unstack(params["rem"]) if "rem" in params else []:
             x = run("rem", 1, lp, x)
         return x
@@ -445,27 +466,31 @@ def _hybrid_forward(params, x, cfg, *, rope, mode, cache, pos,
             for li in range(_depth(gp)):
                 x, _ = _mamba_block(
                     gathered(_layer(gp, li), "groups", pc, 2), x, cfg,
-                    mode=mode, cache=None if gc is None else _layer(gc, li))
+                    mode=mode, cache=None if gc is None else _layer(gc, li),
+                    tp=tp)
             x, _ = _attn_block(
                 shared(gi), x, cfg, rope=rope, mode=mode, pos=pos,
                 cache=None if cache is None else _layer(cache["shared_attn"],
-                                                        gi))
+                                                        gi), pc=pc, tp=tp)
     if "rem" in params:
         for li in range(_depth(params["rem"])):
             x, _ = _mamba_block(
                 gathered(_layer(params["rem"], li), "rem", pc, 1), x, cfg,
                 mode=mode,
-                cache=None if cache is None else _layer(cache["rem"], li))
+                cache=None if cache is None else _layer(cache["rem"], li),
+                tp=tp)
     return x
 
 
-def _rwkv_forward(params, x, cfg, *, mode, cache, remat="none", pc=None):
+def _rwkv_forward(params, x, cfg, *, mode, cache, remat="none", pc=None,
+                  tp=None):
     """The RWKV6 blocks in order, each gathering its layer's leaves in its
     call (``sharding.gathered``); in train mode each checkpointed under the
-    policy, in prefill and decode each writing its cache layer in place."""
+    policy, in prefill and decode each writing its cache layer in place.
+    ``tp``: the pass's layout (see :func:`_rwkv_block`)."""
     def block(lp, x, mode, cache):
         return _rwkv_block(gathered(lp, "layers", pc, 1), x, cfg, mode=mode,
-                           cache=cache)[0]
+                           cache=cache, tp=tp)[0]
 
     if mode == "train":
         run = _checkpointed(block, remat)
@@ -700,7 +725,7 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
 
     if cfg.family == "ssm":
         x = _rwkv_forward(params, x, cfg, mode=mode, cache=cache,
-                          remat=remat, pc=pc)
+                          remat=remat, pc=pc, tp=tp)
     elif cfg.family == "encdec":
         x = _encdec_forward(params, x, cfg, mode=mode, cache=cache, pos=pos,
                             extras=extras, attn_impl=attn_impl, remat=remat,
@@ -708,7 +733,7 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="prefill", cache=None,
     elif cfg.family == "hybrid":
         x = _hybrid_forward(params, x, cfg, rope=rope, mode=mode,
                             cache=cache, pos=pos, attn_impl=attn_impl,
-                            remat=remat, pc=pc)
+                            remat=remat, pc=pc, tp=tp)
     elif mode == "train":
         for group in ("dense_layers", "moe_layers"):
             if group in params:

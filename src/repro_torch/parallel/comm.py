@@ -37,6 +37,14 @@ compute one loss, and each holds that loss's whole gradient of the
 activations (under sequence parallelism, of its own rows of the residual
 stream).
 
+The recurrent families add exchanges along the last dimension:
+:func:`gather_shared_columns` (all-gather forward, reduce-scatter backward:
+Mamba2's B and C, which every head reads), :func:`scatter_columns`
+(reduce-scatter forward, all-gather backward), :func:`gather_columns`
+(all-gather forward, this rank's columns backward) and, under sequence
+parallelism, :func:`columns_to_rows` (an all-to-all each way): RWKV6's
+channel mix, whose row-parallel output meets a column-split gate.
+
 FSDP adds one more, :func:`gather_piece`: a param's stored piece gathered
 into the leaf a pass computes with (forward), this rank's piece of its
 gradient's mean over "data" (backward, :func:`grad_piece`), so a pass that
@@ -45,10 +53,11 @@ time and its gradients come back as pieces.
 
 **Host staging.**  gloo's CUDA support is partial, so a collective over a
 gloo group with an operand on a CUDA device copies its operand to the
-host, exchanges there and copies the result back (:func:`_run`); the bytes
-it moves each way are counted (:func:`staged`, and by purpose
-:func:`staged_by_purpose`).  Under NCCL, or on CPU tensors, nothing is
-staged.
+host, exchanges there and copies the result back (:func:`_run`), through
+page-locked host buffers (copied faster than pageable ones) kept by size
+until the next :func:`reset_staged`; the bytes it moves each way are
+counted (:func:`staged`, and by purpose :func:`staged_by_purpose`).  Under
+NCCL, or on CPU tensors, nothing is staged.
 """
 
 from __future__ import annotations
@@ -121,7 +130,10 @@ def purpose(name: str):
     ``name``'s (the innermost name wins): ``"param_gather"`` and
     ``"grad_scatter"`` (a param's gather and its gradient's sync,
     :func:`gather_piece`), ``"model_sum"`` (row-parallel and vocabulary
-    sums), and serving's ``"query_gather"`` and ``"partial_merge"``."""
+    sums), ``"bc_gather"`` (Mamba2's B and C), ``"norm_stat"`` (a norm's
+    row statistic over columns split over "model"), ``"channel_mix"``
+    (RWKV6's channel-mix columns), and serving's ``"query_gather"`` and
+    ``"partial_merge"``."""
     _PURPOSES.append(name)
     try:
         yield
@@ -150,6 +162,9 @@ def _nbytes(t: torch.Tensor) -> int:
 # by purpose
 _STAGED = {"collectives": 0, "bytes": 0}
 _STAGED_BY: dict = {}
+# page-locked host buffers of the staged exchanges, by (role, elements,
+# dtype): a run's exchanges repeat a few sizes layer after layer
+_HOST: dict = {}
 
 
 def staged() -> dict:
@@ -165,9 +180,22 @@ def staged_by_purpose() -> dict:
 
 
 def reset_staged() -> None:
+    """Zero the counts and free the staging buffers."""
     for k in _STAGED:
         _STAGED[k] = 0
     _STAGED_BY.clear()
+    _HOST.clear()
+
+
+def _host(t: torch.Tensor, role: str) -> torch.Tensor:
+    """A page-locked host buffer of ``t``'s shape and dtype for ``role``
+    (``"in"`` or ``"out"``), reused by later exchanges of the same size."""
+    key = (role, t.numel(), t.dtype)
+    buf = _HOST.get(key)
+    if buf is None:
+        buf = _HOST[key] = torch.empty(t.numel(), dtype=t.dtype,
+                                       pin_memory=True)
+    return buf.view(t.shape)
 
 
 def _run(fn, group, out: torch.Tensor, inp=None, **kw) -> None:
@@ -183,14 +211,13 @@ def _run(fn, group, out: torch.Tensor, inp=None, **kw) -> None:
             fn(out, inp, group=group, **kw)
         return
     if inp is None:
-        host = out.cpu()
+        host = _host(out, "out").copy_(out)
         fn(host, group=group, **kw)
         moved = 2 * _nbytes(out)
     else:
         # the output is only written: a host buffer, not a copy of it
-        host = torch.empty_like(out, device="cpu")
-        host_in = inp.cpu()
-        fn(host, host_in, group=group, **kw)
+        host = _host(out, "out")
+        fn(host, _host(inp, "in").copy_(inp), group=group, **kw)
         moved = _nbytes(inp) + _nbytes(out)
     out.copy_(host)
     by = _STAGED_BY.setdefault(_PURPOSES[-1] if _PURPOSES else "other",
@@ -383,17 +410,58 @@ def all_to_all(x, mesh, axis: str):
 # --------------------------------------------------------------------------
 
 
+def segment_columns(segments: tuple, idx: int, n: int) -> list:
+    """The columns of a last dimension made of parts of widths
+    ``segments`` that the piece ``idx`` of ``n`` holds: the ``idx``-th of
+    ``n`` equal chunks of each part, in part order (``sharding.Sharding``'s
+    ``segments``: Mamba2's ``[z_r | x_r | BC_r | dt_r]``)."""
+    out, lo = [], 0
+    for w in segments:
+        k = w // n
+        out.extend(range(lo + idx * k, lo + (idx + 1) * k))
+        lo += w
+    return out
+
+
+def take_columns(t: torch.Tensor, cols: list) -> torch.Tensor:
+    """``t[..., cols]`` (a copy; shapes only on a meta tensor)."""
+    if t.is_meta:
+        return t.new_empty(tuple(t.shape[:-1]) + (len(cols),))
+    return t.index_select(-1, torch.as_tensor(cols, device=t.device))
+
+
+def merge_segments(t: torch.Tensor, segments: tuple, n: int):
+    """The ``n`` pieces of a segmented last dimension
+    (:func:`segment_columns`), concatenated in piece order -> the
+    dimension in its own order."""
+    if n == 1:
+        return t
+    order = [c for i in range(n) for c in segment_columns(segments, i, n)]
+    inv = [0] * len(order)
+    for j, c in enumerate(order):
+        inv[c] = j
+    return take_columns(t, inv)
+
+
 def gather_dims(piece: torch.Tensor, sh, mesh, skip: tuple = ()):
     """The leaf from the pieces of the ranks that hold it: each dimension
     gathered over the axes ``sh`` (a ``sharding.Sharding``) splits it
     over, the innermost axis first (``piece`` itself where nothing is
-    gathered).  Axes in ``skip`` are not gathered: the result is then this
-    rank's piece over them."""
+    gathered); a segmented last dimension (``sh.segments``) is put back in
+    its own order.  Axes in ``skip`` are not gathered: the result is then
+    this rank's piece over them."""
     out = piece
+    last = len(sh.shape) - 1
     for i in range(len(sh.shape)):
-        for a in reversed(sh.dim_axes(i)):
-            if a not in skip:
-                out = all_gather(out, mesh, a, i)
+        axes = sh.dim_axes(i)
+        kept = [a for a in axes if a not in skip]
+        for a in reversed(kept):
+            out = all_gather(out, mesh, a, i)
+        if i == last and sh.segments and kept:
+            if len(kept) != len(axes):
+                raise NotImplementedError(
+                    f"a segmented dimension gathered over {kept} of {axes}")
+            out = merge_segments(out, sh.segments, group_size(mesh, axes))
     return out
 
 
@@ -406,7 +474,8 @@ def grad_piece(g: torch.Tensor, sh, mesh, role: str) -> torch.Tensor:
     are cut locally (a ``"split"`` gradient is this rank's piece of them
     already); "data" reduce-scatters the dimension it splits (or
     all-reduces a leaf it does not split), then divides by its size.
-    Never writes into ``g``."""
+    A segmented last dimension (``sh.segments``) is cut as the piece is
+    (:func:`segment_columns`).  Never writes into ``g``."""
     if role == "partial" and live_axes(mesh, (MODEL,)):
         g = all_reduce(g.clone(memory_format=torch.contiguous_format), mesh,
                        (MODEL,))
@@ -417,9 +486,18 @@ def grad_piece(g: torch.Tensor, sh, mesh, role: str) -> torch.Tensor:
             raise NotImplementedError(f"dimension {i} of a {sh.shape} leaf "
                                       f"split over {live}")
         if live == ("data",):
+            if sh.segments and i == g.ndim - 1:
+                raise NotImplementedError("a segmented dimension split over "
+                                          "\"data\"")
             data_dim = i
         elif live and role != "split":
-            g = chunk(g, mesh, live[0], i)
+            if sh.segments and i == g.ndim - 1:
+                axes = sh.dim_axes(i)
+                g = take_columns(g, segment_columns(
+                    sh.segments, group_index(mesh, axes),
+                    group_size(mesh, axes)))
+            else:
+                g = chunk(g, mesh, live[0], i)
     if not live_axes(mesh, ("data",)):
         return g
     if data_dim is None:
@@ -562,3 +640,128 @@ def scatter_seq(x, mesh):
     """(B, S, ...) partial sums -> this rank's (B, S / tp, ...) rows of
     their sum after a row-parallel product (see :class:`_ScatterSeq`)."""
     return _ScatterSeq.apply(x, mesh) if _model_live(mesh) else x
+
+
+# --------------------------------------------------------------------------
+# Column exchanges over "model" (the recurrent families)
+# --------------------------------------------------------------------------
+
+COL_DIM = -1                    # (..., columns) activations
+
+
+class _GatherSharedColumns(torch.autograd.Function):
+    """Forward: this rank's columns gathered over "model" (every rank then
+    reads all of them); backward: the gradient summed over "model", this
+    rank keeping its columns (a reduce-scatter): each rank's use of the
+    whole is a partial sum of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, name):
+        ctx.mesh, ctx.name = mesh, name
+        with purpose(name):
+            return all_gather(x, mesh, MODEL, COL_DIM)
+
+    @staticmethod
+    def backward(ctx, g):
+        with purpose(ctx.name):
+            return (reduce_scatter(g, ctx.mesh, MODEL, COL_DIM).contiguous(),
+                    None, None)
+
+
+class _ScatterColumns(torch.autograd.Function):
+    """Forward: partial sums over "model" -> this rank's columns of their
+    sum (a reduce-scatter); backward: the columns' gradients gathered."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, name):
+        ctx.mesh, ctx.name = mesh, name
+        with purpose(name):
+            return reduce_scatter(x, mesh, MODEL, COL_DIM).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        with purpose(ctx.name):
+            return all_gather(g, ctx.mesh, MODEL, COL_DIM), None, None
+
+
+class _GatherColumns(torch.autograd.Function):
+    """Forward: this rank's columns gathered over "model"; backward: this
+    rank's columns of the gradient, which every rank holds whole (its
+    downstream is the same on every "model" rank)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, name):
+        ctx.mesh = mesh
+        with purpose(name):
+            return all_gather(x, mesh, MODEL, COL_DIM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (chunk(g, ctx.mesh, MODEL, COL_DIM).contiguous(), None,
+                None)
+
+
+def _columns_to_rows(x, mesh):
+    """(B, S, c) this rank's columns of every row -> (B, S / n, n c) every
+    rank's columns (in coordinate order) of this rank's rows."""
+    n = axis_sizes(mesh)[MODEL]
+    b, s, c = x.shape
+    got = _exchange(x.reshape(b, n, s // n, c).transpose(0, 1), mesh, MODEL)
+    return got.permute(1, 2, 0, 3).reshape(b, s // n, n * c)
+
+
+def _rows_to_columns(x, mesh):
+    """The inverse of :func:`_columns_to_rows`."""
+    n = axis_sizes(mesh)[MODEL]
+    b, r, nc = x.shape
+    got = _exchange(x.reshape(b, r, n, nc // n).permute(2, 0, 1, 3), mesh,
+                    MODEL)
+    return got.transpose(0, 1).reshape(b, n * r, nc // n)
+
+
+class _ColumnsToRows(torch.autograd.Function):
+    """Forward: this rank's columns of the whole sequence -> every column
+    of this rank's rows (an all-to-all over "model"); backward: the
+    inverse exchange (each rank holds its rows' whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, name):
+        ctx.mesh, ctx.name = mesh, name
+        with purpose(name):
+            return _columns_to_rows(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        with purpose(ctx.name):
+            return _rows_to_columns(g, ctx.mesh), None, None
+
+
+def gather_shared_columns(x, mesh, name: str = "bc_gather"):
+    """(..., c / tp) -> (..., c): columns every "model" rank reads whole,
+    each rank's use a partial sum of their gradient (Mamba2's B and C,
+    read by every head: see :class:`_GatherSharedColumns`), reported as
+    ``name``'s."""
+    return _GatherSharedColumns.apply(x, mesh, name) if _model_live(mesh) \
+        else x
+
+
+def scatter_columns(x, mesh, name: str = "channel_mix"):
+    """(..., c) partial sums -> this rank's (..., c / tp) columns of their
+    sum (see :class:`_ScatterColumns`), reported as ``name``'s."""
+    return _ScatterColumns.apply(x, mesh, name) if _model_live(mesh) else x
+
+
+def gather_columns(x, mesh, name: str = "channel_mix"):
+    """(..., c / tp) this rank's columns -> (..., c) on every rank, whose
+    gradient each rank holds whole (see :class:`_GatherColumns`), reported
+    as ``name``'s."""
+    return _GatherColumns.apply(x, mesh, name) if _model_live(mesh) else x
+
+
+def columns_to_rows(x, mesh, name: str = "channel_mix"):
+    """(B, S, c / tp) this rank's columns -> (B, S / tp, c): the
+    sequence-parallel layout's rows, whole (see :class:`_ColumnsToRows`),
+    reported as ``name``'s: under sequence parallelism in place of
+    :func:`gather_columns` and a cut to this rank's rows, 1 / tp of the
+    bytes each way."""
+    return _ColumnsToRows.apply(x, mesh, name) if _model_live(mesh) else x

@@ -12,8 +12,17 @@ compares entry by entry with the reference's ``PartitionSpec``.
 
 :class:`Sharding` adds what a rank needs to hold its piece: the slice of
 each dimension it owns (the first of several mesh axes major, as a JAX
-``NamedSharding`` lays them out).  :func:`shard_tree` and
-:func:`gather_tree` move a tree between whole leaves and this rank's shards.
+``NamedSharding`` lays them out).  A leaf whose last dimension
+concatenates parts (a ParamSpec's ``segments``: Mamba2's ``in_proj`` is
+``[z | x | B C | dt]``, its ``conv_w``, ``conv_b`` and conv cache ``[x | B
+C]``) binds that dimension only where every part divides, and its piece
+holds the same chunk of each part (``[z_r | x_r | BC_r | dt_r]``: a narrow
+Mamba2 of rank r's heads, of the width of the reference's contiguous
+piece); :meth:`Sharding.cut` cuts such a piece and ``comm.gather_dims``
+puts the parts back, and :meth:`Sharding.slices` refuses the leaf, so no
+site can cut it as a contiguous slice.  :func:`shard_tree` and
+:func:`gather_tree` move a tree between whole leaves and this rank's
+shards.
 
 :class:`PartitionConstraints` carries the rules and the mesh to the model
 as its ``pc`` argument, and, where a pass is handed this rank's stored
@@ -22,23 +31,22 @@ which the pass gathers each layer's leaves inside that layer's call
 (:func:`gathered`), as the reference's scan body gathers its FSDP pieces
 under XLA.  Under data parallelism each rank runs the model on
 its own rows, with plain local tensors that have no layout to constrain.
-On a mesh with a live ``"model"`` axis the attention families (the
-dense, MoE and VLM decoders with GQA or MLA attention, and the
-encoder-decoder: :func:`tp_covers`) compute tensor-parallel in every mode:
+On a mesh with a live ``"model"`` axis every family computes
+tensor-parallel in every mode:
 :meth:`PartitionConstraints.tensor_parallel` gives the pass its
 :class:`TensorParallel` layout, whose regions
 (:mod:`repro_torch.parallel.comm`) each block enters and leaves.  A leaf
 whose logical axes bind ``"model"`` is computed as this rank's piece
 (column-parallel query heads, MLA's ``wq_b`` / ``wkv_b`` heads and MLP
 columns, row-parallel outputs, the vocabulary, the MoE's experts or, where
-the experts do not divide, their hidden columns); with ``seq_parallel`` the
-residual stream between blocks holds this rank's rows of the sequence (and
-an encoder's of the source frames), where the sequence divides by the
-``"model"`` size (the reference's ``tokens`` fallback otherwise).
-:func:`tp_roles` says, leaf by leaf, how the step gathers it and syncs
-its gradient.  The two recurrent families (the Mamba2 hybrid and RWKV6)
-compute whole, and sequence parallelism on them raises (ROADMAP Queue 1,
-item 2).
+the experts do not divide, their hidden columns, Mamba2's and RWKV6's heads
+and RWKV6's channel-mix columns); with ``seq_parallel`` the residual stream
+between blocks holds this rank's rows of the sequence (and an encoder's of
+the source frames), where the sequence divides by the ``"model"`` size
+(the reference's ``tokens`` fallback otherwise).  :func:`tp_roles` says,
+leaf by leaf, how the step gathers it and syncs its gradient; a leaf is
+``"whole"`` only by its binding (no live "model" axis, or dimensions that
+do not divide).
 
 Serving on a mesh takes the same layout in prefill and decode (no sequence
 parallelism: ``SERVE_RULES`` leaves ``seq`` unbound).  A serving
@@ -47,16 +55,18 @@ cache length ``max_len``: the rows split over ("pod", "data") where the
 binding divides them, else every data-parallel rank takes them all
 (:attr:`PartitionConstraints.rows_split`); the KV cache lies as
 :func:`cache_shardings` binds it, its ``kv_heads`` on "model" where they
-divide (``"heads"``; an encoder-decoder's cross K/V too), else its
-``cache_seq`` (``"seq"``: a rank holds ``1 / tp`` of the slots of every KV
-head, or of MLA's latent ``ckv`` / ``krope``), and whole over "model" for
-the families tensor-parallel compute does not cover
-(:func:`kv_cache_layout`).
+divide (``"heads"``; an encoder-decoder's cross K/V and a hybrid's shared
+attention blocks too), else its ``cache_seq`` (``"seq"``: a rank holds ``1
+/ tp`` of the slots of every KV head, or of MLA's latent ``ckv`` /
+``krope``), and ``"whole"`` for a family with no attention cache
+(:func:`kv_cache_layout`); Mamba2's SSM state and RWKV6's WKV state split
+by heads, the conv cache as its parts, RWKV6's token shifts whole.
 """
 
 from __future__ import annotations
 
 import copy
+import math
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -64,11 +74,6 @@ import torch
 
 from repro_torch.models.params import ParamSpec, flatten, tree_map, unflatten
 from repro_torch.parallel import comm
-
-UNPORTED = ("tensor-parallel compute and sequence parallelism are ported "
-            "for the attention families only (the Mamba2 hybrid and RWKV6 "
-            "keep every leaf whole): ROADMAP Queue 1, item 2")
-
 
 def _flatten_mesh_axes(entry) -> tuple:
     """A rule entry is None, a mesh-axis name, or a tuple of names."""
@@ -131,9 +136,11 @@ _AXIS_PRIORITY = {"cache_seq": 1, "seq": 1}
 
 
 def logical_to_pspec(axes: tuple, shape: tuple, rules: ShardingRules,
-                     mesh) -> tuple:
+                     mesh, segments: tuple = ()) -> tuple:
     """Bind logical axes to a spec with the reference's divisibility
-    fallback.  ``mesh``: a DeviceMesh or a ``{axis: size}`` dict."""
+    fallback.  ``mesh``: a DeviceMesh or a ``{axis: size}`` dict.
+    ``segments``: the widths of the parts the last dimension concatenates,
+    each of which must divide for that dimension to bind."""
     sizes = comm.axis_sizes(mesh)
     used = set()
     out: list = [None] * len(axes)
@@ -146,7 +153,8 @@ def logical_to_pspec(axes: tuple, shape: tuple, rules: ShardingRules,
         prod = 1
         for a in names:
             prod *= sizes[a]
-        if names and dim % prod == 0 and dim >= prod:
+        parts = segments if segments and i == len(axes) - 1 else (dim,)
+        if names and dim >= prod and all(w % prod == 0 for w in parts):
             used.update(names)
             out[i] = tuple(names) if len(names) > 1 else names[0]
     while out and out[-1] is None:
@@ -161,6 +169,10 @@ class Sharding:
     spec: tuple
     shape: tuple
     sizes: tuple          # ((axis, size), ...) of the mesh
+    # the parts of a split last dimension (ParamSpec.segments; () where
+    # the last dimension is not split or is plain): a piece holds the same
+    # chunk of each
+    segments: tuple = ()
 
     def dim_axes(self, i: int) -> tuple:
         """The mesh axes dimension ``i`` is split over (first major)."""
@@ -196,10 +208,46 @@ class Sharding:
             raise ValueError(f"a {self.shape} leaf split over its stacked "
                              f"dimensions: {self.spec}")
         return Sharding(self.spec[stacked:], self.shape[stacked:],
-                        self.sizes)
+                        self.sizes, self.segments)
 
     def slices(self, coord: dict) -> tuple:
-        """The slice of each dimension held at mesh coordinate ``coord``."""
+        """The slice of each dimension held at mesh coordinate ``coord``;
+        a leaf with a segmented last dimension has none (:meth:`cut`)."""
+        if self.segments:
+            raise ValueError(f"a {self.shape} leaf split by its parts "
+                             f"{self.segments} is no slice: Sharding.cut")
+        return self._slices(coord)
+
+    def _dim_index(self, i: int, coord: dict) -> tuple:
+        """(index, count) of the piece of dimension ``i`` at ``coord``."""
+        sizes = dict(self.sizes)
+        idx, n = 0, 1
+        for a in self.dim_axes(i):
+            idx = idx * sizes[a] + coord.get(a, 0)
+            n *= sizes[a]
+        return idx, n
+
+    def columns(self, coord: dict) -> list:
+        """The last dimension's indices held at ``coord`` (its parts'
+        chunks, in part order, for a segmented leaf)."""
+        idx, n = self._dim_index(len(self.shape) - 1, coord)
+        return comm.segment_columns(self.segments or (self.shape[-1],),
+                                    idx, n)
+
+    def cut(self, full, coord: dict):
+        """The piece held at ``coord`` of a whole leaf (a torch tensor or
+        a numpy array): a view of its slice, or, for a segmented leaf, a
+        copy of its slice of the leading dimensions and its
+        :meth:`columns` of the last."""
+        if not self.segments:
+            return full[self._slices(coord)]
+        t = full[self._slices(coord)[:-1]]
+        cols = self.columns(coord)
+        if isinstance(t, torch.Tensor):
+            return comm.take_columns(t, cols)
+        return t[..., cols]
+
+    def _slices(self, coord: dict) -> tuple:
         sizes = dict(self.sizes)
         out = []
         for i, d in enumerate(self.shape):
@@ -212,9 +260,21 @@ class Sharding:
         return tuple(out)
 
 
+def pspec_of(s: ParamSpec, rules: ShardingRules, mesh) -> tuple:
+    """:func:`logical_to_pspec` of a ParamSpec, its parts included."""
+    return logical_to_pspec(s.axes, s.shape, rules, mesh, s.segments)
+
+
 def sharding_for(s: ParamSpec, rules: ShardingRules, mesh) -> Sharding:
-    return Sharding(logical_to_pspec(s.axes, s.shape, rules, mesh),
-                    tuple(s.shape), tuple(comm.axis_sizes(mesh).items()))
+    """The Sharding of a ParamSpec: its binding, and its ``segments``
+    where that splits the last dimension over more than one rank (a
+    one-rank split cuts nothing)."""
+    spec = pspec_of(s, rules, mesh)
+    sizes = comm.axis_sizes(mesh)
+    split_last = bool(spec) and len(spec) == len(s.shape) and math.prod(
+        sizes[a] for a in _flatten_mesh_axes(spec[-1])) > 1
+    return Sharding(spec, tuple(s.shape), tuple(sizes.items()),
+                    s.segments if split_last else ())
 
 
 def shardings_for_specs(specs, rules: ShardingRules, mesh):
@@ -223,11 +283,11 @@ def shardings_for_specs(specs, rules: ShardingRules, mesh):
 
 
 def shard_leaf(full: torch.Tensor, sh: Sharding, mesh) -> torch.Tensor:
-    """This rank's piece of a whole leaf: a copy of its slice, or the leaf
-    itself where nothing splits it."""
+    """This rank's piece of a whole leaf: a copy of its cut
+    (:meth:`Sharding.cut`), or the leaf itself where nothing splits it."""
     if not comm.live_axes(mesh, sh.axes):
         return full
-    return full[sh.slices(comm.coordinate(mesh))].clone()
+    return sh.cut(full, comm.coordinate(mesh)).clone()
 
 
 def _pairs(tree, shardings) -> dict:
@@ -256,21 +316,12 @@ def gather_tree(tree, shardings, mesh):
 ROLES = ("split", "whole", "partial")
 
 
-def tp_covers(cfg) -> bool:
-    """Whether the model computes tensor-parallel under a live "model"
-    axis: every family but the two recurrent ones (``dense``, ``moe`` and
-    ``vlm`` with GQA or MLA attention, and the ``encdec``).  The Mamba2
-    hybrid and RWKV6 keep every leaf whole (ROADMAP Queue 1, item 2)."""
-    return cfg.family not in ("hybrid", "ssm")
-
-
 def binds_model(s: ParamSpec, rules: ShardingRules, mesh) -> bool:
-    """Whether ``logical_to_pspec`` binds a live "model" axis to one of the
-    leaf's dimensions."""
+    """Whether the binding of ``s`` (:func:`pspec_of`) puts a live "model"
+    axis on one of its dimensions."""
     if comm.axis_sizes(mesh).get("model", 1) == 1:
         return False
-    return "model" in (a for e in logical_to_pspec(s.axes, s.shape, rules,
-                                                   mesh)
+    return "model" in (a for e in pspec_of(s, rules, mesh)
                        for a in _flatten_mesh_axes(e))
 
 
@@ -279,10 +330,74 @@ def binds_model(s: ParamSpec, rules: ShardingRules, mesh) -> bool:
 _MLA_LATENT = ("wq_a", "q_norm", "wkv_a", "kv_norm")
 
 
+# Mamba2's leaves (a hybrid's ``groups`` and ``rem``): computed on this
+# rank's heads where ``in_proj``'s parts all split
+MAMBA2 = ("in_proj", "conv_w", "conv_b", "dt_bias", "A_log", "D",
+          "norm_scale", "out_proj")
+# RWKV6's time mix: the leaves of this rank's heads (where ``bonus_u``'s
+# heads split), and those every rank computes whole on the entered input,
+# for its own heads only (no dimension binds "model": their gradients are
+# partial sums); its channel mix alike, on this rank's columns (where
+# ``cm_wk``'s hidden columns and ``cm_wr``'s output columns split)
+RWKV_TIME = ("wr", "wk", "wv", "wg", "wo", "bonus_u", "ln_x_scale",
+             "ln_x_bias")
+RWKV_TIME_WHOLE = ("mu_x", "mu_rkvwg", "mix_w1", "mix_w2", "w0", "decay_w1",
+                   "decay_w2")
+RWKV_CHANNEL = ("cm_wk", "cm_wv", "cm_wr")
+RWKV_CHANNEL_WHOLE = ("cm_mu_k", "cm_mu_r")
+RWKV_NORMS = ("ln_tm_scale", "ln_tm_bias", "ln_cm_scale", "ln_cm_bias")
+
+
+def recurrent_splits(cfg, split) -> dict:
+    """Which recurrent mixers of ``cfg`` compute on this rank's heads or
+    columns, by ``split`` (a ParamSpec -> whether its binding puts "model"
+    on it): ``"mamba2"`` (``in_proj``'s parts all divide, and its heads
+    read one B / C group, as zamba2's do: a rank's heads of several groups
+    would need their groups' columns cut, which no config asks for),
+    ``"time_mix"`` (RWKV6's heads) and ``"channel_mix"`` (its hidden and
+    output columns).  The one rule :func:`tp_roles` and the model
+    share."""
+    from repro_torch.models.ssm import mamba2_specs, rwkv6_specs
+    if cfg.family == "hybrid":
+        return {"mamba2": cfg.ssm.n_groups == 1 and
+                split(mamba2_specs(cfg)["in_proj"])}
+    if cfg.family == "ssm":
+        p = rwkv6_specs(cfg)
+        return {"time_mix": split(p["bonus_u"]),
+                "channel_mix": split(p["cm_wk"]) and split(p["cm_wr"])}
+    return {}
+
+
+def _recurrent_role(leaf: str, parent: str, s: ParamSpec, splits: dict,
+                    rules, mesh, seq_parallel: bool) -> Optional[str]:
+    """The role of a Mamba2 or RWKV6 leaf (None: not one)."""
+    if parent in ("groups", "rem") and leaf in MAMBA2:
+        return "split" if splits["mamba2"] and binds_model(s, rules, mesh) \
+            else "whole"
+    if parent == "ln" or (parent == "layers" and leaf in RWKV_NORMS):
+        return "partial" if seq_parallel else "whole"
+    if parent != "layers":
+        return None
+    for mixer, own, whole in (("time_mix", RWKV_TIME, RWKV_TIME_WHOLE),
+                              ("channel_mix", RWKV_CHANNEL,
+                               RWKV_CHANNEL_WHOLE)):
+        if leaf in own:
+            return "split" if splits[mixer] and binds_model(s, rules, mesh) \
+                else "whole"
+        if leaf in whole:
+            return "partial" if splits[mixer] else "whole"
+    return None
+
+
 def _leaf_role(key: str, s: ParamSpec, specs: dict, rules, mesh,
-               seq_parallel: bool) -> str:
+               seq_parallel: bool, splits: dict) -> str:
     name = key.rsplit("/", 2)
     parent, leaf = (name[-2], name[-1]) if len(name) > 1 else ("", key)
+    if splits:
+        role = _recurrent_role(leaf, parent, s, splits, rules, mesh,
+                               seq_parallel)
+        if role is not None:
+            return role
     if parent in ("attn", "cross"):
         block = key.rsplit("/", 1)[0]
         mla = f"{block}/wq_b" in specs
@@ -326,27 +441,33 @@ def tp_roles(cfg, rules: ShardingRules, mesh,
       MoE's expert stacks on their ``experts`` or, where those do not
       divide, their ``mlp`` dimension; its shared experts as an MLP; MLA's
       ``wq_b``, ``wkv_b`` and ``wo`` on their heads; a cross-attention's
-      leaves as a self-attention's);
+      leaves as a self-attention's; Mamba2's leaves on this rank's heads,
+      ``in_proj``, ``conv_w`` and ``conv_b`` as their parts' chunks;
+      RWKV6's :data:`RWKV_TIME` on its heads and :data:`RWKV_CHANNEL` on
+      its columns);
     * ``"whole"``: gathered whole and computed whole, as without tensor
       parallelism; its gradient is the same on every "model" rank, which
       keeps its chunk locally (the MoE router, even where its ``experts``
       dimension binds "model": routing is a softmax over every expert;
       attention whose ``heads`` fell back to replication; an expert stack
-      neither of whose dimensions divides; every leaf of a family
-      :func:`tp_covers` does not cover, and every leaf without a live
-      "model" axis);
+      neither of whose dimensions divides; a recurrent mixer's leaves
+      where its heads or parts do not divide (:func:`recurrent_splits`),
+      and every leaf without a live "model" axis);
     * ``"partial"``: replicated over "model", but each rank uses part of
       it (``wk`` / ``wv`` under the ``kv_heads`` fallback), computes it
       whole for its own heads only (MLA's ``wq_a``, ``q_norm``, ``wkv_a``
-      and ``kv_norm`` where the heads split) or sees part of the rows (a
-      norm's scale and bias under sequence parallelism, ``ln_cross`` and
-      an encoder's included); its gradient is summed over "model" before
-      the data-parallel mean."""
+      and ``kv_norm`` where the heads split; RWKV6's
+      :data:`RWKV_TIME_WHOLE` and :data:`RWKV_CHANNEL_WHOLE` where its
+      heads or columns split) or sees part of the rows (a norm's scale and
+      bias under sequence parallelism, ``ln_cross``, an encoder's, a
+      Mamba2 block's ``ln`` and RWKV6's LayerNorms included); its gradient
+      is summed over "model" before the data-parallel mean."""
     from repro_torch.models.transformer import model_specs
     specs = flatten(model_specs(cfg))
-    if not (tp_covers(cfg) and comm.axis_sizes(mesh).get("model", 1) > 1):
+    if comm.axis_sizes(mesh).get("model", 1) == 1:
         return {k: "whole" for k in specs}
-    return {k: _leaf_role(k, s, specs, rules, mesh, seq_parallel)
+    splits = recurrent_splits(cfg, lambda s: binds_model(s, rules, mesh))
+    return {k: _leaf_role(k, s, specs, rules, mesh, seq_parallel, splits)
             for k, s in specs.items()}
 
 
@@ -355,34 +476,27 @@ def tp_roles(cfg, rules: ShardingRules, mesh,
 # --------------------------------------------------------------------------
 
 
-def without_axis(rules: ShardingRules, axis: str) -> ShardingRules:
-    """``rules`` with ``axis`` taken out of every entry."""
-    out = {}
-    for k, e in rules.rules.items():
-        left = tuple(a for a in _flatten_mesh_axes(e) if a != axis)
-        out[k] = None if not left else (left[0] if isinstance(e, str)
-                                         else left)
-    return ShardingRules(out)
-
-
-def cache_rules(cfg, rules: ShardingRules) -> ShardingRules:
-    """The rules a serving cache is stored under: ``rules`` with ``embed``
-    unbound (an RWKV6 token shift's width stays whole: the reference
-    stores it split over "data" where the rows leave that axis free, a
-    layout no rank computes with), and for a family :func:`tp_covers` does
-    not cover without "model" too (its "model" ranks compute whole, so
-    their caches stay whole over it)."""
-    rules = rules.with_overrides(embed=None)
-    return rules if tp_covers(cfg) else without_axis(rules, "model")
-
-
 def cache_shardings(cfg, rules: ShardingRules, mesh, batch: int,
                     max_len: int):
-    """A Sharding tree of ``cache_specs(cfg, batch, max_len)`` on ``mesh``
-    (:func:`cache_rules`): what each rank allocates."""
+    """A Sharding tree of ``cache_specs(cfg, batch, max_len)`` on ``mesh``:
+    what each rank allocates.  The cache is stored under ``rules`` with
+    ``embed`` unbound (an RWKV6 token shift's width stays whole: the
+    reference stores it split over "data" where the rows leave that axis
+    free, a layout no rank computes with).  A hybrid whose Mamba2 layers
+    compute whole (:func:`recurrent_splits`: ``in_proj``'s parts do not
+    all divide) keeps their conv and SSM caches whole (their ``inner`` and
+    ``ssm_heads`` unbound), whatever their own dimensions would take."""
     from repro_torch.models.transformer import cache_specs
-    return shardings_for_specs(cache_specs(cfg, batch, max_len),
-                               cache_rules(cfg, rules), mesh)
+    specs = cache_specs(cfg, batch, max_len)
+    crules = rules.with_overrides(embed=None)
+    out = flatten(shardings_for_specs(specs, crules, mesh))
+    if cfg.family == "hybrid" and not recurrent_splits(
+            cfg, lambda s: binds_model(s, rules, mesh))["mamba2"]:
+        whole = crules.with_overrides(inner=None, ssm_heads=None)
+        for k, s in flatten(specs).items():
+            if k.endswith(("/conv", "/ssm")):
+                out[k] = sharding_for(s, whole, mesh)
+    return unflatten(out)
 
 
 def kv_cache_layout(cfg, rules: ShardingRules, mesh, max_len: int,
@@ -394,16 +508,17 @@ def kv_cache_layout(cfg, rules: ShardingRules, mesh, max_len: int,
     slots of every KV head, or of MLA's latent ``ckv`` and ``krope``, which
     have no head dimension: the reference's ``"onehot"`` write, which only
     the rank holding the slot makes), ``"whole"`` where neither does (no
-    live "model" axis, a family :func:`tp_covers` does not cover, or
-    dimensions that do not divide).  ``cross``: an encoder-decoder's
-    cross K/V cache in place of its self cache (its ``cache_seq`` is the
-    source frames)."""
-    if comm.axis_sizes(mesh).get("model", 1) == 1 or not tp_covers(cfg):
+    live "model" axis, dimensions that do not divide, or no attention
+    cache: RWKV6's).  ``cross``: an encoder-decoder's cross K/V cache in
+    place of its self cache (its ``cache_seq`` is the source frames)."""
+    if comm.axis_sizes(mesh).get("model", 1) == 1:
         return "whole"
     from repro_torch.models.transformer import cache_specs
-    kv = next(s for k, s in flatten(cache_specs(cfg, 1, max_len)).items()
-              if k.endswith(("/k", "/ckv"))
-              and k.startswith("cross/") == cross)
+    kv = next((s for k, s in flatten(cache_specs(cfg, 1, max_len)).items()
+               if k.endswith(("/k", "/ckv"))
+               and k.startswith("cross/") == cross), None)
+    if kv is None:
+        return "whole"
     spec = logical_to_pspec(kv.axes, kv.shape, rules, mesh)
     for logical, name in (("kv_heads", "heads"), ("cache_seq", "seq")):
         i = kv.axes.index(logical) if logical in kv.axes else len(spec)
@@ -436,7 +551,7 @@ class TensorParallel:
 
     def split_dim(self, s: ParamSpec) -> Optional[int]:
         """The dimension of ``s`` bound to "model" (None: none is)."""
-        spec = logical_to_pspec(s.axes, s.shape, self.rules, self.mesh)
+        spec = pspec_of(s, self.rules, self.mesh)
         return next((i for i, e in enumerate(spec)
                      if "model" in _flatten_mesh_axes(e)), None)
 
@@ -600,15 +715,11 @@ class PartitionConstraints:
                         ) -> Optional[TensorParallel]:
         """A pass's layout over ``s`` tokens (an encoder-decoder's over
         ``s_src`` source frames besides: :meth:`sp_pass`) in ``mode``;
-        None where the model computes whole (no live "model" axis, or a
-        family :func:`tp_covers` does not cover).  Sequence parallelism on
-        such a family raises; a prefill or decode pass runs without it, its
+        None where the model computes whole (no live "model" axis).  A
+        prefill or decode pass runs without sequence parallelism, its
         cache laid out by :func:`kv_cache_layout` (which needs
         ``max_len``)."""
-        if self.seq_parallel and not tp_covers(cfg):
-            raise NotImplementedError(
-                f"seq_parallel for family {cfg.family!r}: {UNPORTED}")
-        if self.model_size == 1 or not tp_covers(cfg):
+        if self.model_size == 1:
             return None
         cache = cross = None
         if mode != "train":

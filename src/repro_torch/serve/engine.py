@@ -125,8 +125,8 @@ def serve_shardings(cfg: ModelConfig, pc) -> tuple:
     """(params, cache) Sharding trees of a serving pass on ``pc``'s mesh:
     the params as ``pc.rules`` store them, the cache of ``pc.batch`` rows
     and ``pc.max_len`` slots as ``sharding.cache_shardings`` lays it out
-    (``.local_shape()`` is what a rank allocates, ``.slices(coord)`` the
-    global slice it holds)."""
+    (``.local_shape()`` is what a rank allocates, ``.cut(whole, coord)``
+    its piece of the global leaf)."""
     return (shardings_for_specs(model_specs(cfg), pc.rules, pc.mesh),
             cache_shardings(cfg, pc.rules, pc.mesh, pc.batch, pc.max_len))
 

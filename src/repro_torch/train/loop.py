@@ -65,7 +65,7 @@ from repro_torch.data.pipeline import (
 from repro_torch.launch.cost_analysis import analyze_step
 from repro_torch.models.transformer import init_model_params
 from repro_torch.parallel import comm
-from repro_torch.parallel.sharding import UNPORTED, shard_tree, tp_covers
+from repro_torch.parallel.sharding import shard_tree
 from repro_torch.train.step import (
     DP_AXES, batch_to_device, make_train_step, shardings)
 
@@ -172,10 +172,6 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
     to the card's published peaks (:data:`DEVICE_PEAKS`), and so does
     ``ici_bw`` on a known card (elsewhere, unless given, the ICI group's
     utilisations are not derived)."""
-    if mesh is not None and train_cfg.seq_parallel and \
-            not tp_covers(model_cfg):
-        raise NotImplementedError(f"seq_parallel for family "
-                                  f"{model_cfg.family!r}: {UNPORTED}")
     device = resolve_device(device)
     known = device_peaks(device) if peak_flops is None or hbm_bw is None \
         else _known_peaks(device)

@@ -30,6 +30,7 @@ two to count every element once, however many ranks hold a copy.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Callable
@@ -271,25 +272,29 @@ def get_optimizer(cfg: TrainConfig) -> Optimizer:
 
 def opt_state_specs(param_specs, cfg: TrainConfig):
     """ParamSpec tree of the optimizer state: moments inherit their
-    param's axes; Adafactor's ``vr`` drops the last, ``vc`` the one
-    before."""
+    param's axes (and the parts of its last dimension, ``segments``);
+    Adafactor's ``vr`` drops the last, ``vc`` the one before."""
     count = spec((), (), torch.int32, init="zeros")
+
+    def like(s: ParamSpec, dtype, **kw) -> ParamSpec:
+        return dataclasses.replace(s, dtype=dtype, init="zeros", scale=None,
+                                   value=0.0, **kw)
+
     if cfg.optimizer == "adamw":
         def mom(s: ParamSpec) -> ParamSpec:
-            return spec(s.shape, s.axes, torch.float32, init="zeros")
+            return like(s, torch.float32)
         return {"m": tree_map(mom, param_specs),
                 "v": tree_map(mom, param_specs), "count": count}
 
     def one(s: ParamSpec):
-        m = spec(s.shape, s.axes, torch.bfloat16, init="zeros") \
+        m = like(s, torch.bfloat16) \
             if cfg.beta1 else spec((), (), torch.float32, init="zeros")
         if _factored(s.shape):
             return {"vr": spec(s.shape[:-1], s.axes[:-1], torch.float32,
                                init="zeros"),
-                    "vc": spec(s.shape[:-2] + s.shape[-1:],
-                               s.axes[:-2] + s.axes[-1:], torch.float32,
-                               init="zeros"),
+                    "vc": like(s, torch.float32,
+                               shape=s.shape[:-2] + s.shape[-1:],
+                               axes=s.axes[:-2] + s.axes[-1:]),
                     "m": m}
-        return {"v": spec(s.shape, s.axes, torch.float32, init="zeros"),
-                "m": m}
+        return {"v": like(s, torch.float32), "m": m}
     return {"s": tree_map(one, param_specs), "count": count}

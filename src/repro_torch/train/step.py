@@ -40,7 +40,7 @@ step on the global batch:
   each use, an encoder-decoder's cross K/V projections);
 * the port's gradient runs on them (``loss_fn`` with ``pc``: this rank's
   term of the global masked mean, the MoE dispatched over the mesh,
-  tensor-parallel where "model" is live and the family is covered,
+  tensor-parallel where "model" is live,
   sequence-parallel with ``seq_parallel``), and each microbatch's metrics
   are reduced over the data-parallel ranks (means; ``moe_max_load`` the
   largest);
@@ -75,8 +75,7 @@ from repro_torch.models.params import flatten, unflatten
 from repro_torch.models.transformer import loss_fn, model_specs
 from repro_torch.parallel import comm
 from repro_torch.parallel.sharding import (
-    UNPORTED, PartitionConstraints, TRAIN_RULES, shardings_for_specs,
-    tp_covers, tp_roles)
+    PartitionConstraints, TRAIN_RULES, shardings_for_specs, tp_roles)
 from repro_torch.train.compression import cross_pod_sync
 from repro_torch.train.optim import (clip_by_global_norm, get_optimizer,
                                      global_norm, lr_schedule,
@@ -280,9 +279,6 @@ def make_grads_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, *,
     if mesh is None:
         return lambda params, batch: _grads_and_metrics(
             params, batch, model_cfg, train_cfg, pc)
-    if train_cfg.seq_parallel and not tp_covers(model_cfg):
-        raise NotImplementedError(f"seq_parallel for family "
-                                  f"{model_cfg.family!r}: {UNPORTED}")
     if not hasattr(mesh, "mesh_dim_names"):
         raise TypeError(f"mesh: a DeviceMesh, not {type(mesh).__name__}")
     if train_cfg.grad_compression not in ("", "none", "int8", "int8_ef",

@@ -49,6 +49,8 @@ TOL = {"attn": {"float32": 2e-5, "bfloat16": 2e-2},
        # fp32 chunked algorithm's own error reaches ~1.5e-3 kernel vs plain
        "ssd_bwd": {"float32": 2e-3, "bfloat16": 2e-2},
        "ssd_bwd_strong_decay": {"float32": 1e-2, "bfloat16": 2e-2}}
+# the statistic-from-outside kernels, which no path here launches
+NO_SPLIT = {"rmsnorm_split": 0, "rmsnorm_split_backward": 0}
 
 
 @pytest.fixture
@@ -294,6 +296,91 @@ def test_norm_under_grad_runs_the_backward_kernel(cuda, rng, dtype):
     assert ops.launch_counts()["rmsnorm_backward"] == 1
 
 
+def _split_rows(rng, cuda, n, d, dt):
+    """x, dy (n, 2d) and scale (2d,) on the card: two "model" ranks'
+    columns of rows of 2d."""
+    x, dy = (torch.from_numpy(rng.standard_normal((n, 2 * d)).astype(
+        np.float32)).to(cuda, dt) for _ in range(2))
+    scale = torch.from_numpy((1.0 + 0.1 * rng.standard_normal(2 * d)).astype(
+        np.float32)).to(cuda)
+    return x, dy, scale
+
+
+# the statistic from outside at zamba2's rank rows (d_inner 7168 on two
+# "model" ranks: 3584 columns a rank): the TP world's training rows, phase
+# 4's, a decode batch, and ragged row counts
+SPLIT_ROWS = [(8192, 3584), (16384, 3584), (8, 3584), (1003, 3584),
+              (4097, 512), (7, 1032)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", SPLIT_ROWS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_split_kernels_match_plain(cuda, rng, n, d, dtype):
+    """Rank 0's d columns of rows of 2d (read with a row stride of 2d),
+    its statistic completed by the other half's sums through ``reduce``:
+    the forward against the plain norm of the whole rows cut to its
+    columns, and against ``ref.rmsnorm_split_ref``; the backward's dx and
+    dscale against the whole rows' plain gradient cut likewise, dscale the
+    same bits on a second call.  One launch each counted."""
+    dt = getattr(torch, dtype)
+    full, dy_full, scale_full = _split_rows(rng, cuda, n, d, dt)
+    x, dy, scale = full[:, :d], dy_full[:, :d], scale_full[:d]
+    other = full[:, d:].float()
+    other_ss = other.square().sum(-1)
+    other_dot = (other * dy_full[:, d:].float() * scale_full[d:]).sum(-1)
+    before = (rms.split_launches, rms.split_bwd_launches)
+    y, ss = rms.rmsnorm_split(x, scale, width=2 * d,
+                              reduce=lambda t: t + other_ss)
+    dx, dscale = rms.rmsnorm_split_bwd(x, scale, dy, ss, width=2 * d,
+                                       reduce=lambda t: t + other_dot)
+    torch.cuda.synchronize()
+    assert (rms.split_launches, rms.split_bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert y.dtype == dt and y.is_contiguous() and dx.is_contiguous()
+    _close(y, ref.rmsnorm_ref(full, scale_full)[:, :d], TOL["rms"][dtype])
+    plain_y, plain_ss = ref.rmsnorm_split_ref(
+        x, scale, width=2 * d, reduce=lambda t: t + other_ss)
+    _close(y, plain_y, TOL["rms"][dtype])
+    _rel_close(ss, plain_ss, TOL["rms"]["float32"])
+    want_dx, want_ds = ref.rmsnorm_bwd_ref(full, scale_full, dy_full)
+    _rel_close(dx, want_dx[:, :d], TOL["rms"][dtype])
+    _rel_close(dscale, want_ds[:d], TOL["rms"]["float32"],
+               _dscale_magnitude(full, dy_full)[:d])
+    again = rms.rmsnorm_split_bwd(x, scale, dy, ss, width=2 * d,
+                                  reduce=lambda t: t + other_dot)[1]
+    assert torch.equal(again, dscale)              # no atomics: same bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_split_under_grad_runs_its_kernels(cuda, rng, dtype):
+    """``ops.fused_rmsnorm_split`` on a one-rank "model" axis (the
+    statistic is the row's own, width = d): its forward and backward
+    kernels launch once each under grad, none of the fused kernels, and
+    the gradients are the fused RMSNorm's plain ones."""
+    dt = getattr(torch, dtype)
+    xn = rng.standard_normal((3, 11, 512)).astype(np.float32)
+    x = torch.from_numpy(xn).to(cuda, dt).requires_grad_()
+    scale = torch.ones(512, device=cuda, requires_grad=True)
+    dy = torch.from_numpy(rng.standard_normal((3, 11, 512)).astype(
+        np.float32)).to(cuda, dt)
+    ops.reset_launch_counts()
+    y = ops.fused_rmsnorm_split(x, scale, width=512, mesh=None)
+    y.backward(dy)
+    counts = ops.launch_counts()
+    assert (counts["rmsnorm_split"], counts["rmsnorm_split_backward"],
+            counts["rmsnorm"], counts["rmsnorm_backward"]) == (1, 1, 0, 0)
+    xr = x.detach().clone().requires_grad_()
+    sr = scale.detach().clone().requires_grad_()
+    ref.rmsnorm_ref(xr, sr).backward(dy)
+    _close(y.detach(), ref.rmsnorm_ref(x.detach(), scale.detach()),
+           TOL["rms"][dtype])
+    _rel_close(x.grad, xr.grad, TOL["rms"][dtype])
+    _rel_close(scale.grad, sr.grad, TOL["rms"]["float32"],
+               _dscale_magnitude(x.detach(), dy))
+
+
 @pytest.mark.cuda
 def test_train_flash_attention_raises_under_grad(cuda):
     cfg = _two_layer_lms_demo("bfloat16")
@@ -408,7 +495,7 @@ def test_mla_block_prefill_and_decode_on_card_match_cpu(cuda, rng, dtype,
         assert err <= tol * max(1.0, float(want.abs().max())), err
     assert ops.launch_counts() == {"flash_attention": 1, "rmsnorm": 2 * 4,
                                    "rmsnorm_backward": 0, "ssd_scan": 0,
-                                   "ssd_scan_backward": 0}
+                                   "ssd_scan_backward": 0, **NO_SPLIT}
 
 
 @pytest.mark.cuda
@@ -466,7 +553,7 @@ def test_model_on_card_matches_plain_on_cpu(cuda, rng, dtype, tol):
     assert ops.launch_counts() == {"flash_attention": 2,
                                    "rmsnorm": 4 * (2 * 2 + 1),
                                    "rmsnorm_backward": 0, "ssd_scan": 0,
-                                   "ssd_scan_backward": 0}
+                                   "ssd_scan_backward": 0, **NO_SPLIT}
 
 
 @pytest.mark.cuda
@@ -647,7 +734,7 @@ def test_hybrid_model_on_card_matches_plain_on_cpu(cuda, rng, dtype, tol,
         "flash_attention": groups,
         "rmsnorm": 4 * (2 * num_layers + 2 * groups + 1),
         "rmsnorm_backward": 0, "ssd_scan": num_layers,
-        "ssd_scan_backward": 0}
+        "ssd_scan_backward": 0, **NO_SPLIT}
 
 
 @pytest.mark.cuda
@@ -714,7 +801,7 @@ def test_window_and_moe_models_on_card_match_plain_on_cpu(cuda, rng, name,
     norms = 0 if cfg.norm_type == "layernorm" else 4 * (2 * 2 + 1)
     assert ops.launch_counts() == {"flash_attention": 2, "rmsnorm": norms,
                                    "rmsnorm_backward": 0, "ssd_scan": 0,
-                                   "ssd_scan_backward": 0}
+                                   "ssd_scan_backward": 0, **NO_SPLIT}
 
 
 # The SSD backward kernel: the chunk loop forward and in reverse, ragged
@@ -951,7 +1038,7 @@ def test_hybrid_train_steps_on_card_match_cpu(cuda, rng):
     assert ops.launch_counts() == {
         "flash_attention": 0, "rmsnorm": 2 * (norms + 2 * layers),
         "rmsnorm_backward": 2 * norms, "ssd_scan": 2 * 2 * layers,
-        "ssd_scan_backward": 2 * layers}
+        "ssd_scan_backward": 2 * layers, **NO_SPLIT}
 
 
 # -- RWKV6 and the encoder-decoder ---------------------------------------------------
@@ -1022,7 +1109,8 @@ def test_new_families_on_card_match_cpu(cuda, rng, name, dtype, tol):
     want = {"flash_attention": 2, "rmsnorm": 0} if cfg.family == "encdec" \
         else {"flash_attention": 0, "rmsnorm": 4}
     assert ops.launch_counts() == {**want, "rmsnorm_backward": 0,
-                                   "ssd_scan": 0, "ssd_scan_backward": 0}
+                                   "ssd_scan": 0, "ssd_scan_backward": 0,
+                                   **NO_SPLIT}
 
 
 @pytest.mark.cuda

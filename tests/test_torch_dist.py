@@ -137,13 +137,23 @@ def test_pieces_tile_every_leaf(mesh):
     for arch in ("mixtral-8x7b", "deepseek-v2-236b", "zamba2-7b"):
         for key, s in flatten(model_specs(get_config(arch))).items():
             sh = tsh.sharding_for(s, tsh.TRAIN_RULES, sizes)
-            cover = {}
+            # a segmented last dimension (Mamba2's in_proj and conv) is no
+            # slice: its pieces' columns (Sharding.columns) tile it instead
+            plain = dataclasses.replace(sh, segments=())
+            cover, cols = {}, {}
             for coord in np.ndindex(*shape):
-                sl = sh.slices(dict(zip(names, coord)))
+                at = dict(zip(names, coord))
+                sl = plain.slices(at)
                 cover[tuple((x.start, x.stop) for x in sl)] = 1
+                if sh.segments:
+                    cols[tuple(sh.columns(at))] = 1
             assert len(cover) == math.prod(
                 sizes[a] for a in sh.axes), (arch, key)
             for i, d in enumerate(s.shape):
+                if sh.segments and i == len(s.shape) - 1:
+                    held = [c for cs in cols for c in cs]
+                    assert sorted(held) == list(range(d)), (arch, key)
+                    continue
                 ends = sorted({c[i] for c in cover})
                 assert ends[0][0] == 0 and ends[-1][1] == d
                 assert all(a[1] == b[0] for a, b in zip(ends, ends[1:]))
@@ -154,9 +164,8 @@ def test_constraints_are_the_identity_and_sequence_parallelism_raises():
     identity; with it a pass runs sequence-parallel only where the
     sequence divides by the "model" size (the reference's ``tokens``
     fallback; an encoder-decoder's only where its source frames divide
-    too), and only for the families tensor-parallel compute covers (the
-    VLM, MLA and the encoder-decoder among them): the recurrent ones
-    raise."""
+    too), for every family (the recurrent ones included, each of their
+    mixers split by ``recurrent_splits``)."""
     pc = tsh.PartitionConstraints(tsh.TRAIN_RULES, {"data": 2, "model": 2})
     x = torch.zeros(2, 4, 8)
     assert pc.tokens(x) is x and pc.act(x, "batch", None, None) is x
@@ -173,12 +182,16 @@ def test_constraints_are_the_identity_and_sequence_parallelism_raises():
                                    seq_parallel=True)
     assert not one.sp_for(4) and one.tokens(x) is x
     assert one.tensor_parallel(get_config("granite-3-8b"), 4) is None
-    for arch in ("zamba2-7b", "rwkv6-1.6b"):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            sp.tensor_parallel(get_config(arch), 4)
-    # the VLM's text stack, MLA and the encoder-decoder are covered
-    for arch in ("qwen2-vl-7b", "deepseek-v2-236b", "seamless-m4t-large-v2"):
-        assert tsh.tp_covers(get_config(arch))
+    # every family computes tensor-parallel: the recurrent ones take
+    # sequence parallelism too (their sequence-parallel passes run in
+    # tests/test_torch_tp_recurrent.py)
+    for arch in ("zamba2-7b", "rwkv6-1.6b", "qwen2-vl-7b",
+                 "deepseek-v2-236b", "seamless-m4t-large-v2"):
+        assert sp.sp_pass(get_config(arch), 4)
+        assert tsh.recurrent_splits(get_config(arch), lambda s: True) == (
+            {"mamba2": True} if arch == "zamba2-7b" else
+            {"time_mix": True, "channel_mix": True} if arch == "rwkv6-1.6b"
+            else {})
     enc = get_config("seamless-m4t-large-v2")
     assert sp.sp_pass(enc, 4, 8) and not sp.sp_pass(enc, 4, 3)
     assert sp.sp_pass(get_config("deepseek-v2-236b"), 4, 3)

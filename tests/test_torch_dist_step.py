@@ -196,7 +196,7 @@ def _check_pieces(out, name, cfg, names, shape, want_leaves, tol=STEP_TOL,
     n = 0
     for k, sh in shardings.items():
         got = out[f"{name}/p/{k}"]
-        want = want_leaves[k][sh.slices(coord)]
+        want = sh.cut(want_leaves[k], coord)
         assert got.shape == sh.local_shape(), k
         if abs_tol is None:
             np.testing.assert_allclose(got, want, rtol=tol, atol=tol,

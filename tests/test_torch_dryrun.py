@@ -305,23 +305,23 @@ def test_dry_run_records_pass_the_reference_schema(records, mesh, arch):
         assert r["fits_80gb"] or r["fits_note"]
         assert r["hlo_analysis"]["per_device"]["collective_operand_bytes"] \
             > 0        # the data-parallel exchange, the params' gathers
-        # tensor-parallel compute: the attention families shard under
-        # "model" (the smoke configs' MLP and vocabulary split 16 ways),
-        # the recurrent ones (hybrid, RWKV6) compute every leaf whole
-        covered = tsh.tp_covers(get_config(arch))
+        # tensor-parallel compute: every family shards under "model" (the
+        # smoke configs' vocabulary splits 16 ways; the recurrent ones'
+        # heads, 8 or 4, do not, so their mixers compute whole)
+        family = get_config(arch).family
         if SHAPES[shape].kind == "train":
-            assert r["tp_compute"] == ("sharded" if covered else "whole"), \
-                (shape, r["tp_compute"])
+            assert r["tp_compute"] == "sharded", (shape, r["tp_compute"])
             assert isinstance(r["tp_whole_leaves"], list)
             assert "serve" not in r
             continue
         # serving: the cache layout, the rows, the reference's decode
         # write; the smoke configs' KV heads (one, or 4 for the others)
-        # never divide 16, so a covered family's cache splits its slots
-        # (MLA's latent has no head dimension to split)
+        # never divide 16, so an attention cache splits its slots (MLA's
+        # latent has no head dimension to split); RWKV6 has none
         serve = r["serve"]
-        assert serve["tp_compute"] == ("sharded" if covered else "whole")
-        assert serve["cache_layout"] == ("seq" if covered else "whole")
+        assert serve["tp_compute"] == "sharded"
+        assert serve["cache_layout"] == ("whole" if family == "ssm"
+                                         else "seq")
         assert serve["rows"] == ("replicated" if shape == "long_500k"
                                  else "split")
         assert serve["cache_bytes"] > 0 and serve["params_bytes"] > 0

@@ -335,8 +335,10 @@ def test_cpu_calls_launch_nothing_and_markers_carry_costs():
     finally:
         assert ops.set_kernel_markers(prev) is session
     assert ops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0,
-                                   "rmsnorm_backward": 0, "ssd_scan": 0,
-                                   "ssd_scan_backward": 0}
+                                   "rmsnorm_backward": 0,
+                                   "rmsnorm_split": 0,
+                                   "rmsnorm_split_backward": 0,
+                                   "ssd_scan": 0, "ssd_scan_backward": 0}
     names = [n for n, _ in session.regions]
     assert names == ["kernel:flash_attention", "kernel:rmsnorm"]
     assert session.regions[0][1] == fa.cost_estimate(

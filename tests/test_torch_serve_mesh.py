@@ -35,8 +35,10 @@ cache's slice under the binding (``CACHE_TOL``).  The runs:
   ``kv_heads`` unbound (``SERVE_RULES.with_overrides(kv_heads=None)``):
   both caches split by slot, the cross K/V by source frame (decode merges
   each rank's partials over its frames);
-* zamba2 (Mamba2 hybrid) on (1, 2): computed whole on both "model" ranks,
-  its cache whole over it.
+* zamba2 (Mamba2 hybrid) on (1, 2): its Mamba2 layers on each rank's heads
+  (the conv cache as its parts' chunks, the SSM state by heads), its
+  shared attention blocks' cache split over their 4 KV heads (layout
+  ``"heads"``).
 
 Besides: the (1, 4) dense run against the reference's own decode bundle
 (``repro.launch.steps.build_decode_bundle``, its ``"onehot"`` write),
@@ -109,7 +111,7 @@ RUNS = {
     "mla-m14": ("mla", M14, {}, "seq", None),
     "encdec-m12": ("encdec", M12, {}, "heads", None),
     "encdec-kv-m12": ("encdec", M12, {"kv_heads": None}, "seq", None),
-    "hybrid-m12": ("hybrid", M12, {}, "whole", None),
+    "hybrid-m12": ("hybrid", M12, {}, "heads", None),
     "dense-m14-no-merge": ("dense", M14, {}, "seq", "no_merge"),
 }
 HELD = [n for n, r in RUNS.items() if r[4] is None]
@@ -325,7 +327,7 @@ def test_cache_pieces_are_the_one_device_slices(world, name):
         for k, sh in shards.items():
             got = out[f"{name}/c/{k}"]
             assert got.shape == sh.local_shape(), k
-            piece = cache[k][sh.slices(coord)]
+            piece = sh.cut(cache[k], coord)
             assert np.allclose(got, piece, rtol=CACHE_TOL,
                                atol=CACHE_TOL), k
     n = shape[names.index("model")]
@@ -422,27 +424,27 @@ def _reference_update(cfg, mesh) -> str:
 @pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
 def test_cache_layouts_follow_the_reference_policy(arch):
     """On both production meshes: where the reference writes in place
-    ("dus") a covered family's cache splits its KV heads; where it writes
-    one-hot ("onehot") the cache's slots take "model" (deepseek's latent,
-    which has no head dimension, included; seamless's 16 KV heads split);
-    the families tensor-parallel compute does not cover (the recurrent
-    hybrid and RWKV6) keep their caches whole over "model"; the rows of
-    decode_32k (128) split 8 a rank, long_500k's one row is
-    replicated."""
+    ("dus") the cache splits its KV heads (zamba2's shared attention
+    blocks' 32 included); where it writes one-hot ("onehot") the cache's
+    slots take "model" (deepseek's latent, which has no head dimension,
+    included; seamless's 16 KV heads split); RWKV6, with no attention
+    cache, has layout "whole": its WKV state splits by heads, its token
+    shifts stay whole; the rows of decode_32k (128) split 8 a rank,
+    long_500k's one row is replicated."""
     cfg = get_config(arch)
     for mesh in ({"data": 16, "model": 16},
                  {"pod": 2, "data": 16, "model": 16}):
         layout = tsh.kv_cache_layout(cfg, tsh.SERVE_RULES, mesh, 32768)
-        assert tsh.tp_covers(cfg) == (cfg.family not in ("hybrid", "ssm"))
         if arch == "deepseek-v2-236b":
             assert layout == "seq"
-        if arch == "seamless-m4t-large-v2":
+        if arch in ("seamless-m4t-large-v2", "zamba2-7b"):
             assert layout == "heads"
-        if not tsh.tp_covers(cfg):
+        if cfg.family == "ssm":
             assert layout == "whole"
-            for s in flatten(tsh.cache_shardings(
-                    cfg, tsh.SERVE_RULES, mesh, 128, 32768)).values():
-                assert "model" not in s.axes
+            shards = flatten(tsh.cache_shardings(
+                cfg, tsh.SERVE_RULES, mesh, 128, 32768))
+            assert {k for k, s in shards.items() if "model" in s.axes} == \
+                {"wkv"}
         else:
             assert layout == {"dus": "heads", "onehot": "seq"}[
                 _reference_update(cfg, mesh)]

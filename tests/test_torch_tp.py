@@ -232,7 +232,7 @@ def test_tp_roles_agree_with_the_reference_binding(mesh):
                 assert role in tsh.ROLES, (arch, k)
                 binds = _binds_model(jsh.logical_to_pspec(
                     jspecs[k].axes, jspecs[k].shape, jsh.TRAIN_RULES, jm))
-                if not tsh.tp_covers(cfg) or k.endswith("/moe/router"):
+                if k.endswith("/moe/router"):
                     # the router stays whole where it binds "model" too
                     assert role == "whole", (arch, k)
                 elif role == "split":
@@ -240,8 +240,7 @@ def test_tp_roles_agree_with_the_reference_binding(mesh):
                 else:
                     assert not binds, (arch, k, role)
                 if k.split("/")[-2] in ("ln1", "ln2", "ln_cross",
-                                        "final_norm") and \
-                        tsh.tp_covers(cfg):
+                                        "final_norm"):
                     assert role == ("partial" if sp else "whole"), (arch, k)
 
 
@@ -379,8 +378,8 @@ def _check_tp_pieces(out, name, cfg, names, shape, want, one) -> int:
     coord = dict(zip(names, out[f"{name}/coord"].tolist()))
     for k, sh in flatten(tsh.shardings_for_specs(
             model_specs(cfg), tsh.TRAIN_RULES, sizes)).items():
-        got, ref = out[f"{name}/p/{k}"], want[k][sh.slices(coord)]
-        near = np.abs(one[k][sh.slices(coord)] - ref) <= \
+        got, ref = out[f"{name}/p/{k}"], sh.cut(want[k], coord)
+        near = np.abs(sh.cut(one[k], coord) - ref) <= \
             STEP_TOL * (1 + np.abs(ref))
         assert (~near).sum() <= got.size // 1000, k
         np.testing.assert_allclose(got[near], ref[near], rtol=STEP_TOL,

@@ -314,7 +314,7 @@ def test_moe_and_vlm_roles_follow_the_reference_binding(arch, mesh):
     cfg = get_config(arch)
     jspecs = flatten(jmodel_specs(jget_config(arch)))
     roles = tsh.tp_roles(cfg, tsh.TRAIN_RULES, sizes)
-    assert tsh.tp_covers(cfg)
+    assert "split" in roles.values()
     for k, role in roles.items():
         binds = _binds_model(jsh.logical_to_pspec(
             jspecs[k].axes, jspecs[k].shape, jsh.TRAIN_RULES, jm))

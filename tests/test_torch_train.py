@@ -311,17 +311,18 @@ def test_unported_training_raises(model):
         ttf.forward(_port_params(jp, tc), tc, tokens=toks, mode="train",
                     remat="some")
     # a mesh trains data-parallel (tests/test_torch_dist_step.py), and
-    # tensor- and sequence-parallel for the dense and GQA-MoE families
-    # (tests/test_torch_tp.py); sequence parallelism is not ported for the
-    # other families
+    # tensor- and sequence-parallel for every family (tests/test_torch_tp*.py;
+    # the recurrent ones in tests/test_torch_tp_recurrent.py): a hybrid
+    # with seq_parallel passes to the mesh's checks, the step's type check
+    # and the loop's process group
     hybrid = get_config("zamba2-7b", smoke=True)
-    with pytest.raises(NotImplementedError, match="seq_parallel"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tstep.make_train_step(hybrid, tbase.TrainConfig(seq_parallel=True),
                               mesh=object())
-    with pytest.raises(NotImplementedError, match="seq_parallel"):
+    with pytest.raises(ValueError, match="process group"):
         tloop.train(hybrid, tbase.TrainConfig(seq_parallel=True), TINY,
                     stack=None, mesh=object(), device="cpu", **PEAKS)
-    # a covered family takes it: the next check is the mesh's type
+    # so does a dense model: the next check is the mesh's type
     with pytest.raises(TypeError, match="DeviceMesh"):
         tstep.make_train_step(tc, tbase.TrainConfig(seq_parallel=True),
                               mesh=object())

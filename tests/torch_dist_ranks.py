@@ -352,6 +352,58 @@ def _no_offset(total: int):
     return _patched(transformer, "_row_positions", mutant)
 
 
+def _row_shift(n: int):
+    """``ssm._token_shift`` on each of ``n`` blocks of rows on its own (a
+    sequence-parallel rank's rows, shifting in zeros at their first row
+    instead of the row before): the token-shift trap."""
+    import torch
+    from repro_torch.models import ssm
+    shift = ssm._token_shift
+
+    def mutant(x, last=None):
+        if x.shape[1] < n:
+            return shift(x, last)
+        return torch.cat([shift(c, last if i == 0 else None)
+                          for i, c in enumerate(x.chunk(n, dim=1))], dim=1)
+    return _patched(ssm, "_token_shift", mutant)
+
+
+def _column_fault(kind: str):
+    """A column exchange with the wrong backward: ``"bc_slice"``, Mamba2's
+    B / C gather keeping this rank's columns of the gradient (no sum over
+    "model"); ``"cm_sum"``, RWKV6's channel-mix gather summing the
+    gradient over "model" (each rank holds it whole already)."""
+    from repro_torch.parallel import comm
+    if kind == "bc_slice":
+        return _patched(comm, "gather_shared_columns",
+                        lambda x, mesh, name="bc_gather":
+                        comm.gather_columns(x, mesh, name))
+    shared = comm.gather_shared_columns
+    return _patched(comm, "gather_columns",
+                    lambda x, mesh, name="channel_mix": shared(x, mesh, name))
+
+
+def _local_norm():
+    """Mamba2's gated norm on this rank's columns' own statistic (no sum
+    over "model")."""
+    from repro_torch.kernels import ops
+    return _patched(ops, "fused_rmsnorm_split",
+                    lambda x, scale, *, width, mesh, eps=1e-5:
+                    ops.fused_rmsnorm(x, scale, eps=eps))
+
+
+def _identity_layout():
+    """A segmented leaf cut as a contiguous chunk (the identity in place of
+    ``comm.segment_columns``' permutation), in its storage and its
+    gathers alike."""
+    from repro_torch.parallel import comm
+
+    def contiguous(segments, idx, n):
+        k = sum(segments) // n
+        return list(range(idx * k, (idx + 1) * k))
+    return _patched(comm, "segment_columns", contiguous)
+
+
 @contextlib.contextmanager
 def _mutated(kind):
     """The step with a planted fault (``"gate_sum"``: :class:`_NoGateSum`;
@@ -360,15 +412,27 @@ def _mutated(kind):
     ``"no_partial_sum:<leaf>"``: the gradient of the ``"partial"`` leaves
     named ``<leaf>`` not summed over "model"; ``"no_offset:<S>"``: the
     sinusoidal positions of a sequence of S not offset to a
-    sequence-parallel rank's rows), or as it is (None)."""
+    sequence-parallel rank's rows; ``"row_shift:<N>"``: :func:`_row_shift`;
+    ``"bc_slice"`` / ``"cm_sum"``: :func:`_column_fault`;
+    ``"local_norm"``: :func:`_local_norm`; ``"identity_layout"``:
+    :func:`_identity_layout`), or as it is (None)."""
     if kind is None:
         yield
         return
     if ":" in kind:
         what, arg = kind.split(":")
         mutant = {"no_partial_sum": lambda: _no_partial_sum(arg),
-                  "no_offset": lambda: _no_offset(int(arg))}[what]()
+                  "no_offset": lambda: _no_offset(int(arg)),
+                  "row_shift": lambda: _row_shift(int(arg))}[what]()
         with mutant:
+            yield
+        return
+    planted = {"bc_slice": lambda: _column_fault("bc_slice"),
+               "cm_sum": lambda: _column_fault("cm_sum"),
+               "local_norm": _local_norm,
+               "identity_layout": _identity_layout}.get(kind)
+    if planted is not None:
+        with planted():
             yield
         return
     if kind == "no_merge":
@@ -397,40 +461,47 @@ def case_steps(rank: int, workdir: str, opts: dict) -> dict:
     write a checkpoint of its pieces after its steps, and ``probe`` its
     computed leaves' shapes and the dimensions it gathers over "model"
     (:func:`_probe`)."""
+    out = {}
+    for run in opts["runs"]:
+        # a planted fault covers the run's set-up too (a layout fault cuts
+        # the pieces)
+        with _mutated(run.get("mutate")):
+            _steps_run(run, workdir, out)
+    return out
+
+
+def _steps_run(run: dict, workdir: str, out: dict) -> None:
+    """One run of :func:`case_steps`, its outputs added to ``out``."""
     from repro_torch.ckpt.checkpoint import CheckpointManager
     from repro_torch.models import moe
     from repro_torch.train import step as tstep
-    out = {}
-    for run in opts["runs"]:
-        cfg, tcfg, mesh, psh, osh, params, state, fn = _init_run(run,
-                                                                 workdir)
-        batches = _batches(workdir, run["batches"])[:run["steps"]]
-        if tcfg.grad_compression == "int8":
-            out.update({f"{run['name']}/{k}": v for k, v in _int8_gap(
-                run, cfg, tcfg, mesh, psh, params, batches[0]).items()})
-        history = []
-        moe.reset_dispatch_counts()
-        for i, batch in enumerate(batches):
-            with _probe(out, run["name"]) if run.get("probe") \
-                    else contextlib.nullcontext(), \
-                    _mutated(run.get("mutate")):
-                params, state, m = fn(params, state,
-                                      tstep.shard_batch(batch, mesh), i)
-            history.append(m)
-        counts = moe.dispatch_counts()
-        out[f"{run['name']}/dispatches"] = np.asarray(
-            [counts["grouped"], counts["a2a"]], np.int64)
-        out.update({f"{run['name']}/{k}": v
-                    for k, v in _metrics_out(history).items()})
-        out.update({f"{run['name']}/p/{k}": v
-                    for k, v in _flat(params).items()})
-        out[f"{run['name']}/coord"] = _coord(mesh)
-        if run.get("ckpt"):
-            mgr = CheckpointManager(os.path.join(workdir, run["ckpt"]),
-                                    async_write=False)
-            mgr.save(len(batches), {"params": params, "opt_state": state},
-                     shardings={"params": psh, "opt_state": osh}, mesh=mesh)
-    return out
+    cfg, tcfg, mesh, psh, osh, params, state, fn = _init_run(run,
+                                                             workdir)
+    batches = _batches(workdir, run["batches"])[:run["steps"]]
+    if tcfg.grad_compression == "int8":
+        out.update({f"{run['name']}/{k}": v for k, v in _int8_gap(
+            run, cfg, tcfg, mesh, psh, params, batches[0]).items()})
+    history = []
+    moe.reset_dispatch_counts()
+    for i, batch in enumerate(batches):
+        with _probe(out, run["name"]) if run.get("probe") \
+                else contextlib.nullcontext():
+            params, state, m = fn(params, state,
+                                  tstep.shard_batch(batch, mesh), i)
+        history.append(m)
+    counts = moe.dispatch_counts()
+    out[f"{run['name']}/dispatches"] = np.asarray(
+        [counts["grouped"], counts["a2a"]], np.int64)
+    out.update({f"{run['name']}/{k}": v
+                for k, v in _metrics_out(history).items()})
+    out.update({f"{run['name']}/p/{k}": v
+                for k, v in _flat(params).items()})
+    out[f"{run['name']}/coord"] = _coord(mesh)
+    if run.get("ckpt"):
+        mgr = CheckpointManager(os.path.join(workdir, run["ckpt"]),
+                                async_write=False)
+        mgr.save(len(batches), {"params": params, "opt_state": state},
+                 shardings={"params": psh, "opt_state": osh}, mesh=mesh)
 
 
 def case_elastic(rank: int, workdir: str, opts: dict) -> dict:
@@ -769,7 +840,54 @@ def case_serve(rank: int, workdir: str, opts: dict) -> dict:
     return out
 
 
+def case_layout(rank: int, workdir: str, opts: dict) -> dict:
+    """Mamba2's segmented leaves on a (1, world) mesh: this rank's pieces
+    of the params (``layout_params.npz``) and of the serving cache
+    (``layout_cache.npz``, under ``SERVE_RULES``), the leaves
+    ``gather_tree`` puts back together from them, and the pieces a
+    checkpoint saved from them restores (written by the mesh's origin,
+    read by every rank after a barrier)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.models.bridge import params_from_numpy
+    from repro_torch.models.params import unflatten
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.parallel.sharding import (
+        SERVE_RULES, TRAIN_RULES, cache_shardings, gather_tree,
+        shard_tree, shardings_for_specs)
+    cfg = _config(opts)
+    mesh = _mesh(("data", "model"), (1, dist.get_world_size()))
+    psh = shardings_for_specs(model_specs(cfg), TRAIN_RULES, mesh)
+    whole = params_from_numpy(_load(os.path.join(workdir,
+                                                 "layout_params.npz")),
+                              cfg, device="cpu")
+    pieces = shard_tree(whole, psh, mesh)
+    cache = _load(os.path.join(workdir, "layout_cache.npz"))
+    b, length = opts["cache"]
+    csh = cache_shardings(cfg, SERVE_RULES, mesh, b, length)
+    cwhole = unflatten({k: torch.from_numpy(v) for k, v in cache.items()})
+    cpieces = shard_tree(cwhole, csh, mesh)
+    out = {"coord": _coord(mesh)}
+    out.update({f"piece/{k}": v for k, v in _flat(pieces).items()})
+    out.update({f"cpiece/{k}": v for k, v in _flat(cpieces).items()})
+    out.update({f"gathered/{k}": v for k, v in _flat(
+        gather_tree(pieces, psh, mesh)).items()})
+    out.update({f"cgathered/{k}": v for k, v in _flat(
+        gather_tree(cpieces, csh, mesh)).items()})
+    mgr = CheckpointManager(os.path.join(workdir, f"layout_ckpt_"
+                                         f"{dist.get_world_size()}"),
+                            async_write=False)
+    mgr.save(0, {"params": pieces}, shardings={"params": psh}, mesh=mesh)
+    dist.barrier()
+    _, trees = mgr.restore({"params": pieces}, shardings={"params": psh},
+                           mesh=mesh)
+    out.update({f"restored/{k}": v for k, v in _flat(
+        trees["params"]).items()})
+    return out
+
+
 CASES = {"collectives": case_collectives, "steps": case_steps,
          "elastic": case_elastic, "loop": case_loop, "moe": case_moe,
          "analysis": case_analysis, "cli": case_cli, "tp": case_tp,
-         "serve": case_serve}
+         "serve": case_serve, "layout": case_layout}

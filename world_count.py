@@ -22,6 +22,15 @@ Usage (the deepseek tensor-parallel world's shapes; the FSDP world)::
         --shape 2048x4 --shape 2048x2 --shape 1024x4
     PYTHONPATH=src python world_count.py --model granite-3-8b \\
         --mesh 2,1 --microbatches 2
+
+The recurrent tensor-parallel worlds (zamba2's Mamba2 layers and shared
+blocks, rwkv6's time and channel mix), at the depths ``chip_smoke.py``
+weighs against 75 GB::
+
+    PYTHONPATH=src python world_count.py --model zamba2-7b --layers 13 \\
+        --dtype float32 --sp
+    PYTHONPATH=src python world_count.py --model rwkv6-1.6b --layers 24 \\
+        --dtype float32 --sp
 """
 
 from __future__ import annotations
