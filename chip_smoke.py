@@ -230,7 +230,13 @@ JAX package.  Phases, each reported on its own lines:
               over PIPE_MICROBATCHES microbatches of the batch (flash
               prefill attention, no grad) against the layers on the whole
               batch: within the bf16 flash tolerance, and the stage's
-              launches (flash and two RMSNorms a layer a microbatch);
+              launches (flash and two RMSNorms a layer a microbatch); then
+              forward and backward of the loss sum(y * r) (masked
+              attention, remat "minimal", as phase 4's step): every layer
+              leaf's gradient and the input's within TRAIN_TOL["grads"]
+              (relative L2) of the whole batch's, launches exactly
+              ``stage_launches`` (four RMSNorms forward and two backward
+              a layer a microbatch);
               (e) tensor-parallel compute, the runs of TP_CASES (full
               width, seq 2048 x batch 4, DIST_STEPS steps): granite-3-8b
               (4 of its 40 layers, AdamW) without and with
@@ -252,14 +258,24 @@ JAX package.  Phases, each reported on its own lines:
               from its ``[z_r | x_r | BC_r | dt_r]`` piece of in_proj, B
               and C gathered, the gated norm through the
               statistic-from-outside kernels, the shared blocks' heads
-              and MLP columns split; rwkv6-1.6b (24 layers, fp32, AdamW)
+              and MLP columns split; rwkv6-1.6b (8 of 24 layers, fp32, AdamW)
               with ``seq_parallel``: 16 heads a rank, the channel mix's
               columns split; then FSDP:
               granite-3-8b (2 of its 40 layers, its own bf16, AdamW) on a
               (2, 1) mesh, 2 rows a rank in 2 microbatches, each layer
               gathered over "data" in its call and its gradient
               reduce-scattered in the backward, its peak within
-              FSDP_PEAK_TOL of its count.
+              FSDP_PEAK_TOL of its count; after it, in the same world, a
+              two-stage pipeline (PIPE_RUN): a ("pipe",) mesh of the two
+              ranks, each stage 2 of granite-3-8b's layers (full width,
+              bf16, a rank making its own only), seq 2048 x batch 4 in
+              PIPE_MICROBATCHES microbatches, forward and backward against
+              the 4 layers in sequence on one device: the output within
+              MODEL_TOL of the largest element, every leaf's gradient and
+              dx within TRAIN_TOL["grads"] (relative L2), a rank's bytes
+              staged by purpose (``pipe_act``, ``pipe_grad``) exactly its
+              hand-offs and broadcasts, its launches exactly
+              ``stage_launches``, its peak GB logged (``dist: pipeline``).
               The runs of one (data, model) mesh run in turn in one world
               of two processes of this script sharing the card over gloo
               (NCCL refuses two ranks on one device, so every exchange is
@@ -284,11 +300,12 @@ JAX package.  Phases, each reported on its own lines:
               (40 layers, KV heads split), granite (8 layers, the cache's
               slots split: ``kv_heads`` unbound), mixtral-8x7b (4 of 32
               layers, experts split, the long prompts and the ring cache),
-              qwen2-vl-7b (28 layers, stub image, M-RoPE in decode),
+              qwen2-vl-7b (8 of 28 layers, stub image, M-RoPE in decode),
               deepseek-v2-236b (4 of 60 layers, MLA's heads and the
               experts split, its latent cache split by slot, 920 of 1840
-              a rank), seamless-m4t-large-v2 (24 + 24 layers, its self and
-              cross caches split over the KV heads), zamba2-7b (13 of 81
+              a rank), seamless-m4t-large-v2 (8 + 8 of 24 + 24 layers,
+              its self and cross caches split over the KV heads),
+              zamba2-7b (13 of 81
               layers: 56 SSM heads a rank, its conv cache as its parts'
               chunks, its SSM state and its shared blocks' 16 KV heads a
               rank), rwkv6-1.6b (8 of 24 layers: 16 heads a rank, its WKV
@@ -322,8 +339,9 @@ JAX package.  Phases, each reported on its own lines:
 8. the kernels line (JSON: every kernel with its launches summed over the
    paths driven -- the nine served models, train granite, zamba2,
    mixtral, deepseek, qwen2-vl, rwkv6 and seamless, the train CLI and the
-   serve CLI on lms-demo, the dist phase's granite steps, pipeline stage,
-   mixtral a2a run, the eleven tensor-parallel and FSDP runs and the nine
+   serve CLI on lms-demo, the dist phase's granite steps, pipeline stage
+   (forward only, then forward and backward), mixtral a2a run, the eleven
+   tensor-parallel and FSDP runs, the two-stage pipeline and the nine
    serving worlds (their ranks' launches summed) -- its numbers at
    one path's shapes (zamba2's prefill for flash, SSD and the forward
    RMSNorm; granite's training shape for the RMSNorm backward, zamba2's
@@ -2851,7 +2869,9 @@ def monitor_phase() -> tuple:
 # (a) granite-3-8b at TRAIN_LAYERS_OF's 8 layers, TRAIN_SHAPE, DIST_STEPS
 # AdamW steps through make_train_step(mesh=make_mesh_for(1)) against the
 # one-device step from the same params and batches (parity_run's settings)
-DIST_STEPS = 3
+# (2, not 3: a host-staged step of (e)'s worlds costs 9-110 s on an H100,
+# and the script has to finish well inside its time limit)
+DIST_STEPS = 2
 # (b) mixtral-8x7b at 2 layers, bf16, impl="a2a" on the (1, 1) mesh against
 # the grouped dispatch: rows x tokens, and a capacity factor of E / k, so
 # every expert can take every token (nothing drops on either path)
@@ -2860,7 +2880,9 @@ A2A_ROWS, A2A_SEQ = 2, 2048
 # the quotient x / scale and the product q * scale each round by up to one
 # unit in 2^24 of at most 127 scales, 254 such units of scale / 2 in all
 INT8_BOUND = 1.0 + 2 * 254 * 2.0 ** -24
-# (d) granite's 8 layers as one pipeline stage over the train batch
+# (d) granite's 8 layers as one pipeline stage over the train batch:
+# forward only with flash prefill attention, then forward and backward
+# (masked attention, remat "minimal", as phase 4's step)
 PIPE_MICROBATCHES = 4
 # (e) tensor-parallel compute and FSDP: each model of TP_CASES at full
 # width and the layers given there, on its (data, model) mesh of that many
@@ -2940,14 +2962,15 @@ class TpCase(NamedTuple):
 # 56 SSM heads a rank ([z_r | x_r | BC_r | dt_r] of in_proj, B and C
 # gathered), the gated norm's statistic summed over "model", the shared
 # blocks' 16 heads and 16 KV heads a rank and their MLP columns.
-# rwkv6-1.6b: all 24 layers in fp32, AdamW, sequence parallelism: 16 heads
-# a rank in the time mix, the channel mix's 3584 hidden and 1024 output
-# columns a rank (at 2 rows of 2048, not 4, its step-2 grad norm missed
-# TRAIN_TOL, 2.7e-2, after the one-device loss jumped 11.6 -> 22.9 at
-# step 1: fp32 rounding amplified; an H100).  Both depths are the most
-# whose one-device step ``world_count.py`` counts within 75 GB (PERF.md
-# section 4).
-ZAMBA2_TP_LAYERS, RWKV6_TP_LAYERS = 13, 24
+# rwkv6-1.6b: 8 of 24 layers in fp32, AdamW, sequence parallelism: 16
+# heads a rank in the time mix, the channel mix's 3584 hidden and 1024
+# output columns a rank (at 2 rows of 2048, not 4, its step-2 grad norm
+# missed TRAIN_TOL, 2.7e-2, after the one-device loss jumped 11.6 -> 22.9
+# at step 1: fp32 rounding amplified, as ``rwkv6_witness.py`` shows on one
+# device; an H100).  zamba2's depth is the most whose one-device step
+# ``world_count.py`` counts within 75 GB (PERF.md section 4); rwkv6 ran
+# all 24 until its host-staged steps (~36 s each) were cut for time.
+ZAMBA2_TP_LAYERS, RWKV6_TP_LAYERS = 13, 8
 TP_CASES = {
     "granite": TpCase(TRAIN_MODEL, 4, None, "adamw", (
         ("dist:tp", False, {}), ("dist:tp-sp", True, {}))),
@@ -2970,6 +2993,15 @@ TP_CASES = {
     "rwkv6": TpCase("rwkv6-1.6b", RWKV6_TP_LAYERS, "float32", "adamw", (
         ("dist:tp-rwkv6-sp", True, {}),)),
 }
+
+# After its step, the FSDP world's two processes run a two-stage pipeline
+# (PIPE_RUN): a ("pipe",) mesh of the two ranks, each stage
+# PIPE_STAGE_LAYERS of granite-3-8b's layers at full width in its bf16 (a
+# rank makes its own layers only), the seed's x of TP_SHAPE (seq 2048 x
+# batch 4) in PIPE_MICROBATCHES microbatches, forward and backward of the
+# loss sum(y * r) (masked attention, remat "minimal") against the
+# sequential layers on one device
+PIPE_RUN, PIPE_STAGES, PIPE_STAGE_LAYERS = "pipeline", 2, 2
 
 
 # (f) serving on a mesh: each world of SERVE_WORLDS serves one batch
@@ -3036,12 +3068,12 @@ SERVE_WORLDS = {
     "granite-seq": ServeWorld(TRAIN_MODEL, 8, (1, 2), {"kv_heads": None},
                               "short", 1840),
     "mixtral": ServeWorld("mixtral-8x7b", 4, (1, 2), {}, "long"),
-    "qwen2-vl": ServeWorld(VLM_MODEL, None, (1, 2), {}, "vlm"),
+    "qwen2-vl": ServeWorld(VLM_MODEL, 8, (1, 2), {}, "vlm"),
     "granite-rows": ServeWorld(TRAIN_MODEL, 8, (2, 1), {"embed": None},
                                "short"),
     "deepseek-seq": ServeWorld("deepseek-v2-236b", 4, (1, 2), {}, "short",
                                1840),
-    "seamless": ServeWorld(ENCDEC_MODEL, None, (1, 2), {}, "encdec"),
+    "seamless": ServeWorld(ENCDEC_MODEL, 8, (1, 2), {}, "encdec"),
     "zamba2": ServeWorld("zamba2-7b", 13, (1, 2), {}, "short",
                          dtype="float32"),
     "rwkv6": ServeWorld("rwkv6-1.6b", 8, (1, 2), {}, "short",
@@ -3186,8 +3218,8 @@ def dist_train(dev="cuda", cfg=None, shape=None, phase4=None) -> tuple:
            "one_device_metrics": one["metrics"], "relative_gaps": gaps,
            "bit_equal": meshed["metrics"] == one["metrics"],
            "mesh_step_s": meshed["step_s"], "one_device_step_s": one["step_s"],
-           "mesh_step_s_median_2_3": statistics.median(meshed["step_s"][1:]),
-           "one_device_step_s_median_2_3": statistics.median(
+           "mesh_step_s_after_1": statistics.median(meshed["step_s"][1:]),
+           "one_device_step_s_after_1": statistics.median(
                one["step_s"][1:]),
            "mesh_peak_gb": meshed["peak_memory_gb"],
            "one_device_peak_gb": one["peak_memory_gb"],
@@ -3240,41 +3272,126 @@ def dist_compress(params, cfg, batch, dev="cuda") -> dict:
     return row
 
 
+def stage_launches(cfg, layers: int, microbatches: int) -> dict:
+    """Launches of a pipeline stage of ``layers`` dense blocks over
+    ``microbatches``, forward and backward under remat "minimal": an
+    RMSNorm a block norm forward, again in the block's re-run, and a
+    backward a norm (:func:`train_launches` without the final norm)."""
+    n = block_norms(cfg) * layers * microbatches
+    out = no_launches()
+    out.update({"rmsnorm": 2 * n, "rmsnorm_backward": n})
+    return out
+
+
+def stage_fn_of(cfg, rope, attn_impl: str, remat: str):
+    """A pipeline stage's compute: its stacked dense layers (a flat tree)
+    over one microbatch, train mode."""
+    def stage_fn(p, xb):
+        return _train_layers(unflatten(p), xb, cfg, prefix="dense_layers",
+                             rope=rope, attn_impl=attn_impl, remat=remat)
+    return stage_fn
+
+
+def loss_weights(x):
+    """r of the loss sum(y * r): fp32 normals of x's shape from the
+    seed."""
+    g = torch.Generator(device=x.device).manual_seed(SEED + 1)
+    return torch.randn(x.shape, generator=g, device=x.device)
+
+
+def grads_through(run, leaves: dict, x, r) -> tuple:
+    """(y, {name: gradient}, dx) of the loss sum(y * r), y = run(leaves,
+    x), from detached copies of ``leaves`` and ``x``."""
+    flat = {k: v.detach().requires_grad_() for k, v in leaves.items()}
+    xg = x.detach().requires_grad_()
+    y = run(flat, xg)
+    (y.float() * r).sum().backward()
+    return y.detach(), {k: v.grad for k, v in flat.items()}, xg.grad
+
+
+def rel_l2(got, want) -> float:
+    """||got - want|| / ||want|| (fp64 sums)."""
+    num = torch.linalg.vector_norm(got.float() - want.float(),
+                                   dtype=torch.float64)
+    den = torch.linalg.vector_norm(want, dtype=torch.float64)
+    if not float(den):
+        return 0.0 if not float(num) else math.inf
+    return float(num / den)
+
+
 def dist_pipeline(params, cfg, batch, dev="cuda") -> tuple:
     """(d): ``pipeline_apply`` with one stage holding granite's layers over
-    PIPE_MICROBATCHES microbatches of the train batch (flash prefill
-    attention, no grad) against the same layers run on the whole batch;
-    returns (row, the pipelined run's launches)."""
-    layers = params["dense_layers"]
-    stage = {k: v[None] for k, v in flatten(layers).items()}
+    PIPE_MICROBATCHES microbatches of the train batch against the same
+    layers run on the whole batch: forward only (flash prefill attention,
+    no grad) within the bf16 flash tolerance, with the stage's launches
+    (flash and two RMSNorms a layer a microbatch); then forward and
+    backward of the loss sum(y * r) (masked attention, remat "minimal",
+    as phase 4's step): every layer leaf's gradient and the input's
+    within TRAIN_TOL["grads"] (relative L2) of the whole batch's, with
+    launches exactly ``stage_launches``.  Returns (row, the pipelined
+    runs' launches)."""
+    layers = flatten(params["dense_layers"])
     mesh = init_device_mesh(dev, (1,), mesh_dim_names=("pipe",))
+    n = cfg.num_layers * PIPE_MICROBATCHES
     with torch.no_grad():
         x = embed_tokens(params["embed"], batch["tokens"], cfg)
         pos = torch.arange(x.shape[1], device=x.device)[None, :]
         rope = rope_table(pos, cfg.head_dim, cfg.rope_theta)
-
-        def stage_fn(p, xb):
-            return _train_layers(unflatten(p), xb, cfg,
-                                 prefix="dense_layers", rope=rope,
-                                 attn_impl="flash", remat="none")
-        want = stage_fn(flatten(layers), x)
+        stage_fn = stage_fn_of(cfg, rope, "flash", "none")
+        want = stage_fn(layers, x)
         ops.reset_launch_counts()
-        got = pipeline_apply(stage_fn, stage, x, mesh=mesh,
+        got = pipeline_apply(stage_fn, {k: v[None] for k, v in
+                                        layers.items()}, x, mesh=mesh,
                              num_microbatches=PIPE_MICROBATCHES)
         launches = ops.launch_counts()
     err = float((got.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
     row = {"stages": 1, "microbatches": PIPE_MICROBATCHES,
            "shape": list(x.shape), "max_abs_err": err, "max_abs": scale,
-           "bit_equal": bool(torch.equal(got, want)),
-           "launches": launches}
-    log(f"dist: pipeline {json.dumps(row)}")
-    n = cfg.num_layers * PIPE_MICROBATCHES
-    if launches["flash_attention"] != n or launches["rmsnorm"] != 2 * n \
-            or not err <= TOL["flash_attention"][x.dtype] * max(scale, 1.0):
+           "bit_equal": bool(torch.equal(got, want)), "launches": launches}
+    del got, want
+    fwd_ok = launches["flash_attention"] == n and \
+        launches["rmsnorm"] == 2 * n and \
+        err <= TOL["flash_attention"][x.dtype] * max(scale, 1.0)
+
+    # forward and backward
+    sync = _sync(dev)
+    train_fn = stage_fn_of(cfg, rope, "masked", "minimal")
+    r = loss_weights(x)
+    t0 = time.monotonic()
+    want_y, want, want_dx = grads_through(train_fn, layers, x, r)
+    sync()
+    whole_s = time.monotonic() - t0
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    y, got, dx = grads_through(
+        lambda p, xg: pipeline_apply(train_fn, {k: v[None] for k, v in
+                                                p.items()}, xg, mesh=mesh,
+                                     num_microbatches=PIPE_MICROBATCHES),
+        layers, x, r)
+    sync()
+    pipe_s = time.monotonic() - t0
+    back = ops.launch_counts()
+    gaps = {k: rel_l2(got[k], want[k]) for k in want}
+    gaps["dx"] = rel_l2(dx, want_dx)
+    y_gap = rel_l2(y, want_y)
+    del got, want, dx, want_dx, y, want_y
+    row["backward"] = {
+        "attn_impl": "masked", "remat": "minimal", "loss": "sum(y * r)",
+        "output_relative_l2": y_gap, "grads_relative_l2": gaps,
+        "largest": max(gaps.values()), "whole_batch_s": whole_s,
+        "pipelined_s": pipe_s, "launches": back}
+    log(f"dist: pipeline {json.dumps(row)} (limits: forward "
+        f"{TOL['flash_attention'][x.dtype]} of the largest, gradients "
+        f"{TRAIN_TOL['grads']} relative L2)")
+    if not fwd_ok:
         raise AssertionError("dist: the one-stage pipeline disagrees with "
                              "the sequential layers")
-    return row, launches
+    if back != stage_launches(cfg, cfg.num_layers, PIPE_MICROBATCHES) or \
+            not all(v <= TRAIN_TOL["grads"] for v in gaps.values()):
+        raise AssertionError("dist: the one-stage pipeline's gradients "
+                             "disagree with the whole batch's")
+    return row, {k: launches[k] + back[k] for k in launches}
 
 
 def a2a_run(cfg, params, batch, pc, dev="cuda", reps: int = 3) -> dict:
@@ -3445,6 +3562,165 @@ def tp_rank_run(name: str, i: int, mesh, rank: int, workdir: str, k: int,
     return run
 
 
+def pipe_cfg():
+    return dataclasses.replace(get_config(TRAIN_MODEL),
+                               num_layers=PIPE_STAGES * PIPE_STAGE_LAYERS)
+
+
+def pipe_ref_path() -> str:
+    return os.path.join(ROOT, "build", "pipe_ref.pt")
+
+
+def pipe_inputs(cfg, dev) -> tuple:
+    """x (TP_SHAPE's rows and tokens, d_model wide, in the model's dtype)
+    from the seed, and the rope table of its positions."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((TP_SHAPE.global_batch, TP_SHAPE.seq_len, cfg.d_model),
+                    generator=g, device=dev).to(getattr(torch, cfg.dtype))
+    rope = rope_table(torch.arange(TP_SHAPE.seq_len, device=dev)[None, :],
+                      cfg.head_dim, cfg.rope_theta)
+    return x, rope
+
+
+def pipe_layers(cfg, dev, stage: Optional[int] = None) -> dict:
+    """The seed's dense layers (``init_model_params``' leaves) as a flat
+    tree, made one leaf at a time; with ``stage``, only that stage's
+    PIPE_STAGE_LAYERS layers."""
+    out = {}
+    for k, spec in flatten(model_specs(cfg)).items():
+        if not k.startswith("dense_layers/"):
+            continue
+        leaf = flatten(init_params(unflatten({k: spec}), SEED, device=dev,
+                                   keep=fp32_leaves(cfg)))[k]
+        if stage is not None:
+            leaf = leaf[stage * PIPE_STAGE_LAYERS:
+                        (stage + 1) * PIPE_STAGE_LAYERS].clone()
+        out[k[len("dense_layers/"):]] = leaf
+    return out
+
+
+def pipe_one_device(dev: str) -> dict:
+    """The two-stage pipeline's reference: its layers in sequence on one
+    device over the whole batch, forward and backward; the output,
+    gradients and dx go to :func:`pipe_ref_path` on the host, for the
+    ranks.  Returns its seconds and peak GB."""
+    cfg = pipe_cfg()
+    sync = _sync(dev)
+    x, rope = pipe_inputs(cfg, dev)
+    layers = pipe_layers(cfg, dev)
+    if dev == "cuda":
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    y, grads, dx = grads_through(stage_fn_of(cfg, rope, "masked",
+                                             "minimal"), layers, x,
+                                 loss_weights(x))
+    sync()
+    secs = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" \
+        else None
+    torch.save({"y": y.cpu(), "dx": dx.cpu(),
+                "grads": {k: v.cpu() for k, v in grads.items()}},
+               pipe_ref_path())
+    return {"s": secs, "peak_memory_gb": peak}
+
+
+def pipe_rank_run(rank: int, dev: str) -> dict:
+    """This rank's stage of the two-stage pipeline (a ("pipe",) mesh of
+    the world's ranks, its own layers only: the stacked tree it passes is
+    an expanded view of them, of which ``pipeline_apply`` reads slice s),
+    forward and backward, held to :func:`pipe_one_device`'s run: the
+    output's largest gap relative to its largest element, and each leaf's
+    and dx's relative L2 gap.  Returns its row (with the bytes staged by
+    purpose, launches, peak GB and seconds)."""
+    cfg = pipe_cfg()
+    sync = _sync(dev)
+    mesh = init_device_mesh("cpu", (PIPE_STAGES,), mesh_dim_names=("pipe",))
+    stage = comm.coordinate(mesh)["pipe"]
+    x, rope = pipe_inputs(cfg, dev)
+    mine = pipe_layers(cfg, dev, stage)
+    fn = stage_fn_of(cfg, rope, "masked", "minimal")
+
+    def run(p, xg):
+        return pipeline_apply(fn, {k: v[None].expand(
+            (PIPE_STAGES,) + tuple(v.shape)) for k, v in p.items()}, xg,
+            mesh=mesh, num_microbatches=PIPE_MICROBATCHES)
+    r = loss_weights(x)
+    comm.reset_staged()
+    ops.reset_launch_counts()
+    if dev == "cuda":
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    y, grads, dx = grads_through(run, mine, x, r)
+    sync()
+    secs = time.monotonic() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" \
+        else None
+    want = torch.load(pipe_ref_path(), mmap=True)
+    lo = stage * PIPE_STAGE_LAYERS
+    gaps = {k: rel_l2(g, want["grads"][k][lo:lo + PIPE_STAGE_LAYERS].to(
+        g.device)) for k, g in grads.items()}
+    gaps["dx"] = rel_l2(dx, want["dx"].to(dx.device))
+    wy = want["y"].to(y.device).float()
+    return {"rank": rank, "stage": stage,
+            "output_gap": float((y.float() - wy).abs().max()
+                                / wy.abs().max()),
+            "grads_relative_l2": gaps, "staged": comm.staged(),
+            "staged_by_purpose": comm.staged_by_purpose(),
+            "launches": launches, "peak_memory_gb": peak, "s": secs}
+
+
+def pipe_run_row(ranks: list, one: dict, dev: str) -> dict:
+    """The two-stage pipeline's ranks held to the one-device run: the
+    output within MODEL_TOL of the largest element, every leaf's gradient
+    and dx within TRAIN_TOL["grads"] (relative L2), a rank's bytes staged
+    by purpose exactly its PIPE_MICROBATCHES hand-offs (sent or received)
+    and one broadcast (copied out and back) each way, its launches exactly
+    ``stage_launches``.  Logs a ``dist: pipeline`` line and returns the
+    ranks' launches, summed."""
+    cfg = pipe_cfg()
+    size = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    whole = TP_SHAPE.global_batch * TP_SHAPE.seq_len * cfg.d_model * size
+    each = {"collectives": PIPE_MICROBATCHES + 1,
+            "bytes": whole + 2 * whole}
+    want_staged = {"pipe_act": each, "pipe_grad": each}
+    want_l = stage_launches(cfg, PIPE_STAGE_LAYERS, PIPE_MICROBATCHES)
+    row = {"stages": PIPE_STAGES, "layers_a_stage": PIPE_STAGE_LAYERS,
+           "model": TRAIN_MODEL, "dtype": cfg.dtype,
+           "microbatches": PIPE_MICROBATCHES,
+           "shape": [TP_SHAPE.global_batch, TP_SHAPE.seq_len, cfg.d_model],
+           "attn_impl": "masked", "remat": "minimal", "loss": "sum(y * r)",
+           "output_gap": [r["output_gap"] for r in ranks],
+           "grads_relative_l2": [r["grads_relative_l2"] for r in ranks],
+           "staged_by_purpose": [r["staged_by_purpose"] for r in ranks],
+           "staged": [r["staged"] for r in ranks],
+           "launches": [r["launches"] for r in ranks],
+           "peak_gb": [r["peak_memory_gb"] for r in ranks],
+           "host_staged_s": [r["s"] for r in ranks],
+           "one_device_s": one["s"],
+           "one_device_peak_gb": one["peak_memory_gb"]}
+    log(f"dist: pipeline {json.dumps(row)} (seconds are of hand-offs "
+        f"staged through the host over gloo, two processes sharing one "
+        f"card: not a speed of pipelining; limits: output {MODEL_TOL} of "
+        f"the largest, gradients {TRAIN_TOL['grads']} relative L2)")
+    if not all(r["output_gap"] <= MODEL_TOL and all(
+            v <= TRAIN_TOL["grads"] for v in r["grads_relative_l2"].values())
+            for r in ranks):
+        raise AssertionError("dist: the two-stage pipeline disagrees with "
+                             "the sequential layers on one device")
+    if dev == "cuda" and any(r["staged_by_purpose"] != want_staged
+                             for r in ranks):
+        raise AssertionError(f"dist: the two-stage pipeline staged "
+                             f"{row['staged_by_purpose']}, expected "
+                             f"{want_staged} a rank")
+    if dev == "cuda" and any(r["launches"] != want_l for r in ranks):
+        raise AssertionError(f"dist: the two-stage pipeline's launches "
+                             f"{row['launches']}, expected {want_l} a rank")
+    return {k: sum(r["launches"][k] for r in ranks) for k in want_l}
+
+
 def tp_rank_main(argv: list) -> int:
     """One rank of phase 6 (e), in a process of its own: ``--tp-rank R
     --tp-world N --tp-dir DIR --tp-runs C:I,...`` (runs I of
@@ -3463,7 +3739,8 @@ def tp_rank_main(argv: list) -> int:
     rank, mesh = join_world("tp", args, TP_CASES[runs[0][0]].mesh[1], dev)
     try:
         for k, (name, i) in enumerate(runs):
-            row = tp_rank_run(name, i, mesh, rank, args["--tp-dir"], k, dev)
+            row = pipe_rank_run(rank, dev) if name == PIPE_RUN else \
+                tp_rank_run(name, i, mesh, rank, args["--tp-dir"], k, dev)
             with open(os.path.join(args["--tp-dir"], f"rank{rank}_{k}.json"),
                       "w") as f:
                 json.dump(row, f)
@@ -3640,7 +3917,8 @@ def dist_tp(dev="cuda") -> dict:
     on (2, 1)), the runs of one mesh in turn in one world of that many
     processes on the one card over gloo (:func:`tp_world`), each against
     its case's one-device step on the same params and batches
-    (:func:`tp_run_row`).  Logs a ``dist: tp world`` line a world (its
+    (:func:`tp_run_row`); the FSDP world then runs the two-stage pipeline
+    (PIPE_RUN) against its one-device run (:func:`pipe_run_row`).  Logs a ``dist: tp world`` line a world (its
     wall seconds) and returns each run's launches (summed over the ranks),
     keyed by its path."""
     log(f"dist: tp compute mode {compute_mode()}")
@@ -3656,17 +3934,27 @@ def dist_tp(dev="cuda") -> dict:
         free_device(dev)
         for i in range(len(case.runs)):
             worlds.setdefault(case.mesh, []).append((name, i))
+    t0 = time.monotonic()
+    pipe_one = pipe_one_device(dev)
+    pipe_one["wall_s"] = time.monotonic() - t0
+    free_device(dev)
+    worlds[TP_CASES["granite-fsdp"].mesh].append((PIPE_RUN, 0))
     out = {}
     for mesh, runs in worlds.items():
         t0 = time.monotonic()
         results = tp_world(runs, dev, grads={
             name: {"one_device": ones[name]["grads"]} for name, _ in runs
-            if TP_CASES[name].step0})
+            if name in TP_CASES and TP_CASES[name].step0})
         log(f"dist: tp world " + json.dumps({
             "mesh": mesh, "runs": runs, "wall_s": time.monotonic() - t0}))
         for (name, i), ranks in zip(runs, results):
+            if name == PIPE_RUN:
+                out["dist:pipeline-2-stages"] = pipe_run_row(ranks,
+                                                             pipe_one, dev)
+                continue
             out[TP_CASES[name].runs[i][0]] = tp_run_row(name, i, ranks,
                                                         ones[name])
+    os.remove(pipe_ref_path())
     return out
 
 

@@ -31,7 +31,8 @@ this rank's program:
   (``comm.purpose``: the params' gathers, their gradients' syncs
   (``"grad_scatter"``), the row-parallel and vocabulary sums over "model",
   a serving pass's query gather and partial merge over a cache split by
-  its slots; ``"other"``);
+  its slots, a pipeline's hand-offs and broadcasts forward (``"pipe_act"``)
+  and backward (``"pipe_grad"``); ``"other"``);
 * nothing for the host's own scalars: an operation on CPU tensors alone
   (the learning-rate schedule, the optimizer's step count) is not the
   device's work;

@@ -12,11 +12,19 @@ job's report on the stack.
 Under ``torchrun`` with more than one rank (``WORLD_SIZE`` > 1) every rank
 runs this CLI: it joins the world (NCCL on the cards, gloo with ``--device
 cpu``), builds ``make_mesh_for(world, model=--tp)`` and trains on it
-(``train(..., mesh=)``): data-parallel over "data", and tensor-parallel
-over "model" for the dense and GQA-MoE families.  On one rank it builds no mesh and says so.  The reference's ``--grad-compression`` acts only across
-a "pod" axis, which ``make_mesh_for`` never builds, and its
-``--overlap-flags`` (its compiler's scheduler flags) has no counterpart:
-neither is a flag here (ROADMAP Queue 1).
+(``train(..., mesh=, pc=)``): data-parallel over "data", and
+tensor-parallel over "model" for every family.  On one rank it builds no
+mesh and says so.
+
+``--grad-compression`` (``none``, ``int8``, ``bf16``) is the reference's:
+it sets ``TrainConfig.grad_compression``, the method of the gradients'
+mean over a "pod" axis, and where the mesh has a live "pod" axis the
+batch binds to "data" alone (the reference's ``batch=("data",)``
+override).  ``make_mesh_for`` builds ("data", "model") only, as the
+reference's does, so on this CLI's own mesh the flag changes nothing.
+The reference's ``--overlap-flags`` appends its compiler's TPU scheduler
+flags (latency hiding, async collective fusion); eager PyTorch has no such
+compiler pass to switch on, so it is not a flag here.
 """
 
 from __future__ import annotations
@@ -37,6 +45,8 @@ from repro_torch.core import RemoteStack
 from repro_torch.launch.common import (
     add_stack_args, resolve_peaks)
 from repro_torch.launch.mesh import make_mesh_for
+from repro_torch.parallel import comm
+from repro_torch.parallel.sharding import PartitionConstraints, rules_for
 from repro_torch.train.loop import train
 
 
@@ -57,6 +67,8 @@ def main(argv=None, *, step_callback: Optional[Callable] = None) -> int:
                     choices=["adamw", "adafactor"])
     ap.add_argument("--remat", default="none",
                     choices=["none", "minimal", "full"])
+    ap.add_argument("--grad-compression", default="none",
+                    choices=["none", "int8", "bf16"])
     ap.add_argument("--tp", type=int, default=0,
                     help="model-parallel axis size (0 = auto; a world of "
                          "more than one rank only)")
@@ -76,12 +88,12 @@ def main(argv=None, *, step_callback: Optional[Callable] = None) -> int:
         learning_rate=args.lr, total_steps=args.steps,
         warmup_steps=max(1, args.steps // 20),
         optimizer=args.optimizer, num_microbatches=args.microbatches,
-        remat_policy=args.remat,
+        remat_policy=args.remat, grad_compression=args.grad_compression,
         ckpt_dir=args.ckpt_dir, ckpt_interval=args.ckpt_interval,
         monitor=not args.no_monitor)
     device = resolve_device(args.device)
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    mesh = None
+    mesh = pc = None
     joined = False                      # this call joined the world
     if world > 1:
         if device.type == "cuda":
@@ -94,6 +106,12 @@ def main(argv=None, *, step_callback: Optional[Callable] = None) -> int:
             joined = True
         mesh = make_mesh_for(world, model=args.tp,
                              device_type=device.type)
+        rules = rules_for("train")
+        if args.grad_compression != "none" and \
+                comm.live_axes(mesh, ("pod",)):
+            rules = rules.with_overrides(batch=("data",))
+        pc = PartitionConstraints(rules, mesh,
+                                  seq_parallel=tcfg.seq_parallel)
         print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
     else:
         print("mesh: none (one rank; --tp acts on a world of more than "
@@ -120,7 +138,7 @@ def main(argv=None, *, step_callback: Optional[Callable] = None) -> int:
     try:
         result = train(cfg, tcfg, shape, stack=stack, device=device,
                        peak_flops=peak_flops, hbm_bw=hbm_bw, ici_bw=ici_bw,
-                       mesh=mesh, fail_at_step=args.fail_at_step,
+                       mesh=mesh, pc=pc, fail_at_step=args.fail_at_step,
                        step_callback=cb, user=args.user, job_id=job_id)
     finally:
         stack.close()

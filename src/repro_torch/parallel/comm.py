@@ -132,8 +132,10 @@ def purpose(name: str):
     :func:`gather_piece`), ``"model_sum"`` (row-parallel and vocabulary
     sums), ``"bc_gather"`` (Mamba2's B and C), ``"norm_stat"`` (a norm's
     row statistic over columns split over "model"), ``"channel_mix"``
-    (RWKV6's channel-mix columns), and serving's ``"query_gather"`` and
-    ``"partial_merge"``."""
+    (RWKV6's channel-mix columns), serving's ``"query_gather"`` and
+    ``"partial_merge"``, and a pipeline's ``"pipe_act"`` (the forward's
+    hand-offs and the outputs' broadcast) and ``"pipe_grad"`` (the
+    backward's hand-offs and the input gradient's broadcast)."""
     _PURPOSES.append(name)
     try:
         yield
@@ -220,6 +222,12 @@ def _run(fn, group, out: torch.Tensor, inp=None, **kw) -> None:
         fn(host, _host(inp, "in").copy_(inp), group=group, **kw)
         moved = _nbytes(inp) + _nbytes(out)
     out.copy_(host)
+    _count_staged(moved)
+
+
+def _count_staged(moved: int) -> None:
+    """One staged exchange of ``moved`` bytes between the device and the
+    host, under the current purpose."""
     by = _STAGED_BY.setdefault(_PURPOSES[-1] if _PURPOSES else "other",
                                {"collectives": 0, "bytes": 0})
     for counts in (_STAGED, by):
@@ -276,16 +284,30 @@ def send_recv(send, dst: int, recv, src: int, group, n: int) -> None:
     """Send ``send`` to global rank ``dst`` and receive into ``recv`` from
     global rank ``src`` over ``group`` of ``n`` ranks (either may be
     ``None``): a pipeline's neighbour hand-off, reported by its sender as
-    a ``"collective-permute"``."""
-    ops = []
+    a ``"collective-permute"``.  Staged through the host as :func:`_run`
+    stages a collective where the group is gloo and a tensor on a CUDA
+    device (one staged exchange: the bytes sent and received)."""
+    staging = dist.get_backend(group) == "gloo" and any(
+        t is not None and t.is_cuda for t in (send, recv))
+    ops, moved, host = [], 0, None
     if send is not None and not report("collective-permute", send,
                                        _nbytes(send), n):
-        ops.append(dist.P2POp(dist.isend, send.contiguous(), dst, group))
+        buf = send.contiguous()
+        if staging:
+            buf = _host(buf, "in").copy_(buf)
+            moved += _nbytes(buf)
+        ops.append(dist.P2POp(dist.isend, buf, dst, group))
     if recv is not None and not recv.is_meta:
-        ops.append(dist.P2POp(dist.irecv, recv, src, group))
+        host = _host(recv, "out") if staging else recv
+        ops.append(dist.P2POp(dist.irecv, host, src, group))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
+    if host is not None and host is not recv:
+        recv.copy_(host)
+        moved += _nbytes(recv)
+    if moved:
+        _count_staged(moved)
 
 
 def broadcast(t: torch.Tensor, src: int, group, n: int) -> torch.Tensor:

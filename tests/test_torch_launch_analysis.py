@@ -27,7 +27,9 @@ on the CPU.
 """
 
 import dataclasses
+import json
 import math
+import re
 
 import numpy as np
 import pytest
@@ -521,6 +523,8 @@ DIST_RUNS = [
      "tcfg": {"grad_compression": "int8"}},
     {"name": "pipeline-4-stages", "pipeline": True,
      "names": ["pipe"], "shape": [4]},
+    {"name": "pipeline-4-stages-grad", "pipeline": "grad",
+     "names": ["pipe"], "shape": [4]},
 ]
 
 
@@ -539,6 +543,17 @@ def test_counted_collectives_equal_what_the_step_sent(dist_counts, run):
         np.testing.assert_array_equal(counted, sent)
         np.testing.assert_array_equal(out[f"{run}/counted_kinds"],
                                       out[f"{run}/sent_kinds"])
+        purposes = json.loads(str(out[f"{run}/counted_purposes"]))
+        assert purposes == json.loads(str(out[f"{run}/sent_purposes"]))
+        if run.startswith("pipeline"):
+            # a stage's hand-offs of 2 x 8 fp32 rows a microbatch, and the
+            # broadcast of the 8 x 8 outputs (and of dx), each way
+            stage = rank                # a ("pipe",) mesh of the world
+            act = 4 * 64 * (stage < 3) + 4 * 64
+            want = {"pipe_act": act}
+            if run.endswith("-grad"):
+                want["pipe_grad"] = 4 * 64 * (stage > 0) + 4 * 64
+            assert purposes == want, (rank, purposes)
 
 
 # -- the train CLI's mesh flags ---------------------------------------------------
@@ -586,5 +601,68 @@ def test_train_cli_on_two_ranks_trains_on_a_mesh(tmp_path):
             "hpm", ["ici_gb_per_s", "ici_bw_util"])
         utils = [u for p in hpm for u in p.values["ici_bw_util"]]
         assert len(utils) == 4 and all(u > 0 for u in utils)
+    finally:
+        stack.close()
+
+
+def test_train_cli_takes_the_references_grad_compression(tmp_path, capsys,
+                                                         monkeypatch):
+    """``--grad-compression`` lists the reference's choices, and its value
+    reaches ``train()``'s ``TrainConfig``."""
+    from repro.launch import train as jtrain_cli
+    from repro_torch.launch import train as train_cli
+    helps = []
+    for cli in (jtrain_cli, train_cli):
+        with pytest.raises(SystemExit):
+            cli.main(["--help"])
+        helps.append(re.search(r"--grad-compression \{[^}]*\}",
+                               capsys.readouterr().out).group(0))
+    assert helps[0] == helps[1] == "--grad-compression {none,int8,bf16}"
+    seen = []
+
+    class Reached(Exception):
+        pass
+
+    def reached(cfg, tcfg, *args, **kwargs):
+        seen.append(tcfg)
+        raise Reached
+
+    monkeypatch.setattr(train_cli, "train", reached)
+    stack = MonitoringStack.inprocess(out_dir=str(tmp_path),
+                                      serve_http=True)
+    try:
+        with pytest.raises(Reached):
+            train_cli.main(["--arch", "lms-demo", "--smoke", "--steps", "1",
+                            "--grad-compression", "int8", "--device", "cpu",
+                            "--peak-flops", "989e12", "--hbm-bw", "3.35e12",
+                            "--lms-url", stack.http.url])
+    finally:
+        stack.close()
+    assert [t.grad_compression for t in seen] == ["int8"]
+
+
+def test_train_cli_grad_compression_on_its_own_mesh_changes_nothing(
+        tmp_path):
+    """On the CLI's own ("data", "model") mesh (no "pod" axis) of a world
+    of 2 gloo ranks, ``--grad-compression int8`` gives the losses of the
+    run without it, bit for bit: the reference's flag acts only across
+    pods."""
+    stack = MonitoringStack.inprocess(out_dir=str(tmp_path / "lms"),
+                                      serve_http=True)
+    try:
+        argv = ["--arch", "lms-demo", "--smoke", "--seq-len", "32",
+                "--global-batch", "4", "--steps", "3",
+                "--peak-flops", "989e12", "--hbm-bw", "3.35e12",
+                "--device", "cpu", "--lms-url", stack.http.url]
+        out = torch_dist_ranks.launch("cli", 2, str(tmp_path / "w"), {
+            "world": 2, "argvs": [argv, argv + ["--grad-compression",
+                                                "int8"]]})
+        assert [int(o["rc"]) for o in out] == [0, 0]
+        assert all(list(o["mesh"]) == ["mesh: {'data': 2, 'model': 1}"] * 2
+                   for o in out)
+        for o in out:
+            plain, int8 = o["losses"]
+            assert len(plain) == 3 and np.all(np.isfinite(plain))
+            np.testing.assert_array_equal(int8, plain)
     finally:
         stack.close()

@@ -450,7 +450,7 @@ def _port_files():
     files = [os.path.join(REPO, n) for n in
              ("chip_smoke.py", "profile_serve.py", "profile_ssd.py",
               "profile_train.py", "profile_moe_counts.py", "train_faults.py",
-              "tp_bf16_witness.py", "world_count.py",
+              "tp_bf16_witness.py", "rwkv6_witness.py", "world_count.py",
               "examples/train_monitored_torch.py",
               "examples/serve_requests_torch.py",
               "tests/torch_dist_ranks.py")]

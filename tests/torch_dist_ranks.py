@@ -36,6 +36,12 @@ def launch(case: str, world: int, workdir: str, opts: dict,
     os.makedirs(workdir, exist_ok=True)
     with open(os.path.join(workdir, f"{case}.json"), "w") as f:
         json.dump(opts, f)
+    # a world of the same case run here before may leave its store file
+    # behind (its ranks' cleanup does not always remove it); this world's
+    # ranks would read that world's addresses and wait on ranks that are gone
+    store = os.path.join(workdir, f"{case}.store")
+    if os.path.exists(store):
+        os.remove(store)
     env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join(
                    [SRC, HERE, os.environ.get("PYTHONPATH", "")]))
@@ -404,6 +410,41 @@ def _identity_layout():
     return _patched(comm, "segment_columns", contiguous)
 
 
+def _pipe_fault(kind: str):
+    """A planted fault in ``pipeline_apply``'s backward: ``"pipe_sum"``,
+    the output's gradient summed over the stages before the last stage
+    takes it (S times the gradient); ``"pipe_dx_rank0"``, the input's
+    gradient left on stage 0 (no broadcast); ``"pipe_wrong_stage"``,
+    stages 1 and 2 trading places in the reverse schedule, so each sends
+    its input's gradient to the wrong stage (every send still meets its
+    receive: no hang)."""
+    from repro_torch.parallel import comm, pipeline
+    if kind == "pipe_dx_rank0":
+        broadcast = comm.broadcast
+
+        def mutant(t, src, group, n):
+            if comm._PURPOSES[-1:] == ["pipe_grad"]:
+                return t
+            return broadcast(t, src, group, n)
+        return _patched(comm, "broadcast", mutant)
+    backward = pipeline._Pipeline.backward
+
+    def mutant_backward(ctx, grad_out):
+        sched = ctx.sched
+        if kind == "pipe_sum":
+            grad_out = grad_out.clone()
+            comm.all_reduce_over_group(grad_out, sched.group)
+        else:
+            swap = {1: 2, 2: 1}
+            ctx.sched = sched._replace(
+                stage=swap.get(sched.stage, sched.stage),
+                ranks=[sched.ranks[swap.get(i, i)]
+                       for i in range(sched.stages)])
+        return backward(ctx, grad_out)
+    return _patched(pipeline._Pipeline, "backward",
+                    staticmethod(mutant_backward))
+
+
 @contextlib.contextmanager
 def _mutated(kind):
     """The step with a planted fault (``"gate_sum"``: :class:`_NoGateSum`;
@@ -415,7 +456,8 @@ def _mutated(kind):
     sequence-parallel rank's rows; ``"row_shift:<N>"``: :func:`_row_shift`;
     ``"bc_slice"`` / ``"cm_sum"``: :func:`_column_fault`;
     ``"local_norm"``: :func:`_local_norm`; ``"identity_layout"``:
-    :func:`_identity_layout`), or as it is (None)."""
+    :func:`_identity_layout`; ``"pipe_*"``: :func:`_pipe_fault`), or as it
+    is (None)."""
     if kind is None:
         yield
         return
@@ -430,7 +472,10 @@ def _mutated(kind):
     planted = {"bc_slice": lambda: _column_fault("bc_slice"),
                "cm_sum": lambda: _column_fault("cm_sum"),
                "local_norm": _local_norm,
-               "identity_layout": _identity_layout}.get(kind)
+               "identity_layout": _identity_layout,
+               **{k: (lambda k=k: _pipe_fault(k)) for k in (
+                   "pipe_sum", "pipe_dx_rank0", "pipe_wrong_stage")}
+               }.get(kind)
     if planted is not None:
         with planted():
             yield
@@ -600,11 +645,12 @@ def case_moe(rank: int, workdir: str, opts: dict) -> dict:
 
 def case_analysis(rank: int, workdir: str, opts: dict) -> dict:
     """Each run: one data-parallel step's collectives (or, with
-    ``"pipeline"``, one ``pipeline_apply``'s hand-offs and broadcast) as
+    ``"pipeline"``, one ``pipeline_apply``'s hand-offs and broadcast; with
+    ``"pipeline": "grad"``, its backward's too) as
     ``launch.cost_analysis`` counts them on meta copies of this rank's
     pieces and rows, and as the real step's ``comm`` calls report them (a
     counter installed in ``comm`` while the step runs over gloo): operand
-    and wire bytes, and operand bytes by kind."""
+    and wire bytes, and operand bytes by kind and by purpose."""
     import torch
     from repro_torch.launch.cost_analysis import (COLLECTIVES, StepCounter,
                                                   analyze_step)
@@ -620,9 +666,15 @@ def case_analysis(rank: int, workdir: str, opts: dict) -> dict:
         if run.get("pipeline"):
             from repro_torch.parallel.pipeline import pipeline_apply
 
-            def fn(ws, x):
-                return pipeline_apply(lambda w, xb: torch.tanh(xb @ w), ws,
-                                      x, mesh=mesh, num_microbatches=4)
+            def fn(ws, x, grad=run["pipeline"] == "grad"):
+                if grad:
+                    ws, x = ws.detach().requires_grad_(), \
+                        x.detach().requires_grad_()
+                y = pipeline_apply(lambda w, xb: torch.tanh(xb @ w), ws,
+                                   x, mesh=mesh, num_microbatches=4)
+                if grad:
+                    (y ** 2).sum().backward()
+                return y
             args = (torch.randn(4, 8, 8, generator=g),
                     torch.randn(8, 8, generator=g))
         else:
@@ -654,26 +706,107 @@ def case_analysis(rank: int, workdir: str, opts: dict) -> dict:
             [sent.collective_operand_bytes, sent.collective_wire_bytes])
         out[f"{run['name']}/counted_kinds"] = row(counted["by_collective"])
         out[f"{run['name']}/sent_kinds"] = row(sent.by_collective)
+        out[f"{run['name']}/counted_purposes"] = np.asarray(
+            json.dumps(counted["by_purpose"], sort_keys=True))
+        out[f"{run['name']}/sent_purposes"] = np.asarray(
+            json.dumps(sent.by_purpose, sort_keys=True))
+    return out
+
+
+def case_pipeline(rank: int, workdir: str, opts: dict) -> dict:
+    """Each run: ``pipeline_apply`` forward and backward on a ("pipe",)
+    mesh of the world's ranks, from the test's numpy (the ``.npz`` at
+    ``opts["inputs"]``, keys ``<run>/...``), under the run's planted fault (``"mutant"``) or
+    none: ``"tanh"`` stages (tanh(x @ w), loss sum(y ** 2)) or a smoke
+    config's dense layers (``_train_layers`` on a stage's slice of the
+    stacked layers, carried across by ``params_from_numpy``; loss
+    sum(y * r)).  Returns the output, this rank's gradient of every stacked
+    leaf (its slice's and zeros) and of x, and the forward again under
+    ``torch.no_grad`` with whether its output requires grad."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models.bridge import params_from_numpy
+    from repro_torch.models.layers import rope_table
+    from repro_torch.models.params import flatten, unflatten
+    from repro_torch.models.transformer import _train_layers
+    from repro_torch.parallel.pipeline import pipeline_apply
+    data = _load(opts["inputs"])
+    stages = dist.get_world_size()
+    mesh = _mesh(("pipe",), (stages,))
+    out = {}
+    for run in opts["runs"]:
+        name = run["name"]
+        x = torch.from_numpy(data[f"{name}/x"]).requires_grad_()
+        if run["kind"] == "tanh":
+            params = {"ws": torch.from_numpy(data[f"{name}/ws"])}
+
+            def stage_fn(p, xb):
+                return torch.tanh(xb @ p["ws"])
+
+            def loss(y):
+                return (y ** 2).sum()
+        else:
+            cfg = _config(run)
+            key = f"{name}/params/"
+            layers = params_from_numpy(
+                {k[len(key):]: v for k, v in data.items()
+                 if k.startswith(key)}, cfg, device="cpu")["dense_layers"]
+            per = cfg.num_layers // stages
+            params = {k: v.reshape((stages, per) + tuple(v.shape[1:]))
+                      for k, v in flatten(layers).items()}
+            rope = rope_table(torch.arange(x.shape[1])[None, :],
+                              cfg.head_dim, cfg.rope_theta)
+            r = torch.from_numpy(data[f"{name}/r"])
+
+            def stage_fn(p, xb, cfg=cfg, rope=rope, remat=run["remat"]):
+                return _train_layers(unflatten(p), xb, cfg,
+                                     prefix="dense_layers", rope=rope,
+                                     attn_impl="masked", remat=remat)
+
+            def loss(y, r=r):
+                return (y * r).sum()
+        params = {k: v.detach().clone().requires_grad_()
+                  for k, v in params.items()}
+        with _mutated(run.get("mutant")):
+            y = pipeline_apply(stage_fn, params, x, mesh=mesh,
+                               num_microbatches=run["microbatches"])
+            loss(y).backward()
+        with torch.no_grad():
+            y0 = pipeline_apply(stage_fn, params, x, mesh=mesh,
+                                num_microbatches=run["microbatches"])
+        out[f"{name}/y"] = y.detach().numpy()
+        out[f"{name}/dx"] = x.grad.numpy()
+        out.update({f"{name}/grad/{k}": v.grad.numpy()
+                    for k, v in params.items()})
+        out[f"{name}/nograd_y"] = y0.numpy()
+        out[f"{name}/nograd_requires_grad"] = np.bool_(y0.requires_grad)
     return out
 
 
 def case_cli(rank: int, workdir: str, opts: dict) -> dict:
     """The train CLI on every rank of the world (as ``torchrun`` starts
     it: ``WORLD_SIZE`` set, the group already joined here), reporting to
-    the test's stack over HTTP."""
+    the test's stack over HTTP: once with ``opts["argv"]``, or once for
+    each of ``opts["argvs"]`` in turn (``losses``: each call's step
+    losses, a row a call)."""
     import contextlib
     import io
     from repro_torch.launch import train as train_cli
     os.environ["WORLD_SIZE"] = str(opts["world"])
     out = io.StringIO()
+    rcs, losses = [], []
     with contextlib.redirect_stdout(out):
-        rc = train_cli.main(opts["argv"])
+        for argv in opts.get("argvs", [opts.get("argv")]):
+            losses.append([])
+            rcs.append(train_cli.main(argv, step_callback=lambda step, m:
+                                      losses[-1].append(float(m["loss"]))))
+    rc = max(rcs)
     text = out.getvalue()
     mesh = [ln for ln in text.splitlines() if ln.startswith("mesh: ")]
     job = [ln.split()[1] for ln in text.splitlines()
            if ln.startswith("job: ")]
     return {"rc": np.int64(rc), "mesh": np.asarray(mesh),
-            "job": np.asarray(job)}
+            "job": np.asarray(job), "losses": np.asarray(losses)}
 
 
 def _regions(workdir: str) -> dict:
@@ -890,4 +1023,5 @@ def case_layout(rank: int, workdir: str, opts: dict) -> dict:
 CASES = {"collectives": case_collectives, "steps": case_steps,
          "elastic": case_elastic, "loop": case_loop, "moe": case_moe,
          "analysis": case_analysis, "cli": case_cli, "tp": case_tp,
-         "serve": case_serve, "layout": case_layout}
+         "serve": case_serve, "layout": case_layout,
+         "pipeline": case_pipeline}
