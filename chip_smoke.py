@@ -215,7 +215,12 @@ JAX package.  Phases, each reported on its own lines:
               one-device step from the same params and batches: loss, grad
               norm and param norm within TRAIN_TOL (``bit_equal`` says
               whether they are the same bits), step times and peak GB of
-              both, launches of both exactly ``train_launches``;
+              both, launches of both exactly ``train_launches``; and the
+              mesh step once more with its exchanges overlapped
+              (``overlap=True``, the train CLI's ``--overlap-flags``):
+              the one-device step's bits, and no worker thread, side
+              stream or overlap group made (``dist: overlap at world size
+              1``);
               (b) mixtral-8x7b (2 layers, full width, bf16) with
               ``impl="a2a"`` and capacity factor E / k (nothing drops) on
               the (1, 1) mesh: the a2a dispatch must have run in every MoE
@@ -264,8 +269,18 @@ JAX package.  Phases, each reported on its own lines:
               granite-3-8b (2 of its 40 layers, its own bf16, AdamW) on a
               (2, 1) mesh, 2 rows a rank in 2 microbatches, each layer
               gathered over "data" in its call and its gradient
-              reduce-scattered in the backward, its peak within
-              FSDP_PEAK_TOL of its count; after it, in the same world, a
+              reduce-scattered in the backward (the matrices and the
+              embedding gathered in bf16, the norms in fp32), its peak
+              within FSDP_PEAK_TOL of its count; then the same step from
+              the same seed with its exchanges overlapped with compute
+              (``dist:fsdp-overlap``: each layer's gather issued while the
+              layer before computes, each gradient's reduce-scatter in
+              flight until the backward ends): held to the one-device step
+              as every run, and to ``dist:fsdp`` at every step (``dist:
+              fsdp-overlap``: the gaps, rank 0's step seconds of both,
+              staged bytes by purpose, exchanges in flight by purpose,
+              none of ``param_gather`` or ``grad_scatter`` failing the run,
+              counted and measured peaks); after it, in the same world, a
               two-stage pipeline (PIPE_RUN): a ("pipe",) mesh of the two
               ranks, each stage 2 of granite-3-8b's layers (full width,
               bf16, a rank making its own only), seq 2048 x batch 4 in
@@ -1346,7 +1361,7 @@ def kernel_checks(plen: int, lplen: int) -> dict:
     for case in TP_CASES.values():
         ccfg = get_config(case.model)
         dt = getattr(torch, case.dtype) if case.dtype else bf16
-        for path, sp, _ in case.runs:
+        for path, sp, *_ in case.runs:
             tag = path.replace(":", "-")
             tp[path] = {}
             for key, n, width, ld in norm_rows(ccfg, tp_rows(case, sp),
@@ -2913,8 +2928,9 @@ class TpCase(NamedTuple):
     ``shape`` in ``microbatches`` each under remat "minimal", on a (data,
     model) ``mesh``; ``runs`` are (path, seq_parallel, overrides of
     TRAIN_RULES
-    the step stores and computes with), each a world of its own against the
-    case's one-device step.  Each step's loss, grad norm and param norm are
+    the step stores and computes with[, overlap: the step's exchanges
+    overlapped with compute, held to the run before it too]), each against
+    the case's one-device step.  Each step's loss, grad norm and param norm are
     held at TRAIN_TOL; with ``step0``, only step 0's (the later ones
     logged), and step 0's gradients too (the largest relative L2 gap over
     the leaves, TRAIN_TOL["grads"]).  A rank's counted peak is held within
@@ -2947,9 +2963,11 @@ class TpCase(NamedTuple):
 # 79 -> 1094), a gap ``tp_bf16_witness.py`` sets beside bf16's own.
 # granite-fsdp: 2 of 40 layers in its own bf16 on (data 2, model 1), 2 rows
 # a rank in 2 microbatches: every leaf but the norms split over "data",
-# gathered layer by layer in the pass, its gradient reduce-scattered in the
-# backward.  deepseek-v2-236b: its dense layer 0 and one MoE layer (2 of
-# 60) in fp32 (MoE parity is held in fp32), Adafactor, sequence
+# gathered layer by layer in the pass (the matrices and the embedding in
+# bf16), its gradient reduce-scattered in the backward; then the same step
+# with those exchanges overlapped with compute.  deepseek-v2-236b: its
+# dense layer 0 and one MoE layer (2 of 60) in fp32 (MoE parity is held in
+# fp32), Adafactor, sequence
 # parallelism: MLA's 128 heads 64 a rank, its latent projections and norms
 # whole on each rank, 80 experts a rank, the dense layer's columns and the
 # shared experts' split; at DEEPSEEK_TP_SHAPE (see there).
@@ -2982,8 +3000,8 @@ TP_CASES = {
     "qwen2-vl-bf16": TpCase(VLM_MODEL, 4, None, "adamw", (
         ("dist:tp-qwen2-vl-bf16-sp", True, {}),), step0=True),
     "granite-fsdp": TpCase(TRAIN_MODEL, 2, None, "adamw", (
-        ("dist:fsdp", False, {}),), mesh=(2, 1), microbatches=2,
-        peak_tol=FSDP_PEAK_TOL),
+        ("dist:fsdp", False, {}), ("dist:fsdp-overlap", False, {}, True)),
+        mesh=(2, 1), microbatches=2, peak_tol=FSDP_PEAK_TOL),
     "deepseek": TpCase("deepseek-v2-236b", 2, "float32", "adafactor", (
         ("dist:tp-deepseek-sp", True, {}),), shape=DEEPSEEK_TP_SHAPE),
     "seamless": TpCase(ENCDEC_MODEL, 4, "float32", "adamw", (
@@ -3125,7 +3143,8 @@ def dist_batches(cfg, shape, steps: int, dev) -> list:
 
 
 def dist_steps(cfg, tcfg, batches, mesh, dev, count: bool = False,
-               rules=TRAIN_RULES, grads: bool = False) -> dict:
+               rules=TRAIN_RULES, grads: bool = False,
+               overlap: bool = False) -> dict:
     """A step a batch from the seed's params: one-device (``mesh`` None)
     or through the mesh with the params and optimizer state stored as
     this rank's pieces under ``rules``, which the step also computes
@@ -3133,11 +3152,13 @@ def dist_steps(cfg, tcfg, batches, mesh, dev, count: bool = False,
     params; with ``count``, also ``launch.cost_analysis``'s predicted peak
     GB of this rank's step (``counted_peak_gb``); with ``grads``, also the
     first batch's gradients before the steps, on the host (``grads``: this
-    rank's pieces on a mesh), which the peak and launches leave out."""
+    rank's pieces on a mesh), which the peak and launches leave out;
+    ``overlap``: the mesh step's exchanges overlapped with compute."""
     sync = _sync(dev)
     pc = None if mesh is None else PartitionConstraints(
         rules, mesh, seq_parallel=tcfg.seq_parallel)
-    step_fn, opt = make_train_step(cfg, tcfg, mesh=mesh, pc=pc)
+    step_fn, opt = make_train_step(cfg, tcfg, mesh=mesh, pc=pc,
+                                   overlap=overlap)
     psh = None
     if mesh is not None:
         psh, _ = step_shardings(cfg, tcfg, mesh, pc)
@@ -3203,12 +3224,28 @@ def dist_train(dev="cuda", cfg=None, shape=None, phase4=None) -> tuple:
     if dev == "cuda":
         torch.cuda.empty_cache()
     mesh = make_mesh_for(1, device_type=dev)
+    # the mesh step with overlap on first: a one-rank mesh exchanges
+    # nothing, so it makes no worker thread, side stream or group
+    threads = threading.active_count()
+    overlapped = dist_steps(cfg, tcfg, batches, mesh, dev, overlap=True)
+    del overlapped["params"]
+    started = {"threads": threading.active_count() - threads,
+               "overlap_started": comm.overlap_started()}
     meshed = dist_steps(cfg, tcfg, batches, mesh, dev)
     want = train_launches(cfg, DIST_STEPS)
-    for name, run in (("one-device", one), ("mesh", meshed)):
+    for name, run in (("one-device", one), ("mesh", meshed),
+                      ("mesh with overlap", overlapped)):
         if run["launches"] != want:
             raise AssertionError(f"dist {name}: launches {run['launches']}, "
                                  f"expected {want}")
+    log(f"dist: overlap at world size 1 " + json.dumps({
+        "bit_equal": overlapped["metrics"] == one["metrics"],
+        "step_s": overlapped["step_s"], **started}))
+    if overlapped["metrics"] != one["metrics"] or started["threads"] or \
+            started["overlap_started"]:
+        raise AssertionError("dist: the one-rank mesh step with overlap on "
+                             "is not the one-device step, or started a "
+                             "thread, stream or group")
     gaps = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in a}
             for a, b in zip(meshed["metrics"], one["metrics"])]
     row = {"model": TRAIN_MODEL, "layers": cfg.num_layers,
@@ -3479,6 +3516,11 @@ def dist_a2a(dev="cuda", cfg=None, rows=A2A_ROWS, seq=A2A_SEQ) -> tuple:
     return row, launches
 
 
+def run_overlaps(case: TpCase, i: int) -> bool:
+    """Whether run ``i`` of ``case`` overlaps its exchanges with compute."""
+    return len(case.runs[i]) > 3 and case.runs[i][3]
+
+
 def tp_cfg(case: TpCase):
     cfg = dataclasses.replace(get_config(case.model), num_layers=case.layers)
     if cfg.family == "encdec":
@@ -3543,14 +3585,14 @@ def tp_rank_run(name: str, i: int, mesh, rank: int, workdir: str, k: int,
     for a ``step0`` case its pieces of step 0's gradients go to
     ``DIR/grads<R>_<K>.pt``.  Returns its row."""
     case = TP_CASES[name]
-    _, sp, overrides = case.runs[i]
+    _, sp, overrides = case.runs[i][:3]
     cfg = tp_cfg(case)
     batches = dist_batches(cfg, case.shape, DIST_STEPS, dev)
     comm.reset_staged()
     moe.reset_dispatch_counts()
     run = dist_steps(cfg, tp_train_cfg(case, sp), batches, mesh, dev,
                      count=True, rules=TRAIN_RULES.with_overrides(**overrides),
-                     grads=case.step0)
+                     grads=case.step0, overlap=run_overlaps(case, i))
     del run["params"]
     grads = run.pop("grads")
     if grads is not None:
@@ -3558,6 +3600,7 @@ def tp_rank_run(name: str, i: int, mesh, rank: int, workdir: str, k: int,
     run.update({"rank": rank, "coord": list(mesh.get_coordinate()),
                 "staged": comm.staged(),
                 "staged_by_purpose": comm.staged_by_purpose(),
+                "overlapped": comm.overlapped(),
                 "dispatches": moe.dispatch_counts()})
     return run
 
@@ -3947,13 +3990,15 @@ def dist_tp(dev="cuda") -> dict:
             if name in TP_CASES and TP_CASES[name].step0})
         log(f"dist: tp world " + json.dumps({
             "mesh": mesh, "runs": runs, "wall_s": time.monotonic() - t0}))
-        for (name, i), ranks in zip(runs, results):
+        for k, ((name, i), ranks) in enumerate(zip(runs, results)):
             if name == PIPE_RUN:
                 out["dist:pipeline-2-stages"] = pipe_run_row(ranks,
                                                              pipe_one, dev)
                 continue
             out[TP_CASES[name].runs[i][0]] = tp_run_row(name, i, ranks,
                                                         ones[name])
+            if run_overlaps(TP_CASES[name], i):
+                overlap_row(name, i, ranks, results[k - 1])
     os.remove(pipe_ref_path())
     return out
 
@@ -3969,7 +4014,7 @@ def tp_run_row(name: str, i: int, ranks: list, one: dict) -> dict:
     tp`` line (with the bytes staged by purpose and the ranks' step
     seconds) and returns its launches, summed over the ranks."""
     case = TP_CASES[name]
-    path, sp, overrides = case.runs[i]
+    path, sp, overrides = case.runs[i][:3]
     cfg = tp_cfg(case)
     want = train_launches(cfg, DIST_STEPS * case.microbatches,
                           case.mesh[1])
@@ -4028,6 +4073,49 @@ def tp_run_row(name: str, i: int, ranks: list, one: dict) -> dict:
         raise AssertionError(f"{path}: dispatches "
                              f"{[r['dispatches'] for r in ranks]}")
     return {k: sum(r["launches"][k] for r in ranks) for k in want}
+
+
+def overlap_row(name: str, i: int, ranks: list, base: list) -> None:
+    """Run ``i`` of ``TP_CASES[name]`` (its exchanges overlapped with
+    compute) held to the run before it in its world (``base``: the same
+    step without overlap, from the same seed): each rank's loss, grad norm
+    and param norm at every step against the base's (the same bits
+    expected: the overlapped step's arithmetic is the step's; within
+    TRAIN_TOL where a kernel sums in no fixed order), and its exchanges
+    run in flight, ``param_gather`` and ``grad_scatter`` both (none: the
+    run fails).  Logs one ``dist: fsdp-overlap`` line: rank 0's step
+    seconds of both runs, the gaps, staged bytes by purpose and the
+    exchanges in flight of both, and each rank's counted and measured
+    peak."""
+    path = TP_CASES[name].runs[i][0]
+    gaps = [[{k: abs(a[k] - b[k]) / abs(b[k]) for k in a}
+             for a, b in zip(r["metrics"], q["metrics"])]
+            for r, q in zip(ranks, base)]
+    row = {"path": path, "base": TP_CASES[name].runs[i - 1][0],
+           "step_s_rank0": ranks[0]["step_s"],
+           "base_step_s_rank0": base[0]["step_s"],
+           "gaps_from_base": gaps,
+           "bit_equal": [r["metrics"] == q["metrics"]
+                         for r, q in zip(ranks, base)],
+           "staged_by_purpose": [r["staged_by_purpose"] for r in ranks],
+           "base_staged_by_purpose": [r["staged_by_purpose"] for r in base],
+           "overlapped": [r["overlapped"] for r in ranks],
+           "base_overlapped": [r["overlapped"] for r in base],
+           "peak_gb_counted_measured": [
+               (r["counted_peak_gb"], r["peak_memory_gb"]) for r in ranks],
+           "base_peak_gb_counted_measured": [
+               (r["counted_peak_gb"], r["peak_memory_gb"]) for r in base]}
+    log(f"dist: fsdp-overlap {json.dumps(row)} (step times are of "
+        f"exchanges staged through the host over gloo, two processes "
+        f"sharing one card; limits {json.dumps(TRAIN_TOL)})")
+    if not all(v <= TRAIN_TOL[k] for g in gaps for s_ in g
+               for k, v in s_.items()):
+        raise AssertionError(f"{path}: the overlapped step disagrees with "
+                             f"the step without overlap")
+    if not all(r["overlapped"].get(p, 0) > 0 for r in ranks
+               for p in ("param_gather", "grad_scatter")):
+        raise AssertionError(f"{path}: exchanges in flight "
+                             f"{row['overlapped']}: none ran overlapped")
 
 
 def serve_world_cfg(world: ServeWorld, smoke: bool = False):

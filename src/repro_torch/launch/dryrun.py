@@ -36,6 +36,7 @@ Usage::
 
     python -m repro_torch.launch.dryrun --arch granite-3-8b --shape train_4k
     python -m repro_torch.launch.dryrun --mesh both --skip-existing
+    python -m repro_torch.launch.dryrun --shape train_4k --overlap --out DIR
 """
 
 from __future__ import annotations
@@ -135,11 +136,14 @@ def tp_compute(cfg, mesh) -> dict:
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = OUT,
-             skip_existing: bool = False, cfg=None) -> dict:
+             skip_existing: bool = False, cfg=None,
+             overlap: bool = False) -> dict:
     """One cell's record, written to ``<out_dir>/<mesh>/<arch>__<shape>.
     json``.  ``cfg``: a config to use in place of ``get_config(arch)``
-    (a smoke config, in tests).  Opens a fake world of the mesh's size
-    unless one of that size is already open."""
+    (a smoke config, in tests).  ``overlap``: a train cell's step with its
+    exchanges overlapped (the record says ``"overlap": true``).  Opens a
+    fake world of the mesh's size unless one of that size is already
+    open."""
     mesh_name = _mesh_name(multi_pod)
     os.makedirs(os.path.join(out_dir, mesh_name), exist_ok=True)
     path = os.path.join(out_dir, mesh_name, f"{arch}__{shape_name}.json")
@@ -168,7 +172,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = OUT,
             chips = mesh.size()
             dp = chips // mesh.shape[-1]          # pod x data
             tcfg = default_train_cfg(cfg, shape, dp)
-            bundle = build_bundle(cfg, shape, mesh, train_cfg=tcfg)
+            bundle = build_bundle(cfg, shape, mesh, train_cfg=tcfg,
+                                  overlap=overlap)
             if bundle.status != "ok":
                 record["status"] = bundle.status
                 record["reason"] = bundle.reason
@@ -178,6 +183,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = OUT,
                         "optimizer": tcfg.optimizer,
                         "num_microbatches": tcfg.num_microbatches,
                         "remat_policy": tcfg.remat_policy}
+                    record["overlap"] = overlap
                     record.update(tp_compute(cfg, mesh))
                 hlo = trace_bundle(bundle)
                 _fill(record, hlo, cfg, shape, arch, shape_name, mesh_name,
@@ -289,6 +295,9 @@ def main(argv=None) -> int:
                     default="both")
     ap.add_argument("--out", default=OUT)
     ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--overlap", action="store_true",
+                    help="train cells: the step with its exchanges "
+                         "overlapped (the train CLI's --overlap-flags)")
     args = ap.parse_args(argv)
 
     archs = args.arch or ASSIGNED_ARCHS
@@ -302,7 +311,7 @@ def main(argv=None) -> int:
             for arch in archs:
                 for shape in shapes:
                     r = run_cell(arch, shape, multi, args.out,
-                                 args.skip_existing)
+                                 args.skip_existing, overlap=args.overlap)
                     print(summary(r), flush=True)
                     if r["status"] == "error":
                         failures += 1

@@ -204,19 +204,24 @@ def _shard(spec_tree, rules, mesh):
 
 def build_train_bundle(cfg: ModelConfig, shape: ShapeConfig,
                        train_cfg: TrainConfig, mesh,
-                       rules: Optional[ShardingRules] = None) -> StepBundle:
+                       rules: Optional[ShardingRules] = None,
+                       overlap: bool = False) -> StepBundle:
+    """``overlap``: the step with its exchanges overlapped
+    (``make_train_step(..., overlap=)``), whose trace holds the layer
+    gathered ahead."""
     rules = rules or rules_for("train")
     lcfg = _moe_localized(cfg, mesh) if mesh is not None else cfg
     pc = make_pc(rules, mesh, seq_parallel=train_cfg.seq_parallel)
     pspecs = model_specs(lcfg)
     ospecs = opt_state_specs(pspecs, train_cfg)
     ispecs = train_input_specs(lcfg, shape)
-    step_fn, _ = make_train_step(lcfg, train_cfg, pc=pc, mesh=mesh)
+    step_fn, _ = make_train_step(lcfg, train_cfg, pc=pc, mesh=mesh,
+                                 overlap=overlap)
 
     def remake(nm: int) -> StepBundle:
         return build_train_bundle(
             cfg, shape, dataclasses.replace(train_cfg, num_microbatches=nm),
-            mesh, rules)
+            mesh, rules, overlap)
     return StepBundle(
         fn=step_fn, abstract_args=(pspecs, ospecs, ispecs, 0),
         in_shardings=(_shard(pspecs, rules, mesh),
@@ -287,12 +292,13 @@ def build_decode_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh,
 
 def build_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh,
                  train_cfg: Optional[TrainConfig] = None,
-                 rules: Optional[ShardingRules] = None) -> StepBundle:
+                 rules: Optional[ShardingRules] = None,
+                 overlap: bool = False) -> StepBundle:
     """The cell's bundle on ``mesh`` (a DeviceMesh, or None for one
-    device)."""
+    device); ``overlap``: a train step's exchanges overlapped."""
     if shape.kind == "train":
         return build_train_bundle(cfg, shape, train_cfg or TrainConfig(),
-                                  mesh, rules)
+                                  mesh, rules, overlap)
     if shape.kind == "prefill":
         return build_prefill_bundle(cfg, shape, mesh, rules)
     return build_decode_bundle(cfg, shape, mesh, rules)

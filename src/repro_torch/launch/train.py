@@ -22,9 +22,18 @@ mean over a "pod" axis, and where the mesh has a live "pod" axis the
 batch binds to "data" alone (the reference's ``batch=("data",)``
 override).  ``make_mesh_for`` builds ("data", "model") only, as the
 reference's does, so on this CLI's own mesh the flag changes nothing.
-The reference's ``--overlap-flags`` appends its compiler's TPU scheduler
-flags (latency hiding, async collective fusion); eager PyTorch has no such
-compiler pass to switch on, so it is not a flag here.
+``--overlap-flags`` is the reference's name (off by default, as there).
+The reference's flag appends its compiler's TPU scheduler flags (latency
+hiding, async collective fusion), so the compiled step overlaps its
+collectives with compute.  Here it makes the mesh step overlap its FSDP
+exchanges with compute (``train(..., overlap=True)``,
+``train.step.make_train_step``): each layer's gather is issued before the
+layer ahead of it computes (under remat, each recompute issues the previous
+layer's), each gradient's reduce-scatter runs while the backward goes on
+and is waited once it has ended; the step's bits do not change.  On one
+rank there is no mesh and nothing to overlap, and the CLI says so.  Apart
+from the flag, every leaf a bf16 pass casts at its uses (the matrices, the
+embedding table) is gathered in bf16, half the bytes of its fp32 piece.
 """
 
 from __future__ import annotations
@@ -69,6 +78,12 @@ def main(argv=None, *, step_callback: Optional[Callable] = None) -> int:
                     choices=["none", "minimal", "full"])
     ap.add_argument("--grad-compression", default="none",
                     choices=["none", "int8", "bf16"])
+    ap.add_argument("--overlap-flags", action="store_true",
+                    help="overlap the mesh step's per-layer gathers and "
+                         "gradient reduce-scatters with compute (the "
+                         "reference's flag switches on its compiler's "
+                         "latency-hiding scheduler); a world of more than "
+                         "one rank only")
     ap.add_argument("--tp", type=int, default=0,
                     help="model-parallel axis size (0 = auto; a world of "
                          "more than one rank only)")
@@ -113,9 +128,15 @@ def main(argv=None, *, step_callback: Optional[Callable] = None) -> int:
         pc = PartitionConstraints(rules, mesh,
                                   seq_parallel=tcfg.seq_parallel)
         print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+        if args.overlap_flags:
+            print("overlap: the FSDP gathers and gradient syncs run in "
+                  "flight")
     else:
         print("mesh: none (one rank; --tp acts on a world of more than "
               "one)")
+        if args.overlap_flags:
+            print("overlap: nothing to overlap on one rank (no mesh, no "
+                  "exchange)")
     peak_flops, hbm_bw, ici_bw = resolve_peaks(args, device)
 
     stack = RemoteStack(args.lms_url)
@@ -138,7 +159,9 @@ def main(argv=None, *, step_callback: Optional[Callable] = None) -> int:
     try:
         result = train(cfg, tcfg, shape, stack=stack, device=device,
                        peak_flops=peak_flops, hbm_bw=hbm_bw, ici_bw=ici_bw,
-                       mesh=mesh, pc=pc, fail_at_step=args.fail_at_step,
+                       mesh=mesh, pc=pc,
+                       overlap=args.overlap_flags and mesh is not None,
+                       fail_at_step=args.fail_at_step,
                        step_callback=cb, user=args.user, job_id=job_id)
     finally:
         stack.close()

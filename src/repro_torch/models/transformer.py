@@ -37,7 +37,11 @@ checkpointed function, so the backward's recompute gathers them again and
 the gathered leaves are not saved), and the leaves outside the layer stacks
 (the embedding, once for both its uses; the final norms) once a pass; a
 hybrid's shared attention blocks and an enc-dec's cross K/V projections,
-used outside the checkpoints, are gathered where they are used.
+used outside the checkpoints, are gathered where they are used.  Each
+train-mode loop of layers takes its gathers through a
+``sharding.LayerGathers``, which in the overlapped step issues them ahead
+(the next layer's while a layer computes, the previous layer's while a
+layer recomputes) and waits for them outside the checkpointed call.
 
 Train mode rematerializes as the reference places ``jax.checkpoint``: each
 dense or MoE block, each Mamba2 block of a hybrid group and each trailing
@@ -72,7 +76,8 @@ from repro_torch.models.ssm import (
     mamba2_block, mamba2_cache_specs, mamba2_specs, rwkv6_cache_specs,
     rwkv6_channel_mix, rwkv6_specs, rwkv6_time_mix)
 from repro_torch.parallel import comm
-from repro_torch.parallel.sharding import gathered, recurrent_splits
+from repro_torch.parallel.sharding import (
+    LayerGathers, gathered, recurrent_splits)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -399,16 +404,20 @@ def _train_layers(layers, x, cfg, *, prefix, rope, attn_impl, remat,
                   tp=None, d_ff=None):
     """Train-mode pass over stacked attention blocks (the params' subtree
     ``prefix``), each checkpointed, each gathering its layer's leaves
-    inside its call (``sharding.gathered``: where ``pc`` says the pass
+    inside its call (``sharding.LayerGathers``: where ``pc`` says the pass
     holds pieces; the recompute gathers them again); the MoE statistics of
     each block come out of the checkpointed call and are combined into
     ``aux``.  ``cross``: per layer, the encoder's K/V of a decoder block
     (made outside the checkpoints, as the reference);
     ``bidirectional``: an encoder's blocks; ``tp``, ``d_ff``: see
     :func:`_attn_block`."""
-    def block(lp, x, ckv):
+    per_layer = _unstack(layers)
+    fetch = LayerGathers(pc, [(lp, prefix, 1, remat != "none")
+                              for lp in per_layer])
+
+    def block(lp, x, ckv, i):
         stats = {}
-        lp = gathered(lp, prefix, pc, 1)
+        lp = fetch(i, lp)
         x = _attn_block(lp, x, cfg, rope=rope, mode="train", cache=None,
                         pos=None, attn_impl=attn_impl, aux=stats,
                         cross_kv_cache=ckv, bidirectional=bidirectional,
@@ -416,9 +425,9 @@ def _train_layers(layers, x, cfg, *, prefix, rope, attn_impl, remat,
         return x, stats
 
     run = _checkpointed(block, remat)
-    per_layer = _unstack(layers)
-    for lp, ckv in zip(per_layer, cross or [None] * len(per_layer)):
-        x, stats = run(lp, x, ckv)
+    for i, (lp, ckv) in enumerate(zip(per_layer,
+                                      cross or [None] * len(per_layer))):
+        x, stats = fetch.call(i, run, lp, x, ckv, i)
         if stats and aux is not None:
             _combine_aux(aux, stats)
     return x
@@ -444,20 +453,31 @@ def _hybrid_forward(params, x, cfg, *, rope, mode, cache, pos,
         return gathered(_layer(params["shared"], gi % nsb), "shared", pc, 1)
 
     if mode == "train":
-        def mamba(prefix, stacked, lp, x):
-            lp = gathered(lp, prefix, pc, stacked)
-            return _mamba_block(lp, x, cfg, mode="train", cache=None,
-                                tp=tp)[0]
+        # the pass's gathers in order: each group's Mamba2 layers
+        # (checkpointed), its shared block (at its use), then ``rem``
+        remat_on = remat != "none"
+        entries = []
+        for gi, gp in enumerate(_unstack(params["groups"])
+                                if "groups" in params else []):
+            entries += [(lp, "groups", 2, remat_on) for lp in _unstack(gp)]
+            entries.append((_layer(params["shared"], gi % nsb), "shared", 1,
+                            False))
+        entries += [(lp, "rem", 1, remat_on) for lp in (
+            _unstack(params["rem"]) if "rem" in params else [])]
+        fetch = LayerGathers(pc, entries)
+
+        def mamba(lp, x, i):
+            return _mamba_block(fetch(i, lp), x, cfg, mode="train",
+                                cache=None, tp=tp)[0]
         run = _checkpointed(mamba, remat)
-        if "groups" in params:
-            for gi, gp in enumerate(_unstack(params["groups"])):
-                for lp in _unstack(gp):
-                    x = run("groups", 2, lp, x)
-                x, _ = _attn_block(shared(gi), x, cfg, rope=rope,
-                                   mode="train", cache=None, pos=None,
-                                   attn_impl=attn_impl, pc=pc, tp=tp)
-        for lp in _unstack(params["rem"]) if "rem" in params else []:
-            x = run("rem", 1, lp, x)
+        for i, (lp, prefix, _, _) in enumerate(entries):
+            if prefix == "shared":
+                x = fetch.call(i, lambda lp, x: _attn_block(
+                    fetch(i, lp), x, cfg, rope=rope, mode="train",
+                    cache=None, pos=None, attn_impl=attn_impl, pc=pc,
+                    tp=tp)[0], lp, x)
+            else:
+                x = fetch.call(i, run, lp, x, i)
         return x
     if "groups" in params:
         for gi in range(_depth(params["groups"])):
@@ -493,9 +513,16 @@ def _rwkv_forward(params, x, cfg, *, mode, cache, remat="none", pc=None,
                            cache=cache, tp=tp)[0]
 
     if mode == "train":
-        run = _checkpointed(block, remat)
-        for lp in _unstack(params["layers"]):
-            x = run(lp, x, "train", None)
+        per_layer = _unstack(params["layers"])
+        fetch = LayerGathers(pc, [(lp, "layers", 1, remat != "none")
+                                  for lp in per_layer])
+
+        def train_block(lp, x, i):
+            return _rwkv_block(fetch(i, lp), x, cfg, mode="train",
+                               cache=None, tp=tp)[0]
+        run = _checkpointed(train_block, remat)
+        for i, lp in enumerate(per_layer):
+            x = fetch.call(i, run, lp, x, i)
         return x
     for i in range(_depth(params["layers"])):
         x = block(_layer(params["layers"], i), x, mode,
@@ -565,8 +592,11 @@ def encdec_cross_caches(params, cfg: ModelConfig, enc_out, pc=None,
     if tp is not None:
         enc_out = tp.enter(enc_out, _heads_of(cfg, tp)[0])
     cross = params["dec_layers"]["cross"]
-    return [cross_kv(gathered(lp, "dec_layers/cross", pc, 1), enc_out, cfg)
-            for lp in _unstack({k: cross[k] for k in _CROSS_KV})]
+    per_layer = _unstack({k: cross[k] for k in _CROSS_KV})
+    fetch = LayerGathers(pc, [(lp, "dec_layers/cross", 1, False)
+                              for lp in per_layer])
+    return [fetch.call(i, lambda lp: cross_kv(fetch(i, lp), enc_out, cfg),
+                       lp) for i, lp in enumerate(per_layer)]
 
 
 def _decoder_blocks(params) -> dict:

@@ -49,7 +49,32 @@ FSDP adds one more, :func:`gather_piece`: a param's stored piece gathered
 into the leaf a pass computes with (forward), this rank's piece of its
 gradient's mean over "data" (backward, :func:`grad_piece`), so a pass that
 gathers each layer inside the layer's call holds one layer gathered at a
-time and its gradients come back as pieces.
+time and its gradients come back as pieces.  A leaf every use of which
+casts it to the pass's compute dtype first is gathered in that dtype (its
+``wire`` dtype): the piece is cast before the exchange and the leaf cast
+back after it, which moves no bit of the pass and halves the bytes of an
+fp32 matrix gathered for a bf16 pass.
+
+**Exchanges in flight** (the overlapped step, ``--overlap-flags``).
+:func:`start` issues an exchange and returns a :class:`Pending`, whose
+:meth:`Pending.wait` gives its output: a layer's gathers are issued before
+the layer ahead of it computes (``sharding.LayerGathers``), and each
+gradient's sync runs while the backward goes on, its result credited to
+the leaf's gradient by a :class:`GradSink` once the backward has ended.
+They run on a second process group per axis (:func:`overlap_groups`), so
+each group's exchanges keep the one order every rank issues them in, apart
+from the collectives the compute path runs on the mesh's own groups.  Over
+gloo they run, in issue order, on one worker thread; a CUDA operand is
+copied to the host there on a side stream, after an event marks it ready on
+the compute stream, the exchange runs on the host copy, and its result is
+copied back on the same stream, which the compute stream waits for at
+:meth:`Pending.wait`.  Over NCCL they are
+issued on the side stream (ProcessGroupNCCL runs each group's collectives
+on its one internal stream, in issue order); events order the two streams
+both ways and ``record_stream`` covers every tensor the side stream reads
+or writes.  On a meta operand an issued exchange is reported and skipped at
+once, as every helper does.  The collectives run in flight are counted by
+purpose (:func:`overlapped`).
 
 **Host staging.**  gloo's CUDA support is partial, so a collective over a
 gloo group with an operand on a CUDA device copies its operand to the
@@ -63,6 +88,9 @@ NCCL, or on CPU tensors, nothing is staged.
 from __future__ import annotations
 
 import math
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 
 import torch
@@ -112,6 +140,10 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 _counter = None
 _PURPOSES: list = []
+# what an exchange in flight runs under, per thread: its purpose and the
+# mesh's overlap groups (:func:`_job`)
+_local = threading.local()
+_LOCK = threading.Lock()
 
 
 def set_counter(counter):
@@ -135,7 +167,8 @@ def purpose(name: str):
     (RWKV6's channel-mix columns), serving's ``"query_gather"`` and
     ``"partial_merge"``, and a pipeline's ``"pipe_act"`` (the forward's
     hand-offs and the outputs' broadcast) and ``"pipe_grad"`` (the
-    backward's hand-offs and the input gradient's broadcast)."""
+    backward's hand-offs and the input gradient's broadcast).  An exchange
+    in flight keeps the purpose it was issued under (:func:`start`)."""
     _PURPOSES.append(name)
     try:
         yield
@@ -143,16 +176,40 @@ def purpose(name: str):
         _PURPOSES.pop()
 
 
+def _purpose():
+    """The current purpose: an exchange in flight's own, else the innermost
+    :func:`purpose` (None outside one)."""
+    own = getattr(_local, "purpose", None)
+    if own is not None:
+        return own
+    return _PURPOSES[-1] if _PURPOSES else None
+
+
 def report(kind: str, operand: torch.Tensor, output_bytes: int,
            n: int) -> bool:
     """Tell the installed counter, if any, of one collective of ``n`` ranks
-    (none for one rank), with its :func:`purpose` (None outside one);
+    (none for one rank), with its :func:`purpose` (None outside one), and
+    count it by purpose where it runs in flight (:func:`overlapped`);
     returns whether the exchange is to be skipped (a meta operand)."""
-    if _counter is not None and n > 1:
+    if _counter is not None and n > 1 and not getattr(_local, "mute",
+                                                      False):
         _counter.collective(kind, operand.numel() * operand.element_size(),
-                            output_bytes, n,
-                            _PURPOSES[-1] if _PURPOSES else None)
+                            output_bytes, n, _purpose())
+    if n > 1 and not operand.is_meta and getattr(_local, "groups", None) \
+            is not None:
+        with _LOCK:
+            key = _purpose() or "other"
+            _OVERLAPPED[key] = _OVERLAPPED.get(key, 0) + 1
     return operand.is_meta
+
+
+def _group(mesh, axis: str):
+    """The process group of ``axis``: inside an exchange in flight, the
+    axis's overlap group (:func:`overlap_groups`), else the mesh's own."""
+    groups = getattr(_local, "groups", None)
+    if groups is not None and axis in groups:
+        return groups[axis]
+    return mesh.get_group(axis)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -165,8 +222,13 @@ def _nbytes(t: torch.Tensor) -> int:
 _STAGED = {"collectives": 0, "bytes": 0}
 _STAGED_BY: dict = {}
 # page-locked host buffers of the staged exchanges, by (role, elements,
-# dtype): a run's exchanges repeat a few sizes layer after layer
+# dtype), each lent to one exchange at a time (:func:`_host`): a run's
+# exchanges repeat a few sizes layer after layer, and an exchange in flight
+# may have the same sizes as one on the compute path
 _HOST: dict = {}
+_LENT: set = set()
+# collectives run in flight, by purpose, since the last reset
+_OVERLAPPED: dict = {}
 
 
 def staged() -> dict:
@@ -181,23 +243,46 @@ def staged_by_purpose() -> dict:
     return {k: dict(v) for k, v in _STAGED_BY.items()}
 
 
+def overlapped() -> dict:
+    """{purpose: collectives run in flight} (:func:`start`; ``"other"``
+    outside a purpose) since the last :func:`reset_staged`."""
+    with _LOCK:
+        return dict(_OVERLAPPED)
+
+
 def reset_staged() -> None:
-    """Zero the counts and free the staging buffers."""
-    for k in _STAGED:
-        _STAGED[k] = 0
-    _STAGED_BY.clear()
-    _HOST.clear()
+    """Zero the counts (staged and in flight) and free the staging
+    buffers."""
+    with _LOCK:
+        for k in _STAGED:
+            _STAGED[k] = 0
+        _STAGED_BY.clear()
+        _OVERLAPPED.clear()
+        _HOST.clear()
+        _LENT.clear()
 
 
 def _host(t: torch.Tensor, role: str) -> torch.Tensor:
     """A page-locked host buffer of ``t``'s shape and dtype for ``role``
-    (``"in"`` or ``"out"``), reused by later exchanges of the same size."""
+    (``"in"`` or ``"out"``), lent to the caller until :func:`_give_back`
+    and reused by later exchanges of the same size."""
     key = (role, t.numel(), t.dtype)
-    buf = _HOST.get(key)
-    if buf is None:
-        buf = _HOST[key] = torch.empty(t.numel(), dtype=t.dtype,
-                                       pin_memory=True)
+    with _LOCK:
+        bufs = _HOST.setdefault(key, [])
+        buf = next((b for b in bufs if id(b) not in _LENT), None)
+        if buf is None:
+            buf = torch.empty(t.numel(), dtype=t.dtype, pin_memory=True)
+            bufs.append(buf)
+        _LENT.add(id(buf))
     return buf.view(t.shape)
+
+
+def _give_back(*views) -> None:
+    """Return :func:`_host` buffers (their views) for reuse."""
+    with _LOCK:
+        for v in views:
+            if v is not None:
+                _LENT.discard(id(v._base if v._base is not None else v))
 
 
 def _run(fn, group, out: torch.Tensor, inp=None, **kw) -> None:
@@ -212,27 +297,33 @@ def _run(fn, group, out: torch.Tensor, inp=None, **kw) -> None:
         else:
             fn(out, inp, group=group, **kw)
         return
-    if inp is None:
-        host = _host(out, "out").copy_(out)
-        fn(host, group=group, **kw)
-        moved = 2 * _nbytes(out)
-    else:
-        # the output is only written: a host buffer, not a copy of it
-        host = _host(out, "out")
-        fn(host, _host(inp, "in").copy_(inp), group=group, **kw)
-        moved = _nbytes(inp) + _nbytes(out)
-    out.copy_(host)
+    host = src = None
+    try:
+        if inp is None:
+            host = _host(out, "out").copy_(out)
+            fn(host, group=group, **kw)
+            moved = 2 * _nbytes(out)
+        else:
+            # the output is only written: a host buffer, not a copy of it
+            host = _host(out, "out")
+            src = _host(inp, "in").copy_(inp)
+            fn(host, src, group=group, **kw)
+            moved = _nbytes(inp) + _nbytes(out)
+        out.copy_(host)
+    finally:
+        _give_back(host, src)
     _count_staged(moved)
 
 
 def _count_staged(moved: int) -> None:
     """One staged exchange of ``moved`` bytes between the device and the
     host, under the current purpose."""
-    by = _STAGED_BY.setdefault(_PURPOSES[-1] if _PURPOSES else "other",
-                               {"collectives": 0, "bytes": 0})
-    for counts in (_STAGED, by):
-        counts["collectives"] += 1
-        counts["bytes"] += moved
+    with _LOCK:
+        by = _STAGED_BY.setdefault(_purpose() or "other",
+                                   {"collectives": 0, "bytes": 0})
+        for counts in (_STAGED, by):
+            counts["collectives"] += 1
+            counts["bytes"] += moved
 
 
 def all_reduce(t: torch.Tensor, mesh, axes, op: str = "sum"):
@@ -242,7 +333,7 @@ def all_reduce(t: torch.Tensor, mesh, axes, op: str = "sum"):
     for a in live:
         if report("all-reduce", t, _nbytes(t), axis_sizes(mesh)[a]):
             continue
-        _run(dist.all_reduce, mesh.get_group(a), t,
+        _run(dist.all_reduce, _group(mesh, a), t,
              op=_OPS["sum" if op == "mean" else op])
     if op == "mean" and live:
         t.div_(group_size(mesh, live))
@@ -258,7 +349,7 @@ def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = 0):
     x = t.movedim(dim, 0).contiguous()
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
     if not report("all-gather", x, _nbytes(out), n):
-        _run(dist.all_gather_into_tensor, mesh.get_group(axis), out, x)
+        _run(dist.all_gather_into_tensor, _group(mesh, axis), out, x)
     return out.movedim(0, dim).contiguous()
 
 
@@ -289,23 +380,26 @@ def send_recv(send, dst: int, recv, src: int, group, n: int) -> None:
     device (one staged exchange: the bytes sent and received)."""
     staging = dist.get_backend(group) == "gloo" and any(
         t is not None and t.is_cuda for t in (send, recv))
-    ops, moved, host = [], 0, None
-    if send is not None and not report("collective-permute", send,
-                                       _nbytes(send), n):
-        buf = send.contiguous()
-        if staging:
-            buf = _host(buf, "in").copy_(buf)
-            moved += _nbytes(buf)
-        ops.append(dist.P2POp(dist.isend, buf, dst, group))
-    if recv is not None and not recv.is_meta:
-        host = _host(recv, "out") if staging else recv
-        ops.append(dist.P2POp(dist.irecv, host, src, group))
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-    if host is not None and host is not recv:
-        recv.copy_(host)
-        moved += _nbytes(recv)
+    ops, moved, host, sent = [], 0, None, None
+    try:
+        if send is not None and not report("collective-permute", send,
+                                           _nbytes(send), n):
+            buf = send.contiguous()
+            if staging:
+                buf = sent = _host(buf, "in").copy_(buf)
+                moved += _nbytes(buf)
+            ops.append(dist.P2POp(dist.isend, buf, dst, group))
+        if recv is not None and not recv.is_meta:
+            host = _host(recv, "out") if staging else recv
+            ops.append(dist.P2POp(dist.irecv, host, src, group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        if host is not None and host is not recv:
+            recv.copy_(host)
+            moved += _nbytes(recv)
+    finally:
+        _give_back(sent, host if host is not recv else None)
     if moved:
         _count_staged(moved)
 
@@ -338,7 +432,7 @@ def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int):
     x = t.movedim(dim, 0).contiguous()
     out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
     if not report("reduce-scatter", x, _nbytes(out), n):
-        _run(dist.reduce_scatter_tensor, mesh.get_group(axis), out, x,
+        _run(dist.reduce_scatter_tensor, _group(mesh, axis), out, x,
              op=dist.ReduceOp.SUM)
     return out.movedim(0, dim)
 
@@ -400,7 +494,7 @@ def _exchange(x, mesh, axis: str):
     out = torch.empty_like(x)
     if not report("all-to-all", x, _nbytes(out),
                   axis_sizes(mesh).get(axis, 1)):
-        _run(dist.all_to_all_single, mesh.get_group(axis), out, x)
+        _run(dist.all_to_all_single, _group(mesh, axis), out, x)
     return out
 
 
@@ -530,28 +624,70 @@ def grad_piece(g: torch.Tensor, sh, mesh, role: str) -> torch.Tensor:
     return g.div_(axis_sizes(mesh)["data"])
 
 
+def gathered_axes(sh, mesh, role: str) -> tuple:
+    """The live axes a leaf's gather (:func:`gather_dims`) crosses: every
+    live axis ``sh`` splits it over, but "model" for a ``"split"`` one."""
+    return tuple(a for a in live_axes(mesh, sh.axes)
+                 if a != MODEL or role != "split")
+
+
+def _gathered_shape(piece: torch.Tensor, sh, mesh, role: str) -> tuple:
+    """The shape :func:`gather_dims` makes of ``piece``."""
+    sizes, skip = axis_sizes(mesh), (MODEL,) if role == "split" else ()
+    return tuple(d * math.prod(sizes.get(a, 1) for a in sh.dim_axes(i)
+                               if a not in skip)
+                 for i, d in enumerate(piece.shape))
+
+
 class _GatherPiece(torch.autograd.Function):
     """Forward: the leaf a rank computes with, from its stored piece
-    (:func:`gather_dims`, a ``"split"`` leaf not over "model"); backward:
+    (:func:`gather_dims`, a ``"split"`` leaf not over "model"), moved in
+    ``wire`` (None: its own dtype) and returned in the piece's, or, given
+    ``pending`` (:func:`start_gather`), that exchange's output; backward:
     this rank's piece of the gradient's mean over "data"
-    (:func:`grad_piece`), in fp32 and returned in the piece's dtype."""
+    (:func:`grad_piece`), in fp32 and returned in the piece's dtype, or,
+    given a ``sink`` (:class:`GradSink`), that sync issued in flight and
+    nothing returned to autograd (the sink credits it to the leaf once the
+    backward has ended)."""
 
     @staticmethod
-    def forward(ctx, piece, sh, mesh, role):
+    def forward(ctx, piece, sh, mesh, role, wire, pending, sink):
         ctx.sh, ctx.mesh, ctx.role, ctx.dtype = sh, mesh, role, piece.dtype
-        with purpose("param_gather"):
-            out = gather_dims(piece, sh, mesh,
-                              (MODEL,) if role == "split" else ())
-        return piece.view_as(piece) if out is piece else out
+        ctx.sink = sink
+        if sink is not None:
+            ctx.target = GradSink.target(piece)
+        if pending is not None:
+            out = pending.wait()
+        else:
+            with purpose("param_gather"):
+                out = gather_dims(piece.to(wire or piece.dtype), sh, mesh,
+                                  (MODEL,) if role == "split" else ())
+        if out is piece:
+            return piece.view_as(piece)
+        # the round trip through a narrower wire dtype is exact for a leaf
+        # every use of which casts it to that dtype
+        return out.to(piece.dtype, memory_format=torch.contiguous_format)
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.sink is not None:
+            ctx.sink.start(ctx.target, g, ctx.sh, ctx.mesh, ctx.role,
+                           ctx.dtype)
+            return None, None, None, None, None, None, None
         with purpose("grad_scatter"):
             g = grad_piece(g.float(), ctx.sh, ctx.mesh, ctx.role)
-        return g.to(ctx.dtype), None, None, None
+        return g.to(ctx.dtype), None, None, None, None, None, None
 
 
-def gather_piece(piece: torch.Tensor, sh, mesh, role: str) -> torch.Tensor:
+def _crosses(sh, mesh, role: str) -> bool:
+    """Whether a leaf's gather or its gradient's sync crosses a live axis
+    (else :func:`gather_piece` is the identity)."""
+    return bool(live_axes(mesh, ("data",)) or gathered_axes(sh, mesh, role)
+                or (role == "partial" and live_axes(mesh, (MODEL,))))
+
+
+def gather_piece(piece: torch.Tensor, sh, mesh, role: str, wire=None,
+                 pending=None, sink=None) -> torch.Tensor:
     """This rank's stored piece of a param (``sh``: its
     ``sharding.Sharding``) -> the leaf its pass computes with, as
     ``role`` says (``sharding.tp_roles``: a ``"split"`` leaf gathered over
@@ -563,11 +699,371 @@ def gather_piece(piece: torch.Tensor, sh, mesh, role: str) -> torch.Tensor:
     norm's scale) goes through it too: its gather is the identity and its
     backward an all-reduce over "data", one a call (not one a step).
     Where nothing crosses a live axis (every axis of a one-rank mesh) it
-    returns ``piece`` itself."""
-    crosses = live_axes(mesh, ("data",)) or any(
-        a != MODEL or role != "split" for a in live_axes(mesh, sh.axes)) or \
-        (role == "partial" and live_axes(mesh, (MODEL,)))
-    return _GatherPiece.apply(piece, sh, mesh, role) if crosses else piece
+    returns ``piece`` itself.  ``wire``: the dtype the gather moves (the
+    pass's compute dtype for a leaf every use of which casts it to that
+    dtype first; only where some axis is gathered); ``pending``: the
+    gather already issued (:func:`start_gather`); ``sink``: the
+    :class:`GradSink` that takes the gradient's sync in flight."""
+    if not _crosses(sh, mesh, role):
+        return piece
+    if not gathered_axes(sh, mesh, role):
+        wire = None
+    return _GatherPiece.apply(piece, sh, mesh, role, wire, pending, sink)
+
+
+def start_gather(piece: torch.Tensor, sh, mesh, role: str, wire=None):
+    """:func:`gather_piece`'s gather issued in flight (:func:`start`; a
+    :class:`Pending` of the leaf in ``wire``, which ``gather_piece(...,
+    pending=)`` takes), or None where it gathers over no live axis."""
+    if not gathered_axes(sh, mesh, role):
+        return None
+    x = piece.detach().to(wire or piece.dtype)
+    skip = (MODEL,) if role == "split" else ()
+    one = _one_gather(sh, mesh, skip)
+    if one is None:
+        return start(lambda o, t: o.copy_(gather_dims(t, sh, mesh, skip)),
+                     x.new_empty(_gathered_shape(piece, sh, mesh, role)),
+                     mesh, "param_gather", (x,))
+    # the operand in the order it is exchanged in, made here (on the
+    # compute path), so the exchange moves contiguous bytes only
+    axis, dim = one
+    x = x.movedim(dim, 0).contiguous()
+    n = axis_sizes(mesh)[axis]
+    return start(lambda o, t: _all_gather_into(o, t, mesh, axis),
+                 x.new_empty((n * x.shape[0],) + tuple(x.shape[1:])), mesh,
+                 "param_gather", (x,), dim)
+
+
+def _one_gather(sh, mesh, skip: tuple):
+    """(axis, dim) where :func:`gather_dims` makes one all-gather, along
+    one dimension of a leaf whose parts it need not put back in order;
+    else None."""
+    hits = [(a, i) for i in range(len(sh.shape)) for a in sh.dim_axes(i)
+            if a not in skip and axis_sizes(mesh).get(a, 1) > 1]
+    if len(hits) != 1 or (sh.segments and hits[0][1] == len(sh.shape) - 1):
+        return None
+    return hits[0]
+
+
+def _all_gather_into(o: torch.Tensor, t: torch.Tensor, mesh, axis: str):
+    """:func:`all_gather` along dimension 0 into ``o``."""
+    if not report("all-gather", t, _nbytes(o), axis_sizes(mesh)[axis]):
+        _run(dist.all_gather_into_tensor, _group(mesh, axis), o, t)
+
+
+def _mean_into(o: torch.Tensor, t: torch.Tensor, mesh, axis: str,
+               scatter: bool):
+    """This rank's chunk along dimension 0 of the mean of ``t`` over
+    ``axis`` (``scatter``: a reduce-scatter; else the whole mean, an
+    all-reduce), into ``o``: :func:`grad_piece`'s exchange."""
+    n = axis_sizes(mesh)[axis]
+    if not scatter:
+        all_reduce(o.copy_(t), mesh, (axis,))
+    elif not report("reduce-scatter", t, _nbytes(o), n):
+        _run(dist.reduce_scatter_tensor, _group(mesh, axis), o, t,
+             op=dist.ReduceOp.SUM)
+    o.div_(n)
+
+
+# --------------------------------------------------------------------------
+# Exchanges in flight
+# --------------------------------------------------------------------------
+
+_EXECUTOR = None                # the gloo worker, made at its first exchange
+_SIDE: dict = {}                # device index -> side stream
+_OVERLAP_GROUPS: dict = {}      # id(mesh) -> (mesh, {axis: group})
+# a test hook: seconds each exchange in flight waits before it runs, which
+# makes an output read before its wait visible
+_DELAY_S = 0.0
+
+
+# a traced step's exchanges in flight (meta), in issue order: each runs when
+# it, or one issued after it, is waited
+_TRACED: list = []
+
+
+class Pending:
+    """An exchange in flight (:func:`start`): :meth:`wait` returns ``out``
+    (its dimension 0 moved to ``dim``) once the exchange has written it
+    (the calling thread's current stream ordered after the write)."""
+
+    def __init__(self, out: torch.Tensor, future=None, event=None,
+                 run=None, dim: int = 0):
+        self.out, self._future, self._event = out, future, event
+        self._run, self.dim = run, dim
+
+    def wait(self) -> torch.Tensor:
+        if self._run is not None:
+            # one worker runs them in issue order: those before this one
+            # have ended
+            while _TRACED:
+                p = _TRACED.pop(0)
+                p._run()
+                p._run = None
+                if p is self:
+                    break
+        if self._future is not None:
+            event = self._future.result()
+            self._future = None
+            self._event = event or self._event
+        if self._event is not None:
+            torch.cuda.current_stream(self.out.device).wait_event(
+                self._event)
+            self._event = None
+        # an exchange along its first dimension: its output's dimension 0
+        # is the result's ``dim``
+        return self.out.movedim(0, self.dim) if self.dim else self.out
+
+
+def overlap_started() -> bool:
+    """Whether any exchange has run in flight in this process: a worker
+    thread, a side stream or an overlap group made (a one-rank mesh makes
+    none)."""
+    return _EXECUTOR is not None or bool(_SIDE) or bool(_OVERLAP_GROUPS)
+
+
+def overlap_groups(mesh) -> dict:
+    """{axis: this rank's second process group along it} for each live
+    axis of ``mesh``, made at the first exchange in flight and kept: the
+    groups the exchanges in flight run on, of the backend of the mesh's
+    own.  Made by ``dist.new_group`` for every group of every live axis in
+    mesh order, which every rank of the world reaches at the same point of
+    the same step, so the mesh must span the world."""
+    got = _OVERLAP_GROUPS.get(id(mesh))
+    if got is not None and got[0] is mesh:
+        return got[1]
+    me, groups = dist.get_rank(), {}
+    for d, a in enumerate(mesh.mesh_dim_names):
+        n = mesh.shape[d]
+        if n == 1:
+            continue
+        backend = dist.get_backend(mesh.get_group(a))
+        for ranks in mesh.mesh.movedim(d, -1).reshape(-1, n).tolist():
+            g = dist.new_group(ranks, backend=backend)
+            if me in ranks:
+                groups[a] = g
+    _OVERLAP_GROUPS[id(mesh)] = (mesh, groups)
+    return groups
+
+
+def _side(device: torch.device):
+    """The side stream of a CUDA device, made once."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SIDE:
+        _SIDE[idx] = torch.cuda.Stream(device=idx)
+    return _SIDE[idx]
+
+
+def _worker() -> ThreadPoolExecutor:
+    global _EXECUTOR
+    if _EXECUTOR is None:
+        _EXECUTOR = ThreadPoolExecutor(max_workers=1,
+                                       thread_name_prefix="comm-in-flight")
+    return _EXECUTOR
+
+
+@contextmanager
+def _job(groups: dict, name):
+    """The calling thread runs an exchange in flight: its collectives run
+    on ``groups`` (:func:`overlap_groups`) under the purpose ``name``."""
+    _local.groups, _local.purpose = groups, name
+    try:
+        with torch.no_grad():
+            yield
+    finally:
+        _local.groups = _local.purpose = None
+
+
+def start(fn, out: torch.Tensor, mesh, name: str, args=(),
+          dim: int = 0) -> Pending:
+    """Issue ``fn(out, *args)`` in flight, ``fn`` an exchange over
+    ``mesh``'s live axes (a call of the helpers above) that writes its
+    result into ``out`` from its operands ``args``, under the purpose
+    ``name``; ``out`` is allocated by the caller on its current stream,
+    and the calling thread must not overwrite ``args`` before the wait.
+    ``dim``: the result's dimension that is ``out``'s dimension 0
+    (:class:`Pending`).
+
+    Over gloo with CUDA operands the worker copies ``args`` to page-locked
+    host buffers (on the side stream, once the compute stream has made
+    them), runs ``fn`` there into another (gloo's own path) and copies
+    that into ``out``: an exchange in flight takes no device memory but
+    ``out`` and, until they are copied, ``args``, and stages each operand
+    and result once (:func:`staged`).
+
+    On a meta ``out`` (a step traced for its counts) the exchange runs,
+    reported and skipped, when it or one issued after it is waited (the
+    worker runs them in issue order), ``args`` held until then: the
+    timing of a worker the exchanges keep busy, as host staging does, so
+    the trace's peak holds what such a step holds (the gradients whose
+    syncs are queued, the layer gathered ahead)."""
+    held = list(args)
+    if out.is_meta:
+        def run():
+            with purpose(name), torch.no_grad():
+                fn(out, *held)
+            held.clear()
+        _TRACED.append(Pending(out, run=run, dim=dim))
+        return _TRACED[-1]
+    groups = overlap_groups(mesh)
+    ready = None
+    if out.is_cuda:
+        # the operands are ready once the compute stream's work so far is
+        ready = torch.cuda.Event()
+        ready.record()
+        side = _side(out.device)
+        for t in (out, *held):
+            t.record_stream(side)
+    backend = dist.get_backend(next(iter(groups.values()))) if groups \
+        else "gloo"
+    if backend == "nccl":
+        side.wait_event(ready)
+        with torch.cuda.stream(side), _job(groups, name):
+            fn(out, *held)
+        held.clear()
+        done = torch.cuda.Event()
+        done.record(side)
+        return Pending(out, event=done, dim=dim)
+
+    def job():
+        if _DELAY_S:
+            time.sleep(_DELAY_S)
+        with _job(groups, name):
+            if ready is None:
+                fn(out, *held)
+                held.clear()
+                return None
+            with torch.cuda.device(out.device), torch.cuda.stream(side):
+                side.wait_event(ready)
+                host = [_host(t, "in").copy_(t) for t in held]
+                moved = sum(_nbytes(t) for t in held) + _nbytes(out)
+                held.clear()
+                result = _host(out, "out")
+                try:
+                    fn(result, *host)
+                    out.copy_(result)
+                finally:
+                    _give_back(result, *host)
+                done = torch.cuda.Event()
+                done.record(side)
+            _count_staged(moved)
+            return done
+    return Pending(out, future=_worker().submit(job), dim=dim)
+
+
+def _one_mean(g: torch.Tensor, sh, mesh, role: str, dtype):
+    """(dim, scatter) where :func:`grad_piece` of ``g`` is one exchange
+    over "data" of an fp32 gradient, with nothing cut or summed over
+    another axis: a reduce-scatter along ``dim`` (``scatter``) or an
+    all-reduce (dim 0); else None."""
+    live = live_axes(mesh, sh.axes)
+    if dtype != torch.float32 or live not in ((), ("data",)) or \
+            not live_axes(mesh, ("data",)) or \
+            (role == "partial" and live_axes(mesh, (MODEL,))):
+        return None
+    dims = [i for i in range(g.ndim) if "data" in sh.dim_axes(i)]
+    if not dims:
+        return 0, False
+    if sh.segments and dims[0] == g.ndim - 1:
+        return None
+    return dims[0], True
+
+
+class GradSink:
+    """The gradients' syncs of an overlapped pass: :class:`_GatherPiece`'s
+    backward issues each one in flight (:meth:`start`) and returns nothing
+    to autograd, so no gradient is read before its exchange ends;
+    :meth:`collect`, after the backward, waits for each in issue order and
+    credits it to its leaf's gradient at the place of the piece that was
+    gathered (a layer's row of a stacked leaf), the first credit of a place
+    copied and each later one added, the order in which autograd sums a
+    leaf's gradients (a hybrid's shared blocks, gathered at each use)."""
+
+    def __init__(self):
+        self.pending: list = []
+
+    @staticmethod
+    def target(piece: torch.Tensor) -> tuple:
+        """(leaf, size, stride, offset): where ``piece`` (a leaf the pass
+        was handed, or a view of one: a layer's row) lies in its leaf."""
+        base = piece._base if piece._base is not None else piece
+        if not base.is_contiguous():
+            raise ValueError(f"a gathered piece of a {tuple(base.shape)} "
+                             f"leaf that is not contiguous")
+        return base, tuple(piece.shape), piece.stride(), \
+            piece.storage_offset() - base.storage_offset()
+
+    def start(self, target: tuple, g: torch.Tensor, sh, mesh, role: str,
+              dtype) -> None:
+        """Issue the sync of ``g`` (:func:`grad_piece`) for the piece at
+        ``target``, into a buffer of the layout the synchronous sync gives
+        (its shape and strides, found on a meta copy: a reduction over the
+        gradient, its norm's or the optimizer's, sums in the order of its
+        layout)."""
+        one = _one_mean(g, sh, mesh, role, dtype)
+        if one is not None:
+            # the operand in the order it is exchanged in, made here (on
+            # the compute path): the result is the synchronous sync's,
+            # dimension 0 of the reduce-scatter's output at its place
+            dim, scatter = one
+            x = g.float().movedim(dim, 0).contiguous()
+            n = axis_sizes(mesh)["data"] if scatter else 1
+            out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+            self.pending.append((target, start(
+                lambda o, t: _mean_into(o, t, mesh, "data", scatter), out,
+                mesh, "grad_scatter", (x,), dim)))
+            return
+
+        def sync(o, t):
+            o.copy_(grad_piece(t.float(), sh, mesh, role).to(dtype))
+        _local.mute = True
+        try:
+            like = grad_piece(g.detach().to("meta").float(), sh, mesh,
+                              role).to(dtype)
+        finally:
+            _local.mute = False
+        out = torch.empty_strided(like.shape, like.stride(), dtype=dtype,
+                                  device=g.device)
+        self.pending.append((target, start(sync, out, mesh, "grad_scatter",
+                                           (g,))))
+
+    def collect(self, leaves: dict, grads: dict) -> dict:
+        """``grads`` ({key: autograd's gradient of ``leaves[key]``, None
+        where every use went through the sink}) with every sync issued
+        since the last call waited and credited."""
+        keys = {id(v): k for k, v in leaves.items()}
+        acc, seen = {}, set()
+        for (base, size, stride, offset), p in self.pending:
+            k = keys[id(base)]
+            if grads.get(k) is not None:
+                raise RuntimeError(f"{k}: a gradient both from autograd "
+                                   f"and in flight")
+            g = p.wait()
+            if size == tuple(base.shape) and offset == 0:
+                # the piece is the leaf: its gradient as autograd keeps it
+                if k in acc:
+                    acc[k].add_(g)
+                else:
+                    acc[k] = g
+                continue
+            if k not in acc:
+                # a stacked leaf: autograd stacks its rows' gradients
+                acc[k] = torch.zeros_like(
+                    base, memory_format=torch.contiguous_format)
+            place = acc[k].as_strided(size, stride, offset)
+            if (k, offset, size) in seen:
+                place.add_(g)
+            else:
+                place.copy_(g)
+                seen.add((k, offset, size))
+        self.pending.clear()
+        out = dict(grads)
+        out.update(acc)
+        missing = [k for k, v in out.items() if v is None]
+        if missing:
+            raise RuntimeError(f"no gradient reached {missing}")
+        return out
 
 
 # --------------------------------------------------------------------------

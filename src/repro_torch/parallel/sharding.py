@@ -471,6 +471,29 @@ def tp_roles(cfg, rules: ShardingRules, mesh,
             for k, s in specs.items()}
 
 
+def wire_dtypes(cfg) -> dict:
+    """{flat key: the dtype a gather of the leaf moves} of every leaf of
+    ``model_specs(cfg)``: the pass's compute dtype (``cfg.dtype``) for a
+    leaf every use of which casts it to that dtype first (the matrices, and
+    the embedding table, whose ``table[tokens].to(dt)`` equals
+    ``table.to(dt)[tokens]``), which ``params.compute_dtype_for`` casts;
+    None (its own dtype) for the leaves read in fp32 (``fp32_leaves``: the
+    norms' scales and biases, Mamba2's ``A_log`` and ``dt_bias``, RWKV6's
+    decay and bonus, the MoE router: the all-to-all dispatch reads it in
+    fp32 whatever ``router_dtype`` says).  A pass
+    gathers a leaf in its wire dtype and casts it back at once, an exact
+    round trip, so the pass's bits do not move and only the bytes of the
+    exchange do."""
+    from repro_torch.models.params import compute_dtype_for, fp32_leaves
+    from repro_torch.models.transformer import model_specs
+    dt, keep = getattr(torch, cfg.dtype), fp32_leaves(cfg)
+    out = {}
+    for k, s in flatten(model_specs(cfg)).items():
+        wire = compute_dtype_for(k, s.dtype, dt, keep + ("router",))
+        out[k] = wire if wire != s.dtype else None
+    return out
+
+
 # --------------------------------------------------------------------------
 # The serving cache over a mesh
 # --------------------------------------------------------------------------
@@ -599,23 +622,45 @@ class TensorParallel:
 class Pieces:
     """What a pass on a mesh was handed: this rank's stored pieces of the
     params, each as its Sharding in ``shardings`` says, computed with as
-    its role in ``roles`` says (both flat-keyed, :func:`tp_roles`).  The
-    pass gathers each layer's leaves inside that layer's call and the
-    leaves outside the layer stacks once a pass, each through
-    ``comm.gather_piece``, whose backward returns this rank's piece of the
-    gradient's mean over "data"."""
+    its role in ``roles`` says (both flat-keyed, :func:`tp_roles`), and
+    gathered in its dtype in ``wire`` (:func:`wire_dtypes`; a key not
+    there: its own).  The pass gathers each layer's leaves inside that
+    layer's call and the leaves outside the layer stacks once a pass, each
+    through ``comm.gather_piece``, whose backward returns this rank's piece
+    of the gradient's mean over "data".  ``sink`` (a ``comm.GradSink``:
+    the overlapped step): the gradients' syncs run in flight, collected
+    after the backward, and a loop's next layer is gathered while the
+    layer before it computes (:class:`LayerGathers`)."""
 
     shardings: dict
     roles: dict
     mesh: object
+    wire: dict = field(default_factory=dict)
+    sink: object = None
 
-    def gather(self, tree, prefix: str, stacked: int = 0):
+    def gather(self, tree, prefix: str, stacked: int = 0, pending=None):
         """The leaves the pass computes with from ``tree``, pieces of the
         subtree ``prefix`` (of one layer of it where ``stacked`` leading
-        layer dimensions were indexed away)."""
+        layer dimensions were indexed away); ``pending``: its gathers
+        already issued (:meth:`start`)."""
+        pending = pending or {}
         return unflatten({k: comm.gather_piece(
             v, self.shardings[f"{prefix}/{k}"].layer(stacked), self.mesh,
-            self.roles[f"{prefix}/{k}"]) for k, v in flatten(tree).items()})
+            self.roles[f"{prefix}/{k}"], self.wire.get(f"{prefix}/{k}"),
+            pending.get(k), self.sink) for k, v in flatten(tree).items()})
+
+    def start(self, tree, prefix: str, stacked: int = 0) -> dict:
+        """:meth:`gather`'s exchanges issued in flight: {leaf: a
+        ``comm.Pending``} of the leaves that gather over a live axis."""
+        out = {}
+        for k, v in flatten(tree).items():
+            key = f"{prefix}/{k}"
+            p = comm.start_gather(v, self.shardings[key].layer(stacked),
+                                  self.mesh, self.roles[key],
+                                  self.wire.get(key))
+            if p is not None:
+                out[k] = p
+        return out
 
 
 def gathered(tree, prefix: str, pc, stacked: int = 0):
@@ -623,6 +668,97 @@ def gathered(tree, prefix: str, pc, stacked: int = 0):
     pieces, else ``tree`` (the leaves the pass computes with already)."""
     plan = getattr(pc, "pieces", None)
     return tree if plan is None else plan.gather(tree, prefix, stacked)
+
+
+class LayerGathers:
+    """The gathers of a loop's layers in one pass: ``entries`` are (the
+    layer's pieces, prefix, stacked dimensions, whether its call is
+    checkpointed: remat on), the loop
+    runs entry ``i`` as ``self.call(i, fn, *args)`` and ``fn`` takes its
+    leaves as ``self(i, tree)``.  Without a ``sink`` on the pass's
+    :class:`Pieces` that is :func:`gathered`, and ``call`` is ``fn(*args)``.
+
+    With one (the overlapped step) every gather of the loop is issued in
+    flight ahead of its use and waited for outside the (checkpointed)
+    call, so a recompute makes the very operations of its forward: ``call``
+    issues entry i's gather (unless issued) and entry i + 1's, so the next
+    layer's exchange runs while layer i computes, and waits for entry i's;
+    and, for a checkpointed entry, it hooks the call's
+    outputs, so that when the backward reaches them (before it recomputes
+    entry i) entry i's gather is issued again and the previous checkpointed
+    entry's with it, which runs while entry i recomputes and takes its
+    backward, and entry i's is waited for.  A pass so holds at most
+    one layer gathered beyond the one that computes, and every rank issues
+    the same gathers in the same order: the loop's, then the backward's,
+    which autograd walks alike on every rank."""
+
+    def __init__(self, pc, entries: list):
+        plan = getattr(pc, "pieces", None)
+        self.pc, self.entries = pc, entries
+        self.plan = plan if plan is not None and plan.sink is not None \
+            else None
+        self.pending: dict = {}
+        self.hooked: set = set()
+
+    def issue(self, j) -> None:
+        """Issue entry ``j``'s gather unless it is in flight (None:
+        nothing)."""
+        if j is not None and j not in self.pending:
+            tree, prefix, stacked, _ = self.entries[j]
+            self.pending[j] = self.plan.start(tree, prefix, stacked)
+
+    def wait(self, i: int) -> None:
+        """Wait for entry ``i``'s gathers, outside its call: the call then
+        makes the same operations in the forward and in a recompute."""
+        for p in self.pending[i].values():
+            p.wait()
+
+    def previous(self, i: int):
+        """The checkpointed entry before entry ``i`` (None: none)."""
+        return next((j for j in range(i - 1, -1, -1)
+                     if self.entries[j][3]), None)
+
+    def call(self, i: int, fn, *args):
+        """``fn(*args)``, entry ``i``'s call in the forward, with its
+        gathers issued ahead (see the class docstring)."""
+        if self.plan is None:
+            return fn(*args)
+        self.issue(i)
+        self.issue(i + 1 if i + 1 < len(self.entries) else None)
+        self.wait(i)
+        out = fn(*args)
+        if self.entries[i][3] and torch.is_grad_enabled():
+            def reached(_):
+                if i not in self.hooked:
+                    self.hooked.add(i)
+                    self.issue(i)
+                    self.issue(self.previous(i))
+                    self.wait(i)
+            for t in _tensors_of(out):
+                if t.requires_grad:
+                    t.register_hook(reached)
+        return out
+
+    def __call__(self, i: int, tree):
+        """Entry ``i``'s leaves: its gather in flight waited, else gathered
+        now."""
+        _, prefix, stacked, _ = self.entries[i]
+        if self.plan is None:
+            return gathered(tree, prefix, self.pc, stacked)
+        return self.plan.gather(tree, prefix, stacked,
+                                self.pending.pop(i, None))
+
+
+def _tensors_of(out) -> list:
+    """The tensors of a call's outputs (a tensor, or tuples and dicts of
+    them and of other values)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        out = list(out.values())
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in _tensors_of(o)]
+    return []
 
 
 # --------------------------------------------------------------------------
@@ -662,12 +798,16 @@ class PartitionConstraints:
         self.max_len = max_len
         self.pieces: Optional[Pieces] = None
 
-    def with_pieces(self, shardings, roles: dict) -> "PartitionConstraints":
+    def with_pieces(self, shardings, roles: dict, wire=None,
+                    sink=None) -> "PartitionConstraints":
         """These constraints for a pass handed this rank's pieces of the
-        params, stored as the Sharding tree ``shardings`` says and computed
-        with by ``roles`` (:func:`tp_roles`)."""
+        params, stored as the Sharding tree ``shardings`` says, computed
+        with by ``roles`` (:func:`tp_roles`) and gathered in ``wire``
+        (:func:`wire_dtypes`; None: each in its own dtype); ``sink``: the
+        overlapped step's ``comm.GradSink`` (see :class:`Pieces`)."""
         out = copy.copy(self)
-        out.pieces = Pieces(flatten(shardings), dict(roles), self.mesh)
+        out.pieces = Pieces(flatten(shardings), dict(roles), self.mesh,
+                            dict(wire or {}), sink)
         return out
 
     @property

@@ -35,7 +35,7 @@ from repro_torch.models.transformer import (
     cache_specs, forward, init_cache, model_specs)
 from repro_torch.parallel import comm
 from repro_torch.parallel.sharding import (
-    cache_shardings, shardings_for_specs, tp_roles)
+    cache_shardings, shardings_for_specs, tp_roles, wire_dtypes)
 
 
 def make_serve_fns(cfg: ModelConfig, *, pc=None):
@@ -60,7 +60,8 @@ def make_serve_fns(cfg: ModelConfig, *, pc=None):
     allocates alone.  Each call runs under ``no_grad`` on the pieces
     (``pc.with_pieces``): each layer's params are gathered for compute by
     role inside the layer's loop step and freed after it (a ``"split"``
-    leaf over every axis but "model": ``sharding.tp_roles``), the
+    leaf over every axis but "model": ``sharding.tp_roles``; each in its
+    ``sharding.wire_dtypes`` dtype), the
     embedding and final norm once a call; it returns this rank's
     last-position logits (its columns of the vocabulary where that splits:
     :func:`gather_logits`) and its cache piece, written in place.  A
@@ -86,7 +87,8 @@ def make_serve_fns(cfg: ModelConfig, *, pc=None):
         raise ValueError("serving on a mesh needs pc.batch and pc.max_len, "
                          "the pass's global rows and cache length")
     psh, csh = serve_shardings(cfg, pc)
-    lpc = pc.with_pieces(psh, tp_roles(cfg, pc.rules, pc.mesh))
+    lpc = pc.with_pieces(psh, tp_roles(cfg, pc.rules, pc.mesh),
+                         wire_dtypes(cfg))
 
     def check(params, cache, tokens):
         _check_pieces("params", params, psh)

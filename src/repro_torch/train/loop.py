@@ -161,14 +161,16 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
           shape: ShapeConfig, *, stack, hosts: Optional[list] = None,
           device=None, peak_flops: Optional[float] = None,
           hbm_bw: Optional[float] = None, ici_bw: Optional[float] = None,
-          mesh=None, pc=None,
+          mesh=None, pc=None, overlap: bool = False,
           fail_at_step: Optional[int] = None,
           step_callback: Optional[Callable] = None,
           user: str = "user", job_id: Optional[str] = None,
           markers: bool = True) -> TrainResult:
     """Run (or resume) a monitored training job on one device (default
     CUDA), or with ``mesh`` as one rank of a data-parallel job (every rank
-    calls it; see the module docstring).  ``peak_flops``/``hbm_bw`` default
+    calls it; see the module docstring; ``overlap``: the step's exchanges
+    overlapped with compute, ``make_train_step(..., overlap=)``).
+    ``peak_flops``/``hbm_bw`` default
     to the card's published peaks (:data:`DEVICE_PEAKS`), and so does
     ``ici_bw`` on a known card (elsewhere, unless given, the ICI group's
     utilisations are not derived)."""
@@ -194,7 +196,7 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
 
     # ---- params / resume ---------------------------------------------------
     train_step, opt = make_train_step(model_cfg, train_cfg, pc=pc,
-                                      mesh=mesh)
+                                      mesh=mesh, overlap=overlap)
     sh = dict(zip(("params", "opt_state"),
                   shardings(model_cfg, train_cfg, mesh, pc))) \
         if mesh is not None else None

@@ -61,6 +61,21 @@ step on the global batch:
 
 An axis of size 1 exchanges nothing and copies nothing: on one rank the
 step is the one-device step plus its (skipped) collectives.
+
+Each leaf is gathered in its ``sharding.wire_dtypes`` dtype: a matrix or
+the embedding table of a bf16 pass in bf16 (every use casts it so; the
+round trip is exact), the norms' scales and the other leaves read in fp32
+in fp32.  With ``overlap`` (the train CLI's ``--overlap-flags``, the
+counterpart of the reference's latency-hiding scheduler flags) the step's
+FSDP exchanges run in flight (``comm.start``): each loop of layers issues
+the next layer's gather before the layer ahead of it computes, and under
+remat each recompute issues the previous layer's
+(``sharding.LayerGathers``); each gradient's sync is issued as autograd
+reaches its gather and waited after the backward, by a ``comm.GradSink``
+that credits it to the leaf's gradient in autograd's order.  The metrics'
+reductions, the loss's label count and the tensor-parallel regions stay
+on the compute path.  The bits are the step without overlap's; a step on a
+live "data" axis in which no exchange ran in flight raises.
 """
 
 from __future__ import annotations
@@ -75,7 +90,8 @@ from repro_torch.models.params import flatten, unflatten
 from repro_torch.models.transformer import loss_fn, model_specs
 from repro_torch.parallel import comm
 from repro_torch.parallel.sharding import (
-    PartitionConstraints, TRAIN_RULES, shardings_for_specs, tp_roles)
+    PartitionConstraints, TRAIN_RULES, shardings_for_specs, tp_roles,
+    wire_dtypes)
 from repro_torch.train.compression import cross_pod_sync
 from repro_torch.train.optim import (clip_by_global_norm, get_optimizer,
                                      global_norm, lr_schedule,
@@ -83,13 +99,20 @@ from repro_torch.train.optim import (clip_by_global_norm, get_optimizer,
 
 
 def _value_and_grad(params, batch, model_cfg, train_cfg, pc=None):
-    """(metrics, fp32 grads as a flat dict) of one (micro)batch."""
+    """(metrics, fp32 grads as a flat dict) of one (micro)batch.  A pass
+    whose pieces carry a ``comm.GradSink`` (the overlapped step) hands its
+    gradients' syncs to it in flight: they are waited and credited after
+    the backward."""
     flat = {k: v.detach().requires_grad_() for k, v in flatten(params).items()}
     loss, metrics = loss_fn(unflatten(flat), model_cfg, batch, pc=pc,
                             attn_impl=train_cfg.attn_impl,
                             remat=train_cfg.remat_policy)
-    grads = torch.autograd.grad(loss, list(flat.values()))
-    return {k: v.detach() for k, v in metrics.items()}, dict(zip(flat, grads))
+    sink = getattr(getattr(pc, "pieces", None), "sink", None)
+    grads = dict(zip(flat, torch.autograd.grad(
+        loss, list(flat.values()), allow_unused=sink is not None)))
+    if sink is not None:
+        grads = sink.collect(flat, grads)
+    return {k: v.detach() for k, v in metrics.items()}, grads
 
 
 def _grads_and_metrics(params, batch, model_cfg: ModelConfig,
@@ -154,13 +177,15 @@ def count_step_flops(params, batch, model_cfg: ModelConfig,
 
 
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, *,
-                    pc=None, mesh=None):
+                    pc=None, mesh=None, overlap: bool = False):
     """Returns (train_step, optimizer); train_step(params, opt_state, batch,
     step) -> (params, opt_state, metrics), updating params and opt_state in
     place.  With ``mesh``: the data-parallel step of the module docstring
-    (``pc`` defaults to the train rules on ``mesh``)."""
+    (``pc`` defaults to the train rules on ``mesh``); ``overlap``: its
+    exchanges overlapped with compute (see the module docstring; the train
+    CLI's ``--overlap-flags``), which changes no bit of the step."""
     if mesh is not None:
-        return _make_dist_step(model_cfg, train_cfg, pc, mesh)
+        return _make_dist_step(model_cfg, train_cfg, pc, mesh, overlap)
     opt = get_optimizer(train_cfg)
     lr_fn = lr_schedule(train_cfg)
     grads_fn = make_grads_fn(model_cfg, train_cfg, pc=pc)
@@ -269,13 +294,15 @@ def mean_over_pods(pieces, mesh, method: str = "none"):
 
 
 def make_grads_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, *,
-                  pc=None, mesh=None):
+                  pc=None, mesh=None, overlap: bool = False):
     """grads_fn(params, batch) -> (grads, metrics): the gradients the
     train step of the same arguments clips and applies, and its metrics
     before the norms.  With ``mesh``: this rank's pieces of the global
     batch's mean gradient, from this rank's pieces of the params and rows
-    of the batch, which the pass gathers layer by layer and whose
-    gradients its backward syncs by role, as the module docstring says."""
+    of the batch, which the pass gathers layer by layer (each leaf in its
+    ``sharding.wire_dtypes`` dtype) and whose gradients its backward syncs
+    by role, as the module docstring says; ``overlap``: those exchanges
+    overlapped with compute."""
     if mesh is None:
         return lambda params, batch: _grads_and_metrics(
             params, batch, model_cfg, train_cfg, pc)
@@ -287,6 +314,7 @@ def make_grads_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, *,
                          f"{train_cfg.grad_compression!r}")
     pc = pc or _default_pc(train_cfg, mesh)
     psh, _ = shardings(model_cfg, train_cfg, mesh, pc)
+    wire = wire_dtypes(model_cfg)
     nm = train_cfg.num_microbatches
 
     def reduce(metrics):
@@ -305,7 +333,8 @@ def make_grads_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, *,
             model_cfg, batch["tokens"].shape[1],
             None if src is None else src.shape[1]))
         grads, metrics = _grads_and_metrics(
-            params, batch, model_cfg, train_cfg, pc.with_pieces(psh, roles),
+            params, batch, model_cfg, train_cfg, pc.with_pieces(
+                psh, roles, wire, comm.GradSink() if overlap else None),
             reduce)
         return mean_over_pods(grads, mesh, train_cfg.grad_compression), \
             metrics
@@ -319,15 +348,24 @@ def _default_pc(train_cfg: TrainConfig, mesh) -> PartitionConstraints:
 
 
 def _make_dist_step(model_cfg: ModelConfig, train_cfg: TrainConfig, pc,
-                    mesh):
+                    mesh, overlap: bool = False):
     pc = pc or _default_pc(train_cfg, mesh)
-    grads_fn = make_grads_fn(model_cfg, train_cfg, pc=pc, mesh=mesh)
+    grads_fn = make_grads_fn(model_cfg, train_cfg, pc=pc, mesh=mesh,
+                             overlap=overlap)
     opt = get_optimizer(train_cfg)
     lr_fn = lr_schedule(train_cfg)
     psh, _ = shardings(model_cfg, train_cfg, mesh, pc)
+    # with overlap on a live "data" axis, a step in which no exchange ran
+    # in flight fails: nothing falls back to the synchronous step unsaid
+    watch = overlap and bool(comm.live_axes(mesh, ("data",)))
 
     def train_step(params, opt_state, batch, step):
+        live = watch and not next(iter(flatten(params).values())).is_meta
+        before = sum(comm.overlapped().values()) if live else 0
         grads, metrics = grads_fn(params, batch)
+        if live and sum(comm.overlapped().values()) == before:
+            raise RuntimeError("overlap: no exchange of the step ran in "
+                               "flight on a live \"data\" axis")
         if train_cfg.grad_clip_norm > 0:
             grads, gnorm = clip_by_global_norm(
                 grads, train_cfg.grad_clip_norm, psh, mesh)

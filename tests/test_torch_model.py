@@ -451,6 +451,7 @@ def _port_files():
              ("chip_smoke.py", "profile_serve.py", "profile_ssd.py",
               "profile_train.py", "profile_moe_counts.py", "train_faults.py",
               "tp_bf16_witness.py", "rwkv6_witness.py", "world_count.py",
+              "overlap_memory.py",
               "examples/train_monitored_torch.py",
               "examples/serve_requests_torch.py",
               "tests/torch_dist_ranks.py")]

@@ -170,7 +170,9 @@ def case_collectives(rank: int, workdir: str, opts: dict) -> dict:
 def _init_run(run: dict, workdir: str):
     """(cfg, tcfg, mesh, psh, osh, params pieces, opt state, step fn).
     ``run["rules"]``: overrides of ``TRAIN_RULES`` the step is built with
-    (its storage and its compute)."""
+    (its storage and its compute); ``run["params"]``: the whole params'
+    ``.npz`` (else ``init_model_params`` at seed 0); ``run["overlap"]``:
+    the step's exchanges overlapped."""
     from repro_torch.configs import TrainConfig
     from repro_torch.models.bridge import params_from_numpy
     from repro_torch.parallel.sharding import (PartitionConstraints,
@@ -183,10 +185,15 @@ def _init_run(run: dict, workdir: str):
         TRAIN_RULES.with_overrides(**run.get("rules", {})), mesh,
         seq_parallel=tcfg.seq_parallel)
     psh, osh = tstep.shardings(cfg, tcfg, mesh, pc)
-    whole = params_from_numpy(
-        _load(os.path.join(workdir, run["params"])), cfg, device="cpu")
+    if "params" in run:
+        whole = params_from_numpy(
+            _load(os.path.join(workdir, run["params"])), cfg, device="cpu")
+    else:
+        from repro_torch.models.transformer import init_model_params
+        whole = init_model_params(cfg, seed=0, device="cpu")
     params = shard_tree(whole, psh, mesh)
-    fn, opt = tstep.make_train_step(cfg, tcfg, mesh=mesh, pc=pc)
+    fn, opt = tstep.make_train_step(cfg, tcfg, mesh=mesh, pc=pc,
+                                    overlap=run.get("overlap", False))
     return cfg, tcfg, mesh, psh, osh, params, opt.init(params, psh), fn
 
 
@@ -273,10 +280,10 @@ def _probe(out: dict, name: str):
             dims.append(dim)
         return all_gather(t, mesh, axis, dim)
 
-    def record_pieces(plan, tree, prefix, stacked=0):
+    def record_pieces(plan, tree, prefix, stacked=0, pending=None):
         in_leaf.append(1)
         try:
-            got = pieces_gather(plan, tree, prefix, stacked)
+            got = pieces_gather(plan, tree, prefix, stacked, pending)
         finally:
             in_leaf.pop()
         for k, v in flatten(got).items():
@@ -337,10 +344,11 @@ def _no_partial_sum(leaf: str):
     from repro_torch.parallel.sharding import Pieces
     gather = Pieces.gather
 
-    def mutant(plan, tree, prefix, stacked=0):
+    def mutant(plan, tree, prefix, stacked=0, pending=None):
         roles = {k: "whole" if k.endswith(f"/{leaf}") and r == "partial"
                  else r for k, r in plan.roles.items()}
-        return gather(dc.replace(plan, roles=roles), tree, prefix, stacked)
+        return gather(dc.replace(plan, roles=roles), tree, prefix, stacked,
+                      pending)
     return _patched(Pieces, "gather", mutant)
 
 
@@ -445,6 +453,42 @@ def _pipe_fault(kind: str):
                     staticmethod(mutant_backward))
 
 
+def _prefetch_fault():
+    """The overlapped step's prefetch handing layer i the leaves of layer
+    i + 1 (the last layer of a loop its own)."""
+    from repro_torch.parallel.sharding import LayerGathers
+
+    def mutant(self, j):
+        if j is not None and j not in self.pending:
+            k = j + 1 if j + 1 < len(self.entries) and \
+                self.entries[j + 1][1] == self.entries[j][1] else j
+            tree, prefix, stacked, _ = self.entries[k]
+            self.pending[j] = self.plan.start(tree, prefix, stacked)
+    return _patched(LayerGathers, "issue", mutant)
+
+
+@contextlib.contextmanager
+def _unwaited_grads():
+    """The overlapped step's gradients credited from their exchanges'
+    buffers before those are waited, each exchange held back by
+    ``comm._DELAY_S`` so it has not written them yet (the exchanges are
+    waited after, so the ranks stay in step)."""
+    from repro_torch.parallel import comm
+    collect = comm.GradSink.collect
+
+    def mutant(self, leaves, grads):
+        pending = [p for _, p in self.pending]
+        with _patched(comm.Pending, "wait",
+                      lambda p: p.out.movedim(0, p.dim)):
+            out = collect(self, leaves, grads)
+        for p in pending:
+            p.wait()
+        return out
+    with _patched(comm, "_DELAY_S", 0.02), \
+            _patched(comm.GradSink, "collect", mutant):
+        yield
+
+
 @contextlib.contextmanager
 def _mutated(kind):
     """The step with a planted fault (``"gate_sum"``: :class:`_NoGateSum`;
@@ -456,8 +500,9 @@ def _mutated(kind):
     sequence-parallel rank's rows; ``"row_shift:<N>"``: :func:`_row_shift`;
     ``"bc_slice"`` / ``"cm_sum"``: :func:`_column_fault`;
     ``"local_norm"``: :func:`_local_norm`; ``"identity_layout"``:
-    :func:`_identity_layout`; ``"pipe_*"``: :func:`_pipe_fault`), or as it
-    is (None)."""
+    :func:`_identity_layout`; ``"pipe_*"``: :func:`_pipe_fault`;
+    ``"prefetch_own"``: :func:`_prefetch_fault`; ``"grad_unwaited"``:
+    :func:`_unwaited_grads`), or as it is (None)."""
     if kind is None:
         yield
         return
@@ -469,7 +514,9 @@ def _mutated(kind):
         with mutant:
             yield
         return
-    planted = {"bc_slice": lambda: _column_fault("bc_slice"),
+    planted = {"prefetch_own": _prefetch_fault,
+               "grad_unwaited": _unwaited_grads,
+               "bc_slice": lambda: _column_fault("bc_slice"),
                "cm_sum": lambda: _column_fault("cm_sum"),
                "local_norm": _local_norm,
                "identity_layout": _identity_layout,
@@ -1020,8 +1067,148 @@ def case_layout(rank: int, workdir: str, opts: dict) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _issue_log(log: list):
+    """Appends each collective the step runs to ``log`` in the order its
+    thread issues it: [its process group's ranks, whether it runs in
+    flight, kind, purpose, output dtype, output bytes], by wrapping
+    ``comm._run``, which every collective of the port passes."""
+    import threading
+    import torch.distributed as dist
+    from repro_torch.parallel import comm
+    run, lock = comm._run, threading.Lock()
+
+    def logged(fn, group, out, inp=None, **kw):
+        with lock:
+            log.append([dist.get_process_group_ranks(group),
+                        getattr(comm._local, "groups", None) is not None,
+                        fn.__name__, comm._purpose() or "other",
+                        str(out.dtype).split(".")[-1],
+                        out.numel() * out.element_size()])
+        return run(fn, group, out, inp, **kw)
+    with _patched(comm, "_run", logged):
+        yield
+
+
+def _group_log(log: list):
+    """``_issue_log``'s rows as JSON strings."""
+    return np.asarray([json.dumps(r) for r in log] or [""])
+
+
+def case_overlap(rank: int, workdir: str, opts: dict) -> dict:
+    """Each run: the step without and with its exchanges overlapped
+    (``make_train_step(..., overlap=)``) from the same params and batches,
+    under the run's planted fault (``"mutate"``, the overlapped step only)
+    or none: each step's metrics, the pieces after the steps, the
+    collectives as issued (:func:`_issue_log`), the count of those run in
+    flight by purpose and whether any worker thread, side stream or
+    overlap group was made; a run with ``"wire": false`` takes the step
+    without the bf16 gathers too (``sharding.wire_dtypes`` empty)."""
+    import threading
+    import torch.distributed as dist
+    from repro_torch.models.params import flatten
+    from repro_torch.parallel import comm
+    from repro_torch.train import step as tstep
+    out = {}
+    for run in opts["runs"]:
+        name = run["name"]
+        variants = [("off", False, None), ("on", True, run.get("mutate"))]
+        if run.get("wire") is False:
+            variants.append(("nowire", False, None))
+        for tag, overlap, mutate in variants:
+            threads = threading.active_count()
+            comm.reset_staged()
+            log = []
+            with _mutated(mutate), _issue_log(log), (
+                    _patched(tstep, "wire_dtypes", lambda cfg: {})
+                    if tag == "nowire" else contextlib.nullcontext()):
+                cfg, tcfg, mesh, psh, osh, params, state, fn = _init_run(
+                    {**run, "overlap": overlap}, workdir)
+                batches = _batches(workdir, run["batches"])[:run["steps"]]
+                history = []
+                for i, batch in enumerate(batches):
+                    params, state, m = fn(params, state,
+                                          tstep.shard_batch(batch, mesh), i)
+                    history.append(m)
+            key = f"{name}/{tag}"
+            out.update({f"{key}/{k}": v
+                        for k, v in _metrics_out(history).items()})
+            out.update({f"{key}/p/{k}": v for k, v in _flat(params).items()})
+            out[f"{key}/log"] = _group_log(log)
+            out[f"{key}/overlapped"] = np.asarray(json.dumps(
+                comm.overlapped(), sort_keys=True))
+            out[f"{key}/new_threads"] = np.int64(
+                threading.active_count() - threads)
+            out[f"{key}/groups"] = np.asarray(json.dumps(
+                {a: dist.get_process_group_ranks(mesh.get_group(a))
+                 for a in mesh.mesh_dim_names}, sort_keys=True))
+        out[f"{name}/coord"] = _coord(mesh)
+        if run.get("one_device"):
+            out.update(_one_device_run(run, workdir, f"{name}/one"))
+    out["started"] = np.bool_(comm.overlap_started())
+    if "cli" in opts:
+        out.update(_cli_reaches_train(opts["cli"]))
+    return out
+
+
+def _one_device_run(run: dict, workdir: str, key: str) -> dict:
+    """The run's steps on one device (no mesh): its metrics and params."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models.transformer import init_model_params
+    from repro_torch.train import step as tstep
+    cfg, tcfg = _config(run), TrainConfig(**run["tcfg"])
+    params = init_model_params(cfg, seed=0, device="cpu")
+    fn, opt = tstep.make_train_step(cfg, tcfg)
+    state, history = opt.init(params), []
+    for i, batch in enumerate(_batches(workdir, run["batches"])[
+            :run["steps"]]):
+        params, state, m = fn(params, state, batch, i)
+        history.append(m)
+    out = {f"{key}/{k}": v for k, v in _metrics_out(history).items()}
+    out.update({f"{key}/p/{k}": v for k, v in _flat(params).items()})
+    return out
+
+
+def _cli_reaches_train(argv: list) -> dict:
+    """The train CLI on every rank of the world with ``argv``, its
+    ``train`` and stack stubbed: the keywords ``train`` was called with
+    (``overlap``, whether it got a mesh) and the CLI's output."""
+    import io
+    from repro_torch.launch import train as train_cli
+    got = {}
+
+    class Stack:
+        url, stats = "stub", {}
+
+        def __init__(self, url):
+            pass
+
+        def close(self):
+            pass
+
+        def report_url(self, job):
+            return ""
+
+    class Result:
+        steps_run, last_loss, resumed_from, findings = 0, 0.0, None, []
+
+    def train(cfg, tcfg, shape, **kw):
+        got.update(overlap=kw["overlap"], mesh=kw["mesh"] is not None)
+        return Result()
+    import torch.distributed as dist
+    os.environ["WORLD_SIZE"] = str(dist.get_world_size())
+    text = io.StringIO()
+    with _patched(train_cli, "train", train), \
+            _patched(train_cli, "RemoteStack", Stack), \
+            contextlib.redirect_stdout(text):
+        rc = train_cli.main(argv)
+    return {"cli/rc": np.int64(rc), "cli/overlap": np.bool_(got["overlap"]),
+            "cli/mesh": np.bool_(got["mesh"]),
+            "cli/out": np.asarray(text.getvalue())}
+
+
 CASES = {"collectives": case_collectives, "steps": case_steps,
          "elastic": case_elastic, "loop": case_loop, "moe": case_moe,
          "analysis": case_analysis, "cli": case_cli, "tp": case_tp,
          "serve": case_serve, "layout": case_layout,
-         "pipeline": case_pipeline}
+         "pipeline": case_pipeline, "overlap": case_overlap}

@@ -5,8 +5,10 @@ A world: ``--model`` at full width, cut to ``--layers`` (an
 encoder-decoder's encoder and decoder both), in ``--dtype`` (default: the
 config's), trained by ``--optimizer`` under remat "minimal" in
 ``--microbatches`` on a (data, model) ``--mesh``, with ``--sp`` sequence
-parallelism.  For each ``--shape SEQxBATCH`` the script lays a (1, 1) mesh
-and then the world's mesh out on a fake process group and traces the step
+parallelism and, with ``--overlap``, its exchanges overlapped (the FSDP
+world's ``dist:fsdp-overlap`` run).  For each ``--shape SEQxBATCH`` the
+script lays a (1, 1) mesh and then the world's mesh out on a fake process
+group and traces the step
 once on each (``launch.steps.build_train_bundle`` + ``trace_bundle``):
 nothing is computed and no device is touched.  A (1, 1) mesh's step is the
 one-device step (every size-1 axis exchanges nothing).  It imports neither
@@ -21,7 +23,7 @@ Usage (the deepseek tensor-parallel world's shapes; the FSDP world)::
         --dtype float32 --optimizer adafactor --sp \\
         --shape 2048x4 --shape 2048x2 --shape 1024x4
     PYTHONPATH=src python world_count.py --model granite-3-8b \\
-        --mesh 2,1 --microbatches 2
+        --mesh 2,1 --microbatches 2 [--overlap]
 
 The recurrent tensor-parallel worlds (zamba2's Mamba2 layers and shared
 blocks, rwkv6's time and channel mix), at the depths ``chip_smoke.py``
@@ -46,11 +48,12 @@ from repro_torch.launch.mesh import fake_world
 from repro_torch.launch.steps import build_train_bundle, trace_bundle
 
 
-def count(cfg, shape, tcfg, mesh_shape) -> dict:
+def count(cfg, shape, tcfg, mesh_shape, overlap: bool = False) -> dict:
     with fake_world(mesh_shape[0] * mesh_shape[1]):
         mesh = init_device_mesh("cpu", mesh_shape,
                                 mesh_dim_names=("data", "model"))
-        r = trace_bundle(build_train_bundle(cfg, shape, tcfg, mesh))
+        r = trace_bundle(build_train_bundle(cfg, shape, tcfg, mesh,
+                                            overlap=overlap))
     return {"peak_gb": r["memory"]["peak_bytes"] / 1e9,
             "argument_gb": r["memory"]["argument_bytes"] / 1e9,
             "collective_operand_gb_by_purpose": {
@@ -68,6 +71,9 @@ def main(argv=None) -> None:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--sp", action="store_true")
     ap.add_argument("--shape", action="append", default=None)
+    ap.add_argument("--overlap", action="store_true",
+                    help="the step with its exchanges overlapped (the "
+                         "layer gathered ahead counts in rank 0's peak)")
     args = ap.parse_args(argv)
     cfg = dataclasses.replace(get_config(args.model), num_layers=args.layers)
     if cfg.family == "encdec":
@@ -86,8 +92,10 @@ def main(argv=None) -> None:
         print(json.dumps({
             "model": args.model, "layers": args.layers, "dtype": cfg.dtype,
             "shape": text, "mesh": mesh, "microbatches": args.microbatches,
-            "sp": args.sp, "one_device": count(cfg, shape, tcfg, (1, 1)),
-            "rank0": count(cfg, shape, tcfg, mesh)}), flush=True)
+            "sp": args.sp, "overlap": args.overlap,
+            "one_device": count(cfg, shape, tcfg, (1, 1)),
+            "rank0": count(cfg, shape, tcfg, mesh, args.overlap)}),
+            flush=True)
 
 
 if __name__ == "__main__":
